@@ -1,0 +1,491 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (gpquad_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a non-zero exit:
+  1. torch and the card (nvidia-smi name and power limit);
+  2. build the CUDA kernels from gpquad_torch/csrc (timed);
+  3. each kernel against its float64 plain version on the card, at every
+     shape that phases 4 and 5 give it and at mtot > 256, in float32 and
+     float64, with CUDA-event times of kernel and plain version;
+  4. the serving slice at the repo's headline configuration (bench.py: n=1e5
+     points in [0,1]^2, SE l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets,
+     256 variance probes): fit -> predict_mean -> predict_var(stochastic) in
+     float32 on the kernels, with its launch counts, held against the
+     port's own float64 run on the plain path with the same probes;
+  5. the CG tier: fit + predict_mean at bench.py's hard configuration
+     (l=0.02, mtot=107, Jacobi PCG), with its own launch counts, against
+     float64.
+
+It prints the kernels' JSON line, then the card's nvidia-smi line, then
+``{"ok": true, "device": ...}`` as the last line, and writes the full record
+to build/chip_smoke.json.  Without a CUDA device, or without the
+package beside it, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
+# cores, fp64 outside the tensor cores, HBM3 bandwidth.
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_BYTES = 3.35e12
+# One phase e^{i 2 pi c} counted as 20 flops: the 10 multiply-adds of the
+# minimax sin/cos pair the TPU kernel evaluates (pallas_nufft.py:61-77).
+PHASE_FLOPS = 20
+
+SOURCE = "gpquad_torch/csrc/nufft_2d.cu"
+REPLACES = {"nufft1_2d": "gpquad/ops/pallas_nufft.py:195",
+            "nufft2_2d": "gpquad/ops/pallas_nufft.py:113"}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def sync():
+    torch.cuda.synchronize()
+
+
+def time_cuda(fn, reps, trials=5):
+    """Median over ``trials`` of the CUDA-event time of ``reps`` calls (ms
+    per call), after two warm calls."""
+    fn()
+    fn()
+    sync()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def profile_run(fn, top=8):
+    """Run ``fn`` once under torch.profiler: host wall time, device busy
+    time (union of the CUDA events' intervals), idle share, and the
+    kernels with the most device time.  Device numbers are None when the
+    profiler saw no CUDA event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start) / 1e3
+    if not spans:
+        return dict(wall_ms=wall_ms, busy_ms=None, idle_share=None, top=[])
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s_, e_ in spans[1:]:
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy_ms = (busy + cur_e - cur_s) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms,
+                top=[(name[:90], ms) for name, ms in ranked])
+
+
+def print_profile(tag, prof, card):
+    if prof["busy_ms"] is None:
+        print(f"{tag} wall {prof['wall_ms']:.2f} ms; device time not "
+              f"measured (the profiler saw no CUDA event) {card}")
+        return
+    print(f"{tag} wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f} "
+          f"{card}")
+    for name, ms in prof["top"]:
+        print(f"{tag}   {ms:8.3f} ms  {name}")
+
+
+def kernel_work(name, n, m, dtype):
+    """(flops, bytes) the function needs: complex multiply-adds at 8 flops,
+    phases at PHASE_FLOPS, inputs read once and outputs written once."""
+    s = 4 if dtype == torch.float32 else 8
+    phases = 2 * n * m * PHASE_FLOPS
+    if name == "nufft2_2d":
+        flops = n * (8 * m * m + 8 * m) + phases
+        nbytes = 2 * n * s + 2 * m * m * s + 2 * n * s
+    else:
+        flops = n * (8 * m * m + 6 * m) + phases
+        nbytes = 2 * n * s + 2 * n * s + 2 * m * m * s
+    return flops, nbytes
+
+
+def bound_ms(name, n, m, dtype):
+    flops, nbytes = kernel_work(name, n, m, dtype)
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def headline_data(n, targets, seed=0):
+    """bench.py:836-845: points, targets and y from numpy seed 0."""
+    rng = np.random.default_rng(seed)
+    xh = rng.uniform(0, 1, size=(n, 2))
+    fh = (np.sin(3 * np.pi * xh[:, 0]) * np.cos(2 * np.pi * xh[:, 1])
+          + 0.5 * np.sin(7 * xh[:, 0] + 5 * xh[:, 1]))
+    yh = fh + 0.1 * rng.normal(size=n)
+    xnew = rng.uniform(0, 1, size=(targets, 2))
+    return xh, yh, xnew
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "gpquad_torch" / "csrc").is_dir():
+        print(f"chip_smoke: gpquad_torch not found beside {__file__}",
+              file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(ROOT))
+    import gpquad_torch
+    from gpquad_torch.ops import cuda_nufft, nufft as nufft_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record = {"phases": {}}
+
+    # -- phase 1: the card -------------------------------------------------
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    smi_line = smi.stdout.strip()
+    card = f"[{smi_line}]"
+    print(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    print(f"[1] device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()} cc "
+          f"{torch.cuda.get_device_capability(0)}")
+    print(f"[1] nvidia-smi: {smi_line}")
+    record["card"] = smi_line
+
+    # -- phase 2: build ------------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path, log = cuda_nufft.build()
+    build_s = time.perf_counter() - t0
+    print(f"[2] built {lib_path.relative_to(ROOT)} in {build_s:.2f} s")
+    for line in log.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            print(f"[2] ptxas: {line.strip()}")
+    record["phases"]["build_s"] = build_s
+
+    # -- phase 3: kernels against their plain versions ----------------------
+    xh, yh, xnew = headline_data(100_000, 10_000)
+    xh2, yh2, xnew2 = headline_data(100_000, 2_000, seed=1)
+    kernel32 = gpquad_torch.make_kernel("SE", 2, lengthscale=np.float32(0.1),
+                                        variance=np.float32(1.0))
+    kern_hard = gpquad_torch.make_kernel("SE", 2, lengthscale=np.float32(0.02),
+                                         variance=np.float32(1.0))
+
+    def path_grid(kern, xs):
+        """(h, mtot) as fit plans them for the float32 points ``xs``."""
+        x = torch.as_tensor(xs, dtype=torch.float32)
+        L = float((x.max(dim=0).values - x.min(dim=0).values).max())
+        _, h, mtot = gpquad_torch.spectral_grid(kern, 1e-6, L)
+        return h, mtot
+
+    h_head, mtot_head = path_grid(kernel32, xh)
+    h_hard, mtot_hard = path_grid(kern_hard, xh2)
+    m_lag = 2 * mtot_head - 1
+    gen = np.random.default_rng(1)
+    # (kernel, n, mtot, fft_order, h, what it serves): every call of the
+    # two driven paths, at its shape
+    shapes = [
+        ("nufft1_2d", 100_000, mtot_head, False, h_head, "F*y"),
+        ("nufft1_2d", 100_000, m_lag, False, h_head, "lag table"),
+        ("nufft2_2d", 10_000, mtot_head, False, h_head, "mean"),
+        ("nufft2_2d", 10_000, m_lag, True, h_head, "variance evaluation"),
+        ("nufft1_2d", 100_000, mtot_hard, False, h_hard, "CG tier F*y"),
+        ("nufft1_2d", 100_000, 2 * mtot_hard - 1, False, h_hard,
+         "CG tier lag table"),
+        ("nufft2_2d", 2_000, mtot_hard, False, h_hard, "CG tier mean"),
+    ]
+    for name in ("nufft1_2d", "nufft2_2d"):
+        for m in (339, 677):
+            shapes.append((name, 20_000, m, False, 0.97, "mtot > 256"))
+    kernels = {"nufft1_2d": cuda_nufft.nufft1_2d,
+               "nufft2_2d": cuda_nufft.nufft2_2d}
+    plains = {"nufft1_2d": cuda_nufft.nufft1_2d_ref,
+              "nufft2_2d": cuda_nufft.nufft2_2d_ref}
+    phase3 = []
+    for name, n, m, fo, h, what in shapes:
+        x64 = torch.as_tensor(gen.uniform(0, 1, (n, 2)), device=dev)
+        if name == "nufft1_2d":
+            arg64 = torch.as_tensor(gen.normal(size=n)
+                                    + 1j * gen.normal(size=n), device=dev)
+        else:
+            arg64 = torch.as_tensor(gen.normal(size=(m, m))
+                                    + 1j * gen.normal(size=(m, m)), device=dev)
+        for dtype in (torch.float32, torch.float64):
+            cdt = torch.complex64 if dtype == torch.float32 \
+                else torch.complex128
+            x = x64.to(dtype)
+            arg = arg64.to(cdt)
+            hq = float(torch.tensor(h, dtype=dtype))
+            kw = dict(mtot=m, fft_order=fo)
+            got = kernels[name](x, arg, hq, **kw)
+            sync()
+            ref = plains[name](x.double(), arg.to(torch.complex128), hq, **kw)
+            err = float((got.to(torch.complex128) - ref).abs().max())
+            scale = float(ref.abs().max())
+            rel = err / scale
+            check(np.isfinite(rel) and rel <= 1e-4,
+                  f"{name} {dtype} n={n} mtot={m}: error {rel:.3e} of "
+                  f"max|ref| > 1e-4")
+            reps = max(3, min(50, int(2e9 / (n * m * m))))
+            ms = time_cuda(lambda: kernels[name](x, arg, hq, **kw), reps)
+            plain_ms = time_cuda(lambda: plains[name](x, arg, hq, **kw),
+                                 max(2, reps // 4))
+            b_ms, b_by = bound_ms(name, n, m, dtype)
+            row = dict(name=name, dtype=str(dtype).split(".")[-1], n=n,
+                       mtot=m, fft_order=fo, h=hq, serves=what,
+                       max_abs_err=err, max_abs_ref=scale, rel_err=rel,
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            phase3.append(row)
+            print(f"[3] {name} {row['dtype']} n={n} mtot={m} fft_order={fo} "
+                  f"({what}): max_abs_err={err:.3e} rel={rel:.3e} "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+                  f"({b_by}) {card}")
+    record["phases"]["kernels"] = phase3
+
+    # -- phase 4: the serving slice at the headline configuration ----------
+    sigmasq, eps, probes = 0.01, 1e-6, 256
+    x32 = torch.as_tensor(xh, dtype=torch.float32, device=dev)
+    y32 = torch.as_tensor(yh, dtype=torch.float32, device=dev)
+    xq32 = torch.as_tensor(xnew, dtype=torch.float32, device=dev)
+    etas = torch.as_tensor(
+        np.random.default_rng(2).choice([-1.0, 1.0],
+                                        size=(probes, mtot_head ** 2)),
+        device=dev)
+
+    def run_slice(x, y, xq, kern, method):
+        times, stages = {}, {}
+        t = time.perf_counter()
+        st = gpquad_torch.fit(x, y, kern, sigmasq, eps=eps, cg_tol=1e-6,
+                              nufft_method=method, device=dev)
+        sync()
+        times["fit_s"] = time.perf_counter() - t
+        stages["fit"] = dict(cuda_nufft.LAUNCHES)
+        t = time.perf_counter()
+        mean = gpquad_torch.predict_mean(st, xq, nufft_method=method)
+        sync()
+        times["mean_s"] = time.perf_counter() - t
+        stages["mean"] = dict(cuda_nufft.LAUNCHES)
+        t = time.perf_counter()
+        var = gpquad_torch.predict_var(st, xq, method="stochastic",
+                                       probes=probes, cg_tol=1e-4,
+                                       etas=etas, nufft_method=method)
+        sync()
+        times["var_s"] = time.perf_counter() - t
+        stages["var"] = dict(cuda_nufft.LAUNCHES)
+        return st, mean, var, times, stages
+
+    run_slice(x32, y32, xq32, kernel32, "auto")          # warm
+    for k in cuda_nufft.LAUNCHES:
+        cuda_nufft.LAUNCHES[k] = 0
+    for k in nufft_mod.BACKEND_PICKS:
+        nufft_mod.BACKEND_PICKS[k] = 0
+    st, mean, var, times, stages = run_slice(x32, y32, xq32, kernel32,
+                                             "auto")
+    launches = dict(cuda_nufft.LAUNCHES)
+    picks = dict(nufft_mod.BACKEND_PICKS)
+    print(f"[4] mtot={st.mtot} M={st.M} solver="
+          f"{'dense' if st.P_dense is not None else 'cg'} "
+          f"launches={launches} backend_picks={picks} by stage "
+          f"(cumulative)={stages}")
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched on the main path")
+    check(stages["fit"] == {"nufft1_2d": 2, "nufft2_2d": 0}
+          and stages["mean"] == {"nufft1_2d": 2, "nufft2_2d": 1}
+          and stages["var"] == {"nufft1_2d": 2, "nufft2_2d": 2},
+          f"unexpected launch counts by stage {stages}")
+    check(picks["matmul"] == 0, f"the main path took the plain path {picks}")
+    print(f"[4] f32 on the kernels: fit {times['fit_s'] * 1e3:.2f} ms, "
+          f"mean {times['mean_s'] * 1e3:.2f} ms, "
+          f"var {times['var_s'] * 1e3:.2f} ms (warm, host clock) {card}")
+    # where the time goes: the host-side grid planner alone, then one more
+    # warm run under the profiler
+    L = float((x32.max(dim=0).values - x32.min(dim=0).values).max())
+    t = time.perf_counter()
+    gpquad_torch.spectral_grid(kernel32, eps, L)
+    plan_ms = (time.perf_counter() - t) * 1e3
+    print(f"[4] grid planning (host, float64) {plan_ms:.2f} ms of the fit")
+    prof = profile_run(lambda: run_slice(x32, y32, xq32, kernel32, "auto"))
+    print_profile("[4] profiled slice:", prof, card)
+
+    # the same f32-valued hypers; fit casts them to the run's dtype
+    st64, mean64, var64, times64, _ = run_slice(
+        x32.double(), y32.double(), xq32.double(), kernel32, "matmul")
+    check(st64.mtot == st.mtot, "f32 and f64 runs planned different grids")
+    check(mean.shape == (10_000,) and var.shape == (10_000,),
+          "wrong output shapes")
+    check(bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all()),
+          "non-finite mean or variance")
+    err_mean = float((mean.double() - mean64).abs().max())
+    err_var = float((var.double() - var64).abs().max())
+    var_scale = float(var64.abs().max())
+    # the variance is ~1e-3 here, so an absolute bar alone would let a
+    # systematic error of ~10% through; the f32 run sits at ~2% of max|var|
+    print(f"[4] vs float64 plain path: max|mean err|={err_mean:.3e} "
+          f"(bar 5e-4), max|var err|={err_var:.3e} (bars 1e-4 and "
+          f"5e-2*max|var64| = {5e-2 * var_scale:.3e}), "
+          f"max|var64|={var_scale:.3e}")
+    print(f"[4] f64 plain path: fit {times64['fit_s'] * 1e3:.2f} ms, "
+          f"mean {times64['mean_s'] * 1e3:.2f} ms, "
+          f"var {times64['var_s'] * 1e3:.2f} ms (cold, host clock) {card}")
+    check(err_mean <= 5e-4, f"mean error {err_mean:.3e} > 5e-4")
+    check(err_var <= 1e-4, f"variance error {err_var:.3e} > 1e-4")
+    check(err_var <= 5e-2 * var_scale,
+          f"variance error {err_var:.3e} > 5e-2 * max|var64|")
+
+    # the user's default variance call: probes drawn by the default
+    # generator (on the card), no etas; beside the etas call, median of 5
+    def var_default():
+        return gpquad_torch.predict_var(st, xq32, method="stochastic",
+                                        probes=probes, cg_tol=1e-4)
+
+    def var_etas():
+        return gpquad_torch.predict_var(st, xq32, method="stochastic",
+                                        probes=probes, cg_tol=1e-4, etas=etas)
+
+    def host_ms(fn, reps=5):
+        fn()
+        sync()
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            sync()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ts)
+    var_d = var_default()
+    check(var_d.shape == (10_000,) and bool(torch.isfinite(var_d).all()),
+          "default-probe variance: wrong shape or non-finite")
+    var_default_ms, var_etas_ms = host_ms(var_default), host_ms(var_etas)
+    print(f"[4] var, median of 5 warm calls (host clock): default generator "
+          f"({probes} probes drawn on the card) {var_default_ms:.2f} ms, "
+          f"given etas {var_etas_ms:.2f} ms {card}")
+    record["phases"]["slice"] = dict(
+        mtot=st.mtot, M=st.M, launches=launches, stages=stages,
+        backend_picks=picks, times_f32=times, times_f64_plain_cold=times64,
+        var_default_generator_ms=var_default_ms, var_etas_ms=var_etas_ms,
+        err_mean=err_mean, err_var=err_var, max_abs_var64=var_scale,
+        plan_ms=plan_ms, profile=prof)
+
+    # -- phase 5: the CG tier ------------------------------------------------
+    x2 =torch.as_tensor(xh2, dtype=torch.float32, device=dev)
+    y2 = torch.as_tensor(yh2, dtype=torch.float32, device=dev)
+    xq2 = torch.as_tensor(xnew2, dtype=torch.float32, device=dev)
+
+    def run_cg(x, y, xq, kern, method):
+        t = time.perf_counter()
+        s = gpquad_torch.fit(x, y, kern, sigmasq, eps=eps, cg_tol=1e-6,
+                             max_cg_iter=2000, solver="cg",
+                             nufft_method=method, device=dev)
+        mu = gpquad_torch.predict_mean(s, xq, nufft_method=method)
+        sync()
+        return s, mu, time.perf_counter() - t
+
+    run_cg(x2, y2, xq2, kern_hard, "auto")                # warm
+    for k in cuda_nufft.LAUNCHES:
+        cuda_nufft.LAUNCHES[k] = 0
+    for k in nufft_mod.BACKEND_PICKS:
+        nufft_mod.BACKEND_PICKS[k] = 0
+    s2, mu2, t2 = run_cg(x2, y2, xq2, kern_hard, "auto")
+    launches_cg = dict(cuda_nufft.LAUNCHES)
+    picks_cg = dict(nufft_mod.BACKEND_PICKS)
+    print(f"[5] CG tier launches={launches_cg} backend_picks={picks_cg}")
+    # fit: F*y at mtot and the lag table at 2 mtot - 1; mean: one type-2
+    check(launches_cg == {"nufft1_2d": 2, "nufft2_2d": 1},
+          f"unexpected CG-tier launch counts {launches_cg}")
+    check(picks_cg["matmul"] == 0,
+          f"the CG tier took the plain path {picks_cg}")
+    prof_cg = profile_run(lambda: run_cg(x2, y2, xq2, kern_hard, "auto"))
+    print_profile("[5] profiled CG tier:", prof_cg, card)
+    s64, mu64, _ = run_cg(x2.double(), y2.double(), xq2.double(), kern_hard,
+                          "matmul")
+    err_hard = float((mu2.double() - mu64).abs().max())
+    iters = int(s2.mean_cg_iters)
+    # pcg stops before max_cg_iter only when every lane met cg_tol
+    print(f"[5] CG tier: mtot={s2.mtot} M={s2.M} jacobi PCG iters={iters} "
+          f"converged={iters < 2000} "
+          f"(f64: {int(s64.mean_cg_iters)}) fit+mean {t2 * 1e3:.2f} ms "
+          f"(warm, host clock) {card}; max|mean err| vs f64 "
+          f"{err_hard:.3e}")
+    check(s2.mtot == 107 == mtot_hard,
+          f"hard configuration planned mtot={s2.mtot} (phase 3: {mtot_hard})")
+    check(iters < 2000, "the CG-tier fit did not converge in 2000 iterations")
+    check(bool(torch.isfinite(mu2).all()), "non-finite CG-tier mean")
+    check(err_hard <= 5e-4, f"CG-tier mean error {err_hard:.3e} > 5e-4")
+    record["phases"]["cg_tier"] = dict(mtot=s2.mtot, M=s2.M, iters=iters,
+                                       launches=launches_cg,
+                                       backend_picks=picks_cg,
+                                       iters_f64=int(s64.mean_cg_iters),
+                                       fit_mean_s=t2, err_mean=err_hard,
+                                       profile=prof_cg)
+
+    # -- the record ----------------------------------------------------------
+    rows = []
+    for name in ("nufft1_2d", "nufft2_2d"):
+        # the largest call of the slice (the doubled 2 mtot - 1 grid), f32
+        row = next(r for r in phase3 if r["name"] == name
+                   and r["dtype"] == "float32" and r["mtot"] == m_lag)
+        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+                     "replaces": REPLACES[name], "launches": launches[name],
+                     "launches_cg_tier": launches_cg[name],
+                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"], "library_ms": None,
+                     "shape": {"n": row["n"], "mtot": row["mtot"],
+                               "fft_order": row["fft_order"],
+                               "dtype": "float32"}})
+    record["kernels"] = rows
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(json.dumps({"kernels": rows}))
+    print(smi_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

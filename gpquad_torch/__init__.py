@@ -1,0 +1,13 @@
+"""gpquad_torch: the EFGP regression path of ``gpquad`` in PyTorch, with the
+d=2 NUFFTs on hand-written CUDA kernels for Hopper.
+
+The package imports neither JAX nor ``gpquad``.  Entry points run on the
+CUDA device unless the caller passes ``device="cpu"``.
+"""
+from .kernels import SquaredExponential, make_kernel
+from .models.efgp import (FitState, fit, fit_with_grid, predict_mean,
+                          predict_var)
+from .quadrature import spectral_grid
+
+__all__ = ["FitState", "SquaredExponential", "fit", "fit_with_grid",
+           "make_kernel", "predict_mean", "predict_var", "spectral_grid"]

@@ -1,0 +1,312 @@
+"""EFGP regression serving path: fit, posterior mean, stochastic variance.
+
+Port of ``gpquad/models/efgp.py``.  Plain functions on tensors: the fit
+returns a :class:`FitState` dataclass, and prediction reads it.  The NUFFTs
+go through ``ops.nufft.make_nufft``, which launches the hand-written CUDA
+kernels for d=2 points on the card; the Gram matvec is the FFT Toeplitz
+operator; solves are the dense factor-solve for ``M <= DENSE_SOLVER_MAX_M``
+and batched PCG beyond.
+
+Every entry point takes ``device=`` (default ``"cuda"``) or reads the
+state's device, and fails when CUDA is asked for and absent.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..ops.cg import CGResult, pcg
+from ..ops.dense_solve import (DENSE_SOLVER_MAX_M, dense_gram, dense_inverse,
+                               refine_solve)
+from ..ops.nufft import make_nufft
+from ..ops.operators import (convolution_vector, make_A_mean, make_A_var,
+                             make_jacobi_precond)
+from ..ops.toeplitz import ToeplitzND, _next_smooth, make_toeplitz, \
+    toeplitz_diag_scale
+from ..quadrature import spectral_grid
+
+__all__ = ["FitState", "resolve_device", "resolve_solver", "resolve_precond",
+           "tensor_grid", "quadrature_weights", "fit_with_grid", "fit",
+           "predict_mean", "predict_var"]
+
+_PROBE_CHUNK = 256
+
+
+def _cdtype(rdtype):
+    return torch.complex64 if rdtype == torch.float32 else torch.complex128
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, raising when CUDA is asked for and absent:
+    the port never moves to the CPU by itself."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "gpquad_torch: device 'cuda' was requested but torch sees no "
+            "CUDA device; pass device='cpu' to run on the CPU")
+    return dev
+
+
+@dataclasses.dataclass
+class FitState:
+    """Cached fit artifacts."""
+    beta: torch.Tensor            # (M,) complex Fourier weights
+    ws: torch.Tensor              # (M,) complex quadrature weights sqrt(S h^d)
+    h: torch.Tensor               # 0-d grid spacing
+    sigmasq: torch.Tensor         # 0-d noise variance
+    toeplitz: ToeplitzND          # Gram operator F*F
+    mean_cg_iters: torch.Tensor
+    diag_scale: torch.Tensor      # Toeplitz zero-lag (= n), Jacobi scale
+    A_dense: Optional[torch.Tensor] = None   # (M, M) dense A (dense solver)
+    P_dense: Optional[torch.Tensor] = None   # (M, M) inv(A) (dense solver)
+    mtot: int = 0
+    d: int = 1
+
+    @property
+    def M(self) -> int:
+        return self.mtot ** self.d
+
+    @property
+    def device(self) -> torch.device:
+        return self.beta.device
+
+
+def resolve_precond(precond: str, precond_rank: int, use_precond: bool,
+                    d: int, n: Optional[int] = None,
+                    M: Optional[int] = None) -> str:
+    """Preconditioner family for the CG branch.  'jacobi' and 'none' are
+    ported; families that resolve to 'kron' or 'deflation' raise until
+    ROADMAP A.11.  As in gpquad, 'kron' at d > 3 silently becomes 'jacobi'
+    (ROADMAP §C known quirk)."""
+    if precond == "auto":
+        family = "deflation" if precond_rank > 0 else (
+            "jacobi" if use_precond else "none")
+    elif precond == "adaptive":
+        family = "deflation" if (d > 3 or (n is not None and M is not None
+                                           and n < M)) else "kron"
+    elif precond == "kron" and d > 3:
+        family = "jacobi"
+    elif precond in ("jacobi", "deflation", "kron", "none"):
+        family = precond
+    else:
+        raise ValueError(f"Unknown precond '{precond}' "
+                         "(auto | adaptive | jacobi | deflation | kron | none)")
+    if family in ("kron", "deflation"):
+        raise NotImplementedError(
+            f"precond family '{family}' is not ported yet (ROADMAP A.11)")
+    return family
+
+
+def resolve_solver(solver: str, mtot: int, d: int) -> str:
+    """'auto' picks the dense factor-solve for M <= DENSE_SOLVER_MAX_M,
+    CG beyond."""
+    if solver == "auto":
+        return "dense" if mtot ** d <= DENSE_SOLVER_MAX_M else "cg"
+    if solver not in ("dense", "cg"):
+        raise ValueError(f"Unknown solver '{solver}' (auto | dense | cg)")
+    return solver
+
+
+def tensor_grid(xis_1d: torch.Tensor, d: int) -> torch.Tensor:
+    """(mtot^d, d) tensor-product grid in ``ij`` order."""
+    grids = torch.meshgrid(*([xis_1d] * d), indexing="ij")
+    return torch.stack(grids, dim=-1).reshape(-1, d)
+
+
+def quadrature_weights(kernel, xis_flat, h, d):
+    """ws = sqrt(S(xi) h^d), complex."""
+    s = kernel.spectral_density(xis_flat)
+    return torch.sqrt(s.to(_cdtype(s.dtype)) * h.to(s.dtype) ** d)
+
+
+def _as_points(x, device, dtype=None):
+    x = torch.as_tensor(x, device=device, dtype=dtype)
+    return x[:, None] if x.ndim == 1 else x
+
+
+def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
+                  cg_tol: float = 1e-4, max_cg_iter: Optional[int] = None,
+                  beta0: Optional[torch.Tensor] = None,
+                  use_precond: bool = True,
+                  nufft_method: str = "auto",
+                  solver: str = "auto",
+                  precond_rank: int = 0,
+                  precond: str = "auto",
+                  device="cuda") -> FitState:
+    """Fit against a fixed frequency grid: quadrature weights, the NUFFT
+    right-hand side ``ws * F* y``, the Toeplitz Gram from the lag table, and
+    the mean solve (dense factor-solve or Jacobi PCG).  Runs in ``x``'s
+    floating dtype."""
+    dev = resolve_device(device)
+    x = _as_points(x, dev)
+    n, d = x.shape
+    rdtype = x.dtype
+    cdtype = _cdtype(rdtype)
+    y = torch.as_tensor(y, device=dev)
+    h = torch.as_tensor(h, dtype=rdtype, device=dev)
+    sigmasq = torch.as_tensor(sigmasq, dtype=rdtype, device=dev)
+    kernel = kernel.with_hypers(kernel.hyper_vector().to(dev, rdtype))
+
+    m = (mtot - 1) // 2
+    xis_1d = torch.arange(-m, m + 1, dtype=rdtype, device=dev) * h
+    ws = quadrature_weights(kernel, tensor_grid(xis_1d, d), h, d)
+
+    nufft = make_nufft(x, h, mtot, method=nufft_method)
+    rhs = ws * nufft.type1(y.to(cdtype)).reshape(-1)
+
+    v = convolution_vector(m, x, h, nufft_method=nufft_method)
+    toeplitz = make_toeplitz(v)
+    diag_scale = toeplitz_diag_scale(v)
+    A_dense = P_dense = None
+    if resolve_solver(solver, mtot, d) == "dense":
+        A_dense = dense_gram(ws, v, mtot, d, sigmasq)
+        P_dense = dense_inverse(A_dense)
+        res = refine_solve(A_dense, P_dense, rhs, tol=cg_tol)
+    else:
+        family = resolve_precond(precond, precond_rank, use_precond, d,
+                                 n=n, M=mtot ** d)
+        M_inv = (make_jacobi_precond(ws, sigmasq, diag_scale=diag_scale)
+                 if family == "jacobi" else None)
+        if beta0 is not None:
+            beta0 = torch.as_tensor(beta0, device=dev)
+        res = pcg(make_A_mean(ws, toeplitz, sigmasq), rhs, beta0, tol=cg_tol,
+                  maxiter=max_cg_iter if max_cg_iter is not None
+                  else 2 * rhs.shape[0],
+                  M_inv=M_inv)
+    return FitState(beta=res.x, ws=ws, h=h, sigmasq=sigmasq,
+                    toeplitz=toeplitz, mean_cg_iters=res.iters,
+                    diag_scale=diag_scale, A_dense=A_dense, P_dense=P_dense,
+                    mtot=mtot, d=d)
+
+
+def fit(x, y, kernel, sigmasq, eps: float = 1e-2, *, cg_tol: float = 1e-4,
+        max_cg_iter: Optional[int] = None, beta0=None,
+        use_precond: bool = True, solver: str = "auto",
+        precond_rank: int = 0, precond: str = "auto",
+        nufft_method: str = "auto", device="cuda") -> FitState:
+    """Plan the quadrature grid for the data's extent, then solve."""
+    dev = resolve_device(device)
+    x = _as_points(x, dev)
+    L = float((x.max(dim=0).values - x.min(dim=0).values).max())
+    if L <= 1e-9:
+        L = 1.0
+    _, h, mtot = spectral_grid(kernel, eps, L, use_integral=True)
+    return fit_with_grid(x, y, kernel, sigmasq, h, mtot, cg_tol=cg_tol,
+                         max_cg_iter=max_cg_iter, beta0=beta0,
+                         use_precond=use_precond, nufft_method=nufft_method,
+                         solver=solver, precond_rank=precond_rank,
+                         precond=precond, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# prediction
+# ---------------------------------------------------------------------------
+
+def predict_mean(state: FitState, x_new, *,
+                 nufft_method: str = "auto") -> torch.Tensor:
+    """Posterior mean: one type-2 apply of ``ws * beta`` at the targets."""
+    x_new = _as_points(x_new, state.device, state.h.dtype)
+    nufft = make_nufft(x_new, state.h, state.mtot, method=nufft_method)
+    return nufft.type2((state.ws * state.beta).reshape(
+        (state.mtot,) * state.d)).real
+
+
+def _solve_var(state: FitState, rhs, *, cg_tol, max_cg_iter) -> CGResult:
+    """Solve ``A_var x = rhs`` (``A_var = A_mean / sigma^2``): the fit's
+    dense inverse when present, batched CG otherwise."""
+    if state.P_dense is not None:
+        return refine_solve(state.A_dense, state.P_dense, rhs,
+                            scale=1.0 / state.sigmasq, tol=cg_tol)
+    A_var = make_A_var(state.ws, state.toeplitz, state.sigmasq)
+    return pcg(A_var, rhs, tol=cg_tol, maxiter=max_cg_iter,
+               M_inv=_var_precond(state))
+
+
+def _var_precond(state: FitState):
+    """Jacobi preconditioner for ``A_var = A_mean / sigma^2``."""
+    diag = state.diag_scale * torch.abs(state.ws) ** 2 / state.sigmasq + 1.0
+
+    def M_inv(v):
+        return v / diag.to(v.dtype)
+    return M_inv
+
+
+def _variance_stochastic(state: FitState, x_new, generator, *, probes: int,
+                         cg_tol, max_cg_iter, nufft_method: str = "auto",
+                         etas=None) -> torch.Tensor:
+    """Hutchinson diag-sums variance: solve ``A_var u_j = D eta_j`` for
+    Rademacher probes in chunks of 256, cross-correlate ``gamma = D u`` with
+    ``eta`` on a 2,3,5,7-smooth FFT grid of size >= 2 mtot - 1, keep the
+    +-(mtot-1) lags, and evaluate the lag sums at the targets with one
+    FFT-ordered type-2 apply.  ``etas`` ((probes, M), +-1) replaces the
+    generated probes, for same-probe comparisons."""
+    mtot, d = state.mtot, state.d
+    M = mtot ** d
+    rdtype = state.h.dtype
+    dev = state.device
+    if etas is None:
+        if generator is None:
+            # on the state's device, so the probes are drawn where they
+            # are used and never copied from the host
+            generator = torch.Generator(device=dev).manual_seed(0)
+        bits = torch.randint(0, 2, (probes, M), generator=generator,
+                             device=generator.device)
+        etas = (bits * 2 - 1).to(dev, rdtype)
+    else:
+        etas = torch.as_tensor(etas, device=dev).to(rdtype)
+        probes = etas.shape[0]
+    L = 2 * mtot - 1
+    Lf = _next_smooth(L)
+    s_size = (Lf,) * d
+    dims = tuple(range(1, d + 1))
+    pc = min(probes, _PROBE_CHUNK)
+    nc = -(-probes // pc)
+    pad = nc * pc - probes
+    if pad:
+        etas = torch.cat([etas, etas.new_zeros((pad, M))])
+    eta_c = etas.reshape(nc, pc, M)
+
+    est_sums = None
+    for e_flat in eta_c:
+        res = _solve_var(state, state.ws[None, :] * e_flat, cg_tol=cg_tol,
+                         max_cg_iter=max_cg_iter)
+        g = (state.ws[None, :] * res.x).reshape((pc,) + (mtot,) * d)
+        e = e_flat.reshape((pc,) + (mtot,) * d)
+        G = torch.fft.fftn(g, s=s_size, dim=dims)
+        E = torch.fft.fftn(e.to(G.dtype), s=s_size, dim=dims)
+        part = torch.fft.ifftn(G * E.conj(), s=s_size, dim=dims).sum(0)
+        est_sums = part if est_sums is None else est_sums + part
+    est_sums = est_sums / probes
+    if Lf != L:
+        lag_idx = torch.cat([torch.arange(mtot),
+                             torch.arange(Lf - mtot + 1, Lf)]).to(dev)
+        for ax in range(d):
+            est_sums = torch.index_select(est_sums, ax, lag_idx)
+
+    nufft = make_nufft(x_new, state.h, 2 * mtot - 1, fft_order=True,
+                       method=nufft_method)
+    return nufft.type2(est_sums).real
+
+
+def predict_var(state: FitState, x_new, *, method: str = "stochastic",
+                generator: Optional[torch.Generator] = None,
+                probes: int = 1000, cg_tol: float = 1e-4,
+                max_cg_iter: int = 1000, nufft_method: str = "auto",
+                etas=None) -> torch.Tensor:
+    """Posterior variance at ``x_new``.  Only ``method="stochastic"`` is
+    ported; its probes come from ``generator`` (a fresh generator on the
+    state's device seeded 0 when None) unless ``etas`` is given."""
+    x_new = _as_points(x_new, state.device, state.h.dtype)
+    method = method.lower()
+    if method == "stochastic":
+        return _variance_stochastic(state, x_new, generator, probes=probes,
+                                    cg_tol=cg_tol, max_cg_iter=max_cg_iter,
+                                    nufft_method=nufft_method, etas=etas)
+    if method in ("regular", "chebyshev"):
+        raise NotImplementedError(
+            f"variance method '{method}' is not ported yet (ROADMAP A.8)")
+    raise ValueError(
+        f"Variance method '{method}' not implemented. Choose 'regular', "
+        f"'stochastic' or 'chebyshev'.")

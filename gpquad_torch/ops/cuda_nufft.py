@@ -1,0 +1,266 @@
+"""Hand-written CUDA NUFFT kernels for d=2, their plain versions, and the
+NUFFT backend built on them.
+
+Port of ``gpquad/ops/pallas_nufft.py``.  The TPU file fuses the phase
+construction with the complex products so that no ``(N, mtot)`` phase matrix
+reaches device memory; the kernels in ``csrc/nufft_2d.cu`` do the same on
+Hopper:
+
+- :func:`nufft2_2d` replaces ``pallas_nufft2_2d`` (pallas_nufft.py:113) and
+  its mode-tiled twin ``_pallas_nufft2_2d_tiled`` (:369): one kernel takes
+  any odd ``mtot``, tiling the modes inside.
+- :func:`nufft1_2d` replaces ``pallas_nufft1_2d`` (:195) and
+  ``_pallas_nufft1_2d_tiled`` (:442): per-block partial sums over chunks of
+  2048 points, then a second pass adds the partials in chunk order.
+
+Both are bound by operations on an H100 (fp32 complex multiply-adds outside
+the tensor cores, ~8 mtot^2 flops per point); the source says how the design
+stages the work.  The wrappers take a tensor on the CPU to the plain version
+(:func:`nufft2_2d_ref`, :func:`nufft1_2d_ref`, the phase-matrix backend of
+``ops/nufft.py``); on a CUDA tensor they launch the kernel or raise.
+
+The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
+``build/gpquad_torch/`` at the checkout's root, named after a hash of the
+sources so that an edit rebuilds it, and loaded with ``ctypes``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from .nufft import make_phase_nufft
+
+__all__ = ["nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
+           "CudaNUFFT", "LAUNCHES", "build", "library_path"]
+
+# Launches of each kernel since the last reset (a launch is one wrapper call
+# on a CUDA tensor; the two stages of type-1 count once).
+LAUNCHES = {"nufft1_2d": 0, "nufft2_2d": 0}
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = ("nufft_2d.cu",)
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpquad_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+TYPE1_CHUNK = 2048
+
+_lib = None
+
+
+def library_path() -> Path:
+    """Path of the shared library for the current sources."""
+    digest = hashlib.sha256()
+    for name in _SOURCES:
+        digest.update((_CSRC / name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD_DIR / f"libgpquad_nufft_{digest.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or in "
+                           "/usr/local/cuda/bin: the CUDA NUFFT kernels "
+                           "cannot be built")
+    return str(path)
+
+
+def build() -> tuple[Path, str]:
+    """Compile the kernels if the library for these sources is missing.
+
+    Returns the library's path and the compiler's output (``-Xptxas -v``
+    prints each kernel's registers and shared memory); the output is empty
+    when the library was already built."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(_CSRC / s) for s in _SOURCES]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for prec, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            t2 = getattr(lib, f"gpq_nufft2_2d_{prec}")
+            t2.argtypes = [ptr, ptr, real, i32, i32, i32, ptr, ptr]
+            t2.restype = i32
+            t1 = getattr(lib, f"gpq_nufft1_2d_{prec}")
+            t1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr, ptr]
+            t1.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _complex_of(rdtype):
+    return torch.complex64 if rdtype == torch.float32 else torch.complex128
+
+
+def _check(x: torch.Tensor, mtot: int):
+    if x.ndim != 2 or x.shape[1] != 2:
+        raise ValueError(f"x must be (N, 2), got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"x must be float32 or float64, got {x.dtype}")
+    if mtot % 2 != 1 or mtot < 1:
+        raise ValueError(f"mtot must be odd and positive, got {mtot}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the phase-matrix backend of ops/nufft.py on the same inputs
+# ---------------------------------------------------------------------------
+
+def nufft2_2d_ref(x, f, h, *, mtot: int, fft_order: bool = False):
+    """Plain type-2: ``out[n] = sum_jk f[j,k] e^{+2 pi i h (x_n1 k_j +
+    x_n2 k_k)}``; complex (N,)."""
+    op = make_phase_nufft(x, h, mtot, fft_order=fft_order)
+    return op.type2(f.reshape(mtot, mtot))
+
+
+def nufft1_2d_ref(x, vals, h, *, mtot: int, fft_order: bool = False):
+    """Plain type-1: ``out[j,k] = sum_n v_n e^{-2 pi i h (x_n1 k_j +
+    x_n2 k_k)}``; complex (mtot, mtot)."""
+    op = make_phase_nufft(x, h, mtot, fft_order=fft_order)
+    return op.type1(vals)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def nufft2_2d(x, f, h, *, mtot: int, fft_order: bool = False):
+    """Fused type-2 apply for d=2 (replaces ``pallas_nufft2_2d``).
+
+    ``x`` (N, 2) real, ``f`` complex (mtot, mtot) or (mtot^2,), ``h`` the
+    grid spacing; returns complex (N,).  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel."""
+    _check(x, mtot)
+    if x.device.type == "cpu":
+        return nufft2_2d_ref(x, f, h, mtot=mtot, fft_order=fft_order)
+    cdtype = _complex_of(x.dtype)
+    if f.numel() != mtot * mtot:
+        raise ValueError(f"f has {f.numel()} entries, expected {mtot}^2")
+    if f.device != x.device or f.dtype != cdtype:
+        raise TypeError(f"f must be {cdtype} on {x.device}, "
+                        f"got {f.dtype} on {f.device}")
+    n = x.shape[0]
+    out = torch.empty(n, dtype=cdtype, device=x.device)
+    if n == 0:
+        return out
+    x = x.contiguous()
+    f = f.contiguous()
+    h = float(torch.as_tensor(h, dtype=x.dtype))
+    lib = _library()
+    fn = lib.gpq_nufft2_2d_f32 if x.dtype == torch.float32 \
+        else lib.gpq_nufft2_2d_f64
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), f.data_ptr(), h, n, mtot, int(fft_order),
+                out.data_ptr(), stream)
+    _raise_on(rc, "nufft2_2d")
+    LAUNCHES["nufft2_2d"] += 1
+    return out
+
+
+def nufft1_2d(x, vals, h, *, mtot: int, fft_order: bool = False):
+    """Fused type-1 apply for d=2 (replaces ``pallas_nufft1_2d``).
+
+    ``x`` (N, 2) real, ``vals`` complex (N,); returns complex
+    (mtot, mtot).  A CPU tensor takes the plain version; a CUDA tensor
+    launches the two-stage kernel."""
+    _check(x, mtot)
+    if x.device.type == "cpu":
+        return nufft1_2d_ref(x, vals, h, mtot=mtot, fft_order=fft_order)
+    cdtype = _complex_of(x.dtype)
+    n = x.shape[0]
+    if vals.shape != (n,):
+        raise ValueError(f"vals must be ({n},), got {tuple(vals.shape)}")
+    if vals.device != x.device or vals.dtype != cdtype:
+        raise TypeError(f"vals must be {cdtype} on {x.device}, "
+                        f"got {vals.dtype} on {vals.device}")
+    if n == 0:
+        return torch.zeros((mtot, mtot), dtype=cdtype, device=x.device)
+    x = x.contiguous()
+    vals = vals.contiguous()
+    h = float(torch.as_tensor(h, dtype=x.dtype))
+    nchunk = -(-n // TYPE1_CHUNK)
+    partial = torch.empty((nchunk, mtot, mtot), dtype=cdtype, device=x.device)
+    out = torch.empty((mtot, mtot), dtype=cdtype, device=x.device)
+    lib = _library()
+    fn = lib.gpq_nufft1_2d_f32 if x.dtype == torch.float32 \
+        else lib.gpq_nufft1_2d_f64
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), vals.data_ptr(), h, n, mtot, int(fft_order),
+                TYPE1_CHUNK, partial.data_ptr(), out.data_ptr(), stream)
+    _raise_on(rc, "nufft1_2d")
+    LAUNCHES["nufft1_2d"] += 1
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CudaNUFFT:
+    """NUFFT backend on the d=2 kernels (replaces ``PallasNUFFT``,
+    pallas_nufft.py:245): the same ``type1``/``type2`` interface as
+    :class:`~gpquad_torch.ops.nufft.NUFFT`, storing only the points.
+    Batched inputs loop over the single-vector kernels."""
+    x: torch.Tensor          # (N, 2)
+    h: float                 # already rounded to x's precision
+    mtot: int
+    fft_order: bool = False
+
+    d = 2
+
+    @property
+    def n(self) -> int:
+        return self.x.shape[0]
+
+    def type1(self, vals):
+        cdtype = _complex_of(self.x.dtype)
+        kw = dict(mtot=self.mtot, fft_order=self.fft_order)
+        if vals.ndim == 1:
+            return nufft1_2d(self.x, vals.to(cdtype), self.h, **kw)
+        lead = vals.shape[:-1]
+        flat = vals.reshape(-1, vals.shape[-1]).to(cdtype)
+        out = torch.stack([nufft1_2d(self.x, v, self.h, **kw) for v in flat])
+        return out.reshape(lead + (self.mtot, self.mtot))
+
+    def type2(self, fk):
+        cdtype = _complex_of(self.x.dtype)
+        m = self.mtot
+        kw = dict(mtot=m, fft_order=self.fft_order)
+        if fk.shape in ((m * m,), (m, m)):
+            return nufft2_2d(self.x, fk.to(cdtype), self.h, **kw)
+        lead = fk.shape[:-1] if fk.shape[-1] == m * m else fk.shape[:-2]
+        flat = fk.reshape(-1, m, m).to(cdtype)
+        out = torch.stack([nufft2_2d(self.x, f, self.h, **kw) for f in flat])
+        return out.reshape(lead + (self.n,))

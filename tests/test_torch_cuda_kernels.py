@@ -1,0 +1,148 @@
+"""The d=2 CUDA NUFFT kernels on the card, against their float64 plain
+versions on the same inputs.
+
+Marked ``cuda``: they skip where torch sees no CUDA device.  This file
+imports neither JAX nor ``gpquad`` (the card's machine has no JAX), so it
+runs there without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Bar: 1e-4 * max|ref| (f32 rounding of the inputs' phases x*h and of sums of
+up to 1e5 terms; chip_smoke.py phase 3 holds the same bar at full size).
+"""
+import numpy as np
+import pytest
+import torch
+
+import gpquad_torch
+from gpquad_torch.ops import cuda_nufft
+from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_2d, nufft1_2d_ref,
+                                         nufft2_2d, nufft2_2d_ref)
+from gpquad_torch.ops.nufft import NUFFT, make_nufft
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with "
+                    "python -m pytest --noconftest -m cuda "
+                    "tests/test_torch_cuda_kernels.py")
+    return torch.device("cuda")
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,mtot,h,fft_order", [
+    (5000, 29, 0.65, False),
+    (5000, 57, 0.65, True),
+    (777, 9, 0.31, False),
+    (1, 1, 0.3, False),
+    (63, 3, 0.3, True),
+    (3000, 301, 0.011, False),
+    (3000, 339, 0.97, True),
+])
+def test_kernels_match_plain_on_card(cuda_device, dtype, n, mtot, h,
+                                     fft_order):
+    rng = np.random.default_rng(0)
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 2)), device=cuda_device).to(dtype)
+    v = torch.as_tensor(rng.normal(size=n) + 1j * rng.normal(size=n),
+                        device=cuda_device).to(cdt)
+    f = torch.as_tensor(rng.normal(size=(mtot, mtot))
+                        + 1j * rng.normal(size=(mtot, mtot)),
+                        device=cuda_device).to(cdt)
+    hq = float(torch.tensor(h, dtype=dtype))
+    before = dict(cuda_nufft.LAUNCHES)
+    got1 = nufft1_2d(x, v, hq, mtot=mtot, fft_order=fft_order)
+    got2 = nufft2_2d(x, f, hq, mtot=mtot, fft_order=fft_order)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCHES["nufft1_2d"] == before["nufft1_2d"] + 1
+    assert cuda_nufft.LAUNCHES["nufft2_2d"] == before["nufft2_2d"] + 1
+    x64 = x.double()
+    ref1 = nufft1_2d_ref(x64, v.to(torch.complex128), hq, mtot=mtot,
+                         fft_order=fft_order)
+    ref2 = nufft2_2d_ref(x64, f.to(torch.complex128), hq, mtot=mtot,
+                         fft_order=fft_order)
+    assert _rel(got1.to(torch.complex128), ref1) < 1e-4
+    assert _rel(got2.to(torch.complex128), ref2) < 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_reject_mismatched_inputs(cuda_device):
+    x = torch.zeros((8, 2), device=cuda_device)
+    with pytest.raises(TypeError):
+        nufft2_2d(x, torch.zeros(9, dtype=torch.complex128,
+                                 device=cuda_device), 0.1, mtot=3)
+    with pytest.raises(ValueError):
+        nufft1_2d(x, torch.zeros(7, dtype=torch.complex64,
+                                 device=cuda_device), 0.1, mtot=3)
+
+
+@pytest.mark.cuda
+def test_dispatcher_on_card(cuda_device):
+    """d=2 on the card takes the kernels; d in {1, 3} the phase matrices."""
+    for d, cls in ((1, NUFFT), (2, CudaNUFFT), (3, NUFFT)):
+        x = torch.rand((50, d), device=cuda_device)
+        assert isinstance(make_nufft(x, 0.3, 9), cls)
+    x = torch.rand((50, 2), device=cuda_device)
+    assert isinstance(make_nufft(x, 0.3, 9, method="matmul"), NUFFT)
+    # h is read to the host once, in x's precision, so launches never sync
+    op = make_nufft(x, torch.tensor(0.3, device=cuda_device), 9)
+    assert type(op.h) is float
+    assert op.h == float(torch.tensor(0.3, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+def test_slice_on_card_matches_cpu(cuda_device):
+    """fit -> mean -> stochastic variance on the card (kernels, float64)
+    against the same slice on the CPU (phase matrices), same probes: the
+    float64 kernels agree with the phase matrices to ~1e-13, so the slice
+    agrees to the f64 bars of tests/test_torch_efgp.py; the float32 slice
+    on the card is held at 1e-4 * max|ref|."""
+    rng = np.random.default_rng(4)
+    n = 3000
+    x = rng.uniform(0, 1, (n, 2))
+    y = np.sin(3 * np.pi * x[:, 0]) * np.cos(2 * np.pi * x[:, 1]) \
+        + 0.1 * rng.normal(size=n)
+    xq = rng.uniform(0, 1, (200, 2))
+    kern = gpquad_torch.make_kernel("SE", 2, lengthscale=0.2, variance=1.0)
+    out = {}
+    for dev, dtype in (("cpu", np.float64), (cuda_device, np.float64),
+                       (cuda_device, np.float32)):
+        st = gpquad_torch.fit(x.astype(dtype), y.astype(dtype), kern, 0.5,
+                              eps=1e-4, cg_tol=1e-10, device=dev)
+        etas = np.random.default_rng(5).choice([-1.0, 1.0],
+                                               size=(64, st.mtot ** 2))
+        mean = gpquad_torch.predict_mean(st, xq)
+        var = gpquad_torch.predict_var(st, xq, probes=64, cg_tol=1e-10,
+                                       etas=etas)
+        out[(str(dev), dtype)] = (mean.cpu().numpy().astype(np.float64),
+                                  var.cpu().numpy().astype(np.float64))
+    m_cpu, v_cpu = out[("cpu", np.float64)]
+    m64, v64 = out[(str(cuda_device), np.float64)]
+    m32, v32 = out[(str(cuda_device), np.float32)]
+    assert np.max(np.abs(m64 - m_cpu)) < 1e-9
+    assert np.max(np.abs(v64 - v_cpu)) < 1e-8 * np.max(np.abs(v_cpu))
+    assert np.max(np.abs(m32 - m_cpu)) < 1e-4 * np.max(np.abs(m_cpu))
+    assert np.max(np.abs(v32 - v_cpu)) < 1e-4 * np.max(np.abs(v_cpu))
+
+
+@pytest.mark.cuda
+def test_default_probes_on_card(cuda_device):
+    """predict_var with neither generator nor etas draws its probes on the
+    card: reproducible (seed 0) and finite."""
+    rng = np.random.default_rng(6)
+    x = rng.uniform(0, 1, (2000, 2)).astype(np.float32)
+    y = np.sin(4 * x[:, 0]).astype(np.float32)
+    xq = rng.uniform(0, 1, (100, 2)).astype(np.float32)
+    kern = gpquad_torch.make_kernel("SE", 2, lengthscale=0.2, variance=1.0)
+    st = gpquad_torch.fit(x, y, kern, 0.1, eps=1e-4, device=cuda_device)
+    a = gpquad_torch.predict_var(st, xq, probes=32)
+    b = gpquad_torch.predict_var(st, xq, probes=32)
+    assert a.device.type == "cuda" and a.shape == (100,)
+    assert torch.equal(a, b)
+    assert bool(torch.isfinite(a).all())
