@@ -7,7 +7,11 @@ CUDA device unless the caller passes ``device="cpu"``.
 from .kernels import SquaredExponential, make_kernel
 from .models.efgp import (FitState, fit, fit_with_grid, predict_mean,
                           predict_var)
+from .models.gradient import GradientResult, gradient, gradient_with_grid
+from .models.pipeline import FusedResult, fit_predict_grad
 from .quadrature import spectral_grid
 
-__all__ = ["FitState", "SquaredExponential", "fit", "fit_with_grid",
-           "make_kernel", "predict_mean", "predict_var", "spectral_grid"]
+__all__ = ["FitState", "FusedResult", "GradientResult", "SquaredExponential",
+           "fit", "fit_predict_grad", "fit_with_grid", "gradient",
+           "gradient_with_grid", "make_kernel", "predict_mean", "predict_var",
+           "spectral_grid"]

@@ -33,6 +33,26 @@
 //    atomics: the result is deterministic and the fp32 error of each chunk
 //    sum stays bounded, as the chunked type-1 of ops/nufft.py keeps it.
 //
+// The batched pair serves B vectors against the same points in one launch,
+// the hyper-gradient's probe batches:
+//   nufft2_2d_batched replaces pallas_nufft2_2d_batched: f (B, m, m) -> (B, N)
+//   nufft1_2d_batched replaces pallas_nufft1_2d_batched: v (B, N) -> (B, m, m)
+// Each type has one kernel template with the batch group size G as a
+// parameter; the single kernels are its G = 1 instances.  A point's phases
+// are made once per group and reused for every vector of the group; the
+// products are done B times.  The batch runs in groups of a fixed size (a
+// grid axis over groups), so the per-thread accumulators are a fixed number
+// of registers whatever B is:
+//  - type-2: the f tiles of the group's G vectors are staged together in
+//    shared memory, and each e1 phase is made once and applied to all G.
+//  - type-1: e1 and e2 for a sub-tile of points are staged once in shared
+//    memory with the group's values; each thread forms e1*e2 for its output
+//    once per point and adds v_b * (e1*e2) for every b of the group (at
+//    G = 1 v is folded into the staged e1 instead).  The partials are
+//    (chunk, b, j, k) and the same chunk-order reduction adds them.  Bound:
+//    as the single pair, by operations (8 B mtot^2 flops per point), the
+//    phases now a 1/B share of them.
+//
 // Every kernel is templated on the scalar type: float is the main path, and
 // double tensors run a double instance of the same code.
 //
@@ -86,25 +106,36 @@ __device__ __forceinline__ void phase(T u, T k, T* c, T* s) {
   sincospi_(add_rn(cyc, cyc), s, c);
 }
 
-constexpr int T2_THREADS = 64;
-
 // ---------------------------------------------------------------------------
-// type-2: out[n] = sum_j e1(n,j) sum_k f[j,k] e2(n,k),  e = e^{+2 pi i c}
+// type-2: out[b, n] = sum_j e1(n,j) sum_k f[b,j,k] e2(n,k),  e = e^{+2 pi i c}
+// Block = THREADS points x one group of up to G batch elements (grid axis y).
+// The single kernel is the G = 1 instance (nb = 1).
 // ---------------------------------------------------------------------------
-template <typename T, int TJ, int TK>
-__global__ void __launch_bounds__(T2_THREADS)
+template <typename T, int THREADS, int TJ, int TK, int G>
+__global__ void __launch_bounds__(THREADS)
 nufft2_2d_kernel(const v2_t<T>* __restrict__ x, const v2_t<T>* __restrict__ f,
-                 T h, int n, int m, int fft_order, v2_t<T>* __restrict__ out) {
-  __shared__ v2_t<T> ftile[TJ][TK];
-  const int i = blockIdx.x * T2_THREADS + threadIdx.x;
+                 T h, int n, int m, int nb, int fft_order,
+                 v2_t<T>* __restrict__ out) {
+  __shared__ v2_t<T> ftile[G][TJ][TK];
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  const int b0 = blockIdx.y * G;
+  // live batch elements of this group; a constant 1 for the single kernel,
+  // so that its products and phases share one block the compiler schedules
+  const int gn = G == 1 ? 1 : min(G, nb - b0);
   const bool live = i < n;
+  const size_t mm = (size_t)m * m;
   T u1 = 0, u2 = 0;
   if (live) {
     v2_t<T> xi = x[i];
     u1 = torus(xi.x, h);
     u2 = torus(xi.y, h);
   }
-  T acc_re = 0, acc_im = 0;
+  T acc_re[G], acc_im[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    acc_re[g] = 0;
+    acc_im[g] = 0;
+  }
   for (int k0 = 0; k0 < m; k0 += TK) {
     T c2[TK], s2[TK];
 #pragma unroll
@@ -118,64 +149,88 @@ nufft2_2d_kernel(const v2_t<T>* __restrict__ x, const v2_t<T>* __restrict__ f,
     }
     for (int j0 = 0; j0 < m; j0 += TJ) {
       __syncthreads();
-      for (int e = threadIdx.x; e < TJ * TK; e += T2_THREADS) {
-        const int jj = e / TK, kk = e % TK;
+      for (int e = threadIdx.x; e < G * TJ * TK; e += THREADS) {
+        const int g = e / (TJ * TK), r = e % (TJ * TK);
+        const int jj = r / TK, kk = r % TK;
         const int j = j0 + jj, k = k0 + kk;
         v2_t<T> val;
         val.x = 0;
         val.y = 0;
-        if (j < m && k < m) val = f[(size_t)j * m + k];
-        ftile[jj][kk] = val;
+        if (g < gn && j < m && k < m) val = f[(b0 + g) * mm + (size_t)j * m + k];
+        ftile[g][jj][kk] = val;
       }
       __syncthreads();
       const int jn = min(TJ, m - j0);
       for (int jj = 0; jj < jn; ++jj) {
-        T tr = 0, ti = 0;
-#pragma unroll
-        for (int kk = 0; kk < TK; ++kk) {
-          const v2_t<T> a = ftile[jj][kk];
-          tr = fma(a.x, c2[kk], fma(-a.y, s2[kk], tr));
-          ti = fma(a.x, s2[kk], fma(a.y, c2[kk], ti));
-        }
         T c1, s1;
         phase(u1, mode_value<T>(j0 + jj, m, fft_order), &c1, &s1);
-        acc_re = fma(c1, tr, fma(-s1, ti, acc_re));
-        acc_im = fma(c1, ti, fma(s1, tr, acc_im));
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g < gn) {   // uniform over the block
+            T tr = 0, ti = 0;
+#pragma unroll
+            for (int kk = 0; kk < TK; ++kk) {
+              const v2_t<T> a = ftile[g][jj][kk];
+              tr = fma(a.x, c2[kk], fma(-a.y, s2[kk], tr));
+              ti = fma(a.x, s2[kk], fma(a.y, c2[kk], ti));
+            }
+            acc_re[g] = fma(c1, tr, fma(-s1, ti, acc_re[g]));
+            acc_im[g] = fma(c1, ti, fma(s1, tr, acc_im[g]));
+          }
+        }
       }
     }
   }
   if (live) {
-    v2_t<T> o;
-    o.x = acc_re;
-    o.y = acc_im;
-    out[i] = o;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < gn) {
+        v2_t<T> o;
+        o.x = acc_re[g];
+        o.y = acc_im[g];
+        out[(size_t)(b0 + g) * n + i] = o;
+      }
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// type-1 stage 1: partial[c, j, k] = sum_{n in chunk c} v_n e1(n,j) e2(n,k),
-// e = e^{-2 pi i c}.  Block = one TJ x TK output tile, one chunk of points.
+// type-1 stage 1: partial[c, b, j, k] = sum_{n in chunk c} v[b, n] e1(n,j)
+// e2(n,k), e = e^{-2 pi i c}.  Block = one 16 x 16 output tile, one chunk of
+// points (grid axis y), one group of up to G batch elements (grid axis z).
+// At G = 1 (the single kernel) the value is folded into the staged e1
+// (v * e1), so each point and output costs one complex multiply-add; a group
+// of G > 1 stages e1 alone, forms e1 * e2 once per point and output, and adds
+// v_b * (e1 * e2) for every b of the group.
 // ---------------------------------------------------------------------------
 constexpr int T1_TJ = 16;
 constexpr int T1_TK = 16;
 constexpr int T1_THREADS = T1_TJ * T1_TK;
 
-template <typename T, int P>
+template <typename T, int P, int G>
 __global__ void __launch_bounds__(T1_THREADS)
-nufft1_2d_partial_kernel(const v2_t<T>* __restrict__ x, const v2_t<T>* __restrict__ v,
-                         T h, int n, int m, int fft_order, int chunk,
+nufft1_2d_partial_kernel(const v2_t<T>* __restrict__ x,
+                         const v2_t<T>* __restrict__ v, T h, int n, int m,
+                         int nb, int fft_order, int chunk,
                          v2_t<T>* __restrict__ partial) {
   __shared__ T su1[P], su2[P];
-  __shared__ v2_t<T> sv[P];
-  __shared__ v2_t<T> w1[P][T1_TJ];   // v_p * e1(p, j)
+  __shared__ v2_t<T> sv[G][P];
+  __shared__ v2_t<T> e1[P][T1_TJ];   // e1(p, j), times v_p when G = 1
   __shared__ v2_t<T> e2[P][T1_TK];   // e2(p, k)
   const int ntk = (m + T1_TK - 1) / T1_TK;
   const int j0 = (blockIdx.x / ntk) * T1_TJ;
   const int k0 = (blockIdx.x % ntk) * T1_TK;
   const int jj = threadIdx.x / T1_TK, kk = threadIdx.x % T1_TK;
+  const int b0 = blockIdx.z * G;
+  const int gn = G == 1 ? 1 : min(G, nb - b0);
   const int p_begin = blockIdx.y * chunk;
   const int p_end = min(n, p_begin + chunk);
-  T acc_re = 0, acc_im = 0;
+  T acc_re[G], acc_im[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    acc_re[g] = 0;
+    acc_im[g] = 0;
+  }
   for (int p0 = p_begin; p0 < p_end; p0 += P) {
     const int pn = min(P, p_end - p0);
     __syncthreads();
@@ -183,7 +238,14 @@ nufft1_2d_partial_kernel(const v2_t<T>* __restrict__ x, const v2_t<T>* __restric
       const v2_t<T> xq = x[p0 + q];
       su1[q] = torus(xq.x, h);
       su2[q] = torus(xq.y, h);
-      sv[q] = v[p0 + q];
+    }
+    for (int e = threadIdx.x; e < G * P; e += T1_THREADS) {
+      const int g = e / P, q = e % P;
+      v2_t<T> val;
+      val.x = 0;
+      val.y = 0;
+      if (g < gn && q < pn) val = v[(size_t)(b0 + g) * n + p0 + q];
+      sv[g][q] = val;
     }
     __syncthreads();
     for (int e = threadIdx.x; e < pn * T1_TJ; e += T1_THREADS) {
@@ -194,12 +256,17 @@ nufft1_2d_partial_kernel(const v2_t<T>* __restrict__ x, const v2_t<T>* __restric
       if (j0 + a < m) {
         T c, s;
         phase(su1[q], mode_value<T>(j0 + a, m, fft_order), &c, &s);
-        const v2_t<T> vq = sv[q];
-        // (c - i s)(vr + i vi)
-        w.x = fma(c, vq.x, s * vq.y);
-        w.y = fma(c, vq.y, -s * vq.x);
+        if constexpr (G == 1) {
+          const v2_t<T> vq = sv[0][q];
+          // (c - i s)(vr + i vi)
+          w.x = fma(c, vq.x, s * vq.y);
+          w.y = fma(c, vq.y, -s * vq.x);
+        } else {
+          w.x = c;
+          w.y = -s;
+        }
       }
-      w1[q][a] = w;
+      e1[q][a] = w;
     }
     for (int e = threadIdx.x; e < pn * T1_TK; e += T1_THREADS) {
       const int q = e / T1_TK, b = e % T1_TK;
@@ -216,21 +283,41 @@ nufft1_2d_partial_kernel(const v2_t<T>* __restrict__ x, const v2_t<T>* __restric
     }
     __syncthreads();
     for (int q = 0; q < pn; ++q) {
-      const v2_t<T> a = w1[q][jj];
+      const v2_t<T> a = e1[q][jj];
       const v2_t<T> b = e2[q][kk];
-      acc_re = fma(a.x, b.x, fma(-a.y, b.y, acc_re));
-      acc_im = fma(a.x, b.y, fma(a.y, b.x, acc_im));
+      if constexpr (G == 1) {
+        acc_re[0] = fma(a.x, b.x, fma(-a.y, b.y, acc_re[0]));
+        acc_im[0] = fma(a.x, b.y, fma(a.y, b.x, acc_im[0]));
+      } else {
+        const T er = fma(a.x, b.x, -a.y * b.y);
+        const T ei = fma(a.x, b.y, a.y * b.x);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g < gn) {   // uniform over the block
+            const v2_t<T> vq = sv[g][q];
+            acc_re[g] = fma(vq.x, er, fma(-vq.y, ei, acc_re[g]));
+            acc_im[g] = fma(vq.x, ei, fma(vq.y, er, acc_im[g]));
+          }
+        }
+      }
     }
   }
   if (j0 + jj < m && k0 + kk < m) {
-    v2_t<T> o;
-    o.x = acc_re;
-    o.y = acc_im;
-    partial[((size_t)blockIdx.y * m + (j0 + jj)) * m + (k0 + kk)] = o;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < gn) {
+        v2_t<T> o;
+        o.x = acc_re[g];
+        o.y = acc_im[g];
+        partial[(((size_t)blockIdx.y * nb + b0 + g) * m + (j0 + jj)) * m
+                + (k0 + kk)] = o;
+      }
+    }
   }
 }
 
-// type-1 stage 2: out[jk] = sum_c partial[c, jk], in chunk order.
+// type-1 stage 2: out[i] = sum_c partial[c, i] over the nb m^2 outputs, in
+// chunk order.
 template <typename T>
 __global__ void nufft1_2d_reduce_kernel(const v2_t<T>* __restrict__ partial,
                                         int nchunk, int mm,
@@ -249,31 +336,42 @@ __global__ void nufft1_2d_reduce_kernel(const v2_t<T>* __restrict__ partial,
   out[idx] = o;
 }
 
-template <typename T>
-int launch_nufft2(const void* x, const void* f, T h, int n, int m, int fft_order,
-                  void* out, void* stream) {
+// The single kernels are the G = 1 instances (the single type-2 with 64
+// threads per block); a batch runs in groups of 4 (type-2, 128 threads) or
+// 8 (type-1) vectors.
+constexpr int T2_THREADS = 64;
+constexpr int T2B_THREADS = 128;
+constexpr int T2B_GROUP = 4;
+constexpr int T1B_GROUP = 8;
+
+template <typename T, int THREADS, int G>
+int launch_nufft2(const void* x, const void* f, T h, int n, int m, int nb,
+                  int fft_order, void* out, void* stream) {
   constexpr int TJ = 32;
   constexpr int TK = sizeof(T) == 4 ? 32 : 16;
-  const dim3 grid((n + T2_THREADS - 1) / T2_THREADS);
-  nufft2_2d_kernel<T, TJ, TK><<<grid, T2_THREADS, 0, (cudaStream_t)stream>>>(
-      (const v2_t<T>*)x, (const v2_t<T>*)f, h, n, m, fft_order, (v2_t<T>*)out);
+  const dim3 grid((n + THREADS - 1) / THREADS, (nb + G - 1) / G);
+  nufft2_2d_kernel<T, THREADS, TJ, TK, G>
+      <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+          (const v2_t<T>*)x, (const v2_t<T>*)f, h, n, m, nb, fft_order,
+          (v2_t<T>*)out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_nufft1(const void* x, const void* v, T h, int n, int m, int fft_order,
-                  int chunk, void* partial, void* out, void* stream) {
+template <typename T, int G>
+int launch_nufft1(const void* x, const void* v, T h, int n, int m, int nb,
+                  int fft_order, int chunk, void* partial, void* out,
+                  void* stream) {
   constexpr int P = sizeof(T) == 4 ? 128 : 64;
   const int ntj = (m + T1_TJ - 1) / T1_TJ;
   const int nchunk = (n + chunk - 1) / chunk;
-  const dim3 grid(ntj * ntj, nchunk);
+  const dim3 grid(ntj * ntj, nchunk, (nb + G - 1) / G);
   cudaStream_t s = (cudaStream_t)stream;
-  nufft1_2d_partial_kernel<T, P><<<grid, T1_THREADS, 0, s>>>(
-      (const v2_t<T>*)x, (const v2_t<T>*)v, h, n, m, fft_order, chunk,
+  nufft1_2d_partial_kernel<T, P, G><<<grid, T1_THREADS, 0, s>>>(
+      (const v2_t<T>*)x, (const v2_t<T>*)v, h, n, m, nb, fft_order, chunk,
       (v2_t<T>*)partial);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const int mm = m * m;
+  const int mm = nb * m * m;
   nufft1_2d_reduce_kernel<T><<<(mm + 255) / 256, 256, 0, s>>>(
       (const v2_t<T>*)partial, nchunk, mm, (v2_t<T>*)out);
   return (int)cudaGetLastError();
@@ -285,24 +383,56 @@ extern "C" {
 
 int gpq_nufft2_2d_f32(const void* x, const void* f, float h, int n, int m,
                       int fft_order, void* out, void* stream) {
-  return launch_nufft2<float>(x, f, h, n, m, fft_order, out, stream);
+  return launch_nufft2<float, T2_THREADS, 1>(x, f, h, n, m, 1, fft_order, out,
+                                             stream);
 }
 
 int gpq_nufft2_2d_f64(const void* x, const void* f, double h, int n, int m,
                       int fft_order, void* out, void* stream) {
-  return launch_nufft2<double>(x, f, h, n, m, fft_order, out, stream);
+  return launch_nufft2<double, T2_THREADS, 1>(x, f, h, n, m, 1, fft_order, out,
+                                              stream);
 }
 
 int gpq_nufft1_2d_f32(const void* x, const void* v, float h, int n, int m,
                       int fft_order, int chunk, void* partial, void* out,
                       void* stream) {
-  return launch_nufft1<float>(x, v, h, n, m, fft_order, chunk, partial, out, stream);
+  return launch_nufft1<float, 1>(x, v, h, n, m, 1, fft_order, chunk, partial, out,
+                                 stream);
 }
 
 int gpq_nufft1_2d_f64(const void* x, const void* v, double h, int n, int m,
                       int fft_order, int chunk, void* partial, void* out,
                       void* stream) {
-  return launch_nufft1<double>(x, v, h, n, m, fft_order, chunk, partial, out, stream);
+  return launch_nufft1<double, 1>(x, v, h, n, m, 1, fft_order, chunk, partial, out,
+                                  stream);
+}
+
+int gpq_nufft2_2d_batched_f32(const void* x, const void* f, float h, int n,
+                              int m, int nb, int fft_order, void* out,
+                              void* stream) {
+  return launch_nufft2<float, T2B_THREADS, T2B_GROUP>(x, f, h, n, m, nb, fft_order,
+                                                      out, stream);
+}
+
+int gpq_nufft2_2d_batched_f64(const void* x, const void* f, double h, int n,
+                              int m, int nb, int fft_order, void* out,
+                              void* stream) {
+  return launch_nufft2<double, T2B_THREADS, T2B_GROUP>(x, f, h, n, m, nb, fft_order,
+                                                       out, stream);
+}
+
+int gpq_nufft1_2d_batched_f32(const void* x, const void* v, float h, int n,
+                              int m, int nb, int fft_order, int chunk,
+                              void* partial, void* out, void* stream) {
+  return launch_nufft1<float, T1B_GROUP>(x, v, h, n, m, nb, fft_order, chunk,
+                                         partial, out, stream);
+}
+
+int gpq_nufft1_2d_batched_f64(const void* x, const void* v, double h, int n,
+                              int m, int nb, int fft_order, int chunk,
+                              void* partial, void* out, void* stream) {
+  return launch_nufft1<double, T1B_GROUP>(x, v, h, n, m, nb, fft_order, chunk,
+                                          partial, out, stream);
 }
 
 }  // extern "C"

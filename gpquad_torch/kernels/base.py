@@ -36,6 +36,16 @@ class AbstractKernel(nn.Module):
         if hypers:
             raise TypeError(f"Unknown hyperparameters: {sorted(hypers)}")
 
+    @property
+    def num_hypers(self) -> int:
+        """Number of hyperparameters *including* the noise variance."""
+        return len(self.hyper_names) + 1
+
+    def get_hyper(self, name: str) -> torch.Tensor:
+        if name not in self.hyper_names:
+            raise ValueError(f"Unknown hyperparameter: {name}")
+        return getattr(self, name)
+
     def hyper_vector(self) -> torch.Tensor:
         """Kernel hypers stacked in declared order, float64, shape ``(H,)``."""
         return torch.stack([getattr(self, n).to(torch.float64)

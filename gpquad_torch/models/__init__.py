@@ -1,6 +1,10 @@
 """Models of the port (``gpquad/models``)."""
 from .efgp import (FitState, fit, fit_with_grid, predict_mean, predict_var,
                    quadrature_weights, tensor_grid)
+from .gradient import GradientResult, gradient, gradient_with_grid
+from .pipeline import FusedResult, fit_predict_grad
 
-__all__ = ["FitState", "fit", "fit_with_grid", "predict_mean", "predict_var",
+__all__ = ["FitState", "FusedResult", "GradientResult", "fit",
+           "fit_predict_grad", "fit_with_grid", "gradient",
+           "gradient_with_grid", "predict_mean", "predict_var",
            "quadrature_weights", "tensor_grid"]

@@ -115,9 +115,12 @@ def tensor_grid(xis_1d: torch.Tensor, d: int) -> torch.Tensor:
     return torch.stack(grids, dim=-1).reshape(-1, d)
 
 
-def quadrature_weights(kernel, xis_flat, h, d):
-    """ws = sqrt(S(xi) h^d), complex."""
+def quadrature_weights(kernel, xis_flat, h, d, *, mask=None):
+    """ws = sqrt(S(xi) h^d), complex.  ``mask`` ((M,), optional) zeroes
+    padded grid nodes so that a padded grid stays algebraically exact."""
     s = kernel.spectral_density(xis_flat)
+    if mask is not None:
+        s = s * torch.as_tensor(mask, dtype=s.dtype, device=s.device)
     return torch.sqrt(s.to(_cdtype(s.dtype)) * h.to(s.dtype) ** d)
 
 

@@ -12,11 +12,15 @@ Hopper:
 - :func:`nufft1_2d` replaces ``pallas_nufft1_2d`` (:195) and
   ``_pallas_nufft1_2d_tiled`` (:442): per-block partial sums over chunks of
   2048 points, then a second pass adds the partials in chunk order.
+- :func:`nufft2_2d_batched` replaces ``pallas_nufft2_2d_batched`` (:838)
+  and :func:`nufft1_2d_batched` replaces ``pallas_nufft1_2d_batched``
+  (:914): B vectors against the same points in one launch, the phases made
+  once per group of batch elements (the gradient's probe batches).
 
-Both are bound by operations on an H100 (fp32 complex multiply-adds outside
-the tensor cores, ~8 mtot^2 flops per point); the source says how the design
-stages the work.  The wrappers take a tensor on the CPU to the plain version
-(:func:`nufft2_2d_ref`, :func:`nufft1_2d_ref`, the phase-matrix backend of
+All four are bound by operations on an H100 (fp32 complex multiply-adds
+outside the tensor cores, ~8 mtot^2 flops per point and vector); the source
+says how the design stages the work.  The wrappers take a tensor on the CPU
+to the plain version (``*_ref``, the phase-matrix backend of
 ``ops/nufft.py``); on a CUDA tensor they launch the kernel or raise.
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
@@ -38,11 +42,14 @@ import torch
 from .nufft import make_phase_nufft
 
 __all__ = ["nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
-           "CudaNUFFT", "LAUNCHES", "build", "library_path"]
+           "nufft1_2d_batched", "nufft2_2d_batched", "nufft1_2d_batched_ref",
+           "nufft2_2d_batched_ref", "CudaNUFFT", "LAUNCHES", "build",
+           "library_path"]
 
 # Launches of each kernel since the last reset (a launch is one wrapper call
 # on a CUDA tensor; the two stages of type-1 count once).
-LAUNCHES = {"nufft1_2d": 0, "nufft2_2d": 0}
+LAUNCHES = {"nufft1_2d": 0, "nufft2_2d": 0, "nufft1_2d_batched": 0,
+            "nufft2_2d_batched": 0}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("nufft_2d.cu",)
@@ -110,6 +117,13 @@ def _library():
             t1 = getattr(lib, f"gpq_nufft1_2d_{prec}")
             t1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr, ptr]
             t1.restype = i32
+            b2 = getattr(lib, f"gpq_nufft2_2d_batched_{prec}")
+            b2.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
+            b2.restype = i32
+            b1 = getattr(lib, f"gpq_nufft1_2d_batched_{prec}")
+            b1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, ptr, ptr,
+                           ptr]
+            b1.restype = i32
         _lib = lib
     return _lib
 
@@ -129,10 +143,24 @@ def _check(x: torch.Tensor, mtot: int):
         raise ValueError(f"unsupported device {x.device}")
 
 
-def _raise_on(rc: int, name: str):
+def _check_cuda_operand(name, t, x, cdtype):
+    if t.device != x.device or t.dtype != cdtype:
+        raise TypeError(f"{name} must be {cdtype} on {x.device}, "
+                        f"got {t.dtype} on {t.device}")
+
+
+def _launch(name: str, x: torch.Tensor, *args):
+    """Call ``gpq_<name>_<f32|f64>`` (x's precision) with ``args`` and x's
+    current stream; raise on a CUDA error, count the launch."""
+    prec = "f32" if x.dtype == torch.float32 else "f64"
+    fn = getattr(_library(), f"gpq_{name}_{prec}")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} "
-                           f"({torch.cuda.get_device_name()})")
+                           f"({torch.cuda.get_device_name(x.device)})")
+    LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +181,19 @@ def nufft1_2d_ref(x, vals, h, *, mtot: int, fft_order: bool = False):
     return op.type1(vals)
 
 
+def nufft2_2d_batched_ref(x, f, h, *, mtot: int, fft_order: bool = False):
+    """Plain batched type-2: ``f`` (B, mtot, mtot) or (B, mtot^2) -> complex
+    (B, N), one phase-matrix apply per vector."""
+    op = make_phase_nufft(x, h, mtot, fft_order=fft_order)
+    return op.type2(f.reshape(-1, mtot * mtot))
+
+
+def nufft1_2d_batched_ref(x, vals, h, *, mtot: int, fft_order: bool = False):
+    """Plain batched type-1: ``vals`` (B, N) -> complex (B, mtot, mtot)."""
+    op = make_phase_nufft(x, h, mtot, fft_order=fft_order)
+    return op.type1(vals.reshape(-1, x.shape[0]))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -169,9 +210,7 @@ def nufft2_2d(x, f, h, *, mtot: int, fft_order: bool = False):
     cdtype = _complex_of(x.dtype)
     if f.numel() != mtot * mtot:
         raise ValueError(f"f has {f.numel()} entries, expected {mtot}^2")
-    if f.device != x.device or f.dtype != cdtype:
-        raise TypeError(f"f must be {cdtype} on {x.device}, "
-                        f"got {f.dtype} on {f.device}")
+    _check_cuda_operand("f", f, x, cdtype)
     n = x.shape[0]
     out = torch.empty(n, dtype=cdtype, device=x.device)
     if n == 0:
@@ -179,15 +218,8 @@ def nufft2_2d(x, f, h, *, mtot: int, fft_order: bool = False):
     x = x.contiguous()
     f = f.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
-    lib = _library()
-    fn = lib.gpq_nufft2_2d_f32 if x.dtype == torch.float32 \
-        else lib.gpq_nufft2_2d_f64
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), f.data_ptr(), h, n, mtot, int(fft_order),
-                out.data_ptr(), stream)
-    _raise_on(rc, "nufft2_2d")
-    LAUNCHES["nufft2_2d"] += 1
+    _launch("nufft2_2d", x, x.data_ptr(), f.data_ptr(), h, n, mtot,
+            int(fft_order), out.data_ptr())
     return out
 
 
@@ -204,9 +236,7 @@ def nufft1_2d(x, vals, h, *, mtot: int, fft_order: bool = False):
     n = x.shape[0]
     if vals.shape != (n,):
         raise ValueError(f"vals must be ({n},), got {tuple(vals.shape)}")
-    if vals.device != x.device or vals.dtype != cdtype:
-        raise TypeError(f"vals must be {cdtype} on {x.device}, "
-                        f"got {vals.dtype} on {vals.device}")
+    _check_cuda_operand("vals", vals, x, cdtype)
     if n == 0:
         return torch.zeros((mtot, mtot), dtype=cdtype, device=x.device)
     x = x.contiguous()
@@ -215,15 +245,77 @@ def nufft1_2d(x, vals, h, *, mtot: int, fft_order: bool = False):
     nchunk = -(-n // TYPE1_CHUNK)
     partial = torch.empty((nchunk, mtot, mtot), dtype=cdtype, device=x.device)
     out = torch.empty((mtot, mtot), dtype=cdtype, device=x.device)
-    lib = _library()
-    fn = lib.gpq_nufft1_2d_f32 if x.dtype == torch.float32 \
-        else lib.gpq_nufft1_2d_f64
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), vals.data_ptr(), h, n, mtot, int(fft_order),
-                TYPE1_CHUNK, partial.data_ptr(), out.data_ptr(), stream)
-    _raise_on(rc, "nufft1_2d")
-    LAUNCHES["nufft1_2d"] += 1
+    _launch("nufft1_2d", x, x.data_ptr(), vals.data_ptr(), h, n, mtot,
+            int(fft_order), TYPE1_CHUNK, partial.data_ptr(), out.data_ptr())
+    return out
+
+
+def _check_batch(B: int, mtot: int):
+    if B < 1:
+        raise ValueError(f"the batch must hold at least one vector, got {B}")
+    if B * mtot * mtot >= 2 ** 31:
+        raise ValueError(f"B * mtot^2 = {B * mtot * mtot} exceeds the "
+                         "kernels' 32-bit index range")
+
+
+def nufft2_2d_batched(x, f, h, *, mtot: int, fft_order: bool = False):
+    """Batched fused type-2 (replaces ``pallas_nufft2_2d_batched``).
+
+    ``f`` complex (B, mtot, mtot) or (B, mtot^2), B >= 1; returns complex
+    (B, N) from one launch.  A CPU tensor takes the plain version."""
+    _check(x, mtot)
+    m = mtot
+    if f.ndim not in (2, 3) or tuple(f.shape[1:]) not in ((m * m,), (m, m)):
+        raise ValueError(f"f must be (B, {m}, {m}) or (B, {m * m}), "
+                         f"got {tuple(f.shape)}")
+    B = f.shape[0]
+    _check_batch(B, m)
+    if x.device.type == "cpu":
+        return nufft2_2d_batched_ref(x, f, h, mtot=m, fft_order=fft_order)
+    cdtype = _complex_of(x.dtype)
+    _check_cuda_operand("f", f, x, cdtype)
+    n = x.shape[0]
+    out = torch.empty((B, n), dtype=cdtype, device=x.device)
+    if n == 0:
+        return out
+    x = x.contiguous()
+    f = f.contiguous()
+    h = float(torch.as_tensor(h, dtype=x.dtype))
+    _launch("nufft2_2d_batched", x, x.data_ptr(), f.data_ptr(), h, n, m, B,
+            int(fft_order), out.data_ptr())
+    return out
+
+
+def nufft1_2d_batched(x, vals, h, *, mtot: int, fft_order: bool = False):
+    """Batched fused type-1 (replaces ``pallas_nufft1_2d_batched``).
+
+    ``vals`` complex (B, N), B >= 1; returns complex (B, mtot, mtot) from
+    one launch (two kernels: per-chunk partials, then the chunk-order sum;
+    scratch of nchunk * B * mtot^2 values).  A CPU tensor takes the plain
+    version."""
+    _check(x, mtot)
+    n = x.shape[0]
+    if vals.ndim != 2 or vals.shape[1] != n:
+        raise ValueError(f"vals must be (B, {n}), got {tuple(vals.shape)}")
+    B = vals.shape[0]
+    _check_batch(B, mtot)
+    if x.device.type == "cpu":
+        return nufft1_2d_batched_ref(x, vals, h, mtot=mtot,
+                                     fft_order=fft_order)
+    cdtype = _complex_of(x.dtype)
+    _check_cuda_operand("vals", vals, x, cdtype)
+    if n == 0:
+        return torch.zeros((B, mtot, mtot), dtype=cdtype, device=x.device)
+    x = x.contiguous()
+    vals = vals.contiguous()
+    h = float(torch.as_tensor(h, dtype=x.dtype))
+    nchunk = -(-n // TYPE1_CHUNK)
+    partial = torch.empty((nchunk, B, mtot, mtot), dtype=cdtype,
+                          device=x.device)
+    out = torch.empty((B, mtot, mtot), dtype=cdtype, device=x.device)
+    _launch("nufft1_2d_batched", x, x.data_ptr(), vals.data_ptr(), h, n, mtot,
+            B, int(fft_order), TYPE1_CHUNK, partial.data_ptr(),
+            out.data_ptr())
     return out
 
 
@@ -231,8 +323,10 @@ def nufft1_2d(x, vals, h, *, mtot: int, fft_order: bool = False):
 class CudaNUFFT:
     """NUFFT backend on the d=2 kernels (replaces ``PallasNUFFT``,
     pallas_nufft.py:245): the same ``type1``/``type2`` interface as
-    :class:`~gpquad_torch.ops.nufft.NUFFT`, storing only the points.
-    Batched inputs loop over the single-vector kernels."""
+    :class:`~gpquad_torch.ops.nufft.NUFFT`, storing only the points.  A
+    single vector goes to ``nufft1_2d``/``nufft2_2d``; a leading batch of two
+    or more vectors (any shape, flat or block-shaped modes) goes to the
+    batched kernel in one launch."""
     x: torch.Tensor          # (N, 2)
     h: float                 # already rounded to x's precision
     mtot: int
@@ -249,9 +343,12 @@ class CudaNUFFT:
         kw = dict(mtot=self.mtot, fft_order=self.fft_order)
         if vals.ndim == 1:
             return nufft1_2d(self.x, vals.to(cdtype), self.h, **kw)
-        lead = vals.shape[:-1]
+        lead = tuple(vals.shape[:-1])
         flat = vals.reshape(-1, vals.shape[-1]).to(cdtype)
-        out = torch.stack([nufft1_2d(self.x, v, self.h, **kw) for v in flat])
+        if flat.shape[0] == 1:
+            out = nufft1_2d(self.x, flat[0], self.h, **kw)
+        else:
+            out = nufft1_2d_batched(self.x, flat, self.h, **kw)
         return out.reshape(lead + (self.mtot, self.mtot))
 
     def type2(self, fk):
@@ -260,7 +357,11 @@ class CudaNUFFT:
         kw = dict(mtot=m, fft_order=self.fft_order)
         if fk.shape in ((m * m,), (m, m)):
             return nufft2_2d(self.x, fk.to(cdtype), self.h, **kw)
-        lead = fk.shape[:-1] if fk.shape[-1] == m * m else fk.shape[:-2]
+        lead = tuple(fk.shape[:-1] if fk.shape[-1] == m * m
+                     else fk.shape[:-2])
         flat = fk.reshape(-1, m, m).to(cdtype)
-        out = torch.stack([nufft2_2d(self.x, f, self.h, **kw) for f in flat])
+        if flat.shape[0] == 1:
+            out = nufft2_2d(self.x, flat[0], self.h, **kw)
+        else:
+            out = nufft2_2d_batched(self.x, flat, self.h, **kw)
         return out.reshape(lead + (self.n,))

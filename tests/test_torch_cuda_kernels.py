@@ -16,8 +16,12 @@ import torch
 
 import gpquad_torch
 from gpquad_torch.ops import cuda_nufft
-from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_2d, nufft1_2d_ref,
-                                         nufft2_2d, nufft2_2d_ref)
+from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_2d,
+                                         nufft1_2d_batched,
+                                         nufft1_2d_batched_ref, nufft1_2d_ref,
+                                         nufft2_2d, nufft2_2d_batched,
+                                         nufft2_2d_batched_ref, nufft2_2d_ref)
+from gpquad_torch.ops import nufft as nufft_mod
 from gpquad_torch.ops.nufft import NUFFT, make_nufft
 
 
@@ -146,3 +150,109 @@ def test_default_probes_on_card(cuda_device):
     assert a.device.type == "cuda" and a.shape == (100,)
     assert torch.equal(a, b)
     assert bool(torch.isfinite(a).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (1, 3000, 29, 0.65, False),
+    (3, 5000, 57, 0.65, True),
+    (20, 2100, 29, 0.65, False),
+    (3, 777, 9, 0.31, True),
+    (20, 1500, 107, 0.1, False),
+    (3, 1200, 339, 0.97, True),
+])
+def test_batched_kernels_match_plain_on_card(cuda_device, dtype, B, n, mtot,
+                                             h, fft_order):
+    """One launch each for the whole batch (groups of 4 / 8 inside the
+    kernels, so B = 1, 3 and 20 cover a partial group, one group and
+    several), against the float64 plain batched versions."""
+    rng = np.random.default_rng(1)
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 2)), device=cuda_device).to(dtype)
+    V = torch.as_tensor(rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n)),
+                        device=cuda_device).to(cdt)
+    F = torch.as_tensor(rng.normal(size=(B, mtot, mtot))
+                        + 1j * rng.normal(size=(B, mtot, mtot)),
+                        device=cuda_device).to(cdt)
+    hq = float(torch.tensor(h, dtype=dtype))
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    before = dict(cuda_nufft.LAUNCHES)
+    got1 = nufft1_2d_batched(x, V, hq, **kw)
+    got2 = nufft2_2d_batched(x, F, hq, **kw)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCHES["nufft1_2d_batched"] == \
+        before["nufft1_2d_batched"] + 1
+    assert cuda_nufft.LAUNCHES["nufft2_2d_batched"] == \
+        before["nufft2_2d_batched"] + 1
+    x64 = x.double()
+    ref1 = nufft1_2d_batched_ref(x64, V.to(torch.complex128), hq, **kw)
+    ref2 = nufft2_2d_batched_ref(x64, F.to(torch.complex128), hq, **kw)
+    assert got1.shape == (B, mtot, mtot) and got2.shape == (B, n)
+    assert _rel(got1.to(torch.complex128), ref1) < 1e-4
+    assert _rel(got2.to(torch.complex128), ref2) < 1e-4
+    # the flat mode layout gives the same launch and result
+    flat = nufft2_2d_batched(x, F.reshape(B, mtot * mtot), hq, **kw)
+    assert torch.equal(flat, got2)
+
+
+@pytest.mark.cuda
+def test_cuda_backend_batches_in_one_launch(cuda_device):
+    """CudaNUFFT sends a leading batch of >= 2 to one batched launch and a
+    single vector to the single kernels."""
+    x = torch.rand((400, 2), device=cuda_device)
+    op = make_nufft(x, 0.3, 9)
+    before = dict(cuda_nufft.LAUNCHES)
+    assert op.type1(torch.ones((2, 3, 400), device=cuda_device)).shape == \
+        (2, 3, 9, 9)
+    assert op.type2(torch.ones((5, 81), dtype=torch.complex64,
+                               device=cuda_device)).shape == (5, 400)
+    assert op.type2(torch.ones((1, 9, 9), dtype=torch.complex64,
+                               device=cuda_device)).shape == (1, 400)
+    after = dict(cuda_nufft.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        "nufft1_2d": 0, "nufft2_2d": 1, "nufft1_2d_batched": 1,
+        "nufft2_2d_batched": 1}
+
+
+@pytest.mark.cuda
+def test_pipeline_on_card_matches_cpu(cuda_device):
+    """fit_predict_grad on the card (kernels) against the CPU (phase
+    matrices), same generator seed: the CPU generator draws the probes for
+    both, so they see the same +-1 vectors.  float64 on the card agrees to
+    the solves' tolerance; float32 to 1e-4 * max|ref| on mean and variance
+    and 1e-2 relative on the gradient."""
+    rng = np.random.default_rng(8)
+    n = 3000
+    x = rng.uniform(0, 1, (n, 2))
+    y = np.sin(3 * np.pi * x[:, 0]) * np.cos(2 * np.pi * x[:, 1]) \
+        + 0.1 * rng.normal(size=n)
+    xq = rng.uniform(0, 1, (200, 2))
+    kern = gpquad_torch.make_kernel("SE", 2, lengthscale=0.2, variance=1.0)
+    _, h, mtot = gpquad_torch.spectral_grid(kern, 1e-4, 1.0)
+    out = {}
+    for dev, dtype in (("cpu", np.float64), (cuda_device, np.float64),
+                       (cuda_device, np.float32)):
+        cuda_nufft.LAUNCHES.update({k: 0 for k in cuda_nufft.LAUNCHES})
+        nufft_mod.BACKEND_PICKS.update({k: 0 for k in nufft_mod.BACKEND_PICKS})
+        r = gpquad_torch.fit_predict_grad(
+            x.astype(dtype), y.astype(dtype), xq.astype(dtype), kern, 0.5, h,
+            torch.Generator().manual_seed(3), mtot=mtot, trace_samples=4,
+            var_probes=32, cg_tol=1e-10, var_cg_tol=1e-10, grad_cg_tol=1e-10,
+            device=dev)
+        if dev != "cpu":
+            assert dict(cuda_nufft.LAUNCHES) == {
+                "nufft1_2d": 3, "nufft2_2d": 3, "nufft1_2d_batched": 1,
+                "nufft2_2d_batched": 2}
+            assert nufft_mod.BACKEND_PICKS["matmul"] == 0
+        out[(str(dev), dtype)] = [t.cpu().numpy().astype(np.float64)
+                                  for t in (r.mean, r.var, r.grad)]
+    m_cpu, v_cpu, g_cpu = out[("cpu", np.float64)]
+    m64, v64, g64 = out[(str(cuda_device), np.float64)]
+    m32, v32, g32 = out[(str(cuda_device), np.float32)]
+    assert np.max(np.abs(m64 - m_cpu)) < 1e-9
+    assert np.max(np.abs(v64 - v_cpu)) < 1e-8 * np.max(np.abs(v_cpu))
+    assert np.all(np.abs(g64 - g_cpu) < 1e-8 * np.abs(g_cpu))
+    assert np.max(np.abs(m32 - m_cpu)) < 1e-4 * np.max(np.abs(m_cpu))
+    assert np.max(np.abs(v32 - v_cpu)) < 1e-4 * np.max(np.abs(v_cpu))
+    assert np.all(np.abs(g32 - g_cpu) < 1e-2 * np.abs(g_cpu))

@@ -104,8 +104,9 @@ def test_wrappers_validate_shapes():
 
 
 def test_cuda_backend_batches_over_single_kernel(rng):
-    """CudaNUFFT's batched applies loop over the single-vector wrapper; on
-    CPU tensors that is the plain version, row by row."""
+    """CudaNUFFT's batched applies (one batched wrapper call, the plain
+    batched version on CPU tensors) equal the single-vector plain version
+    row by row."""
     n, mtot, h, B = 200, 9, 0.2, 3
     x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)))
     op = CudaNUFFT(x=x, h=h, mtot=mtot)

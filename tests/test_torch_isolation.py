@@ -29,7 +29,8 @@ def _imported_roots(path: Path):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, gpquad_torch, gpquad_torch.convert, "
-            "gpquad_torch.ops.cuda_nufft\n"
+            "gpquad_torch.ops.cuda_nufft, gpquad_torch.ops.slq, "
+            "gpquad_torch.models.gradient, gpquad_torch.models.pipeline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
@@ -37,6 +38,15 @@ def test_import_pulls_in_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_scan_covers_the_port():
+    names = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    for module in ("gpquad_torch/models/gradient.py",
+                   "gpquad_torch/models/pipeline.py",
+                   "gpquad_torch/ops/slq.py", "gpquad_torch/ops/cuda_nufft.py",
+                   "chip_smoke.py"):
+        assert module in names, module
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
