@@ -23,12 +23,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      state and its own NUFFTs each from the kernels or the plain path;
   5. the CG tier at bench.py's hard configuration (l=0.02, mtot=107, Jacobi
      PCG): fit + predict_mean, then gradient_with_grid(state=...), with
-     their own launch counts, against float64.
+     their own launch counts, against float64;
+  6. d3, the fused fit_predict_grad on 3-D data (n=1e5 in [0,1]^3, SE
+     l=0.1 -> mtot 31, M 29 791, Jacobi PCG; 10 000 targets, 256 variance
+     probes, 10 trace samples): launches per call, median of 5 warm calls,
+     one profile, against the port's float64 run on the plain path with
+     the same generator seed;
+  7. hard3d (bench.py:363-438: n=2e4, l=0.2 -> mtot 21, M 9261): the fit
+     with the deflation preconditioner (rank 2048) and the mean, then the
+     stochastic variance and gradient_with_grid(state=fit) reusing its
+     block, against float64.
+Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
+and at mtot 57, 101 and 255.
 
-It prints the kernels' JSON line, then the card's nvidia-smi line, then
-``{"ok": true, "device": ...}`` as the last line, and writes the full record
-to build/chip_smoke.json.  Without a CUDA device, or without the
-package beside it, it exits non-zero and prints no result.
+It prints each phase's wall time, the kernels' JSON line, then the card's
+nvidia-smi line, then ``{"ok": true, "device": ...}`` as the last line, and
+writes the full record to build/chip_smoke.json.  Without a CUDA device, or
+without the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -52,16 +63,27 @@ PEAK_BYTES = 3.35e12
 # minimax sin/cos pair the TPU kernel evaluates (pallas_nufft.py:61-77).
 PHASE_FLOPS = 20
 
-SOURCE = "gpquad_torch/csrc/nufft_2d.cu"
 REPLACES = {"nufft1_2d": "gpquad/ops/pallas_nufft.py:195",
             "nufft2_2d": "gpquad/ops/pallas_nufft.py:113",
             "nufft1_2d_batched": "gpquad/ops/pallas_nufft.py:914",
-            "nufft2_2d_batched": "gpquad/ops/pallas_nufft.py:838"}
+            "nufft2_2d_batched": "gpquad/ops/pallas_nufft.py:838",
+            # one kernel per type covers the single-block (mtot <= 56) and
+            # the slab-tiled (:1118, :1034) TPU functions
+            "nufft1_3d": "gpquad/ops/pallas_nufft.py:750",
+            "nufft2_3d": "gpquad/ops/pallas_nufft.py:662"}
+KERNELS_2D = ("nufft1_2d", "nufft2_2d", "nufft1_2d_batched",
+              "nufft2_2d_batched")
+KERNELS_3D = ("nufft1_3d", "nufft2_3d")
 SINGLE = ("nufft1_2d", "nufft2_2d")
 # bench.py's settings for the fused call (bench.py:870-875)
 FUSED_KW = dict(trace_samples=10, var_probes=256, cg_tol=1e-6,
                 var_cg_tol=1e-4, grad_cg_tol=1e-4, max_cg_iter=1000,
                 var_max_cg_iter=400)
+# d3 runs them with the variance's PCG allowed to converge: its Jacobi
+# solves need ~2100 iterations at 1e-4, and at 400 no probe converges (phase
+# 6 measures both), so the answer there is an unconverged iterate
+D3_VAR_MAX_CG_ITER = 3000
+FUSED3_KW = dict(FUSED_KW, var_max_cg_iter=D3_VAR_MAX_CG_ITER)
 
 
 class SmokeFailure(RuntimeError):
@@ -75,6 +97,10 @@ def check(cond, msg):
 
 def sync():
     torch.cuda.synchronize()
+
+
+def source_of(name):
+    return f"gpquad_torch/csrc/nufft_{name.split('_')[1]}.cu"
 
 
 def time_cuda(fn, reps, trials=5):
@@ -147,16 +173,21 @@ def print_profile(tag, prof, card):
 
 def kernel_work(name, n, m, dtype, B=1):
     """(flops, bytes) the function needs for B vectors (B = 1 for the single
-    kernels): per point and vector, mtot^2 complex multiply-adds at 8 flops
-    plus the mtot first-axis products, multiply-adds at 8 flops for type-2
-    (sum_j e1 t_j) and plain complex multiplies at 6 for type-1 (v e1);
-    phases at PHASE_FLOPS once per point and mode, also for a batch; the
-    points, the B inputs and the B outputs read or written once."""
+    kernels), d = 2 or 3 from the name.  Per point and vector: mtot^d
+    complex multiply-adds at 8 flops; then the outer axes' products,
+    multiply-adds at 8 flops for type-2 (mtot^(d-1) + ... + mtot of them:
+    sum_j e1 t_j, and at d=3 sum_k e2 t_jk) and plain complex multiplies at
+    6 for type-1 (at d=3 the mtot^2 products (v e1) e2; the mtot products
+    v e1).  Phases at PHASE_FLOPS once per point, dimension and mode, also
+    for a batch; the points, the B inputs and the B outputs read or written
+    once."""
+    d = 3 if name.endswith("_3d") else 2
     s = 4 if dtype == torch.float32 else 8
-    phases = 2 * n * m * PHASE_FLOPS
-    first_axis = 8 if name.startswith("nufft2") else 6
-    flops = B * n * (8 * m * m + first_axis * m) + phases
-    nbytes = 2 * n * s + B * (2 * m * m * s + 2 * n * s)
+    phases = d * n * m * PHASE_FLOPS
+    outer = 8 if name.startswith("nufft2") else 6
+    outer_products = sum(m ** k for k in range(1, d))
+    flops = B * n * (8 * m ** d + outer * outer_products) + phases
+    nbytes = d * n * s + B * (2 * m ** d * s + 2 * n * s)
     return flops, nbytes
 
 
@@ -184,6 +215,25 @@ def headline_data(n, targets, seed=0):
     return xh, yh, xnew
 
 
+def data_3d(n, targets, seed):
+    """bench.py:378-381 (hard3d_config): points uniform in [0,1]^3,
+    y = sin(3 pi x0) cos(2 pi x1) cos(pi x2) + 0.1 N(0,1), then the targets,
+    from numpy seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    xh = rng.uniform(0, 1, size=(n, 3))
+    fh = (np.sin(3 * np.pi * xh[:, 0]) * np.cos(2 * np.pi * xh[:, 1])
+          * np.cos(np.pi * xh[:, 2]))
+    yh = fh + 0.1 * rng.normal(size=n)
+    xnew = rng.uniform(0, 1, size=(targets, 3))
+    return xh, yh, xnew
+
+
+def launch_counts(**nonzero):
+    """The LAUNCHES dict a path should leave: every kernel 0 but those
+    named."""
+    return {k: nonzero.get(k, 0) for k in REPLACES}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -194,11 +244,14 @@ def main() -> int:
         return 3
     sys.path.insert(0, str(ROOT))
     import gpquad_torch
+    from gpquad_torch.models import efgp as efgp_mod
     from gpquad_torch.ops import cuda_nufft, nufft as nufft_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     record = {"phases": {}}
+    phase_s = {}
+    t_run = time.perf_counter()
 
     # -- phase 1: the card -------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -225,14 +278,22 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print(f"[2] ptxas: {line.strip()}")
     record["phases"]["build_s"] = build_s
+    phase_s["1-2"] = time.perf_counter() - t_run
 
     # -- phase 3: kernels against their plain versions ----------------------
+    t_phase = time.perf_counter()
     xh, yh, xnew = headline_data(100_000, 10_000)
     xh2, yh2, xnew2 = headline_data(100_000, 2_000, seed=1)
+    xd3, yd3, xqd3 = data_3d(100_000, 10_000, seed=3)
+    xh3, yh3, xqh3 = data_3d(20_000, 1_000, seed=4)
     kernel32 = gpquad_torch.make_kernel("SE", 2, lengthscale=np.float32(0.1),
                                         variance=np.float32(1.0))
     kern_hard = gpquad_torch.make_kernel("SE", 2, lengthscale=np.float32(0.02),
                                          variance=np.float32(1.0))
+    kern_d3 = gpquad_torch.make_kernel("SE", 3, lengthscale=np.float32(0.1),
+                                       variance=np.float32(1.0))
+    kern_h3 = gpquad_torch.make_kernel("SE", 3, lengthscale=np.float32(0.2),
+                                       variance=np.float32(1.0))
 
     def path_grid(kern, xs):
         """(h, mtot) as fit plans them for the float32 points ``xs``."""
@@ -243,6 +304,11 @@ def main() -> int:
 
     h_head, mtot_head = path_grid(kernel32, xh)
     h_hard, mtot_hard = path_grid(kern_hard, xh2)
+    # the d=3 paths take bench.py's grid for [0,1]^3 (bench.py:387)
+    _, h_d3, mtot_d3 = gpquad_torch.spectral_grid(kern_d3, 1e-6, 1.0)
+    _, h_h3, mtot_h3 = gpquad_torch.spectral_grid(kern_h3, 1e-6, 1.0)
+    check((mtot_d3, mtot_h3) == (31, 21),
+          f"d=3 grids planned mtot {mtot_d3} and {mtot_h3}, not 31 and 21")
     m_lag = 2 * mtot_head - 1
     gen = np.random.default_rng(1)
     # (kernel, n, mtot, fft_order, h, what it serves, B): every call of the
@@ -274,14 +340,32 @@ def main() -> int:
             shapes.append((name, 20_000, m, False, 0.97, "mtot > 256", 1))
     for name in ("nufft1_2d_batched", "nufft2_2d_batched"):
         shapes.append((name, 20_000, 339, False, 0.97, "any mtot", 4))
+    for tag, n, nq, m, h in (("d3", 100_000, 10_000, mtot_d3, h_d3),
+                             ("hard3d", 20_000, 1_000, mtot_h3, h_h3)):
+        shapes += [
+            ("nufft1_3d", n, m, False, h, f"{tag} F*y", 1),
+            ("nufft1_3d", n, 2 * m - 1, False, h, f"{tag} lag table", 1),
+            ("nufft2_3d", nq, m, False, h, f"{tag} mean", 1),
+            ("nufft2_3d", nq, 2 * m - 1, True, h,
+             f"{tag} variance evaluation", 1),
+            ("nufft2_3d", n, m, False, h, f"{tag} gradient F(D beta)", 1),
+            ("nufft1_3d", n, m, False, h, f"{tag} gradient F*Z", 10),
+            ("nufft2_3d", n, m, False, h,
+             f"{tag} gradient F(D'F*Z), F(D Beta)", 10),
+        ]
+    for name in KERNELS_3D:
+        for m in (57, 101, 255):
+            shapes.append((name, 20_000, m, False, 0.97, "slab-tiled mtot",
+                           1))
     kernels = {k: getattr(cuda_nufft, k) for k in REPLACES}
     plains = {k: getattr(cuda_nufft, k + "_ref") for k in REPLACES}
     phase3 = []
     for name, n, m, fo, h, what, B in shapes:
+        d = 3 if name in KERNELS_3D else 2
         batched = name.endswith("_batched")
-        lead = (B,) if batched else ()
-        x64 = torch.as_tensor(gen.uniform(0, 1, (n, 2)), device=dev)
-        shape = lead + ((n,) if name.startswith("nufft1") else (m, m))
+        lead = (B,) if batched or B > 1 else ()
+        x64 = torch.as_tensor(gen.uniform(0, 1, (n, d)), device=dev)
+        shape = lead + ((n,) if name.startswith("nufft1") else (m,) * d)
         arg64 = torch.as_tensor(gen.normal(size=shape)
                                 + 1j * gen.normal(size=shape), device=dev)
         for dtype in (torch.float32, torch.float64):
@@ -300,24 +384,37 @@ def main() -> int:
             # the plain version in the run's precision, for comparison
             plain_rel = float((plains[name](x, arg, hq, **kw)
                                .to(torch.complex128) - ref).abs().max()) / scale
-            check(np.isfinite(rel) and rel <= 1e-4,
+            bar = 1e-4 if dtype == torch.float32 or d == 2 else 1e-10
+            check(np.isfinite(rel) and rel <= bar,
                   f"{name} {dtype} B={B} n={n} mtot={m}: error {rel:.3e} "
-                  f"of max|ref| > 1e-4")
-            reps = max(3, min(50, int(2e9 / (B * n * m * m))))
-            ms = time_cuda(lambda: kernels[name](x, arg, hq, **kw), reps)
+                  f"of max|ref| > {bar:.0e}")
+            if d == 2:
+                reps, trials = max(3, min(50, int(2e9 / (B * n * m * m)))), 5
+            else:
+                reps, trials = max(3, min(50, int(5e10 / (B * n * m ** 3)))), 3
+            ms = time_cuda(lambda: kernels[name](x, arg, hq, **kw), reps,
+                           trials)
             plain_ms = time_cuda(lambda: plains[name](x, arg, hq, **kw),
-                                 max(2, reps // 4))
+                                 max(1 if d == 3 else 2, reps // 4), trials)
             b_ms, b_by = bound_ms(name, n, m, dtype, B)
             row = dict(name=name, dtype=str(dtype).split(".")[-1], B=B, n=n,
                        mtot=m, fft_order=fo, h=hq, serves=what,
                        max_abs_err=err, max_abs_ref=scale, rel_err=rel,
-                       plain_rel_err=plain_rel, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                       plain_rel_err=plain_rel, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by)
             extra = ""
             if batched:
                 single = kernels[name.replace("_batched", "")]
                 row["singles_ms"] = time_cuda(
                     lambda: [single(x, a, hq, **kw) for a in arg], reps)
                 extra = f" {B}x single ms={row['singles_ms']:.4f}"
+            if name == "nufft1_3d":
+                groups, _ = cuda_nufft.type1_3d_groups(n, m, B)
+                row["scratch_bytes"] = (groups * B * m ** 3
+                                        * (8 if dtype == torch.float32
+                                           else 16))
+                extra = (f" scratch {groups} groups "
+                         f"{row['scratch_bytes'] / 1e6:.1f} MB")
             phase3.append(row)
             print(f"[3] {name} {row['dtype']} B={B} n={n} mtot={m} "
                   f"fft_order={fo} ({what}): max_abs_err={err:.3e} "
@@ -325,8 +422,11 @@ def main() -> int:
                   f"ms={ms:.4f} plain_ms={plain_ms:.4f}"
                   f"{extra} bound_ms={b_ms:.4f} ({b_by}) {card}")
     record["phases"]["kernels"] = phase3
+    phase_s["3"] = time.perf_counter() - t_phase
+    print(f"[3] phase wall time {phase_s['3']:.1f} s")
 
     # -- phase 4: the headline configuration --------------------------------
+    t_phase = time.perf_counter()
     sigmasq, eps, probes = 0.01, 1e-6, 256
     x32 = torch.as_tensor(xh, dtype=torch.float32, device=dev)
     y32 = torch.as_tensor(yh, dtype=torch.float32, device=dev)
@@ -386,8 +486,7 @@ def main() -> int:
         check(launches[k] > 0, f"kernel {k} was not launched on the slice")
 
     def counts(t1, t2):
-        return {"nufft1_2d": t1, "nufft2_2d": t2, "nufft1_2d_batched": 0,
-                "nufft2_2d_batched": 0}
+        return launch_counts(nufft1_2d=t1, nufft2_2d=t2)
     check(stages == {"fit": counts(2, 0), "mean": counts(2, 1),
                      "var": counts(2, 2)},
           f"unexpected launch counts by stage {stages}")
@@ -469,8 +568,9 @@ def main() -> int:
     print(f"[4] gradient stage (state=fit): {grad_ms:.2f} ms median of 5 "
           f"warm calls (host clock) {card}; launches={grad_launches} "
           f"grad={gres.grad.tolist()}")
-    check(grad_launches == {"nufft1_2d": 1, "nufft2_2d": 1,
-                            "nufft1_2d_batched": 1, "nufft2_2d_batched": 2},
+    check(grad_launches == launch_counts(nufft1_2d=1, nufft2_2d=1,
+                                         nufft1_2d_batched=1,
+                                         nufft2_2d_batched=2),
           f"unexpected gradient-stage launch counts {grad_launches}")
 
     # 4c: the fused north-star call, fit_predict_grad, at bench.py's settings
@@ -491,14 +591,15 @@ def main() -> int:
     fused_picks = dict(nufft_mod.BACKEND_PICKS)
     print(f"[4] fused fit_predict_grad launches={fused_launches} "
           f"backend_picks={fused_picks}")
-    for k in REPLACES:
+    for k in KERNELS_2D:
         check(fused_launches[k] > 0,
               f"kernel {k} was not launched on the main path")
     # fit: F*y, lag table; mean: 1 type-2; variance: 1 type-2; gradient:
     # F*y again (gpquad recomputes it, gradient.py:213), F(D beta), one
     # batched F*Z and two batched F applies (tk*T = 10 vectors each)
-    check(fused_launches == {"nufft1_2d": 3, "nufft2_2d": 3,
-                             "nufft1_2d_batched": 1, "nufft2_2d_batched": 2},
+    check(fused_launches == launch_counts(nufft1_2d=3, nufft2_2d=3,
+                                          nufft1_2d_batched=1,
+                                          nufft2_2d_batched=2),
           f"unexpected fused launch counts {fused_launches}")
     check(fused_picks["matmul"] == 0,
           f"the fused call took the plain path {fused_picks}")
@@ -599,7 +700,11 @@ def main() -> int:
         grad_f64=out64.grad.tolist(),
         mean_converged=bool(out.mean_converged))
 
+    phase_s["4"] = time.perf_counter() - t_phase
+    print(f"[4] phase wall time {phase_s['4']:.1f} s")
+
     # -- phase 5: the CG tier ------------------------------------------------
+    t_phase = time.perf_counter()
     x2 = torch.as_tensor(xh2, dtype=torch.float32, device=dev)
     y2 = torch.as_tensor(yh2, dtype=torch.float32, device=dev)
     xq2 = torch.as_tensor(xnew2, dtype=torch.float32, device=dev)
@@ -672,8 +777,9 @@ def main() -> int:
           f"clock) {card}; launches={launches_gcg} backend_picks="
           f"{picks_gcg}; grad f32={g2.grad.tolist()} f64={g64.grad.tolist()}"
           f" rel err={[f'{r:.3e}' for r in grad_rel_cg]} (bar 5e-2)")
-    check(launches_gcg == {"nufft1_2d": 1, "nufft2_2d": 1,
-                           "nufft1_2d_batched": 1, "nufft2_2d_batched": 2},
+    check(launches_gcg == launch_counts(nufft1_2d=1, nufft2_2d=1,
+                                        nufft1_2d_batched=1,
+                                        nufft2_2d_batched=2),
           f"unexpected CG-tier gradient launch counts {launches_gcg}")
     check(picks_gcg["matmul"] == 0,
           f"the CG-tier gradient took the plain path {picks_gcg}")
@@ -691,23 +797,259 @@ def main() -> int:
         grad_trace_iters_f64=int(g64.trace_cg_iters),
         grad_converged=converged, grad_rel_err=grad_rel_cg)
 
+    phase_s["5"] = time.perf_counter() - t_phase
+    print(f"[5] phase wall time {phase_s['5']:.1f} s")
+
+    # -- phase 6: d3, the fused pass on 3-D data -----------------------------
+    t_phase = time.perf_counter()
+    x3 = torch.as_tensor(xd3, dtype=torch.float32, device=dev)
+    y3 = torch.as_tensor(yd3, dtype=torch.float32, device=dev)
+    xq3 = torch.as_tensor(xqd3, dtype=torch.float32, device=dev)
+
+    def fused3(x, y, xq, method, seed=0):
+        return gpquad_torch.fit_predict_grad(
+            x, y, xq, kern_d3, sigmasq, h_d3,
+            torch.Generator(device=dev).manual_seed(seed), mtot=mtot_d3,
+            nufft_method=method, device=dev, **FUSED3_KW)
+
+    reset_counts(*counters)
+    out3 = fused3(x3, y3, xq3, "auto")
+    sync()
+    launches_d3 = dict(cuda_nufft.LAUNCHES)
+    picks_d3 = dict(nufft_mod.BACKEND_PICKS)
+    print(f"[6] d3 fused fit_predict_grad mtot={mtot_d3} M={mtot_d3 ** 3} "
+          f"launches={launches_d3} backend_picks={picks_d3}")
+    # fit: F*y and the lag table (mtot 61: the slab-tiled branch); mean;
+    # variance evaluation (mtot 61, FFT order); gradient: F*y again,
+    # F(D beta), one batched F*Z and two batched F applies (10 vectors)
+    check(launches_d3 == launch_counts(nufft1_3d=4, nufft2_3d=5),
+          f"unexpected d3 launch counts {launches_d3}")
+    check(picks_d3["matmul"] == 0, f"the d3 call took the plain path "
+          f"{picks_d3}")
+    check(out3.grad.dtype == torch.float32 and out3.beta.dtype ==
+          torch.complex64, "the f32 d3 run left float32")
+    d3_ms = host_ms(lambda: fused3(x3, y3, xq3, "auto"))
+    prof_d3 = profile_run(lambda: fused3(x3, y3, xq3, "auto"))
+    print(f"[6] d3 fused fit_predict_grad (var_max_cg_iter "
+          f"{D3_VAR_MAX_CG_ITER}): {d3_ms:.2f} ms median of 5 warm "
+          f"calls (host clock) {card}; mean PCG iters "
+          f"{int(out3.mean_cg_iters)} converged {bool(out3.mean_converged)}, "
+          f"trace PCG iters {int(out3.trace_cg_iters)}")
+    print_profile("[6] profiled d3 fused call:", prof_d3, card)
+    out3_64 = fused3(x3.double(), y3.double(), xq3.double(), "matmul")
+    sync()
+    check(out3.mean.shape == (10_000,) and out3.var.shape == (10_000,)
+          and out3.grad.shape == (3,), "wrong d3 output shapes")
+    check(all(bool(torch.isfinite(t).all())
+              for t in (out3.mean, out3.var, out3.grad)),
+          "non-finite d3 output")
+    d3_err_mean = float((out3.mean.double() - out3_64.mean).abs().max())
+    d3_err_var = float((out3.var.double() - out3_64.var).abs().max())
+    d3_var_scale = float(out3_64.var.abs().max())
+    d3_grad_rel = rel_to(out3.grad, out3_64.grad)
+    print(f"[6] d3 vs float64 plain path (same generator seed): "
+          f"max|mean err|={d3_err_mean:.3e} (bar 5e-4), max|var err|="
+          f"{d3_err_var:.3e} (bar 5e-2*max|var64| = {5e-2 * d3_var_scale:.3e})"
+          f", grad rel err per component="
+          f"{[f'{r:.3e}' for r in d3_grad_rel]} (bar 5e-2); f64 mean PCG "
+          f"iters {int(out3_64.mean_cg_iters)}, trace "
+          f"{int(out3_64.trace_cg_iters)}; grad f32={out3.grad.tolist()} "
+          f"f64={out3_64.grad.tolist()}")
+    check(bool(out3.mean_converged), "the d3 mean solve did not converge")
+    check(d3_err_mean <= 5e-4, f"d3 mean error {d3_err_mean:.3e} > 5e-4")
+    check(d3_err_var <= 5e-2 * d3_var_scale,
+          f"d3 variance error {d3_err_var:.3e} > 5e-2 * max|var64|")
+    check(all(r <= 5e-2 for r in d3_grad_rel),
+          f"d3 gradient relative error {d3_grad_rel} > 5e-2")
+    # the variance's probe solves on the same fit, at bench.py's cap and at
+    # the one this phase runs: iterations and how many of the 256 converged
+    st3 = gpquad_torch.fit_with_grid(x3, y3, kern_d3, sigmasq, h_d3, mtot_d3,
+                                     cg_tol=FUSED_KW["cg_tol"],
+                                     max_cg_iter=FUSED_KW["max_cg_iter"],
+                                     device=dev)
+    etas3 = torch.as_tensor(np.random.default_rng(2).choice(
+        [-1.0, 1.0], size=(probes, st3.M)), device=dev).float()
+    var_solves = {}
+    for cap in (FUSED_KW["var_max_cg_iter"], D3_VAR_MAX_CG_ITER):
+        res = efgp_mod._solve_var(st3, st3.ws[None, :] * etas3,
+                                  cg_tol=FUSED_KW["var_cg_tol"],
+                                  max_cg_iter=cap)
+        var_solves[cap] = (int(res.iters), int(res.converged.sum()))
+        print(f"[6] d3 variance probe solves (Jacobi PCG, cg_tol 1e-4) at "
+              f"max_cg_iter {cap}: {var_solves[cap][0]} iterations, "
+              f"{var_solves[cap][1]}/{probes} probes converged")
+    check(var_solves[D3_VAR_MAX_CG_ITER][1] == probes,
+          "the d3 variance solves did not converge")
+    record["phases"]["d3"] = dict(
+        var_max_cg_iter=D3_VAR_MAX_CG_ITER, var_solves=var_solves,
+        mtot=mtot_d3, M=mtot_d3 ** 3, launches=launches_d3,
+        backend_picks=picks_d3, fused_ms=d3_ms, profile=prof_d3,
+        mean_cg_iters=int(out3.mean_cg_iters),
+        mean_cg_iters_f64=int(out3_64.mean_cg_iters),
+        trace_cg_iters=int(out3.trace_cg_iters),
+        trace_cg_iters_f64=int(out3_64.trace_cg_iters),
+        err_mean=d3_err_mean, err_var=d3_err_var,
+        max_abs_var64=d3_var_scale, grad_rel_err=d3_grad_rel,
+        grad_f32=out3.grad.tolist(), grad_f64=out3_64.grad.tolist())
+    phase_s["6"] = time.perf_counter() - t_phase
+    print(f"[6] phase wall time {phase_s['6']:.1f} s")
+
+    # -- phase 7: hard3d, the deflated CG tier -------------------------------
+    t_phase = time.perf_counter()
+    x4 = torch.as_tensor(xh3, dtype=torch.float32, device=dev)
+    y4 = torch.as_tensor(yh3, dtype=torch.float32, device=dev)
+    xq4 = torch.as_tensor(xqh3, dtype=torch.float32, device=dev)
+    rank = 2048                                  # bench.py:784
+
+    def fit_h3(x, y, xq, method):
+        """bench.py:401-405: the deflated CG fit, then the mean."""
+        t = time.perf_counter()
+        st_ = gpquad_torch.fit_with_grid(
+            x, y, kern_h3, sigmasq, h_h3, mtot_h3, cg_tol=1e-6,
+            max_cg_iter=2000, solver="cg", precond_rank=rank,
+            nufft_method=method, device=dev)
+        mu = gpquad_torch.predict_mean(st_, xq, nufft_method=method)
+        sync()
+        return st_, mu, time.perf_counter() - t
+
+    fit_h3(x4, y4, xq4, "auto")                            # warm
+    reset_counts(*counters)
+    s4, mu4, t4 = fit_h3(x4, y4, xq4, "auto")
+    launches_h3 = dict(cuda_nufft.LAUNCHES)
+    picks_h3 = dict(nufft_mod.BACKEND_PICKS)
+    s4_64, mu4_64, _ = fit_h3(x4.double(), y4.double(), xq4.double(),
+                              "matmul")
+    iters_h3 = int(s4.mean_cg_iters)
+    err_h3 = float((mu4.double() - mu4_64).abs().max())
+    print(f"[7] hard3d deflated fit (rank {rank}) + mean: mtot={s4.mtot} "
+          f"M={s4.M} PCG iters={iters_h3} (f64: {int(s4_64.mean_cg_iters)}; "
+          f"bar 60) {t4 * 1e3:.2f} ms (warm, host clock) {card}; launches="
+          f"{launches_h3} backend_picks={picks_h3}; max|mean err| vs f64 "
+          f"{err_h3:.3e} (bar 5e-4)")
+    check(launches_h3 == launch_counts(nufft1_3d=2, nufft2_3d=1),
+          f"unexpected hard3d fit launch counts {launches_h3}")
+    check(picks_h3["matmul"] == 0, f"hard3d took the plain path {picks_h3}")
+    check(s4.defl_P is not None and s4.defl_idx.shape == (rank,),
+          "the hard3d fit carries no deflation block")
+    check(iters_h3 <= 60, f"hard3d deflated fit took {iters_h3} > 60 PCG "
+          "iterations")
+    check(bool(torch.isfinite(mu4).all()), "non-finite hard3d mean")
+    check(err_h3 <= 5e-4, f"hard3d mean error {err_h3:.3e} > 5e-4")
+
+    # the stochastic variance reuses the fit's block (one probe chunk)
+    M4 = s4.M
+    etas4 = torch.as_tensor(np.random.default_rng(5).choice(
+        [-1.0, 1.0], size=(probes, M4)), device=dev)
+    var_kw = dict(method="stochastic", probes=probes, cg_tol=1e-4,
+                  max_cg_iter=400, etas=etas4)
+    gpquad_torch.predict_var(s4, xq4, **var_kw)           # warm
+    reset_counts(*counters)
+    t = time.perf_counter()
+    var4 = gpquad_torch.predict_var(s4, xq4, **var_kw)
+    sync()
+    t_var4 = time.perf_counter() - t
+    launches_var4 = dict(cuda_nufft.LAUNCHES)
+    var4_64 = gpquad_torch.predict_var(s4_64, xq4.double(),
+                                       nufft_method="matmul", **var_kw)
+    res_var = efgp_mod._solve_var(s4, s4.ws[None, :] * etas4.float(),
+                                  cg_tol=1e-4, max_cg_iter=400)
+    var_conv = bool(res_var.converged.all())
+    err_var4 = float((var4.double() - var4_64).abs().max())
+    var4_scale = float(var4_64.abs().max())
+    print(f"[7] hard3d variance (256 probes, cg_tol 1e-4, the fit's "
+          f"deflation block): PCG iters={int(res_var.iters)} converged="
+          f"{var_conv} {t_var4 * 1e3:.2f} ms (warm, host clock) {card}; "
+          f"launches={launches_var4}; max|var err| vs f64 {err_var4:.3e} "
+          f"({err_var4 / var4_scale:.3e} of max|var64| = {var4_scale:.3e})")
+    check(launches_var4 == launch_counts(nufft2_3d=1),
+          f"unexpected hard3d variance launch counts {launches_var4}")
+    check(var_conv, "the hard3d variance solves did not converge")
+    check(bool(torch.isfinite(var4).all()), "non-finite hard3d variance")
+
+    # the gradient on the fit's state: trace solves with the same block
+    def grad_h3(x, y, st_, method, tol=FUSED_KW["grad_cg_tol"]):
+        return gpquad_torch.gradient_with_grid(
+            x, y, kern_h3, sigmasq, st_.h,
+            torch.Generator(device=dev).manual_seed(0), mtot=st_.mtot,
+            trace_samples=FUSED_KW["trace_samples"], cg_tol=tol,
+            max_cg_iter=2000, beta0=st_.beta, state=st_,
+            nufft_method=method)
+
+    grad_h3(x4, y4, s4, "auto")                           # warm
+    reset_counts(*counters)
+    t = time.perf_counter()
+    g4 = grad_h3(x4, y4, s4, "auto")
+    sync()
+    t_grad4 = time.perf_counter() - t
+    launches_g4 = dict(cuda_nufft.LAUNCHES)
+    g4_64 = grad_h3(x4.double(), y4.double(), s4_64, "matmul")
+    g4_conv = bool((g4.trace_conv_iters < 2000).all())
+    g4_rel = rel_to(g4.grad, g4_64.grad)
+    print(f"[7] hard3d gradient (state=fit, T=10, cg_tol 1e-4, deflation): "
+          f"trace PCG iters={int(g4.trace_cg_iters)} (f64: "
+          f"{int(g4_64.trace_cg_iters)}) converged={g4_conv} "
+          f"{t_grad4 * 1e3:.2f} ms (warm, host clock) {card}; launches="
+          f"{launches_g4}; grad f32={g4.grad.tolist()} f64="
+          f"{g4_64.grad.tolist()} rel err={[f'{r:.3e}' for r in g4_rel]}")
+    check(launches_g4 == launch_counts(nufft1_3d=2, nufft2_3d=3),
+          f"unexpected hard3d gradient launch counts {launches_g4}")
+    check(g4_conv, "the hard3d trace solves did not converge")
+    check(bool(torch.isfinite(g4.grad).all()), "non-finite hard3d gradient")
+    # how much of the f32-f64 gap is where the trace solves stop: both
+    # precisions against a float64 run whose solves go to 1e-10
+    g4_ref = grad_h3(x4.double(), y4.double(), s4_64, "matmul", 1e-10).grad
+    g4_tight = grad_h3(x4, y4, s4, "auto", 1e-6)
+    g4_vs_tight = {"f32 cg_tol 1e-4": rel_to(g4.grad, g4_ref),
+                   "f64 cg_tol 1e-4": rel_to(g4_64.grad, g4_ref),
+                   "f32 cg_tol 1e-6": rel_to(g4_tight.grad, g4_ref)}
+    print(f"[7] hard3d gradient rel err vs float64 solved to 1e-10 "
+          f"({g4_ref.tolist()}): " + "; ".join(
+              f"{k} [{', '.join(f'{r:.3e}' for r in v)}]"
+              for k, v in g4_vs_tight.items())
+          + f"; f32 cg_tol 1e-6 trace PCG iters "
+          f"{int(g4_tight.trace_cg_iters)}")
+    record["phases"]["hard3d"] = dict(
+        mtot=s4.mtot, M=M4, precond_rank=rank, iters=iters_h3,
+        iters_f64=int(s4_64.mean_cg_iters), fit_mean_s=t4,
+        launches_fit_mean=launches_h3, err_mean=err_h3,
+        var_s=t_var4, var_iters=int(res_var.iters), var_converged=var_conv,
+        launches_var=launches_var4, err_var=err_var4,
+        max_abs_var64=var4_scale, grad_s=t_grad4,
+        grad_trace_iters=int(g4.trace_cg_iters),
+        grad_trace_iters_f64=int(g4_64.trace_cg_iters),
+        grad_converged=g4_conv, launches_grad=launches_g4,
+        grad_rel_err=g4_rel, grad_rel_err_vs_tight_f64=g4_vs_tight)
+    phase_s["7"] = time.perf_counter() - t_phase
+    print(f"[7] phase wall time {phase_s['7']:.1f} s")
+
     # -- the record ----------------------------------------------------------
-    # each kernel's row: its largest call on the headline path, float32
+    # each kernel's row: its largest float32 call on a driven path (the
+    # headline's for d=2, the d=3 paths' by work B n mtot^d); launches from
+    # the main path's run of each (the fused call at the headline, at d3)
     row_shape = {"nufft1_2d": (m_lag, False), "nufft2_2d": (m_lag, True),
                  "nufft1_2d_batched": (mtot_head, False),
                  "nufft2_2d_batched": (mtot_head, False)}
     rows = []
     for name in REPLACES:
-        m, fo = row_shape[name]
-        row = next(r for r in phase3 if r["name"] == name and r["dtype"] ==
-                   "float32" and r["mtot"] == m and r["fft_order"] == fo
-                   and r["n"] in (10_000, 100_000))
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": REPLACES[name],
-                     "launches": fused_launches[name],
+        f32_rows = [r for r in phase3 if r["name"] == name
+                    and r["dtype"] == "float32"]
+        if name in row_shape:
+            m, fo = row_shape[name]
+            row = next(r for r in f32_rows if r["mtot"] == m and
+                       r["fft_order"] == fo and r["n"] in (10_000, 100_000))
+            extra = {"launches": fused_launches[name],
                      "launches_slice": launches[name],
                      "launches_cg_tier": launches_cg[name]
-                     + launches_gcg[name],
+                     + launches_gcg[name]}
+        else:
+            row = max((r for r in f32_rows
+                       if r["serves"].startswith(("d3", "hard3d"))),
+                      key=lambda r: r["B"] * r["n"] * r["mtot"] ** 3)
+            extra = {"launches": launches_d3[name],
+                     "launches_hard3d": launches_h3[name]
+                     + launches_var4[name] + launches_g4[name]}
+        rows.append({"name": name, "route": "cuda", "source": source_of(name),
+                     "replaces": REPLACES[name], **extra,
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
@@ -715,8 +1057,13 @@ def main() -> int:
                      "shape": {"B": row["B"], "n": row["n"],
                                "mtot": row["mtot"],
                                "fft_order": row["fft_order"],
+                               "serves": row["serves"],
                                "dtype": "float32"}})
     record["kernels"] = rows
+    phase_s["total"] = time.perf_counter() - t_run
+    record["phase_wall_s"] = phase_s
+    print(f"phase wall times (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -19,7 +19,7 @@ from .ops.toeplitz import ToeplitzND
 __all__ = ["kernel_from_numpy", "fit_state_from_numpy", "fit_state_to_numpy"]
 
 _STATE_ARRAYS = ("beta", "ws", "h", "sigmasq", "fft_kernel", "diag_scale",
-                 "A_dense", "P_dense", "mean_cg_iters")
+                 "A_dense", "P_dense", "defl_idx", "defl_P", "mean_cg_iters")
 
 
 def kernel_from_numpy(name, hypers, dimension: int):
@@ -33,7 +33,8 @@ def fit_state_from_numpy(arrays: Mapping[str, np.ndarray], mtot: int, d: int,
                          device="cuda") -> FitState:
     """The port's ``FitState`` from numpy arrays: ``beta``, ``ws``, ``h``,
     ``sigmasq``, the Toeplitz ``fft_kernel``, ``diag_scale`` and, for the
-    dense tier, ``A_dense`` and ``P_dense`` (``mean_cg_iters`` optional)."""
+    dense tier, ``A_dense`` and ``P_dense``, for a deflated CG fit
+    ``defl_idx`` and ``defl_P`` (``mean_cg_iters`` optional)."""
     dev = resolve_device(device)
 
     # np.array copies: numpy views of JAX arrays are read-only
@@ -46,12 +47,15 @@ def fit_state_from_numpy(arrays: Mapping[str, np.ndarray], mtot: int, d: int,
     toeplitz = ToeplitzND(fft_kernel=fft_kernel, ns=(mtot,) * d,
                           fft_shape=tuple(fft_kernel.shape))
     iters = t("mean_cg_iters")
+    defl_idx = t("defl_idx")
     return FitState(beta=t("beta"), ws=t("ws"), h=t("h"),
                     sigmasq=t("sigmasq"), toeplitz=toeplitz,
                     mean_cg_iters=iters if iters is not None
                     else torch.zeros((), dtype=torch.int32, device=dev),
                     diag_scale=t("diag_scale"), A_dense=t("A_dense"),
-                    P_dense=t("P_dense"), mtot=mtot, d=d)
+                    P_dense=t("P_dense"),
+                    defl_idx=None if defl_idx is None else defl_idx.long(),
+                    defl_P=t("defl_P"), mtot=mtot, d=d)
 
 
 def fit_state_to_numpy(state: FitState) -> dict:

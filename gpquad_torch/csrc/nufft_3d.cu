@@ -1,0 +1,375 @@
+// Fused d=3 NUFFT kernels for Hopper (sm_90a), written by hand.
+//
+//   nufft2_3d (type-2, uniform -> points) replaces pallas_nufft2_3d and its
+//   first-dimension slab-tiled variant _pallas_nufft2_3d_tiled
+//   (gpquad/ops/pallas_nufft.py):
+//       out[b,n] = sum_{j1} e1(n,j1) sum_{j2} e2(n,j2) sum_{j3} e3(n,j3)
+//                  f[b,j1,j2,j3],            e = e^{+2 pi i c}
+//   nufft1_3d (type-1, points -> uniform) replaces pallas_nufft1_3d and its
+//   slab-tiled variant _pallas_nufft1_3d_tiled:
+//       out[b,j1,j2,j3] = sum_n (v[b,n] e1(n,j1)) e2(n,j2) e3(n,j3),
+//                                             e = e^{-2 pi i c}
+//
+// c_t(n,j) is the phase in cycles of point n along dimension t at mode k_j,
+// made on the fly as nufft_common.cuh describes.  Nothing of size N x mtot
+// reaches device memory.  One kernel per type takes any odd mtot, so the
+// TPU's single-block (mtot <= 56) and slab-tiled (mtot <= 256) variants are
+// both covered; the batch is a grid axis, so the gradient's probe batches are
+// one launch.
+//
+// What bounds them on an H100: per point and vector both do mtot^3 complex
+// multiply-adds (8 flops each) against 12 bytes of point data and 8 bytes of
+// value, so they are bound by operations (fp32 outside the tensor cores), not
+// by bytes.  At mtot 61 that is 227k multiply-adds per point.  This first
+// version keeps the multiply-adds in registers fed by broadcast reads of
+// shared memory, and makes each phase a small share of them:
+//
+//  - nufft2_3d: one point per thread (or per G threads, below).  For a tile
+//    of TK third-axis modes the point's e3 phases live in registers; for a
+//    slab of TJ1 first-axis modes the thread keeps TJ1 partial sums
+//    u[j1] = sum_{j2} e2(j2) sum_{j3 in tile} e3(j3) f[j1,j2,j3]; the f tile
+//    (TJ1 x TJ2 x TK) is staged in shared memory and read as a broadcast.
+//    Each e2 phase is made once per (slab, tile) and serves TJ1 rows, each e1
+//    phase once per (slab, tile) when the slab's sums are folded into the
+//    point's accumulator.  The j1 loop is a loop inside the block: no
+//    cross-block sum.  When the points are few (n * B < 65536, e.g. 1e4
+//    targets) G = 4 threads share a point, each taking every G-th second-axis
+//    mode of the staged tile, and their sums are added in a fixed order in
+//    shared memory at the end, so that enough warps fill the card.
+//  - nufft1_3d: for a fixed j1 this is the d=2 type-1 with weights
+//    v e1(j1) (the Pallas kernel's own factoring).  A block owns a 16 x 16
+//    tile of (j2, j3) outputs for a slab of J1B = 8 first-axis modes (8
+//    accumulators per thread) and one group of 2048-point chunks; it stages
+//    v e1 (J1B per point), e2 and e3 for sub-tiles of P points in shared
+//    memory; each thread forms e2 e3 once per point and adds (v e1)(e2 e3)
+//    for its 8 outputs.  The sum over points is two-level inside the block
+//    (each 2048-point chunk in registers, then added to the block's running
+//    total), then a second kernel adds the groups' partials in group order.
+//    No atomics: deterministic, and the f32 error of each sum stays bounded
+//    as the chunked type-1 of ops/nufft.py keeps it.  The number of groups
+//    is chosen by the wrapper so that about a thousand blocks run; the
+//    scratch is groups x B x mtot^3 values (16 MB in f32 at n = 1e5,
+//    mtot 61, against 89 MB with one partial per chunk).
+//
+// Every kernel is templated on the scalar type: float is the main path, and
+// double tensors run a double instance of the same code.
+//
+// C interface (bound with ctypes): pointers and the stream are void*, each
+// function returns cudaGetLastError() after its launches.
+
+#include "nufft_common.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// type-2: block = P = THREADS / G points x G threads per point, one vector b
+// (grid axis y).  Thread (p, g) = (tid % P, tid / P), so the 32 threads of a
+// warp hold 32 points and read the same shared f entry (a broadcast).
+// ---------------------------------------------------------------------------
+template <typename T, int THREADS, int G, int TJ1, int TJ2, int TK>
+__global__ void __launch_bounds__(THREADS)
+nufft2_3d_kernel(const T* __restrict__ x, const v2_t<T>* __restrict__ f,
+                 T h, int n, int m, int fft_order,
+                 v2_t<T>* __restrict__ out) {
+  constexpr int P = THREADS / G;
+  __shared__ v2_t<T> ftile[TJ1][TJ2][TK];
+  __shared__ v2_t<T> red[G][P];
+  const int p = threadIdx.x % P;
+  const int g = threadIdx.x / P;
+  const int i = blockIdx.x * P + p;
+  const bool live = i < n;
+  const size_t mm = (size_t)m * m;
+  const v2_t<T>* fb = f + (size_t)blockIdx.y * mm * m;
+  T u1 = 0, u2 = 0, u3 = 0;
+  if (live) {
+    u1 = torus(x[3 * (size_t)i], h);
+    u2 = torus(x[3 * (size_t)i + 1], h);
+    u3 = torus(x[3 * (size_t)i + 2], h);
+  }
+  T acc_re = 0, acc_im = 0;
+  for (int k0 = 0; k0 < m; k0 += TK) {
+    T c3[TK], s3[TK];
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+      if (k0 + kk < m) {
+        phase(u3, mode_value<T>(k0 + kk, m, fft_order), &c3[kk], &s3[kk]);
+      } else {
+        c3[kk] = 0;
+        s3[kk] = 0;
+      }
+    }
+    for (int j10 = 0; j10 < m; j10 += TJ1) {
+      T ur[TJ1], ui[TJ1];
+#pragma unroll
+      for (int a = 0; a < TJ1; ++a) {
+        ur[a] = 0;
+        ui[a] = 0;
+      }
+      for (int j20 = 0; j20 < m; j20 += TJ2) {
+        __syncthreads();
+        for (int e = threadIdx.x; e < TJ1 * TJ2 * TK; e += THREADS) {
+          const int a = e / (TJ2 * TK), r = e % (TJ2 * TK);
+          const int jj = r / TK, kk = r % TK;
+          const int j1 = j10 + a, j2 = j20 + jj, k = k0 + kk;
+          v2_t<T> val;
+          val.x = 0;
+          val.y = 0;
+          if (j1 < m && j2 < m && k < m) val = fb[(size_t)j1 * mm + (size_t)j2 * m + k];
+          ftile[a][jj][kk] = val;
+        }
+        __syncthreads();
+        const int jn2 = min(TJ2, m - j20);
+        for (int jj = g; jj < jn2; jj += G) {
+          T c2, s2;
+          phase(u2, mode_value<T>(j20 + jj, m, fft_order), &c2, &s2);
+#pragma unroll
+          for (int a = 0; a < TJ1; ++a) {
+            T tr = 0, ti = 0;
+#pragma unroll
+            for (int kk = 0; kk < TK; ++kk) {
+              const v2_t<T> v = ftile[a][jj][kk];
+              tr = fma(v.x, c3[kk], fma(-v.y, s3[kk], tr));
+              ti = fma(v.x, s3[kk], fma(v.y, c3[kk], ti));
+            }
+            ur[a] = fma(c2, tr, fma(-s2, ti, ur[a]));
+            ui[a] = fma(c2, ti, fma(s2, tr, ui[a]));
+          }
+        }
+      }
+      const int jn1 = min(TJ1, m - j10);
+#pragma unroll
+      for (int a = 0; a < TJ1; ++a) {
+        if (a < jn1) {   // uniform over the block
+          T c1, s1;
+          phase(u1, mode_value<T>(j10 + a, m, fft_order), &c1, &s1);
+          acc_re = fma(c1, ur[a], fma(-s1, ui[a], acc_re));
+          acc_im = fma(c1, ui[a], fma(s1, ur[a], acc_im));
+        }
+      }
+    }
+  }
+  if constexpr (G > 1) {
+    red[g][p].x = acc_re;
+    red[g][p].y = acc_im;
+    __syncthreads();
+    if (g == 0) {
+      acc_re = 0;
+      acc_im = 0;
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) {
+        acc_re += red[gg][p].x;
+        acc_im += red[gg][p].y;
+      }
+    }
+  }
+  if (live && g == 0) {
+    v2_t<T> o;
+    o.x = acc_re;
+    o.y = acc_im;
+    out[(size_t)blockIdx.y * n + i] = o;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// type-1 stage 1: partial[grp, b, j1, j2, j3] = sum over the points of chunk
+// group grp of v[b,n] e1(n,j1) e2(n,j2) e3(n,j3), e = e^{-2 pi i c}.
+// Block = one 16 x 16 (j2, j3) tile for a slab of J1B first-axis modes (grid
+// axis x), one group of `cpg` consecutive chunks (grid axis y), one vector b
+// (grid axis z).
+// ---------------------------------------------------------------------------
+constexpr int T3_TJ = 16;
+constexpr int T3_TK = 16;
+constexpr int T3_THREADS = T3_TJ * T3_TK;
+constexpr int T3_J1B = 8;
+
+template <typename T, int P>
+__global__ void __launch_bounds__(T3_THREADS)
+nufft1_3d_partial_kernel(const T* __restrict__ x,
+                         const v2_t<T>* __restrict__ v, T h, int n, int m,
+                         int fft_order, int chunk, int cpg,
+                         v2_t<T>* __restrict__ partial) {
+  __shared__ T su1[P], su2[P], su3[P];
+  __shared__ v2_t<T> sv[P];
+  __shared__ v2_t<T> w1[P][T3_J1B];   // v_p * e1(p, j1)
+  __shared__ v2_t<T> e2[P][T3_TJ];    // e2(p, j2)
+  __shared__ v2_t<T> e3[P][T3_TK];    // e3(p, j3)
+  const int nt = (m + T3_TJ - 1) / T3_TJ;
+  const int tile = blockIdx.x % (nt * nt);
+  const int j10 = (blockIdx.x / (nt * nt)) * T3_J1B;
+  const int j20 = (tile / nt) * T3_TJ;
+  const int k0 = (tile % nt) * T3_TK;
+  const int jj = threadIdx.x / T3_TK, kk = threadIdx.x % T3_TK;
+  const int b = blockIdx.z, nb = gridDim.z;
+  const v2_t<T>* vb = v + (size_t)b * n;
+  const int nchunk = (n + chunk - 1) / chunk;
+  const int c_end = min(nchunk, (int)(blockIdx.y + 1) * cpg);
+  T tot_re[T3_J1B], tot_im[T3_J1B];
+#pragma unroll
+  for (int a = 0; a < T3_J1B; ++a) {
+    tot_re[a] = 0;
+    tot_im[a] = 0;
+  }
+  for (int c = blockIdx.y * cpg; c < c_end; ++c) {
+    T acc_re[T3_J1B], acc_im[T3_J1B];
+#pragma unroll
+    for (int a = 0; a < T3_J1B; ++a) {
+      acc_re[a] = 0;
+      acc_im[a] = 0;
+    }
+    const int p_begin = c * chunk;
+    const int p_end = min(n, p_begin + chunk);
+    for (int p0 = p_begin; p0 < p_end; p0 += P) {
+      const int pn = min(P, p_end - p0);
+      __syncthreads();
+      for (int q = threadIdx.x; q < pn; q += T3_THREADS) {
+        const size_t r = 3 * (size_t)(p0 + q);
+        su1[q] = torus(x[r], h);
+        su2[q] = torus(x[r + 1], h);
+        su3[q] = torus(x[r + 2], h);
+        sv[q] = vb[p0 + q];
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < pn * T3_J1B; e += T3_THREADS) {
+        const int q = e / T3_J1B, a = e % T3_J1B;
+        v2_t<T> w;
+        w.x = 0;
+        w.y = 0;
+        if (j10 + a < m) {
+          T cs, sn;
+          phase(su1[q], mode_value<T>(j10 + a, m, fft_order), &cs, &sn);
+          const v2_t<T> vq = sv[q];
+          // (c - i s)(vr + i vi)
+          w.x = fma(cs, vq.x, sn * vq.y);
+          w.y = fma(cs, vq.y, -sn * vq.x);
+        }
+        w1[q][a] = w;
+      }
+      for (int e = threadIdx.x; e < pn * T3_TJ; e += T3_THREADS) {
+        const int q = e / T3_TJ, t = e % T3_TJ;
+        v2_t<T> w2, w3;
+        w2.x = w2.y = w3.x = w3.y = 0;
+        if (j20 + t < m) {
+          T cs, sn;
+          phase(su2[q], mode_value<T>(j20 + t, m, fft_order), &cs, &sn);
+          w2.x = cs;
+          w2.y = -sn;
+        }
+        if (k0 + t < m) {
+          T cs, sn;
+          phase(su3[q], mode_value<T>(k0 + t, m, fft_order), &cs, &sn);
+          w3.x = cs;
+          w3.y = -sn;
+        }
+        e2[q][t] = w2;
+        e3[q][t] = w3;
+      }
+      __syncthreads();
+      for (int q = 0; q < pn; ++q) {
+        const v2_t<T> a2 = e2[q][jj];
+        const v2_t<T> a3 = e3[q][kk];
+        const T er = fma(a2.x, a3.x, -a2.y * a3.y);
+        const T ei = fma(a2.x, a3.y, a2.y * a3.x);
+#pragma unroll
+        for (int a = 0; a < T3_J1B; ++a) {
+          const v2_t<T> w = w1[q][a];
+          acc_re[a] = fma(w.x, er, fma(-w.y, ei, acc_re[a]));
+          acc_im[a] = fma(w.x, ei, fma(w.y, er, acc_im[a]));
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < T3_J1B; ++a) {
+      tot_re[a] += acc_re[a];
+      tot_im[a] += acc_im[a];
+    }
+  }
+  if (j20 + jj < m && k0 + kk < m) {
+    const size_t mm = (size_t)m * m;
+    const size_t base = ((size_t)blockIdx.y * nb + b) * mm * m
+                        + (size_t)(j20 + jj) * m + (k0 + kk);
+#pragma unroll
+    for (int a = 0; a < T3_J1B; ++a) {
+      if (j10 + a < m) {
+        v2_t<T> o;
+        o.x = tot_re[a];
+        o.y = tot_im[a];
+        partial[base + (size_t)(j10 + a) * mm] = o;
+      }
+    }
+  }
+}
+
+// Type-2: 128 threads per block; one thread per point when there are many
+// points, four when there are few.  f32 takes TK = 32 third-axis modes per
+// register tile, f64 16 (the same 16 KB of shared memory).
+constexpr int T2_THREADS = 128;
+constexpr int T2_FEW_POINTS = 65536;
+
+template <typename T, int G>
+int launch_nufft2_g(const void* x, const void* f, T h, int n, int m, int nb,
+                    int fft_order, void* out, cudaStream_t s) {
+  constexpr int TK = sizeof(T) == 4 ? 32 : 16;
+  constexpr int P = T2_THREADS / G;
+  const dim3 grid((n + P - 1) / P, nb);
+  nufft2_3d_kernel<T, T2_THREADS, G, 8, 8, TK><<<grid, T2_THREADS, 0, s>>>(
+      (const T*)x, (const v2_t<T>*)f, h, n, m, fft_order, (v2_t<T>*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_nufft2(const void* x, const void* f, T h, int n, int m, int nb,
+                  int fft_order, void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((long long)n * nb < T2_FEW_POINTS)
+    return launch_nufft2_g<T, 4>(x, f, h, n, m, nb, fft_order, out, s);
+  return launch_nufft2_g<T, 1>(x, f, h, n, m, nb, fft_order, out, s);
+}
+
+template <typename T>
+int launch_nufft1(const void* x, const void* v, T h, int n, int m, int nb,
+                  int fft_order, int chunk, int groups, void* partial,
+                  void* out, void* stream) {
+  constexpr int P = sizeof(T) == 4 ? 128 : 64;
+  const int nt = (m + T3_TJ - 1) / T3_TJ;
+  const int nslab = (m + T3_J1B - 1) / T3_J1B;
+  const int nchunk = (n + chunk - 1) / chunk;
+  const int cpg = (nchunk + groups - 1) / groups;
+  const dim3 grid(nt * nt * nslab, groups, nb);
+  cudaStream_t s = (cudaStream_t)stream;
+  nufft1_3d_partial_kernel<T, P><<<grid, T3_THREADS, 0, s>>>(
+      (const T*)x, (const v2_t<T>*)v, h, n, m, fft_order, chunk, cpg,
+      (v2_t<T>*)partial);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_reduce<T>(partial, groups, nb * m * m * m, out, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+int gpq_nufft2_3d_f32(const void* x, const void* f, float h, int n, int m,
+                      int nb, int fft_order, void* out, void* stream) {
+  return launch_nufft2<float>(x, f, h, n, m, nb, fft_order, out, stream);
+}
+
+int gpq_nufft2_3d_f64(const void* x, const void* f, double h, int n, int m,
+                      int nb, int fft_order, void* out, void* stream) {
+  return launch_nufft2<double>(x, f, h, n, m, nb, fft_order, out, stream);
+}
+
+int gpq_nufft1_3d_f32(const void* x, const void* v, float h, int n, int m,
+                      int nb, int fft_order, int chunk, int groups,
+                      void* partial, void* out, void* stream) {
+  return launch_nufft1<float>(x, v, h, n, m, nb, fft_order, chunk, groups,
+                              partial, out, stream);
+}
+
+int gpq_nufft1_3d_f64(const void* x, const void* v, double h, int n, int m,
+                      int nb, int fft_order, int chunk, int groups,
+                      void* partial, void* out, void* stream) {
+  return launch_nufft1<double>(x, v, h, n, m, nb, fft_order, chunk, groups,
+                               partial, out, stream);
+}
+
+}  // extern "C"

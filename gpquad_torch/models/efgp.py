@@ -3,9 +3,10 @@
 Port of ``gpquad/models/efgp.py``.  Plain functions on tensors: the fit
 returns a :class:`FitState` dataclass, and prediction reads it.  The NUFFTs
 go through ``ops.nufft.make_nufft``, which launches the hand-written CUDA
-kernels for d=2 points on the card; the Gram matvec is the FFT Toeplitz
-operator; solves are the dense factor-solve for ``M <= DENSE_SOLVER_MAX_M``
-and batched PCG beyond.
+kernels for d=2 and d=3 points on the card; the Gram matvec is the FFT
+Toeplitz operator; solves are the dense factor-solve for
+``M <= DENSE_SOLVER_MAX_M`` and batched PCG beyond, preconditioned by Jacobi
+or by the dense-head deflation block.
 
 Every entry point takes ``device=`` (default ``"cuda"``) or reads the
 state's device, and fails when CUDA is asked for and absent.
@@ -18,6 +19,8 @@ from typing import Optional
 import torch
 
 from ..ops.cg import CGResult, pcg
+from ..ops.deflation import (DEFLATION_RANK, deflation_block,
+                             make_block_precond)
 from ..ops.dense_solve import (DENSE_SOLVER_MAX_M, dense_gram, dense_inverse,
                                refine_solve)
 from ..ops.nufft import make_nufft
@@ -61,6 +64,8 @@ class FitState:
     diag_scale: torch.Tensor      # Toeplitz zero-lag (= n), Jacobi scale
     A_dense: Optional[torch.Tensor] = None   # (M, M) dense A (dense solver)
     P_dense: Optional[torch.Tensor] = None   # (M, M) inv(A) (dense solver)
+    defl_idx: Optional[torch.Tensor] = None  # (k,) deflated mode indices
+    defl_P: Optional[torch.Tensor] = None    # (k, k) inv(A[B, B])
     mtot: int = 0
     d: int = 1
 
@@ -76,10 +81,12 @@ class FitState:
 def resolve_precond(precond: str, precond_rank: int, use_precond: bool,
                     d: int, n: Optional[int] = None,
                     M: Optional[int] = None) -> str:
-    """Preconditioner family for the CG branch.  'jacobi' and 'none' are
-    ported; families that resolve to 'kron' or 'deflation' raise until
-    ROADMAP A.11.  As in gpquad, 'kron' at d > 3 silently becomes 'jacobi'
-    (ROADMAP §C known quirk)."""
+    """Preconditioner family for the CG branch: 'auto' is deflation when
+    ``precond_rank > 0``, else Jacobi (or none without ``use_precond``);
+    'adaptive' is kron for n >= M at d <= 3, deflation otherwise.  'jacobi',
+    'deflation' and 'none' are ported; a family that resolves to 'kron'
+    raises until ROADMAP A.11.  As in gpquad, 'kron' at d > 3 silently
+    becomes 'jacobi' (ROADMAP §C known quirk)."""
     if precond == "auto":
         family = "deflation" if precond_rank > 0 else (
             "jacobi" if use_precond else "none")
@@ -93,9 +100,9 @@ def resolve_precond(precond: str, precond_rank: int, use_precond: bool,
     else:
         raise ValueError(f"Unknown precond '{precond}' "
                          "(auto | adaptive | jacobi | deflation | kron | none)")
-    if family in ("kron", "deflation"):
+    if family == "kron":
         raise NotImplementedError(
-            f"precond family '{family}' is not ported yet (ROADMAP A.11)")
+            "precond family 'kron' is not ported yet (ROADMAP A.11)")
     return family
 
 
@@ -140,8 +147,11 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
                   device="cuda") -> FitState:
     """Fit against a fixed frequency grid: quadrature weights, the NUFFT
     right-hand side ``ws * F* y``, the Toeplitz Gram from the lag table, and
-    the mean solve (dense factor-solve or Jacobi PCG).  Runs in ``x``'s
-    floating dtype."""
+    the mean solve (dense factor-solve or PCG).  ``precond_rank > 0`` (or
+    ``precond="deflation"``, rank 2048 by default) preconditions the CG
+    branch with the deflation block on the top-``precond_rank`` weight
+    modes and keeps it on the state, so that the variance and the gradient
+    reuse it.  Runs in ``x``'s floating dtype."""
     dev = resolve_device(device)
     x = _as_points(x, dev)
     n, d = x.shape
@@ -162,7 +172,7 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
     v = convolution_vector(m, x, h, nufft_method=nufft_method)
     toeplitz = make_toeplitz(v)
     diag_scale = toeplitz_diag_scale(v)
-    A_dense = P_dense = None
+    A_dense = P_dense = defl_idx = defl_P = None
     if resolve_solver(solver, mtot, d) == "dense":
         A_dense = dense_gram(ws, v, mtot, d, sigmasq)
         P_dense = dense_inverse(A_dense)
@@ -170,8 +180,15 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
     else:
         family = resolve_precond(precond, precond_rank, use_precond, d,
                                  n=n, M=mtot ** d)
-        M_inv = (make_jacobi_precond(ws, sigmasq, diag_scale=diag_scale)
-                 if family == "jacobi" else None)
+        M_inv = None
+        if family == "deflation":
+            defl_idx, defl_P = deflation_block(
+                ws, v, sigmasq, mtot=mtot, d=d,
+                rank=precond_rank if precond_rank > 0 else DEFLATION_RANK)
+            M_inv = make_block_precond(
+                defl_idx, defl_P, diag_scale * torch.abs(ws) ** 2 + sigmasq)
+        elif family == "jacobi":
+            M_inv = make_jacobi_precond(ws, sigmasq, diag_scale=diag_scale)
         if beta0 is not None:
             beta0 = torch.as_tensor(beta0, device=dev)
         res = pcg(make_A_mean(ws, toeplitz, sigmasq), rhs, beta0, tol=cg_tol,
@@ -181,7 +198,7 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
     return FitState(beta=res.x, ws=ws, h=h, sigmasq=sigmasq,
                     toeplitz=toeplitz, mean_cg_iters=res.iters,
                     diag_scale=diag_scale, A_dense=A_dense, P_dense=P_dense,
-                    mtot=mtot, d=d)
+                    defl_idx=defl_idx, defl_P=defl_P, mtot=mtot, d=d)
 
 
 def fit(x, y, kernel, sigmasq, eps: float = 1e-2, *, cg_tol: float = 1e-4,
@@ -228,7 +245,14 @@ def _solve_var(state: FitState, rhs, *, cg_tol, max_cg_iter) -> CGResult:
 
 
 def _var_precond(state: FitState):
-    """Jacobi preconditioner for ``A_var = A_mean / sigma^2``."""
+    """Preconditioner for ``A_var = A_mean / sigma^2``: the fit's deflation
+    block when present (a preconditioner for ``A`` serves ``A / sigma^2``
+    unchanged, a global scale leaves the PCG iterates invariant), Jacobi
+    otherwise."""
+    if state.defl_P is not None:
+        return make_block_precond(
+            state.defl_idx, state.defl_P,
+            state.diag_scale * torch.abs(state.ws) ** 2 + state.sigmasq)
     diag = state.diag_scale * torch.abs(state.ws) ** 2 / state.sigmasq + 1.0
 
     def M_inv(v):

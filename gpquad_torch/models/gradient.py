@@ -32,6 +32,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..ops.cg import pcg
+from ..ops.deflation import (DEFLATION_RANK, make_block_precond,
+                             make_deflation_precond)
 from ..ops.dense_solve import dense_gram, dense_inverse, refine_solve
 from ..ops.nufft import make_nufft
 from ..ops.operators import (convolution_vector, make_A_mean,
@@ -82,10 +84,10 @@ def gradient_with_grid(
     ``ws_mask`` zeroes padded grid nodes (both D and D') so that a padded
     grid gives the tight grid's gradient.  ``state`` (a ``FitState`` of the
     same kernel, sigmasq and grid, without noise floor) reuses the fit's
-    ws, Toeplitz spectrum, dense factors and Jacobi scale; the fused
-    pipeline passes it.  With ``state`` and a binding ``noise_floor`` the
-    dense tier solves with the state's un-floored ``A_dense``, as gpquad
-    does (ROADMAP §C known quirk).
+    ws, Toeplitz spectrum, dense factors, deflation block and Jacobi scale;
+    the fused pipeline passes it.  With ``state`` and a binding
+    ``noise_floor`` the dense tier solves with the state's un-floored
+    ``A_dense``, as gpquad does (ROADMAP §C known quirk).
 
     Probes: ``probes=(Z, V)`` ((T, n) and (T, M), +-1) or, when None, drawn
     from ``generator`` in this order: ``Z`` (T, n), then ``V`` (T, M), then
@@ -146,8 +148,13 @@ def gradient_with_grid(
             A_dense, P_dense = state.A_dense, state.P_dense
         else:
             A_mean = make_A_mean(ws, toeplitz, sigmasq_eff)
-            M_inv_op = make_jacobi_precond(ws, sigmasq_eff,
-                                           diag_scale=diag_scale)
+            if state.defl_P is not None:
+                M_inv_op = make_block_precond(
+                    state.defl_idx, state.defl_P,
+                    diag_scale * torch.abs(ws) ** 2 + sigmasq_eff)
+            else:
+                M_inv_op = make_jacobi_precond(ws, sigmasq_eff,
+                                               diag_scale=diag_scale)
     else:
         ws = quadrature_weights(kernel, xis, h, d, mask=ws_mask)
         v_kernel = convolution_vector(m, x, h, nufft_method=nufft_method)
@@ -159,11 +166,18 @@ def gradient_with_grid(
             P_dense = dense_inverse(A_dense)
         else:
             A_mean = make_A_mean(ws, toeplitz, sigmasq_eff)
-            # kron and deflation raise here until ROADMAP A.11; 'none'
-            # still preconditions with Jacobi, as in gpquad
-            resolve_precond(precond, precond_rank, True, d, n=n, M=M)
-            M_inv_op = make_jacobi_precond(ws, sigmasq_eff,
-                                           diag_scale=diag_scale)
+            # kron raises here until ROADMAP A.11; 'none' still
+            # preconditions with Jacobi, as in gpquad
+            family = resolve_precond(precond, precond_rank, True, d, n=n,
+                                     M=M)
+            if family == "deflation":
+                M_inv_op = make_deflation_precond(
+                    ws, v_kernel, sigmasq_eff, mtot=mtot, d=d,
+                    rank=precond_rank if precond_rank > 0 else DEFLATION_RANK,
+                    diag_scale=diag_scale)
+            else:
+                M_inv_op = make_jacobi_precond(ws, sigmasq_eff,
+                                               diag_scale=diag_scale)
     if use_dense:
         def solve(b):
             # the dense tier takes no warm start: beta0 is ignored, as in

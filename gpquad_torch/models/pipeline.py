@@ -88,7 +88,8 @@ def fit_predict_grad(x, y, xnew, kernel, sigmasq, h, generator=None, *,
         res_mean = refine_solve(A_dense, P_dense, rhs, tol=cg_tol)
     else:
         # without n and M, as gpquad's pipeline.py:93 (ROADMAP §C): kron
-        # and deflation raise until A.11, anything else runs Jacobi
+        # (also 'adaptive') raises until A.11, anything else runs Jacobi,
+        # 'deflation' included
         resolve_precond(precond, 0, True, d)
         res_mean = pcg(make_A_mean(ws, toeplitz, sigmasq), rhs, tol=cg_tol,
                        maxiter=max_cg_iter,

@@ -1,10 +1,10 @@
-"""Hand-written CUDA NUFFT kernels for d=2, their plain versions, and the
-NUFFT backend built on them.
+"""Hand-written CUDA NUFFT kernels for d=2 and d=3, their plain versions,
+and the NUFFT backend built on them.
 
 Port of ``gpquad/ops/pallas_nufft.py``.  The TPU file fuses the phase
 construction with the complex products so that no ``(N, mtot)`` phase matrix
-reaches device memory; the kernels in ``csrc/nufft_2d.cu`` do the same on
-Hopper:
+reaches device memory; the kernels in ``csrc/nufft_2d.cu`` and
+``csrc/nufft_3d.cu`` do the same on Hopper:
 
 - :func:`nufft2_2d` replaces ``pallas_nufft2_2d`` (pallas_nufft.py:113) and
   its mode-tiled twin ``_pallas_nufft2_2d_tiled`` (:369): one kernel takes
@@ -16,16 +16,22 @@ Hopper:
   and :func:`nufft1_2d_batched` replaces ``pallas_nufft1_2d_batched``
   (:914): B vectors against the same points in one launch, the phases made
   once per group of batch elements (the gradient's probe batches).
+- :func:`nufft2_3d` replaces ``pallas_nufft2_3d`` (:662) and its
+  first-dimension slab-tiled twin ``_pallas_nufft2_3d_tiled`` (:1034), and
+  :func:`nufft1_3d` replaces ``pallas_nufft1_3d`` (:750) and
+  ``_pallas_nufft1_3d_tiled`` (:1118): one vector or a batch in one launch,
+  any odd ``mtot`` up to 255 (the TPU's ``_D3_TILED_MAX``).
 
-All four are bound by operations on an H100 (fp32 complex multiply-adds
-outside the tensor cores, ~8 mtot^2 flops per point and vector); the source
-says how the design stages the work.  The wrappers take a tensor on the CPU
+All are bound by operations on an H100 (fp32 complex multiply-adds outside
+the tensor cores, ~8 mtot^d flops per point and vector); the sources say
+how the designs stage the work.  The wrappers take a tensor on the CPU
 to the plain version (``*_ref``, the phase-matrix backend of
 ``ops/nufft.py``); on a CUDA tensor they launch the kernel or raise.
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/gpquad_torch/`` at the checkout's root, named after a hash of the
-sources so that an edit rebuilds it, and loaded with ``ctypes``.
+``build/gpquad_torch/`` at the checkout's root (one ``nvcc`` per source, all
+started together, then one link), named after a hash of the sources so that
+an edit rebuilds it, and loaded with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -39,24 +45,28 @@ from pathlib import Path
 
 import torch
 
-from .nufft import make_phase_nufft
+from .nufft import CUDA_D3_MAX_MTOT, make_phase_nufft
 
 __all__ = ["nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
            "nufft1_2d_batched", "nufft2_2d_batched", "nufft1_2d_batched_ref",
-           "nufft2_2d_batched_ref", "CudaNUFFT", "LAUNCHES", "build",
-           "library_path"]
+           "nufft2_2d_batched_ref", "nufft1_3d", "nufft2_3d", "nufft1_3d_ref",
+           "nufft2_3d_ref", "type1_3d_groups", "CudaNUFFT", "LAUNCHES",
+           "build", "library_path"]
 
 # Launches of each kernel since the last reset (a launch is one wrapper call
 # on a CUDA tensor; the two stages of type-1 count once).
 LAUNCHES = {"nufft1_2d": 0, "nufft2_2d": 0, "nufft1_2d_batched": 0,
-            "nufft2_2d_batched": 0}
+            "nufft2_2d_batched": 0, "nufft1_3d": 0, "nufft2_3d": 0}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("nufft_2d.cu",)
+# every file the library depends on (hashed); the .cu files are compiled
+_SOURCES = ("nufft_common.cuh", "nufft_2d.cu", "nufft_3d.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpquad_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 TYPE1_CHUNK = 2048
+# the d=3 type-1 sums its chunks in groups, enough for about this many blocks
+TYPE1_3D_BLOCKS = 1056
 
 _lib = None
 
@@ -83,8 +93,23 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; wait for every one, then raise on the
+    first that failed.  Returns their joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (so, se) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{so}\n{se}")
+    return "".join(so + se for so, se in outs)
+
+
 def build() -> tuple[Path, str]:
-    """Compile the kernels if the library for these sources is missing.
+    """Compile the kernels if the library for these sources is missing: one
+    ``nvcc -c`` per ``.cu`` source, all at once, then one link.
 
     Returns the library's path and the compiler's output (``-Xptxas -v``
     prints each kernel's registers and shared memory); the output is empty
@@ -93,15 +118,18 @@ def build() -> tuple[Path, str]:
     if out.exists():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(_CSRC / s) for s in _SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    nvcc, pid = _nvcc(), os.getpid()
+    units = [s for s in _SOURCES if s.endswith(".cu")]
+    objs = [out.with_name(f"{out.stem}.{Path(s).stem}.{pid}.o") for s in units]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
+                    for s, o in zip(units, objs)])
+    tmp = out.with_suffix(f".{pid}.tmp")
+    log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                      "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return out, log
 
 
 def _library():
@@ -124,6 +152,13 @@ def _library():
             b1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, ptr, ptr,
                            ptr]
             b1.restype = i32
+            d2 = getattr(lib, f"gpq_nufft2_3d_{prec}")
+            d2.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
+            d2.restype = i32
+            d1 = getattr(lib, f"gpq_nufft1_3d_{prec}")
+            d1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, i32, ptr,
+                           ptr, ptr]
+            d1.restype = i32
         _lib = lib
     return _lib
 
@@ -132,13 +167,16 @@ def _complex_of(rdtype):
     return torch.complex64 if rdtype == torch.float32 else torch.complex128
 
 
-def _check(x: torch.Tensor, mtot: int):
-    if x.ndim != 2 or x.shape[1] != 2:
-        raise ValueError(f"x must be (N, 2), got {tuple(x.shape)}")
+def _check(x: torch.Tensor, mtot: int, d: int = 2):
+    if x.ndim != 2 or x.shape[1] != d:
+        raise ValueError(f"x must be (N, {d}), got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"x must be float32 or float64, got {x.dtype}")
     if mtot % 2 != 1 or mtot < 1:
         raise ValueError(f"mtot must be odd and positive, got {mtot}")
+    if d == 3 and mtot > CUDA_D3_MAX_MTOT:
+        raise ValueError(f"the d=3 kernels take mtot <= {CUDA_D3_MAX_MTOT}, "
+                         f"got {mtot}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
 
@@ -192,6 +230,22 @@ def nufft1_2d_batched_ref(x, vals, h, *, mtot: int, fft_order: bool = False):
     """Plain batched type-1: ``vals`` (B, N) -> complex (B, mtot, mtot)."""
     op = make_phase_nufft(x, h, mtot, fft_order=fft_order)
     return op.type1(vals.reshape(-1, x.shape[0]))
+
+
+def nufft2_3d_ref(x, f, h, *, mtot: int, fft_order: bool = False):
+    """Plain d=3 type-2: ``out[b,n] = sum f[b,j1,j2,j3] e^{+2 pi i h (x_n1
+    k_j1 + x_n2 k_j2 + x_n3 k_j3)}`` with the per-j1 loop of the phase-matrix
+    backend; ``f`` as :func:`nufft2_3d` takes it, complex (N,) or (B, N)."""
+    op = make_phase_nufft(x, h, mtot, fft_order=fft_order)
+    return op.type2(f)
+
+
+def nufft1_3d_ref(x, vals, h, *, mtot: int, fft_order: bool = False):
+    """Plain d=3 type-1: ``out[b,j1,j2,j3] = sum_n v[b,n] e^{-2 pi i h
+    (...)}``; ``vals`` (N,) or (B, N) -> complex (mtot,)*3 or
+    (B,) + (mtot,)*3."""
+    op = make_phase_nufft(x, h, mtot, fft_order=fft_order)
+    return op.type1(vals)
 
 
 # ---------------------------------------------------------------------------
@@ -250,12 +304,16 @@ def nufft1_2d(x, vals, h, *, mtot: int, fft_order: bool = False):
     return out
 
 
-def _check_batch(B: int, mtot: int):
+def _check_batch(B: int, mtot: int, d: int = 2, groups: int = 1):
+    """B >= 1, and the B * mtot^d outputs, and the ``groups`` times as many
+    partial sums of the d=3 type-1, within the kernels' 32-bit index
+    range."""
     if B < 1:
         raise ValueError(f"the batch must hold at least one vector, got {B}")
-    if B * mtot * mtot >= 2 ** 31:
-        raise ValueError(f"B * mtot^2 = {B * mtot * mtot} exceeds the "
-                         "kernels' 32-bit index range")
+    size = B * mtot ** d
+    if groups * size >= 2 ** 31:
+        raise ValueError(f"B * mtot^{d} = {size} (times {groups} partial-sum "
+                         "groups) exceeds the kernels' 32-bit index range")
 
 
 def nufft2_2d_batched(x, f, h, *, mtot: int, fft_order: bool = False):
@@ -319,20 +377,111 @@ def nufft1_2d_batched(x, vals, h, *, mtot: int, fft_order: bool = False):
     return out
 
 
+def type1_3d_groups(n: int, mtot: int, B: int = 1) -> tuple[int, int]:
+    """(groups, chunks per group) of the d=3 type-1's sum over points.
+
+    Each block sums its group's 2048-point chunks (each chunk in registers,
+    then into the block's running total), and a second kernel adds the
+    groups in order.  Enough groups for about :data:`TYPE1_3D_BLOCKS`
+    blocks, never an empty one; the scratch holds groups * B * mtot^3
+    values."""
+    nt = -(-mtot // 16)
+    blocks = nt * nt * -(-mtot // 8) * B
+    nchunk = max(1, -(-n // TYPE1_CHUNK))
+    groups = min(nchunk, max(1, -(-TYPE1_3D_BLOCKS // blocks)))
+    cpg = -(-nchunk // groups)
+    return -(-nchunk // cpg), cpg
+
+
+def nufft2_3d(x, f, h, *, mtot: int, fft_order: bool = False):
+    """Fused d=3 type-2 apply (replaces ``pallas_nufft2_3d`` and
+    ``_pallas_nufft2_3d_tiled``).
+
+    ``x`` (N, 3) real; ``f`` complex (mtot,)*3 or (mtot^3,) for one vector,
+    (B, mtot, mtot, mtot) or (B, mtot^3) for a batch of B >= 1; odd
+    mtot <= 255.  Returns complex (N,) or (B, N) from one launch.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    _check(x, mtot, 3)
+    m = mtot
+    M = m ** 3
+    if tuple(f.shape) in ((M,), (m, m, m)):
+        single, B = True, 1
+    elif f.ndim in (2, 4) and tuple(f.shape[1:]) in ((M,), (m, m, m)):
+        single, B = False, f.shape[0]
+    else:
+        raise ValueError(f"f must be ({m}, {m}, {m}) or ({M},), with an "
+                         f"optional leading batch, got {tuple(f.shape)}")
+    _check_batch(B, m, 3)
+    if x.device.type == "cpu":
+        return nufft2_3d_ref(x, f, h, mtot=m, fft_order=fft_order)
+    cdtype = _complex_of(x.dtype)
+    _check_cuda_operand("f", f, x, cdtype)
+    n = x.shape[0]
+    out = torch.empty((B, n), dtype=cdtype, device=x.device)
+    if n > 0:
+        x = x.contiguous()
+        f = f.contiguous()
+        h = float(torch.as_tensor(h, dtype=x.dtype))
+        _launch("nufft2_3d", x, x.data_ptr(), f.data_ptr(), h, n, m, B,
+                int(fft_order), out.data_ptr())
+    return out[0] if single else out
+
+
+def nufft1_3d(x, vals, h, *, mtot: int, fft_order: bool = False):
+    """Fused d=3 type-1 apply (replaces ``pallas_nufft1_3d`` and
+    ``_pallas_nufft1_3d_tiled``).
+
+    ``x`` (N, 3) real; ``vals`` complex (N,) or (B, N), B >= 1; odd
+    mtot <= 255.  Returns complex (mtot,)*3 or (B,) + (mtot,)*3 from one
+    launch (two kernels: grouped partial sums, then the group-order sum;
+    scratch of :func:`type1_3d_groups` * B * mtot^3 values).  A CPU tensor
+    takes the plain version."""
+    _check(x, mtot, 3)
+    n = x.shape[0]
+    if vals.ndim not in (1, 2) or vals.shape[-1] != n:
+        raise ValueError(f"vals must be ({n},) or (B, {n}), "
+                         f"got {tuple(vals.shape)}")
+    single = vals.ndim == 1
+    B = 1 if single else vals.shape[0]
+    groups, _ = type1_3d_groups(n, mtot, B)
+    _check_batch(B, mtot, 3, groups)
+    if x.device.type == "cpu":
+        return nufft1_3d_ref(x, vals, h, mtot=mtot, fft_order=fft_order)
+    cdtype = _complex_of(x.dtype)
+    _check_cuda_operand("vals", vals, x, cdtype)
+    shape = (B, mtot, mtot, mtot)
+    if n == 0:
+        out = torch.zeros(shape, dtype=cdtype, device=x.device)
+    else:
+        x = x.contiguous()
+        vals = vals.contiguous()
+        h = float(torch.as_tensor(h, dtype=x.dtype))
+        partial = torch.empty((groups,) + shape, dtype=cdtype,
+                              device=x.device)
+        out = torch.empty(shape, dtype=cdtype, device=x.device)
+        _launch("nufft1_3d", x, x.data_ptr(), vals.data_ptr(), h, n, mtot, B,
+                int(fft_order), TYPE1_CHUNK, groups, partial.data_ptr(),
+                out.data_ptr())
+    return out[0] if single else out
+
+
 @dataclasses.dataclass(frozen=True)
 class CudaNUFFT:
-    """NUFFT backend on the d=2 kernels (replaces ``PallasNUFFT``,
+    """NUFFT backend on the d=2 and d=3 kernels (replaces ``PallasNUFFT``,
     pallas_nufft.py:245): the same ``type1``/``type2`` interface as
-    :class:`~gpquad_torch.ops.nufft.NUFFT`, storing only the points.  A
-    single vector goes to ``nufft1_2d``/``nufft2_2d``; a leading batch of two
-    or more vectors (any shape, flat or block-shaped modes) goes to the
-    batched kernel in one launch."""
-    x: torch.Tensor          # (N, 2)
+    :class:`~gpquad_torch.ops.nufft.NUFFT`, storing only the points.  At d=2
+    a single vector goes to ``nufft1_2d``/``nufft2_2d`` and a leading batch
+    of two or more vectors (any shape, flat or block-shaped modes) to the
+    batched kernel in one launch; at d=3 ``nufft1_3d``/``nufft2_3d`` take
+    either in one launch."""
+    x: torch.Tensor          # (N, d), d in {2, 3}
     h: float                 # already rounded to x's precision
     mtot: int
     fft_order: bool = False
 
-    d = 2
+    @property
+    def d(self) -> int:
+        return self.x.shape[1]
 
     @property
     def n(self) -> int:
@@ -341,26 +490,30 @@ class CudaNUFFT:
     def type1(self, vals):
         cdtype = _complex_of(self.x.dtype)
         kw = dict(mtot=self.mtot, fft_order=self.fft_order)
-        if vals.ndim == 1:
-            return nufft1_2d(self.x, vals.to(cdtype), self.h, **kw)
         lead = tuple(vals.shape[:-1])
         flat = vals.reshape(-1, vals.shape[-1]).to(cdtype)
-        if flat.shape[0] == 1:
+        if self.d == 3:
+            out = nufft1_3d(self.x, flat, self.h, **kw)
+        elif flat.shape[0] == 1:
             out = nufft1_2d(self.x, flat[0], self.h, **kw)
         else:
             out = nufft1_2d_batched(self.x, flat, self.h, **kw)
-        return out.reshape(lead + (self.mtot, self.mtot))
+        return out.reshape(lead + (self.mtot,) * self.d)
 
     def type2(self, fk):
         cdtype = _complex_of(self.x.dtype)
-        m = self.mtot
+        m, d = self.mtot, self.d
+        M, block = m ** d, (m,) * d
         kw = dict(mtot=m, fft_order=self.fft_order)
-        if fk.shape in ((m * m,), (m, m)):
-            return nufft2_2d(self.x, fk.to(cdtype), self.h, **kw)
-        lead = tuple(fk.shape[:-1] if fk.shape[-1] == m * m
-                     else fk.shape[:-2])
-        flat = fk.reshape(-1, m, m).to(cdtype)
-        if flat.shape[0] == 1:
+        if tuple(fk.shape) in ((M,), block):
+            lead = ()
+        else:
+            lead = tuple(fk.shape[:-1] if fk.shape[-1] == M
+                         else fk.shape[:-d])
+        flat = fk.reshape((-1,) + block).to(cdtype)
+        if d == 3:
+            out = nufft2_3d(self.x, flat, self.h, **kw)
+        elif flat.shape[0] == 1:
             out = nufft2_2d(self.x, flat[0], self.h, **kw)
         else:
             out = nufft2_2d_batched(self.x, flat, self.h, **kw)

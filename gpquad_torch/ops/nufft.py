@@ -9,8 +9,9 @@ grid ``xi = k h``, ``k in [-m, m]^d``, so
 
 factor through per-dimension phase matrices ``E_t in C^{N x mtot}`` and each
 apply is one (or d) dense matmuls.  This backend is the CPU path, the
-reference the CUDA kernels are held against, and the card's path for d in
-{1, 3} until those kernels are ported.
+reference the CUDA kernels are held against, and the card's path for d=1
+(until its kernels are ported) and for d=3 grids wider than the d=3 kernels
+take.
 
 Conventions: ``type1`` isign=-1, ``type2`` isign=+1; modes ordered -m..m,
 or 0..m, -m..-1 with ``fft_order=True``.
@@ -27,6 +28,11 @@ __all__ = ["NUFFT", "make_nufft", "make_phase_nufft", "BACKEND_PICKS"]
 
 # How often make_nufft picked each backend since the last reset.
 BACKEND_PICKS = {"cuda": 0, "matmul": 0}
+
+# Widest d=3 grid the CUDA kernels take: the TPU kernels' _D3_TILED_MAX
+# (pallas_nufft.py:966); wider d=3 grids take the phase matrices, as gpquad's
+# default backend does.
+CUDA_D3_MAX_MTOT = 255
 
 # Points per partial sum of the chunked f32 type-1 (ops/nufft.py:107).
 _CHUNK = 2048
@@ -178,10 +184,11 @@ def make_nufft(x: torch.Tensor, h, mtot: int, *, fft_order: bool = False,
     """Build the NUFFT operator for points ``x`` (N, d).
 
     ``method="auto"`` launches the hand-written kernels
-    (``ops/cuda_nufft.py``) for d=2 points on a CUDA device and uses the
-    phase-matrix backend otherwise: on the CPU, and for d in {1, 3} until
-    their kernels are ported.  ``method="matmul"`` always takes the
-    phase-matrix backend.  The pick is counted in :data:`BACKEND_PICKS`.
+    (``ops/cuda_nufft.py``) for points on a CUDA device with d=2, or d=3
+    and ``mtot <= CUDA_D3_MAX_MTOT``, and uses the phase-matrix backend
+    otherwise: on the CPU, for d=1 until its kernels are ported, and for
+    wider d=3 grids.  ``method="matmul"`` always takes the phase-matrix
+    backend.  The pick is counted in :data:`BACKEND_PICKS`.
     """
     if x.ndim == 1:
         x = x[:, None]
@@ -189,7 +196,9 @@ def make_nufft(x: torch.Tensor, h, mtot: int, *, fft_order: bool = False,
         raise ValueError(f"mtot must be odd (symmetric grid -m..m), got {mtot}")
     if method not in ("auto", "matmul"):
         raise ValueError(f"Unknown NUFFT method '{method}' (auto | matmul)")
-    if method == "auto" and x.is_cuda and x.shape[1] == 2:
+    d = x.shape[1]
+    if method == "auto" and x.is_cuda and (
+            d == 2 or (d == 3 and mtot <= CUDA_D3_MAX_MTOT)):
         from .cuda_nufft import CudaNUFFT
         BACKEND_PICKS["cuda"] += 1
         # h in x's precision, read to the host once here so that no launch

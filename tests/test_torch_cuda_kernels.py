@@ -1,5 +1,5 @@
-"""The d=2 CUDA NUFFT kernels on the card, against their float64 plain
-versions on the same inputs.
+"""The d=2 and d=3 CUDA NUFFT kernels on the card, against their float64
+plain versions on the same inputs.
 
 Marked ``cuda``: they skip where torch sees no CUDA device.  This file
 imports neither JAX nor ``gpquad`` (the card's machine has no JAX), so it
@@ -19,8 +19,10 @@ from gpquad_torch.ops import cuda_nufft
 from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_2d,
                                          nufft1_2d_batched,
                                          nufft1_2d_batched_ref, nufft1_2d_ref,
+                                         nufft1_3d, nufft1_3d_ref,
                                          nufft2_2d, nufft2_2d_batched,
-                                         nufft2_2d_batched_ref, nufft2_2d_ref)
+                                         nufft2_2d_batched_ref, nufft2_2d_ref,
+                                         nufft2_3d, nufft2_3d_ref)
 from gpquad_torch.ops import nufft as nufft_mod
 from gpquad_torch.ops.nufft import NUFFT, make_nufft
 
@@ -88,10 +90,12 @@ def test_kernel_wrappers_reject_mismatched_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_dispatcher_on_card(cuda_device):
-    """d=2 on the card takes the kernels; d in {1, 3} the phase matrices."""
-    for d, cls in ((1, NUFFT), (2, CudaNUFFT), (3, NUFFT)):
+    """d=2, and d=3 up to mtot 255, on the card take the kernels; d=1 and
+    wider d=3 grids the phase matrices."""
+    for d, mtot, cls in ((1, 9, NUFFT), (2, 9, CudaNUFFT), (3, 9, CudaNUFFT),
+                         (3, 255, CudaNUFFT), (3, 257, NUFFT)):
         x = torch.rand((50, d), device=cuda_device)
-        assert isinstance(make_nufft(x, 0.3, 9), cls)
+        assert isinstance(make_nufft(x, 0.3, mtot), cls), (d, mtot)
     x = torch.rand((50, 2), device=cuda_device)
     assert isinstance(make_nufft(x, 0.3, 9, method="matmul"), NUFFT)
     # h is read to the host once, in x's precision, so launches never sync
@@ -212,7 +216,7 @@ def test_cuda_backend_batches_in_one_launch(cuda_device):
     after = dict(cuda_nufft.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
         "nufft1_2d": 0, "nufft2_2d": 1, "nufft1_2d_batched": 1,
-        "nufft2_2d_batched": 1}
+        "nufft2_2d_batched": 1, "nufft1_3d": 0, "nufft2_3d": 0}
 
 
 @pytest.mark.cuda
@@ -243,7 +247,7 @@ def test_pipeline_on_card_matches_cpu(cuda_device):
         if dev != "cpu":
             assert dict(cuda_nufft.LAUNCHES) == {
                 "nufft1_2d": 3, "nufft2_2d": 3, "nufft1_2d_batched": 1,
-                "nufft2_2d_batched": 2}
+                "nufft2_2d_batched": 2, "nufft1_3d": 0, "nufft2_3d": 0}
             assert nufft_mod.BACKEND_PICKS["matmul"] == 0
         out[(str(dev), dtype)] = [t.cpu().numpy().astype(np.float64)
                                   for t in (r.mean, r.var, r.grad)]
@@ -256,3 +260,120 @@ def test_pipeline_on_card_matches_cpu(cuda_device):
     assert np.max(np.abs(m32 - m_cpu)) < 1e-4 * np.max(np.abs(m_cpu))
     assert np.max(np.abs(v32 - v_cpu)) < 1e-4 * np.max(np.abs(v_cpu))
     assert np.all(np.abs(g32 - g_cpu) < 1e-2 * np.abs(g_cpu))
+
+
+# ---------------------------------------------------------------------------
+# d=3
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (1, 3000, 9, 0.31, False),
+    (3, 2000, 9, 0.31, True),
+    (10, 1500, 9, 0.31, False),
+    (1, 1000, 61, 0.11, True),
+    (3, 700, 61, 0.11, False),
+    (10, 300, 61, 0.11, True),
+    (1, 400, 101, 0.05, False),
+    (3, 300, 101, 0.05, True),
+    (1, 1, 3, 0.3, False),
+])
+def test_3d_kernels_match_plain_on_card(cuda_device, dtype, B, n, mtot, h,
+                                        fft_order):
+    """One launch per call for one vector or a batch (B 1/3/10), at mtot 9
+    (the TPU's single-block branch), 61 and 101 (its slab-tiled branch),
+    against the float64 plain versions; f64 at 1e-10."""
+    rng = np.random.default_rng(2)
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 3)), device=cuda_device).to(dtype)
+    lead = () if B == 1 else (B,)
+    V = torch.as_tensor(rng.normal(size=lead + (n,))
+                        + 1j * rng.normal(size=lead + (n,)),
+                        device=cuda_device).to(cdt)
+    F = torch.as_tensor(rng.normal(size=lead + (mtot,) * 3)
+                        + 1j * rng.normal(size=lead + (mtot,) * 3),
+                        device=cuda_device).to(cdt)
+    hq = float(torch.tensor(h, dtype=dtype))
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    before = dict(cuda_nufft.LAUNCHES)
+    got1 = nufft1_3d(x, V, hq, **kw)
+    got2 = nufft2_3d(x, F, hq, **kw)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCHES["nufft1_3d"] == before["nufft1_3d"] + 1
+    assert cuda_nufft.LAUNCHES["nufft2_3d"] == before["nufft2_3d"] + 1
+    x64 = x.double()
+    ref1 = nufft1_3d_ref(x64, V.to(torch.complex128), hq, **kw)
+    ref2 = nufft2_3d_ref(x64, F.to(torch.complex128), hq, **kw)
+    assert got1.shape == lead + (mtot,) * 3 and got2.shape == lead + (n,)
+    bar = 1e-4 if dtype == torch.float32 else 1e-10
+    assert _rel(got1.to(torch.complex128), ref1) < bar
+    assert _rel(got2.to(torch.complex128), ref2) < bar
+    flat = nufft2_3d(x, F.reshape(lead + (mtot ** 3,)), hq, **kw)
+    assert torch.equal(flat, got2)
+
+
+@pytest.mark.cuda
+def test_3d_dispatch_launches_kernels(cuda_device):
+    """make_nufft on d=3 points on the card launches the d=3 kernels once
+    per call, for a single vector or a batch, and never the plain path."""
+    x = torch.rand((500, 3), device=cuda_device)
+    nufft_mod.BACKEND_PICKS.update({k: 0 for k in nufft_mod.BACKEND_PICKS})
+    op = make_nufft(x, 0.3, 9)
+    before = dict(cuda_nufft.LAUNCHES)
+    assert op.type1(torch.ones((2, 3, 500), device=cuda_device)).shape == \
+        (2, 3, 9, 9, 9)
+    assert op.type1(torch.ones(500, device=cuda_device)).shape == (9, 9, 9)
+    assert op.type2(torch.ones((5, 729), dtype=torch.complex64,
+                               device=cuda_device)).shape == (5, 500)
+    assert op.type2(torch.ones((9, 9, 9), dtype=torch.complex64,
+                               device=cuda_device)).shape == (500,)
+    after = dict(cuda_nufft.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        "nufft1_2d": 0, "nufft2_2d": 0, "nufft1_2d_batched": 0,
+        "nufft2_2d_batched": 0, "nufft1_3d": 2, "nufft2_3d": 2}
+    assert nufft_mod.BACKEND_PICKS == {"cuda": 1, "matmul": 0}
+
+
+@pytest.mark.cuda
+def test_3d_pipeline_on_card_matches_cpu(cuda_device):
+    """fit_predict_grad at d=3 on the card (kernels) against the CPU (phase
+    matrices), same generator seed, on the dense tier (mtot 9) and the CG
+    tier; bars as test_pipeline_on_card_matches_cpu."""
+    rng = np.random.default_rng(9)
+    n = 2000
+    x = rng.uniform(0, 1, (n, 3))
+    y = (np.sin(3 * np.pi * x[:, 0]) * np.cos(2 * np.pi * x[:, 1])
+         * np.cos(np.pi * x[:, 2]) + 0.1 * rng.normal(size=n))
+    xq = rng.uniform(0, 1, (150, 3))
+    kern = gpquad_torch.make_kernel("SE", 3, lengthscale=0.4, variance=1.0)
+    _, h, mtot = gpquad_torch.spectral_grid(kern, 1e-3, 1.0)
+    for solver in ("dense", "cg"):
+        out = {}
+        for dev, dtype in (("cpu", np.float64), (cuda_device, np.float64),
+                           (cuda_device, np.float32)):
+            cuda_nufft.LAUNCHES.update({k: 0 for k in cuda_nufft.LAUNCHES})
+            nufft_mod.BACKEND_PICKS.update(
+                {k: 0 for k in nufft_mod.BACKEND_PICKS})
+            r = gpquad_torch.fit_predict_grad(
+                x.astype(dtype), y.astype(dtype), xq.astype(dtype), kern,
+                0.5, h, torch.Generator().manual_seed(3), mtot=mtot,
+                trace_samples=4, var_probes=32, cg_tol=1e-10,
+                var_cg_tol=1e-10, grad_cg_tol=1e-10, max_cg_iter=3000,
+                solver=solver, device=dev)
+            if dev != "cpu":
+                assert dict(cuda_nufft.LAUNCHES) == {
+                    "nufft1_2d": 0, "nufft2_2d": 0, "nufft1_2d_batched": 0,
+                    "nufft2_2d_batched": 0, "nufft1_3d": 4, "nufft2_3d": 5}
+                assert nufft_mod.BACKEND_PICKS["matmul"] == 0
+            out[(str(dev), dtype)] = [t.cpu().numpy().astype(np.float64)
+                                      for t in (r.mean, r.var, r.grad)]
+        m_cpu, v_cpu, g_cpu = out[("cpu", np.float64)]
+        m64, v64, g64 = out[(str(cuda_device), np.float64)]
+        m32, v32, g32 = out[(str(cuda_device), np.float32)]
+        assert np.max(np.abs(m64 - m_cpu)) < 1e-9, solver
+        assert np.max(np.abs(v64 - v_cpu)) < 1e-8 * np.max(np.abs(v_cpu))
+        assert np.all(np.abs(g64 - g_cpu) < 1e-8 * np.abs(g_cpu)), solver
+        assert np.max(np.abs(m32 - m_cpu)) < 1e-4 * np.max(np.abs(m_cpu))
+        assert np.max(np.abs(v32 - v_cpu)) < 1e-4 * np.max(np.abs(v_cpu))
+        assert np.all(np.abs(g32 - g_cpu) < 1e-2 * np.abs(g_cpu)), solver

@@ -20,6 +20,10 @@ from gpquad_torch.ops import cuda_nufft
 from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_2d, nufft1_2d_ref,
                                          nufft2_2d, nufft2_2d_ref)
 
+# The parity problems are small: torch's intra-op threads cost more than
+# they give on them, most of all beside other test processes.
+torch.set_num_threads(1)
+
 
 def _rel(got, want):
     return np.max(np.abs(got - want)) / np.max(np.abs(want))

@@ -18,9 +18,14 @@ import torch
 
 from gpquad.kernels import SquaredExponential as JaxSE
 from gpquad.models import efgp as jefgp
+from gpquad.quadrature import spectral_grid
 import gpquad_torch
 from gpquad_torch import convert
 from gpquad_torch.models import efgp as tefgp
+
+# The parity problems are small: torch's intra-op threads cost more than
+# they give on them, most of all beside other test processes.
+torch.set_num_threads(1)
 
 N, NQ, PROBES, SIGMASQ, EPS = 1500, 60, 48, 0.5, 1e-4
 
@@ -173,13 +178,20 @@ def test_entry_points_fail_without_card(data):
 
 
 def test_unported_options_raise(data):
+    """kron (also 'adaptive' at n >= M) raises until A.11; precond_rank runs
+    the deflation preconditioner and keeps its block on the state."""
     x, y, xq = data
     tk = gpquad_torch.make_kernel("SE", 2, lengthscale=0.3, variance=1.0)
-    for kw in (dict(precond="kron"), dict(precond_rank=16),
-               dict(precond="adaptive")):
+    for kw in (dict(precond="kron"), dict(precond="adaptive")):
         with pytest.raises(NotImplementedError, match="A.11"):
             gpquad_torch.fit(x[:200], y[:200], tk, 0.1, solver="cg",
                              device="cpu", **kw)
+    st = gpquad_torch.fit(x[:200], y[:200], tk, 0.1, solver="cg",
+                          precond_rank=16, device="cpu")
+    assert st.defl_idx.shape == (16,) and st.defl_P.shape == (16, 16)
+    assert tefgp.resolve_precond("deflation", 0, True, 2) == "deflation"
+    assert tefgp.resolve_precond("adaptive", 0, True, 2, n=10, M=100) == \
+        "deflation"
     # gpquad's known quirk (ROADMAP §C): 'kron' at d > 3 becomes Jacobi
     assert tefgp.resolve_precond("kron", 0, True, 4) == "jacobi"
     st = gpquad_torch.fit(x[:200], y[:200], tk, 0.1, eps=1e-3, device="cpu")
@@ -188,3 +200,93 @@ def test_unported_options_raise(data):
             gpquad_torch.predict_var(st, xq, method=method)
     with pytest.raises(ValueError):
         gpquad_torch.predict_var(st, xq, method="exact")
+
+
+# ---------------------------------------------------------------------------
+# d=3: the slice on both tiers, Jacobi and deflation, and a deflated JAX state
+# ---------------------------------------------------------------------------
+
+N3, NQ3, SIG3, ELL3, EPS3 = 300, 40, 0.1, 0.3, 1e-3
+
+
+@pytest.fixture(scope="module")
+def data3():
+    rng = np.random.default_rng(17)
+    x = rng.uniform(0, 1, (N3, 3))
+    y = (np.sin(3 * np.pi * x[:, 0]) * np.cos(2 * np.pi * x[:, 1])
+         * np.cos(np.pi * x[:, 2]) + 0.1 * rng.normal(size=N3))
+    xq = rng.uniform(0, 1, (NQ3, 3))
+    jk = JaxSE(lengthscale=ELL3, variance=1.0, dimension=3)
+    _, h, mtot = spectral_grid(jk, EPS3, 1.0)
+    return x, y, xq, float(h), int(mtot)
+
+
+def _slice3_both(data3, **kw):
+    x, y, xq, h, mtot = data3
+    jk = JaxSE(lengthscale=ELL3, variance=1.0, dimension=3)
+    tk = gpquad_torch.make_kernel("SE", 3, lengthscale=ELL3, variance=1.0)
+    etas = np.random.default_rng(4).choice([-1.0, 1.0],
+                                           size=(16, mtot ** 3))
+    js = jefgp.fit_with_grid(jnp.asarray(x), jnp.asarray(y), jk, SIG3, h,
+                             mtot, cg_tol=1e-13, **kw)
+    ts = gpquad_torch.fit_with_grid(x, y, tk, SIG3, h, mtot, cg_tol=1e-13,
+                                    device="cpu", **kw)
+    vkw = dict(probes=16, cg_tol=1e-13, max_cg_iter=4000)
+    jout = (np.asarray(jefgp.predict_mean(js, jnp.asarray(xq))),
+            np.asarray(jefgp.predict_var(js, jnp.asarray(xq),
+                                         etas=jnp.asarray(etas), **vkw)))
+    tout = (gpquad_torch.predict_mean(ts, xq).numpy(),
+            gpquad_torch.predict_var(ts, xq, etas=etas, **vkw).numpy())
+    return js, ts, jout, tout, etas
+
+
+@pytest.mark.parametrize("solver,precond_rank", [("dense", 0), ("cg", 0),
+                                                 ("cg", 100)])
+def test_slice_3d_float64(data3, solver, precond_rank):
+    """fit_with_grid -> predict_mean -> predict_var(etas=) at d=3 (mtot 11,
+    M 1331) on the dense tier and on the CG tier with Jacobi and with the
+    deflation preconditioner, against gpquad: mean 1e-9 absolute, variance
+    1e-8 * max|var| (every solve at cg_tol 1e-13)."""
+    js, ts, (jm, jv), (tm, tv), _ = _slice3_both(
+        data3, solver=solver, precond_rank=precond_rank)
+    assert ts.mtot == js.mtot == 11 and ts.d == 3
+    assert np.max(np.abs(tm - jm)) < 1e-9
+    assert np.max(np.abs(tv - jv)) < 1e-8 * np.max(np.abs(jv))
+    assert tm.shape == tv.shape == (NQ3,)
+    if precond_rank:
+        np.testing.assert_array_equal(ts.defl_idx.numpy(),
+                                      np.asarray(js.defl_idx))
+        assert np.max(np.abs(ts.defl_P.numpy() - np.asarray(js.defl_P))) \
+            < 1e-10 * np.max(np.abs(np.asarray(js.defl_P)))
+    else:
+        assert ts.defl_idx is None and ts.defl_P is None
+
+
+def test_deflated_state_carried_across(data3):
+    """A JAX deflated CG-tier state loaded through fit_state_from_numpy
+    predicts gpquad's mean and variance (the variance solve reuses the
+    carried block), and fit_state_to_numpy round-trips a port state."""
+    x, y, xq, h, mtot = data3
+    js, ts, (jm, jv), _, etas = _slice3_both(data3, solver="cg",
+                                              precond_rank=100)
+    arrays = {k: np.asarray(getattr(js, k)) for k in
+              ("beta", "ws", "h", "sigmasq", "diag_scale", "defl_idx",
+               "defl_P", "mean_cg_iters")}
+    arrays["fft_kernel"] = np.asarray(js.toeplitz.fft_kernel)
+    st = convert.fit_state_from_numpy(arrays, mtot, 3, device="cpu")
+    assert st.defl_idx.dtype == torch.int64 and st.A_dense is None
+    mean = gpquad_torch.predict_mean(st, xq).numpy()
+    var = gpquad_torch.predict_var(st, xq, probes=16, cg_tol=1e-13,
+                                   max_cg_iter=4000, etas=etas).numpy()
+    assert np.max(np.abs(mean - jm)) < 1e-9
+    assert np.max(np.abs(var - jv)) < 1e-8 * np.max(np.abs(jv))
+
+    back = convert.fit_state_to_numpy(ts)
+    assert {"defl_idx", "defl_P"} <= set(back)
+    assert "A_dense" not in back
+    again = convert.fit_state_from_numpy(back, mtot, 3, device="cpu")
+    for k in ("beta", "ws", "defl_idx", "defl_P", "diag_scale"):
+        assert torch.equal(getattr(again, k), getattr(ts, k)), k
+    np.testing.assert_array_equal(
+        gpquad_torch.predict_mean(again, xq).numpy(),
+        gpquad_torch.predict_mean(ts, xq).numpy())

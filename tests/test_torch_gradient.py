@@ -34,6 +34,10 @@ from gpquad_torch.ops import slq as tslq
 
 from .test_gradient import _dense_exact_gradient, _dummy_slq_problem
 
+# The parity problems are small: torch's intra-op threads cost more than
+# they give on them, most of all beside other test processes.
+torch.set_num_threads(1)
+
 SIGMASQ, EPS, T = 0.15, 1e-3, 3
 
 
@@ -82,7 +86,8 @@ def _assert_grad(got, want, rtol=1e-8):
 
 
 @pytest.mark.parametrize("d,solver", [(1, "dense"), (2, "dense"),
-                                      (1, "cg"), (2, "cg")])
+                                      (1, "cg"), (2, "cg"), (3, "dense"),
+                                      (3, "cg")])
 def test_gradient_same_probes(rng, d, solver):
     x, y = _data(rng, 80 if d == 1 else 120, d)
     h, mtot = _grid(_kernels(d)[0], x)
@@ -283,13 +288,52 @@ def test_generator_probe_order(rng):
 
 
 def test_unported_preconditioners_raise(rng):
+    """kron raises until A.11; precond_rank, precond='deflation' and
+    'adaptive' at n < M (here n = 40, M = 169) run the deflation
+    preconditioner and reach the Jacobi run's gradient."""
     x, y = _data(rng, 40, 2)
     _, tk = _kernels(2)
-    for kw in (dict(precond="kron"), dict(precond_rank=16),
+    with pytest.raises(NotImplementedError, match="A.11"):
+        gpquad_torch.gradient(x, y, tk, SIGMASQ, EPS, solver="cg",
+                              trace_samples=2, device="cpu", precond="kron")
+    grads = []
+    for kw in (dict(), dict(precond_rank=16), dict(precond="deflation"),
                dict(precond="adaptive")):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            gpquad_torch.gradient(x, y, tk, SIGMASQ, EPS, solver="cg",
-                                  trace_samples=2, device="cpu", **kw)
+        grads.append(gpquad_torch.gradient(
+            x, y, tk, SIGMASQ, EPS, torch.Generator().manual_seed(0),
+            solver="cg", trace_samples=2, cg_tol=1e-10, device="cpu",
+            **kw).grad.numpy())
+    for g in grads[1:]:
+        np.testing.assert_allclose(g, grads[0], rtol=1e-6)
+
+
+@pytest.mark.parametrize("source", ["rank", "state"])
+def test_gradient_deflation_same_probes(rng, source):
+    """d=3 on the CG tier with the deflation preconditioner, against gpquad
+    with the same probes at 1e-8 relative: built by the gradient itself
+    (``precond_rank``, gradient.py:192-201) or carried on a deflated fit's
+    state (gradient.py:164-168, the JAX state through fit_state_from_numpy).
+    """
+    x, y = _data(rng, 120, 3)
+    jk, tk = _kernels(3)
+    h, mtot = _grid(jk, x)
+    probes = _probes(rng, 120, mtot ** 3)
+    if source == "rank":
+        kw = dict(cg_tol=1e-12, solver="cg", precond_rank=200)
+        jax_kw = kw
+    else:
+        js = jefgp.fit_with_grid(jnp.asarray(x), jnp.asarray(y), jk, SIGMASQ,
+                                 h, mtot, cg_tol=1e-12, solver="cg",
+                                 precond_rank=200)
+        arrays = {k: np.asarray(getattr(js, k)) for k in
+                  ("beta", "ws", "h", "sigmasq", "diag_scale", "defl_idx",
+                   "defl_P")}
+        arrays["fft_kernel"] = np.asarray(js.toeplitz.fft_kernel)
+        st = convert.fit_state_from_numpy(arrays, mtot, 3, device="cpu")
+        kw = dict(cg_tol=1e-12, state=st)
+        jax_kw = dict(cg_tol=1e-12, state=js)
+    jres, tres = _run_both(x, y, 3, h, mtot, probes, jax_kw=jax_kw, **kw)
+    _assert_grad(tres.grad.numpy(), jres.grad)
 
 
 def test_kernel_hyper_access():

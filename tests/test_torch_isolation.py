@@ -30,6 +30,7 @@ def _imported_roots(path: Path):
 def test_import_pulls_in_no_jax():
     code = ("import sys, gpquad_torch, gpquad_torch.convert, "
             "gpquad_torch.ops.cuda_nufft, gpquad_torch.ops.slq, "
+            "gpquad_torch.ops.deflation, "
             "gpquad_torch.models.gradient, gpquad_torch.models.pipeline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
@@ -45,7 +46,7 @@ def test_scan_covers_the_port():
     for module in ("gpquad_torch/models/gradient.py",
                    "gpquad_torch/models/pipeline.py",
                    "gpquad_torch/ops/slq.py", "gpquad_torch/ops/cuda_nufft.py",
-                   "chip_smoke.py"):
+                   "gpquad_torch/ops/deflation.py", "chip_smoke.py"):
         assert module in names, module
 
 

@@ -15,6 +15,10 @@ from gpquad.quadrature import spectral_grid as jax_spectral_grid
 from gpquad_torch.kernels import SquaredExponential, make_kernel
 from gpquad_torch.quadrature import grid_geometry, spectral_grid
 
+# The parity problems are small: torch's intra-op threads cost more than
+# they give on them, most of all beside other test processes.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("d", [1, 2, 3])
 def test_se_spectral_density_and_kernel(rng, d):

@@ -27,6 +27,10 @@ from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_2d_batched,
                                          nufft2_2d_batched_ref)
 from gpquad_torch.ops.nufft import make_nufft, make_phase_nufft
 
+# The parity problems are small: torch's intra-op threads cost more than
+# they give on them, most of all beside other test processes.
+torch.set_num_threads(1)
+
 _TOL = {np.float64: 1e-10, np.float32: 1e-5}
 _MTOT = {1: 41, 2: 15, 3: 7}
 

@@ -1,0 +1,215 @@
+"""Port parity for the d=3 NUFFT kernels' plain versions and the d=3 dispatch
+(gpquad_torch.ops.cuda_nufft vs gpquad.ops.pallas_nufft).
+
+The plain versions ``nufft{1,2}_3d_ref`` (and the wrappers, which take them
+for CPU tensors) are held against ``pallas_nufft{1,2}_3d`` in interpret mode
+at the single-block mtot 9 and the slab-tiled mtot 61, at 1e-4 * max|ref| in
+float32: the bar of tests/test_pallas_nufft.py::test_pallas_3d_matches_mxu
+(two f32 evaluations of sums of up to 61^3 terms, with different sin/cos and
+summation order).  Batches are held against PallasNUFFT (one Pallas launch
+per vector, ``lax.map``), and float64 against gpquad's phase-matrix backend
+at 1e-10.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpquad.ops.nufft import make_nufft as jax_make_nufft
+from gpquad.ops.pallas_nufft import pallas_nufft1_3d, pallas_nufft2_3d
+from gpquad_torch.ops import cuda_nufft
+from gpquad_torch.ops import nufft as tnufft
+from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_3d, nufft1_3d_ref,
+                                         nufft2_3d, nufft2_3d_ref,
+                                         type1_3d_groups)
+from gpquad_torch.ops.nufft import CUDA_D3_MAX_MTOT, make_nufft
+
+# The parity problems are small: torch's intra-op threads cost more than
+# they give on them, most of all beside other test processes.
+torch.set_num_threads(1)
+
+
+def _rel(got, want):
+    return np.max(np.abs(got - want)) / np.max(np.abs(want))
+
+
+def _inputs(rng, n, mtot, B=None, dtype=np.float32):
+    cdtype = np.complex64 if dtype == np.float32 else np.complex128
+    lead = () if B is None else (B,)
+    x = rng.uniform(-1, 1, (n, 3)).astype(dtype)
+    v = (rng.normal(size=lead + (n,))
+         + 1j * rng.normal(size=lead + (n,))).astype(cdtype)
+    f = (rng.normal(size=lead + (mtot,) * 3)
+         + 1j * rng.normal(size=lead + (mtot,) * 3)).astype(cdtype)
+    return x, v, f
+
+
+# mtot 9 takes the TPU's single-block kernels, 61 (> 56) the slab-tiled ones
+@pytest.mark.parametrize("mtot,n", [(9, 400), (61, 96)])
+@pytest.mark.parametrize("fft_order", [False, True])
+def test_plain_versions_match_pallas(rng, mtot, n, fft_order):
+    h = 0.11
+    x, v, f = _inputs(rng, n, mtot)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    want2 = np.asarray(pallas_nufft2_3d(jnp.asarray(x), jnp.asarray(f), h,
+                                        **kw))
+    want1 = np.asarray(pallas_nufft1_3d(jnp.asarray(x), jnp.asarray(v), h,
+                                        **kw))
+    xt = torch.as_tensor(x)
+    for fn2, fn1 in ((nufft2_3d_ref, nufft1_3d_ref), (nufft2_3d, nufft1_3d)):
+        got2 = fn2(xt, torch.as_tensor(f), h, **kw).numpy()
+        assert got2.shape == want2.shape == (n,)
+        assert _rel(got2, want2) < 1e-4
+        got1 = fn1(xt, torch.as_tensor(v), h, **kw).numpy()
+        assert got1.shape == want1.shape == (mtot,) * 3
+        assert _rel(got1, want1) < 1e-4
+    # the flat mode layout gives the same result
+    flat = nufft2_3d(xt, torch.as_tensor(f.reshape(-1)), h, **kw).numpy()
+    np.testing.assert_array_equal(flat, nufft2_3d(xt, torch.as_tensor(f), h,
+                                                  **kw).numpy())
+
+
+@pytest.mark.parametrize("mtot,n,B,fft_order,flat", [
+    (9, 400, 3, False, False),
+    (9, 400, 3, True, True),
+    (61, 96, 2, True, False),
+])
+def test_batched_plain_versions_match_pallas(rng, mtot, n, B, fft_order,
+                                             flat):
+    h = 0.11
+    x, V, F = _inputs(rng, n, mtot, B)
+    if flat:
+        F = F.reshape(B, -1)
+    pop = jax_make_nufft(jnp.asarray(x), h, mtot, fft_order=fft_order,
+                         method="pallas")
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    want2 = np.asarray(pop.type2(jnp.asarray(F)))
+    got2 = nufft2_3d(torch.as_tensor(x), torch.as_tensor(F), h, **kw).numpy()
+    assert got2.shape == want2.shape == (B, n)
+    assert _rel(got2, want2) < 1e-4
+    want1 = np.asarray(pop.type1(jnp.asarray(V)))
+    got1 = nufft1_3d(torch.as_tensor(x), torch.as_tensor(V), h, **kw).numpy()
+    assert got1.shape == want1.shape == (B,) + (mtot,) * 3
+    assert _rel(got1, want1) < 1e-4
+
+
+@pytest.mark.parametrize("fft_order", [False, True])
+def test_plain_versions_match_mxu_f64(rng, fft_order):
+    n, mtot, h, B = 300, 11, 0.07, 2
+    x, V, F = _inputs(rng, n, mtot, B, dtype=np.float64)
+    jop = jax_make_nufft(jnp.asarray(x), h, mtot, fft_order=fft_order,
+                         method="mxu")
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    got1 = nufft1_3d_ref(torch.as_tensor(x), torch.as_tensor(V), h,
+                         **kw).numpy()
+    assert _rel(got1, np.asarray(jop.type1(jnp.asarray(V)))) < 1e-10
+    got2 = nufft2_3d_ref(torch.as_tensor(x), torch.as_tensor(F), h,
+                         **kw).numpy()
+    assert _rel(got2, np.asarray(jop.type2(jnp.asarray(F)))) < 1e-10
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that answers ``is_cuda`` with True: make_nufft's CUDA
+    branch without a card (the wrappers still see a CPU device and take the
+    plain versions)."""
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_d3_dispatch(rng):
+    """On the CPU d=3 takes the phase matrices.  On the card (CUDA branch
+    taken through ``is_cuda``) d=3 with mtot <= 255 takes the kernels and
+    wider grids the phase matrices, counted in BACKEND_PICKS."""
+    x = torch.as_tensor(rng.uniform(0, 1, (40, 3)))
+    before = dict(tnufft.BACKEND_PICKS)
+    assert isinstance(make_nufft(x, 0.4, 9), tnufft.NUFFT)
+    assert tnufft.BACKEND_PICKS["matmul"] == before["matmul"] + 1
+    xc = x.as_subclass(_OnCard)
+    for mtot, cls in ((9, CudaNUFFT), (CUDA_D3_MAX_MTOT, CudaNUFFT),
+                      (CUDA_D3_MAX_MTOT + 2, tnufft.NUFFT)):
+        before = dict(tnufft.BACKEND_PICKS)
+        op = make_nufft(xc, 0.4, mtot)
+        assert isinstance(op, cls), mtot
+        key = "cuda" if cls is CudaNUFFT else "matmul"
+        assert tnufft.BACKEND_PICKS[key] == before[key] + 1
+    assert make_nufft(xc, 0.4, 9).d == 3
+    assert isinstance(make_nufft(xc, 0.4, 9, method="matmul"), tnufft.NUFFT)
+    # d=1 stays on the phase matrices until its kernels are ported
+    assert isinstance(make_nufft(xc[:, :1], 0.4, 9), tnufft.NUFFT)
+
+
+def test_cuda_backend_3d_on_cpu(rng, monkeypatch):
+    """CudaNUFFT at d=3 on CPU tensors: any batch goes through one call of
+    the plain version, with PallasNUFFT's shapes (``lead + (m, m, m)`` and
+    ``lead + (n,)``), flat or block-shaped modes."""
+    n, mtot, h = 150, 7, 0.2
+    x, _, _ = _inputs(rng, n, mtot)
+    V = (rng.normal(size=(2, 3, n))).astype(np.complex64)
+    F = (rng.normal(size=(2, 3) + (mtot,) * 3)).astype(np.complex64)
+    calls = []
+    for name in ("nufft1_3d_ref", "nufft2_3d_ref"):
+        real = getattr(cuda_nufft, name)
+        monkeypatch.setattr(
+            cuda_nufft, name,
+            lambda *a, _real=real, _name=name, **k: (calls.append(_name),
+                                                     _real(*a, **k))[1])
+    op = CudaNUFFT(x=torch.as_tensor(x), h=h, mtot=mtot)
+    pop = jax_make_nufft(jnp.asarray(x), h, mtot, method="pallas")
+    before = dict(cuda_nufft.LAUNCHES)
+    got1 = op.type1(torch.as_tensor(V)).numpy()
+    want1 = np.asarray(pop.type1(jnp.asarray(V)))
+    assert calls == ["nufft1_3d_ref"]
+    assert got1.shape == want1.shape == (2, 3) + (mtot,) * 3
+    assert _rel(got1, want1) < 1e-4
+    for fk in (F, F.reshape(2, 3, -1)):
+        calls.clear()
+        got2 = op.type2(torch.as_tensor(fk)).numpy()
+        want2 = np.asarray(pop.type2(jnp.asarray(fk)))
+        assert calls == ["nufft2_3d_ref"]
+        assert got2.shape == want2.shape == (2, 3, n)
+        assert _rel(got2, want2) < 1e-4
+    calls.clear()
+    assert op.type1(torch.as_tensor(V[0, 0])).shape == (mtot,) * 3
+    assert op.type2(torch.as_tensor(F[0, 0])).shape == (n,)
+    assert op.type2(torch.as_tensor(F[0, 0].reshape(-1))).shape == (n,)
+    assert calls == ["nufft1_3d_ref", "nufft2_3d_ref", "nufft2_3d_ref"]
+    assert cuda_nufft.LAUNCHES == before
+
+
+def test_3d_wrappers_validate_input():
+    x = torch.zeros((5, 3))
+    c64 = torch.complex64
+    with pytest.raises(ValueError, match=r"\(N, 3\)"):
+        nufft2_3d(torch.zeros((5, 2)), torch.zeros(27, dtype=c64), 0.1,
+                  mtot=3)
+    with pytest.raises(ValueError, match="mtot <= 255"):
+        nufft1_3d(x, torch.zeros(5, dtype=c64), 0.1, mtot=257)
+    with pytest.raises(ValueError, match="odd"):
+        nufft1_3d(x, torch.zeros(5, dtype=c64), 0.1, mtot=4)
+    with pytest.raises(ValueError, match=r"\(3, 3, 3\)"):
+        nufft2_3d(x, torch.zeros((2, 9, 3), dtype=c64), 0.1, mtot=3)
+    with pytest.raises(ValueError, match="at least one"):
+        nufft2_3d(x, torch.zeros((0, 27), dtype=c64), 0.1, mtot=3)
+    with pytest.raises(ValueError, match=r"\(B, 5\)"):
+        nufft1_3d(x, torch.zeros((2, 4), dtype=c64), 0.1, mtot=3)
+    with pytest.raises(ValueError, match="32-bit"):
+        nufft2_3d(x, torch.zeros((140, 1), dtype=c64).expand(140, 255 ** 3),
+                  0.1, mtot=255)
+
+
+@pytest.mark.parametrize("n,mtot,B", [(100_000, 61, 1), (100_000, 31, 1),
+                                      (100_000, 31, 10), (20_000, 21, 10),
+                                      (20_000, 255, 1), (1, 3, 1)])
+def test_type1_3d_groups_bound_the_scratch(n, mtot, B):
+    """Every 2048-point chunk lies in exactly one group, no group is empty,
+    and the partial sums stay within a fixed number of blocks' outputs (or
+    one copy of the output when the grid alone has enough blocks)."""
+    groups, cpg = type1_3d_groups(n, mtot, B)
+    nchunk = -(-n // cuda_nufft.TYPE1_CHUNK)
+    assert groups >= 1 and (groups - 1) * cpg < nchunk <= groups * cpg
+    blocks = (-(-mtot // 16)) ** 2 * -(-mtot // 8) * B
+    assert groups == 1 or groups * blocks < 2 * cuda_nufft.TYPE1_3D_BLOCKS
+    # at the d3 configuration's lag table: 9 groups, 16 MB, not 49 chunks
+    if (n, mtot, B) == (100_000, 61, 1):
+        assert groups == 9 and groups * mtot ** 3 * 8 < 17e6

@@ -25,6 +25,10 @@ from gpquad.quadrature import spectral_grid
 import gpquad_torch
 from gpquad_torch.models.efgp import _variance_stochastic
 
+# The parity problems are small: torch's intra-op threads cost more than
+# they give on them, most of all beside other test processes.
+torch.set_num_threads(1)
+
 N, NQ, SIGMASQ = 200, 40, 0.1
 
 
@@ -126,6 +130,51 @@ def test_fused_matches_jax_stages(data, solver, tol):
     assert np.all(rel < 1e-8), rel
 
 
+@pytest.mark.parametrize("solver,tol", [("dense", 1e-10), ("cg", 1e-12)])
+def test_fused_matches_jax_stages_3d(solver, tol):
+    """The fused call at d=3 (mtot 9, M 729) against gpquad's stage calls
+    fed the probes the port draws, as test_fused_matches_jax_stages."""
+    rng = np.random.default_rng(13)
+    n = 150
+    x = rng.uniform(0, 1, (n, 3))
+    y = (np.sin(3 * np.pi * x[:, 0]) * np.cos(2 * np.pi * x[:, 1])
+         * np.cos(np.pi * x[:, 2]) + 0.1 * rng.normal(size=n))
+    xq = rng.uniform(0.2, 0.8, (NQ, 3))
+    jk = JaxSE(lengthscale=0.4, variance=1.0, dimension=3)
+    _, h, mtot = spectral_grid(jk, 1e-3, 1.0)
+    h, mtot = float(h), int(mtot)
+    M = mtot ** 3
+    out = gpquad_torch.fit_predict_grad(
+        x, y, xq, gpquad_torch.make_kernel("SE", 3, lengthscale=0.4,
+                                           variance=1.0),
+        SIGMASQ, h, torch.Generator().manual_seed(5),
+        mtot=mtot, trace_samples=3, var_probes=8, cg_tol=tol,
+        var_cg_tol=tol, grad_cg_tol=tol, max_cg_iter=3000, solver=solver,
+        device="cpu")
+    g = torch.Generator().manual_seed(5)
+    etas, Z, V = ((torch.randint(0, 2, shape, generator=g) * 2 - 1).numpy()
+                  .astype(np.float64) for shape in ((8, M), (3, n), (3, M)))
+    xj, yj, xqj = jnp.asarray(x), jnp.asarray(y), jnp.asarray(xq)
+    js = jefgp.fit_with_grid(xj, yj, jk, SIGMASQ, h, mtot, cg_tol=tol,
+                             max_cg_iter=3000, solver=solver)
+    jmean = np.asarray(jefgp.predict_mean(js, xqj))
+    jvar = np.asarray(jefgp._variance_stochastic(
+        js, xqj, None, probes=8, cg_tol=tol, max_cg_iter=3000,
+        etas=jnp.asarray(etas)))
+    jg = jax_gradient_with_grid(xj, yj, jk, SIGMASQ, h, jax.random.PRNGKey(0),
+                                mtot=mtot, trace_samples=3, cg_tol=tol,
+                                max_cg_iter=3000, beta0=js.beta,
+                                solver=solver,
+                                probes=(jnp.asarray(Z), jnp.asarray(V)))
+    assert out.mean.shape == (NQ,) and out.grad.shape == (3,)
+    assert np.max(np.abs(out.mean.numpy() - jmean)) < 1e-9
+    assert np.max(np.abs(out.var.numpy() - jvar)) < 1e-8 * np.max(
+        np.abs(jvar))
+    rel = np.abs(out.grad.numpy() - np.asarray(jg.grad)) / np.abs(
+        np.asarray(jg.grad))
+    assert np.all(rel < 1e-8), rel
+
+
 def test_float32_run_uses_float32(data):
     """Same generator seed, float32 against float64: the f32 run stays in
     float32/complex64 (the hypers are cast, gradient.py:115-118)."""
@@ -152,7 +201,8 @@ def test_float32_run_uses_float32(data):
 def test_precond_quirks(data):
     """gpquad's pipeline.py:93 resolves the preconditioner without n and M
     (ROADMAP §C), mirrored: 'adaptive' resolves to kron (not ported: raises,
-    A.11), and 'none' still runs Jacobi, as gpquad's else-branch does."""
+    A.11), and 'none' and 'deflation' still run Jacobi, as gpquad's
+    else-branch does."""
     x, y, xq = data
     h, mtot = _grid()
     kw = dict(mtot=mtot, trace_samples=2, var_probes=8, solver="cg",
@@ -160,12 +210,14 @@ def test_precond_quirks(data):
     with pytest.raises(NotImplementedError, match="A.11"):
         gpquad_torch.fit_predict_grad(x, y, xq, _kernel(), SIGMASQ, h,
                                       precond="adaptive", **kw)
-    a = gpquad_torch.fit_predict_grad(x, y, xq, _kernel(), SIGMASQ, h,
-                                      precond="none", **kw)
     b = gpquad_torch.fit_predict_grad(x, y, xq, _kernel(), SIGMASQ, h,
                                       precond="auto", **kw)
-    np.testing.assert_array_equal(a.mean.numpy(), b.mean.numpy())
-    assert int(a.mean_cg_iters) == int(b.mean_cg_iters)
+    for precond in ("none", "deflation"):
+        a = gpquad_torch.fit_predict_grad(x, y, xq, _kernel(), SIGMASQ, h,
+                                          precond=precond, **kw)
+        np.testing.assert_array_equal(a.mean.numpy(), b.mean.numpy())
+        np.testing.assert_array_equal(a.grad.numpy(), b.grad.numpy())
+        assert int(a.mean_cg_iters) == int(b.mean_cg_iters)
 
 
 def test_entry_point_fails_without_card(data):
