@@ -7,10 +7,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. torch and the card (nvidia-smi name and power limit);
   2. build the CUDA kernels from gpquad_torch/csrc (timed);
   3. each kernel against its float64 plain version on the card, at every
-     shape that phases 4 and 5 give it and at mtot > 256, in float32 and
-     float64, with CUDA-event times of kernel and plain version; for the
-     batched pair also the time of B single-vector launches of the single
-     kernels on the same inputs;
+     shape that phases 4, 5 and 10 give it, in float32 and float64, with
+     CUDA-event times of kernel and plain version; for the batched pair
+     also the time of B single-vector launches of the single kernels on the
+     same inputs;
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -21,22 +21,39 @@ Phases, in order; any failure ends the run with a non-zero exit:
      gradient's error over three probe seeds, for the fused call on the
      kernels and on the plain path and for the gradient with the fit's
      state and its own NUFFTs each from the kernels or the plain path;
-  5. the CG tier at bench.py's hard configuration (l=0.02, mtot=107, Jacobi
-     PCG): fit + predict_mean, then gradient_with_grid(state=...), with
-     their own launch counts, against float64;
+  5. the CG tier at bench.py's hard configuration (l=0.02, mtot=107): fit +
+     predict_mean with Jacobi PCG and with the Kronecker preconditioner,
+     then gradient_with_grid(state=...) on the Jacobi fit, with their own
+     launch counts, against float64;
   6. d3, the fused fit_predict_grad on 3-D data (n=1e5 in [0,1]^3, SE
-     l=0.1 -> mtot 31, M 29 791, Jacobi PCG; 10 000 targets, 256 variance
-     probes, 10 trace samples): launches per call, median of 5 warm calls,
-     one profile, against the port's float64 run on the plain path with
-     the same generator seed;
+     l=0.1 -> mtot 31, M 29 791; 10 000 targets, 256 variance probes, 10
+     trace samples) with Jacobi PCG (one timed call) and with kron (median
+     of 3 warm calls, one profile): launches per call, against the port's
+     float64 run on the plain path with the same generator seed;
   7. hard3d (bench.py:363-438: n=2e4, l=0.2 -> mtot 21, M 9261): the fit
      with the deflation preconditioner (rank 2048) and the mean, then the
      stochastic variance and gradient_with_grid(state=fit) reusing its
-     block, against float64.
+     block, against float64;
+  8. the d=1 facade on Kepler long-cadence photometry (examples/
+     lightcurve.py's series at the real 29.4-min cadence, n=63 480; SE
+     l=0.0015, eps 1e-4 -> mtot 919, rung 1031): EFGP, 50 Adam iterations,
+     the mean and the stochastic variance at 5 000 points, with the
+     example's assertions; the f32 gradient against float64 with the same
+     probes at the starting hypers;
+  9. the facade at the headline (bench.py:969-988): EFGP(x, y, "SE",
+     sigmasq=0.01, eps=1e-6) and 20 Adam iterations, warmed on the same
+     trajectory, against a float64 run of that trajectory;
+ 10. the scale configuration (bench.py:441-603: n=1e6, SE l=0.006 ->
+     mtot 339, M 114 921) with kron and smooth FFT pads: fit + mean at
+     2 000 targets, the stochastic variance (256 probes, 1 000 targets),
+     the gradient and a 20-iteration fixed-plan Adam loop.
 Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
-and at mtot 57, 101 and 255.
+and at mtot 57, 101 and 255, and the two d=1 kernels at phase 8's shapes
+and at mtot 8191.
 
-It prints each phase's wall time, the kernels' JSON line, then the card's
+It prints each phase's wall time, the kernels' JSON line (the eight
+kernels, then the four TPU mode-tiled functions they cover, with the
+launches made past the TPU's single-block width), then the card's
 nvidia-smi line, then ``{"ok": true, "device": ...}`` as the last line, and
 writes the full record to build/chip_smoke.json.  Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -59,11 +76,15 @@ ROOT = Path(__file__).resolve().parent
 # cores, fp64 outside the tensor cores, HBM3 bandwidth.
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
-# One phase e^{i 2 pi c} counted as 20 flops: the 10 multiply-adds of the
-# minimax sin/cos pair the TPU kernel evaluates (pallas_nufft.py:61-77).
-PHASE_FLOPS = 20
+# One phase e^{i 2 pi c} counted at its least cost: a rotation recurrence
+# along the modes (one complex multiply, 6 flops) re-anchored every 32 modes
+# by an exact sin/cos pair (20 flops: the 10 multiply-adds of the minimax
+# pair the TPU kernel evaluates, pallas_nufft.py:61-77).
+PHASE_FLOPS = 6 + 20 / 32
 
-REPLACES = {"nufft1_2d": "gpquad/ops/pallas_nufft.py:195",
+REPLACES = {"nufft1_1d": "gpquad/ops/pallas_nufft.py:584",
+            "nufft2_1d": "gpquad/ops/pallas_nufft.py:549",
+            "nufft1_2d": "gpquad/ops/pallas_nufft.py:195",
             "nufft2_2d": "gpquad/ops/pallas_nufft.py:113",
             "nufft1_2d_batched": "gpquad/ops/pallas_nufft.py:914",
             "nufft2_2d_batched": "gpquad/ops/pallas_nufft.py:838",
@@ -74,6 +95,7 @@ REPLACES = {"nufft1_2d": "gpquad/ops/pallas_nufft.py:195",
 KERNELS_2D = ("nufft1_2d", "nufft2_2d", "nufft1_2d_batched",
               "nufft2_2d_batched")
 KERNELS_3D = ("nufft1_3d", "nufft2_3d")
+KERNELS_1D = ("nufft1_1d", "nufft2_1d")
 SINGLE = ("nufft1_2d", "nufft2_2d")
 # bench.py's settings for the fused call (bench.py:870-875)
 FUSED_KW = dict(trace_samples=10, var_probes=256, cg_tol=1e-6,
@@ -84,6 +106,14 @@ FUSED_KW = dict(trace_samples=10, var_probes=256, cg_tol=1e-6,
 # 6 measures both), so the answer there is an unconverged iterate
 D3_VAR_MAX_CG_ITER = 3000
 FUSED3_KW = dict(FUSED_KW, var_max_cg_iter=D3_VAR_MAX_CG_ITER)
+# examples/lightcurve.py: the gaps (days), the noise, the model and its loop
+LC_GAPS = ((330, 360), (700, 745), (1050, 1080))
+LC_NOISE = 5e-4
+LC_OPT = dict(max_iters=50, lr=0.05, trace_samples=1, cg_tol=1e-6,
+              noise_floor=1e-4, min_lengthscale=2e-4)
+# PCG iteration bar of the Kronecker preconditioner (gpquad: 12 on the hard
+# configuration, 14 at scale; Jacobi 376-393 and 306)
+KRON_MAX_ITERS = 60
 
 
 class SmokeFailure(RuntimeError):
@@ -173,15 +203,15 @@ def print_profile(tag, prof, card):
 
 def kernel_work(name, n, m, dtype, B=1):
     """(flops, bytes) the function needs for B vectors (B = 1 for the single
-    kernels), d = 2 or 3 from the name.  Per point and vector: mtot^d
+    kernels), d = 1, 2 or 3 from the name.  Per point and vector: mtot^d
     complex multiply-adds at 8 flops; then the outer axes' products,
     multiply-adds at 8 flops for type-2 (mtot^(d-1) + ... + mtot of them:
-    sum_j e1 t_j, and at d=3 sum_k e2 t_jk) and plain complex multiplies at
-    6 for type-1 (at d=3 the mtot^2 products (v e1) e2; the mtot products
-    v e1).  Phases at PHASE_FLOPS once per point, dimension and mode, also
-    for a batch; the points, the B inputs and the B outputs read or written
-    once."""
-    d = 3 if name.endswith("_3d") else 2
+    sum_j e1 t_j, and at d=3 sum_k e2 t_jk; none at d=1) and plain complex
+    multiplies at 6 for type-1 (at d=3 the mtot^2 products (v e1) e2; the
+    mtot products v e1).  Phases at PHASE_FLOPS once per point, dimension
+    and mode, also for a batch; the points, the B inputs and the B outputs
+    read or written once."""
+    d = int(name.split("_")[1][0])
     s = 4 if dtype == torch.float32 else 8
     phases = d * n * m * PHASE_FLOPS
     outer = 8 if name.startswith("nufft2") else 6
@@ -196,6 +226,33 @@ def bound_ms(name, n, m, dtype, B=1):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# The TPU's mode-tiled functions (rows 3, 4, 11, 12 of PERF.md's table): the
+# port's kernel that covers each, and the widest grid the TPU's single-block
+# function takes
+TILED = {"_pallas_nufft2_2d_tiled": ("nufft2_2d",
+                                     "gpquad/ops/pallas_nufft.py:369", 256),
+         "_pallas_nufft1_2d_tiled": ("nufft1_2d",
+                                     "gpquad/ops/pallas_nufft.py:442", 256),
+         "_pallas_nufft2_3d_tiled": ("nufft2_3d",
+                                     "gpquad/ops/pallas_nufft.py:1034", 56),
+         "_pallas_nufft1_3d_tiled": ("nufft1_3d",
+                                     "gpquad/ops/pallas_nufft.py:1118", 56)}
+
+
+def tiled_counts(widths):
+    """Per TPU mode-tiled function, the launches in ``widths`` (the
+    wrappers' LAUNCH_WIDTHS: launches by kernel and mtot since the last
+    reset) of the kernel that covers it at mode widths past that function's
+    single-block limit (at d=2 a batched launch too: gpquad maps the tiled
+    function over a batch that wide)."""
+    counts = {}
+    for row, (kernel, _, limit) in TILED.items():
+        names = (kernel, kernel + "_batched") if "_2d" in kernel else (kernel,)
+        counts[row] = sum(c for (name, m), c in widths.items()
+                          if name in names and m > limit)
+    return counts
 
 
 def reset_counts(*counters):
@@ -228,6 +285,30 @@ def data_3d(n, targets, seed):
     return xh, yh, xnew
 
 
+def lightcurve_data(seed=7):
+    """examples/lightcurve.py:44-73 at the real 29.4-min Kepler long
+    cadence (the example thins it to 0.49 d): a quasi-periodic spot signal
+    (rotation 12.26 d), three downlink gaps, noise 5e-4; t and flux
+    normalised as the example does them."""
+    rng = np.random.default_rng(seed)
+    t_all = np.arange(0.0, 1400.0, 0.0204)
+    P = 12.26
+    amp = 1.0 + 0.35 * np.sin(2 * np.pi * t_all / 290.0)
+    phase = 0.25 * np.sin(2 * np.pi * t_all / 410.0)
+    f_full = (0.01 * amp * np.sin(2 * np.pi * (t_all / P + phase))
+              + 0.004 * np.sin(4 * np.pi * (t_all / P + phase) + 0.7))
+    keep = np.ones(len(t_all), bool)
+    for lo, hi in LC_GAPS:
+        keep &= ~((t_all > lo) & (t_all < hi))
+    t = t_all[keep]
+    y_raw = 1.0 + f_full[keep] + LC_NOISE * rng.normal(size=len(t))
+    x = (t - t.min()) / (t.max() - t.min())
+    y_mean, y_std = y_raw.mean(), y_raw.std()
+    return dict(t_all=t_all, f_full=f_full, t=t, x=x,
+                y=(y_raw - y_mean) / y_std, y_mean=y_mean, y_std=y_std,
+                period=P)
+
+
 def launch_counts(**nonzero):
     """The LAUNCHES dict a path should leave: every kernel 0 but those
     named."""
@@ -245,6 +326,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import gpquad_torch
     from gpquad_torch.models import efgp as efgp_mod
+    from gpquad_torch import quadrature
     from gpquad_torch.ops import cuda_nufft, nufft as nufft_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -295,12 +377,15 @@ def main() -> int:
     kern_h3 = gpquad_torch.make_kernel("SE", 3, lengthscale=np.float32(0.2),
                                        variance=np.float32(1.0))
 
-    def path_grid(kern, xs):
+    def path_grid_eps(kern, xs, eps):
         """(h, mtot) as fit plans them for the float32 points ``xs``."""
         x = torch.as_tensor(xs, dtype=torch.float32)
         L = float((x.max(dim=0).values - x.min(dim=0).values).max())
-        _, h, mtot = gpquad_torch.spectral_grid(kern, 1e-6, L)
+        _, h, mtot = gpquad_torch.spectral_grid(kern, eps, L)
         return h, mtot
+
+    def path_grid(kern, xs):
+        return path_grid_eps(kern, xs, 1e-6)
 
     h_head, mtot_head = path_grid(kernel32, xh)
     h_hard, mtot_hard = path_grid(kern_hard, xh2)
@@ -309,6 +394,20 @@ def main() -> int:
     _, h_h3, mtot_h3 = gpquad_torch.spectral_grid(kern_h3, 1e-6, 1.0)
     check((mtot_d3, mtot_h3) == (31, 21),
           f"d=3 grids planned mtot {mtot_d3} and {mtot_h3}, not 31 and 21")
+    # phase 8: the light curve's grid at its starting hypers and the rung
+    # its gradient steps run on
+    lc = lightcurve_data()
+    kern_lc = gpquad_torch.make_kernel("SE", 1, lengthscale=np.float32(0.0015),
+                                       variance=np.float32(1.0))
+    h_lc, mtot_lc = path_grid_eps(kern_lc, lc["x"][:, None], 1e-4)
+    rung_lc = quadrature.bucket_mtot(mtot_lc)
+    check((len(lc["x"]), mtot_lc, rung_lc) == (63_480, 919, 1031),
+          f"light curve: n {len(lc['x'])}, mtot {mtot_lc}, rung {rung_lc}")
+    # phase 10: bench.py's scale configuration on [0,1]^2
+    kern10 = gpquad_torch.make_kernel("SE", 2, lengthscale=np.float32(0.006),
+                                      variance=np.float32(1.0))
+    _, h10, mtot10 = gpquad_torch.spectral_grid(kern10, 1e-6, 1.0)
+    check(mtot10 == 339, f"scale configuration planned mtot {mtot10}")
     m_lag = 2 * mtot_head - 1
     gen = np.random.default_rng(1)
     # (kernel, n, mtot, fft_order, h, what it serves, B): every call of the
@@ -335,11 +434,26 @@ def main() -> int:
         ("nufft2_2d_batched", 100_000, mtot_hard, False, h_hard,
          "CG tier gradient F(D'F*Z), F(D Beta)", 10),
     ]
-    for name in SINGLE:
-        for m in (339, 677):
-            shapes.append((name, 20_000, m, False, 0.97, "mtot > 256", 1))
-    for name in ("nufft1_2d_batched", "nufft2_2d_batched"):
-        shapes.append((name, 20_000, 339, False, 0.97, "any mtot", 4))
+    # the scale path (phase 10, n = 1e6) at its own shapes, past the TPU's
+    # 256-mode block: the fit's F*y and lag table, the mean and the variance
+    # evaluation, the gradient's F(D beta) and probe batches (B 10, and B 5
+    # in its Adam loop)
+    n10, lag10 = 1_000_000, 2 * mtot10 - 1
+    shapes += [
+        ("nufft1_2d", n10, mtot10, False, h10, "scale F*y", 1),
+        ("nufft1_2d", n10, lag10, False, h10, "scale lag table", 1),
+        ("nufft2_2d", 2_000, mtot10, False, h10, "scale mean", 1),
+        ("nufft2_2d", 1_000, lag10, True, h10, "scale variance evaluation",
+         1),
+        ("nufft2_2d", n10, mtot10, False, h10, "scale gradient F(D beta)", 1),
+    ]
+    for B in (10, 5):
+        shapes += [
+            ("nufft1_2d_batched", n10, mtot10, False, h10,
+             "scale gradient F*Z", B),
+            ("nufft2_2d_batched", n10, mtot10, False, h10,
+             "scale gradient F(D'F*Z), F(D Beta)", B),
+        ]
     for tag, n, nq, m, h in (("d3", 100_000, 10_000, mtot_d3, h_d3),
                              ("hard3d", 20_000, 1_000, mtot_h3, h_h3)):
         shapes += [
@@ -357,11 +471,41 @@ def main() -> int:
         for m in (57, 101, 255):
             shapes.append((name, 20_000, m, False, 0.97, "slab-tiled mtot",
                            1))
+    n_lc, lag_lc = len(lc["x"]), 2 * rung_lc - 1
+    shapes += [
+        ("nufft1_1d", n_lc, rung_lc, False, h_lc, "light curve F*y", 1),
+        ("nufft1_1d", n_lc, lag_lc, False, h_lc, "light curve lag table", 1),
+        ("nufft2_1d", 5_000, rung_lc, False, h_lc, "light curve mean", 1),
+        ("nufft2_1d", 5_000, lag_lc, True, h_lc,
+         "light curve variance evaluation", 1),
+        ("nufft2_1d", n_lc, rung_lc, False, h_lc,
+         "light curve gradient F(D beta)", 1),
+        ("nufft1_1d", n_lc, rung_lc, False, h_lc, "light curve F*Z", 10),
+        ("nufft2_1d", n_lc, rung_lc, False, h_lc,
+         "light curve F(D'F*Z), F(D Beta)", 10),
+    ]
+    for name in KERNELS_1D:
+        # the dense tier's widest lag table (M <= 4096)
+        shapes.append((name, 20_000, 8191, False, 0.97, "mtot 8191", 1))
     kernels = {k: getattr(cuda_nufft, k) for k in REPLACES}
     plains = {k: getattr(cuda_nufft, k + "_ref") for k in REPLACES}
+
+    def plain64(name, x, arg, h, kw, chunk=200_000):
+        """The float64 plain version over chunks of at most ``chunk`` points
+        (their (chunk, mtot) phase matrices; at n = 1e6 and mtot 677 the
+        whole would take 33 GB): type-1 adds the chunks' sums, type-2 joins
+        their outputs."""
+        x, arg = x.double(), arg.to(torch.complex128)
+        type1 = name.startswith("nufft1")
+        parts = [plains[name](x[i:i + chunk],
+                              arg[..., i:i + chunk] if type1 else arg, h,
+                              **kw)
+                 for i in range(0, x.shape[0], chunk)]
+        return sum(parts) if type1 else torch.cat(parts, dim=-1)
+
     phase3 = []
     for name, n, m, fo, h, what, B in shapes:
-        d = 3 if name in KERNELS_3D else 2
+        d = int(name.split("_")[1][0])
         batched = name.endswith("_batched")
         lead = (B,) if batched or B > 1 else ()
         x64 = torch.as_tensor(gen.uniform(0, 1, (n, d)), device=dev)
@@ -369,6 +513,10 @@ def main() -> int:
         arg64 = torch.as_tensor(gen.normal(size=shape)
                                 + 1j * gen.normal(size=shape), device=dev)
         for dtype in (torch.float32, torch.float64):
+            if dtype == torch.float64 and batched and n == n10:
+                # the scale path's probe batches run in float32 only (its
+                # float64 run is the fit and the mean)
+                continue
             cdt = torch.complex64 if dtype == torch.float32 \
                 else torch.complex128
             x = x64.to(dtype)
@@ -377,19 +525,24 @@ def main() -> int:
             kw = dict(mtot=m, fft_order=fo)
             got = kernels[name](x, arg, hq, **kw)
             sync()
-            ref = plains[name](x.double(), arg.to(torch.complex128), hq, **kw)
+            ref = plain64(name, x, arg, hq, kw)
             err = float((got.to(torch.complex128) - ref).abs().max())
             scale = float(ref.abs().max())
             rel = err / scale
-            # the plain version in the run's precision, for comparison
-            plain_rel = float((plains[name](x, arg, hq, **kw)
-                               .to(torch.complex128) - ref).abs().max()) / scale
+            # the plain version in the run's precision, for comparison (in
+            # float64 it is the reference itself)
+            plain_rel = 0.0 if dtype == torch.float64 else float(
+                (plains[name](x, arg, hq, **kw).to(torch.complex128)
+                 - ref).abs().max()) / scale
             bar = 1e-4 if dtype == torch.float32 or d == 2 else 1e-10
             check(np.isfinite(rel) and rel <= bar,
                   f"{name} {dtype} B={B} n={n} mtot={m}: error {rel:.3e} "
                   f"of max|ref| > {bar:.0e}")
-            if d == 2:
-                reps, trials = max(3, min(50, int(2e9 / (B * n * m * m)))), 5
+            if d == 1:
+                reps, trials = max(3, min(50, int(2e10 / (B * n * m)))), 5
+            elif d == 2:
+                reps = max(3, min(50, int(2e9 / (B * n * m * m))))
+                trials = 3 if B * n * m * m > 5e11 else 5
             else:
                 reps, trials = max(3, min(50, int(5e10 / (B * n * m ** 3)))), 3
             ms = time_cuda(lambda: kernels[name](x, arg, hq, **kw), reps,
@@ -406,7 +559,8 @@ def main() -> int:
             if batched:
                 single = kernels[name.replace("_batched", "")]
                 row["singles_ms"] = time_cuda(
-                    lambda: [single(x, a, hq, **kw) for a in arg], reps)
+                    lambda: [single(x, a, hq, **kw) for a in arg], reps,
+                    trials)
                 extra = f" {B}x single ms={row['singles_ms']:.4f}"
             if name == "nufft1_3d":
                 groups, _ = cuda_nufft.type1_3d_groups(n, m, B)
@@ -422,6 +576,8 @@ def main() -> int:
                   f"ms={ms:.4f} plain_ms={plain_ms:.4f}"
                   f"{extra} bound_ms={b_ms:.4f} ({b_by}) {card}")
     record["phases"]["kernels"] = phase3
+    del x64, arg64, x, arg, got, ref
+    torch.cuda.empty_cache()
     phase_s["3"] = time.perf_counter() - t_phase
     print(f"[3] phase wall time {phase_s['3']:.1f} s")
 
@@ -435,7 +591,8 @@ def main() -> int:
         np.random.default_rng(2).choice([-1.0, 1.0],
                                         size=(probes, mtot_head ** 2)),
         device=dev)
-    counters = (cuda_nufft.LAUNCHES, nufft_mod.BACKEND_PICKS)
+    counters = (cuda_nufft.LAUNCHES, cuda_nufft.LAUNCH_WIDTHS,
+                nufft_mod.BACKEND_PICKS)
 
     def host_ms(fn, reps=5):
         """Median host-clock ms of ``reps`` warm calls, each synchronised."""
@@ -709,10 +866,10 @@ def main() -> int:
     y2 = torch.as_tensor(yh2, dtype=torch.float32, device=dev)
     xq2 = torch.as_tensor(xnew2, dtype=torch.float32, device=dev)
 
-    def run_cg(x, y, xq, kern, method):
+    def run_cg(x, y, xq, kern, method, precond="auto"):
         t = time.perf_counter()
         s = gpquad_torch.fit(x, y, kern, sigmasq, eps=eps, cg_tol=1e-6,
-                             max_cg_iter=2000, solver="cg",
+                             max_cg_iter=2000, solver="cg", precond=precond,
                              nufft_method=method, device=dev)
         mu = gpquad_torch.predict_mean(s, xq, nufft_method=method)
         sync()
@@ -746,6 +903,33 @@ def main() -> int:
     check(iters < 2000, "the CG-tier fit did not converge in 2000 iterations")
     check(bool(torch.isfinite(mu2).all()), "non-finite CG-tier mean")
     check(err_hard <= 5e-4, f"CG-tier mean error {err_hard:.3e} > 5e-4")
+
+    # the same fit with the Kronecker eigen-preconditioner
+    run_cg(x2, y2, xq2, kern_hard, "auto", "kron")        # warm
+    reset_counts(*counters)
+    s2k, mu2k, t2k = run_cg(x2, y2, xq2, kern_hard, "auto", "kron")
+    launches_kron = dict(cuda_nufft.LAUNCHES)
+    picks_kron = dict(nufft_mod.BACKEND_PICKS)
+    s64k, mu64k, _ = run_cg(x2.double(), y2.double(), xq2.double(),
+                            kern_hard, "matmul", "kron")
+    iters_k = int(s2k.mean_cg_iters)
+    err_kron = float((mu2k.double() - mu64).abs().max())
+    err_kron_jac = float((mu2k - mu2).abs().max())
+    print(f"[5] CG tier with kron: PCG iters={iters_k} (f64: "
+          f"{int(s64k.mean_cg_iters)}; Jacobi {iters}; bar "
+          f"{KRON_MAX_ITERS}) fit+mean {t2k * 1e3:.2f} ms (warm, host clock) "
+          f"{card}; launches={launches_kron} backend_picks={picks_kron}; "
+          f"max|mean err| vs f64 Jacobi {err_kron:.3e} (bar 5e-4), vs the "
+          f"f32 Jacobi mean {err_kron_jac:.3e}")
+    check(s2k.kron is not None, "the kron fit carries no preconditioner")
+    check(launches_kron == counts(2, 1),
+          f"unexpected kron CG-tier launch counts {launches_kron}")
+    check(picks_kron["matmul"] == 0, f"the kron fit took the plain path "
+          f"{picks_kron}")
+    check(iters_k <= KRON_MAX_ITERS,
+          f"kron CG-tier fit took {iters_k} > {KRON_MAX_ITERS} iterations")
+    check(err_kron <= 5e-4 and err_kron_jac <= 5e-4,
+          f"kron CG-tier mean error {err_kron:.3e} / {err_kron_jac:.3e}")
 
     # the gradient on the CG tier's state: trace solves by Jacobi PCG
     def grad_cg(x, y, s, method):
@@ -792,6 +976,9 @@ def main() -> int:
         mtot=s2.mtot, M=s2.M, iters=iters, launches=launches_cg,
         backend_picks=picks_cg, iters_f64=int(s64.mean_cg_iters),
         fit_mean_s=t2, err_mean=err_hard, profile=prof_cg,
+        kron_iters=iters_k, kron_iters_f64=int(s64k.mean_cg_iters),
+        kron_fit_mean_s=t2k, kron_launches=launches_kron,
+        kron_err_mean=err_kron, kron_err_vs_jacobi=err_kron_jac,
         grad_s=t_grad_cg, grad_launches=launches_gcg,
         grad_trace_iters=trace_iters,
         grad_trace_iters_f64=int(g64.trace_cg_iters),
@@ -828,14 +1015,17 @@ def main() -> int:
           f"{picks_d3}")
     check(out3.grad.dtype == torch.float32 and out3.beta.dtype ==
           torch.complex64, "the f32 d3 run left float32")
-    d3_ms = host_ms(lambda: fused3(x3, y3, xq3, "auto"))
-    prof_d3 = profile_run(lambda: fused3(x3, y3, xq3, "auto"))
-    print(f"[6] d3 fused fit_predict_grad (var_max_cg_iter "
-          f"{D3_VAR_MAX_CG_ITER}): {d3_ms:.2f} ms median of 5 warm "
-          f"calls (host clock) {card}; mean PCG iters "
+    # one timed call: the Jacobi call is seconds long, and kron below is
+    # the preconditioner this call should take
+    t = time.perf_counter()
+    fused3(x3, y3, xq3, "auto")
+    sync()
+    d3_ms = (time.perf_counter() - t) * 1e3
+    print(f"[6] d3 fused fit_predict_grad, Jacobi (var_max_cg_iter "
+          f"{D3_VAR_MAX_CG_ITER}): {d3_ms:.2f} ms, one warm call (host "
+          f"clock) {card}; mean PCG iters "
           f"{int(out3.mean_cg_iters)} converged {bool(out3.mean_converged)}, "
           f"trace PCG iters {int(out3.trace_cg_iters)}")
-    print_profile("[6] profiled d3 fused call:", prof_d3, card)
     out3_64 = fused3(x3.double(), y3.double(), xq3.double(), "matmul")
     sync()
     check(out3.mean.shape == (10_000,) and out3.var.shape == (10_000,)
@@ -880,10 +1070,90 @@ def main() -> int:
               f"{var_solves[cap][1]}/{probes} probes converged")
     check(var_solves[D3_VAR_MAX_CG_ITER][1] == probes,
           "the d3 variance solves did not converge")
+
+    # the same call with the Kronecker preconditioner (gpquad's lever for
+    # this cell, pipeline.py:93-97): fit, variance and trace solves
+    def fused3k(x, y, xq, method, seed=0):
+        return gpquad_torch.fit_predict_grad(
+            x, y, xq, kern_d3, sigmasq, h_d3,
+            torch.Generator(device=dev).manual_seed(seed), mtot=mtot_d3,
+            nufft_method=method, precond="kron", device=dev, **FUSED3_KW)
+
+    fused3k(x3, y3, xq3, "auto")                           # warm
+    reset_counts(*counters)
+    out3k = fused3k(x3, y3, xq3, "auto")
+    sync()
+    tiled_d3 = tiled_counts(cuda_nufft.LAUNCH_WIDTHS)
+    launches_d3k = dict(cuda_nufft.LAUNCHES)
+    picks_d3k = dict(nufft_mod.BACKEND_PICKS)
+    d3k_ms = host_ms(lambda: fused3k(x3, y3, xq3, "auto"), reps=3)
+    prof_d3k = profile_run(lambda: fused3k(x3, y3, xq3, "auto"))
+    out3k_64 = fused3k(x3.double(), y3.double(), xq3.double(), "matmul")
+    sync()
+    st3k = gpquad_torch.fit_with_grid(x3, y3, kern_d3, sigmasq, h_d3,
+                                      mtot_d3, cg_tol=FUSED_KW["cg_tol"],
+                                      max_cg_iter=FUSED_KW["max_cg_iter"],
+                                      solver="cg", precond="kron",
+                                      device=dev)
+    res_k = efgp_mod._solve_var(st3k, st3k.ws[None, :] * etas3,
+                                cg_tol=FUSED_KW["var_cg_tol"],
+                                max_cg_iter=D3_VAR_MAX_CG_ITER)
+    var_solves_k = (int(res_k.iters), int(res_k.converged.sum()))
+    d3k_err_mean = float((out3k.mean.double() - out3k_64.mean).abs().max())
+    d3k_err_var = float((out3k.var.double() - out3k_64.var).abs().max())
+    d3k_var_scale = float(out3k_64.var.abs().max())
+    d3k_grad_rel = rel_to(out3k.grad, out3k_64.grad)
+    print(f"[6] d3 fused fit_predict_grad, kron: {d3k_ms:.2f} ms median of "
+          f"3 warm calls (host clock) {card} (Jacobi {d3_ms:.2f} ms); "
+          f"launches={launches_d3k} backend_picks={picks_d3k}; mean PCG "
+          f"iters {int(out3k.mean_cg_iters)} (Jacobi "
+          f"{int(out3.mean_cg_iters)}; past 56 modes {tiled_d3}), "
+          f"variance probe solves "
+          f"{var_solves_k[0]} iterations, {var_solves_k[1]}/{probes} "
+          f"converged (Jacobi {var_solves[D3_VAR_MAX_CG_ITER][0]}), trace "
+          f"PCG iters {int(out3k.trace_cg_iters)} (Jacobi "
+          f"{int(out3.trace_cg_iters)})")
+    print(f"[6] d3 kron vs its float64 plain path run: max|mean err|="
+          f"{d3k_err_mean:.3e} (bar 5e-4), max|var err|={d3k_err_var:.3e} "
+          f"(bar 5e-2*max|var64| = {5e-2 * d3k_var_scale:.3e}), grad rel "
+          f"err per component={[f'{r:.3e}' for r in d3k_grad_rel]} (bar "
+          f"5e-2); f64 mean PCG iters {int(out3k_64.mean_cg_iters)}, trace "
+          f"{int(out3k_64.trace_cg_iters)}")
+    print_profile("[6] profiled d3 kron fused call:", prof_d3k, card)
+    check(launches_d3k == launch_counts(nufft1_3d=4, nufft2_3d=5),
+          f"unexpected d3 kron launch counts {launches_d3k}")
+    # the lag table and the variance evaluation (mtot 61) past 56 modes
+    check((tiled_d3["_pallas_nufft1_3d_tiled"],
+           tiled_d3["_pallas_nufft2_3d_tiled"]) == (1, 1),
+          f"unexpected d3 mode-tiled launches {tiled_d3}")
+    check(picks_d3k["matmul"] == 0, f"the d3 kron call took the plain path "
+          f"{picks_d3k}")
+    check(bool(out3k.mean_converged), "the d3 kron mean solve did not "
+          "converge")
+    check(int(out3k.mean_cg_iters) <= KRON_MAX_ITERS,
+          f"d3 kron mean solve took {int(out3k.mean_cg_iters)} iterations")
+    check(var_solves_k[1] == probes, "the d3 kron variance solves did not "
+          "converge")
+    check(all(bool(torch.isfinite(t).all())
+              for t in (out3k.mean, out3k.var, out3k.grad)),
+          "non-finite d3 kron output")
+    check(d3k_err_mean <= 5e-4, f"d3 kron mean error {d3k_err_mean:.3e}")
+    check(d3k_err_var <= 5e-2 * d3k_var_scale,
+          f"d3 kron variance error {d3k_err_var:.3e} > 5e-2 * max|var64|")
+    check(all(r <= 5e-2 for r in d3k_grad_rel),
+          f"d3 kron gradient relative error {d3k_grad_rel} > 5e-2")
     record["phases"]["d3"] = dict(
         var_max_cg_iter=D3_VAR_MAX_CG_ITER, var_solves=var_solves,
         mtot=mtot_d3, M=mtot_d3 ** 3, launches=launches_d3,
-        backend_picks=picks_d3, fused_ms=d3_ms, profile=prof_d3,
+        backend_picks=picks_d3, fused_ms=d3_ms,
+        kron=dict(fused_ms=d3k_ms, launches=launches_d3k, profile=prof_d3k,
+                  tiled_launches=tiled_d3,
+                  mean_cg_iters=int(out3k.mean_cg_iters),
+                  mean_cg_iters_f64=int(out3k_64.mean_cg_iters),
+                  trace_cg_iters=int(out3k.trace_cg_iters),
+                  var_solves=var_solves_k, err_mean=d3k_err_mean,
+                  err_var=d3k_err_var, max_abs_var64=d3k_var_scale,
+                  grad_rel_err=d3k_grad_rel),
         mean_cg_iters=int(out3.mean_cg_iters),
         mean_cg_iters_f64=int(out3_64.mean_cg_iters),
         trace_cg_iters=int(out3.trace_cg_iters),
@@ -1022,10 +1292,312 @@ def main() -> int:
     phase_s["7"] = time.perf_counter() - t_phase
     print(f"[7] phase wall time {phase_s['7']:.1f} s")
 
+    # -- phase 8: the d=1 facade on a Kepler light curve ---------------------
+    t_phase = time.perf_counter()
+    x8 = torch.as_tensor(lc["x"], dtype=torch.float32, device=dev)
+    y8 = torch.as_tensor(lc["y"], dtype=torch.float32, device=dev)
+
+    def lc_model(x, y, **opts):
+        return gpquad_torch.EFGP(x, y, kern_lc, sigmasq=0.01, eps=1e-4,
+                                 estimate_params=False, opts=opts or None,
+                                 device=dev)
+
+    # the f32 gradient against float64 at the starting hypers, with the
+    # same 10 trace probes (the float64 run on the plain path); beside it the
+    # f32 plain path, the floor of f32 arithmetic without the kernels
+    m32, m64 = lc_model(x8, y8), lc_model(x8.double(), y8.double(),
+                                          nufft_method="matmul")
+    m32p = lc_model(x8, y8, nufft_method="matmul")
+    check(m32._grid_plan(True)[1] == rung_lc, "light-curve rung")
+    # the variance component, y.alpha - sigma^2 |alpha|^2 against the trace
+    # term, cancels two terms of ~n / 2 (3e4) down to ~50, so a correlated
+    # f32 error of ~1e-7 in F*y or the lag table shows there (nufft1_1d sums
+    # runs of 32 points for it); three probe seeds, kernels and plain path
+    g8_bars = [1e-2, 1e-2, 2e-2]
+    g8_sweep = []
+    for seed in (8, 9, 10):
+        prng = np.random.default_rng(seed)
+        Z8 = torch.as_tensor(prng.choice([-1.0, 1.0], size=(10, n_lc)),
+                             device=dev)
+        V8 = torch.as_tensor(prng.choice([-1.0, 1.0], size=(10, rung_lc)),
+                             device=dev)
+        gkw = dict(trace_samples=10, cg_tol=LC_OPT["cg_tol"],
+                   noise_floor=LC_OPT["noise_floor"], probes=(Z8, V8))
+        g8 = m32.compute_gradients(**gkw)
+        g8_64 = m64.compute_gradients(**gkw)
+        g8_sweep.append(dict(seed=seed, kernels=rel_to(g8, g8_64),
+                             plain=rel_to(m32p.compute_gradients(**gkw),
+                                          g8_64), grad_raw_f64=g8_64.tolist()))
+        print(f"[8] light curve n={n_lc} mtot {mtot_lc} rung {rung_lc}: f32 "
+              f"gradient at the start vs float64 (probe seed {seed}, T=10): "
+              f"rel err {[f'{r:.3e}' for r in g8_sweep[-1]['kernels']]} "
+              f"(bars {g8_bars}); the f32 plain path "
+              f"{[f'{r:.3e}' for r in g8_sweep[-1]['plain']]}; grad_raw "
+              f"f32={g8.tolist()} f64={g8_64.tolist()}")
+    for row in g8_sweep:
+        check(all(r <= b for r, b in zip(row["kernels"], g8_bars)),
+              f"light-curve f32 gradient error {row['kernels']} (seed "
+              f"{row['seed']}) over {g8_bars}")
+
+    # the example's flow: Adam on the hypers, then the posterior at 5 000
+    # points; every grid plan is timed (each iteration starts with one)
+    model = lc_model(x8, y8)
+    plan_t0, plan_ms = [], []
+    plan = model._grid_plan
+
+    def timed_plan(bucket):
+        t = time.perf_counter()
+        out_ = plan(bucket)
+        plan_t0.append(t)
+        plan_ms.append((time.perf_counter() - t) * 1e3)
+        return out_
+
+    model._grid_plan = timed_plan
+    xq8 = torch.linspace(0, 1, 5000, device=dev)
+    reset_counts(*counters)
+    t = time.perf_counter()
+    model.optimize_hyperparameters(**LC_OPT)
+    sync()
+    t_opt = time.perf_counter() - t
+    t = time.perf_counter()
+    mean8, var8 = model.predict(xq8)
+    sync()
+    t_pred = time.perf_counter() - t
+    launches_lc = dict(cuda_nufft.LAUNCHES)
+    picks_lc = dict(nufft_mod.BACKEND_PICKS)
+    iter_ms = [(b - a) * 1e3 for a, b in zip(plan_t0, plan_t0[1:])]
+    hyp = {k: float(v) for k, v in model.params.as_dict().items()}
+    span = lc["t"].max() - lc["t"].min()
+    ell_days = hyp["lengthscale"] * span
+    flux = mean8.double().cpu().numpy() * lc["y_std"] + lc["y_mean"]
+    t_pred_grid = xq8.double().cpu().numpy() * span + lc["t"].min()
+    truth = 1.0 + np.interp(t_pred_grid, lc["t_all"], lc["f_full"])
+    in_gap = np.zeros(len(t_pred_grid), bool)
+    for lo, hi in LC_GAPS:
+        in_gap |= (t_pred_grid > lo) & (t_pred_grid < hi)
+    rmse_data = float(np.sqrt(np.mean((flux - truth)[~in_gap] ** 2)))
+    rmse_gap = float(np.sqrt(np.mean((flux - truth)[in_gap] ** 2)))
+    hist = model.training_log
+    print(f"[8] 50 Adam iterations: {t_opt * 1e3:.1f} ms in all, "
+          f"{statistics.median(iter_ms):.2f} ms per iteration (median, host "
+          f"clock), of which the grid plan {statistics.median(plan_ms):.2f} "
+          f"ms (host, float64) {card}; last rung "
+          f"{model.last_gradient_stats['mtot']}, final fit "
+          f"mtot {model._state.mtot}; predict (mean + 1000-probe variance "
+          f"at 5 000 points) {t_pred * 1e3:.1f} ms")
+    print(f"[8] learned {({k: round(v, 6) for k, v in hyp.items()})}: "
+          f"lengthscale {ell_days:.3f} d (bar < {lc['period']} d); "
+          f"posterior-mean RMSE on-data {rmse_data:.3e} (bar < {LC_NOISE}), "
+          f"in-gap {rmse_gap:.3e}; launches={launches_lc} "
+          f"backend_picks={picks_lc}; mean CG iters "
+          f"{hist['mean_cg_iters'][:3]}...{hist['mean_cg_iters'][-3:]}")
+    check(ell_days < lc["period"], f"the GP must resolve the rotation "
+          f"signal: lengthscale {ell_days:.2f} d")
+    check(rmse_data < LC_NOISE, f"on-data RMSE {rmse_data:.3e} >= noise")
+    for k in KERNELS_1D:
+        check(launches_lc[k] > 0, f"kernel {k} was not launched on the "
+              "light-curve path")
+    check(picks_lc["matmul"] == 0, f"the light-curve path took the plain "
+          f"path {picks_lc}")
+    check(mean8.shape == (5000,) and var8.shape == (5000,)
+          and bool(torch.isfinite(mean8).all())
+          and bool(torch.isfinite(var8).all()),
+          "light-curve mean or variance: wrong shape or non-finite")
+    record["phases"]["lightcurve"] = dict(
+        n=n_lc, mtot=mtot_lc, rung=rung_lc, grad_rel_err_start=g8_sweep,
+        opt_s=t_opt, iter_ms=iter_ms, plan_ms=plan_ms, predict_s=t_pred,
+        learned=hyp, lengthscale_days=ell_days, rmse_on_data=rmse_data,
+        rmse_in_gap=rmse_gap, launches=launches_lc, backend_picks=picks_lc,
+        final_mtot=model._state.mtot, history=hist)
+    phase_s["8"] = time.perf_counter() - t_phase
+    print(f"[8] phase wall time {phase_s['8']:.1f} s")
+
+    # -- phase 9: the facade at the headline ---------------------------------
+    t_phase = time.perf_counter()
+    m9 = gpquad_torch.EFGP(x32, y32, "SE", sigmasq=sigmasq, eps=eps,
+                           device=dev)
+    raw0 = m9.params.raw.clone()
+    opt9 = dict(max_iters=20, lr=0.05, trace_samples=10)
+
+    def seeded():
+        return torch.Generator(device=dev).manual_seed(7)
+
+    # warm the same trajectory (bench.py:977-984), then reset and time it
+    m9.optimize_hyperparameters(generator=seeded(), **opt9)
+    floor9 = m9._mtot_floor
+    m9.params = m9.params.replace_raw(raw0)
+    reset_counts(*counters)
+    t = time.perf_counter()
+    m9.optimize_hyperparameters(generator=seeded(), **opt9)
+    sync()
+    t9 = time.perf_counter() - t
+    launches9 = dict(cuda_nufft.LAUNCHES)
+    picks9 = dict(nufft_mod.BACKEND_PICKS)
+    prof9 = profile_run(lambda: m9.compute_gradients(trace_samples=10))
+    # the same trajectory in float64 on the plain path: same start, same
+    # rung, same generator seed, so the same probes
+    m9_64 = gpquad_torch.EFGP(x32.double(), y32.double(), "SE",
+                              sigmasq=sigmasq, eps=eps,
+                              opts={"nufft_method": "matmul"}, device=dev)
+    m9_64.params = m9_64.params.replace_raw(raw0)
+    m9_64._mtot_floor = floor9
+    m9_64.optimize_hyperparameters(generator=seeded(), **opt9)
+    gap9 = (m9.params.raw - m9_64.params.raw).abs().tolist()
+    print(f"[9] headline facade: start {torch.exp(raw0).tolist()}, rung "
+          f"{m9.last_gradient_stats['mtot']}; 20 Adam iterations "
+          f"{t9 * 1e3:.1f} ms = {t9 / 20 * 1e3:.2f} ms per iteration (host "
+          f"clock) {card}; launches={launches9} backend_picks={picks9}; "
+          f"final raw f32 {m9.params.raw.tolist()} f64 "
+          f"{m9_64.params.raw.tolist()}, |gap| {gap9} (bar 0.1)")
+    print_profile("[9] profiled gradient step (plan + gradient):", prof9,
+                  card)
+    for k in KERNELS_2D:
+        check(launches9[k] > 0, f"kernel {k} was not launched by the "
+              "headline facade")
+    check(picks9["matmul"] == 0, f"the headline facade took the plain path "
+          f"{picks9}")
+    check(all(g <= 0.1 for g in gap9), f"headline facade: f32 and f64 "
+          f"trajectories end {gap9} apart in log space")
+    record["phases"]["headline_facade"] = dict(
+        start=torch.exp(raw0).tolist(), rung=m9.last_gradient_stats["mtot"],
+        hyper20_s=t9, iter_ms=t9 / 20 * 1e3, launches=launches9,
+        backend_picks=picks9, profile_gradient_step=prof9,
+        raw_f32=m9.params.raw.tolist(), raw_f64=m9_64.params.raw.tolist(),
+        raw_gap=gap9, history=m9.training_log)
+    phase_s["9"] = time.perf_counter() - t_phase
+    print(f"[9] phase wall time {phase_s['9']:.1f} s")
+
+    # -- phase 10: the scale configuration with kron -------------------------
+    t_phase = time.perf_counter()
+    rng10 = np.random.default_rng(10)
+    xs = rng10.uniform(0, 1, size=(n10, 2))
+    ys = (np.sin(3 * np.pi * xs[:, 0]) * np.cos(2 * np.pi * xs[:, 1])
+          + 0.5 * np.sin(7 * xs[:, 0] + 5 * xs[:, 1])
+          + 0.1 * rng10.normal(size=n10))
+    xq10 = torch.as_tensor(rng10.uniform(0, 1, size=(2000, 2)),
+                           dtype=torch.float32, device=dev)
+    x10 = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+    y10 = torch.as_tensor(ys, dtype=torch.float32, device=dev)
+    del xs, ys
+    kron_kw = dict(solver="cg", precond="kron", fft_smooth=True)
+
+    def fit10(x, y, xq):
+        st_ = gpquad_torch.fit_with_grid(x, y, kern10, sigmasq, h10, mtot10,
+                                         cg_tol=1e-6, max_cg_iter=2000,
+                                         device=dev, **kron_kw)
+        return st_, gpquad_torch.predict_mean(st_, xq)
+
+    stage = {}
+    fit10(x10, y10, xq10)                                  # warm
+    reset_counts(*counters)
+    t = time.perf_counter()
+    st10, mean10 = fit10(x10, y10, xq10)
+    sync()
+    stage["fit_mean_s"] = time.perf_counter() - t
+    tiled10 = tiled_counts(cuda_nufft.LAUNCH_WIDTHS)
+    launches10 = dict(cuda_nufft.LAUNCHES)
+    iters10 = int(st10.mean_cg_iters)
+
+    def var10():
+        return gpquad_torch.predict_var(
+            st10, xq10[:1000], method="stochastic", probes=256, cg_tol=1e-4,
+            max_cg_iter=1000,
+            generator=torch.Generator(device=dev).manual_seed(11))
+
+    var10()
+    t = time.perf_counter()
+    v10 = var10()
+    sync()
+    stage["var_s"] = time.perf_counter() - t
+    etas10 = torch.as_tensor(np.random.default_rng(12).choice(
+        [-1.0, 1.0], size=(256, st10.M)), dtype=torch.float32, device=dev)
+    res10 = efgp_mod._solve_var(st10, st10.ws[None, :] * etas10,
+                                cg_tol=1e-4, max_cg_iter=1000)
+    var_iters10 = (int(res10.iters), int(res10.converged.sum()))
+    del etas10, res10
+
+    def grad10(kern, s2, gen, **kw):
+        return gpquad_torch.gradient_with_grid(
+            x10, y10, kern, s2, h10, gen, mtot=mtot10, device=dev,
+            **kron_kw, **kw)
+
+    gkw10 = dict(trace_samples=10, cg_tol=1e-4, max_cg_iter=1000)
+    grad10(kern10, sigmasq, seeded(), **gkw10)
+    t = time.perf_counter()
+    gr10 = grad10(kern10, sigmasq, seeded(), **gkw10)
+    sync()
+    stage["grad_s"] = time.perf_counter() - t
+
+    # bench.py's fixed-plan Adam loop on a HyperState (T=5, cg_tol 1e-3)
+    params = gpquad_torch.HyperState.create(kern10, sigmasq)
+    raw = params.raw.to(dev).clone()
+    adam = torch.optim.Adam([raw], lr=0.05)
+    gen10 = seeded()
+
+    def hyper_iter():
+        p = params.replace_raw(raw.detach())
+        res = grad10(p.kernel_of(kern10), p.sig2, gen10, trace_samples=5,
+                     cg_tol=1e-3, max_cg_iter=500)
+        raw.grad = res.grad.to(raw.dtype) * torch.exp(raw.detach())
+        adam.step()
+        return res
+
+    hyper_iter()                                           # warm
+    raw.data.copy_(params.raw.to(dev))
+    adam = torch.optim.Adam([raw], lr=0.05)
+    t = time.perf_counter()
+    trace_iters_loop = [int(hyper_iter().trace_cg_iters) for _ in range(20)]
+    sync()
+    stage["hyperlearn_20iters_s"] = time.perf_counter() - t
+    st10_64, mean10_64 = fit10(x10.double(), y10.double(), xq10.double())
+    err10 = float((mean10.double() - mean10_64).abs().max())
+    print(f"[10] scale n={n10} mtot={mtot10} M={st10.M} (kron, smooth FFT "
+          f"{st10.toeplitz.fft_shape}): fit + mean {stage['fit_mean_s'] * 1e3:.1f}"
+          f" ms, kron PCG iters {iters10} (bar {KRON_MAX_ITERS}; f64 "
+          f"{int(st10_64.mean_cg_iters)}); launches={launches10} (past 256 "
+          f"modes {tiled10}); max|mean "
+          f"err| vs the f64 kron fit {err10:.3e} (bar 5e-4) {card}")
+    print(f"[10] variance (256 probes, 1 000 targets) {stage['var_s'] * 1e3:.1f}"
+          f" ms, probe solves {var_iters10[0]} iterations, {var_iters10[1]}/"
+          f"256 converged; gradient (T=10) {stage['grad_s'] * 1e3:.1f} ms, "
+          f"trace PCG iters {int(gr10.trace_cg_iters)}, mean "
+          f"{int(gr10.mean_cg_iters)}; 20 Adam iterations "
+          f"{stage['hyperlearn_20iters_s'] * 1e3:.1f} ms, trace iters "
+          f"{trace_iters_loop}; learned lengthscale "
+          f"{float(torch.exp(raw[0])):.5f} (host clock) {card}")
+    check(launches10 == counts(2, 1),
+          f"unexpected scale fit + mean launch counts {launches10}")
+    # F*y (339) and the lag table (677) past 256 modes, and the mean (339)
+    check((tiled10["_pallas_nufft1_2d_tiled"],
+           tiled10["_pallas_nufft2_2d_tiled"]) == (2, 1),
+          f"unexpected mode-tiled launches at scale {tiled10}")
+    check(iters10 <= KRON_MAX_ITERS,
+          f"scale kron fit took {iters10} > {KRON_MAX_ITERS} iterations")
+    check(err10 <= 5e-4, f"scale mean error {err10:.3e} > 5e-4")
+    check(var_iters10[1] == 256, "the scale variance solves did not "
+          "converge")
+    check(all(bool(torch.isfinite(t_).all())
+              for t_ in (mean10, v10, gr10.grad, raw)),
+          "non-finite scale output")
+    record["phases"]["scale"] = dict(
+        n=n10, mtot=mtot10, M=st10.M, fft_shape=list(st10.toeplitz.fft_shape),
+        tiled_launches=tiled10,
+        stages_s=stage, kron_iters=iters10,
+        kron_iters_f64=int(st10_64.mean_cg_iters), launches=launches10,
+        err_mean=err10, var_iters=var_iters10,
+        grad_trace_iters=int(gr10.trace_cg_iters),
+        grad_mean_iters=int(gr10.mean_cg_iters),
+        loop_trace_iters=trace_iters_loop,
+        learned_raw=raw.detach().tolist())
+    del st10, st10_64, x10, y10
+    phase_s["10"] = time.perf_counter() - t_phase
+    print(f"[10] phase wall time {phase_s['10']:.1f} s")
+
     # -- the record ----------------------------------------------------------
     # each kernel's row: its largest float32 call on a driven path (the
-    # headline's for d=2, the d=3 paths' by work B n mtot^d); launches from
-    # the main path's run of each (the fused call at the headline, at d3)
+    # headline's for d=2, the light curve's for d=1, the d=3 paths' by work
+    # B n mtot^d); launches from the main path's run of each (the fused call
+    # at the headline, the light-curve facade, the fused call at d3)
     row_shape = {"nufft1_2d": (m_lag, False), "nufft2_2d": (m_lag, True),
                  "nufft1_2d_batched": (mtot_head, False),
                  "nufft2_2d_batched": (mtot_head, False)}
@@ -1033,14 +1605,22 @@ def main() -> int:
     for name in REPLACES:
         f32_rows = [r for r in phase3 if r["name"] == name
                     and r["dtype"] == "float32"]
-        if name in row_shape:
+        if name in KERNELS_1D:
+            row = max((r for r in f32_rows
+                       if r["serves"].startswith("light curve")),
+                      key=lambda r: r["B"] * r["n"] * r["mtot"])
+            extra = {"launches": launches_lc[name],
+                     "launches_headline_facade": launches9[name]}
+        elif name in row_shape:
             m, fo = row_shape[name]
             row = next(r for r in f32_rows if r["mtot"] == m and
                        r["fft_order"] == fo and r["n"] in (10_000, 100_000))
             extra = {"launches": fused_launches[name],
                      "launches_slice": launches[name],
                      "launches_cg_tier": launches_cg[name]
-                     + launches_gcg[name]}
+                     + launches_gcg[name],
+                     "launches_headline_facade": launches9[name],
+                     "launches_scale_fit_mean": launches10[name]}
         else:
             row = max((r for r in f32_rows
                        if r["serves"].startswith(("d3", "hard3d"))),
@@ -1059,6 +1639,28 @@ def main() -> int:
                                "fft_order": row["fft_order"],
                                "serves": row["serves"],
                                "dtype": "float32"}})
+    # the TPU's mode-tiled functions, each covered by the kernel above: its
+    # float32 call past the single-block limit on the path that drives it
+    # (scale fit + mean at d=2, the d3 fused call at d=3)
+    tiled_row = {"_pallas_nufft2_2d_tiled": "scale mean",
+                 "_pallas_nufft1_2d_tiled": "scale lag table",
+                 "_pallas_nufft2_3d_tiled": "d3 variance evaluation",
+                 "_pallas_nufft1_3d_tiled": "d3 lag table"}
+    for tpu, (kernel, replaces, limit) in TILED.items():
+        row = next(r for r in phase3 if r["name"] == kernel
+                   and r["dtype"] == "float32"
+                   and r["serves"] == tiled_row[tpu])
+        launched = tiled10 if "_2d" in kernel else tiled_d3
+        rows.append({"name": f"{kernel} (mtot > {limit}, for {tpu})",
+                     "route": "cuda", "source": source_of(kernel),
+                     "replaces": replaces, "launches": launched[tpu],
+                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"], "library_ms": None,
+                     "shape": {"B": row["B"], "n": row["n"],
+                               "mtot": row["mtot"],
+                               "fft_order": row["fft_order"],
+                               "serves": row["serves"], "dtype": "float32"}})
     record["kernels"] = rows
     phase_s["total"] = time.perf_counter() - t_run
     record["phase_wall_s"] = phase_s

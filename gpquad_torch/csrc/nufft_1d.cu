@@ -1,0 +1,319 @@
+// Fused d=1 NUFFT kernels for Hopper (sm_90a), written by hand.
+//
+//   nufft2_1d (type-2, uniform -> points) replaces pallas_nufft2_1d
+//   (gpquad/ops/pallas_nufft.py):
+//       out[b,n] = sum_j f[b,j] e^{+2 pi i c(n,j)}
+//   nufft1_1d (type-1, points -> uniform) replaces pallas_nufft1_1d:
+//       out[b,j] = sum_n v[b,n] e^{-2 pi i c(n,j)}
+//
+// c(n,j) is the phase in cycles of point n at mode k_j, made on the fly as
+// nufft_common.cuh describes, with the rounding error of t = x*h carried
+// into the phase (torus_split / phase_split): the modes reach |k| = 4095 at
+// d=1, and without it the f32 rounding of t alone is ~1e-4 of the sums
+// there.  Nothing of size N x mtot reaches device memory.  One kernel per
+// type takes any odd mtot (the modes are tiled inside) and a leading batch
+// of B vectors in one launch, where gpquad maps the single TPU kernel over
+// the batch with lax.map.
+//
+// What bounds them on an H100: at d=1 each phase serves one complex
+// multiply-add per vector (8 flops), against ~20 flops to make the phase, so
+// the phases are most of the work; per point the kernels read 4-8 bytes of x
+// and 8-16 of value, so they are bound by operations (fp32 outside the tensor
+// cores), not by bytes.  This first version makes every phase with the exact
+// compensated path and sincospi (no rotation recurrence), and shares each
+// phase among the vectors of a batch group:
+//
+//  - nufft2_1d: one point per thread (or per S = 8 threads when the
+//    point-vectors are fewer than 65 536, e.g. 5 000 targets, so that enough
+//    warps fill the card; each takes every S-th mode of the staged tile and
+//    the S sums are added in a fixed order in shared memory at the end).  A
+//    tile of TK modes of the group's VB vectors is staged in shared memory
+//    and read as a broadcast; each phase is made once and applied to all VB.
+//  - nufft1_1d: the sum runs over points, so it is the deterministic
+//    two-stage reduction of nufft1_2d: a block owns 128 modes (one a thread),
+//    one chunk of 2048 points and one group of G vectors; it stages the
+//    points' folded t (and its rounding error) and the group's values in
+//    shared memory, makes one phase per point and mode and adds v_b e for
+//    every b of the group, in runs of SUB points.  The per-chunk partials
+//    (nchunk x B x mtot) are then added in chunk order by a second kernel.
+//    No atomics.
+//
+// Every kernel is templated on the scalar type: float is the main path, and
+// double tensors run a double instance of the same code.
+//
+// C interface (bound with ctypes): pointers and the stream are void*, each
+// function returns cudaGetLastError() after its launches.
+
+#include "nufft_common.cuh"
+
+namespace {
+
+// The type-1 sum of a chunk adds runs of SUB points apart and then the runs'
+// sums.  Sorted 1-D points (a time series) keep a chunk's partial sums near
+// their largest, ~2048, at the low modes, and there the f32 rounding of a
+// plain running sum put ~1e-2 on a light curve's signal-variance gradient (a
+// component that cancels two terms of ~n/2); with runs of 32 it reads as the
+// f32 plain path does.  The type-2 sum is left plain: its rounding did not
+// show there.
+constexpr int SUB = 32;
+
+// ---------------------------------------------------------------------------
+// type-2: block = P = THREADS / S points x S threads per point, one group of
+// up to VB vectors (grid axis y).  Thread (p, s) = (tid % P, tid / P).
+// ---------------------------------------------------------------------------
+template <typename T, int THREADS, int S, int VB, int TK>
+__global__ void __launch_bounds__(THREADS)
+nufft2_1d_kernel(const T* __restrict__ x, const v2_t<T>* __restrict__ f,
+                 T h, int n, int m, int nb, int fft_order,
+                 v2_t<T>* __restrict__ out) {
+  constexpr int P = THREADS / S;
+  __shared__ v2_t<T> ftile[VB][TK];
+  __shared__ v2_t<T> red[S][P];
+  const int p = threadIdx.x % P;
+  const int s = threadIdx.x / P;
+  const int i = blockIdx.x * P + p;
+  const int b0 = blockIdx.y * VB;
+  // live vectors of this group; a constant 1 for the single-vector instance
+  const int gn = VB == 1 ? 1 : min(VB, nb - b0);
+  const bool live = i < n;
+  T te = 0;
+  const T u = live ? torus_split(x[i], h, &te) : T(0);
+  T acc_re[VB], acc_im[VB];
+#pragma unroll
+  for (int g = 0; g < VB; ++g) {
+    acc_re[g] = 0;
+    acc_im[g] = 0;
+  }
+  for (int k0 = 0; k0 < m; k0 += TK) {
+    const int kn = min(TK, m - k0);
+    __syncthreads();
+    for (int e = threadIdx.x; e < VB * TK; e += THREADS) {
+      const int g = e / TK, kk = e % TK;
+      v2_t<T> val;
+      val.x = 0;
+      val.y = 0;
+      if (g < gn && kk < kn) val = f[(size_t)(b0 + g) * m + k0 + kk];
+      ftile[g][kk] = val;
+    }
+    __syncthreads();
+    for (int kk = s; kk < kn; kk += S) {
+      T c, sn;
+      phase_split(u, te, mode_value<T>(k0 + kk, m, fft_order), &c, &sn);
+#pragma unroll
+      for (int g = 0; g < VB; ++g) {
+        if (g < gn) {   // uniform over the block
+          const v2_t<T> a = ftile[g][kk];
+          acc_re[g] = fma(a.x, c, fma(-a.y, sn, acc_re[g]));
+          acc_im[g] = fma(a.x, sn, fma(a.y, c, acc_im[g]));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < VB; ++g) {
+    if (g < gn) {   // uniform over the block
+      if constexpr (S > 1) {
+        __syncthreads();
+        red[s][p].x = acc_re[g];
+        red[s][p].y = acc_im[g];
+        __syncthreads();
+        if (s == 0) {
+          T re = 0, im = 0;
+#pragma unroll
+          for (int ss = 0; ss < S; ++ss) {
+            re += red[ss][p].x;
+            im += red[ss][p].y;
+          }
+          acc_re[g] = re;
+          acc_im[g] = im;
+        }
+      }
+      if (live && s == 0) {
+        v2_t<T> o;
+        o.x = acc_re[g];
+        o.y = acc_im[g];
+        out[(size_t)(b0 + g) * n + i] = o;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// type-1 stage 1: partial[c, b, j] = sum over the points of chunk c of
+// v[b,n] e(n,j), e = e^{-2 pi i c}.  Block = T1_THREADS modes (one a thread,
+// grid axis x), one chunk (grid axis y), one group of up to G vectors (grid
+// axis z).
+// ---------------------------------------------------------------------------
+constexpr int T1_THREADS = 128;
+
+template <typename T, int P, int G>
+__global__ void __launch_bounds__(T1_THREADS)
+nufft1_1d_partial_kernel(const T* __restrict__ x,
+                         const v2_t<T>* __restrict__ v, T h, int n, int m,
+                         int nb, int fft_order, int chunk,
+                         v2_t<T>* __restrict__ partial) {
+  __shared__ T su[P], ste[P];
+  __shared__ v2_t<T> sv[G][P];
+  const int j = blockIdx.x * T1_THREADS + threadIdx.x;
+  const bool live = j < m;
+  // dead threads take mode 0 and keep the block's barriers; they write nothing
+  const T k = mode_value<T>(live ? j : 0, m, fft_order);
+  const int b0 = blockIdx.z * G;
+  const int gn = G == 1 ? 1 : min(G, nb - b0);
+  const int p_begin = blockIdx.y * chunk;
+  const int p_end = min(n, p_begin + chunk);
+  T acc_re[G], acc_im[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    acc_re[g] = 0;
+    acc_im[g] = 0;
+  }
+  for (int p0 = p_begin; p0 < p_end; p0 += P) {
+    const int pn = min(P, p_end - p0);
+    __syncthreads();
+    for (int q = threadIdx.x; q < pn; q += T1_THREADS)
+      su[q] = torus_split(x[p0 + q], h, &ste[q]);
+    for (int e = threadIdx.x; e < G * P; e += T1_THREADS) {
+      const int g = e / P, q = e % P;
+      v2_t<T> val;
+      val.x = 0;
+      val.y = 0;
+      if (g < gn && q < pn) val = v[(size_t)(b0 + g) * n + p0 + q];
+      sv[g][q] = val;
+    }
+    __syncthreads();
+    // each run of SUB points is summed apart, then added to the total
+    for (int q0 = 0; q0 < pn; q0 += SUB) {
+      const int qe = min(pn, q0 + SUB);
+      T sub_re[G], sub_im[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        sub_re[g] = 0;
+        sub_im[g] = 0;
+      }
+      for (int q = q0; q < qe; ++q) {
+        T c, sn;
+        phase_split(su[q], ste[q], k, &c, &sn);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g < gn) {   // uniform over the block
+            const v2_t<T> a = sv[g][q];
+            // (ar + i ai)(c - i s)
+            sub_re[g] = fma(a.x, c, fma(a.y, sn, sub_re[g]));
+            sub_im[g] = fma(a.y, c, fma(-a.x, sn, sub_im[g]));
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        acc_re[g] += sub_re[g];
+        acc_im[g] += sub_im[g];
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < gn) {
+        v2_t<T> o;
+        o.x = acc_re[g];
+        o.y = acc_im[g];
+        partial[((size_t)blockIdx.y * nb + b0 + g) * m + j] = o;
+      }
+    }
+  }
+}
+
+// Type-2: 128 threads a block; one thread per point when there are many
+// point-vectors, S = 8 when there are few.  A batch runs in groups of 4
+// vectors, a single vector in the VB = 1 instance.  Type-1: groups of 8.
+constexpr int T2_THREADS = 128;
+constexpr int T2_FEW_POINTS = 65536;
+constexpr int T2_GROUP = 4;
+constexpr int T1_GROUP = 8;
+
+template <typename T, int S, int VB>
+int launch_nufft2_sv(const void* x, const void* f, T h, int n, int m, int nb,
+                     int fft_order, void* out, cudaStream_t st) {
+  constexpr int TK = sizeof(T) == 4 ? 256 : 128;
+  constexpr int P = T2_THREADS / S;
+  const dim3 grid((n + P - 1) / P, (nb + VB - 1) / VB);
+  nufft2_1d_kernel<T, T2_THREADS, S, VB, TK><<<grid, T2_THREADS, 0, st>>>(
+      (const T*)x, (const v2_t<T>*)f, h, n, m, nb, fft_order, (v2_t<T>*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int S>
+int launch_nufft2_s(const void* x, const void* f, T h, int n, int m, int nb,
+                    int fft_order, void* out, cudaStream_t st) {
+  if (nb == 1)
+    return launch_nufft2_sv<T, S, 1>(x, f, h, n, m, nb, fft_order, out, st);
+  return launch_nufft2_sv<T, S, T2_GROUP>(x, f, h, n, m, nb, fft_order, out,
+                                          st);
+}
+
+template <typename T>
+int launch_nufft2(const void* x, const void* f, T h, int n, int m, int nb,
+                  int fft_order, void* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if ((long long)n * nb < T2_FEW_POINTS)
+    return launch_nufft2_s<T, 8>(x, f, h, n, m, nb, fft_order, out, st);
+  return launch_nufft2_s<T, 1>(x, f, h, n, m, nb, fft_order, out, st);
+}
+
+template <typename T, int G>
+int launch_nufft1_g(const void* x, const void* v, T h, int n, int m, int nb,
+                    int fft_order, int chunk, void* partial, cudaStream_t st) {
+  constexpr int P = sizeof(T) == 4 ? 256 : 128;
+  const int nchunk = (n + chunk - 1) / chunk;
+  const dim3 grid((m + T1_THREADS - 1) / T1_THREADS, nchunk,
+                  (nb + G - 1) / G);
+  nufft1_1d_partial_kernel<T, P, G><<<grid, T1_THREADS, 0, st>>>(
+      (const T*)x, (const v2_t<T>*)v, h, n, m, nb, fft_order, chunk,
+      (v2_t<T>*)partial);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_nufft1(const void* x, const void* v, T h, int n, int m, int nb,
+                  int fft_order, int chunk, void* partial, void* out,
+                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err = nb == 1
+      ? launch_nufft1_g<T, 1>(x, v, h, n, m, nb, fft_order, chunk, partial, st)
+      : launch_nufft1_g<T, T1_GROUP>(x, v, h, n, m, nb, fft_order, chunk,
+                                     partial, st);
+  if (err != 0) return err;
+  const int nchunk = (n + chunk - 1) / chunk;
+  return launch_reduce<T>(partial, nchunk, nb * m, out, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+int gpq_nufft2_1d_f32(const void* x, const void* f, float h, int n, int m,
+                      int nb, int fft_order, void* out, void* stream) {
+  return launch_nufft2<float>(x, f, h, n, m, nb, fft_order, out, stream);
+}
+
+int gpq_nufft2_1d_f64(const void* x, const void* f, double h, int n, int m,
+                      int nb, int fft_order, void* out, void* stream) {
+  return launch_nufft2<double>(x, f, h, n, m, nb, fft_order, out, stream);
+}
+
+int gpq_nufft1_1d_f32(const void* x, const void* v, float h, int n, int m,
+                      int nb, int fft_order, int chunk, void* partial,
+                      void* out, void* stream) {
+  return launch_nufft1<float>(x, v, h, n, m, nb, fft_order, chunk, partial,
+                              out, stream);
+}
+
+int gpq_nufft1_1d_f64(const void* x, const void* v, double h, int n, int m,
+                      int nb, int fft_order, int chunk, void* partial,
+                      void* out, void* stream) {
+  return launch_nufft1<double>(x, v, h, n, m, nb, fft_order, chunk, partial,
+                               out, stream);
+}
+
+}  // extern "C"

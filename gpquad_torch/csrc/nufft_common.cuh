@@ -1,6 +1,7 @@
-// Device helpers shared by the hand-written NUFFT kernels (nufft_2d.cu,
-// nufft_3d.cu): the complex vector types, the rounding-exact arithmetic of the
-// phase path, and the chunk-order reduction of the type-1 partial sums.
+// Device helpers shared by the hand-written NUFFT kernels (nufft_1d.cu,
+// nufft_2d.cu, nufft_3d.cu): the complex vector types, the rounding-exact
+// arithmetic of the phase path, and the chunk-order reduction of the type-1
+// partial sums.
 //
 // c_t(n,j) is the phase in cycles of point n along dimension t at mode k_j,
 // made on the fly from t = x*h exactly as ops/nufft.py _phase_matrix makes it:
@@ -56,6 +57,28 @@ __device__ __forceinline__ void phase(T u, T k, T* c, T* s) {
   T cyc = add_rn(p, -rint_(p));
   cyc = add_rn(cyc, err);
   cyc = add_rn(cyc, -rint_(cyc));        // |cyc| <= 1/2
+  sincospi_(add_rn(cyc, cyc), s, c);
+}
+
+// The d=1 kernels' form of torus() and phase(): the rounding error of
+// t = x*h, te = fma(x, h, -t) (exact), goes into the phase with the error of
+// u*k, so that it does not grow with |k| (at d=1 the modes reach |k| = 4095,
+// where the rounding of t alone puts ~1e-4 on an f32 sum).  u = t - rint(t)
+// is exact.
+template <typename T>
+__device__ __forceinline__ T torus_split(T x, T h, T* te) {
+  T t = mul_rn(x, h);
+  *te = fma_rn(x, h, -t);
+  return add_rn(t, -rint_(t));
+}
+
+template <typename T>
+__device__ __forceinline__ void phase_split(T u, T te, T k, T* c, T* s) {
+  T p = mul_rn(u, k);
+  T err = fma_rn(te, k, fma_rn(u, k, -p));   // (u*k - p) + te*k
+  T cyc = add_rn(p, -rint_(p));
+  cyc = add_rn(cyc, err);
+  cyc = add_rn(cyc, -rint_(cyc));            // |cyc| <= 1/2
   sincospi_(add_rn(cyc, cyc), s, c);
 }
 

@@ -1,10 +1,12 @@
 """Kernels of the port (``gpquad/kernels``)."""
 from __future__ import annotations
 
-from .base import AbstractKernel
+from .base import AbstractKernel, median_distance_heuristic
+from .params import HyperState
 from .squared_exponential import SquaredExponential
 
-__all__ = ["AbstractKernel", "SquaredExponential", "make_kernel"]
+__all__ = ["AbstractKernel", "HyperState", "SquaredExponential",
+           "make_kernel", "median_distance_heuristic"]
 
 
 def make_kernel(name, dimension: int = 1, **kwargs):

@@ -40,3 +40,6 @@ class SquaredExponential(AbstractKernel):
                   - two_pi_sq * self.lengthscale * nsq)
         dv = s / self.variance
         return torch.stack([dl, dv], dim=-1)
+
+    def _median_to_lengthscale(self, med):
+        return 0.5 * med

@@ -3,10 +3,10 @@
 Port of ``gpquad/models/efgp.py``.  Plain functions on tensors: the fit
 returns a :class:`FitState` dataclass, and prediction reads it.  The NUFFTs
 go through ``ops.nufft.make_nufft``, which launches the hand-written CUDA
-kernels for d=2 and d=3 points on the card; the Gram matvec is the FFT
+kernels for d=1, d=2 and d=3 points on the card; the Gram matvec is the FFT
 Toeplitz operator; solves are the dense factor-solve for
-``M <= DENSE_SOLVER_MAX_M`` and batched PCG beyond, preconditioned by Jacobi
-or by the dense-head deflation block.
+``M <= DENSE_SOLVER_MAX_M`` and batched PCG beyond, preconditioned by Jacobi,
+the dense-head deflation block or the Kronecker eigen-preconditioner.
 
 Every entry point takes ``device=`` (default ``"cuda"``) or reads the
 state's device, and fails when CUDA is asked for and absent.
@@ -23,6 +23,7 @@ from ..ops.deflation import (DEFLATION_RANK, deflation_block,
                              make_block_precond)
 from ..ops.dense_solve import (DENSE_SOLVER_MAX_M, dense_gram, dense_inverse,
                                refine_solve)
+from ..ops.kron_precond import KronPrecond, kron_eig_build, make_kron_precond
 from ..ops.nufft import make_nufft
 from ..ops.operators import (convolution_vector, make_A_mean, make_A_var,
                              make_jacobi_precond)
@@ -66,6 +67,7 @@ class FitState:
     P_dense: Optional[torch.Tensor] = None   # (M, M) inv(A) (dense solver)
     defl_idx: Optional[torch.Tensor] = None  # (k,) deflated mode indices
     defl_P: Optional[torch.Tensor] = None    # (k, k) inv(A[B, B])
+    kron: Optional[KronPrecond] = None       # Kronecker eigen-preconditioner
     mtot: int = 0
     d: int = 1
 
@@ -83,9 +85,8 @@ def resolve_precond(precond: str, precond_rank: int, use_precond: bool,
                     M: Optional[int] = None) -> str:
     """Preconditioner family for the CG branch: 'auto' is deflation when
     ``precond_rank > 0``, else Jacobi (or none without ``use_precond``);
-    'adaptive' is kron for n >= M at d <= 3, deflation otherwise.  'jacobi',
-    'deflation' and 'none' are ported; a family that resolves to 'kron'
-    raises until ROADMAP A.11.  As in gpquad, 'kron' at d > 3 silently
+    'adaptive' is kron for n >= M at d <= 3 (and whenever n or M is not
+    given), deflation otherwise.  As in gpquad, 'kron' at d > 3 silently
     becomes 'jacobi' (ROADMAP §C known quirk)."""
     if precond == "auto":
         family = "deflation" if precond_rank > 0 else (
@@ -100,9 +101,6 @@ def resolve_precond(precond: str, precond_rank: int, use_precond: bool,
     else:
         raise ValueError(f"Unknown precond '{precond}' "
                          "(auto | adaptive | jacobi | deflation | kron | none)")
-    if family == "kron":
-        raise NotImplementedError(
-            "precond family 'kron' is not ported yet (ROADMAP A.11)")
     return family
 
 
@@ -139,19 +137,24 @@ def _as_points(x, device, dtype=None):
 def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
                   cg_tol: float = 1e-4, max_cg_iter: Optional[int] = None,
                   beta0: Optional[torch.Tensor] = None,
-                  use_precond: bool = True,
+                  use_precond: bool = True, ws_mask=None,
                   nufft_method: str = "auto",
                   solver: str = "auto",
                   precond_rank: int = 0,
                   precond: str = "auto",
+                  fft_smooth: bool = False,
                   device="cuda") -> FitState:
     """Fit against a fixed frequency grid: quadrature weights, the NUFFT
     right-hand side ``ws * F* y``, the Toeplitz Gram from the lag table, and
     the mean solve (dense factor-solve or PCG).  ``precond_rank > 0`` (or
     ``precond="deflation"``, rank 2048 by default) preconditions the CG
     branch with the deflation block on the top-``precond_rank`` weight
-    modes and keeps it on the state, so that the variance and the gradient
-    reuse it.  Runs in ``x``'s floating dtype."""
+    modes, ``precond="kron"`` with the Kronecker eigen-preconditioner; the
+    state keeps either, so that the variance and the gradient reuse it.
+    ``ws_mask`` ((M,), optional) zeroes padded grid nodes (a bucketed grid
+    stays algebraically exact); ``fft_smooth`` pads the Toeplitz FFT to a
+    2,3,5,7-smooth size instead of a power of two.  Runs in ``x``'s
+    floating dtype."""
     dev = resolve_device(device)
     x = _as_points(x, dev)
     n, d = x.shape
@@ -164,15 +167,18 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
 
     m = (mtot - 1) // 2
     xis_1d = torch.arange(-m, m + 1, dtype=rdtype, device=dev) * h
-    ws = quadrature_weights(kernel, tensor_grid(xis_1d, d), h, d)
+    if ws_mask is not None:
+        ws_mask = torch.as_tensor(ws_mask, device=dev).to(rdtype)
+    ws = quadrature_weights(kernel, tensor_grid(xis_1d, d), h, d,
+                            mask=ws_mask)
 
     nufft = make_nufft(x, h, mtot, method=nufft_method)
     rhs = ws * nufft.type1(y.to(cdtype)).reshape(-1)
 
     v = convolution_vector(m, x, h, nufft_method=nufft_method)
-    toeplitz = make_toeplitz(v)
+    toeplitz = make_toeplitz(v, force_pow2=not fft_smooth)
     diag_scale = toeplitz_diag_scale(v)
-    A_dense = P_dense = defl_idx = defl_P = None
+    A_dense = P_dense = defl_idx = defl_P = kron = None
     if resolve_solver(solver, mtot, d) == "dense":
         A_dense = dense_gram(ws, v, mtot, d, sigmasq)
         P_dense = dense_inverse(A_dense)
@@ -181,7 +187,11 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
         family = resolve_precond(precond, precond_rank, use_precond, d,
                                  n=n, M=mtot ** d)
         M_inv = None
-        if family == "deflation":
+        if family == "kron":
+            kron = kron_eig_build(ws, v, sigmasq, mtot=mtot, d=d,
+                                  diag_scale=diag_scale)
+            M_inv = make_kron_precond(kron)
+        elif family == "deflation":
             defl_idx, defl_P = deflation_block(
                 ws, v, sigmasq, mtot=mtot, d=d,
                 rank=precond_rank if precond_rank > 0 else DEFLATION_RANK)
@@ -198,7 +208,8 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
     return FitState(beta=res.x, ws=ws, h=h, sigmasq=sigmasq,
                     toeplitz=toeplitz, mean_cg_iters=res.iters,
                     diag_scale=diag_scale, A_dense=A_dense, P_dense=P_dense,
-                    defl_idx=defl_idx, defl_P=defl_P, mtot=mtot, d=d)
+                    defl_idx=defl_idx, defl_P=defl_P, kron=kron, mtot=mtot,
+                    d=d)
 
 
 def fit(x, y, kernel, sigmasq, eps: float = 1e-2, *, cg_tol: float = 1e-4,
@@ -245,10 +256,12 @@ def _solve_var(state: FitState, rhs, *, cg_tol, max_cg_iter) -> CGResult:
 
 
 def _var_precond(state: FitState):
-    """Preconditioner for ``A_var = A_mean / sigma^2``: the fit's deflation
-    block when present (a preconditioner for ``A`` serves ``A / sigma^2``
-    unchanged, a global scale leaves the PCG iterates invariant), Jacobi
-    otherwise."""
+    """Preconditioner for ``A_var = A_mean / sigma^2``: the fit's Kronecker
+    preconditioner or deflation block when present (a preconditioner for
+    ``A`` serves ``A / sigma^2`` unchanged, a global scale leaves the PCG
+    iterates invariant), Jacobi otherwise."""
+    if state.kron is not None:
+        return make_kron_precond(state.kron)
     if state.defl_P is not None:
         return make_block_precond(
             state.defl_idx, state.defl_P,

@@ -35,6 +35,7 @@ from ..ops.cg import pcg
 from ..ops.deflation import (DEFLATION_RANK, make_block_precond,
                              make_deflation_precond)
 from ..ops.dense_solve import dense_gram, dense_inverse, refine_solve
+from ..ops.kron_precond import kron_eig_build, make_kron_precond
 from ..ops.nufft import make_nufft
 from ..ops.operators import (convolution_vector, make_A_mean,
                              make_jacobi_precond)
@@ -148,7 +149,9 @@ def gradient_with_grid(
             A_dense, P_dense = state.A_dense, state.P_dense
         else:
             A_mean = make_A_mean(ws, toeplitz, sigmasq_eff)
-            if state.defl_P is not None:
+            if state.kron is not None:
+                M_inv_op = make_kron_precond(state.kron)
+            elif state.defl_P is not None:
                 M_inv_op = make_block_precond(
                     state.defl_idx, state.defl_P,
                     diag_scale * torch.abs(ws) ** 2 + sigmasq_eff)
@@ -166,11 +169,14 @@ def gradient_with_grid(
             P_dense = dense_inverse(A_dense)
         else:
             A_mean = make_A_mean(ws, toeplitz, sigmasq_eff)
-            # kron raises here until ROADMAP A.11; 'none' still
-            # preconditions with Jacobi, as in gpquad
+            # 'none' still preconditions with Jacobi, as in gpquad
             family = resolve_precond(precond, precond_rank, True, d, n=n,
                                      M=M)
-            if family == "deflation":
+            if family == "kron":
+                M_inv_op = make_kron_precond(kron_eig_build(
+                    ws, v_kernel, sigmasq_eff, mtot=mtot, d=d,
+                    diag_scale=diag_scale))
+            elif family == "deflation":
                 M_inv_op = make_deflation_precond(
                     ws, v_kernel, sigmasq_eff, mtot=mtot, d=d,
                     rank=precond_rank if precond_rank > 0 else DEFLATION_RANK,

@@ -18,6 +18,7 @@ import torch
 
 from ..ops.cg import pcg
 from ..ops.dense_solve import dense_gram, dense_inverse, refine_solve
+from ..ops.kron_precond import kron_eig_build, make_kron_precond
 from ..ops.nufft import make_nufft
 from ..ops.operators import (convolution_vector, make_A_mean,
                              make_jacobi_precond)
@@ -81,24 +82,27 @@ def fit_predict_grad(x, y, xnew, kernel, sigmasq, h, generator=None, *,
     diag_scale = toeplitz_diag_scale(v)
     rhs = ws * nufft.type1(y.to(cdtype)).reshape(-1)
 
-    A_dense = P_dense = None
+    A_dense = P_dense = kron = None
     if resolve_solver(solver, mtot, d) == "dense":
         A_dense = dense_gram(ws, v, mtot, d, sigmasq)
         P_dense = dense_inverse(A_dense)
         res_mean = refine_solve(A_dense, P_dense, rhs, tol=cg_tol)
     else:
-        # without n and M, as gpquad's pipeline.py:93 (ROADMAP §C): kron
-        # (also 'adaptive') raises until A.11, anything else runs Jacobi,
-        # 'deflation' included
-        resolve_precond(precond, 0, True, d)
+        # without n and M, as gpquad's pipeline.py:93 (ROADMAP §C): 'kron'
+        # and 'adaptive' build kron, anything else runs Jacobi, 'deflation'
+        # included
+        if resolve_precond(precond, 0, True, d) == "kron":
+            kron = kron_eig_build(ws, v, sigmasq, mtot=mtot, d=d,
+                                  diag_scale=diag_scale)
+            M_inv = make_kron_precond(kron)
+        else:
+            M_inv = make_jacobi_precond(ws, sigmasq, diag_scale=diag_scale)
         res_mean = pcg(make_A_mean(ws, toeplitz, sigmasq), rhs, tol=cg_tol,
-                       maxiter=max_cg_iter,
-                       M_inv=make_jacobi_precond(ws, sigmasq,
-                                                 diag_scale=diag_scale))
+                       maxiter=max_cg_iter, M_inv=M_inv)
     state = FitState(beta=res_mean.x, ws=ws, h=h, sigmasq=sigmasq,
                      toeplitz=toeplitz, mean_cg_iters=res_mean.iters,
                      diag_scale=diag_scale, A_dense=A_dense, P_dense=P_dense,
-                     mtot=mtot, d=d)
+                     kron=kron, mtot=mtot, d=d)
 
     mean = predict_mean(state, xnew, nufft_method=nufft_method)
     var = _variance_stochastic(

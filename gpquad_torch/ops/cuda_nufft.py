@@ -1,11 +1,15 @@
-"""Hand-written CUDA NUFFT kernels for d=2 and d=3, their plain versions,
-and the NUFFT backend built on them.
+"""Hand-written CUDA NUFFT kernels for d=1, d=2 and d=3, their plain
+versions, and the NUFFT backend built on them.
 
 Port of ``gpquad/ops/pallas_nufft.py``.  The TPU file fuses the phase
 construction with the complex products so that no ``(N, mtot)`` phase matrix
-reaches device memory; the kernels in ``csrc/nufft_2d.cu`` and
-``csrc/nufft_3d.cu`` do the same on Hopper:
+reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
+``csrc/nufft_2d.cu`` and ``csrc/nufft_3d.cu`` do the same on Hopper:
 
+- :func:`nufft2_1d` replaces ``pallas_nufft2_1d`` (pallas_nufft.py:549) and
+  :func:`nufft1_1d` replaces ``pallas_nufft1_1d`` (:584): any odd ``mtot``,
+  one vector or a batch in one launch (gpquad maps the TPU kernel over a
+  batch with ``lax.map``).
 - :func:`nufft2_2d` replaces ``pallas_nufft2_2d`` (pallas_nufft.py:113) and
   its mode-tiled twin ``_pallas_nufft2_2d_tiled`` (:369): one kernel takes
   any odd ``mtot``, tiling the modes inside.
@@ -23,10 +27,11 @@ reaches device memory; the kernels in ``csrc/nufft_2d.cu`` and
   any odd ``mtot`` up to 255 (the TPU's ``_D3_TILED_MAX``).
 
 All are bound by operations on an H100 (fp32 complex multiply-adds outside
-the tensor cores, ~8 mtot^d flops per point and vector); the sources say
-how the designs stage the work.  The wrappers take a tensor on the CPU
-to the plain version (``*_ref``, the phase-matrix backend of
-``ops/nufft.py``); on a CUDA tensor they launch the kernel or raise.
+the tensor cores, ~8 mtot^d flops per point and vector, and at d=1 the
+phases themselves); the sources say how the designs stage the work.  The
+wrappers take a tensor on the CPU to the plain version (``*_ref``, the
+phase-matrix backend of ``ops/nufft.py``); on a CUDA tensor they launch the
+kernel or raise.
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/gpquad_torch/`` at the checkout's root (one ``nvcc`` per source, all
@@ -47,20 +52,24 @@ import torch
 
 from .nufft import CUDA_D3_MAX_MTOT, make_phase_nufft
 
-__all__ = ["nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
+__all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
+           "nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
            "nufft1_2d_batched", "nufft2_2d_batched", "nufft1_2d_batched_ref",
            "nufft2_2d_batched_ref", "nufft1_3d", "nufft2_3d", "nufft1_3d_ref",
            "nufft2_3d_ref", "type1_3d_groups", "CudaNUFFT", "LAUNCHES",
-           "build", "library_path"]
+           "LAUNCH_WIDTHS", "build", "library_path"]
 
 # Launches of each kernel since the last reset (a launch is one wrapper call
 # on a CUDA tensor; the two stages of type-1 count once).
-LAUNCHES = {"nufft1_2d": 0, "nufft2_2d": 0, "nufft1_2d_batched": 0,
-            "nufft2_2d_batched": 0, "nufft1_3d": 0, "nufft2_3d": 0}
+LAUNCHES = {"nufft1_1d": 0, "nufft2_1d": 0, "nufft1_2d": 0, "nufft2_2d": 0,
+            "nufft1_2d_batched": 0, "nufft2_2d_batched": 0, "nufft1_3d": 0,
+            "nufft2_3d": 0}
+# The same launches by (kernel, mtot), counted at the same place.
+LAUNCH_WIDTHS: dict[tuple[str, int], int] = {}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every file the library depends on (hashed); the .cu files are compiled
-_SOURCES = ("nufft_common.cuh", "nufft_2d.cu", "nufft_3d.cu")
+_SOURCES = ("nufft_common.cuh", "nufft_1d.cu", "nufft_2d.cu", "nufft_3d.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpquad_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -139,6 +148,13 @@ def _library():
         lib = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for prec, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            o2 = getattr(lib, f"gpq_nufft2_1d_{prec}")
+            o2.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
+            o2.restype = i32
+            o1 = getattr(lib, f"gpq_nufft1_1d_{prec}")
+            o1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, ptr, ptr,
+                           ptr]
+            o1.restype = i32
             t2 = getattr(lib, f"gpq_nufft2_2d_{prec}")
             t2.argtypes = [ptr, ptr, real, i32, i32, i32, ptr, ptr]
             t2.restype = i32
@@ -187,9 +203,10 @@ def _check_cuda_operand(name, t, x, cdtype):
                         f"got {t.dtype} on {t.device}")
 
 
-def _launch(name: str, x: torch.Tensor, *args):
+def _launch(name: str, x: torch.Tensor, *args, mtot: int):
     """Call ``gpq_<name>_<f32|f64>`` (x's precision) with ``args`` and x's
-    current stream; raise on a CUDA error, count the launch."""
+    current stream; raise on a CUDA error, count the launch (by kernel and
+    by kernel and ``mtot``)."""
     prec = "f32" if x.dtype == torch.float32 else "f64"
     fn = getattr(_library(), f"gpq_{name}_{prec}")
     with torch.cuda.device(x.device):
@@ -199,11 +216,26 @@ def _launch(name: str, x: torch.Tensor, *args):
         raise RuntimeError(f"{name}: CUDA error {rc} "
                            f"({torch.cuda.get_device_name(x.device)})")
     LAUNCHES[name] += 1
+    LAUNCH_WIDTHS[name, mtot] = LAUNCH_WIDTHS.get((name, mtot), 0) + 1
 
 
 # ---------------------------------------------------------------------------
 # plain versions: the phase-matrix backend of ops/nufft.py on the same inputs
 # ---------------------------------------------------------------------------
+
+def nufft2_1d_ref(x, f, h, *, mtot: int, fft_order: bool = False):
+    """Plain d=1 type-2: ``out[b,n] = sum_j f[b,j] e^{+2 pi i h x_n k_j}``;
+    ``f`` (mtot,) or (B, mtot) -> complex (N,) or (B, N)."""
+    op = make_phase_nufft(x, h, mtot, fft_order=fft_order)
+    return op.type2(f)
+
+
+def nufft1_1d_ref(x, vals, h, *, mtot: int, fft_order: bool = False):
+    """Plain d=1 type-1: ``out[b,j] = sum_n v[b,n] e^{-2 pi i h x_n k_j}``;
+    ``vals`` (N,) or (B, N) -> complex (mtot,) or (B, mtot)."""
+    op = make_phase_nufft(x, h, mtot, fft_order=fft_order)
+    return op.type1(vals)
+
 
 def nufft2_2d_ref(x, f, h, *, mtot: int, fft_order: bool = False):
     """Plain type-2: ``out[n] = sum_jk f[j,k] e^{+2 pi i h (x_n1 k_j +
@@ -252,6 +284,70 @@ def nufft1_3d_ref(x, vals, h, *, mtot: int, fft_order: bool = False):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def nufft2_1d(x, f, h, *, mtot: int, fft_order: bool = False):
+    """Fused d=1 type-2 apply (replaces ``pallas_nufft2_1d``).
+
+    ``x`` (N, 1) real; ``f`` complex (mtot,) for one vector or (B, mtot)
+    for a batch of B >= 1; any odd mtot.  Returns complex (N,) or (B, N)
+    from one launch.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel."""
+    _check(x, mtot, 1)
+    if f.ndim not in (1, 2) or f.shape[-1] != mtot:
+        raise ValueError(f"f must be ({mtot},) or (B, {mtot}), "
+                         f"got {tuple(f.shape)}")
+    single = f.ndim == 1
+    B = 1 if single else f.shape[0]
+    _check_batch(B, mtot, 1)
+    if x.device.type == "cpu":
+        return nufft2_1d_ref(x, f, h, mtot=mtot, fft_order=fft_order)
+    cdtype = _complex_of(x.dtype)
+    _check_cuda_operand("f", f, x, cdtype)
+    n = x.shape[0]
+    out = torch.empty((B, n), dtype=cdtype, device=x.device)
+    if n > 0:
+        x = x.contiguous()
+        f = f.contiguous()
+        h = float(torch.as_tensor(h, dtype=x.dtype))
+        _launch("nufft2_1d", x, x.data_ptr(), f.data_ptr(), h, n, mtot, B,
+                int(fft_order), out.data_ptr(), mtot=mtot)
+    return out[0] if single else out
+
+
+def nufft1_1d(x, vals, h, *, mtot: int, fft_order: bool = False):
+    """Fused d=1 type-1 apply (replaces ``pallas_nufft1_1d``).
+
+    ``x`` (N, 1) real; ``vals`` complex (N,) or (B, N), B >= 1; any odd
+    mtot.  Returns complex (mtot,) or (B, mtot) from one launch (two
+    kernels: per-chunk partials, then the chunk-order sum; scratch of
+    nchunk * B * mtot values).  A CPU tensor takes the plain version."""
+    _check(x, mtot, 1)
+    n = x.shape[0]
+    if vals.ndim not in (1, 2) or vals.shape[-1] != n:
+        raise ValueError(f"vals must be ({n},) or (B, {n}), "
+                         f"got {tuple(vals.shape)}")
+    single = vals.ndim == 1
+    B = 1 if single else vals.shape[0]
+    _check_batch(B, mtot, 1, max(1, -(-n // TYPE1_CHUNK)))
+    if x.device.type == "cpu":
+        return nufft1_1d_ref(x, vals, h, mtot=mtot, fft_order=fft_order)
+    cdtype = _complex_of(x.dtype)
+    _check_cuda_operand("vals", vals, x, cdtype)
+    if n == 0:
+        out = torch.zeros((B, mtot), dtype=cdtype, device=x.device)
+    else:
+        x = x.contiguous()
+        vals = vals.contiguous()
+        h = float(torch.as_tensor(h, dtype=x.dtype))
+        nchunk = -(-n // TYPE1_CHUNK)
+        partial = torch.empty((nchunk, B, mtot), dtype=cdtype,
+                              device=x.device)
+        out = torch.empty((B, mtot), dtype=cdtype, device=x.device)
+        _launch("nufft1_1d", x, x.data_ptr(), vals.data_ptr(), h, n, mtot, B,
+                int(fft_order), TYPE1_CHUNK, partial.data_ptr(),
+                out.data_ptr(), mtot=mtot)
+    return out[0] if single else out
+
+
 def nufft2_2d(x, f, h, *, mtot: int, fft_order: bool = False):
     """Fused type-2 apply for d=2 (replaces ``pallas_nufft2_2d``).
 
@@ -273,7 +369,7 @@ def nufft2_2d(x, f, h, *, mtot: int, fft_order: bool = False):
     f = f.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
     _launch("nufft2_2d", x, x.data_ptr(), f.data_ptr(), h, n, mtot,
-            int(fft_order), out.data_ptr())
+            int(fft_order), out.data_ptr(), mtot=mtot)
     return out
 
 
@@ -300,7 +396,8 @@ def nufft1_2d(x, vals, h, *, mtot: int, fft_order: bool = False):
     partial = torch.empty((nchunk, mtot, mtot), dtype=cdtype, device=x.device)
     out = torch.empty((mtot, mtot), dtype=cdtype, device=x.device)
     _launch("nufft1_2d", x, x.data_ptr(), vals.data_ptr(), h, n, mtot,
-            int(fft_order), TYPE1_CHUNK, partial.data_ptr(), out.data_ptr())
+            int(fft_order), TYPE1_CHUNK, partial.data_ptr(), out.data_ptr(),
+            mtot=mtot)
     return out
 
 
@@ -340,7 +437,7 @@ def nufft2_2d_batched(x, f, h, *, mtot: int, fft_order: bool = False):
     f = f.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
     _launch("nufft2_2d_batched", x, x.data_ptr(), f.data_ptr(), h, n, m, B,
-            int(fft_order), out.data_ptr())
+            int(fft_order), out.data_ptr(), mtot=m)
     return out
 
 
@@ -373,7 +470,7 @@ def nufft1_2d_batched(x, vals, h, *, mtot: int, fft_order: bool = False):
     out = torch.empty((B, mtot, mtot), dtype=cdtype, device=x.device)
     _launch("nufft1_2d_batched", x, x.data_ptr(), vals.data_ptr(), h, n, mtot,
             B, int(fft_order), TYPE1_CHUNK, partial.data_ptr(),
-            out.data_ptr())
+            out.data_ptr(), mtot=mtot)
     return out
 
 
@@ -423,7 +520,7 @@ def nufft2_3d(x, f, h, *, mtot: int, fft_order: bool = False):
         f = f.contiguous()
         h = float(torch.as_tensor(h, dtype=x.dtype))
         _launch("nufft2_3d", x, x.data_ptr(), f.data_ptr(), h, n, m, B,
-                int(fft_order), out.data_ptr())
+                int(fft_order), out.data_ptr(), mtot=m)
     return out[0] if single else out
 
 
@@ -461,20 +558,21 @@ def nufft1_3d(x, vals, h, *, mtot: int, fft_order: bool = False):
         out = torch.empty(shape, dtype=cdtype, device=x.device)
         _launch("nufft1_3d", x, x.data_ptr(), vals.data_ptr(), h, n, mtot, B,
                 int(fft_order), TYPE1_CHUNK, groups, partial.data_ptr(),
-                out.data_ptr())
+                out.data_ptr(), mtot=mtot)
     return out[0] if single else out
 
 
 @dataclasses.dataclass(frozen=True)
 class CudaNUFFT:
-    """NUFFT backend on the d=2 and d=3 kernels (replaces ``PallasNUFFT``,
-    pallas_nufft.py:245): the same ``type1``/``type2`` interface as
-    :class:`~gpquad_torch.ops.nufft.NUFFT`, storing only the points.  At d=2
-    a single vector goes to ``nufft1_2d``/``nufft2_2d`` and a leading batch
-    of two or more vectors (any shape, flat or block-shaped modes) to the
-    batched kernel in one launch; at d=3 ``nufft1_3d``/``nufft2_3d`` take
-    either in one launch."""
-    x: torch.Tensor          # (N, d), d in {2, 3}
+    """NUFFT backend on the d=1, d=2 and d=3 kernels (replaces
+    ``PallasNUFFT``, pallas_nufft.py:245): the same ``type1``/``type2``
+    interface as :class:`~gpquad_torch.ops.nufft.NUFFT`, storing only the
+    points.  At d=2 a single vector goes to ``nufft1_2d``/``nufft2_2d`` and
+    a leading batch of two or more vectors (any shape, flat or block-shaped
+    modes) to the batched kernel in one launch; at d=1
+    (``nufft1_1d``/``nufft2_1d``) and d=3 (``nufft1_3d``/``nufft2_3d``) one
+    kernel takes either in one launch."""
+    x: torch.Tensor          # (N, d), d in {1, 2, 3}
     h: float                 # already rounded to x's precision
     mtot: int
     fft_order: bool = False
@@ -492,7 +590,9 @@ class CudaNUFFT:
         kw = dict(mtot=self.mtot, fft_order=self.fft_order)
         lead = tuple(vals.shape[:-1])
         flat = vals.reshape(-1, vals.shape[-1]).to(cdtype)
-        if self.d == 3:
+        if self.d == 1:
+            out = nufft1_1d(self.x, flat, self.h, **kw)
+        elif self.d == 3:
             out = nufft1_3d(self.x, flat, self.h, **kw)
         elif flat.shape[0] == 1:
             out = nufft1_2d(self.x, flat[0], self.h, **kw)
@@ -511,7 +611,9 @@ class CudaNUFFT:
             lead = tuple(fk.shape[:-1] if fk.shape[-1] == M
                          else fk.shape[:-d])
         flat = fk.reshape((-1,) + block).to(cdtype)
-        if d == 3:
+        if d == 1:
+            out = nufft2_1d(self.x, flat, self.h, **kw)
+        elif d == 3:
             out = nufft2_3d(self.x, flat, self.h, **kw)
         elif flat.shape[0] == 1:
             out = nufft2_2d(self.x, flat[0], self.h, **kw)

@@ -9,9 +9,8 @@ grid ``xi = k h``, ``k in [-m, m]^d``, so
 
 factor through per-dimension phase matrices ``E_t in C^{N x mtot}`` and each
 apply is one (or d) dense matmuls.  This backend is the CPU path, the
-reference the CUDA kernels are held against, and the card's path for d=1
-(until its kernels are ported) and for d=3 grids wider than the d=3 kernels
-take.
+reference the CUDA kernels are held against, and the card's path for d=3
+grids wider than the d=3 kernels take.
 
 Conventions: ``type1`` isign=-1, ``type2`` isign=+1; modes ordered -m..m,
 or 0..m, -m..-1 with ``fft_order=True``.
@@ -184,10 +183,9 @@ def make_nufft(x: torch.Tensor, h, mtot: int, *, fft_order: bool = False,
     """Build the NUFFT operator for points ``x`` (N, d).
 
     ``method="auto"`` launches the hand-written kernels
-    (``ops/cuda_nufft.py``) for points on a CUDA device with d=2, or d=3
-    and ``mtot <= CUDA_D3_MAX_MTOT``, and uses the phase-matrix backend
-    otherwise: on the CPU, for d=1 until its kernels are ported, and for
-    wider d=3 grids.  ``method="matmul"`` always takes the phase-matrix
+    (``ops/cuda_nufft.py``) for points on a CUDA device with d=1 or d=2 (any
+    odd mtot), or d=3 and ``mtot <= CUDA_D3_MAX_MTOT``, and uses the
+    phase-matrix backend otherwise: on the CPU and for wider d=3 grids.  ``method="matmul"`` always takes the phase-matrix
     backend.  The pick is counted in :data:`BACKEND_PICKS`.
     """
     if x.ndim == 1:
@@ -198,7 +196,7 @@ def make_nufft(x: torch.Tensor, h, mtot: int, *, fft_order: bool = False,
         raise ValueError(f"Unknown NUFFT method '{method}' (auto | matmul)")
     d = x.shape[1]
     if method == "auto" and x.is_cuda and (
-            d == 2 or (d == 3 and mtot <= CUDA_D3_MAX_MTOT)):
+            d in (1, 2) or (d == 3 and mtot <= CUDA_D3_MAX_MTOT)):
         from .cuda_nufft import CudaNUFFT
         BACKEND_PICKS["cuda"] += 1
         # h in x's precision, read to the host once here so that no launch

@@ -1,6 +1,6 @@
 """Equispaced Fourier quadrature node selection; port of
 ``gpquad/quadrature.py`` (``truncation_bound``, ``grid_geometry``,
-``spectral_grid``).
+``spectral_grid``, the bucket ladders and the padded-grid masks).
 
 Planning always runs on the host in float64, so ``(h, mtot)`` equal what
 the JAX package computes with x64 enabled:
@@ -19,7 +19,9 @@ import torch
 
 from .kernels.squared_exponential import SquaredExponential
 
-__all__ = ["truncation_bound", "grid_geometry", "spectral_grid"]
+__all__ = ["truncation_bound", "grid_geometry", "spectral_grid",
+           "bucket_mtot", "bucket_points", "bucket_neighbors",
+           "flat_grid_mask", "padded_grid_mask"]
 
 _F64 = torch.float64
 
@@ -29,16 +31,29 @@ def truncation_bound(f, eps, *, initial_upper: float = 1000.0,
                      doublings: int = 10):
     """Find L with f(L) ~= eps for monotone-decreasing ``f``: locate an upper
     bound by at most ``doublings`` doublings, then ``iters`` bisection
-    steps.  Returns a float64 0-d tensor."""
+    steps.  Returns a float64 0-d tensor.
+
+    Both loops stop at their fixed point (a step that changes nothing, e.g.
+    once ``a`` and ``b`` are adjacent doubles), after which every further
+    step would change nothing either: the result is the full loops', in
+    ~60 bisection steps instead of 200."""
     eps = torch.as_tensor(eps, dtype=_F64)
     b = torch.tensor(initial_upper, dtype=_F64)
     for _ in range(doublings):
-        b = torch.where(f(b) > eps, b * 2.0, b)
+        if not bool(f(b) > eps):
+            break
+        b = b * 2.0
     a = torch.tensor(lower, dtype=_F64)
     for _ in range(iters):
         mid = 0.5 * (a + b)
-        gt = f(mid) > eps
-        a, b = torch.where(gt, mid, a), torch.where(gt, b, mid)
+        if bool(f(mid) > eps):
+            if bool(mid == a):
+                break
+            a = mid
+        else:
+            if bool(mid == b):
+                break
+            b = mid
     return 0.5 * (a + b)
 
 
@@ -87,3 +102,72 @@ def spectral_grid(kernel, eps, L, *, use_integral: bool = True
     hm = int(math.ceil(float(hm_real) - 1e-12))
     xis = np.arange(-hm, hm + 1, dtype=np.float64) * h
     return xis, h, 2 * hm + 1
+
+
+# ---------------------------------------------------------------------------
+# bucketed grid sizes: a hyper-learning run pads the grid to the next rung of
+# a geometric ladder and masks the surplus nodes to exactly zero weight, so
+# that every operator on the padded grid equals the tight grid's
+# ---------------------------------------------------------------------------
+
+_BUCKET_GROWTH = 1.25
+
+
+def bucket_mtot(mtot: int, minimum: int = 9) -> int:
+    """Round a grid size up to the next odd rung of the 1.25 ladder."""
+    m = max(minimum, mtot)
+    rung = minimum
+    while rung < m:
+        rung = int(rung * _BUCKET_GROWTH) + 1
+    if rung % 2 == 0:
+        rung += 1
+    return rung
+
+
+def bucket_points(n: int, minimum: int = 100) -> int:
+    """Round a point count up to the 1-2-5 decade ladder."""
+    if n <= minimum:
+        return minimum
+    rung = minimum
+    while rung < n:
+        lead = int(str(rung)[0])
+        rung = rung * 2 if lead in (1, 5) else rung * 5 // 2   # 1->2->5->10
+    return rung
+
+
+def bucket_neighbors(mtot: int, minimum: int = 9):
+    """``(down, up)`` rungs of the :func:`bucket_mtot` ladder adjacent to
+    ``mtot`` (``down`` is None at the bottom of the ladder)."""
+    r, prev = minimum, None
+    while True:
+        cur = r + 1 if r % 2 == 0 else r
+        nxt_raw = int(r * _BUCKET_GROWTH) + 1
+        nxt = nxt_raw + 1 if nxt_raw % 2 == 0 else nxt_raw
+        if cur >= mtot:
+            return prev, nxt
+        prev = cur
+        r = nxt_raw
+
+
+def flat_grid_mask(mtot_pad: int, d: int, hm, dtype=torch.float32,
+                   device=None) -> torch.Tensor:
+    """Active-node mask of a padded d-dim grid, flat ``(mtot_pad**d,)``:
+    the product of the 1-D masks ``|j| <= hm``."""
+    m_pad = (mtot_pad - 1) // 2
+    j = torch.abs(torch.arange(-m_pad, m_pad + 1, device=device))
+    mask1 = (j <= hm).to(dtype)
+    out = mask1
+    for _ in range(d - 1):
+        out = (out[:, None] * mask1[None, :]).reshape(-1)
+    return out
+
+
+def padded_grid_mask(mtot_pad: int, hm, h, dtype=torch.float64,
+                     device=None):
+    """``(xis_1d, mask_1d)`` of a grid of ``mtot_pad`` nodes:
+    ``xis_1d[j] = (j - m_pad) h`` and the mask 1 for ``|j - m_pad| <= hm``,
+    else 0."""
+    m_pad = (mtot_pad - 1) // 2
+    j = torch.arange(-m_pad, m_pad + 1, dtype=dtype, device=device)
+    xis = j * h
+    return xis, (torch.abs(j) <= hm).to(xis.dtype)

@@ -1,5 +1,5 @@
-"""The d=2 and d=3 CUDA NUFFT kernels on the card, against their float64
-plain versions on the same inputs.
+"""The d=1, d=2 and d=3 CUDA NUFFT kernels on the card, against their
+float64 plain versions on the same inputs.
 
 Marked ``cuda``: they skip where torch sees no CUDA device.  This file
 imports neither JAX nor ``gpquad`` (the card's machine has no JAX), so it
@@ -16,7 +16,9 @@ import torch
 
 import gpquad_torch
 from gpquad_torch.ops import cuda_nufft
-from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_2d,
+from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_1d,
+                                         nufft1_1d_ref, nufft2_1d,
+                                         nufft2_1d_ref, nufft1_2d,
                                          nufft1_2d_batched,
                                          nufft1_2d_batched_ref, nufft1_2d_ref,
                                          nufft1_3d, nufft1_3d_ref,
@@ -63,11 +65,15 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, n, mtot, h,
                         device=cuda_device).to(cdt)
     hq = float(torch.tensor(h, dtype=dtype))
     before = dict(cuda_nufft.LAUNCHES)
+    widths = dict(cuda_nufft.LAUNCH_WIDTHS)
     got1 = nufft1_2d(x, v, hq, mtot=mtot, fft_order=fft_order)
     got2 = nufft2_2d(x, f, hq, mtot=mtot, fft_order=fft_order)
     torch.cuda.synchronize()
     assert cuda_nufft.LAUNCHES["nufft1_2d"] == before["nufft1_2d"] + 1
     assert cuda_nufft.LAUNCHES["nufft2_2d"] == before["nufft2_2d"] + 1
+    for name in ("nufft1_2d", "nufft2_2d"):
+        assert cuda_nufft.LAUNCH_WIDTHS[name, mtot] == \
+            widths.get((name, mtot), 0) + 1
     x64 = x.double()
     ref1 = nufft1_2d_ref(x64, v.to(torch.complex128), hq, mtot=mtot,
                          fft_order=fft_order)
@@ -90,9 +96,10 @@ def test_kernel_wrappers_reject_mismatched_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_dispatcher_on_card(cuda_device):
-    """d=2, and d=3 up to mtot 255, on the card take the kernels; d=1 and
-    wider d=3 grids the phase matrices."""
-    for d, mtot, cls in ((1, 9, NUFFT), (2, 9, CudaNUFFT), (3, 9, CudaNUFFT),
+    """d=1 and d=2 (any odd mtot), and d=3 up to mtot 255, on the card take
+    the kernels; wider d=3 grids the phase matrices."""
+    for d, mtot, cls in ((1, 9, CudaNUFFT), (1, 8191, CudaNUFFT),
+                         (2, 9, CudaNUFFT), (3, 9, CudaNUFFT),
                          (3, 255, CudaNUFFT), (3, 257, NUFFT)):
         x = torch.rand((50, d), device=cuda_device)
         assert isinstance(make_nufft(x, 0.3, mtot), cls), (d, mtot)
@@ -215,6 +222,7 @@ def test_cuda_backend_batches_in_one_launch(cuda_device):
                                device=cuda_device)).shape == (1, 400)
     after = dict(cuda_nufft.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
+        "nufft1_1d": 0, "nufft2_1d": 0,
         "nufft1_2d": 0, "nufft2_2d": 1, "nufft1_2d_batched": 1,
         "nufft2_2d_batched": 1, "nufft1_3d": 0, "nufft2_3d": 0}
 
@@ -246,6 +254,7 @@ def test_pipeline_on_card_matches_cpu(cuda_device):
             device=dev)
         if dev != "cpu":
             assert dict(cuda_nufft.LAUNCHES) == {
+                "nufft1_1d": 0, "nufft2_1d": 0,
                 "nufft1_2d": 3, "nufft2_2d": 3, "nufft1_2d_batched": 1,
                 "nufft2_2d_batched": 2, "nufft1_3d": 0, "nufft2_3d": 0}
             assert nufft_mod.BACKEND_PICKS["matmul"] == 0
@@ -330,6 +339,7 @@ def test_3d_dispatch_launches_kernels(cuda_device):
                                device=cuda_device)).shape == (500,)
     after = dict(cuda_nufft.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
+        "nufft1_1d": 0, "nufft2_1d": 0,
         "nufft1_2d": 0, "nufft2_2d": 0, "nufft1_2d_batched": 0,
         "nufft2_2d_batched": 0, "nufft1_3d": 2, "nufft2_3d": 2}
     assert nufft_mod.BACKEND_PICKS == {"cuda": 1, "matmul": 0}
@@ -363,6 +373,7 @@ def test_3d_pipeline_on_card_matches_cpu(cuda_device):
                 solver=solver, device=dev)
             if dev != "cpu":
                 assert dict(cuda_nufft.LAUNCHES) == {
+                    "nufft1_1d": 0, "nufft2_1d": 0,
                     "nufft1_2d": 0, "nufft2_2d": 0, "nufft1_2d_batched": 0,
                     "nufft2_2d_batched": 0, "nufft1_3d": 4, "nufft2_3d": 5}
                 assert nufft_mod.BACKEND_PICKS["matmul"] == 0
@@ -377,3 +388,106 @@ def test_3d_pipeline_on_card_matches_cpu(cuda_device):
         assert np.max(np.abs(m32 - m_cpu)) < 1e-4 * np.max(np.abs(m_cpu))
         assert np.max(np.abs(v32 - v_cpu)) < 1e-4 * np.max(np.abs(v_cpu))
         assert np.all(np.abs(g32 - g_cpu) < 1e-2 * np.abs(g_cpu)), solver
+
+
+# ---------------------------------------------------------------------------
+# d=1 (rows 5-6) and the facade
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (0, 5000, 1031, 0.99, False),
+    (0, 3000, 2061, 0.99, True),
+    (1, 777, 9, 0.31, True),
+    (3, 2000, 8191, 0.99, False),
+    (10, 20000, 1031, 0.99, False),
+    (0, 1, 1, 0.3, False),
+])
+def test_1d_kernels_match_plain_on_card(cuda_device, dtype, B, n, mtot, h,
+                                        fft_order):
+    """B = 0 is a single vector.  Bar 1e-4 (f32) and 1e-10 (f64) of
+    max|ref|: the kernels carry the rounding of t = x*h into the phase."""
+    rng = np.random.default_rng(1)
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    lead = (B,) if B else ()
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 1)), device=cuda_device).to(dtype)
+    v = torch.as_tensor(rng.normal(size=lead + (n,))
+                        + 1j * rng.normal(size=lead + (n,)),
+                        device=cuda_device).to(cdt)
+    f = torch.as_tensor(rng.normal(size=lead + (mtot,))
+                        + 1j * rng.normal(size=lead + (mtot,)),
+                        device=cuda_device).to(cdt)
+    hq = float(torch.tensor(h, dtype=dtype))
+    before = dict(cuda_nufft.LAUNCHES)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    got1 = nufft1_1d(x, v, hq, **kw)
+    got2 = nufft2_1d(x, f, hq, **kw)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCHES["nufft1_1d"] == before["nufft1_1d"] + 1
+    assert cuda_nufft.LAUNCHES["nufft2_1d"] == before["nufft2_1d"] + 1
+    assert got1.shape == lead + (mtot,) and got2.shape == lead + (n,)
+    bar = 1e-4 if dtype == torch.float32 else 1e-10
+    ref1 = nufft1_1d_ref(x.double(), v.to(torch.complex128), hq, **kw)
+    ref2 = nufft2_1d_ref(x.double(), f.to(torch.complex128), hq, **kw)
+    assert _rel(got1.to(torch.complex128), ref1) < bar
+    assert _rel(got2.to(torch.complex128), ref2) < bar
+
+
+@pytest.mark.cuda
+def test_1d_type1_sums_sorted_points_on_card(cuda_device):
+    """Sorted points (a series at a fixed cadence) keep the type-1 chunk
+    sums large at the low modes; ``nufft1_1d`` adds runs of 32 points apart
+    so that the f32 lag table of the Kepler-cadence series (n 68 628) stays
+    within 1e-7 of max|ref| = n."""
+    t = np.arange(0.0, 1400.0, 0.0204)
+    x = torch.as_tensor((t - t[0]) / (t[-1] - t[0]),
+                        device=cuda_device)[:, None]
+    kw = dict(mtot=2061, fft_order=False)
+    ones = torch.ones(x.shape[0], dtype=torch.complex128, device=cuda_device)
+    hq = float(torch.tensor(0.9936, dtype=torch.float32))
+    x32 = x.float()
+    got = nufft1_1d(x32, ones.to(torch.complex64), hq, **kw)
+    ref = nufft1_1d_ref(x32.double(), ones, hq, **kw)
+    rel = _rel(got.to(torch.complex128), ref)
+    print(f"f32 lag table on sorted points: {rel:.3e} of max|ref|")
+    assert rel < 1e-7
+
+
+@pytest.mark.cuda
+def test_facade_on_card_matches_cpu(cuda_device):
+    """EFGP on the card (d=1 kernels, float64) against the same model on the
+    CPU (phase matrices): three Adam steps with the same probes, then the
+    mean; launches of both d=1 kernels, none of the plain path."""
+    rng = np.random.default_rng(5)
+    n = 3000
+    x = rng.uniform(0, 1, n)
+    y = np.sin(40 * x) + 0.1 * rng.normal(size=n)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = gpquad_torch.EFGP(x, y, "SE", sigmasq=0.05, eps=1e-5,
+                                  estimate_params=False, device=dev)
+        model.params = model.params.replace_raw(torch.log(torch.tensor(
+            [0.02, 1.0, 0.05], dtype=torch.float64, device=dev)))
+        model._mtot_floor = gpquad_torch.quadrature.bucket_mtot(
+            model._grid_plan(False)[1] + 20)
+        M = model._mtot_floor
+        Z = torch.as_tensor(np.random.default_rng(6).choice(
+            [-1.0, 1.0], size=(2, n)), device=dev)
+        V = torch.as_tensor(np.random.default_rng(7).choice(
+            [-1.0, 1.0], size=(2, M)), device=dev)
+        cuda_nufft.LAUNCHES.update({k: 0 for k in cuda_nufft.LAUNCHES})
+        nufft_mod.BACKEND_PICKS.update({"cuda": 0, "matmul": 0})
+        model.optimize_hyperparameters(max_iters=3, lr=0.05, trace_samples=2,
+                                       cg_tol=1e-10, probes=(Z, V))
+        mean, _ = model.predict(np.linspace(0, 1, 500),
+                                return_variance=False)
+        out[str(dev)] = (model.params.raw.cpu().numpy(), mean.cpu().numpy(),
+                         dict(cuda_nufft.LAUNCHES),
+                         dict(nufft_mod.BACKEND_PICKS))
+    raw_cpu, mean_cpu, _, _ = out["cpu"]
+    raw_gpu, mean_gpu, launches, picks = out[str(cuda_device)]
+    assert np.max(np.abs(raw_gpu - raw_cpu)) < 1e-8
+    assert np.max(np.abs(mean_gpu - mean_cpu)) < 1e-8
+    assert launches["nufft1_1d"] > 0 and launches["nufft2_1d"] > 0
+    assert picks["matmul"] == 0

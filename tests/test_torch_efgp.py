@@ -178,14 +178,19 @@ def test_entry_points_fail_without_card(data):
 
 
 def test_unported_options_raise(data):
-    """kron (also 'adaptive' at n >= M) raises until A.11; precond_rank runs
-    the deflation preconditioner and keeps its block on the state."""
+    """kron (also 'adaptive' at n >= M) runs and keeps its factors on the
+    state; precond_rank runs the deflation preconditioner and keeps its
+    block on the state; the variance methods of A.8 raise."""
     x, y, xq = data
     tk = gpquad_torch.make_kernel("SE", 2, lengthscale=0.3, variance=1.0)
+    betas = []
     for kw in (dict(precond="kron"), dict(precond="adaptive")):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            gpquad_torch.fit(x[:200], y[:200], tk, 0.1, solver="cg",
-                             device="cpu", **kw)
+        st = gpquad_torch.fit(x[:200], y[:200], tk, 0.1, solver="cg",
+                              cg_tol=1e-10, device="cpu", **kw)
+        assert st.kron is not None and st.defl_P is None
+        assert len(st.kron.Us) == 2 and st.kron.denom.shape == (st.mtot,) * 2
+        betas.append(st.beta.numpy())
+    np.testing.assert_array_equal(betas[0], betas[1])
     st = gpquad_torch.fit(x[:200], y[:200], tk, 0.1, solver="cg",
                           precond_rank=16, device="cpu")
     assert st.defl_idx.shape == (16,) and st.defl_P.shape == (16, 16)
@@ -200,6 +205,43 @@ def test_unported_options_raise(data):
             gpquad_torch.predict_var(st, xq, method=method)
     with pytest.raises(ValueError):
         gpquad_torch.predict_var(st, xq, method="exact")
+
+
+@pytest.mark.parametrize("option", ["ws_mask", "fft_smooth"])
+def test_fit_with_grid_options_match(data, option):
+    """fit_with_grid's ``ws_mask`` (a grid padded past the planned one, the
+    surplus nodes masked) and ``fft_smooth`` (2,3,5,7-smooth Toeplitz pads)
+    against gpquad's, on the CG tier at cg_tol 1e-13: beta 1e-9, the mean
+    1e-9 absolute."""
+    x, y, xq = data
+    x, y = x[:400], y[:400]
+    jk, tk = _kernels(np.float64)
+    _, h, mtot = spectral_grid(jk, 1e-3, 1.0)
+    h, mtot = float(h), int(mtot)
+    kw = dict(cg_tol=1e-13, solver="cg")
+    if option == "ws_mask":
+        hm = (mtot - 1) // 2
+        mtot += 8
+        mask = np.asarray(jquad_flat_grid_mask(mtot, 2, hm))
+        jkw, tkw = dict(ws_mask=jnp.asarray(mask)), dict(ws_mask=mask)
+    else:
+        jkw = tkw = dict(fft_smooth=True)
+    js = jefgp.fit_with_grid(jnp.asarray(x), jnp.asarray(y), jk, SIGMASQ, h,
+                             mtot, **kw, **jkw)
+    ts = gpquad_torch.fit_with_grid(x, y, tk, SIGMASQ, h, mtot, device="cpu",
+                                    **kw, **tkw)
+    assert ts.toeplitz.fft_shape == tuple(js.toeplitz.fft_shape)
+    assert np.max(np.abs(ts.beta.numpy() - np.asarray(js.beta))) < 1e-9
+    jmean = np.asarray(jefgp.predict_mean(js, jnp.asarray(xq)))
+    assert np.max(np.abs(gpquad_torch.predict_mean(ts, xq).numpy()
+                         - jmean)) < 1e-9
+    if option == "ws_mask":
+        assert np.count_nonzero(np.abs(ts.ws.numpy())) == (mtot - 8) ** 2
+
+
+def jquad_flat_grid_mask(mtot_pad, d, hm):
+    from gpquad.quadrature import flat_grid_mask
+    return flat_grid_mask(mtot_pad, d, hm, dtype=jnp.float64)
 
 
 # ---------------------------------------------------------------------------

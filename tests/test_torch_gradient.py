@@ -288,17 +288,14 @@ def test_generator_probe_order(rng):
 
 
 def test_unported_preconditioners_raise(rng):
-    """kron raises until A.11; precond_rank, precond='deflation' and
-    'adaptive' at n < M (here n = 40, M = 169) run the deflation
-    preconditioner and reach the Jacobi run's gradient."""
+    """kron, precond_rank, precond='deflation' and 'adaptive' at n < M
+    (here n = 40, M = 169: deflation) all reach the Jacobi run's
+    gradient."""
     x, y = _data(rng, 40, 2)
     _, tk = _kernels(2)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        gpquad_torch.gradient(x, y, tk, SIGMASQ, EPS, solver="cg",
-                              trace_samples=2, device="cpu", precond="kron")
     grads = []
     for kw in (dict(), dict(precond_rank=16), dict(precond="deflation"),
-               dict(precond="adaptive")):
+               dict(precond="adaptive"), dict(precond="kron")):
         grads.append(gpquad_torch.gradient(
             x, y, tk, SIGMASQ, EPS, torch.Generator().manual_seed(0),
             solver="cg", trace_samples=2, cg_tol=1e-10, device="cpu",

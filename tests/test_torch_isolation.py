@@ -30,7 +30,8 @@ def _imported_roots(path: Path):
 def test_import_pulls_in_no_jax():
     code = ("import sys, gpquad_torch, gpquad_torch.convert, "
             "gpquad_torch.ops.cuda_nufft, gpquad_torch.ops.slq, "
-            "gpquad_torch.ops.deflation, "
+            "gpquad_torch.ops.deflation, gpquad_torch.ops.kron_precond, "
+            "gpquad_torch.kernels.params, gpquad_torch.models.model, "
             "gpquad_torch.models.gradient, gpquad_torch.models.pipeline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
@@ -46,7 +47,10 @@ def test_scan_covers_the_port():
     for module in ("gpquad_torch/models/gradient.py",
                    "gpquad_torch/models/pipeline.py",
                    "gpquad_torch/ops/slq.py", "gpquad_torch/ops/cuda_nufft.py",
-                   "gpquad_torch/ops/deflation.py", "chip_smoke.py"):
+                   "gpquad_torch/ops/deflation.py",
+                   "gpquad_torch/ops/kron_precond.py",
+                   "gpquad_torch/kernels/params.py",
+                   "gpquad_torch/models/model.py", "chip_smoke.py"):
         assert module in names, module
 
 

@@ -1,0 +1,164 @@
+"""Port parity for the d=1 NUFFT: the plain versions of the CUDA pair
+``nufft1_1d`` / ``nufft2_1d`` (gpquad_torch.ops.cuda_nufft) against the
+Pallas kernels ``pallas_nufft1_1d`` / ``pallas_nufft2_1d``, which run in
+interpret mode off the TPU (pallas_nufft.py:551-552), and against gpquad's
+phase-matrix backend in float64; the d=1 dispatch on the CPU.
+
+Tolerances: 5e-5 * max|ref| against the Pallas kernels in float32, the bar
+of tests/test_pallas_nufft.py::test_pallas_1d_matches_mxu (two f32
+evaluations of the same sums with different sin/cos and summation order);
+1e-10 against gpquad's float64 phase matrices (the same arithmetic in a
+different summation order).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpquad.ops.nufft import make_nufft as jax_make_nufft
+from gpquad.ops.pallas_nufft import (PallasNUFFT, pallas_nufft1_1d,
+                                     pallas_nufft2_1d)
+from gpquad_torch.ops import cuda_nufft
+from gpquad_torch.ops import nufft as tnufft
+from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_1d, nufft1_1d_ref,
+                                         nufft2_1d, nufft2_1d_ref)
+from gpquad_torch.ops.nufft import make_nufft
+
+# The parity problems are small: torch's intra-op threads cost more than
+# they give on them, most of all beside other test processes.
+torch.set_num_threads(1)
+
+
+def _rel(got, want):
+    return np.max(np.abs(got - want)) / np.max(np.abs(want))
+
+
+# n = 1500 with the Pallas tile of 1024 leaves a ragged last tile; mtot 1031
+# is the phase-8 rung, past one 1024-mode block
+@pytest.mark.parametrize("mtot,h", [(41, 0.07), (1031, 0.0097)])
+@pytest.mark.parametrize("fft_order", [False, True])
+def test_plain_versions_match_pallas(rng, mtot, h, fft_order):
+    n = 1500
+    x = rng.uniform(-1, 1, (n, 1)).astype(np.float32)
+    f = (rng.normal(size=mtot) + 1j * rng.normal(size=mtot)).astype(
+        np.complex64)
+    v = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    want2 = np.asarray(pallas_nufft2_1d(jnp.asarray(x), jnp.asarray(f), h,
+                                        **kw))
+    got2 = nufft2_1d_ref(torch.as_tensor(x), torch.as_tensor(f), h,
+                         **kw).numpy()
+    assert got2.shape == want2.shape == (n,)
+    assert _rel(got2, want2) < 5e-5
+    want1 = np.asarray(pallas_nufft1_1d(jnp.asarray(x), jnp.asarray(v), h,
+                                        **kw))
+    got1 = nufft1_1d_ref(torch.as_tensor(x), torch.as_tensor(v), h,
+                         **kw).numpy()
+    assert got1.shape == want1.shape == (mtot,)
+    assert _rel(got1, want1) < 5e-5
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_batched_plain_versions_match_pallas_map(rng, B):
+    """A batch in one call of the plain versions against gpquad's
+    ``lax.map`` of the single Pallas kernel (PallasNUFFT, :294-297,
+    :313-315)."""
+    n, mtot, h = 700, 63, 0.05
+    x = rng.uniform(-1, 1, (n, 1)).astype(np.float32)
+    V = (rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n))).astype(
+        np.complex64)
+    F = (rng.normal(size=(B, mtot)) + 1j * rng.normal(size=(B, mtot))).astype(
+        np.complex64)
+    pop = PallasNUFFT(x=jnp.asarray(x), h=jnp.asarray(h, jnp.float32),
+                      mtot=mtot)
+    want1 = np.asarray(jax.lax.map(
+        lambda v: pallas_nufft1_1d(pop.x, v, pop.h, mtot=mtot),
+        jnp.asarray(V)))
+    got1 = nufft1_1d_ref(torch.as_tensor(x), torch.as_tensor(V), h,
+                         mtot=mtot).numpy()
+    assert got1.shape == want1.shape == (B, mtot)
+    assert _rel(got1, want1) < 5e-5
+    want2 = np.asarray(pop.type2(jnp.asarray(F)))
+    got2 = nufft2_1d_ref(torch.as_tensor(x), torch.as_tensor(F), h,
+                         mtot=mtot).numpy()
+    assert got2.shape == want2.shape == (B, n)
+    assert _rel(got2, want2) < 5e-5
+
+
+@pytest.mark.parametrize("mtot", [1, 9, 2061])
+@pytest.mark.parametrize("fft_order", [False, True])
+def test_plain_versions_match_mxu_f64(rng, mtot, fft_order):
+    n, h, B = 400, 0.0031, 2
+    x = rng.uniform(-1, 1, (n, 1))
+    V = rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n))
+    F = rng.normal(size=(B, mtot)) + 1j * rng.normal(size=(B, mtot))
+    jop = jax_make_nufft(jnp.asarray(x), h, mtot, fft_order=fft_order,
+                         method="mxu")
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    got1 = nufft1_1d_ref(torch.as_tensor(x), torch.as_tensor(V), h,
+                         **kw).numpy()
+    assert _rel(got1, np.asarray(jop.type1(jnp.asarray(V)))) < 1e-10
+    got2 = nufft2_1d_ref(torch.as_tensor(x), torch.as_tensor(F[0]), h,
+                         **kw).numpy()
+    assert _rel(got2, np.asarray(jop.type2(jnp.asarray(F[0])))) < 1e-10
+
+
+def test_make_nufft_takes_the_plain_path_for_d1_on_cpu(rng):
+    x = torch.as_tensor(rng.uniform(0, 1, 50))
+    before = dict(tnufft.BACKEND_PICKS)
+    op = make_nufft(x, 0.4, 2061)
+    assert isinstance(op, tnufft.NUFFT) and op.d == 1
+    assert tnufft.BACKEND_PICKS["matmul"] == before["matmul"] + 1
+    assert tnufft.BACKEND_PICKS["cuda"] == before["cuda"]
+
+
+def test_cuda_backend_dispatch_on_cpu_d1(rng, monkeypatch):
+    """CudaNUFFT at d=1 on CPU tensors: one call of the plain version for a
+    single vector or any leading batch; shapes are PallasNUFFT's; nothing
+    counts as a launch."""
+    n, mtot, h = 300, 21, 0.3
+    x = rng.uniform(-1, 1, (n, 1)).astype(np.float32)
+    V = (rng.normal(size=(2, 3, n))
+         + 1j * rng.normal(size=(2, 3, n))).astype(np.complex64)
+    F = (rng.normal(size=(2, 3, mtot))
+         + 1j * rng.normal(size=(2, 3, mtot))).astype(np.complex64)
+    calls = []
+    for name in ("nufft1_1d_ref", "nufft2_1d_ref"):
+        real = getattr(cuda_nufft, name)
+        monkeypatch.setattr(
+            cuda_nufft, name,
+            lambda *a, _real=real, _name=name, **k: (calls.append(_name),
+                                                     _real(*a, **k))[1])
+    op = CudaNUFFT(x=torch.as_tensor(x), h=h, mtot=mtot)
+    pop = PallasNUFFT(x=jnp.asarray(x), h=jnp.asarray(h, jnp.float32),
+                      mtot=mtot)
+    before = dict(cuda_nufft.LAUNCHES)
+    widths = dict(cuda_nufft.LAUNCH_WIDTHS)
+    got1 = op.type1(torch.as_tensor(V)).numpy()
+    want1 = np.asarray(pop.type1(jnp.asarray(V)))
+    got2 = op.type2(torch.as_tensor(F)).numpy()
+    want2 = np.asarray(pop.type2(jnp.asarray(F)))
+    assert calls == ["nufft1_1d_ref", "nufft2_1d_ref"]
+    assert got1.shape == want1.shape == (2, 3, mtot)
+    assert got2.shape == want2.shape == (2, 3, n)
+    assert _rel(got1, want1) < 5e-5 and _rel(got2, want2) < 5e-5
+    assert op.type1(torch.as_tensor(V[0, 0])).shape == (mtot,)
+    assert op.type2(torch.as_tensor(F[0, 0])).shape == (n,)
+    assert cuda_nufft.LAUNCHES == before
+    assert cuda_nufft.LAUNCH_WIDTHS == widths
+
+
+def test_1d_wrappers_validate_shapes():
+    x = torch.zeros((5, 1))
+    with pytest.raises(ValueError, match=r"\(N, 1\)"):
+        nufft2_1d(torch.zeros((5, 2)), torch.zeros(3, dtype=torch.complex64),
+                  0.1, mtot=3)
+    with pytest.raises(ValueError, match=r"\(3,\) or \(B, 3\)"):
+        nufft2_1d(x, torch.zeros(4, dtype=torch.complex64), 0.1, mtot=3)
+    with pytest.raises(ValueError, match=r"\(5,\) or \(B, 5\)"):
+        nufft1_1d(x, torch.zeros((2, 4), dtype=torch.complex64), 0.1, mtot=3)
+    with pytest.raises(ValueError, match="odd"):
+        nufft1_1d(x, torch.zeros(5, dtype=torch.complex64), 0.1, mtot=4)
+    with pytest.raises(ValueError, match="at least one"):
+        nufft2_1d(x, torch.zeros((0, 3), dtype=torch.complex64), 0.1, mtot=3)

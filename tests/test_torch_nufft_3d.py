@@ -135,8 +135,10 @@ def test_d3_dispatch(rng):
         assert tnufft.BACKEND_PICKS[key] == before[key] + 1
     assert make_nufft(xc, 0.4, 9).d == 3
     assert isinstance(make_nufft(xc, 0.4, 9, method="matmul"), tnufft.NUFFT)
-    # d=1 stays on the phase matrices until its kernels are ported
-    assert isinstance(make_nufft(xc[:, :1], 0.4, 9), tnufft.NUFFT)
+    # d=1 takes its kernels at any odd mtot
+    for mtot in (9, 8191):
+        op = make_nufft(xc[:, :1], 0.4, mtot)
+        assert isinstance(op, CudaNUFFT) and op.d == 1, mtot
 
 
 def test_cuda_backend_3d_on_cpu(rng, monkeypatch):

@@ -200,16 +200,45 @@ def test_float32_run_uses_float32(data):
 
 def test_precond_quirks(data):
     """gpquad's pipeline.py:93 resolves the preconditioner without n and M
-    (ROADMAP §C), mirrored: 'adaptive' resolves to kron (not ported: raises,
-    A.11), and 'none' and 'deflation' still run Jacobi, as gpquad's
-    else-branch does."""
+    (ROADMAP §C), mirrored: 'adaptive' always resolves to kron and runs as
+    'kron' does, equal to gpquad's kron stages fed the same etas and
+    probes; 'none' and
+    'deflation' still run Jacobi, as gpquad's else-branch does."""
     x, y, xq = data
     h, mtot = _grid()
+    M = mtot ** 2
     kw = dict(mtot=mtot, trace_samples=2, var_probes=8, solver="cg",
               device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        gpquad_torch.fit_predict_grad(x, y, xq, _kernel(), SIGMASQ, h,
-                                      precond="adaptive", **kw)
+    tol = dict(cg_tol=1e-12, var_cg_tol=1e-12, grad_cg_tol=1e-12,
+               max_cg_iter=2000)
+    runs = {p: gpquad_torch.fit_predict_grad(
+        x, y, xq, _kernel(), SIGMASQ, h, torch.Generator().manual_seed(5),
+        precond=p, **tol, **kw) for p in ("kron", "adaptive")}
+    for field in ("mean", "var", "grad", "beta"):
+        np.testing.assert_array_equal(getattr(runs["adaptive"], field),
+                                      getattr(runs["kron"], field))
+    g = torch.Generator().manual_seed(5)
+    etas, Z, V = ((torch.randint(0, 2, shape, generator=g) * 2 - 1).numpy()
+                  .astype(np.float64) for shape in ((8, M), (2, N), (2, M)))
+    jk = JaxSE(lengthscale=0.3, variance=1.0, dimension=2)
+    xj, yj, xqj = jnp.asarray(x), jnp.asarray(y), jnp.asarray(xq)
+    js = jefgp.fit_with_grid(xj, yj, jk, SIGMASQ, h, mtot, cg_tol=1e-12,
+                             max_cg_iter=2000, solver="cg", precond="kron")
+    jvar = np.asarray(jefgp._variance_stochastic(
+        js, xqj, None, probes=8, cg_tol=1e-12, max_cg_iter=2000,
+        etas=jnp.asarray(etas)))
+    jg = jax_gradient_with_grid(xj, yj, jk, SIGMASQ, h, jax.random.PRNGKey(0),
+                                mtot=mtot, trace_samples=2, cg_tol=1e-12,
+                                max_cg_iter=2000, beta0=js.beta, state=js,
+                                probes=(jnp.asarray(Z), jnp.asarray(V)))
+    out = runs["kron"]
+    assert np.max(np.abs(out.mean.numpy()
+                         - np.asarray(jefgp.predict_mean(js, xqj)))) < 1e-9
+    assert np.max(np.abs(out.var.numpy() - jvar)) < 1e-8 * np.max(
+        np.abs(jvar))
+    rel = np.abs(out.grad.numpy() - np.asarray(jg.grad)) / np.abs(
+        np.asarray(jg.grad))
+    assert np.all(rel < 1e-8), rel
     b = gpquad_torch.fit_predict_grad(x, y, xq, _kernel(), SIGMASQ, h,
                                       precond="auto", **kw)
     for precond in ("none", "deflation"):
