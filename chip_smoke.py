@@ -46,17 +46,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
  10. the scale configuration (bench.py:441-603: n=1e6, SE l=0.006 ->
      mtot 339, M 114 921) with kron and smooth FFT pads: fit + mean at
      2 000 targets, the stochastic variance (256 probes, 1 000 targets),
-     the gradient and a 20-iteration fixed-plan Adam loop.
+     the gradient and a 20-iteration fixed-plan Adam loop;
+ 11. ski, the SKI baseline at the size gpquad timed its interpolation
+     kernels (pallas_interp.py:21-25, scripts/time_ski_interp.py): n=2e5
+     points in [-1,1]^2, SE, grid 512^2 (516^2 extended, 65 bands of cap
+     4096): fit_ski_gp with gpquad's defaults and 20 Adam iterations (50
+     cut to 20), the mean at 10 000 targets and the variance at 64, with
+     both kernels' launches per stage; the loss and gradient at the
+     starting hypers, float32 on the kernels against float64 on the plain
+     path with the same probes, and the mean and variance at the learned
+     hypers against float64;
+ 11b. examples/temperature_map.py's flow on data/frozen_raster_v1.npz:
+     the EFGP facade (15 Adam iterations) and fit_ski_gp (4096 grid
+     points, 15 iterations) in float32, with the example's assertions.
 Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
-and at mtot 57, 101 and 255, and the two d=1 kernels at phase 8's shapes
-and at mtot 8191.
+and at mtot 57, 101 and 255, the two d=1 kernels at phase 8's shapes and
+at mtot 8191, and the two SKI interpolation kernels at phase 11's band
+tables (B 1, 3, 8 and 64) and the raster's (B 1, 3 and 8).
 
-It prints each phase's wall time, the kernels' JSON line (the eight
-kernels, then the four TPU mode-tiled functions they cover, with the
-launches made past the TPU's single-block width), then the card's
-nvidia-smi line, then ``{"ok": true, "device": ...}`` as the last line, and
-writes the full record to build/chip_smoke.json.  Without a CUDA device, or
-without the package beside it, it exits non-zero and prints no result.
+It prints each phase's wall time, the kernels' JSON line (the eight NUFFT
+kernels, the four TPU mode-tiled functions they cover, with the launches
+made past the TPU's single-block width, and the two interpolation kernels:
+all 14 TPU functions), then the card's nvidia-smi line, then
+``{"ok": true, "device": ...}`` as the last line, and writes the full
+record to build/chip_smoke.json.  Without a CUDA device, or without the
+package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -69,6 +83,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 
@@ -91,7 +106,12 @@ REPLACES = {"nufft1_1d": "gpquad/ops/pallas_nufft.py:584",
             # one kernel per type covers the single-block (mtot <= 56) and
             # the slab-tiled (:1118, :1034) TPU functions
             "nufft1_3d": "gpquad/ops/pallas_nufft.py:750",
-            "nufft2_3d": "gpquad/ops/pallas_nufft.py:662"}
+            "nufft2_3d": "gpquad/ops/pallas_nufft.py:662",
+            # SKI's d=2 interpolation (gpquad_torch/ops/cuda_interp.py)
+            "interp_T_2d": "gpquad/ops/pallas_interp.py:104",
+            "interp_2d": "gpquad/ops/pallas_interp.py:237"}
+KERNELS_INTERP = ("interp_T_2d", "interp_2d")
+KERNELS_NUFFT = tuple(k for k in REPLACES if k not in KERNELS_INTERP)
 KERNELS_2D = ("nufft1_2d", "nufft2_2d", "nufft1_2d_batched",
               "nufft2_2d_batched")
 KERNELS_3D = ("nufft1_3d", "nufft2_3d")
@@ -114,6 +134,15 @@ LC_OPT = dict(max_iters=50, lr=0.05, trace_samples=1, cg_tol=1e-6,
 # PCG iteration bar of the Kronecker preconditioner (gpquad: 12 on the hard
 # configuration, 14 at scale; Jacobi 376-393 and 306)
 KRON_MAX_ITERS = 60
+# phase 11: gpquad's interpolation timing size (scripts/time_ski_interp.py:
+# 31-33) and fit_ski_gp's defaults, 20 Adam iterations instead of 50
+SKI_N, SKI_GRID, SKI_ITERS = 200_000, 512, 20
+SKI_TARGETS, SKI_VAR_TARGETS = 10_000, 64
+SKI_BATCHES = (1, 3, 8, SKI_VAR_TARGETS)
+RASTER_BATCHES = (1, 3, 8)
+# per slot and vector: W^T u 4 products w_row u, then 16 multiply-adds by
+# w_col; W v 16 multiply-adds over the stencil and 4 by w_col
+INTERP_FLOPS = {"interp_T_2d": 36, "interp_2d": 40}
 
 
 class SmokeFailure(RuntimeError):
@@ -130,6 +159,8 @@ def sync():
 
 
 def source_of(name):
+    if name in KERNELS_INTERP:
+        return "gpquad_torch/csrc/interp_2d.cu"
     return f"gpquad_torch/csrc/nufft_{name.split('_')[1]}.cu"
 
 
@@ -221,8 +252,24 @@ def kernel_work(name, n, m, dtype, B=1):
     return flops, nbytes
 
 
-def bound_ms(name, n, m, dtype, B=1):
-    flops, nbytes = kernel_work(name, n, m, dtype, B)
+def interp_work(name, nbands, cap, G2, dtype, B):
+    """(flops, bytes) of an interpolation kernel on a band plan: every slot
+    (padded ones included: they are in the inputs) and vector at
+    INTERP_FLOPS; bytes of the tables (two int32 and eight weights a slot),
+    the B inputs read once (W v: the padded grid under the slab view) and
+    the B outputs written once."""
+    s = 4 if dtype == torch.float32 else 8
+    tables = nbands * cap * (2 * 4 + 8 * s)
+    rows = nbands * 8 + 3
+    if name == "interp_T_2d":
+        io = B * nbands * cap * s + nbands * B * 11 * G2 * s
+    else:
+        io = B * rows * G2 * s + nbands * B * cap * s
+    return INTERP_FLOPS[name] * B * nbands * cap, tables + io
+
+
+def bound_ms(name, n, m, dtype, B=1, work=None):
+    flops, nbytes = work or kernel_work(name, n, m, dtype, B)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -309,10 +356,23 @@ def lightcurve_data(seed=7):
                 period=P)
 
 
+def ski_data(n, targets, seed=0):
+    """Phase 11's data: points uniform in [-1,1]^2 as
+    scripts/time_ski_interp.py draws them, y a smooth field plus noise of sd
+    0.1, then the targets, from numpy seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, size=(n, 2))
+    f = (np.sin(3 * x[:, 0]) * np.cos(2 * x[:, 1])
+         + 0.5 * np.sin(2 * x[:, 0] + 3 * x[:, 1]))
+    y = f + 0.1 * rng.normal(size=n)
+    xq = rng.uniform(-1, 1, size=(targets, 2))
+    return x, y, xq
+
+
 def launch_counts(**nonzero):
     """The LAUNCHES dict a path should leave: every kernel 0 but those
     named."""
-    return {k: nonzero.get(k, 0) for k in REPLACES}
+    return {k: nonzero.get(k, 0) for k in KERNELS_NUFFT}
 
 
 def main() -> int:
@@ -487,8 +547,8 @@ def main() -> int:
     for name in KERNELS_1D:
         # the dense tier's widest lag table (M <= 4096)
         shapes.append((name, 20_000, 8191, False, 0.97, "mtot 8191", 1))
-    kernels = {k: getattr(cuda_nufft, k) for k in REPLACES}
-    plains = {k: getattr(cuda_nufft, k + "_ref") for k in REPLACES}
+    kernels = {k: getattr(cuda_nufft, k) for k in KERNELS_NUFFT}
+    plains = {k: getattr(cuda_nufft, k + "_ref") for k in KERNELS_NUFFT}
 
     def plain64(name, x, arg, h, kw, chunk=200_000):
         """The float64 plain version over chunks of at most ``chunk`` points
@@ -575,9 +635,119 @@ def main() -> int:
                   f"rel={rel:.3e} (plain {row['dtype']}: {plain_rel:.3e}) "
                   f"ms={ms:.4f} plain_ms={plain_ms:.4f}"
                   f"{extra} bound_ms={b_ms:.4f} ({b_by}) {card}")
-    record["phases"]["kernels"] = phase3
     del x64, arg64, x, arg, got, ref
     torch.cuda.empty_cache()
+
+    # the SKI interpolation kernels on phase 11's band plan and on the
+    # raster's (phase 11b), at the batches their paths give them: the PCG's
+    # y plus 2 trace probes (3), the SLQ's 8 probes, the variance's chunk
+    # of targets, single vectors (the final solve, the mean)
+    from gpquad_torch.models import ski as ski_mod
+    from gpquad_torch.ops import cuda_interp
+    xs11, ys11, xq11 = ski_data(SKI_N, SKI_TARGETS)
+    raster = np.load(ROOT / "data" / "frozen_raster_v1.npz")
+    ski_kern = gpquad_torch.make_kernel("SE", 2, lengthscale=0.3,
+                                        variance=1.0)
+    bounds11 = ski_mod.resolve_grid_bounds(xs11)
+    bounds_r = ski_mod.resolve_grid_bounds(raster["x_train"])
+    grid_r = ski_mod.resolve_grid_size(num_dims=2, target_grid_points=4096,
+                                       grid_bounds=bounds_r)
+    plans = {}
+    for tag, xs, grid, bounds, batches in (
+            ("ski", xs11, (SKI_GRID, SKI_GRID), bounds11, SKI_BATCHES),
+            ("raster", raster["x_train"], grid_r, bounds_r, RASTER_BATCHES)):
+        ops = {dt: ski_mod.build_ski_operator(
+            torch.as_tensor(xs, dtype=dt, device=dev), ski_kern, grid,
+            bounds) for dt in (torch.float32, torch.float64)}
+        check(ops[torch.float32].banded is not None,
+              f"{tag}: the band plan was dropped")
+        nb, cap = ops[torch.float32].banded.pidx.shape
+        G1, G2 = ops[torch.float32].grid_shape
+        n_pts = xs.shape[0]
+        plans[tag] = dict(grid=[G1, G2], nbands=nb, cap=cap, n=n_pts)
+        print(f"[3] {tag} band plan: extended grid {G1}x{G2}, {nb} bands of "
+              f"cap {cap} ({nb * cap} slots for n={n_pts})")
+        for B in batches:
+            u64 = torch.as_tensor(gen.normal(size=(B, n_pts)), device=dev)
+            v64 = torch.as_tensor(gen.normal(size=(B, G1, G2)), device=dev)
+            for dtype in (torch.float32, torch.float64):
+                op = ops[dtype]
+                t = op.banded
+                tabs = (t.i0loc, t.c0, t.w_row, t.w_col)
+                tabs64 = (t.i0loc, t.c0, t.w_row.double(), t.w_col.double())
+                u = u64.to(dtype)
+                us = (u[:, t.pidx.reshape(-1)].reshape(B, nb, cap)
+                      * t.valid.to(dtype))
+                vp = F.pad(v64.to(dtype), (0, 0, 0, nb * 8 + 3 - G1))
+                vs = vp.as_strided((B, nb, 11, G2),
+                                   (vp.stride(0), 8 * G2, G2, 1))
+                v = v64.to(dtype).reshape(B, G1 * G2)
+                idx_flat = op.idx.reshape(-1)
+
+                def lib_T():
+                    z = torch.zeros((B, G1 * G2), dtype=dtype, device=dev)
+                    return z.index_add_(1, idx_flat, (u[:, :, None]
+                                                      * op.wvals).reshape(
+                                                          B, -1))
+
+                def lib_fwd():
+                    return torch.sum(v[:, op.idx] * op.wvals, dim=-1)
+
+                calls = {
+                    "interp_T_2d": (
+                        lambda: cuda_interp.interp_T_2d(us, *tabs, G2=G2,
+                                                        bh=8),
+                        lambda: cuda_interp.interp_T_2d_ref(us, *tabs, G2=G2,
+                                                            bh=8),
+                        lambda: cuda_interp.interp_T_2d_ref(
+                            us.double(), *tabs64, G2=G2, bh=8), lib_T),
+                    "interp_2d": (
+                        lambda: cuda_interp.interp_2d(vs, *tabs, bh=8),
+                        lambda: cuda_interp.interp_2d_ref(vs, *tabs, bh=8),
+                        lambda: cuda_interp.interp_2d_ref(
+                            vs.double(), *tabs64, bh=8), lib_fwd)}
+                for name, (kern_fn, plain_fn, ref_fn, lib_fn) in \
+                        calls.items():
+                    got = kern_fn()
+                    sync()
+                    ref = ref_fn()
+                    if name == "interp_2d":     # the valid slots only
+                        keep = t.valid[:, None, :].expand_as(ref)
+                        got, ref = got[keep], ref[keep]
+                    err = float((got.double() - ref).abs().max())
+                    scale = float(ref.abs().max())
+                    rel = err / scale
+                    bar = 1e-5 if dtype == torch.float32 else 1e-12
+                    check(np.isfinite(rel) and rel <= bar,
+                          f"{name} {tag} {dtype} B={B}: error {rel:.3e} of "
+                          f"max|ref| > {bar:.0e}")
+                    del got, ref
+                    ms = time_cuda(kern_fn, 20)
+                    plain_ms = library_ms = None
+                    if dtype == torch.float32:
+                        plain_ms = time_cuda(plain_fn, 3, 3)
+                        library_ms = time_cuda(lib_fn, 5, 3)
+                    b_ms, b_by = bound_ms(name, 0, 0, dtype, work=interp_work(
+                        name, nb, cap, G2, dtype, B))
+                    row = dict(name=name, serves=tag, B=B, nbands=nb,
+                               cap=cap, G2=G2,
+                               dtype=str(dtype).split(".")[-1],
+                               max_abs_err=err, max_abs_ref=scale,
+                               rel_err=rel, ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms, bound_ms=b_ms,
+                               bound_by=b_by)
+                    phase3.append(row)
+                    extra = "" if plain_ms is None else (
+                        f" plain_ms={plain_ms:.4f} library (unbanded path) "
+                        f"ms={library_ms:.4f}")
+                    print(f"[3] {name} {row['dtype']} {tag} B={B}: "
+                          f"max_abs_err={err:.3e} rel={rel:.3e} "
+                          f"ms={ms:.4f}{extra} bound_ms={b_ms:.4f} ({b_by}) "
+                          f"{card}")
+        del ops, u64, v64, u, us, vp, vs, v
+    torch.cuda.empty_cache()
+    record["phases"]["kernels"] = phase3
+    record["phases"]["ski_plans"] = plans
     phase_s["3"] = time.perf_counter() - t_phase
     print(f"[3] phase wall time {phase_s['3']:.1f} s")
 
@@ -1593,6 +1763,309 @@ def main() -> int:
     phase_s["10"] = time.perf_counter() - t_phase
     print(f"[10] phase wall time {phase_s['10']:.1f} s")
 
+    # -- phase 11: the SKI baseline at full width ---------------------------
+    t_phase = time.perf_counter()
+    from gpquad_torch.ops.cg import pcg
+    from gpquad_torch.ops.toeplitz import make_toeplitz
+    ski_counters = (cuda_interp.LAUNCHES, ski_mod.INTERP_PICKS, *counters)
+    xq11_t = torch.as_tensor(xq11, dtype=torch.float32, device=dev)
+    reset_counts(*ski_counters)
+    stages11, times11 = {}, {}
+    t = time.perf_counter()
+    fit11 = ski_mod.fit_ski_gp(xs11, ys11, kernel="SE", grid_size=SKI_GRID,
+                               max_iters=SKI_ITERS, verbose=False, device=dev)
+    sync()
+    times11["fit_s"] = time.perf_counter() - t
+    stages11["fit"] = dict(cuda_interp.LAUNCHES)
+    t = time.perf_counter()
+    mean11 = ski_mod.ski_predict_mean(fit11, xq11_t)
+    sync()
+    times11["mean_s"] = time.perf_counter() - t
+    stages11["mean"] = dict(cuda_interp.LAUNCHES)
+    t = time.perf_counter()
+    var11 = ski_mod.ski_predict_var(fit11, xq11_t[:SKI_VAR_TARGETS],
+                                    batch_size=SKI_VAR_TARGETS, cg_tol=1e-6,
+                                    max_cg_iter=1000)
+    sync()
+    times11["var_s"] = time.perf_counter() - t
+    stages11["var"] = dict(cuda_interp.LAUNCHES)
+    launches11 = dict(cuda_interp.LAUNCHES)
+    picks11 = dict(ski_mod.INTERP_PICKS)
+    nufft11 = dict(cuda_nufft.LAUNCHES)
+    op11 = fit11["model"]["operator"]
+    hist11 = fit11["history"]
+    iter_ms11 = [(f + b) * 1e3 for f, b in zip(hist11["forward_sec"],
+                                               hist11["backward_sec"])]
+    print(f"[11] ski n={SKI_N} grid {SKI_GRID}^2 (extended "
+          f"{op11.grid_shape}, {op11.banded.pidx.shape[0]} bands of cap "
+          f"{op11.banded.pidx.shape[1]}): fit ({SKI_ITERS} Adam iterations "
+          f"+ final solve) {times11['fit_s'] * 1e3:.1f} ms, "
+          f"{statistics.median(iter_ms11):.2f} ms per iteration (median, "
+          f"host clock; the first {iter_ms11[0]:.1f} ms, the final solve "
+          f"{times11['fit_s'] * 1e3 - hist11['elapsed_sec'][-1] * 1e3:.1f} "
+          f"ms), PCG iters {hist11['cg_iters']}; mean at "
+          f"{SKI_TARGETS} targets {times11['mean_s'] * 1e3:.1f} ms; variance "
+          f"at {SKI_VAR_TARGETS} targets {times11['var_s'] * 1e3:.1f} ms "
+          f"{card}; launches by stage (cumulative) {stages11}; routes "
+          f"{picks11}; learned ls/os/noise "
+          f"{torch.exp(fit11['model']['raw']).tolist()}, loss "
+          f"{hist11['loss'][0]:.6f} -> {hist11['loss'][-1]:.6f}")
+    prev = {k: 0 for k in KERNELS_INTERP}
+    for stage in ("fit", "mean", "var"):
+        for k in KERNELS_INTERP:
+            check(stages11[stage][k] > prev[k],
+                  f"kernel {k} was not launched in the ski {stage}")
+        prev = stages11[stage]
+    check(picks11["banded"] == 0 and picks11["unbanded"] == 0,
+          f"the ski path took a plain route {picks11}")
+    check(all(v == 0 for v in nufft11.values()),
+          f"the ski path launched NUFFT kernels {nufft11}")
+    check(mean11.shape == (SKI_TARGETS,) and var11.shape ==
+          (SKI_VAR_TARGETS,) and bool(torch.isfinite(mean11).all())
+          and bool(torch.isfinite(var11).all())
+          and mean11.dtype == torch.float32,
+          "ski mean or variance: wrong shape, type or non-finite")
+    check(hist11["loss"][-1] < hist11["loss"][0],
+          f"the ski fit did not lower its loss {hist11['loss']}")
+
+    # one Adam iteration's loss and gradient at the learned hypers, profiled
+    template11 = gpquad_torch.make_kernel("SE", 2)
+    y11 = fit11["train_y"]
+    pos11 = torch.exp(fit11["model"]["raw"])
+    Z11, zq11 = ski_mod._draw_probes(
+        torch.Generator(device=dev).manual_seed(3), 0, 2, 8, SKI_N,
+        torch.float32, dev)
+    prof11 = profile_run(lambda: ski_mod._ski_loss_and_grad(
+        op11, y11, template11.with_hypers(pos11), pos11[-1], Z11, zq11,
+        cg_tol=1e-3, max_cg_iter=100, slq_steps=10))
+    print_profile("[11] profiled loss and gradient (one Adam iteration):",
+                  prof11, card)
+    # one operator apply W K_g W^T v + sigma^2 v, the unit of every PCG
+    # iteration, for the final solve's single vector and the loop's three
+    T11 = fit11["model"]["toeplitz"]
+    matvec_ms = {}
+    for B_ in (1, 3):
+        v_ = y11 if B_ == 1 else y11.expand(B_, -1).contiguous()
+        matvec_ms[B_] = (
+            host_ms(lambda: op11.matvec(v_, pos11[-1], T11), reps=20),
+            time_cuda(lambda: op11.matvec(v_, pos11[-1], T11), 20))
+    print(f"[11] one SKI matvec, host clock / CUDA events (ms): B=1 "
+          f"{matvec_ms[1][0]:.3f} / {matvec_ms[1][1]:.3f}, B=3 "
+          f"{matvec_ms[3][0]:.3f} / {matvec_ms[3][1]:.3f} {card}")
+
+    # the loss and gradient at the starting hypers: float32 on the kernels
+    # against float64 on the plain path, same probes, both solved to 1e-6
+    lo_hi = max(hi - lo for lo, hi in bounds11)
+    start = np.array([0.2 * lo_hi, np.var(ys11),
+                      max(0.1 * np.var(ys11), 1e-4)])
+    prng = np.random.default_rng(12)
+    Zs = prng.choice([-1.0, 1.0], size=(2, SKI_N))
+    zqs = prng.choice([-1.0, 1.0], size=(8, SKI_N))
+    op11_64 = ski_mod.build_ski_operator(
+        torch.as_tensor(xs11, dtype=torch.float64, device=dev), ski_kern,
+        (SKI_GRID, SKI_GRID), bounds11)
+    lg = {}
+    for dtype, op_, impl in ((torch.float32, op11, "auto"),
+                             (torch.float64, op11_64, "einsum")):
+        st_ = torch.as_tensor(start, dtype=dtype, device=dev)
+        ski_mod.set_interp_impl(impl)
+        try:
+            reset_counts(*ski_counters)
+            t = time.perf_counter()
+            out_ = ski_mod._ski_loss_and_grad(
+                op_, torch.as_tensor(ys11, dtype=dtype, device=dev),
+                template11.with_hypers(st_), st_[-1],
+                torch.as_tensor(Zs, dtype=dtype, device=dev),
+                torch.as_tensor(zqs, dtype=dtype, device=dev), cg_tol=1e-6,
+                max_cg_iter=1000, slq_steps=10)
+            sync()
+            lg[dtype] = (out_, time.perf_counter() - t,
+                         dict(ski_mod.INTERP_PICKS))
+        finally:
+            ski_mod.set_interp_impl("auto")
+    (l32, g32, it32, _), lg32_s, picks32 = lg[torch.float32]
+    (l64, g64, it64, _), lg64_s, picks64 = lg[torch.float64]
+    loss_rel = abs(float(l32) - float(l64)) / abs(float(l64))
+    g_rel = rel_to(g32, g64)
+    g_bars = [1e-2] * (len(g_rel) - 1) + [2e-2]
+    # the outputscale component is 0.5 (tr(A^-1 dK) - alpha' dK alpha) / n
+    # with dK = K / variance and A = K + sigma^2 I, so A^-1 K = I -
+    # sigma^2 A^-1: its trace term is 0.5 / variance (z'z = n for the
+    # probes) less a noise term of the same size, and the component is what
+    # is left of their cancellation.  Its error is read against that term
+    # too: where the term is over 10x the component the bar is 1e-4 of the
+    # term, the f32 solves' level (the loss agrees to ~4e-6).  Where the
+    # error comes from: the same gradient in float64 on the kernels with
+    # its solves taken to 1e-9, against which both runs at 1e-6 are read
+    term_var = 0.5 / start[1]
+    err_var_g = abs(float(g32[1]) - float(g64[1]))
+    cancel_var = term_var / abs(float(g64[1]))
+    var_ok = (g_rel[1] <= g_bars[1] or
+              (cancel_var > 10 and err_var_g <= 1e-4 * term_var))
+    reset_counts(*ski_counters)
+    st64 = torch.as_tensor(start, device=dev)
+    _, g_tight, it_tight, _ = ski_mod._ski_loss_and_grad(
+        op11_64, torch.as_tensor(ys11, device=dev),
+        template11.with_hypers(st64), st64[-1],
+        torch.as_tensor(Zs, device=dev), torch.as_tensor(zqs, device=dev),
+        cg_tol=1e-9, max_cg_iter=3000, slq_steps=10)
+    tight_err = {"f32 cg_tol 1e-6": rel_to(g32, g_tight),
+                 "f64 cg_tol 1e-6": rel_to(g64, g_tight)}
+    print(f"[11] loss and gradient at the start {start.tolist()} (cg_tol "
+          f"1e-6): f32 on the kernels {lg32_s * 1e3:.1f} ms, {int(it32)} "
+          f"PCG iterations, routes {picks32}; f64 on the plain path "
+          f"{lg64_s * 1e3:.1f} ms, {int(it64)} iterations, routes {picks64}; "
+          f"loss f32 {float(l32):.8f} f64 {float(l64):.8f} rel err "
+          f"{loss_rel:.3e} (bar 1e-4); grad f32 {g32.tolist()} f64 "
+          f"{g64.tolist()} rel err {[f'{r:.3e}' for r in g_rel]} (bars "
+          f"{g_bars}) {card}")
+    print(f"[11] outputscale component: trace term 0.5/variance "
+          f"{term_var:.6e}, {cancel_var:.1f}x the component; its f32 error "
+          f"{err_var_g:.3e} = {err_var_g / term_var:.3e} of the term (bar "
+          f"1e-4 where the term is over 10x the component); against float64 solved to "
+          f"1e-9 ({int(it_tight)} PCG iterations, grad {g_tight.tolist()}): "
+          + "; ".join(f"{k} [{', '.join(f'{r:.3e}' for r in v)}]"
+                      for k, v in tight_err.items()))
+    check(picks32["banded"] == picks32["unbanded"] == 0 and
+          picks64["cuda"] == 0, "the loss comparison took the wrong routes")
+    check(loss_rel <= 1e-4, f"ski loss f32 vs f64 {loss_rel:.3e} > 1e-4")
+    check(g_rel[0] <= g_bars[0] and g_rel[2] <= g_bars[2] and var_ok,
+          f"ski gradient f32 vs f64 {g_rel} over {g_bars} (outputscale: "
+          f"{err_var_g:.3e} of a term {term_var:.3e})")
+
+    # the mean and the variance at the learned hypers, f32 against f64 (on
+    # the f64 kernels), alpha solved to 1e-6 in both
+    def tight_fit(dtype, op_):
+        raw_ = fit11["model"]["raw"].to(dtype)
+        pos_ = torch.exp(raw_)
+        kern_ = template11.with_hypers(pos_)
+        T_ = make_toeplitz(ski_mod._grid_lag_table(
+            kern_, op_.grid_shape, op_.dx).to(
+                torch.complex64 if dtype == torch.float32
+                else torch.complex128))
+        sol = pcg(lambda v_: op_.matvec(v_, pos_[-1], T_),
+                  torch.as_tensor(ys11, dtype=dtype, device=dev), tol=1e-6,
+                  maxiter=1000)
+        return {"model": {"kernel": kern_, "raw": raw_, "alpha": sol.x,
+                          "operator": op_, "toeplitz": T_}}, int(sol.iters)
+
+    mv = {}
+    for dtype, op_ in ((torch.float32, op11), (torch.float64, op11_64)):
+        f_, iters_ = tight_fit(dtype, op_)
+        xq_ = xq11_t.to(dtype)
+        t = time.perf_counter()
+        mv[dtype] = (ski_mod.ski_predict_mean(f_, xq_),
+                     ski_mod.ski_predict_var(
+                         f_, xq_[:SKI_VAR_TARGETS],
+                         batch_size=SKI_VAR_TARGETS, cg_tol=1e-6,
+                         max_cg_iter=1000), iters_)
+        sync()
+        mv[dtype] += (time.perf_counter() - t,)
+    m32, v32, a32, mv32_s = mv[torch.float32]
+    m64, v64, a64, mv64_s = mv[torch.float64]
+    err_m11 = float((m32.double() - m64).abs().max())
+    # the f32 floor of this system (n = 2e5 points, noise 0.02: condition
+    # ~n k(0) / sigma^2 ~ 1e7) without the kernels: the same mean in float32
+    # on the plain path; the kernels' mean is held to twice its error where
+    # that is above 5e-4
+    ski_mod.set_interp_impl("einsum")
+    try:
+        f_p, a32p = tight_fit(torch.float32, op11)
+        m32p = ski_mod.ski_predict_mean(f_p, xq11_t)
+    finally:
+        ski_mod.set_interp_impl("auto")
+    err_m11_plain = float((m32p.double() - m64).abs().max())
+    mean_bar11 = max(5e-4, 2 * err_m11_plain)
+    del f_p, m32p
+    err_v11 = float((v32.double() - v64).abs().max())
+    v11_scale = float(v64.abs().max())
+    print(f"[11] mean and variance at the learned hypers vs float64 (alpha "
+          f"to 1e-6: {a32} / {a64} PCG iterations; the f32 plain path "
+          f"{a32p}): max|mean err| {err_m11:.3e} (the f32 plain path "
+          f"{err_m11_plain:.3e}; bar {mean_bar11:.3e}), max|var err| {err_v11:.3e} (bar "
+          f"5e-2*max|var64| = {5e-2 * v11_scale:.3e}); mean + variance f32 "
+          f"{mv32_s * 1e3:.1f} ms, f64 {mv64_s * 1e3:.1f} ms {card}")
+    check(err_m11 <= mean_bar11,
+          f"ski mean error {err_m11:.3e} > {mean_bar11:.3e}")
+    check(err_v11 <= 5e-2 * v11_scale,
+          f"ski variance error {err_v11:.3e} > 5e-2 * max|var64|")
+    record["phases"]["ski"] = dict(
+        n=SKI_N, grid=SKI_GRID, plan=plans["ski"], times_s=times11,
+        iter_ms=iter_ms11, cg_iters=hist11["cg_iters"], loss=hist11["loss"],
+        stages=stages11, launches=launches11, routes=picks11,
+        profile_iteration=prof11, matvec_ms=matvec_ms, learned=torch.exp(
+            fit11["model"]["raw"]).tolist(),
+        loss_grad=dict(start=start.tolist(), loss_f32=float(l32),
+                       loss_f64=float(l64), loss_rel_err=loss_rel,
+                       grad_f32=g32.tolist(), grad_f64=g64.tolist(),
+                       grad_rel_err=g_rel, outputscale_term=term_var,
+                       outputscale_err_vs_term=err_var_g / term_var,
+                       grad_tight_f64=g_tight.tolist(),
+                       rel_err_vs_tight=tight_err,
+                       iters_f32=int(it32),
+                       iters_f64=int(it64), ms_f32=lg32_s * 1e3,
+                       ms_f64_plain=lg64_s * 1e3),
+        err_mean=err_m11, err_mean_f32_plain=err_m11_plain,
+        mean_bar=mean_bar11, err_var=err_v11, max_abs_var64=v11_scale,
+        alpha_iters=(a32, a64))
+    del fit11, op11_64, mv, lg, Z11, zq11
+    torch.cuda.empty_cache()
+    phase_s["11"] = time.perf_counter() - t_phase
+    print(f"[11] phase wall time {phase_s['11']:.1f} s")
+
+    # -- phase 11b: examples/temperature_map.py on the port ----------------
+    t_phase = time.perf_counter()
+    xr, yr = raster["x_train"], raster["y_train"]
+    xv, yv = raster["x_val"], raster["y_val"]
+    xv_t = torch.as_tensor(xv, dtype=torch.float32, device=dev)
+    t = time.perf_counter()
+    m11b = gpquad_torch.EFGP(torch.as_tensor(xr, dtype=torch.float32,
+                                             device=dev),
+                             torch.as_tensor(yr, dtype=torch.float32,
+                                             device=dev),
+                             "SE", eps=1e-4, opts={"cg_tolerance": 1e-6},
+                             device=dev)
+    m11b.optimize_hyperparameters(max_iters=15, lr=0.1, trace_samples=10)
+    val_mean, _ = m11b.predict(xv_t, return_variance=False)
+    sync()
+    efgp_s = time.perf_counter() - t
+    efgp_rmse = float(np.sqrt(np.mean((val_mean.double().cpu().numpy()
+                                       - yv) ** 2)))
+    reset_counts(*ski_counters)
+    t = time.perf_counter()
+    ski_r = ski_mod.fit_ski_gp(xr, yr, kernel="SE", target_grid_points=4096,
+                               max_iters=15, lr=0.1, verbose=False,
+                               device=dev)
+    ski_val = ski_mod.ski_predict_mean(ski_r, xv_t)
+    sync()
+    ski_s = time.perf_counter() - t
+    launches_r = dict(cuda_interp.LAUNCHES)
+    picks_r = dict(ski_mod.INTERP_PICKS)
+    ski_rmse = float(np.sqrt(np.mean((ski_val.double().cpu().numpy()
+                                      - yv) ** 2)))
+    print(f"[11b] raster (n={len(yr)}, {len(yv)} held out): EFGP val RMSE "
+          f"{efgp_rmse:.4f} (hypers "
+          f"{[round(float(h), 4) for h in torch.exp(m11b.params.raw)]}, "
+          f"{efgp_s * 1e3:.1f} ms for 15 Adam iterations + predict), SKI val "
+          f"RMSE {ski_rmse:.4f} (grid {ski_r['grid_size']}, "
+          f"{ski_s * 1e3:.1f} ms for 15 iterations + mean); std(y_val) "
+          f"{float(np.std(yv)):.4f}; SKI launches {launches_r} routes "
+          f"{picks_r} {card}")
+    check(efgp_rmse < 0.5 * float(np.std(yv)),
+          f"EFGP val RMSE {efgp_rmse:.4f} >= 0.5 std(y_val)")
+    check(efgp_rmse < 1.15 * ski_rmse,
+          f"EFGP val RMSE {efgp_rmse:.4f} >= 1.15 * SKI's {ski_rmse:.4f}")
+    for k in KERNELS_INTERP:
+        check(launches_r[k] > 0, f"kernel {k} was not launched on the raster")
+    check(picks_r["banded"] == 0 and picks_r["unbanded"] == 0,
+          f"the raster's SKI took a plain route {picks_r}")
+    record["phases"]["raster"] = dict(
+        efgp_rmse=efgp_rmse, ski_rmse=ski_rmse, std_y_val=float(np.std(yv)),
+        efgp_s=efgp_s, ski_s=ski_s, launches=launches_r, routes=picks_r,
+        ski_grid=list(ski_r["grid_size"]), plan=plans["raster"])
+    phase_s["11b"] = time.perf_counter() - t_phase
+    print(f"[11b] phase wall time {phase_s['11b']:.1f} s")
+
     # -- the record ----------------------------------------------------------
     # each kernel's row: its largest float32 call on a driven path (the
     # headline's for d=2, the light curve's for d=1, the d=3 paths' by work
@@ -1602,7 +2075,7 @@ def main() -> int:
                  "nufft1_2d_batched": (mtot_head, False),
                  "nufft2_2d_batched": (mtot_head, False)}
     rows = []
-    for name in REPLACES:
+    for name in KERNELS_NUFFT:
         f32_rows = [r for r in phase3 if r["name"] == name
                     and r["dtype"] == "float32"]
         if name in KERNELS_1D:
@@ -1661,6 +2134,26 @@ def main() -> int:
                                "mtot": row["mtot"],
                                "fft_order": row["fft_order"],
                                "serves": row["serves"], "dtype": "float32"}})
+    # the interpolation kernels: the float32 call of phase 11's PCG (y and
+    # two trace probes, B 3); launches from phase 11's fit, mean and variance
+    for name in KERNELS_INTERP:
+        row = next(r for r in phase3 if r["name"] == name and r["serves"] ==
+                   "ski" and r["dtype"] == "float32" and r["B"] == 3)
+        rows.append({"name": name, "route": "cuda", "source": source_of(name),
+                     "replaces": REPLACES[name],
+                     "launches": launches11[name],
+                     "launches_by_stage_cumulative": {
+                         stage: counts_[name]
+                         for stage, counts_ in stages11.items()},
+                     "launches_raster": launches_r[name],
+                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                     "plain_ms": row["plain_ms"],
+                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                     "library_ms": row["library_ms"],
+                     "shape": {"B": 3, "nbands": row["nbands"],
+                               "cap": row["cap"], "G2": row["G2"],
+                               "serves": "ski PCG (y + 2 probes)",
+                               "dtype": "float32"}})
     record["kernels"] = rows
     phase_s["total"] = time.perf_counter() - t_run
     record["phase_wall_s"] = phase_s

@@ -17,11 +17,13 @@ import torch
 
 from .kernels import HyperState, make_kernel
 from .models.efgp import FitState, resolve_device
+from .models.ski import BandedInterpTables, SKIOperator
 from .ops.kron_precond import KronPrecond
 from .ops.toeplitz import ToeplitzND
 
 __all__ = ["kernel_from_numpy", "fit_state_from_numpy", "fit_state_to_numpy",
-           "hyper_state_from_numpy", "hyper_state_to_numpy"]
+           "hyper_state_from_numpy", "hyper_state_to_numpy",
+           "ski_fit_from_numpy", "ski_fit_to_numpy"]
 
 _STATE_ARRAYS = ("beta", "ws", "h", "sigmasq", "fft_kernel", "diag_scale",
                  "A_dense", "P_dense", "defl_idx", "defl_P", "mean_cg_iters")
@@ -95,3 +97,57 @@ def hyper_state_to_numpy(state: HyperState) -> dict:
     ``HyperState(raw=jnp.asarray(raw), names=names)`` is the same state."""
     return {"raw": state.raw.detach().cpu().numpy(),
             "names": tuple(state.names)}
+
+
+def ski_fit_to_numpy(fit) -> dict:
+    """The arrays of a port SKI fit: the stencils ``idx`` and ``wvals``,
+    the band tables (``banded_<field>`` for each ``BandedInterpTables``
+    field, absent when the plan was dropped), ``grid_shape``, ``lo``,
+    ``dx``, the Toeplitz ``fft_kernel``, ``alpha``, ``raw`` (log-space
+    hypers, the noise variance last), and the kernel's ``kernel_name`` and
+    ``hypers`` (``hyper_names`` order)."""
+    model = fit["model"]
+    op = model["operator"]
+    fields = {"idx": op.idx, "wvals": op.wvals, "lo": op.lo, "dx": op.dx,
+              "fft_kernel": model["toeplitz"].fft_kernel,
+              "alpha": model["alpha"], "raw": model["raw"],
+              "hypers": model["kernel"].hyper_vector()}
+    if op.banded is not None:
+        fields.update({f"banded_{k}": v
+                       for k, v in op.banded._asdict().items()})
+    out = {k: v.detach().cpu().numpy() for k, v in fields.items()}
+    out["grid_shape"] = np.asarray(op.grid_shape)
+    out["kernel_name"] = type(model["kernel"]).__name__
+    return out
+
+
+def ski_fit_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda"):
+    """A SKI fit dict that ``ski_predict_mean`` / ``ski_predict_var`` read,
+    from the arrays :func:`ski_fit_to_numpy` names (from the port or from a
+    gpquad fit: ``np.asarray`` of its operator's fields, its Toeplitz
+    ``fft_kernel``, ``alpha`` and ``raw``)."""
+    dev = resolve_device(device)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    grid_shape = tuple(int(m) for m in np.asarray(arrays["grid_shape"]))
+    banded = None
+    if arrays.get("banded_pidx") is not None:
+        dtypes = {"pidx": torch.int64, "inv_slot": torch.int64,
+                  "i0loc": torch.int32, "c0": torch.int32}
+        banded = BandedInterpTables(**{
+            k: t(arrays[f"banded_{k}"], dtypes.get(k))
+            for k in BandedInterpTables._fields})
+    fft_kernel = t(arrays["fft_kernel"])
+    toeplitz = ToeplitzND(fft_kernel=fft_kernel, ns=grid_shape,
+                          fft_shape=tuple(fft_kernel.shape))
+    op = SKIOperator(idx=t(arrays["idx"], torch.int64),
+                     wvals=t(arrays["wvals"]), toeplitz=toeplitz,
+                     grid_shape=grid_shape, lo=t(arrays["lo"]),
+                     dx=t(arrays["dx"]), banded=banded)
+    kernel = kernel_from_numpy(str(arrays["kernel_name"]), arrays["hypers"],
+                               len(grid_shape)).to(dev)
+    return {"model": {"kernel": kernel, "raw": t(arrays["raw"]),
+                      "alpha": t(arrays["alpha"]), "operator": op,
+                      "toeplitz": toeplitz}}

@@ -36,7 +36,9 @@ kernel or raise.
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/gpquad_torch/`` at the checkout's root (one ``nvcc`` per source, all
 started together, then one link), named after a hash of the sources so that
-an edit rebuilds it, and loaded with ``ctypes``.
+an edit rebuilds it, and loaded with ``ctypes``.  The same library holds
+the SKI interpolation kernels of ``csrc/interp_2d.cu``, whose wrappers are
+in ``ops/cuda_interp.py``.
 """
 from __future__ import annotations
 
@@ -69,7 +71,8 @@ LAUNCH_WIDTHS: dict[tuple[str, int], int] = {}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every file the library depends on (hashed); the .cu files are compiled
-_SOURCES = ("nufft_common.cuh", "nufft_1d.cu", "nufft_2d.cu", "nufft_3d.cu")
+_SOURCES = ("nufft_common.cuh", "nufft_1d.cu", "nufft_2d.cu", "nufft_3d.cu",
+            "interp_2d.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpquad_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -175,6 +178,16 @@ def _library():
             d1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, i32, ptr,
                            ptr, ptr]
             d1.restype = i32
+            # the SKI interpolation kernels (ops/cuda_interp.py)
+            it = getattr(lib, f"gpq_interp_T_2d_{prec}")
+            it.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+                           ptr]
+            it.restype = i32
+            i64 = ctypes.c_longlong
+            ip = getattr(lib, f"gpq_interp_2d_{prec}")
+            ip.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i32, i32,
+                           i32, i32, i32, ptr, ptr]
+            ip.restype = i32
         _lib = lib
     return _lib
 

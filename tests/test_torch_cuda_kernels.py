@@ -1,5 +1,6 @@
-"""The d=1, d=2 and d=3 CUDA NUFFT kernels on the card, against their
-float64 plain versions on the same inputs.
+"""The d=1, d=2 and d=3 CUDA NUFFT kernels and the SKI interpolation
+kernels on the card, against their float64 plain versions on the same
+inputs.
 
 Marked ``cuda``: they skip where torch sees no CUDA device.  This file
 imports neither JAX nor ``gpquad`` (the card's machine has no JAX), so it
@@ -491,3 +492,135 @@ def test_facade_on_card_matches_cpu(cuda_device):
     assert np.max(np.abs(mean_gpu - mean_cpu)) < 1e-8
     assert launches["nufft1_1d"] > 0 and launches["nufft2_1d"] > 0
     assert picks["matmul"] == 0
+
+
+# ---------------------------------------------------------------------------
+# SKI interpolation (rows 13-14)
+# ---------------------------------------------------------------------------
+
+def _ski_tables(cuda_device, dtype, n, grid, seed=3):
+    from gpquad_torch.models import ski
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.uniform(-1, 1, (n, 2)), device=cuda_device)
+    kern = gpquad_torch.make_kernel("SE", 2, lengthscale=0.3, variance=1.0)
+    op = ski.build_ski_operator(x.to(dtype), kern, grid,
+                                ((-1.0, 1.0), (-1.0, 1.0)))
+    assert op.banded is not None
+    return rng, op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,grid", [(1, 20_000, (200, 150)),
+                                      (3, 20_000, (200, 150)),
+                                      (8, 5_000, (60, 300)),
+                                      (21, 3_000, (8, 600))])
+def test_interp_kernels_match_plain_on_card(cuda_device, dtype, B, n, grid):
+    """Both kernels against their float64 plain versions on the band plan,
+    one launch each; W^T u on every slab cell (padded slots included), W v
+    on the valid slots, from the overlapping strided slab view.  Bars
+    1e-5 (f32) and 1e-12 (f64) of max|ref|."""
+    from gpquad_torch.ops import cuda_interp
+    rng, op = _ski_tables(cuda_device, dtype, n, grid)
+    t = op.banded
+    G1, G2 = op.grid_shape
+    nbands, cap = t.pidx.shape
+    tabs64 = (t.i0loc, t.c0, t.w_row.double(), t.w_col.double())
+    tabs = (t.i0loc, t.c0, t.w_row, t.w_col)
+    us = (torch.as_tensor(rng.normal(size=(B, nbands, cap)),
+                          device=cuda_device) * t.valid).to(dtype)
+    v = torch.as_tensor(rng.normal(size=(B, G1, G2)), device=cuda_device)
+    vp = torch.nn.functional.pad(v, (0, 0, 0, nbands * 8 + 3 - G1)).to(dtype)
+    vs = vp.as_strided((B, nbands, 11, G2), (vp.stride(0), 8 * G2, G2, 1))
+    before = dict(cuda_interp.LAUNCHES)
+    got_T = cuda_interp.interp_T_2d(us, *tabs, G2=G2, bh=8)
+    got = cuda_interp.interp_2d(vs, *tabs, bh=8)
+    torch.cuda.synchronize()
+    assert cuda_interp.LAUNCHES["interp_T_2d"] == before["interp_T_2d"] + 1
+    assert cuda_interp.LAUNCHES["interp_2d"] == before["interp_2d"] + 1
+    ref_T = cuda_interp.interp_T_2d_ref(us.double(), *tabs64, G2=G2, bh=8)
+    ref = cuda_interp.interp_2d_ref(vs.double(), *tabs64, bh=8)
+    bar = 1e-5 if dtype == torch.float32 else 1e-12
+    assert got_T.shape == ref_T.shape and got.shape == ref.shape
+    assert _rel(got_T.double(), ref_T) < bar
+    mask = t.valid[:, None, :].expand_as(ref)
+    assert _rel(got.double()[mask], ref[mask]) < bar
+    # the same sums in the same order on every launch
+    assert torch.equal(cuda_interp.interp_T_2d(us, *tabs, G2=G2, bh=8),
+                       got_T)
+
+
+@pytest.mark.cuda
+def test_interp_kernels_padded_tables_on_card(cuda_device):
+    """Padded slots whose stencil lies outside the slab (negative or past
+    it, in rows and columns) are bounds-checked: W^T u equals the plain
+    version and W v stays finite and right on the valid slots."""
+    from gpquad_torch.ops import cuda_interp
+    rng = np.random.default_rng(4)
+    nbands, cap, G2, B = 5, 600, 300, 3
+    i0 = rng.integers(0, 8, (nbands, cap)).astype(np.int32)
+    c0 = rng.integers(0, G2 - 3, (nbands, cap)).astype(np.int32)
+    valid = np.ones((nbands, cap), bool)
+    valid[:, 500:] = False
+    i0[~valid] = rng.choice([-8, -3, 9, 4000], size=(~valid).sum())
+    c0[~valid] = rng.choice([-8, -2, G2 - 1, G2 + 70], size=(~valid).sum())
+    dev = cuda_device
+    tabs = (torch.as_tensor(i0, device=dev), torch.as_tensor(c0, device=dev),
+            torch.as_tensor(rng.normal(size=(nbands, cap, 4)), device=dev),
+            torch.as_tensor(rng.normal(size=(nbands, cap, 4)), device=dev))
+    us = torch.as_tensor(rng.normal(size=(B, nbands, cap)) * valid,
+                         device=dev)
+    vs = torch.as_tensor(rng.normal(size=(B, nbands, 11, G2)), device=dev)
+    got_T = cuda_interp.interp_T_2d(us, *tabs, G2=G2, bh=8)
+    got = cuda_interp.interp_2d(vs, *tabs, bh=8)
+    ref_T = cuda_interp.interp_T_2d_ref(us, *tabs, G2=G2, bh=8)
+    ref = cuda_interp.interp_2d_ref(vs, *tabs, bh=8)
+    assert _rel(got_T, ref_T) < 1e-12
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got[:, :, :500], ref[:, :, :500]) < 1e-12
+
+
+@pytest.mark.cuda
+def test_ski_on_card_matches_cpu(cuda_device):
+    """fit_ski_gp -> mean -> variance on the card (kernels, float64) against
+    the CPU (plain versions), the probes drawn by one CPU generator seed:
+    the history to 1e-6, mean and variance to 1e-6 of max|ref|; both
+    kernels launched in every stage, no plain banded or unbanded route."""
+    from gpquad_torch.models import ski
+    from gpquad_torch.ops import cuda_interp
+    rng = np.random.default_rng(11)
+    n = 4000
+    x = rng.uniform(-1, 1, (n, 2))
+    y = np.sin(3 * x[:, 0]) * np.cos(2 * x[:, 1]) + 0.1 * rng.normal(size=n)
+    xq = rng.uniform(-1, 1, (400, 2))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        stages = {}
+        cuda_interp.LAUNCHES.update({k: 0 for k in cuda_interp.LAUNCHES})
+        ski.INTERP_PICKS.update({k: 0 for k in ski.INTERP_PICKS})
+        fit = ski.fit_ski_gp(x, y, grid_size=(48, 48), max_iters=3, lr=0.1,
+                             dtype=torch.float64, cg_tolerance=1e-8,
+                             max_cg_iterations=300, init_noise=0.3,
+                             verbose=False,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev)
+        stages["fit"] = dict(cuda_interp.LAUNCHES)
+        mean = ski.ski_predict_mean(fit, xq)
+        stages["mean"] = dict(cuda_interp.LAUNCHES)
+        var = ski.ski_predict_var(fit, xq[:64], batch_size=32, cg_tol=1e-8)
+        stages["var"] = dict(cuda_interp.LAUNCHES)
+        out[str(dev)] = (fit["history"], mean.cpu().numpy(),
+                         var.cpu().numpy(), stages, dict(ski.INTERP_PICKS))
+    h_cpu, m_cpu, v_cpu, _, _ = out["cpu"]
+    h_gpu, m_gpu, v_gpu, stages, picks = out[str(cuda_device)]
+    for k in ("loss", "lengthscale", "outputscale", "noise"):
+        assert np.all(np.abs(np.array(h_gpu[k]) - np.array(h_cpu[k]))
+                      <= 1e-6 * np.abs(np.array(h_cpu[k]))), k
+    assert np.max(np.abs(m_gpu - m_cpu)) < 1e-6 * np.max(np.abs(m_cpu))
+    assert np.max(np.abs(v_gpu - v_cpu)) < 1e-6 * np.max(np.abs(v_cpu))
+    prev = {"interp_T_2d": 0, "interp_2d": 0}
+    for stage in ("fit", "mean", "var"):
+        for k in prev:
+            assert stages[stage][k] > prev[k], (stage, k)
+        prev = stages[stage]
+    assert picks["banded"] == 0 and picks["unbanded"] == 0

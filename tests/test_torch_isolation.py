@@ -32,7 +32,8 @@ def test_import_pulls_in_no_jax():
             "gpquad_torch.ops.cuda_nufft, gpquad_torch.ops.slq, "
             "gpquad_torch.ops.deflation, gpquad_torch.ops.kron_precond, "
             "gpquad_torch.kernels.params, gpquad_torch.models.model, "
-            "gpquad_torch.models.gradient, gpquad_torch.models.pipeline\n"
+            "gpquad_torch.models.gradient, gpquad_torch.models.pipeline, "
+            "gpquad_torch.models.ski, gpquad_torch.ops.cuda_interp\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
@@ -50,7 +51,9 @@ def test_scan_covers_the_port():
                    "gpquad_torch/ops/deflation.py",
                    "gpquad_torch/ops/kron_precond.py",
                    "gpquad_torch/kernels/params.py",
-                   "gpquad_torch/models/model.py", "chip_smoke.py"):
+                   "gpquad_torch/models/model.py",
+                   "gpquad_torch/models/ski.py",
+                   "gpquad_torch/ops/cuda_interp.py", "chip_smoke.py"):
         assert module in names, module
 
 
