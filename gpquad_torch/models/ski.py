@@ -611,25 +611,14 @@ def _point_stencils(op: SKIOperator, x_new, dtype):
     return idx, wv
 
 
-def _target_operator(op: SKIOperator, x_new, dtype) -> SKIOperator:
-    """The interpolation onto new points as an operator on the fitted grid:
-    their stencils and, at d=2, their own band plan (dropped by the same
-    rule as the training points'), so that ``W_* g`` takes the kernel."""
-    xq = _points_of(op, x_new, dtype)
-    i0, w1d, idx, wv = _stencils(xq, op.lo, op.dx, op.grid_shape)
-    return SKIOperator(idx=idx, wvals=wv, toeplitz=None,
-                       grid_shape=op.grid_shape, lo=op.lo, dx=op.dx,
-                       banded=_banded_plan(i0, w1d, op.grid_shape,
-                                           xq.shape[0], xq.device))
-
-
 def ski_predict_mean(fit: Dict[str, Any], x_new) -> torch.Tensor:
-    """Predictive mean w(x*)^T K_g W^T alpha."""
+    """Predictive mean w(x*)^T K_g W^T alpha using the fitted stencils."""
     op: SKIOperator = fit["model"]["operator"]
     alpha = fit["model"]["alpha"]
     T = fit["model"]["toeplitz"]
+    idx, wv = _point_stencils(op, x_new, alpha.dtype)
     g = T(op.interp_T(alpha)).real.to(alpha.dtype)   # K_g W^T alpha
-    return _target_operator(op, x_new, alpha.dtype).interp(g)
+    return torch.sum(g[..., idx] * wv, dim=-1)
 
 
 def ski_predict_var(fit: Dict[str, Any], x_new, *, batch_size: int = 256,

@@ -281,7 +281,6 @@ def test_predict_from_jax_fit(rng, impl):
     fit = convert.ski_fit_from_numpy(_jax_fit_arrays(want), device="cpu")
     assert fit["model"]["operator"].banded is not None
     tski.set_interp_impl(impl)
-    # 300 targets keep their own band plan; 5 targets drop it
     for nq in (300, 5):
         xq = rng.uniform(-1, 1, (nq, 2))
         mean = tski.ski_predict_mean(fit, xq).numpy()
@@ -294,13 +293,21 @@ def test_predict_from_jax_fit(rng, impl):
     assert _rel(var, wvar) < 1e-8
 
 
-def test_target_plan_kept_and_dropped(rng):
-    x, _ = _data(rng, 700)
-    _, opt = _ops(x, (22, 22), jski.resolve_grid_bounds(x))
-    assert tski._target_operator(opt, rng.uniform(-1, 1, (300, 2)),
-                                 torch.float64).banded is not None
-    assert tski._target_operator(opt, rng.uniform(-1, 1, (5, 2)),
-                                 torch.float64).banded is None
+def test_predict_mean_gathers_target_stencils(rng):
+    """The mean's ``W_* g`` is a gather on the targets' stencils, as
+    gpquad's: one banded ``W^T alpha`` and no interpolation route besides."""
+    x, y = _data(rng, 700)
+    fit = tski.fit_ski_gp(x, y, grid_size=(22, 22), max_iters=1,
+                          verbose=False, dtype=torch.float64, device="cpu")
+    op, model = fit["model"]["operator"], fit["model"]
+    xq = rng.uniform(-1, 1, (300, 2))
+    before = dict(tski.INTERP_PICKS)
+    mean = tski.ski_predict_mean(fit, xq)
+    picks = {k: tski.INTERP_PICKS[k] - before[k] for k in before}
+    assert picks == {"cuda": 0, "banded": 1, "unbanded": 0}
+    idx, wv = tski._point_stencils(op, xq, torch.float64)
+    g = model["toeplitz"](op.interp_T(model["alpha"])).real
+    assert torch.equal(mean, torch.sum(g[idx] * wv, dim=-1))
 
 
 def test_fit_roundtrip_through_numpy(rng):
