@@ -7,10 +7,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. torch and the card (nvidia-smi name and power limit);
   2. build the CUDA kernels from gpquad_torch/csrc (timed);
   3. each kernel against its float64 plain version on the card, at every
-     shape that phases 4, 5 and 10 give it, in float32 and float64, with
-     CUDA-event times of kernel and plain version; for the batched pair
-     also the time of B single-vector launches of the single kernels on the
-     same inputs;
+     shape that phases 4, 5 and 10 give it, in float32 (1e-4 of max|ref|)
+     and float64 (1e-10), with CUDA-event times of kernel and plain
+     version; for the batched pair also the time of B single-vector
+     launches of the single kernels on the same inputs; the float32 d=2
+     type-1 (tensor cores, 3xTF32) also within max(2x the float32 plain
+     version's error, 1e-6), with its 3xTF32 bound beside the fp32 one,
+     its output tile and its scratch (the peak allocated in the call less
+     the output; under 256 MB);
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -66,7 +70,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
 Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
 and at mtot 57, 101 and 255, the two d=1 kernels at phase 8's shapes and
 at mtot 8191, and the two SKI interpolation kernels at phase 11's band
-tables (B 1, 3, 8 and 64) and the raster's (B 1, 3 and 8).
+tables (B 1, 3, 8 and 64) and the raster's (B 1, 3 and 8), with the
+column-sorted index's bytes; interp_T_2d also bit for bit against a
+second launch and its plain twin's walk.  Phase 10 prints its ms per Adam
+step and the launches of its gradient and Adam loop; phase 11 its ms per
+Adam iteration and, beside the f32 variance, the f32 plain path's and the
+bfloat16-weight control's.
 
 It prints each phase's wall time, the kernels' JSON line (the eight NUFFT
 kernels, the four TPU mode-tiled functions they cover, with the launches
@@ -93,9 +102,14 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, fp64 outside the tensor cores, HBM3 bandwidth.
+# cores, fp64 outside the tensor cores, dense TF32 on the tensor cores, HBM3
+# bandwidth.
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# the float32 d=2 type-1 on the tensor cores: three TF32 products (the
+# 3xTF32 split) per real product, 8 flops per point, output and vector each
+TC_TYPE1 = ("nufft1_2d", "nufft1_2d_batched")
 # One phase e^{i 2 pi c} counted at its least cost: a rotation recurrence
 # along the modes (one complex multiply, 6 flops) re-anchored every 32 modes
 # by an exact sin/cos pair (20 flops: the 10 multiply-adds of the minimax
@@ -262,25 +276,42 @@ def kernel_work(name, n, m, dtype, B=1):
     return flops, nbytes
 
 
-def interp_work(name, nbands, cap, G2, dtype, B):
-    """(flops, bytes) of an interpolation kernel on a band plan: every slot
-    (padded ones included: they are in the inputs) and vector at
-    INTERP_FLOPS; bytes of the tables (two int32 and eight weights a slot),
-    the B inputs read once (W v: the padded grid under the slab view) and
-    the B outputs written once."""
+def interp_work(name, nbands, cap, G2, dtype, B, listed=None):
+    """(flops, bytes) of an interpolation kernel on a band plan, at
+    INTERP_FLOPS a slot and vector; bytes of the tables (two int32 and
+    eight weights a slot), the B inputs read once (W v: the padded grid
+    under the slab view) and the B outputs written once.  W v works on every
+    slot (padded ones included: they are in its output); W^T u needs only
+    the ``listed`` slots of the column index (the valid ones), their values
+    and the index itself (a slot number each, G2 + 1 column starts a
+    band)."""
     s = 4 if dtype == torch.float32 else 8
-    tables = nbands * cap * (2 * 4 + 8 * s)
     rows = nbands * 8 + 3
     if name == "interp_T_2d":
-        io = B * nbands * cap * s + nbands * B * 11 * G2 * s
-    else:
-        io = B * rows * G2 * s + nbands * B * cap * s
+        tables = listed * (3 * 4 + 8 * s) + nbands * (G2 + 1) * 4
+        io = B * listed * s + nbands * B * 11 * G2 * s
+        return INTERP_FLOPS[name] * B * listed, tables + io
+    tables = nbands * cap * (2 * 4 + 8 * s)
+    io = B * rows * G2 * s + nbands * B * cap * s
     return INTERP_FLOPS[name] * B * nbands * cap, tables + io
 
 
 def bound_ms(name, n, m, dtype, B=1, work=None):
     flops, nbytes = work or kernel_work(name, n, m, dtype, B)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_3xtf32_ms(name, n, m, B=1):
+    """The float32 d=2 type-1's bound on the tensor cores: 3 x 8 flops per
+    point, output and vector at the dense TF32 rate, plus the rest of
+    kernel_work's operations (the phases, once per point, dimension and
+    mode, and the products v e1) at the fp32 rate; against its bytes."""
+    flops, nbytes = kernel_work(name, n, m, torch.float32, B)
+    tc = 3 * 8 * B * n * m * m
+    t_ops = (tc / PEAK_TF32 + (flops - 8 * B * n * m * m)
+             / PEAK_FLOPS[torch.float32]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -593,8 +624,15 @@ def main() -> int:
             arg = arg64.to(cdt)
             hq = float(torch.tensor(h, dtype=dtype))
             kw = dict(mtot=m, fft_order=fo)
+            # the scratch a type-1 call takes: the peak allocated in the
+            # call less what was allocated before it and the output
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             got = kernels[name](x, arg, hq, **kw)
             sync()
+            scratch = (torch.cuda.max_memory_allocated() - base
+                       - got.numel() * got.element_size())
             ref = plain64(name, x, arg, hq, kw)
             err = float((got.to(torch.complex128) - ref).abs().max())
             scale = float(ref.abs().max())
@@ -604,10 +642,18 @@ def main() -> int:
             plain_rel = 0.0 if dtype == torch.float64 else float(
                 (plains[name](x, arg, hq, **kw).to(torch.complex128)
                  - ref).abs().max()) / scale
-            bar = 1e-4 if dtype == torch.float32 or d == 2 else 1e-10
+            bar = 1e-4 if dtype == torch.float32 else 1e-10
             check(np.isfinite(rel) and rel <= bar,
                   f"{name} {dtype} B={B} n={n} mtot={m}: error {rel:.3e} "
                   f"of max|ref| > {bar:.0e}")
+            tc = name in TC_TYPE1 and dtype == torch.float32
+            if tc:
+                # the 3xTF32 split keeps the float32 plain version's level
+                split_bar = max(2 * plain_rel, 1e-6)
+                check(rel <= split_bar,
+                      f"{name} B={B} n={n} mtot={m}: float32 error {rel:.3e} "
+                      f"over max(2 x the plain version's {plain_rel:.3e}, "
+                      f"1e-6)")
             if d == 1:
                 reps, trials = max(3, min(50, int(2e10 / (B * n * m)))), 5
             elif d == 2:
@@ -626,19 +672,36 @@ def main() -> int:
                        plain_rel_err=plain_rel, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by)
             extra = ""
+            if tc:
+                # the kernel's own bound is the tensor cores'; the fp32
+                # CUDA-core bound kept beside it
+                row["bound_fp32_ms"] = b_ms
+                row["bound_ms"], row["bound_by"] = bound_3xtf32_ms(name, n, m,
+                                                                   B)
+                geo = cuda_nufft.type1_2d_geometry(n, m, B, batched)
+                groups = -(-n // geo[-1])
+                row["scratch_bytes"] = scratch
+                check(scratch < 256e6,
+                      f"{name} B={B} n={n} mtot={m}: scratch {scratch} bytes "
+                      f">= 256 MB")
+                row["tile"] = f"{geo[0]}x{geo[1]}"
+                row["split_bar"] = split_bar
+                extra = (f" tile {row['tile']}, scratch {groups} groups "
+                         f"{scratch / 1e6:.3f} MB (measured; partials "
+                         f"{groups * B * m * m * 8 / 1e6:.3f} MB), "
+                         f"bound_3xtf32_ms={row['bound_ms']:.4f}")
+                b_ms, b_by = row["bound_fp32_ms"], "fp32 operations"
             if batched:
                 single = kernels[name.replace("_batched", "")]
                 row["singles_ms"] = time_cuda(
                     lambda: [single(x, a, hq, **kw) for a in arg], reps,
                     trials)
-                extra = f" {B}x single ms={row['singles_ms']:.4f}"
+                extra += f" {B}x single ms={row['singles_ms']:.4f}"
             if name == "nufft1_3d":
                 groups, _ = cuda_nufft.type1_3d_groups(n, m, B)
-                row["scratch_bytes"] = (groups * B * m ** 3
-                                        * (8 if dtype == torch.float32
-                                           else 16))
-                extra = (f" scratch {groups} groups "
-                         f"{row['scratch_bytes'] / 1e6:.1f} MB")
+                row["scratch_bytes"] = scratch
+                extra = (f" scratch {groups} groups {scratch / 1e6:.3f} MB "
+                         f"(measured)")
             phase3.append(row)
             print(f"[3] {name} {row['dtype']} B={B} n={n} mtot={m} "
                   f"fft_order={fo} ({what}): max_abs_err={err:.3e} "
@@ -674,9 +737,22 @@ def main() -> int:
         nb, cap = ops[torch.float32].banded.pidx.shape
         G1, G2 = ops[torch.float32].grid_shape
         n_pts = xs.shape[0]
-        plans[tag] = dict(grid=[G1, G2], nbands=nb, cap=cap, n=n_pts)
+        t32 = ops[torch.float32].banded
+        listed = int(t32.col_start[:, -1].sum())
+        index_bytes = (t32.col_slots.numel() * 4
+                       + t32.col_start.numel() * 4)
+        per_col = (t32.col_start[:, 4:] - t32.col_start[:, :-4]).float()
+        plans[tag] = dict(grid=[G1, G2], nbands=nb, cap=cap, n=n_pts,
+                          listed=listed, index_bytes=index_bytes,
+                          slots_per_column_mean=float(per_col.mean()),
+                          slots_per_column_max=int(per_col.max()))
         print(f"[3] {tag} band plan: extended grid {G1}x{G2}, {nb} bands of "
-              f"cap {cap} ({nb * cap} slots for n={n_pts})")
+              f"cap {cap} ({nb * cap} slots for n={n_pts}); column-sorted "
+              f"index of {listed} slots, {index_bytes / 1e6:.3f} MB "
+              f"(col_slots {tuple(t32.col_slots.shape)}, col_start "
+              f"{tuple(t32.col_start.shape)} int32), "
+              f"{float(per_col.mean()):.1f} slots a column (max "
+              f"{int(per_col.max())})")
         for B in batches:
             u64 = torch.as_tensor(gen.normal(size=(B, n_pts)), device=dev)
             v64 = torch.as_tensor(gen.normal(size=(B, G1, G2)), device=dev)
@@ -685,6 +761,7 @@ def main() -> int:
                 t = op.banded
                 tabs = (t.i0loc, t.c0, t.w_row, t.w_col)
                 tabs64 = (t.i0loc, t.c0, t.w_row.double(), t.w_col.double())
+                idx = (t.col_slots, t.col_start)
                 u = u64.to(dtype)
                 us = (u[:, t.pidx.reshape(-1)].reshape(B, nb, cap)
                       * t.valid.to(dtype))
@@ -705,8 +782,8 @@ def main() -> int:
 
                 calls = {
                     "interp_T_2d": (
-                        lambda: cuda_interp.interp_T_2d(us, *tabs, G2=G2,
-                                                        bh=8),
+                        lambda: cuda_interp.interp_T_2d(us, *tabs, *idx,
+                                                        G2=G2, bh=8),
                         lambda: cuda_interp.interp_T_2d_ref(us, *tabs, G2=G2,
                                                             bh=8),
                         lambda: cuda_interp.interp_T_2d_ref(
@@ -731,14 +808,26 @@ def main() -> int:
                     check(np.isfinite(rel) and rel <= bar,
                           f"{name} {tag} {dtype} B={B}: error {rel:.3e} of "
                           f"max|ref| > {bar:.0e}")
+                    if name == "interp_T_2d":
+                        # the same sums in the same order: a second launch
+                        # and the plain twin's column-sorted walk
+                        check(torch.equal(kern_fn(), got) and torch.equal(
+                            cuda_interp.interp_T_2d_sorted_ref(
+                                us, *tabs, *idx, G2=G2, bh=8), got),
+                            f"interp_T_2d {tag} {dtype} B={B}: not bit for "
+                            "bit the same on a second launch and in its twin")
                     del got, ref
-                    ms = time_cuda(kern_fn, 20)
+                    # calls of tens of microseconds: 100 a trial for the
+                    # kernel and the library call alike, so that neither
+                    # median rests on a few calls at a clock still ramping
+                    # up after the host's planning
+                    ms = time_cuda(kern_fn, 100)
                     plain_ms = library_ms = None
                     if dtype == torch.float32:
                         plain_ms = time_cuda(plain_fn, 3, 3)
-                        library_ms = time_cuda(lib_fn, 5, 3)
+                        library_ms = time_cuda(lib_fn, 100)
                     b_ms, b_by = bound_ms(name, 0, 0, dtype, work=interp_work(
-                        name, nb, cap, G2, dtype, B))
+                        name, nb, cap, G2, dtype, B, listed))
                     row = dict(name=name, serves=tag, B=B, nbands=nb,
                                cap=cap, G2=G2,
                                dtype=str(dtype).split(".")[-1],
@@ -1703,10 +1792,13 @@ def main() -> int:
 
     gkw10 = dict(trace_samples=10, cg_tol=1e-4, max_cg_iter=1000)
     grad10(kern10, sigmasq, seeded(), **gkw10)
+    reset_counts(*counters)
     t = time.perf_counter()
     gr10 = grad10(kern10, sigmasq, seeded(), **gkw10)
     sync()
     stage["grad_s"] = time.perf_counter() - t
+    launches_grad10 = dict(cuda_nufft.LAUNCHES)
+    widths_grad10 = dict(cuda_nufft.LAUNCH_WIDTHS)
 
     # bench.py's fixed-plan Adam loop on a HyperState (T=5, cg_tol 1e-3)
     params = gpquad_torch.HyperState.create(kern10, sigmasq)
@@ -1725,10 +1817,13 @@ def main() -> int:
     hyper_iter()                                           # warm
     raw.data.copy_(params.raw.to(dev))
     adam = torch.optim.Adam([raw], lr=0.05)
+    reset_counts(*counters)
     t = time.perf_counter()
     trace_iters_loop = [int(hyper_iter().trace_cg_iters) for _ in range(20)]
     sync()
     stage["hyperlearn_20iters_s"] = time.perf_counter() - t
+    launches_loop10 = dict(cuda_nufft.LAUNCHES)
+    widths_loop10 = dict(cuda_nufft.LAUNCH_WIDTHS)
     st10_64, mean10_64 = fit10(x10.double(), y10.double(), xq10.double())
     err10 = float((mean10.double() - mean10_64).abs().max())
     print(f"[10] scale n={n10} mtot={mtot10} M={st10.M} (kron, smooth FFT "
@@ -1742,9 +1837,13 @@ def main() -> int:
           f"256 converged; gradient (T=10) {stage['grad_s'] * 1e3:.1f} ms, "
           f"trace PCG iters {int(gr10.trace_cg_iters)}, mean "
           f"{int(gr10.mean_cg_iters)}; 20 Adam iterations "
-          f"{stage['hyperlearn_20iters_s'] * 1e3:.1f} ms, trace iters "
-          f"{trace_iters_loop}; learned lengthscale "
+          f"{stage['hyperlearn_20iters_s'] * 1e3:.1f} ms = "
+          f"{stage['hyperlearn_20iters_s'] / 20 * 1e3:.1f} ms per Adam step, "
+          f"trace iters {trace_iters_loop}; learned lengthscale "
           f"{float(torch.exp(raw[0])):.5f} (host clock) {card}")
+    print(f"[10] launches: gradient {launches_grad10} (by width "
+          f"{widths_grad10}); the 20-step Adam loop {launches_loop10} (by "
+          f"width {widths_loop10})")
     check(launches10 == counts(2, 1),
           f"unexpected scale fit + mean launch counts {launches10}")
     # F*y (339) and the lag table (677) past 256 modes, and the mean (339)
@@ -1768,6 +1867,13 @@ def main() -> int:
         grad_trace_iters=int(gr10.trace_cg_iters),
         grad_mean_iters=int(gr10.mean_cg_iters),
         loop_trace_iters=trace_iters_loop,
+        ms_per_adam_step=stage["hyperlearn_20iters_s"] / 20 * 1e3,
+        launches_grad=launches_grad10,
+        launches_grad_by_width={f"{k} {m}": c
+                                for (k, m), c in widths_grad10.items()},
+        launches_adam_loop=launches_loop10,
+        launches_adam_loop_by_width={f"{k} {m}": c
+                                     for (k, m), c in widths_loop10.items()},
         learned_raw=raw.detach().tolist())
     del st10, st10_64, x10, y10
     phase_s["10"] = time.perf_counter() - t_phase
@@ -2018,13 +2124,20 @@ def main() -> int:
     # the f32 floor of this system (n = 2e5 points, noise 0.02: condition
     # ~n k(0) / sigma^2 ~ 1e7) without the kernels, a witness: the same
     # mean in float32 on the plain path
+    var_kw = dict(batch_size=SKI_VAR_TARGETS, cg_tol=1e-6, max_cg_iter=1000)
     ski_mod.set_interp_impl("einsum")
     try:
         f_p, a32p = tight_fit(torch.float32, op11)
         m32p = ski_mod.ski_predict_mean(f_p, xq11_t)
     finally:
         ski_mod.set_interp_impl("auto")
+    # the variance's witness on the scatter/gather plain path (the plan
+    # dropped: one index_add_ and one gather a matvec; the plain banded
+    # W^T u takes ~0.13 s a call at B 64), from the same alpha
+    f_p["model"]["operator"] = dataclasses.replace(op11, banded=None)
+    v32p = ski_mod.ski_predict_var(f_p, xq11_t[:SKI_VAR_TARGETS], **var_kw)
     err_m11_plain = float((m32p.double() - m64).abs().max())
+    err_v11_plain = float((v32p.double() - v64).abs().max())
     # the control the bar must fail: every interpolation weight (the band
     # tables, the stencils, the targets') rounded to bfloat16, on the kernels
     def bf16(w):
@@ -2039,7 +2152,9 @@ def main() -> int:
         f_c["model"]["alpha"])).real.float()
     m32c = torch.sum(g_c[idx_c] * bf16(wv_c), dim=-1)
     err_m11_ctl = float((m32c.double() - m64).abs().max())
-    del f_p, m32p, op_c, f_c, g_c, m32c
+    v32c = ski_mod.ski_predict_var(f_c, xq11_t[:SKI_VAR_TARGETS], **var_kw)
+    err_v11_ctl = float((v32c.double() - v64).abs().max())
+    del f_p, m32p, op_c, f_c, g_c, m32c, v32p, v32c
     err_v11 = float((v32.double() - v64).abs().max())
     v11_scale = float(v64.abs().max())
     print(f"[11] mean and variance at the learned hypers vs float64 (alpha "
@@ -2048,7 +2163,10 @@ def main() -> int:
           f"{err_m11:.3e} (bar {SKI_MEAN_BAR:.0e}; the f32 plain path "
           f"{err_m11_plain:.3e}; the control {err_m11_ctl:.3e}), max|var "
           f"err| {err_v11:.3e} (bar 5e-2*max|var64| = "
-          f"{5e-2 * v11_scale:.3e}); mean + variance f32 "
+          f"{5e-2 * v11_scale:.3e}; the f32 scatter/gather plain path "
+          f"{err_v11_plain:.3e}; "
+          f"the bfloat16-weight control {err_v11_ctl:.3e}); mean + variance "
+          f"f32 "
           f"{mv32_s * 1e3:.1f} ms, f64 {mv64_s * 1e3:.1f} ms {card}")
     check(err_m11 <= SKI_MEAN_BAR,
           f"ski mean error {err_m11:.3e} > {SKI_MEAN_BAR:.0e}")
@@ -2081,7 +2199,10 @@ def main() -> int:
         mean_ms=mean_ms, mean_target_plan_diff=err_tp,
         err_mean=err_m11, err_mean_f32_plain=err_m11_plain,
         err_mean_bf16_control=err_m11_ctl, mean_bar=SKI_MEAN_BAR,
-        err_var=err_v11, max_abs_var64=v11_scale, alpha_iters=(a32, a64))
+        err_var=err_v11, err_var_f32_plain=err_v11_plain,
+        err_var_bf16_control=err_v11_ctl, max_abs_var64=v11_scale,
+        alpha_iters=(a32, a64), ms_per_adam_iteration=statistics.median(
+            iter_ms11))
     del fit11, op11_64, mv, lg, Z11, zq11
     torch.cuda.empty_cache()
     phase_s["11"] = time.perf_counter() - t_phase
@@ -2149,6 +2270,7 @@ def main() -> int:
                  "nufft1_2d_batched": (mtot_head, False),
                  "nufft2_2d_batched": (mtot_head, False)}
     rows = []
+
     for name in KERNELS_NUFFT:
         f32_rows = [r for r in phase3 if r["name"] == name
                     and r["dtype"] == "float32"]

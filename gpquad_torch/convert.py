@@ -18,6 +18,7 @@ import torch
 from .kernels import HyperState, make_kernel
 from .models.efgp import FitState, resolve_device
 from .models.ski import BandedInterpTables, SKIOperator
+from .ops.cuda_interp import column_index
 from .ops.kron_precond import KronPrecond
 from .ops.toeplitz import ToeplitzND
 
@@ -25,6 +26,8 @@ __all__ = ["kernel_from_numpy", "fit_state_from_numpy", "fit_state_to_numpy",
            "hyper_state_from_numpy", "hyper_state_to_numpy",
            "ski_fit_from_numpy", "ski_fit_to_numpy"]
 
+# gpquad's band tables, the ones a SKI fit's arrays carry
+_BAND_TABLES = ("pidx", "valid", "i0loc", "c0", "w_row", "w_col", "inv_slot")
 _STATE_ARRAYS = ("beta", "ws", "h", "sigmasq", "fft_kernel", "diag_scale",
                  "A_dense", "P_dense", "defl_idx", "defl_P", "mean_cg_iters")
 
@@ -101,8 +104,9 @@ def hyper_state_to_numpy(state: HyperState) -> dict:
 
 def ski_fit_to_numpy(fit) -> dict:
     """The arrays of a port SKI fit: the stencils ``idx`` and ``wvals``,
-    the band tables (``banded_<field>`` for each ``BandedInterpTables``
-    field, absent when the plan was dropped), ``grid_shape``, ``lo``,
+    gpquad's band tables (``banded_<field>`` for each field of
+    ``_BAND_TABLES``, absent when the plan was dropped; the
+    column index is derived from them on reading), ``grid_shape``, ``lo``,
     ``dx``, the Toeplitz ``fft_kernel``, ``alpha``, ``raw`` (log-space
     hypers, the noise variance last), and the kernel's ``kernel_name`` and
     ``hypers`` (``hyper_names`` order)."""
@@ -113,8 +117,8 @@ def ski_fit_to_numpy(fit) -> dict:
               "alpha": model["alpha"], "raw": model["raw"],
               "hypers": model["kernel"].hyper_vector()}
     if op.banded is not None:
-        fields.update({f"banded_{k}": v
-                       for k, v in op.banded._asdict().items()})
+        fields.update({f"banded_{k}": getattr(op.banded, k)
+                       for k in _BAND_TABLES})
     out = {k: v.detach().cpu().numpy() for k, v in fields.items()}
     out["grid_shape"] = np.asarray(op.grid_shape)
     out["kernel_name"] = type(model["kernel"]).__name__
@@ -125,7 +129,10 @@ def ski_fit_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda"):
     """A SKI fit dict that ``ski_predict_mean`` / ``ski_predict_var`` read,
     from the arrays :func:`ski_fit_to_numpy` names (from the port or from a
     gpquad fit: ``np.asarray`` of its operator's fields, its Toeplitz
-    ``fft_kernel``, ``alpha`` and ``raw``)."""
+    ``fft_kernel``, ``alpha`` and ``raw``).  The column-sorted slot index
+    the ``interp_T_2d`` kernel walks is always made here from ``valid`` and
+    ``c0``, never read: it is derived data, and the kernel trusts its
+    slot numbers and ranges."""
     dev = resolve_device(device)
 
     def t(a, dtype=None):
@@ -135,10 +142,13 @@ def ski_fit_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda"):
     banded = None
     if arrays.get("banded_pidx") is not None:
         dtypes = {"pidx": torch.int64, "inv_slot": torch.int64,
-                  "i0loc": torch.int32, "c0": torch.int32}
-        banded = BandedInterpTables(**{
-            k: t(arrays[f"banded_{k}"], dtypes.get(k))
-            for k in BandedInterpTables._fields})
+                  "i0loc": torch.int32, "c0": torch.int32,
+                  "col_slots": torch.int32, "col_start": torch.int32}
+        tables = {k: arrays[f"banded_{k}"] for k in _BAND_TABLES}
+        tables["col_slots"], tables["col_start"] = column_index(
+            tables["valid"], tables["c0"], grid_shape[1])
+        banded = BandedInterpTables(**{k: t(a, dtypes.get(k))
+                                       for k, a in tables.items()})
     fft_kernel = t(arrays["fft_kernel"])
     toeplitz = ToeplitzND(fft_kernel=fft_kernel, ns=grid_shape,
                           fft_shape=tuple(fft_kernel.shape))

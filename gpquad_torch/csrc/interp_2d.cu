@@ -11,21 +11,26 @@
 // Both are bound by bytes on an H100: each slot and vector moves one value
 // and its tables (~40 B in f32) against ~40 flops.  The designs:
 //
-// interp_T: one block per (band, 128-column tile, group of BB vectors); one
+// interp_T: one block per (band, 64-column tile, group of BB vectors); one
 // thread per slab column holds that column's (bh+3) x BB sums in registers.
-// The band's table slots are staged through shared memory in slot order.
-// Each warp tests 32 staged slots at once against its 32 columns (a ballot)
-// and walks only the slots whose stencil reaches them and carries a nonzero
-// value, in slot order; the thread whose column a stencil covers adds its
-// contributions.  (The plan fills every padded slot with the tables of one
-// point, so without the value test the warp holding that point's columns
-// would walk all ~1100 padded slots of every band; a zero value adds
-// nothing.)  So each
-// cell's sum is taken in one fixed order, with no atomics, and the result
-// does not change from run to run (an unordered float atomic would move CG
-// iteration counts between runs).  Rows and columns outside the slab are
-// skipped: padded slots carry the tables of a point of another band, so
-// i0loc + j may lie anywhere (their u is zero).
+// A column meets only the ~(4 cap / G2) slots whose stencil columns
+// c0..c0+3 cover it, so the host plan builds, per band, the valid slots
+// sorted stably by c0 (col_slots) and the CSR of where each c0 starts
+// (col_start; ops/cuda_interp.py column_index): column c owns the contiguous
+// range col_start[max(c-3, 0)] .. col_start[c+1].  A block stages only its
+// tile's range, from col_start[t0-3] to col_start[t0+64] (clamped at the
+// slab's edges), through shared memory, its tables gathered through the
+// index; each thread then walks its own column's range and adds each
+// slot's contributions.  The walk is what takes the time (each thread's
+// slots one after another): 64-column tiles give twice the blocks of
+// 128-column ones, and their range (~400 slots at phase 11's plan) is one
+// staged chunk.  Padded slots are not in the index.  So each cell's
+// sum is taken in one fixed order (by c0, then slot order), with no atomics
+// and with no fused multiply-add (the plain twin interp_T_2d_sorted_ref
+// repeats it bit for bit), and the result does not change from run to run
+// (an unordered float atomic would move CG iteration counts between runs).
+// Every cell is bound-checked: a slot's columns and rows outside the slab
+// are skipped.
 //
 // interp: one thread per slot, looping over a group of vectors; each reads
 // its 4x4 stencil from the band's slab.  The slab input is a strided view
@@ -37,8 +42,32 @@
 
 namespace {
 
-constexpr int T_COLS = 128;     // slab columns per interp_T block
-constexpr int T_CHUNK = 256;    // table slots staged per step
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// four weights of a slot (the tables are 16-byte aligned per slot in float32
+// and 32-byte in float64: the wrapper checks)
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  o[0] = a.x;
+  o[1] = a.y;
+  o[2] = a.z;
+  o[3] = a.w;
+}
+
+__device__ __forceinline__ void load4(const double* p, double* o) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  o[0] = a.x;
+  o[1] = a.y;
+  o[2] = b.x;
+  o[3] = b.y;
+}
+
+constexpr int T_COLS = 64;      // slab columns per interp_T block
+constexpr int T_CHUNK = 512;    // indexed slots staged per step (f32)
 constexpr int T_ROWS = 11;      // slab height bh + 3 at the plan's bh = 8
 constexpr int F_THREADS = 256;  // slots per interp block
 constexpr int F_BATCH = 16;     // vectors per interp block
@@ -47,20 +76,28 @@ template <typename T, int BB>
 __global__ void __launch_bounds__(T_COLS)
 interp_T_kernel(const T* __restrict__ us, const int* __restrict__ i0loc,
                 const int* __restrict__ c0, const T* __restrict__ w_row,
-                const T* __restrict__ w_col, int B, int nbands, int cap,
+                const T* __restrict__ w_col, const int* __restrict__ col_slots,
+                const int* __restrict__ col_start, int B, int nbands, int cap,
                 int G2, T* __restrict__ out) {
-  __shared__ int s_i0[T_CHUNK];
-  __shared__ int s_c0[T_CHUNK];
-  __shared__ T s_wr[T_CHUNK][4];
-  __shared__ T s_wc[T_CHUNK][4];
-  __shared__ T s_u[BB][T_CHUNK];
+  constexpr int CH = sizeof(T) == 4 ? T_CHUNK : T_CHUNK / 2;
+  __shared__ int s_i0[CH];
+  __shared__ int s_c0[CH];
+  __shared__ T s_wr[CH][4];
+  __shared__ T s_wc[CH][4];
+  __shared__ T s_u[BB][CH];
 
   const int band = blockIdx.x;
-  const int col = blockIdx.y * T_COLS + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int wcol0 = col - lane;          // the warp's first column
+  const int t0 = blockIdx.y * T_COLS;
+  const int col = t0 + threadIdx.x;
   const int b0 = blockIdx.z * BB;
   const int nb = min(BB, B - b0);
+  const int* cs = col_start + (size_t)band * (G2 + 1);
+  const int* sl = col_slots + (size_t)band * cap;
+  // the tile's slots, c0 in [t0 - 3, t0 + T_COLS - 1], and the column's own
+  const int lo = cs[max(t0 - 3, 0)];
+  const int hi = cs[min(t0 + T_COLS, G2)];
+  const int my_lo = col < G2 ? cs[max(col - 3, 0)] : 0;
+  const int my_hi = col < G2 ? cs[col + 1] : 0;
 
   T acc[T_ROWS][BB];
 #pragma unroll
@@ -68,56 +105,52 @@ interp_T_kernel(const T* __restrict__ us, const int* __restrict__ i0loc,
 #pragma unroll
     for (int b = 0; b < BB; ++b) acc[r][b] = T(0);
 
-  for (int s0 = 0; s0 < cap; s0 += T_CHUNK) {
-    const int cnt = min(T_CHUNK, cap - s0);
+  for (int s0 = lo; s0 < hi; s0 += CH) {
+    const int cnt = min(CH, hi - s0);
     __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += T_COLS) {
-      const size_t slot = (size_t)band * cap + s0 + i;
+    // the chunk's slot numbers first, then their tables (a gather through
+    // the index: all of a thread's loads in flight at once, the weights as
+    // 16- or 32-byte vectors)
+    int ps[CH / T_COLS];
+#pragma unroll
+    for (int k = 0; k < CH / T_COLS; ++k) {
+      const int i = threadIdx.x + k * T_COLS;
+      ps[k] = i < cnt ? sl[s0 + i] : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < CH / T_COLS; ++k) {
+      const int i = threadIdx.x + k * T_COLS;
+      if (ps[k] < 0) continue;
+      const size_t slot = (size_t)band * cap + ps[k];
       s_i0[i] = i0loc[slot];
       s_c0[i] = c0[slot];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s_wr[i][j] = w_row[slot * 4 + j];
-        s_wc[i][j] = w_col[slot * 4 + j];
-      }
+      load4(w_row + slot * 4, s_wr[i]);
+      load4(w_col + slot * 4, s_wc[i]);
 #pragma unroll
       for (int b = 0; b < BB; ++b)
         s_u[b][i] = b < nb
-            ? us[((size_t)(b0 + b) * nbands + band) * cap + s0 + i] : T(0);
+            ? us[((size_t)(b0 + b) * nbands + band) * cap + ps[k]] : T(0);
     }
     __syncthreads();
-    for (int base = 0; base < cnt; base += 32) {
-      // slots whose columns c0..c0+3 meet the warp's wcol0..wcol0+31
-      const int mine = base + lane;
-      bool near = mine < cnt && (unsigned)(wcol0 + 31 - s_c0[mine]) < 35u &&
-                  (unsigned)(s_i0[mine] + 3) < (unsigned)(T_ROWS + 3);
-      if (near) {
-        bool nonzero = false;
+    const int e = min(my_hi, s0 + cnt) - s0;
+    for (int i = max(my_lo, s0) - s0; i < e; ++i) {
+      const unsigned jc = (unsigned)(col - s_c0[i]);
+      if (jc >= 4u) continue;
+      const T wc = s_wc[i][jc];
+      const int i0 = s_i0[i];
+      const T w0 = s_wr[i][0], w1 = s_wr[i][1], w2 = s_wr[i][2],
+              w3 = s_wr[i][3];
+      T u[BB];
 #pragma unroll
-        for (int b = 0; b < BB; ++b) nonzero |= s_u[b][mine] != T(0);
-        near = nonzero;
-      }
-      unsigned hits = __ballot_sync(0xffffffffu, near);
-      while (hits) {
-        const int i = base + __ffs(hits) - 1;
-        hits &= hits - 1;
-        const unsigned jc = (unsigned)(col - s_c0[i]);
-        if (jc >= 4u) continue;
-        const T wc = s_wc[i][jc];
-        const int i0 = s_i0[i];
-        const T w0 = s_wr[i][0], w1 = s_wr[i][1], w2 = s_wr[i][2],
-                w3 = s_wr[i][3];
-        T u[BB];
+      for (int b = 0; b < BB; ++b) u[b] = s_u[b][i];
 #pragma unroll
-        for (int b = 0; b < BB; ++b) u[b] = s_u[b][i];
+      for (int r = 0; r < T_ROWS; ++r) {
+        const int jr = r - i0;
+        if ((unsigned)jr < 4u) {
+          const T wr = jr == 0 ? w0 : jr == 1 ? w1 : jr == 2 ? w2 : w3;
 #pragma unroll
-        for (int r = 0; r < T_ROWS; ++r) {
-          const int jr = r - i0;
-          if ((unsigned)jr < 4u) {
-            const T wr = jr == 0 ? w0 : jr == 1 ? w1 : jr == 2 ? w2 : w3;
-#pragma unroll
-            for (int b = 0; b < BB; ++b) acc[r][b] += (wr * u[b]) * wc;
-          }
+          for (int b = 0; b < BB; ++b)
+            acc[r][b] = add_rn(acc[r][b], mul_rn(mul_rn(wr, u[b]), wc));
         }
       }
     }
@@ -176,12 +209,15 @@ interp_kernel(const T* __restrict__ vs, long long s_batch, long long s_band,
 
 template <typename T, int BB>
 int launch_interp_T_g(const void* us, const void* i0loc, const void* c0,
-                      const void* w_row, const void* w_col, int B, int nbands,
-                      int cap, int G2, void* out, cudaStream_t st) {
+                      const void* w_row, const void* w_col,
+                      const void* col_slots, const void* col_start, int B,
+                      int nbands, int cap, int G2, void* out,
+                      cudaStream_t st) {
   const dim3 grid(nbands, (G2 + T_COLS - 1) / T_COLS, (B + BB - 1) / BB);
   interp_T_kernel<T, BB><<<grid, T_COLS, 0, st>>>(
       (const T*)us, (const int*)i0loc, (const int*)c0, (const T*)w_row,
-      (const T*)w_col, B, nbands, cap, G2, (T*)out);
+      (const T*)w_col, (const int*)col_slots, (const int*)col_start, B,
+      nbands, cap, G2, (T*)out);
   return (int)cudaGetLastError();
 }
 
@@ -189,20 +225,21 @@ int launch_interp_T_g(const void* us, const void* i0loc, const void* c0,
 // in float32 and 4 in float64 (11 x BB sums in registers per thread).
 template <typename T>
 int launch_interp_T(const void* us, const void* i0loc, const void* c0,
-                    const void* w_row, const void* w_col, int B, int nbands,
-                    int cap, int G2, void* out, void* stream) {
+                    const void* w_row, const void* w_col,
+                    const void* col_slots, const void* col_start, int B,
+                    int nbands, int cap, int G2, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (B == 1)
-    return launch_interp_T_g<T, 1>(us, i0loc, c0, w_row, w_col, B, nbands,
-                                   cap, G2, out, st);
+    return launch_interp_T_g<T, 1>(us, i0loc, c0, w_row, w_col, col_slots,
+                                   col_start, B, nbands, cap, G2, out, st);
   if (B == 2)
-    return launch_interp_T_g<T, 2>(us, i0loc, c0, w_row, w_col, B, nbands,
-                                   cap, G2, out, st);
+    return launch_interp_T_g<T, 2>(us, i0loc, c0, w_row, w_col, col_slots,
+                                   col_start, B, nbands, cap, G2, out, st);
   if (B <= 4 || sizeof(T) == 8)
-    return launch_interp_T_g<T, 4>(us, i0loc, c0, w_row, w_col, B, nbands,
-                                   cap, G2, out, st);
-  return launch_interp_T_g<T, 8>(us, i0loc, c0, w_row, w_col, B, nbands,
-                                 cap, G2, out, st);
+    return launch_interp_T_g<T, 4>(us, i0loc, c0, w_row, w_col, col_slots,
+                                   col_start, B, nbands, cap, G2, out, st);
+  return launch_interp_T_g<T, 8>(us, i0loc, c0, w_row, w_col, col_slots,
+                                 col_start, B, nbands, cap, G2, out, st);
 }
 
 template <typename T>
@@ -224,19 +261,21 @@ int launch_interp(const void* vs, long long s_batch, long long s_band,
 extern "C" {
 
 int gpq_interp_T_2d_f32(const void* us, const void* i0loc, const void* c0,
-                        const void* w_row, const void* w_col, int B,
+                        const void* w_row, const void* w_col,
+                        const void* col_slots, const void* col_start, int B,
                         int nbands, int cap, int G2, void* out,
                         void* stream) {
-  return launch_interp_T<float>(us, i0loc, c0, w_row, w_col, B, nbands, cap,
-                                G2, out, stream);
+  return launch_interp_T<float>(us, i0loc, c0, w_row, w_col, col_slots,
+                                col_start, B, nbands, cap, G2, out, stream);
 }
 
 int gpq_interp_T_2d_f64(const void* us, const void* i0loc, const void* c0,
-                        const void* w_row, const void* w_col, int B,
+                        const void* w_row, const void* w_col,
+                        const void* col_slots, const void* col_start, int B,
                         int nbands, int cap, int G2, void* out,
                         void* stream) {
-  return launch_interp_T<double>(us, i0loc, c0, w_row, w_col, B, nbands, cap,
-                                 G2, out, stream);
+  return launch_interp_T<double>(us, i0loc, c0, w_row, w_col, col_slots,
+                                 col_start, B, nbands, cap, G2, out, stream);
 }
 
 int gpq_interp_2d_f32(const void* vs, long long s_batch, long long s_band,

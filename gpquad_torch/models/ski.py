@@ -39,7 +39,8 @@ import torch.nn.functional as F
 
 from ..kernels import make_kernel
 from ..ops.cg import pcg
-from ..ops.cuda_interp import interp_2d, interp_T_2d, interp_T_2d_ref
+from ..ops.cuda_interp import (column_index, interp_2d, interp_T_2d,
+                               interp_T_2d_ref)
 from ..ops.slq import _gauss_quadrature, lanczos_tridiag
 from ..ops.toeplitz import ToeplitzND, make_toeplitz
 from .efgp import _cdtype, resolve_device
@@ -184,7 +185,9 @@ def _fold_band_slabs(slabs, batch, G1: int, G2: int, bh: int):
 class BandedInterpTables(NamedTuple):
     """Point-to-band gather tables for the banded interpolation (d=2):
     points sorted by the stencil's base grid row, padded to a per-band
-    ``cap`` (host-planned)."""
+    ``cap`` (host-planned).  The first seven are gpquad's tables; the last
+    two are the column-sorted slot index the ``interp_T_2d`` kernel walks
+    (``ops/cuda_interp.py`` :func:`column_index`)."""
     pidx: torch.Tensor       # (nbands, cap) int64 original point index
     valid: torch.Tensor      # (nbands, cap) bool
     i0loc: torch.Tensor      # (nbands, cap) int32 local row offset 0..BH-1
@@ -192,12 +195,15 @@ class BandedInterpTables(NamedTuple):
     w_row: torch.Tensor      # (nbands, cap, 4) row cubic weights
     w_col: torch.Tensor      # (nbands, cap, 4) column cubic weights
     inv_slot: torch.Tensor   # (n,) int64 band-major slot of each point
+    col_slots: torch.Tensor  # (nbands, cap) int32 valid slots sorted by c0
+    col_start: torch.Tensor  # (nbands, G2+1) int32 where each c0 starts
 
 
-def _plan_banded_interp(i0, w1d, G1: int, bh: int = _BANDED_BH,
+def _plan_banded_interp(i0, w1d, G1: int, G2: int, bh: int = _BANDED_BH,
                         slack: float = 1.25, device="cpu"):
     """Host-side banded plan (numpy): sort by base row band with a stable
-    argsort, pad band occupancy to a cap."""
+    argsort, pad band occupancy to a cap; then each band's valid slots
+    sorted stably by base column."""
     i0 = np.asarray(i0)
     w1d = np.asarray(w1d)
     n = i0.shape[0]
@@ -217,14 +223,17 @@ def _plan_banded_interp(i0, w1d, G1: int, bh: int = _BANDED_BH,
     slot_ids = np.arange(nbands * cap).reshape(nbands, cap)
     inv_slot[pidx[valid]] = slot_ids[valid]
 
+    c0 = i0[pidx, 1].astype(np.int32)
+    col_slots, col_start = column_index(valid, c0, G2)
+
     def t(a, dtype=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
     return BandedInterpTables(
         pidx=t(pidx, torch.int64), valid=t(valid),
-        i0loc=t(i0loc.astype(np.int32)), c0=t(i0[pidx, 1].astype(np.int32)),
+        i0loc=t(i0loc.astype(np.int32)), c0=t(c0),
         w_row=t(w1d[pidx, 0, :]), w_col=t(w1d[pidx, 1, :]),
-        inv_slot=t(inv_slot))
+        inv_slot=t(inv_slot), col_slots=t(col_slots), col_start=t(col_start))
 
 
 def _banded_plan(i0, w1d, grid_shape, n: int, device):
@@ -234,7 +243,7 @@ def _banded_plan(i0, w1d, grid_shape, n: int, device):
     if len(grid_shape) != 2:
         return None
     banded = _plan_banded_interp(i0.cpu().numpy(), w1d.cpu().numpy(),
-                                 grid_shape[0], device=device)
+                                 grid_shape[0], grid_shape[1], device=device)
     nbands, cap = banded.pidx.shape
     if nbands * cap > 4 * max(n, 1):
         return None
@@ -307,8 +316,8 @@ class SKIOperator:
             * t.valid[None].to(u.dtype)
         if _interp_impl(u.device) == "cuda":
             INTERP_PICKS["cuda"] += 1
-            slabs = interp_T_2d(us, t.i0loc, t.c0, t.w_row, t.w_col, G2=G2,
-                                bh=bh)
+            slabs = interp_T_2d(us, t.i0loc, t.c0, t.w_row, t.w_col,
+                                t.col_slots, t.col_start, G2=G2, bh=bh)
         else:
             INTERP_PICKS["banded"] += 1
             slabs = interp_T_2d_ref(us, t.i0loc, t.c0, t.w_row, t.w_col,

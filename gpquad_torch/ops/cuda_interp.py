@@ -13,20 +13,27 @@ band of ``bh`` grid rows padded to ``cap`` slots):
   grid.
 
 The kernels (``csrc/interp_2d.cu``) are bound by bytes; the source says how
-they stage the work.  ``interp_T_2d`` sums every cell in slot order, with no
-atomics, so its result does not change from run to run.  The wrappers take a
-tensor on the CPU to the plain version (``*_ref``); on a CUDA tensor they
-launch the kernel or raise.  The kernels are built into the NUFFT kernels'
-library (``cuda_nufft.build``: one ``nvcc`` per source, one link).
+they stage the work.  ``interp_T_2d`` walks a column-sorted index of each
+band's valid slots (:func:`column_index`, made with the host plan): each
+slab column reads only the slots whose stencil reaches it and sums every
+cell in the index's order, with no atomics, so its result does not change
+from run to run; :func:`interp_T_2d_sorted_ref` is its plain twin, in the
+same order.  The wrappers take a tensor on the CPU to the plain version
+(``*_ref``, the order-free ``index_add_`` one for ``W^T u``); on a CUDA
+tensor they launch the kernel or raise.  The kernels are built into the
+NUFFT kernels' library (``cuda_nufft.build``: one ``nvcc`` per source, one
+link).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import cuda_nufft
 
 __all__ = ["interp_T_2d", "interp_2d", "interp_T_2d_ref", "interp_2d_ref",
-           "LAUNCHES", "KERNEL_BH"]
+           "interp_T_2d_sorted_ref", "column_index", "LAUNCHES",
+           "KERNEL_BH"]
 
 # Launches of each kernel since the last reset (one wrapper call on a CUDA
 # tensor is one launch).
@@ -54,6 +61,48 @@ def _check_tables(i0loc, c0, w_row, w_col, dtype, device):
             raise TypeError(f"{name} must be {dtype} on {device}, got "
                             f"{t.dtype} on {t.device}")
     return nbands, cap
+
+
+def column_index(valid, c0, G2: int):
+    """The column-sorted slot index of a band plan (host, numpy).
+
+    ``valid`` (nbands, cap) bool, ``c0`` (nbands, cap) base columns.  The
+    listed slots are each band's valid ones whose stencil columns
+    ``c0..c0+3`` meet the slab's ``0..G2-1``.  Returns ``col_slots``
+    (nbands, cap) int32: the listed slots sorted stably by ``c0`` (slot
+    order among equal ``c0``), the rest of the row 0; and ``col_start``
+    (nbands, G2+1) int32: ``col_start[:, c]`` the number of listed slots
+    with ``c0 < c`` for ``c >= 1``, and 0 at ``c = 0``.  Column ``c`` owns the
+    contiguous range ``col_start[max(c-3, 0)] : col_start[c+1]``: the slots
+    with ``c0`` in ``[c-3, c]`` (from ``-3`` for ``c < 3``).
+    ``col_start[:, G2]`` is each band's count."""
+    valid = np.asarray(valid, dtype=bool)
+    c0 = np.asarray(c0).astype(np.int64)
+    nbands, cap = c0.shape
+    listed = valid & (c0 >= -3) & (c0 <= G2 - 1)
+    order = np.argsort(np.where(listed, c0, G2), axis=1, kind="stable")
+    count = listed.sum(axis=1)
+    col_slots = np.where(np.arange(cap)[None, :] < count[:, None], order, 0)
+    # hist[band, c0 + 3] of the listed slots; col_start[c] = #(c0 <= c - 1)
+    hist = np.zeros((nbands, G2 + 3), np.int64)
+    band = np.broadcast_to(np.arange(nbands)[:, None], c0.shape)
+    np.add.at(hist, (band[listed], c0[listed] + 3), 1)
+    col_start = np.zeros((nbands, G2 + 1), np.int64)
+    col_start[:, 1:] = np.cumsum(hist, axis=1)[:, 3:G2 + 3]
+    return col_slots.astype(np.int32), col_start.astype(np.int32)
+
+
+def _check_index(col_slots, col_start, nbands, cap, G2, device):
+    if tuple(col_slots.shape) != (nbands, cap) or \
+            tuple(col_start.shape) != (nbands, G2 + 1):
+        raise ValueError(
+            f"the column index must be col_slots ({nbands}, {cap}) and "
+            f"col_start ({nbands}, {G2 + 1}); got {tuple(col_slots.shape)}, "
+            f"{tuple(col_start.shape)}")
+    for name, t in (("col_slots", col_slots), ("col_start", col_start)):
+        if t.dtype != torch.int32 or t.device != device:
+            raise TypeError(f"{name} must be int32 on {device}, got "
+                            f"{t.dtype} on {t.device}")
 
 
 def _check_kernel_call(t, bh):
@@ -108,6 +157,45 @@ def interp_T_2d_ref(us, i0loc, c0, w_row, w_col, *, G2: int, bh: int):
     return out
 
 
+def interp_T_2d_sorted_ref(us, i0loc, c0, w_row, w_col, col_slots,
+                           col_start, *, G2: int, bh: int):
+    """Plain twin of the ``interp_T_2d`` kernel: the band slabs of ``W^T u``
+    summed in the kernel's order.  Every slab column walks its range of the
+    column-sorted index (:func:`column_index`) from the first slot on, and
+    each slot adds ``(w_row[jr] u[b]) w_col[jc]`` to the cells of its four
+    rows that lie in the slab, in float arithmetic without fused
+    multiply-adds, as the kernel does; so on the same inputs the two agree
+    bit for bit.  Slots not in the index (the padded ones) add nothing."""
+    B, nbands, cap = us.shape
+    rows = bh + 3
+    dev = us.device
+    out = torch.zeros((nbands, B, rows, G2), dtype=us.dtype, device=dev)
+    if G2 == 0 or cap == 0:
+        return out
+    cols = torch.arange(G2, device=dev)
+    starts = col_start.long()
+    lo = starts[:, (cols - 3).clamp(min=0)]            # (nbands, G2)
+    hi = starts[:, cols + 1]
+    band = torch.arange(nbands, device=dev)[:, None]
+    r = torch.arange(rows, device=dev)[None, :, None]
+    slots = col_slots.long()
+    i0l, c0l = i0loc.long(), c0.long()
+    zero = torch.zeros((), dtype=us.dtype, device=dev)
+    for it in range(int((hi - lo).max())):
+        pos = lo + it
+        slot = slots[band, pos.clamp(max=cap - 1)]        # (nbands, G2)
+        jc = cols[None, :] - c0l[band, slot]
+        ok = (pos < hi) & (jc >= 0) & (jc < 4)
+        jr = r - i0l[band, slot][:, None, :]            # (nbands, rows, G2)
+        okr = ok[:, None, :] & (jr >= 0) & (jr < 4)
+        wr = w_row[band[:, :, None], slot[:, None, :], jr.clamp(0, 3)]
+        wc = w_col[band, slot, jc.clamp(0, 3)]          # (nbands, G2)
+        u = us[:, band, slot]                           # (B, nbands, G2)
+        val = (wr[None] * u[:, :, None, :]) * wc[None, :, None, :]
+        out += torch.where(okr[None], val, zero).transpose(0, 1)
+    return out
+
+
 def interp_2d_ref(vs, i0loc, c0, w_row, w_col, *, bh: int):
     """Plain ``W v`` at the band-sorted slots: ``out[band, b, p] = sum_jc
     w_col[jc] sum_jr w_row[jr] vs[b, band, i0+jr, c0+jc]`` (the TPU kernel's
@@ -135,15 +223,18 @@ def interp_2d_ref(vs, i0loc, c0, w_row, w_col, *, bh: int):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def interp_T_2d(us, i0loc, c0, w_row, w_col, *, G2: int, bh: int):
+def interp_T_2d(us, i0loc, c0, w_row, w_col, col_slots, col_start, *,
+                G2: int, bh: int):
     """Band slabs of ``W^T u`` (replaces ``pallas_interp_T_2d``).
 
     ``us`` (B, nbands, cap): point values in band-slot order, zero on the
     padded slots; ``i0loc`` (nbands, cap) int32 local base row (anything on
     padded slots); ``c0`` (nbands, cap) int32 base column; ``w_row``,
-    ``w_col`` (nbands, cap, 4) in ``us``'s dtype.  Returns (nbands, B, bh+3,
-    G2).  A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel."""
+    ``w_col`` (nbands, cap, 4) in ``us``'s dtype; ``col_slots``,
+    ``col_start`` the plan's column-sorted index (:func:`column_index`).
+    Returns (nbands, B, bh+3, G2).  A CPU tensor takes the plain version
+    (``index_add_``); a CUDA tensor launches the kernel, which reads only
+    the indexed slots."""
     if us.ndim != 3 or us.shape[0] < 1:
         raise ValueError(f"us must be (B, nbands, cap) with B >= 1, got "
                          f"{tuple(us.shape)}")
@@ -151,6 +242,7 @@ def interp_T_2d(us, i0loc, c0, w_row, w_col, *, G2: int, bh: int):
     if tuple(us.shape[1:]) != (nbands, cap):
         raise ValueError(f"us must be (B, {nbands}, {cap}), got "
                          f"{tuple(us.shape)}")
+    _check_index(col_slots, col_start, nbands, cap, G2, us.device)
     if us.device.type == "cpu":
         return interp_T_2d_ref(us, i0loc, c0, w_row, w_col, G2=G2, bh=bh)
     _check_kernel_call(us, bh)
@@ -160,10 +252,16 @@ def interp_T_2d(us, i0loc, c0, w_row, w_col, *, G2: int, bh: int):
     if cap == 0:
         return out.zero_()
     us, i0loc, c0 = us.contiguous(), i0loc.contiguous(), c0.contiguous()
-    w_row, w_col = w_row.contiguous(), w_col.contiguous()
+    # the kernel reads a slot's four weights as one vector
+    w_row, w_col = (w if w.is_contiguous()
+                    and w.data_ptr() % (4 * w.element_size()) == 0
+                    else w.clone(memory_format=torch.contiguous_format)
+                    for w in (w_row, w_col))
+    col_slots, col_start = col_slots.contiguous(), col_start.contiguous()
     _launch("interp_T_2d", us, us.data_ptr(), i0loc.data_ptr(),
-            c0.data_ptr(), w_row.data_ptr(), w_col.data_ptr(), B, nbands, cap,
-            G2, out.data_ptr())
+            c0.data_ptr(), w_row.data_ptr(), w_col.data_ptr(),
+            col_slots.data_ptr(), col_start.data_ptr(), B, nbands, cap, G2,
+            out.data_ptr())
     return out
 
 

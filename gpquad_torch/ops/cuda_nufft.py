@@ -14,8 +14,11 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   its mode-tiled twin ``_pallas_nufft2_2d_tiled`` (:369): one kernel takes
   any odd ``mtot``, tiling the modes inside.
 - :func:`nufft1_2d` replaces ``pallas_nufft1_2d`` (:195) and
-  ``_pallas_nufft1_2d_tiled`` (:442): per-block partial sums over chunks of
-  2048 points, then a second pass adds the partials in chunk order.
+  ``_pallas_nufft1_2d_tiled`` (:442): in float32 a GEMM over the points on
+  the tensor cores with an explicit 3xTF32 split, one partial sum per point
+  group (:func:`type1_2d_chunk`), then a second pass adds the partials in
+  group order; :func:`nufft1_2d_3xtf32_ref` is its plain twin.  In float64
+  per-block partial sums over chunks of 2048 points on the CUDA cores.
 - :func:`nufft2_2d_batched` replaces ``pallas_nufft2_2d_batched`` (:838)
   and :func:`nufft1_2d_batched` replaces ``pallas_nufft1_2d_batched``
   (:914): B vectors against the same points in one launch, the phases made
@@ -26,12 +29,13 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   ``_pallas_nufft1_3d_tiled`` (:1118): one vector or a batch in one launch,
   any odd ``mtot`` up to 255 (the TPU's ``_D3_TILED_MAX``).
 
-All are bound by operations on an H100 (fp32 complex multiply-adds outside
-the tensor cores, ~8 mtot^d flops per point and vector, and at d=1 the
-phases themselves); the sources say how the designs stage the work.  The
-wrappers take a tensor on the CPU to the plain version (``*_ref``, the
-phase-matrix backend of ``ops/nufft.py``); on a CUDA tensor they launch the
-kernel or raise.
+All are bound by operations on an H100 (complex multiply-adds, ~8 mtot^d
+flops per point and vector, and at d=1 the phases themselves): fp32 outside
+the tensor cores, but for the d=2 type-1 in float32, which takes three
+TF32 products per real product on the tensor cores; the sources say how the
+designs stage the work.  The wrappers take a tensor on the CPU to the plain
+version (``*_ref``, the phase-matrix backend of ``ops/nufft.py``); on a
+CUDA tensor they launch the kernel or raise.
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/gpquad_torch/`` at the checkout's root (one ``nvcc`` per source, all
@@ -52,13 +56,15 @@ from pathlib import Path
 
 import torch
 
-from .nufft import CUDA_D3_MAX_MTOT, make_phase_nufft
+from .nufft import (CUDA_D3_MAX_MTOT, _k_values, _phase_matrix,
+                    make_phase_nufft)
 
 __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
            "nufft1_2d_batched", "nufft2_2d_batched", "nufft1_2d_batched_ref",
-           "nufft2_2d_batched_ref", "nufft1_3d", "nufft2_3d", "nufft1_3d_ref",
-           "nufft2_3d_ref", "type1_3d_groups", "CudaNUFFT", "LAUNCHES",
+           "nufft2_2d_batched_ref", "nufft1_2d_3xtf32_ref", "nufft1_3d",
+           "nufft2_3d", "nufft1_3d_ref", "nufft2_3d_ref", "type1_2d_chunk",
+           "type1_2d_geometry", "type1_3d_groups", "CudaNUFFT", "LAUNCHES",
            "LAUNCH_WIDTHS", "build", "library_path"]
 
 # Launches of each kernel since the last reset (a launch is one wrapper call
@@ -79,6 +85,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 TYPE1_CHUNK = 2048
 # the d=3 type-1 sums its chunks in groups, enough for about this many blocks
 TYPE1_3D_BLOCKS = 1056
+# The geometry of the float32 d=2 type-1 (csrc/nufft_2d.cu
+# nufft1_2d_tc_kernel), owned here and passed to each launch
+# (type1_2d_geometry), which refuses one it has no instance for: output
+# tiles of 64 rows (one vector's 64 modes j, or two vectors' 32) by 128
+# modes k, or by 32 up to mtot 64 (where a wide tile is mostly padding),
+# runs of 1024 points, and point groups for about this many blocks (four
+# waves of one block on each of the card's 132 SMs)
+TYPE1_2D_ROWS, TYPE1_2D_COLS, TYPE1_2D_RUN = 64, 128, 1024
+TYPE1_2D_NARROW_COLS = 32
+# points a sum of k-steps in fp32 registers (each k-step of 8 points a chain
+# in the tensor cores' accumulators), then added into a run
+TYPE1_2D_STAGE = 256
+TYPE1_2D_BLOCKS = 528
+TYPE1_2D_BATCH_GROUP = 2
 
 _lib = None
 
@@ -161,15 +181,19 @@ def _library():
             t2 = getattr(lib, f"gpq_nufft2_2d_{prec}")
             t2.argtypes = [ptr, ptr, real, i32, i32, i32, ptr, ptr]
             t2.restype = i32
+            # the float32 d=2 type-1 also takes its geometry (rows, cols,
+            # group, stage, run) before the chunk
+            geo = [i32] * 5 if prec == "f32" else []
             t1 = getattr(lib, f"gpq_nufft1_2d_{prec}")
-            t1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr, ptr]
+            t1.argtypes = [ptr, ptr, real, i32, i32, i32, *geo, i32, ptr, ptr,
+                           ptr]
             t1.restype = i32
             b2 = getattr(lib, f"gpq_nufft2_2d_batched_{prec}")
             b2.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
             b2.restype = i32
             b1 = getattr(lib, f"gpq_nufft1_2d_batched_{prec}")
-            b1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, ptr, ptr,
-                           ptr]
+            b1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *geo, i32, ptr,
+                           ptr, ptr]
             b1.restype = i32
             d2 = getattr(lib, f"gpq_nufft2_3d_{prec}")
             d2.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
@@ -180,8 +204,8 @@ def _library():
             d1.restype = i32
             # the SKI interpolation kernels (ops/cuda_interp.py)
             it = getattr(lib, f"gpq_interp_T_2d_{prec}")
-            it.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
-                           ptr]
+            it.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                           i32, ptr, ptr]
             it.restype = i32
             i64 = ctypes.c_longlong
             ip = getattr(lib, f"gpq_interp_2d_{prec}")
@@ -275,6 +299,103 @@ def nufft1_2d_batched_ref(x, vals, h, *, mtot: int, fft_order: bool = False):
     """Plain batched type-1: ``vals`` (B, N) -> complex (B, mtot, mtot)."""
     op = make_phase_nufft(x, h, mtot, fft_order=fft_order)
     return op.type1(vals.reshape(-1, x.shape[0]))
+
+
+def _tf32(a):
+    """``cvt.rna.tf32.f32`` bit for bit: round float32 ``a`` to 10 mantissa
+    bits, to nearest with ties away from zero (add half of the dropped 13
+    bits' range to the magnitude, then clear them)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split3(a):
+    big = _tf32(a)
+    return big, _tf32(a - big)
+
+
+def nufft1_2d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
+                         chunk: int | None = None, passes: int = 3):
+    """Plain twin of the float32 d=2 type-1 kernel (csrc/nufft_2d.cu
+    ``nufft1_2d_tc_kernel``), in float32 with its tiling algebra:
+    ``out[b,j,k] = sum_n v[b,n] e1(n,j) e2(n,k)`` as the real products
+    ``Re = Ar^T Er + Ai^T (-Ei)``, ``Im = Ar^T Ei + Ai^T Er`` over k-steps of
+    8 points, each operand split into ``big = tf32(a)`` and
+    ``small = tf32(a - big)`` (``cvt.rna`` emulated bit for bit) and each
+    product taken as small*big + big*small + big*big in that order, the six
+    products of a k-step summed from zero (the kernel's chain of mma); the
+    k-steps of :data:`TYPE1_2D_STAGE` points added in fp32, those sums of a
+    run of :data:`TYPE1_2D_RUN` points added in fp32, the
+    runs into the group's total, the groups (``chunk`` points each, by
+    default :func:`type1_2d_chunk`'s) in group order.  ``passes=1`` keeps
+    big*big alone: plain TF32, the control the split is held against.
+
+    ``vals`` (N,) or (B, N); returns complex64 (mtot, mtot) or (B, mtot,
+    mtot).  The tensor cores' own rounding inside an 8-point product is not
+    emulated (here a float32 matmul).  For the tests on the CPU only."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    x = x.to(torch.float32)
+    n = x.shape[0]
+    single = vals.ndim == 1
+    V = vals.reshape(-1, n).to(torch.complex64)
+    B = V.shape[0]
+    if chunk is None:
+        chunk = type1_2d_chunk(n, mtot, B, batched=not single)
+    if chunk % TYPE1_2D_RUN:
+        raise ValueError(f"chunk must be a multiple of {TYPE1_2D_RUN}")
+    hq = torch.tensor(h, dtype=torch.float32)
+    k = _k_values(mtot, fft_order, torch.float32, x.device)
+    e1 = _phase_matrix(x[:, 0] * hq, k, torch.complex64)    # (N, m)
+    e2 = _phase_matrix(x[:, 1] * hq, k, torch.complex64)
+    n8 = -(-n // 8) * 8
+    pad = (0, 0, 0, n8 - n)
+    A = torch.nn.functional.pad(V[:, :, None] * e1[None], pad + (0, 0))
+    E = torch.nn.functional.pad(e2, pad)
+    steps = n8 // 8
+    order = ((1, 0), (0, 1), (0, 0)) if passes == 3 else ((0, 0),)
+
+    def products(s0, s1):
+        """The six real 8-point products of each k-step s0..s1-1, in the
+        kernel's order, each (B, s1 - s0, m, m) complex (Re and Im parts
+        from the split (B, steps, 8, m) operands; -Ei in the real part)."""
+        a_, e_ = A[:, s0 * 8:s1 * 8], E[s0 * 8:s1 * 8]
+        ar, ai = (_split3(t.reshape(B, s1 - s0, 8, mtot))
+                  for t in (a_.real, a_.imag))
+        er, ei = (_split3(t.reshape(s1 - s0, 8, mtot))
+                  for t in (e_.real, e_.imag))
+        nei = tuple(-t for t in ei)
+
+        def mm(a, b):
+            return torch.matmul(a.transpose(-1, -2), b)
+        out_ = []
+        for i, j in order:
+            out_.append(torch.complex(mm(ar[i], er[j]), mm(ar[i], ei[j])))
+            out_.append(torch.complex(mm(ai[i], nei[j]), mm(ai[i], er[j])))
+        return out_
+
+    out = torch.zeros((B, mtot, mtot), dtype=torch.complex64,
+                      device=x.device)
+    run_steps, group_steps = TYPE1_2D_RUN // 8, chunk // 8
+    stage_steps = TYPE1_2D_STAGE // 8
+    for g0 in range(0, steps, group_steps):
+        tot = torch.zeros_like(out)
+        for r0 in range(g0, min(steps, g0 + group_steps), run_steps):
+            r1 = min(steps, r0 + run_steps)
+            run = torch.zeros_like(out)
+            for st0 in range(r0, r1, stage_steps):
+                st1 = min(r1, st0 + stage_steps)
+                prods = products(st0, st1)
+                acc = torch.zeros_like(out)
+                for s_ in range(st1 - st0):
+                    d = prods[0][:, s_]
+                    for p in prods[1:]:
+                        d = d + p[:, s_]
+                    acc = acc + d
+                run = run + acc
+            tot = tot + run
+        out = out + tot
+    return out[0] if single else out
 
 
 def nufft2_3d_ref(x, f, h, *, mtot: int, fft_order: bool = False):
@@ -391,7 +512,9 @@ def nufft1_2d(x, vals, h, *, mtot: int, fft_order: bool = False):
 
     ``x`` (N, 2) real, ``vals`` complex (N,); returns complex
     (mtot, mtot).  A CPU tensor takes the plain version; a CUDA tensor
-    launches the two-stage kernel."""
+    launches the two-stage kernel (float32: point-group partials on the
+    tensor cores, scratch of ceil(N / :func:`type1_2d_chunk`) * mtot^2
+    values; float64: 2048-point chunk partials)."""
     _check(x, mtot)
     if x.device.type == "cpu":
         return nufft1_2d_ref(x, vals, h, mtot=mtot, fft_order=fft_order)
@@ -405,13 +528,53 @@ def nufft1_2d(x, vals, h, *, mtot: int, fft_order: bool = False):
     x = x.contiguous()
     vals = vals.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
-    nchunk = -(-n // TYPE1_CHUNK)
-    partial = torch.empty((nchunk, mtot, mtot), dtype=cdtype, device=x.device)
+    geo = _type1_2d_launch_geometry(x, n, mtot, 1, False)
+    partial = torch.empty((-(-n // geo[-1]), mtot, mtot), dtype=cdtype,
+                          device=x.device)
     out = torch.empty((mtot, mtot), dtype=cdtype, device=x.device)
     _launch("nufft1_2d", x, x.data_ptr(), vals.data_ptr(), h, n, mtot,
-            int(fft_order), TYPE1_CHUNK, partial.data_ptr(), out.data_ptr(),
+            int(fft_order), *geo, partial.data_ptr(), out.data_ptr(),
             mtot=mtot)
     return out
+
+
+def type1_2d_geometry(n: int, mtot: int, B: int = 1,
+                      batched: bool = False) -> tuple[int, ...]:
+    """The float32 d=2 type-1's launch geometry: ``(rows, cols, group,
+    stage, run, chunk)``, the arguments its launch takes before the scratch.
+
+    The output tile is :data:`TYPE1_2D_ROWS` rows (``group`` vectors of
+    ``rows / group`` modes j) by ``cols`` modes k: :data:`TYPE1_2D_COLS`,
+    or :data:`TYPE1_2D_NARROW_COLS` where ``mtot`` is at most twice that.
+    A register sum takes ``stage`` points and a run ``run``.  The kernel's
+    blocks are output tiles x point groups x batch groups; the groups of
+    ``chunk`` points (a multiple of ``run``) are as many as fill about
+    :data:`TYPE1_2D_BLOCKS` blocks without passing it, never an empty one.
+    The scratch holds ceil(n / chunk) * B * mtot^2 values."""
+    g = TYPE1_2D_BATCH_GROUP if batched else 1
+    cols = (TYPE1_2D_NARROW_COLS if mtot <= 2 * TYPE1_2D_NARROW_COLS
+            else TYPE1_2D_COLS)
+    tiles = (-(-mtot // (TYPE1_2D_ROWS // g)) * -(-mtot // cols)
+             * -(-B // g))
+    nrun = max(1, -(-n // TYPE1_2D_RUN))
+    groups = min(nrun, max(1, TYPE1_2D_BLOCKS // tiles))
+    chunk = -(-nrun // groups) * TYPE1_2D_RUN
+    return TYPE1_2D_ROWS, cols, g, TYPE1_2D_STAGE, TYPE1_2D_RUN, chunk
+
+
+def type1_2d_chunk(n: int, mtot: int, B: int = 1,
+                   batched: bool = False) -> int:
+    """Points per group of the float32 d=2 type-1 (:func:`type1_2d_geometry`)."""
+    return type1_2d_geometry(n, mtot, B, batched)[-1]
+
+
+def _type1_2d_launch_geometry(x, n, mtot, B, batched):
+    """What the d=2 type-1 launch takes before its scratch, in x's
+    precision: the float32 kernel's geometry, or the float64 kernel's
+    2048-point chunk.  The last entry is the points a partial sum."""
+    if x.dtype == torch.float32:
+        return type1_2d_geometry(n, mtot, B, batched)
+    return (TYPE1_CHUNK,)
 
 
 def _check_batch(B: int, mtot: int, d: int = 2, groups: int = 1):
@@ -458,9 +621,9 @@ def nufft1_2d_batched(x, vals, h, *, mtot: int, fft_order: bool = False):
     """Batched fused type-1 (replaces ``pallas_nufft1_2d_batched``).
 
     ``vals`` complex (B, N), B >= 1; returns complex (B, mtot, mtot) from
-    one launch (two kernels: per-chunk partials, then the chunk-order sum;
-    scratch of nchunk * B * mtot^2 values).  A CPU tensor takes the plain
-    version."""
+    one launch (two kernels: per-group partials, then the group-order sum;
+    scratch of groups * B * mtot^2 values, the groups as
+    :func:`nufft1_2d`'s).  A CPU tensor takes the plain version."""
     _check(x, mtot)
     n = x.shape[0]
     if vals.ndim != 2 or vals.shape[1] != n:
@@ -477,13 +640,13 @@ def nufft1_2d_batched(x, vals, h, *, mtot: int, fft_order: bool = False):
     x = x.contiguous()
     vals = vals.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
-    nchunk = -(-n // TYPE1_CHUNK)
-    partial = torch.empty((nchunk, B, mtot, mtot), dtype=cdtype,
+    geo = _type1_2d_launch_geometry(x, n, mtot, B, True)
+    partial = torch.empty((-(-n // geo[-1]), B, mtot, mtot), dtype=cdtype,
                           device=x.device)
     out = torch.empty((B, mtot, mtot), dtype=cdtype, device=x.device)
     _launch("nufft1_2d_batched", x, x.data_ptr(), vals.data_ptr(), h, n, mtot,
-            B, int(fft_order), TYPE1_CHUNK, partial.data_ptr(),
-            out.data_ptr(), mtot=mtot)
+            B, int(fft_order), *geo, partial.data_ptr(), out.data_ptr(),
+            mtot=mtot)
     return out
 
 

@@ -527,13 +527,14 @@ def test_interp_kernels_match_plain_on_card(cuda_device, dtype, B, n, grid):
     nbands, cap = t.pidx.shape
     tabs64 = (t.i0loc, t.c0, t.w_row.double(), t.w_col.double())
     tabs = (t.i0loc, t.c0, t.w_row, t.w_col)
+    idx = (t.col_slots, t.col_start)
     us = (torch.as_tensor(rng.normal(size=(B, nbands, cap)),
                           device=cuda_device) * t.valid).to(dtype)
     v = torch.as_tensor(rng.normal(size=(B, G1, G2)), device=cuda_device)
     vp = torch.nn.functional.pad(v, (0, 0, 0, nbands * 8 + 3 - G1)).to(dtype)
     vs = vp.as_strided((B, nbands, 11, G2), (vp.stride(0), 8 * G2, G2, 1))
     before = dict(cuda_interp.LAUNCHES)
-    got_T = cuda_interp.interp_T_2d(us, *tabs, G2=G2, bh=8)
+    got_T = cuda_interp.interp_T_2d(us, *tabs, *idx, G2=G2, bh=8)
     got = cuda_interp.interp_2d(vs, *tabs, bh=8)
     torch.cuda.synchronize()
     assert cuda_interp.LAUNCHES["interp_T_2d"] == before["interp_T_2d"] + 1
@@ -545,9 +546,12 @@ def test_interp_kernels_match_plain_on_card(cuda_device, dtype, B, n, grid):
     assert _rel(got_T.double(), ref_T) < bar
     mask = t.valid[:, None, :].expand_as(ref)
     assert _rel(got.double()[mask], ref[mask]) < bar
-    # the same sums in the same order on every launch
-    assert torch.equal(cuda_interp.interp_T_2d(us, *tabs, G2=G2, bh=8),
+    # the same sums in the same order on every launch, and the order of the
+    # plain twin's column-sorted walk, bit for bit
+    assert torch.equal(cuda_interp.interp_T_2d(us, *tabs, *idx, G2=G2, bh=8),
                        got_T)
+    assert torch.equal(cuda_interp.interp_T_2d_sorted_ref(
+        us, *tabs, *idx, G2=G2, bh=8), got_T)
 
 
 @pytest.mark.cuda
@@ -568,16 +572,94 @@ def test_interp_kernels_padded_tables_on_card(cuda_device):
     tabs = (torch.as_tensor(i0, device=dev), torch.as_tensor(c0, device=dev),
             torch.as_tensor(rng.normal(size=(nbands, cap, 4)), device=dev),
             torch.as_tensor(rng.normal(size=(nbands, cap, 4)), device=dev))
+    idx = tuple(torch.as_tensor(a, device=dev)
+                for a in cuda_interp.column_index(valid, c0, G2))
     us = torch.as_tensor(rng.normal(size=(B, nbands, cap)) * valid,
                          device=dev)
     vs = torch.as_tensor(rng.normal(size=(B, nbands, 11, G2)), device=dev)
-    got_T = cuda_interp.interp_T_2d(us, *tabs, G2=G2, bh=8)
+    got_T = cuda_interp.interp_T_2d(us, *tabs, *idx, G2=G2, bh=8)
     got = cuda_interp.interp_2d(vs, *tabs, bh=8)
     ref_T = cuda_interp.interp_T_2d_ref(us, *tabs, G2=G2, bh=8)
     ref = cuda_interp.interp_2d_ref(vs, *tabs, bh=8)
     assert _rel(got_T, ref_T) < 1e-12
     assert bool(torch.isfinite(got).all())
     assert _rel(got[:, :, :500], ref[:, :, :500]) < 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (1, 5000, 29, 0.65, False),
+    (1, 30_000, 339, 0.97, True),
+    (3, 5000, 57, 0.65, True),
+    (5, 20_000, 261, 0.011, False),
+])
+def test_type1_tensor_core_kernel_on_card(cuda_device, B, n, mtot, h,
+                                          fft_order):
+    """The float32 d=2 type-1 on the tensor cores: within max(2x the float32
+    plain version's error, 1e-6) of max|ref| from float64, as its 3xTF32
+    twin, and within twice that of the twin; bit for bit the same on a
+    second launch; its scratch (the peak allocated in the call, less the
+    output and the allocator's rounding) no more than groups x B x mtot^2
+    partials."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 2)),
+                        device=cuda_device).float()
+    V = torch.as_tensor(rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n)),
+                        device=cuda_device).to(torch.complex64)
+    hq = float(torch.tensor(h, dtype=torch.float32))
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    batched = B > 1
+
+    def call():
+        return (nufft1_2d_batched(x, V, hq, **kw) if batched
+                else nufft1_2d(x, V[0], hq, **kw)[None])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    groups = -(-n // cuda_nufft.type1_2d_chunk(n, mtot, B, batched))
+    # the caching allocator rounds each of the two blocks (the partials,
+    # the output) up to at most 2 MiB
+    assert peak <= (groups + 1) * B * mtot ** 2 * 8 + 2 * 2 ** 21
+    assert torch.equal(call(), got)
+    ref = nufft1_2d_batched_ref(x.double(), V.to(torch.complex128), hq, **kw)
+    scale = float(ref.abs().max())
+
+    def err(a):
+        return float((a.to(torch.complex128) - ref).abs().max()) / scale
+    bar = max(2 * err(nufft1_2d_batched_ref(x, V, hq, **kw)), 1e-6)
+    assert err(got) <= bar
+    twin = cuda_nufft.nufft1_2d_3xtf32_ref(x.cpu(), V.cpu(), hq,
+                                           chunk=cuda_nufft.type1_2d_chunk(
+                                               n, mtot, B, batched), **kw)
+    assert float((got.cpu() - twin).abs().max()) <= 2 * bar * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [
+    (0, 32), (1, 64), (2, 2), (3, 48), (4, 1000), (5, 1536)])
+def test_type1_2d_launch_refuses_foreign_geometry(cuda_device, field, value):
+    """The float32 d=2 type-1's launch takes its geometry from
+    ``type1_2d_geometry`` and refuses one it has no instance for (rows,
+    cols, group, stage, run or chunk changed): a CUDA error is raised, and
+    nothing is written."""
+    n, mtot = 4096, 29
+    x = torch.rand((n, 2), device=cuda_device)
+    v = torch.ones(n, dtype=torch.complex64, device=cuda_device)
+    geo = list(cuda_nufft.type1_2d_geometry(n, mtot))
+    geo[field] = value
+    partial = torch.zeros((-(-n // geo[-1]) + 1, mtot, mtot),
+                          dtype=torch.complex64, device=cuda_device)
+    out = torch.zeros((mtot, mtot), dtype=torch.complex64,
+                      device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft1_2d", x, x.data_ptr(), v.data_ptr(), 0.5,
+                           n, mtot, 0, *geo, partial.data_ptr(),
+                           out.data_ptr(), mtot=mtot)
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
 
 
 @pytest.mark.cuda

@@ -8,6 +8,12 @@ tests/test_pallas_nufft.py uses between the Pallas and the MXU paths (two
 f32 evaluations of the same sums, with different sin/cos and summation
 order).  The kernels themselves run in tests/test_torch_cuda_kernels.py
 on the card.
+
+The float32 type-1's tensor-core twin ``nufft1_2d_3xtf32_ref`` is held
+against the float64 plain version at max(2x the float32 plain version's own
+error, 1e-6) of max|ref| (the same bar chip_smoke.py holds the kernel to),
+a plain-TF32 control (big*big alone) must read above that bar, and the twin
+must match the Pallas kernels at the 5e-5 above.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,10 +21,14 @@ import pytest
 import torch
 
 from gpquad.ops.pallas_nufft import (_MODE_TILE, pallas_nufft1_2d,
+                                     pallas_nufft1_2d_batched,
                                      pallas_nufft2_2d)
 from gpquad_torch.ops import cuda_nufft
-from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_2d, nufft1_2d_ref,
-                                         nufft2_2d, nufft2_2d_ref)
+from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_2d,
+                                         nufft1_2d_3xtf32_ref,
+                                         nufft1_2d_batched_ref, nufft1_2d_ref,
+                                         nufft2_2d, nufft2_2d_ref,
+                                         type1_2d_chunk)
 
 # The parity problems are small: torch's intra-op threads cost more than
 # they give on them, most of all beside other test processes.
@@ -128,3 +138,91 @@ def test_cuda_backend_batches_over_single_kernel(rng):
         got2[1, 2].numpy(),
         nufft2_2d_ref(x, F[1, 2], h, mtot=mtot).numpy(), rtol=1e-13,
         atol=1e-12)
+
+
+# mtot 29 and 57 as the headline's type-1 calls, 261 past the TPU's 256-mode
+# block (the mode-tiled Pallas kernel); chunk 2048 puts two runs of 1024
+# points in a group and n = 5000 three groups, the last one short
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n,mtot,h,fft_order", [
+    (5000, 29, 0.65, False),
+    (3000, 57, 0.65, True),
+    (400, _MODE_TILE + 5, 0.011, False),
+])
+def test_3xtf32_twin_meets_the_split_bar(rng, B, n, mtot, h, fft_order):
+    x = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    v = (rng.normal(size=(B, n))
+         + 1j * rng.normal(size=(B, n))).astype(np.complex64)
+    hq = float(np.float32(h))
+    xt, vt = torch.as_tensor(x), torch.as_tensor(v)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    ref = nufft1_2d_batched_ref(xt.double(), vt.to(torch.complex128), hq,
+                                **kw).numpy()
+    scale = np.max(np.abs(ref))
+
+    def err(a):
+        return np.max(np.abs(a.reshape(ref.shape) - ref)) / scale
+    plain = nufft1_2d_batched_ref(xt, vt, hq, **kw).numpy()
+    bar = max(2 * err(plain), 1e-6)
+    arg = vt[0] if B == 1 else vt
+    twin = nufft1_2d_3xtf32_ref(xt, arg, hq, chunk=2048, **kw).numpy()
+    assert twin.shape == ((mtot, mtot) if B == 1 else (B, mtot, mtot))
+    assert err(twin) <= bar
+    control = nufft1_2d_3xtf32_ref(xt, arg, hq, chunk=2048, passes=1,
+                                   **kw).numpy()
+    assert err(control) > bar
+    xj, vj = jnp.asarray(x), jnp.asarray(v)
+    if B == 1:
+        want = pallas_nufft1_2d(xj, vj[0], hq, tile=256, **kw)
+    elif mtot <= _MODE_TILE:
+        want = pallas_nufft1_2d_batched(xj, vj, hq, tile=256, **kw)
+    else:       # gpquad maps the mode-tiled function over a wide batch
+        want = np.stack([pallas_nufft1_2d(xj, vj[b], hq, tile=256, **kw)
+                         for b in range(B)])
+    assert _rel(twin, np.asarray(want)) < 5e-5
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """The twin's TF32 rounding keeps 10 mantissa bits, to nearest with
+    ties away from zero, on both signs; the split's small part carries the
+    rest."""
+    ulp = 2.0 ** -10
+    a = np.array([1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, 1 + 1.5 * ulp,
+                  -(1 + ulp / 2), 3.0, 0.0, -2 ** -130], np.float32)
+    want = np.array([1 + ulp, 1.0, 1 + 2 * ulp, -(1 + ulp), 3.0, 0.0,
+                     -2 ** -130], np.float32)
+    got = cuda_nufft._tf32(torch.as_tensor(a)).numpy()
+    assert np.array_equal(got, want)
+    z = torch.as_tensor(np.random.default_rng(1).normal(size=1000)
+                        .astype(np.float32))
+    big, small = cuda_nufft._split3(z)
+    for t in (big, small):
+        assert not np.any(t.numpy().view(np.int32) & 0x1FFF)
+    rest = (z.double() - big.double() - small.double()).abs()
+    assert float((rest / z.double().abs()).max()) < 2.0 ** -21
+
+
+@pytest.mark.parametrize("n,mtot,B,batched", [
+    (100_000, 29, 1, False), (1_000_000, 677, 1, False),
+    (1_000_000, 339, 10, True), (1_000_000, 339, 5, True),
+    (1_000, 339, 1, False), (1, 3, 1, False), (100_000, 57, 10, True)])
+def test_type1_2d_groups(n, mtot, B, batched):
+    """The float32 type-1's geometry and point groups: the narrow tile up
+    to mtot 64, whole runs of whole register sums, none empty, at most
+    TYPE1_2D_BLOCKS blocks where the points allow, and the scratch at the
+    scale lag table (n 1e6, mtot 677) under 256 MB."""
+    rows, cols, g, stage, run, chunk = cuda_nufft.type1_2d_geometry(
+        n, mtot, B, batched)
+    assert chunk == type1_2d_chunk(n, mtot, B, batched)
+    assert (rows, g, stage, run) == (
+        cuda_nufft.TYPE1_2D_ROWS, cuda_nufft.TYPE1_2D_BATCH_GROUP
+        if batched else 1, cuda_nufft.TYPE1_2D_STAGE, cuda_nufft.TYPE1_2D_RUN)
+    assert cols == (32 if mtot <= 64 else 128)
+    assert run % stage == 0 and stage % 32 == 0
+    assert chunk % run == 0
+    groups = -(-n // chunk)
+    assert (groups - 1) * chunk < n
+    tiles = -(-mtot // (rows // g)) * -(-mtot // cols) * -(-B // g)
+    assert tiles * groups <= max(tiles, cuda_nufft.TYPE1_2D_BLOCKS)
+    if (n, mtot) == (1_000_000, 677):
+        assert groups * B * mtot ** 2 * 8 < 256e6

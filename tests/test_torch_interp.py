@@ -5,7 +5,10 @@ which run in interpret mode off the TPU (pallas_interp.py:118-119), on the
 band tables of gpquad's own plan; the wrappers' dispatch on the CPU.
 
 Tolerance 1e-10 * max|ref| in float64 (the same sums in another order, as
-tests/test_ski.py holds the Pallas kernels against the scatter path).
+tests/test_ski.py holds the Pallas kernels against the scatter path), and
+1e-12 between the two plain versions of ``W^T u`` (``index_add_`` and the
+kernel's twin ``interp_T_2d_sorted_ref``, which walks the column-sorted slot
+index in the kernel's order).
 ``W^T u`` is compared on every slab cell, padded slots included (their
 tables belong to a point of another band and their u is zero); ``W v`` on
 the valid slots only (pallas_interp.py:250-252).
@@ -19,8 +22,12 @@ from gpquad.kernels import SquaredExponential as JaxSE
 from gpquad.models.ski import build_ski_operator as jax_build
 from gpquad.ops.pallas_interp import pallas_interp_2d, pallas_interp_T_2d
 from gpquad_torch.ops import cuda_interp
-from gpquad_torch.ops.cuda_interp import (interp_2d, interp_2d_ref,
-                                          interp_T_2d, interp_T_2d_ref)
+from gpquad_torch import make_kernel
+from gpquad_torch.models import ski as torch_ski
+from gpquad_torch.ops.cuda_interp import (column_index, interp_2d,
+                                          interp_2d_ref, interp_T_2d,
+                                          interp_T_2d_ref,
+                                          interp_T_2d_sorted_ref)
 
 torch.set_num_threads(1)
 
@@ -45,6 +52,10 @@ def _plan(rng, n, grid):
 def _torch_tables(tabs):
     return (torch.as_tensor(tabs["i0loc"]), torch.as_tensor(tabs["c0"]),
             torch.as_tensor(tabs["w_row"]), torch.as_tensor(tabs["w_col"]))
+
+
+def _torch_index(valid, c0, G2):
+    return tuple(torch.as_tensor(a) for a in column_index(valid, c0, G2))
 
 
 # (48, 33) + 4: G2 37 pads the TPU's column tile, G1 52 folds 7 bands;
@@ -80,6 +91,73 @@ def test_plain_versions_match_pallas(rng, n, grid, B):
     assert got.shape == want.shape == (nbands, B, cap)
     assert _rel(got[np.broadcast_to(valid[:, None, :], got.shape)],
                 want[np.broadcast_to(valid[:, None, :], want.shape)]) < 1e-10
+
+
+@pytest.mark.parametrize("n,grid,B", [(4000, (48, 33), 3),
+                                      (3000, (8, 600), 2),
+                                      (2500, (40, 40), 21),
+                                      (2500, (40, 40), 40)])
+def test_sorted_twin_matches_plain_and_pallas(rng, n, grid, B):
+    """The kernel's twin (the column-sorted walk) equals the index_add_
+    plain version to 1e-12 and the Pallas kernel to 1e-10 of max|ref| in
+    float64, on gpquad's own band tables indexed by column_index."""
+    op, tabs = _plan(rng, n, grid)
+    G2 = op.grid_shape[1]
+    nbands, cap = tabs["pidx"].shape
+    u = rng.normal(size=(B, n))
+    us = u[:, tabs["pidx"].reshape(-1)].reshape(B, nbands, cap) * tabs["valid"]
+    tt = _torch_tables(tabs)
+    idx = _torch_index(tabs["valid"], tabs["c0"], G2)
+    got = interp_T_2d_sorted_ref(torch.as_tensor(us), *tt, *idx, G2=G2,
+                                 bh=BH).numpy()
+    plain = interp_T_2d_ref(torch.as_tensor(us), *tt, G2=G2, bh=BH).numpy()
+    assert _rel(got, plain) < 1e-12
+    want = np.asarray(pallas_interp_T_2d(
+        jnp.asarray(us), jnp.asarray(tabs["i0loc"]), jnp.asarray(tabs["c0"]),
+        jnp.asarray(tabs["w_row"]), jnp.asarray(tabs["w_col"]), G2=G2,
+        bh=BH, interpret=True))
+    assert _rel(got, want) < 1e-10
+
+
+@pytest.mark.parametrize("n,grid", [(4000, (48, 33)), (3000, (8, 600)),
+                                    (2500, (40, 40))])
+def test_column_index_plan(rng, n, grid):
+    """The port's plan carries gpquad's tables unchanged and a column index
+    of them: each valid slot lies in exactly the column ranges of
+    c0..c0+3 (clipped to the slab), no padded slot in any, and slots of
+    equal c0 keep their slot order (a stable sort)."""
+    x = rng.uniform(-1, 1, (n, 2))
+    kern = JaxSE(lengthscale=0.3, variance=1.0, dimension=2)
+    bounds = ((-1.0, 1.0), (-1.0, 1.0))
+    op = jax_build(jnp.asarray(x), kern, grid, bounds)
+    tabs = {k: np.array(getattr(op.banded, k)) for k in op.banded._fields}
+    G2 = op.grid_shape[1]
+    plan = torch_ski.build_ski_operator(
+        torch.as_tensor(x), make_kernel("SE", 2, lengthscale=0.3,
+                                        variance=1.0), grid, bounds).banded
+    for field in tabs:
+        assert np.array_equal(getattr(plan, field).numpy(), tabs[field]), \
+            field
+    slots, start = plan.col_slots.numpy(), plan.col_start.numpy()
+    valid, c0 = tabs["valid"], tabs["c0"]
+    assert start.shape == (valid.shape[0], G2 + 1)
+    for b in range(valid.shape[0]):
+        count = start[b, G2]
+        assert count == valid[b].sum()
+        listed = slots[b, :count]
+        assert np.array_equal(np.sort(listed), np.flatnonzero(valid[b]))
+        keys = c0[b, listed]
+        assert np.all(np.diff(keys) >= 0)
+        same = np.diff(keys) == 0
+        assert np.all(np.diff(listed)[same] > 0)        # stable
+        hits = {}
+        for c in range(G2):
+            for s in listed[start[b, max(c - 3, 0)]:start[b, c + 1]]:
+                hits.setdefault(s, set()).add(c)
+        for s in np.flatnonzero(valid[b]):
+            cols = set(range(max(c0[b, s], 0), min(c0[b, s] + 4, G2)))
+            assert hits.get(s, set()) == cols
+        assert not set(hits) - set(np.flatnonzero(valid[b]))
 
 
 def test_strided_slab_view_equals_gathered_copy(rng):
@@ -118,14 +196,21 @@ def test_padded_slots_with_wild_tables(rng):
     jt = (jnp.asarray(i0), jnp.asarray(c0), jnp.asarray(wr), jnp.asarray(wc))
     tt = (torch.as_tensor(i0), torch.as_tensor(c0), torch.as_tensor(wr),
           torch.as_tensor(wc))
+    idx = _torch_index(valid, c0, G2)
     want_T = np.asarray(pallas_interp_T_2d(jnp.asarray(us), *jt, G2=G2,
                                            bh=BH, interpret=True))
-    got_T = interp_T_2d(torch.as_tensor(us), *tt, G2=G2, bh=BH).numpy()
+    got_T = interp_T_2d(torch.as_tensor(us), *tt, *idx, G2=G2,
+                        bh=BH).numpy()
     assert _rel(got_T, want_T) < 1e-10
     # dropping the padded slots entirely changes nothing
     ref = interp_T_2d_ref(torch.as_tensor(us)[:, :, :30],
                           *(t[:, :30] for t in tt), G2=G2, bh=BH)
     assert np.max(np.abs(got_T - ref.numpy())) < 1e-12
+    # the kernel's twin: the index leaves the padded slots out
+    sorted_T = interp_T_2d_sorted_ref(torch.as_tensor(us), *tt, *idx, G2=G2,
+                                      bh=BH).numpy()
+    assert np.max(np.abs(sorted_T - ref.numpy())) < 1e-12
+    assert _rel(sorted_T, want_T) < 1e-10
     want = np.asarray(pallas_interp_2d(jnp.asarray(vs), *jt, bh=BH,
                                        interpret=True))
     got = interp_2d(torch.as_tensor(vs), *tt, bh=BH).numpy()
@@ -148,8 +233,10 @@ def test_cpu_tensors_take_the_plain_versions(rng, monkeypatch):
     tt = (torch.zeros((nbands, cap), dtype=torch.int32),
           torch.zeros((nbands, cap), dtype=torch.int32),
           torch.ones((nbands, cap, 4)), torch.ones((nbands, cap, 4)))
-    out = cuda_interp.interp_T_2d(torch.ones((1, nbands, cap)), *tt, G2=G2,
-                                  bh=bh)
+    idx = _torch_index(np.ones((nbands, cap), bool),
+                       np.zeros((nbands, cap), np.int32), G2)
+    out = cuda_interp.interp_T_2d(torch.ones((1, nbands, cap)), *tt, *idx,
+                                  G2=G2, bh=bh)
     assert out.shape == (nbands, 1, bh + 3, G2)
     assert float(out.sum()) == 16.0 * nbands * cap
     pts = cuda_interp.interp_2d(torch.ones((1, nbands, bh + 3, G2)), *tt,
@@ -163,17 +250,25 @@ def test_wrappers_validate_inputs():
     nbands, cap, G2 = 2, 16, 12
     i0 = torch.zeros((nbands, cap), dtype=torch.int32)
     w = torch.ones((nbands, cap, 4))
+    st = torch.zeros((nbands, G2 + 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="B >= 1"):
-        interp_T_2d(torch.ones((0, nbands, cap)), i0, i0, w, w, G2=G2, bh=BH)
-    with pytest.raises(ValueError, match=r"\(B, 2, 16\)"):
-        interp_T_2d(torch.ones((1, nbands, cap + 1)), i0, i0, w, w, G2=G2,
-                    bh=BH)
-    with pytest.raises(TypeError, match="int32"):
-        interp_T_2d(torch.ones((1, nbands, cap)), i0.long(), i0, w, w, G2=G2,
-                    bh=BH)
-    with pytest.raises(TypeError, match="w_col"):
-        interp_T_2d(torch.ones((1, nbands, cap)), i0, i0, w, w.double(),
+        interp_T_2d(torch.ones((0, nbands, cap)), i0, i0, w, w, i0, st,
                     G2=G2, bh=BH)
+    with pytest.raises(ValueError, match=r"\(B, 2, 16\)"):
+        interp_T_2d(torch.ones((1, nbands, cap + 1)), i0, i0, w, w, i0, st,
+                    G2=G2, bh=BH)
+    with pytest.raises(TypeError, match="int32"):
+        interp_T_2d(torch.ones((1, nbands, cap)), i0.long(), i0, w, w, i0,
+                    st, G2=G2, bh=BH)
+    with pytest.raises(TypeError, match="w_col"):
+        interp_T_2d(torch.ones((1, nbands, cap)), i0, i0, w, w.double(), i0,
+                    st, G2=G2, bh=BH)
+    with pytest.raises(ValueError, match="column index"):
+        interp_T_2d(torch.ones((1, nbands, cap)), i0, i0, w, w, i0,
+                    st[:, :-1], G2=G2, bh=BH)
+    with pytest.raises(TypeError, match="col_slots"):
+        interp_T_2d(torch.ones((1, nbands, cap)), i0, i0, w, w, i0.long(),
+                    st, G2=G2, bh=BH)
     with pytest.raises(ValueError, match="tables"):
         interp_2d(torch.ones((1, nbands, BH + 3, G2)), i0, i0, w[:, :, :3],
                   w, bh=BH)

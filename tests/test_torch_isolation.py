@@ -1,5 +1,6 @@
-"""The port stands alone: ``gpquad_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package ``gpquad``."""
+"""The port stands alone: ``gpquad_torch``, ``chip_smoke.py`` and
+``scripts/port_compare_trees.py`` import neither JAX nor the JAX package
+``gpquad``."""
 import ast
 import subprocess
 import sys
@@ -14,6 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "gpquad")
 def _sources():
     files = sorted((ROOT / "gpquad_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "scripts" / "port_compare_trees.py")
     return files
 
 

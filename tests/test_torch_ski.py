@@ -325,6 +325,32 @@ def test_fit_roundtrip_through_numpy(rng):
                            getattr(op2.banded, field))
 
 
+def test_column_index_is_made_not_read(rng):
+    """The fit's arrays carry gpquad's seven band tables and no column
+    index; a column index passed in anyway (here out of range and not
+    monotone) is not read: the index is made from ``valid`` and ``c0``, so
+    the fit predicts exactly as the untouched one."""
+    x, y = _data(rng, 400)
+    fit = tski.fit_ski_gp(x, y, grid_size=(20, 20), max_iters=1,
+                          verbose=False, dtype=torch.float64, device="cpu")
+    arrays = convert.ski_fit_to_numpy(fit)
+    assert "banded_col_slots" not in arrays
+    assert "banded_col_start" not in arrays
+    op = fit["model"]["operator"]
+    nbands, cap = op.banded.pidx.shape
+    tampered = dict(arrays)
+    tampered["banded_col_slots"] = np.full((nbands, cap), 10 * cap, np.int32)
+    tampered["banded_col_start"] = rng.integers(
+        -cap, 3 * cap, (nbands, 21)).astype(np.int32)
+    back = convert.ski_fit_from_numpy(tampered, device="cpu")
+    for field in op.banded._fields:
+        assert torch.equal(getattr(op.banded, field),
+                           getattr(back["model"]["operator"].banded, field))
+    xq = rng.uniform(-1, 1, (40, 2))
+    assert torch.equal(tski.ski_predict_mean(back, xq),
+                       tski.ski_predict_mean(fit, xq))
+
+
 def test_float32_fit_runs_in_float32(rng):
     x, y = _data(rng, 400)
     fit = tski.fit_ski_gp(x, y, grid_size=(20, 20), max_iters=2,
@@ -404,3 +430,48 @@ def test_dropped_plan_fit_runs_unbanded(rng):
     op = dataclasses.replace(fit["model"]["operator"])
     assert _rel(op.interp_T(torch.as_tensor(u)).numpy(),
                 opj.interp_T(jnp.asarray(u))) < 1e-10
+
+
+def test_float32_loss_and_grad_no_worse_than_gpquad(rng):
+    """The loss and gradient in float32 against float64, in the port and in
+    gpquad on the same inputs and probes (n 3000 on a 40^2 grid, noise
+    0.01, the banded plan, cg_tol 1e-6, 10 Lanczos steps).  On the CPU
+    gpquad's own f32 reads loss 1.36e-5 and gradient [4.5e-5, 4.6e-4,
+    1.3e-4] (lengthscale, outputscale, noise) from its f64, the port loss
+    1.43e-5 and [4.4e-5, 6.3e-5, 8.2e-6] (printed below).  The port's worst
+    reading, over the loss and the three components, is no larger than
+    gpquad's, and its loss is within 1e-4 relative (chip_smoke.py's bar)."""
+    n, grid, sig2 = 3000, (40, 40), 0.01
+    x, y = _data(rng, n)
+    bounds = jski.resolve_grid_bounds(x)
+    key = jax.random.PRNGKey(5)
+    Z, zq = _jax_probes(key, 0, 2, 8, n)
+    kw = dict(cg_tol=1e-6, max_cg_iter=1000, slq_steps=10)
+    out = {}
+    for dt, tdt in ((np.float64, torch.float64), (np.float32, torch.float32)):
+        kj = JaxSE(lengthscale=dt(0.3), variance=dt(1.0), dimension=2)
+        kt = gpquad_torch.make_kernel("SE", 2, lengthscale=dt(0.3),
+                                      variance=dt(1.0))
+        opj = jski.build_ski_operator(jnp.asarray(x, dt), kj, grid, bounds)
+        opt = tski.build_ski_operator(torch.as_tensor(x, dtype=tdt), kt,
+                                      grid, bounds)
+        assert opj.banded is not None and opt.banded is not None
+        want = jski._ski_loss_and_grad(
+            opj.idx, opj.wvals, opj.banded, jnp.asarray(x, dt),
+            jnp.asarray(y, dt), kj, jnp.asarray(sig2, dt),
+            jax.random.fold_in(key, 0), grid_shape=opj.grid_shape,
+            dx=opj.dx, trace_samples=2, slq_probes=8, **kw)
+        got = tski._ski_loss_and_grad(
+            opt, torch.as_tensor(y, dtype=tdt), kt,
+            torch.tensor(sig2, dtype=tdt), torch.as_tensor(Z, dtype=tdt),
+            torch.as_tensor(zq, dtype=tdt), **kw)
+        out["jax", dt] = np.concatenate([[float(want[0])],
+                                         np.asarray(want[1], np.float64)])
+        out["torch", dt] = np.concatenate([[float(got[0])],
+                                           got[1].double().numpy()])
+    rel = {side: np.abs(out[side, np.float32] - out[side, np.float64])
+           / np.abs(out[side, np.float64]) for side in ("jax", "torch")}
+    print("f32 vs f64, relative (loss, lengthscale, outputscale, noise):",
+          rel)
+    assert rel["torch"][0] < 1e-4, rel
+    assert np.max(rel["torch"]) <= np.max(rel["jax"]), rel
