@@ -14,7 +14,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      type-1 (tensor cores, 3xTF32) also within max(2x the float32 plain
      version's error, 1e-6), with its 3xTF32 bound beside the fp32 one,
      its output tile and its scratch (the peak allocated in the call less
-     the output; under 256 MB);
+     the output; under 256 MB); the float32 batched d=2 type-2 on both of
+     its kernels, the tensor cores (3xTF32) and the CUDA cores, on the same
+     inputs, each held to the bars above and bit for bit against a second
+     launch, with both times, the 3xTF32 bound beside the fp32 one, the
+     tensor-core kernel's scratch and the kernel
+     cuda_nufft.type2_2d_geometry dispatches the shape to;
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -304,10 +309,11 @@ def bound_ms(name, n, m, dtype, B=1, work=None):
 
 
 def bound_3xtf32_ms(name, n, m, B=1):
-    """The float32 d=2 type-1's bound on the tensor cores: 3 x 8 flops per
-    point, output and vector at the dense TF32 rate, plus the rest of
-    kernel_work's operations (the phases, once per point, dimension and
-    mode, and the products v e1) at the fp32 rate; against its bytes."""
+    """A float32 d=2 kernel's bound on the tensor cores (the type-1, and
+    the batched type-2's tensor-core kernel): 3 x 8 flops per point, mode
+    pair and vector at the dense TF32 rate, plus the rest of kernel_work's
+    operations (the phases, once per point, dimension and mode, and the
+    products v e1 or e1 T) at the fp32 rate; against its bytes."""
     flops, nbytes = kernel_work(name, n, m, torch.float32, B)
     tc = 3 * 8 * B * n * m * m
     t_ops = (tc / PEAK_TF32 + (flops - 8 * B * n * m * m)
@@ -604,6 +610,61 @@ def main() -> int:
                  for i in range(0, x.shape[0], chunk)]
         return sum(parts) if type1 else torch.cat(parts, dim=-1)
 
+    def type2_both(x, f, hq, m, fo, n, B, ref, scale, got, split_bar, reps,
+                   trials):
+        """The float32 batched type-2 on both of its kernels, the tensor
+        cores ("tc") and the CUDA cores ("cuda"), on the same inputs: each
+        within 1e-4 of max|ref| (the tensor cores also within
+        ``split_bar``), bit for bit against a second launch, timed; the
+        wrapper's result bit for bit that of the kernel type2_2d_geometry
+        dispatches the shape to.  Returns the row's fields and a line for
+        the log."""
+        dispatch = cuda_nufft.type2_2d_geometry(m)[0]
+        geos = {"tc": ("tc", cuda_nufft.TYPE2_2D_POINTS,
+                       cuda_nufft.TYPE2_2D_COLS, cuda_nufft.TYPE2_2D_STAGE),
+                "cuda": ("cuda",)}
+        out = {"dispatch": dispatch}
+        for r, geo in geos.items():
+            def call():
+                return cuda_nufft._nufft2_2d_batched_on(x, f, hq, m, fo, geo)
+            what = f"nufft2_2d_batched ({r}) B={B} n={n} mtot={m}"
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            o = call()
+            sync()
+            scratch = (torch.cuda.max_memory_allocated() - base
+                       - o.numel() * o.element_size())
+            rel = float((o.to(torch.complex128) - ref).abs().max()) / scale
+            check(np.isfinite(rel) and rel <= 1e-4,
+                  f"{what}: error {rel:.3e} of max|ref| > 1e-4")
+            if r == "tc":
+                check(rel <= split_bar,
+                      f"{what}: error {rel:.3e} over max(2 x the plain "
+                      f"version's, 1e-6) = {split_bar:.3e}")
+                check(scratch < 256e6, f"{what}: scratch {scratch} bytes "
+                      f">= 256 MB")
+                out["tc_scratch_bytes"] = scratch
+                out["split_bar"] = split_bar
+            check(torch.equal(call(), o), f"{what}: a second launch differs")
+            if r == dispatch:
+                check(torch.equal(got, o),
+                      f"{what}: the wrapper's result is not this kernel's")
+            key = "tc" if r == "tc" else "cuda_core"
+            out[f"{key}_rel_err"] = rel
+            out[f"{key}_ms"] = time_cuda(call, reps, trials)
+        out["bound_3xtf32_ms"] = bound_3xtf32_ms("nufft2_2d_batched", n, m,
+                                                 B)[0]
+        faster = "tc" if out["tc_ms"] < out["cuda_core_ms"] else "cuda"
+        out["dispatch_is_faster"] = faster == dispatch
+        line = (f" dispatch {dispatch} (faster here: {faster}); tensor cores "
+                f"ms={out['tc_ms']:.4f} rel={out['tc_rel_err']:.3e} scratch "
+                f"{out['tc_scratch_bytes'] / 1e6:.3f} MB (measured) "
+                f"bound_3xtf32_ms={out['bound_3xtf32_ms']:.4f}; CUDA cores "
+                f"ms={out['cuda_core_ms']:.4f} "
+                f"rel={out['cuda_core_rel_err']:.3e}")
+        return out, line
+
     phase3 = []
     for name, n, m, fo, h, what, B in shapes:
         d = int(name.split("_")[1][0])
@@ -691,6 +752,17 @@ def main() -> int:
                          f"{groups * B * m * m * 8 / 1e6:.3f} MB), "
                          f"bound_3xtf32_ms={row['bound_ms']:.4f}")
                 b_ms, b_by = row["bound_fp32_ms"], "fp32 operations"
+            if name == "nufft2_2d_batched" and dtype == torch.float32:
+                t2, line = type2_both(x, arg, hq, m, fo, n, B, ref, scale,
+                                      got, max(2 * plain_rel, 1e-6), reps,
+                                      trials)
+                row.update(t2)
+                if t2["dispatch"] == "tc":
+                    row["bound_fp32_ms"] = b_ms
+                    row["bound_ms"], row["bound_by"] = (
+                        t2["bound_3xtf32_ms"], "operations")
+                    b_by = "fp32 operations"
+                extra += line
             if batched:
                 single = kernels[name.replace("_batched", "")]
                 row["singles_ms"] = time_cuda(
@@ -1201,10 +1273,10 @@ def main() -> int:
           f"kron CG-tier mean error {err_kron:.3e} / {err_kron_jac:.3e}")
 
     # the gradient on the CG tier's state: trace solves by Jacobi PCG
-    def grad_cg(x, y, s, method):
+    def grad_cg(x, y, s, method, seed=0):
         return gpquad_torch.gradient_with_grid(
             x, y, kern_hard, sigmasq, s.h,
-            torch.Generator(device=dev).manual_seed(0), mtot=s.mtot,
+            torch.Generator(device=dev).manual_seed(seed), mtot=s.mtot,
             trace_samples=FUSED_KW["trace_samples"],
             cg_tol=FUSED_KW["grad_cg_tol"],
             max_cg_iter=FUSED_KW["max_cg_iter"], beta0=s.beta, state=s,
@@ -1241,6 +1313,45 @@ def main() -> int:
     # both runs stop their PCG at 1e-4 on different iterations
     check(all(r <= 5e-2 for r in grad_rel_cg),
           f"CG-tier gradient relative error {grad_rel_cg} > 5e-2")
+
+    # the f32 gradient against float64 over three generator seeds (probe
+    # sets), as phase 4's sweep at mtot 29 but here where the batched type-2
+    # runs on the tensor cores: on the kernels, on the kernels with the
+    # batched type-2 sent to its CUDA-core kernel (its route before the
+    # tensor cores took mtot 107), and with the gradient's NUFFTs on the
+    # plain path; all on the fit's state
+    def type2_on_cuda_cores(fn):
+        keep = cuda_nufft.TYPE2_2D_TC_MIN_MTOT
+        cuda_nufft.TYPE2_2D_TC_MIN_MTOT = s2.mtot + 1
+        try:
+            check(cuda_nufft.type2_2d_geometry(s2.mtot) == ("cuda",),
+                  "the batched type-2 was not sent to the CUDA cores")
+            return fn()
+        finally:
+            cuda_nufft.TYPE2_2D_TC_MIN_MTOT = keep
+
+    check(cuda_nufft.type2_2d_geometry(s2.mtot)[0] == "tc",
+          f"mtot {s2.mtot} is not routed to the tensor cores")
+    sweep_cg = []
+    for seed in (0, 1, 2):
+        g64s = grad_cg(x2.double(), y2.double(), s64, "matmul", seed).grad
+        row = {"kernels, type-2 on the tensor cores": rel_to(
+                   grad_cg(x2, y2, s2, "auto", seed).grad, g64s),
+               "kernels, type-2 on the CUDA cores": rel_to(
+                   type2_on_cuda_cores(
+                       lambda: grad_cg(x2, y2, s2, "auto", seed)).grad,
+                   g64s),
+               "gradient plain": rel_to(
+                   grad_cg(x2, y2, s2, "matmul", seed).grad, g64s)}
+        print(f"[5] CG-tier f32 gradient rel err vs float64, seed {seed}: "
+              + "; ".join(f"{k} [{', '.join(f'{r:.3e}' for r in v)}]"
+                          for k, v in row.items()))
+        sweep_cg.append(dict(seed=seed, **row))
+    for row in sweep_cg:
+        tc_rel = row["kernels, type-2 on the tensor cores"]
+        check(all(r <= 5e-2 for r in tc_rel),
+              f"CG-tier gradient relative error {tc_rel} (seed "
+              f"{row['seed']}) > 5e-2")
     record["phases"]["cg_tier"] = dict(
         mtot=s2.mtot, M=s2.M, iters=iters, launches=launches_cg,
         backend_picks=picks_cg, iters_f64=int(s64.mean_cg_iters),
@@ -1251,7 +1362,8 @@ def main() -> int:
         grad_s=t_grad_cg, grad_launches=launches_gcg,
         grad_trace_iters=trace_iters,
         grad_trace_iters_f64=int(g64.trace_cg_iters),
-        grad_converged=converged, grad_rel_err=grad_rel_cg)
+        grad_converged=converged, grad_rel_err=grad_rel_cg,
+        grad_rel_err_sweep=sweep_cg)
 
     phase_s["5"] = time.perf_counter() - t_phase
     print(f"[5] phase wall time {phase_s['5']:.1f} s")
@@ -2290,6 +2402,20 @@ def main() -> int:
                      + launches_gcg[name],
                      "launches_headline_facade": launches9[name],
                      "launches_scale_fit_mean": launches10[name]}
+            if name == "nufft2_2d_batched":
+                # its two routes here and at the scale configuration's
+                # probe batches (B 10 and 5)
+                # (the kernels line carries no bound but bound_ms; both
+                # bounds stay in phase 3's rows)
+                keys = ("dispatch", "tc_ms", "cuda_core_ms", "tc_rel_err",
+                        "cuda_core_rel_err")
+                extra.update({k: row[k] for k in keys})
+                extra["launches_scale_gradient"] = launches_grad10[name]
+                extra["launches_scale_adam_loop"] = launches_loop10[name]
+                extra["at_scale"] = {
+                    f"B{r['B']}": {k: r[k]
+                                   for k in keys + ("bound_ms", "bound_by")}
+                    for r in f32_rows if r["n"] == n10}
         else:
             row = max((r for r in f32_rows
                        if r["serves"].startswith(("d3", "hard3d"))),

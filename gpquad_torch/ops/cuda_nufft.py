@@ -22,7 +22,12 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
 - :func:`nufft2_2d_batched` replaces ``pallas_nufft2_2d_batched`` (:838)
   and :func:`nufft1_2d_batched` replaces ``pallas_nufft1_2d_batched``
   (:914): B vectors against the same points in one launch, the phases made
-  once per group of batch elements (the gradient's probe batches).
+  once per group of batch elements (the gradient's probe batches).  In
+  float32 the batched type-2 runs, where :func:`type2_2d_geometry` sends
+  it, as a GEMM over the modes on the tensor cores with an explicit 3xTF32
+  split and the sum over the first mode axis in its epilogue
+  (:func:`nufft2_2d_batched_3xtf32_ref` is its plain twin), elsewhere on
+  the CUDA cores.
 - :func:`nufft2_3d` replaces ``pallas_nufft2_3d`` (:662) and its
   first-dimension slab-tiled twin ``_pallas_nufft2_3d_tiled`` (:1034), and
   :func:`nufft1_3d` replaces ``pallas_nufft1_3d`` (:750) and
@@ -31,9 +36,9 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
 
 All are bound by operations on an H100 (complex multiply-adds, ~8 mtot^d
 flops per point and vector, and at d=1 the phases themselves): fp32 outside
-the tensor cores, but for the d=2 type-1 in float32, which takes three
-TF32 products per real product on the tensor cores; the sources say how the
-designs stage the work.  The wrappers take a tensor on the CPU to the plain
+the tensor cores, but for the d=2 type-1 and the batched type-2 in float32,
+which take three TF32 products per real product on the tensor cores; the
+sources say how the designs stage the work.  The wrappers take a tensor on the CPU to the plain
 version (``*_ref``, the phase-matrix backend of ``ops/nufft.py``); on a
 CUDA tensor they launch the kernel or raise.
 
@@ -62,9 +67,12 @@ from .nufft import (CUDA_D3_MAX_MTOT, _k_values, _phase_matrix,
 __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
            "nufft1_2d_batched", "nufft2_2d_batched", "nufft1_2d_batched_ref",
-           "nufft2_2d_batched_ref", "nufft1_2d_3xtf32_ref", "nufft1_3d",
-           "nufft2_3d", "nufft1_3d_ref", "nufft2_3d_ref", "type1_2d_chunk",
-           "type1_2d_geometry", "type1_3d_groups", "CudaNUFFT", "LAUNCHES",
+           "nufft2_2d_batched_ref", "nufft1_2d_3xtf32_ref",
+           "nufft2_2d_batched_3xtf32_ref", "nufft1_3d", "nufft2_3d",
+           "nufft1_3d_ref", "nufft2_3d_ref", "type1_2d_chunk",
+           "type1_2d_geometry", "type2_2d_geometry",
+           "type2_2d_scratch_floats", "type1_3d_groups",
+           "CudaNUFFT", "LAUNCHES",
            "LAUNCH_WIDTHS", "build", "library_path"]
 
 # Launches of each kernel since the last reset (a launch is one wrapper call
@@ -99,6 +107,17 @@ TYPE1_2D_NARROW_COLS = 32
 TYPE1_2D_STAGE = 256
 TYPE1_2D_BLOCKS = 528
 TYPE1_2D_BATCH_GROUP = 2
+# The float32 batched d=2 type-2 on the tensor cores (csrc/nufft_2d.cu
+# nufft2_2d_batched_tc_kernel), its geometry owned here
+# (type2_2d_geometry) and checked by its launch: blocks of 128 points
+# walking column tiles of 128 columns (vector, mode j), 32 modes k a stage;
+# each vector's columns, and the modes k, padded to a multiple of the stage
+# (which the source holds equal to the epilogue's chunk of modes j)
+TYPE2_2D_POINTS, TYPE2_2D_COLS, TYPE2_2D_STAGE = 128, 128, 32
+# The float32 batched type-2's dispatch by mtot, from chip_smoke.py phase
+# 3's times of both kernels on the same inputs: the tensor cores from this
+# mtot on, the CUDA cores below it
+TYPE2_2D_TC_MIN_MTOT = 64
 
 _lib = None
 
@@ -191,6 +210,13 @@ def _library():
             b2 = getattr(lib, f"gpq_nufft2_2d_batched_{prec}")
             b2.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
             b2.restype = i32
+            if prec == "f32":
+                # the tensor-core form: its geometry (points, cols, stage)
+                # and the split F's scratch and size before the output
+                tc = lib.gpq_nufft2_2d_batched_tc_f32
+                tc.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, i32,
+                               i32, ptr, ctypes.c_longlong, ptr, ptr]
+                tc.restype = i32
             b1 = getattr(lib, f"gpq_nufft1_2d_batched_{prec}")
             b1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *geo, i32, ptr,
                            ptr, ptr]
@@ -240,12 +266,14 @@ def _check_cuda_operand(name, t, x, cdtype):
                         f"got {t.dtype} on {t.device}")
 
 
-def _launch(name: str, x: torch.Tensor, *args, mtot: int):
-    """Call ``gpq_<name>_<f32|f64>`` (x's precision) with ``args`` and x's
-    current stream; raise on a CUDA error, count the launch (by kernel and
-    by kernel and ``mtot``)."""
+def _launch(name: str, x: torch.Tensor, *args, mtot: int,
+            symbol: str | None = None):
+    """Call ``gpq_<name>_<f32|f64>`` (x's precision), or the C function
+    ``symbol`` where given, with ``args`` and x's current stream; raise on a
+    CUDA error, count the launch of ``name`` (by kernel and by kernel and
+    ``mtot``)."""
     prec = "f32" if x.dtype == torch.float32 else "f64"
-    fn = getattr(_library(), f"gpq_{name}_{prec}")
+    fn = getattr(_library(), symbol or f"gpq_{name}_{prec}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(*args, stream)
@@ -396,6 +424,71 @@ def nufft1_2d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
             tot = tot + run
         out = out + tot
     return out[0] if single else out
+
+
+def nufft2_2d_batched_3xtf32_ref(x, f, h, *, mtot: int,
+                                 fft_order: bool = False, passes: int = 3):
+    """Plain twin of the float32 batched d=2 type-2 kernel on the tensor
+    cores (csrc/nufft_2d.cu ``nufft2_2d_batched_tc_kernel``), in float32
+    with its tiling algebra: ``T[p, b, j] = sum_k e2(p,k) f[b,j,k]`` as the
+    real products ``T_re = C2 Fr + S2 (-Fi)``, ``T_im = C2 Fi + S2 Fr``
+    (C2, S2 the cos and sin of e2) over k-steps of 8 modes, each operand
+    split into ``big = tf32(a)`` and ``small = tf32(a - big)`` (``cvt.rna``
+    emulated bit for bit) and each product taken as small*big + big*small +
+    big*big in that order, the six products of a k-step summed from zero
+    (the kernel's chain of mma) and the k-steps added in fp32; then
+    ``out[b, p] = sum_j e1(p,j) T[p,b,j]`` as the kernel's epilogue sums it:
+    chunks of :data:`TYPE2_2D_STAGE` modes j, each summed in j order from zero, added in chunk
+    order.  ``passes=1`` keeps big*big alone: plain TF32, the control the
+    split is held against.
+
+    ``f`` (B, mtot, mtot) or (B, mtot^2); returns complex64 (B, N).  The
+    tensor cores' own rounding inside an 8-mode product is not emulated
+    (here a float32 matmul).  For the tests on the CPU only."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    x = x.to(torch.float32)
+    n, m = x.shape[0], mtot
+    F = f.reshape(-1, m, m).to(torch.complex64)       # (B, j, k)
+    B = F.shape[0]
+    hq = torch.tensor(h, dtype=torch.float32)
+    k = _k_values(m, fft_order, torch.float32, x.device)
+    # e^{+2 pi i}: the conjugates of the type-1's phases
+    e1 = _phase_matrix(x[:, 0] * hq, k, torch.complex64).conj()   # (N, m)
+    e2 = _phase_matrix(x[:, 1] * hq, k, torch.complex64).conj()
+    steps = -(-m // 8)
+    pad = (0, steps * 8 - m)
+    # A: (steps, N, 8) cos and sin; B: (steps, 8, B m) Re and Im, columns
+    # (b, j)
+    C2, S2 = (_split3(torch.nn.functional.pad(t.contiguous(), pad)
+                      .reshape(n, steps, 8).transpose(0, 1))
+              for t in (e2.real, e2.imag))
+    Fr, Fi = (_split3(torch.nn.functional.pad(t.contiguous(), pad)
+                      .reshape(B, m, steps, 8).permute(2, 3, 0, 1)
+                      .reshape(steps, 8, B * m))
+              for t in (F.real, F.imag))
+    nFi = tuple(-t for t in Fi)
+    order = ((1, 0), (0, 1), (0, 0)) if passes == 3 else ((0, 0),)
+    t_re = torch.zeros((n, B * m), dtype=torch.float32, device=x.device)
+    t_im = torch.zeros_like(t_re)
+    for s in range(steps):
+        d_re = torch.zeros_like(t_re)
+        d_im = torch.zeros_like(t_re)
+        for i, j in order:
+            d_re = d_re + C2[i][s] @ Fr[j][s]
+            d_im = d_im + C2[i][s] @ Fi[j][s]
+            d_re = d_re + S2[i][s] @ nFi[j][s]
+            d_im = d_im + S2[i][s] @ Fr[j][s]
+        t_re = t_re + d_re
+        t_im = t_im + d_im
+    W = e1[:, None, :] * torch.complex(t_re, t_im).reshape(n, B, m)
+    out = None
+    for j0 in range(0, m, TYPE2_2D_STAGE):
+        part = W[:, :, j0]
+        for j in range(j0 + 1, min(m, j0 + TYPE2_2D_STAGE)):
+            part = part + W[:, :, j]
+        out = part if out is None else out + part
+    return out.T.contiguous()
 
 
 def nufft2_3d_ref(x, f, h, *, mtot: int, fft_order: bool = False):
@@ -589,11 +682,44 @@ def _check_batch(B: int, mtot: int, d: int = 2, groups: int = 1):
                          "groups) exceeds the kernels' 32-bit index range")
 
 
+def type2_2d_geometry(mtot: int) -> tuple:
+    """The float32 batched d=2 type-2's kernel and launch geometry:
+    ``("tc", points, cols, stage)`` for the tensor-core kernel (blocks of
+    ``points`` points walking column tiles of ``cols`` columns (vector, mode
+    j), ``stage`` modes k a stage), or ``("cuda",)`` for the CUDA-core
+    kernel, whose block is fixed in its source.
+
+    The dispatch is a table by mtot from chip_smoke.py phase 3's times of
+    both kernels on the same inputs: the tensor cores from
+    :data:`TYPE2_2D_TC_MIN_MTOT` on (the points and the batch did not change
+    the faster kernel at the shapes timed).  The tensor-core kernel's
+    scratch is
+    :func:`type2_2d_scratch_floats`'s."""
+    if mtot >= TYPE2_2D_TC_MIN_MTOT:
+        return ("tc", TYPE2_2D_POINTS, TYPE2_2D_COLS, TYPE2_2D_STAGE)
+    return ("cuda",)
+
+
+def type2_2d_scratch_floats(mtot: int, B: int, geometry: tuple) -> int:
+    """Floats of the tensor-core batched type-2's split F: big and small,
+    real and imaginary parts of each (mode k, column) cell, the modes and
+    each vector's columns padded to a multiple of the stage,
+    the columns to a whole number of tiles."""
+    _, _, cols, stage = geometry
+    mq = -(-mtot // stage) * stage
+    ncp = -(-B * mq // cols) * cols
+    return 4 * mq * ncp
+
+
 def nufft2_2d_batched(x, f, h, *, mtot: int, fft_order: bool = False):
     """Batched fused type-2 (replaces ``pallas_nufft2_2d_batched``).
 
     ``f`` complex (B, mtot, mtot) or (B, mtot^2), B >= 1; returns complex
-    (B, N) from one launch.  A CPU tensor takes the plain version."""
+    (B, N) from one launch.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel :func:`type2_2d_geometry` dispatches it to
+    in float32 (the tensor cores, with a scratch of
+    :func:`type2_2d_scratch_floats` floats, or the CUDA cores), the
+    CUDA-core kernel in float64."""
     _check(x, mtot)
     m = mtot
     if f.ndim not in (2, 3) or tuple(f.shape[1:]) not in ((m * m,), (m, m)):
@@ -603,17 +729,38 @@ def nufft2_2d_batched(x, f, h, *, mtot: int, fft_order: bool = False):
     _check_batch(B, m)
     if x.device.type == "cpu":
         return nufft2_2d_batched_ref(x, f, h, mtot=m, fft_order=fft_order)
+    geo = (type2_2d_geometry(m)
+           if x.dtype == torch.float32 else ("cuda",))
+    return _nufft2_2d_batched_on(x, f, h, m, fft_order, geo)
+
+
+def _nufft2_2d_batched_on(x, f, h, m, fft_order, geo):
+    """The batched type-2's launch on CUDA tensors with the kernel and
+    geometry ``geo`` (:func:`type2_2d_geometry`); chip_smoke.py also times
+    both kernels through it."""
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("f", f, x, cdtype)
-    n = x.shape[0]
+    B, n = f.shape[0], x.shape[0]
     out = torch.empty((B, n), dtype=cdtype, device=x.device)
     if n == 0:
         return out
     x = x.contiguous()
     f = f.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
-    _launch("nufft2_2d_batched", x, x.data_ptr(), f.data_ptr(), h, n, m, B,
-            int(fft_order), out.data_ptr(), mtot=m)
+    if geo[0] == "tc":
+        if x.dtype != torch.float32:
+            raise TypeError("the tensor-core batched type-2 takes float32")
+        floats = type2_2d_scratch_floats(m, B, geo)
+        scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
+        _launch("nufft2_2d_batched", x, x.data_ptr(), f.data_ptr(), h, n, m,
+                B, int(fft_order), *geo[1:], scratch.data_ptr(), floats,
+                out.data_ptr(), mtot=m,
+                symbol="gpq_nufft2_2d_batched_tc_f32")
+    elif geo == ("cuda",):
+        _launch("nufft2_2d_batched", x, x.data_ptr(), f.data_ptr(), h, n, m,
+                B, int(fft_order), out.data_ptr(), mtot=m)
+    else:
+        raise ValueError(f"no batched type-2 kernel for geometry {geo}")
     return out
 
 

@@ -18,6 +18,13 @@ pairs).  A run measures:
   ms of an Adam iteration (forward + backward, from the fit's history);
 - the float32 d=2 type-1 kernels at the headline's widths (n 1e5, mtot 29
   and 57; single and B 10): CUDA-event medians of 5 trials;
+- the float32 batched type-2 (``nufft2_2d_batched``, through its wrapper,
+  so on the route each checkout gives it) at the headline (B 10, mtot 29)
+  and at the scale configuration's Adam loop (B 5, n 1e6, mtot 339):
+  CUDA-event medians of 5 and 3 trials;
+- three steps of chip_smoke.py phase 10's fixed-plan Adam loop at scale
+  (n 1e6, SE l=0.006, mtot 339, kron, 5 trace samples, after one warm
+  step): the host-clock time of each step, synchronised;
 - the fitted SKI operator's ``W^T u`` and matvec at B 3: the host's
   microseconds to issue a call, and the CUDA-event time of a call;
 - the torch operations a one-iteration ``fit_ski_gp`` issues on the host
@@ -25,8 +32,9 @@ pairs).  A run measures:
   time.
 
 Each run prints one JSON line; the script then prints each measurement's
-per-checkout medians as one JSON line, and writes every run to ``--out``
-(default ``build/compare_trees.json``).  It needs a CUDA device.
+per-checkout medians and quartiles as one JSON line, and writes every run
+to ``--out`` (default ``build/compare_trees.json``).  It needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -117,6 +125,57 @@ def one_run(root: Path) -> dict:
             lambda: cuda_nufft.nufft1_2d_batched(x32, v, hq, mtot=m), 20)
     del v
 
+    # the batched type-2 at the headline (B 10) and at scale (B 5)
+    f10 = torch.as_tensor(gen.normal(size=(10, mtot, mtot))
+                          + 1j * gen.normal(size=(10, mtot, mtot)),
+                          device=dev).to(torch.complex64)
+    out[f"nufft2_2d_batched_B10_m{mtot}_ms"] = event_ms(
+        lambda: cuda_nufft.nufft2_2d_batched(x32, f10, hq, mtot=mtot), 20)
+    rng10 = np.random.default_rng(10)
+    xs = rng10.uniform(0, 1, size=(1_000_000, 2))
+    ys = (np.sin(3 * np.pi * xs[:, 0]) * np.cos(2 * np.pi * xs[:, 1])
+          + 0.5 * np.sin(7 * xs[:, 0] + 5 * xs[:, 1])
+          + 0.1 * rng10.normal(size=len(xs)))
+    x10, y10 = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in (xs, ys))
+    kern10 = gpquad_torch.make_kernel("SE", 2, lengthscale=np.float32(0.006),
+                                      variance=np.float32(1.0))
+    _, h10, mtot10 = gpquad_torch.spectral_grid(kern10, 1e-6, 1.0)
+    hq10 = float(torch.tensor(h10, dtype=torch.float32))
+    f5 = torch.as_tensor(gen.normal(size=(5, mtot10, mtot10))
+                         + 1j * gen.normal(size=(5, mtot10, mtot10)),
+                         device=dev).to(torch.complex64)
+    out[f"nufft2_2d_batched_B5_m{mtot10}_ms"] = event_ms(
+        lambda: cuda_nufft.nufft2_2d_batched(x10, f5, hq10, mtot=mtot10), 3,
+        trials=3)
+    del f5
+
+    # phase 10's fixed-plan Adam loop (bench.py's T=5, cg_tol 1e-3)
+    params = gpquad_torch.HyperState.create(kern10, 0.01)
+    raw = params.raw.to(dev).clone()
+    adam = torch.optim.Adam([raw], lr=0.05)
+    gen10 = torch.Generator(device=dev).manual_seed(7)
+
+    def hyper_iter():
+        p = params.replace_raw(raw.detach())
+        res = gpquad_torch.gradient_with_grid(
+            x10, y10, p.kernel_of(kern10), p.sig2, h10, gen10, mtot=mtot10,
+            device=dev, solver="cg", precond="kron", fft_smooth=True,
+            trace_samples=5, cg_tol=1e-3, max_cg_iter=500)
+        raw.grad = res.grad.to(raw.dtype) * torch.exp(raw.detach())
+        adam.step()
+    hyper_iter()
+    steps = []
+    for _ in range(3):
+        sync()
+        t = time.perf_counter()
+        hyper_iter()
+        sync()
+        steps.append((time.perf_counter() - t) * 1e3)
+    out["scale_adam_step_ms"] = statistics.median(steps)
+    out["scale_adam_steps"] = steps
+    del x10, y10
+
     # phase 11's SKI fit (chip_smoke.ski_data)
     rng = np.random.default_rng(0)
     xs = rng.uniform(-1, 1, size=(200_000, 2))
@@ -197,14 +256,18 @@ def main() -> int:
         runs.append(run)
         print(json.dumps(run), flush=True)
     keys = [k for k in runs[0] if k.endswith(("_ms", "_us", "_count"))]
-    summary = {tree: {k: statistics.median(r[k] for r in runs
-                                           if r["tree"] == tree)
+
+    def stats(values):
+        q = (statistics.quantiles(values, n=4, method="inclusive")
+             if len(values) > 1 else [values[0]] * 3)
+        return {"median": statistics.median(values), "q1": q[0], "q3": q[2]}
+    summary = {tree: {k: stats([r[k] for r in runs if r["tree"] == tree])
                       for k in keys}
                for tree in ("base", "this")}
     args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps({"runs": runs, "medians": summary},
+    args.out.write_text(json.dumps({"runs": runs, "stats": summary},
                                    indent=1))
-    print(json.dumps({"medians": summary}))
+    print(json.dumps({"stats": summary}))
     return 0
 
 

@@ -637,6 +637,82 @@ def test_type1_tensor_core_kernel_on_card(cuda_device, B, n, mtot, h,
     assert float((got.cpu() - twin).abs().max()) <= 2 * bar * scale
 
 
+_TYPE2_TC = ("tc", cuda_nufft.TYPE2_2D_POINTS, cuda_nufft.TYPE2_2D_COLS,
+             cuda_nufft.TYPE2_2D_STAGE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (1, 1000, 9, 0.31, False),
+    (3, 5001, 29, 0.65, True),
+    (10, 3000, 107, 0.1, False),
+    (5, 20_000, 339, 0.97, True),
+])
+def test_type2_tensor_core_kernel_on_card(cuda_device, B, n, mtot, h,
+                                          fft_order):
+    """The float32 batched d=2 type-2 on the tensor cores: one launch
+    counted a call; within max(2x the float32 plain version's error, 1e-6)
+    of max|ref| from float64, as its 3xTF32 twin, and within twice that of
+    the twin; bit for bit the same on a second launch; the wrapper's result
+    that of the route type2_2d_geometry gives the shape."""
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 2)),
+                        device=cuda_device).float()
+    F = torch.as_tensor(rng.normal(size=(B, mtot, mtot))
+                        + 1j * rng.normal(size=(B, mtot, mtot)),
+                        device=cuda_device).to(torch.complex64)
+    hq = float(torch.tensor(h, dtype=torch.float32))
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    before = cuda_nufft.LAUNCHES["nufft2_2d_batched"]
+    got = cuda_nufft._nufft2_2d_batched_on(x, F, hq, mtot, fft_order,
+                                           _TYPE2_TC)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCHES["nufft2_2d_batched"] == before + 1
+    assert got.shape == (B, n)
+    assert torch.equal(cuda_nufft._nufft2_2d_batched_on(
+        x, F, hq, mtot, fft_order, _TYPE2_TC), got)
+    ref = nufft2_2d_batched_ref(x.double(), F.to(torch.complex128), hq, **kw)
+    scale = float(ref.abs().max())
+
+    def err(a):
+        return float((a.to(torch.complex128) - ref).abs().max()) / scale
+    bar = max(2 * err(nufft2_2d_batched_ref(x, F, hq, **kw)), 1e-6)
+    assert err(got) <= bar
+    twin = cuda_nufft.nufft2_2d_batched_3xtf32_ref(x.cpu(), F.cpu(), hq,
+                                                   **kw)
+    assert float((got.cpu() - twin).abs().max()) <= 2 * bar * scale
+    routed = nufft2_2d_batched(x, F, hq, **kw)
+    if cuda_nufft.type2_2d_geometry(mtot)[0] == "tc":
+        assert torch.equal(routed, got)
+    else:
+        assert err(routed) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [(1, 64), (2, 64), (3, 16)])
+def test_type2_2d_launch_refuses_foreign_geometry(cuda_device, field, value):
+    """The tensor-core batched type-2's launch takes its geometry from
+    type2_2d_geometry and refuses one it has no instance for (points,
+    columns or stage changed): a CUDA error is raised, and nothing is
+    written."""
+    n, mtot, B = 1000, 107, 3
+    x = torch.rand((n, 2), device=cuda_device)
+    F = torch.ones((B, mtot, mtot), dtype=torch.complex64, device=cuda_device)
+    geo = list(_TYPE2_TC)
+    geo[field] = value
+    floats = cuda_nufft.type2_2d_scratch_floats(mtot, B, _TYPE2_TC)
+    scratch = torch.zeros(floats, device=cuda_device)
+    out = torch.zeros((B, n), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft2_2d_batched", x, x.data_ptr(),
+                           F.data_ptr(), 0.5, n, mtot, B, 0, *geo[1:],
+                           scratch.data_ptr(), floats, out.data_ptr(),
+                           mtot=mtot, symbol="gpq_nufft2_2d_batched_tc_f32")
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+    assert not bool(scratch.any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("field,value", [
     (0, 32), (1, 64), (2, 2), (3, 48), (4, 1000), (5, 1536)])

@@ -9,11 +9,12 @@ f32 evaluations of the same sums, with different sin/cos and summation
 order).  The kernels themselves run in tests/test_torch_cuda_kernels.py
 on the card.
 
-The float32 type-1's tensor-core twin ``nufft1_2d_3xtf32_ref`` is held
+The float32 type-1's tensor-core twin ``nufft1_2d_3xtf32_ref`` and the
+float32 batched type-2's, ``nufft2_2d_batched_3xtf32_ref``, are held
 against the float64 plain version at max(2x the float32 plain version's own
-error, 1e-6) of max|ref| (the same bar chip_smoke.py holds the kernel to),
-a plain-TF32 control (big*big alone) must read above that bar, and the twin
-must match the Pallas kernels at the 5e-5 above.
+error, 1e-6) of max|ref| (the same bar chip_smoke.py holds the kernels to),
+a plain-TF32 control (big*big alone) must read above that bar, and each
+twin must match the Pallas kernels at the 5e-5 above.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,12 +23,15 @@ import torch
 
 from gpquad.ops.pallas_nufft import (_MODE_TILE, pallas_nufft1_2d,
                                      pallas_nufft1_2d_batched,
-                                     pallas_nufft2_2d)
+                                     pallas_nufft2_2d,
+                                     pallas_nufft2_2d_batched)
 from gpquad_torch.ops import cuda_nufft
 from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_2d,
                                          nufft1_2d_3xtf32_ref,
                                          nufft1_2d_batched_ref, nufft1_2d_ref,
-                                         nufft2_2d, nufft2_2d_ref,
+                                         nufft2_2d, nufft2_2d_batched,
+                                         nufft2_2d_batched_3xtf32_ref,
+                                         nufft2_2d_batched_ref, nufft2_2d_ref,
                                          type1_2d_chunk)
 
 # The parity problems are small: torch's intra-op threads cost more than
@@ -226,3 +230,81 @@ def test_type1_2d_groups(n, mtot, B, batched):
     assert tiles * groups <= max(tiles, cuda_nufft.TYPE1_2D_BLOCKS)
     if (n, mtot) == (1_000_000, 677):
         assert groups * B * mtot ** 2 * 8 < 256e6
+
+
+# the batched type-2's tensor-core twin: n = 1000 and 777 leave a ragged
+# last block of 128 points; mtot 29 and 57 (the headline's widths, in both
+# mode orders) and 107 (the CG tier's); B 1, 3 and 10 (a vector's columns
+# padded to 32: the column tiles of 128 straddle vectors at B 3 and 10)
+@pytest.mark.parametrize("B", [1, 3, 10])
+@pytest.mark.parametrize("n,mtot,h,fft_order", [
+    (1000, 29, 0.65, False),
+    (777, 57, 0.65, True),
+    (600, 107, 0.1, False),
+])
+def test_type2_3xtf32_twin_meets_the_split_bar(rng, B, n, mtot, h,
+                                               fft_order):
+    x = rng.uniform(0, 1, (n, 2)).astype(np.float32)
+    f = (rng.normal(size=(B, mtot, mtot))
+         + 1j * rng.normal(size=(B, mtot, mtot))).astype(np.complex64)
+    hq = float(np.float32(h))
+    xt, ft = torch.as_tensor(x), torch.as_tensor(f)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    ref = nufft2_2d_batched_ref(xt.double(), ft.to(torch.complex128), hq,
+                                **kw).numpy()
+    scale = np.max(np.abs(ref))
+
+    def err(a):
+        return np.max(np.abs(a - ref)) / scale
+    bar = max(2 * err(nufft2_2d_batched_ref(xt, ft, hq, **kw).numpy()), 1e-6)
+    twin = nufft2_2d_batched_3xtf32_ref(xt, ft, hq, **kw).numpy()
+    assert twin.shape == (B, n)
+    assert err(twin) <= bar
+    control = nufft2_2d_batched_3xtf32_ref(xt, ft, hq, passes=1,
+                                           **kw).numpy()
+    assert err(control) > bar
+    # the flat mode layout is the same apply
+    flat = nufft2_2d_batched_3xtf32_ref(xt, ft.reshape(B, -1), hq,
+                                        **kw).numpy()
+    np.testing.assert_array_equal(flat, twin)
+    want = pallas_nufft2_2d_batched(jnp.asarray(x), jnp.asarray(f), hq,
+                                    tile=256, **kw)
+    assert _rel(twin, np.asarray(want)) < 5e-5
+
+
+@pytest.mark.parametrize("n,mtot,B", [
+    (100_000, 29, 10), (100_000, 107, 10), (1_000_000, 339, 10),
+    (1_000_000, 339, 5), (1000, 9, 1), (3000, 63, 3), (3000, 65, 3)])
+def test_type2_2d_geometry(n, mtot, B):
+    """The float32 batched type-2's route by mtot (the tensor cores from
+    TYPE2_2D_TC_MIN_MTOT on), its geometry, and its scratch: each vector's
+    columns and the modes padded to a multiple of 32, the columns to whole
+    tiles, four floats a cell; 20 MB at scale, B 10."""
+    geo = cuda_nufft.type2_2d_geometry(mtot)
+    if mtot >= cuda_nufft.TYPE2_2D_TC_MIN_MTOT:
+        assert geo == ("tc", cuda_nufft.TYPE2_2D_POINTS,
+                       cuda_nufft.TYPE2_2D_COLS, cuda_nufft.TYPE2_2D_STAGE)
+    else:
+        assert geo == ("cuda",)
+    tc = ("tc", cuda_nufft.TYPE2_2D_POINTS, cuda_nufft.TYPE2_2D_COLS,
+          cuda_nufft.TYPE2_2D_STAGE)
+    floats = cuda_nufft.type2_2d_scratch_floats(mtot, B, tc)
+    mq = -(-mtot // 32) * 32
+    assert mq >= mtot and mq - mtot < 32
+    assert floats % (4 * mq * cuda_nufft.TYPE2_2D_COLS) == 0
+    assert 4 * mq * B * mq <= floats < 4 * mq * (B * mq + tc[2])
+    if (n, mtot, B) == (1_000_000, 339, 10):
+        assert floats * 4 < 21e6
+
+
+def test_batched_type2_takes_plain_version_on_cpu(rng):
+    """A CPU tensor goes to the plain version and counts no launch."""
+    x = torch.as_tensor(rng.uniform(0, 1, (300, 2)).astype(np.float32))
+    f = torch.as_tensor((rng.normal(size=(3, 9, 9))
+                         + 1j * rng.normal(size=(3, 9, 9)))
+                        .astype(np.complex64))
+    before = dict(cuda_nufft.LAUNCHES)
+    np.testing.assert_array_equal(
+        nufft2_2d_batched(x, f, 0.3, mtot=9).numpy(),
+        nufft2_2d_batched_ref(x, f, 0.3, mtot=9).numpy())
+    assert cuda_nufft.LAUNCHES == before
