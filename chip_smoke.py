@@ -19,7 +19,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      inputs, each held to the bars above and bit for bit against a second
      launch, with both times, the 3xTF32 bound beside the fp32 one, the
      tensor-core kernel's scratch and the kernel
-     cuda_nufft.type2_2d_geometry dispatches the shape to;
+     cuda_nufft.type2_2d_geometry dispatches the shape to; the single d=2
+     type-2 on each of its paths at every driven shape, the tensor cores
+     (float32, 3xTF32, the batched kernel at B 1), the mode split and the
+     CUDA cores, on the same inputs: the split and the tensor cores in
+     float32 within max(2x the float32 plain version's error, 1e-6), every
+     path in float64 within 1e-13, each bit for bit against a second
+     launch, timed, with its scratch, the tensor cores' 3xTF32 bound and
+     the split's bound with its partials, the path
+     cuda_nufft.type2_2d_single_geometry picks, and a check that the pick
+     was the fastest path measured there (within DISPATCH_TIE);
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -155,6 +164,23 @@ LC_GAPS = ((330, 360), (700, 745), (1050, 1080))
 LC_NOISE = 5e-4
 LC_OPT = dict(max_iters=50, lr=0.05, trace_samples=1, cg_tol=1e-6,
               noise_floor=1e-4, min_lengthscale=2e-4)
+# How much slower than the fastest path measured at a shape the single d=2
+# type-2's pick may be in phase 3, relative and in ms, whichever is larger:
+# device times of one shape spread by up to 4% between runs (PERF.md
+# section 2), and by a microsecond or two for calls of ten; paths that tie
+# do not flip the check
+DISPATCH_TIE = (0.03, 0.002)
+# The card's sleep before a trial of calls timed with the host ahead
+# (time_cuda_paths): ~18 ms at the H100's 1.98 GHz boost clock, beyond what the
+# host takes to enqueue 50 of the single type-2's calls (~0.05 ms each on
+# the slowest host seen); the phase 3 times of the paths are the card's, so
+# that a call of tens of microseconds, which is mostly its launches on the
+# host, does not decide the path by how busy the host was
+HOST_AHEAD_CYCLES = 35_000_000
+# rounds of the single type-2's paths in phase 3 (time_cuda_paths), of
+# which the median is kept: one slow round of one path, seen once in
+# scripts/time_type2_single.py's sweeps, does not decide its order
+PATH_TRIALS = 7
 # PCG iteration bar of the Kronecker preconditioner (gpquad: 12 on the hard
 # configuration, 14 at scale; Jacobi 376-393 and 306)
 KRON_MAX_ITERS = 60
@@ -210,6 +236,34 @@ def time_cuda(fn, reps, trials=5):
         sync()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def time_cuda_paths(fns, reps, trials=5):
+    """The card's time a call (ms) of each function in ``fns`` (a dict):
+    the median over ``trials`` rounds of the CUDA-event time of ``reps``
+    calls, after two warm calls of each.  Before each timed run the card
+    sleeps for HOST_AHEAD_CYCLES, so that the host has enqueued the calls
+    before the first one starts: the time is the card's alone, not the
+    host's enqueue of calls shorter than their launches.  Each round times
+    every function in turn, so that a drift of the card's clock over the
+    rounds falls on all of them alike."""
+    for fn in fns.values():
+        fn()
+        fn()
+    sync()
+    times = {r: [] for r in fns}
+    for _ in range(trials):
+        for r, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(HOST_AHEAD_CYCLES)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            sync()
+            times[r].append(start.elapsed_time(end) / reps)
+    return {r: statistics.median(t) for r, t in times.items()}
 
 
 def profile_run(fn, top=8):
@@ -310,16 +364,28 @@ def bound_ms(name, n, m, dtype, B=1, work=None):
 
 def bound_3xtf32_ms(name, n, m, B=1):
     """A float32 d=2 kernel's bound on the tensor cores (the type-1, and
-    the batched type-2's tensor-core kernel): 3 x 8 flops per point, mode
-    pair and vector at the dense TF32 rate, plus the rest of kernel_work's
-    operations (the phases, once per point, dimension and mode, and the
-    products v e1 or e1 T) at the fp32 rate; against its bytes."""
+    the type-2's tensor-core kernel, batched or at B 1 for the single):
+    3 x 8 flops per point, mode pair and vector at the dense TF32 rate,
+    plus the rest of kernel_work's operations (the phases, once per point,
+    dimension and mode, and the products v e1 or e1 T) at the fp32 rate;
+    against its bytes."""
     flops, nbytes = kernel_work(name, n, m, torch.float32, B)
     tc = 3 * 8 * B * n * m * m
     t_ops = (tc / PEAK_TF32 + (flops - 8 * B * n * m * m)
              / PEAK_FLOPS[torch.float32]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_split_ms(n, m, dtype, rows):
+    """The single type-2's bound on its mode split: kernel_work's, plus the
+    slabs' partials (ceil(m / rows) x n values written once and read once)
+    and their sum (a complex add a partial)."""
+    flops, nbytes = kernel_work("nufft2_2d", n, m, dtype)
+    slabs = -(-m // rows)
+    s = 4 if dtype == torch.float32 else 8
+    return bound_ms("nufft2_2d", n, m, dtype, work=(
+        flops + 2 * slabs * n, nbytes + 2 * slabs * n * 2 * s))
 
 
 # The TPU's mode-tiled functions (rows 3, 4, 11, 12 of PERF.md's table): the
@@ -665,6 +731,74 @@ def main() -> int:
                 f"rel={out['cuda_core_rel_err']:.3e}")
         return out, line
 
+    def type2_single(x, f, hq, m, fo, n, dtype, ref, scale, got, split_bar,
+                     reps, trials):
+        """The single type-2 on each of its paths, the tensor cores ("tc",
+        float32), the mode split ("split") and the CUDA cores ("cuda"), on
+        the same inputs: float32 within 1e-4 of max|ref| (the tensor cores
+        and the split also within ``split_bar``), float64 within 1e-13, bit
+        for bit against a second launch, timed, with its scratch (the peak
+        allocated in the call less the output); the wrapper's result bit for
+        bit that of the path type2_2d_single_geometry picks, and that path
+        the fastest measured (the card's time, the paths in alternation:
+        time_cuda_paths), within DISPATCH_TIE.  Returns the row's fields
+        and a line for the log."""
+        pick = cuda_nufft.type2_2d_single_geometry(n, m, dtype)[0]
+        rows = cuda_nufft.TYPE2_2D_SPLIT_ROWS
+        geos = {"split": ("split", rows, cuda_nufft.TYPE2_2D_SPLIT_THREADS),
+                "cuda": ("cuda",)}
+        if dtype == torch.float32:
+            geos["tc"] = ("tc", cuda_nufft.TYPE2_2D_POINTS,
+                          cuda_nufft.TYPE2_2D_COLS, cuda_nufft.TYPE2_2D_STAGE)
+        out = {"dispatch": pick}
+        calls = {}
+        for r, geo in geos.items():
+            def call(geo=geo):
+                return cuda_nufft._nufft2_2d_on(x, f, hq, m, fo, geo)
+            calls[r] = call
+            what = f"nufft2_2d ({r}) {dtype} n={n} mtot={m}"
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            o = call()
+            sync()
+            scratch = (torch.cuda.max_memory_allocated() - base
+                       - o.numel() * o.element_size())
+            rel = float((o.to(torch.complex128) - ref).abs().max()) / scale
+            bar = (1e-13 if dtype == torch.float64
+                   else 1e-4 if r == "cuda" else split_bar)
+            check(np.isfinite(rel) and rel <= bar,
+                  f"{what}: error {rel:.3e} of max|ref| > {bar:.3e}")
+            check(torch.equal(call(), o), f"{what}: a second launch differs")
+            if r == pick:
+                check(torch.equal(got, o),
+                      f"{what}: the wrapper's result is not this path's")
+            out[f"{r}_rel_err"] = rel
+            out[f"{r}_scratch_bytes"] = scratch
+        for r, ms in time_cuda_paths(calls, reps,
+                                     max(trials, PATH_TRIALS)).items():
+            out[f"{r}_ms"] = ms
+        out["split_bound_ms"] = bound_split_ms(n, m, dtype, rows)[0]
+        if "tc" in geos:
+            out["tc_bound_3xtf32_ms"] = bound_3xtf32_ms("nufft2_2d", n, m)[0]
+        fastest = min(geos, key=lambda r: out[f"{r}_ms"])
+        out["fastest"] = fastest
+        out["dispatch_is_fastest"] = fastest == pick
+        tie_rel, tie_ms = DISPATCH_TIE
+        check(out[f"{pick}_ms"] <= out[f"{fastest}_ms"]
+              + max(tie_rel * out[f"{fastest}_ms"], tie_ms),
+              f"nufft2_2d {dtype} n={n} mtot={m}: the pick {pick} takes "
+              f"{out[f'{pick}_ms']:.4f} ms, {fastest} "
+              f"{out[f'{fastest}_ms']:.4f}")
+        line = f" pick {pick} (fastest on the card: {fastest});" + "".join(
+            f" {r} ms={out[f'{r}_ms']:.4f} rel={out[f'{r}_rel_err']:.3e} "
+            f"scratch {out[f'{r}_scratch_bytes'] / 1e6:.3f} MB;"
+            for r in geos)
+        line += f" split bound_ms={out['split_bound_ms']:.4f}"
+        if "tc" in geos:
+            line += f" tc bound_3xtf32_ms={out['tc_bound_3xtf32_ms']:.4f}"
+        return out, line
+
     phase3 = []
     for name, n, m, fo, h, what, B in shapes:
         d = int(name.split("_")[1][0])
@@ -761,6 +895,20 @@ def main() -> int:
                     row["bound_fp32_ms"] = b_ms
                     row["bound_ms"], row["bound_by"] = (
                         t2["bound_3xtf32_ms"], "operations")
+                    b_by = "fp32 operations"
+                extra += line
+            if name == "nufft2_2d":
+                t2, line = type2_single(x, arg, hq, m, fo, n, dtype, ref,
+                                        scale, got,
+                                        max(2 * plain_rel, 1e-6), reps,
+                                        trials)
+                row.update(t2)
+                if dtype == torch.float32:
+                    row["split_bar"] = max(2 * plain_rel, 1e-6)
+                if t2["dispatch"] == "tc":
+                    row["bound_fp32_ms"] = b_ms
+                    row["bound_ms"], row["bound_by"] = bound_3xtf32_ms(
+                        name, n, m)
                     b_by = "fp32 operations"
                 extra += line
             if batched:
@@ -1315,22 +1463,27 @@ def main() -> int:
           f"CG-tier gradient relative error {grad_rel_cg} > 5e-2")
 
     # the f32 gradient against float64 over three generator seeds (probe
-    # sets), as phase 4's sweep at mtot 29 but here where the batched type-2
-    # runs on the tensor cores: on the kernels, on the kernels with the
-    # batched type-2 sent to its CUDA-core kernel (its route before the
-    # tensor cores took mtot 107), and with the gradient's NUFFTs on the
-    # plain path; all on the fit's state
+    # sets), as phase 4's sweep at mtot 29 but here where the type-2 runs on
+    # the tensor cores (the batched one, and the single's F(D beta) at
+    # n 1e5): on the kernels, on the kernels with both type-2s sent to their
+    # CUDA-core kernel (their route before the tensor cores took mtot 107),
+    # and with the gradient's NUFFTs on the plain path; all on the fit's
+    # state
     def type2_on_cuda_cores(fn):
         keep = cuda_nufft.TYPE2_2D_TC_MIN_MTOT
         cuda_nufft.TYPE2_2D_TC_MIN_MTOT = s2.mtot + 1
         try:
-            check(cuda_nufft.type2_2d_geometry(s2.mtot) == ("cuda",),
-                  "the batched type-2 was not sent to the CUDA cores")
+            check(cuda_nufft.type2_2d_geometry(s2.mtot) == ("cuda",) and
+                  cuda_nufft.type2_2d_single_geometry(
+                      x2.shape[0], s2.mtot, torch.float32) == ("cuda",),
+                  "the type-2s were not sent to the CUDA cores")
             return fn()
         finally:
             cuda_nufft.TYPE2_2D_TC_MIN_MTOT = keep
 
-    check(cuda_nufft.type2_2d_geometry(s2.mtot)[0] == "tc",
+    check(cuda_nufft.type2_2d_geometry(s2.mtot)[0] == "tc" and
+          cuda_nufft.type2_2d_single_geometry(
+              x2.shape[0], s2.mtot, torch.float32)[0] == "tc",
           f"mtot {s2.mtot} is not routed to the tensor cores")
     sweep_cg = []
     for seed in (0, 1, 2):
@@ -1886,10 +2039,13 @@ def main() -> int:
             generator=torch.Generator(device=dev).manual_seed(11))
 
     var10()
+    reset_counts(*counters)
     t = time.perf_counter()
     v10 = var10()
     sync()
     stage["var_s"] = time.perf_counter() - t
+    launches_var10 = dict(cuda_nufft.LAUNCHES)
+    tiled_var10 = tiled_counts(cuda_nufft.LAUNCH_WIDTHS)
     etas10 = torch.as_tensor(np.random.default_rng(12).choice(
         [-1.0, 1.0], size=(256, st10.M)), dtype=torch.float32, device=dev)
     res10 = efgp_mod._solve_var(st10, st10.ws[None, :] * etas10,
@@ -1953,7 +2109,8 @@ def main() -> int:
           f"{stage['hyperlearn_20iters_s'] / 20 * 1e3:.1f} ms per Adam step, "
           f"trace iters {trace_iters_loop}; learned lengthscale "
           f"{float(torch.exp(raw[0])):.5f} (host clock) {card}")
-    print(f"[10] launches: gradient {launches_grad10} (by width "
+    print(f"[10] launches: variance {launches_var10} (past 256 modes "
+          f"{tiled_var10}); gradient {launches_grad10} (by width "
           f"{widths_grad10}); the 20-step Adam loop {launches_loop10} (by "
           f"width {widths_loop10})")
     check(launches10 == counts(2, 1),
@@ -1980,6 +2137,7 @@ def main() -> int:
         grad_mean_iters=int(gr10.mean_cg_iters),
         loop_trace_iters=trace_iters_loop,
         ms_per_adam_step=stage["hyperlearn_20iters_s"] / 20 * 1e3,
+        launches_var=launches_var10, tiled_launches_var=tiled_var10,
         launches_grad=launches_grad10,
         launches_grad_by_width={f"{k} {m}": c
                                 for (k, m), c in widths_grad10.items()},
@@ -2383,6 +2541,14 @@ def main() -> int:
                  "nufft2_2d_batched": (mtot_head, False)}
     rows = []
 
+    def single_at_scale(f32_rows, keys):
+        """The single type-2's paths at the scale configuration's calls, by
+        what each serves."""
+        return {r["serves"]: {k: r[k] for k in keys + ("n", "mtot",
+                                                       "bound_ms",
+                                                       "bound_by")}
+                for r in f32_rows if r["serves"].startswith("scale")}
+
     for name in KERNELS_NUFFT:
         f32_rows = [r for r in phase3 if r["name"] == name
                     and r["dtype"] == "float32"]
@@ -2402,6 +2568,18 @@ def main() -> int:
                      + launches_gcg[name],
                      "launches_headline_facade": launches9[name],
                      "launches_scale_fit_mean": launches10[name]}
+            if name == "nufft2_2d":
+                # its paths here and at the scale configuration's mean,
+                # variance evaluation and gradient, and the scale
+                # configuration's launches past its fit and mean
+                keys = ("dispatch", "fastest", "tc_ms", "split_ms",
+                        "cuda_ms", "tc_rel_err", "split_rel_err",
+                        "cuda_rel_err")
+                extra.update({k: row[k] for k in keys})
+                extra["launches_scale_variance"] = launches_var10[name]
+                extra["launches_scale_gradient"] = launches_grad10[name]
+                extra["launches_scale_adam_loop"] = launches_loop10[name]
+                extra["at_scale"] = single_at_scale(f32_rows, keys)
             if name == "nufft2_2d_batched":
                 # its two routes here and at the scale configuration's
                 # probe batches (B 10 and 5)
@@ -2446,9 +2624,22 @@ def main() -> int:
                    and r["dtype"] == "float32"
                    and r["serves"] == tiled_row[tpu])
         launched = tiled10 if "_2d" in kernel else tiled_d3
+        extra = {}
+        if "_2d" in kernel:
+            extra = {"launches_scale_variance": tiled_var10[tpu],
+                     "launches_scale_gradient":
+                         tiled_counts(widths_grad10)[tpu],
+                     "launches_scale_adam_loop":
+                         tiled_counts(widths_loop10)[tpu]}
+        if kernel == "nufft2_2d":
+            keys = ("dispatch", "fastest", "tc_ms", "split_ms", "cuda_ms")
+            extra.update({k: row[k] for k in keys})
+            extra["at_scale"] = single_at_scale(
+                [r for r in phase3 if r["name"] == kernel
+                 and r["dtype"] == "float32"], keys)
         rows.append({"name": f"{kernel} (mtot > {limit}, for {tpu})",
                      "route": "cuda", "source": source_of(kernel),
-                     "replaces": replaces, "launches": launched[tpu],
+                     "replaces": replaces, "launches": launched[tpu], **extra,
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"], "library_ms": None,

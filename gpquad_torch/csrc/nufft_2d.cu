@@ -16,12 +16,24 @@
 // What bounds them on an H100: at the slice's shapes both kernels do
 // ~8 mtot^2 flops per point of complex multiply-adds against ~16 bytes of
 // point data, so they are bound by operations, not by bytes.
-//  - type-2: one thread per point; the point's mode-2 phases for a tile of
-//    TK modes live in registers, the f tile (TJ x TK) is staged in shared
-//    memory and read as a broadcast.  Modes are tiled, so any odd mtot works.
-//    fp32 on the CUDA cores.  The batched type-2 in float32 also has a
-//    tensor-core form (nufft2_2d_batched_tc_kernel below): a GEMM over the
-//    modes k with a 3xTF32 split, the sum over j in its epilogue.
+//  - type-2: three paths, which ops/cuda_nufft.py picks from the shape
+//    (type2_2d_geometry for the batch, type2_2d_single_geometry for one
+//    vector) and passes to the launch with its geometry:
+//     - one thread per point on the CUDA cores (nufft2_2d_kernel): the
+//       point's mode-2 phases for a tile of TK modes live in registers, the
+//       f tile (TJ x TK) is staged in shared memory and read as a broadcast.
+//       Modes are tiled, so any odd mtot works.  Narrow grids (the
+//       headline's mtot 29), and float64 and the float32 batch below mtot
+//       64 with many points;
+//     - float32 from mtot 64 with many points, on the tensor cores
+//       (nufft2_2d_batched_tc_kernel): a GEMM over the modes k with a
+//       3xTF32 split, the sum over j in its epilogue; the single type-2
+//       takes it at B = 1 (each output still has one owner);
+//     - one vector, few points, three slabs of 16 modes j or more
+//       (nufft2_2d_split_kernel): a grid axis over the slabs, so that the
+//       card gets enough blocks, each thread keeping its slab's sums over k
+//       in registers; launch_reduce adds the slabs' partials in slab
+//       order.
 //  - type-1, float32: a GEMM over the points on the tensor cores with a
 //    3xTF32 split (nufft1_2d_tc_kernel below): 64 x 128 output tiles, the
 //    points in a fixed number of groups, each group's sum taken in stages
@@ -39,7 +51,8 @@
 //   nufft2_2d_batched replaces pallas_nufft2_2d_batched: f (B, m, m) -> (B, N)
 //   nufft1_2d_batched replaces pallas_nufft1_2d_batched: v (B, N) -> (B, m, m)
 // Each kernel template has the batch group size G as a parameter; the single
-// kernels are its G = 1 instances.  A point's phases are made once per
+// kernels are its G = 1 instances (the single type-2 on the CUDA cores, the
+// float64 type-1).  A point's phases are made once per
 // group and reused for every vector of the group; the products are done B
 // times.  The batch runs in groups of a fixed size (a grid axis over
 // groups), so the per-thread accumulators are a fixed number of registers
@@ -149,6 +162,82 @@ nufft2_2d_kernel(const v2_t<T>* __restrict__ x, const v2_t<T>* __restrict__ f,
         out[(size_t)(b0 + g) * n + i] = o;
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// single type-2 with a mode split, for few points on a wide grid:
+//   partial[s, n] = sum_{j in slab s} e1(n,j) sum_k f[j,k] e2(n,k)
+// Block = THREADS points x one slab of TJ modes j (grid axis y), the axis
+// the TPU's _pallas_nufft2_2d_tiled splits (pallas_nufft.py:381), so that
+// a call with few points still puts enough blocks on the card; the per-point
+// kernel above gives 16 blocks at n = 1 000.  Each thread keeps the slab's
+// TJ sums T_j = sum_k f[j,k] e2(n,k) in registers: per mode k one e2 phase,
+// then TJ independent complex multiply-adds against the staged f tile (read
+// as a broadcast); after the last k tile e1 is made once per (point, j) and
+// the slab's sum taken in j order from zero.  launch_reduce adds the slabs'
+// partials in slab order: no atomics, the same bits on every launch.
+// ---------------------------------------------------------------------------
+template <typename T, int THREADS, int TJ, int TK>
+__global__ void __launch_bounds__(THREADS)
+nufft2_2d_split_kernel(const v2_t<T>* __restrict__ x,
+                       const v2_t<T>* __restrict__ f, T h, int n, int m,
+                       int fft_order, v2_t<T>* __restrict__ partial) {
+  __shared__ v2_t<T> ftile[TJ][TK];
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  const int j0 = blockIdx.y * TJ;
+  const int jn = min(TJ, m - j0);
+  const bool live = i < n;
+  T u1 = 0, u2 = 0;
+  if (live) {
+    v2_t<T> xi = x[i];
+    u1 = torus(xi.x, h);
+    u2 = torus(xi.y, h);
+  }
+  T tr[TJ], ti[TJ];
+#pragma unroll
+  for (int jj = 0; jj < TJ; ++jj) {
+    tr[jj] = 0;
+    ti[jj] = 0;
+  }
+  for (int k0 = 0; k0 < m; k0 += TK) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < TJ * TK; e += THREADS) {
+      const int jj = e / TK, kk = e % TK;
+      v2_t<T> val;
+      val.x = 0;
+      val.y = 0;
+      if (jj < jn && k0 + kk < m) val = f[(size_t)(j0 + jj) * m + k0 + kk];
+      ftile[jj][kk] = val;
+    }
+    __syncthreads();
+    const int kn = min(TK, m - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      T c2, s2;
+      phase(u2, mode_value<T>(k0 + kk, m, fft_order), &c2, &s2);
+#pragma unroll
+      for (int jj = 0; jj < TJ; ++jj) {
+        const v2_t<T> a = ftile[jj][kk];
+        tr[jj] = fma(a.x, c2, fma(-a.y, s2, tr[jj]));
+        ti[jj] = fma(a.x, s2, fma(a.y, c2, ti[jj]));
+      }
+    }
+  }
+  T acc_re = 0, acc_im = 0;
+#pragma unroll
+  for (int jj = 0; jj < TJ; ++jj) {
+    if (jj < jn) {
+      T c1, s1;
+      phase(u1, mode_value<T>(j0 + jj, m, fft_order), &c1, &s1);
+      acc_re = fma(c1, tr[jj], fma(-s1, ti[jj], acc_re));
+      acc_im = fma(c1, ti[jj], fma(s1, tr[jj], acc_im));
+    }
+  }
+  if (live) {
+    v2_t<T> o;
+    o.x = acc_re;
+    o.y = acc_im;
+    partial[(size_t)blockIdx.y * n + i] = o;
   }
 }
 
@@ -1015,10 +1104,10 @@ nufft2_2d_batched_tc_kernel(const float2* __restrict__ x,
   }
 }
 
-// The single kernels are the G = 1 instances (the single type-2 with 64
-// threads per block); a batch runs in groups of 4 (type-2, 128 threads) or
-// 8 (the float64 type-1) vectors, and the float32 type-1 on the tensor
-// cores in groups of 2.
+// The single kernels are the G = 1 instances (the single type-2's CUDA-core
+// path with 64 threads per block); a batch runs in groups of 4 (type-2, 128
+// threads) or 8 (the float64 type-1) vectors, and the float32 type-1 on the
+// tensor cores in groups of 2.
 constexpr int T2_THREADS = 64;
 constexpr int T2B_THREADS = 128;
 constexpr int T2B_GROUP = 4;
@@ -1036,6 +1125,31 @@ int launch_nufft2(const void* x, const void* f, T h, int n, int m, int nb,
           (const v2_t<T>*)x, (const v2_t<T>*)f, h, n, m, nb, fft_order,
           (v2_t<T>*)out);
   return (int)cudaGetLastError();
+}
+
+// The single type-2's mode split: the caller's geometry (modes j a slab,
+// threads a block; ops/cuda_nufft.py type2_2d_single_geometry) checked
+// against the one instance, then the ceil(m / rows) slabs' partials
+// (slabs x n values in `partial`) added in slab order
+constexpr int T2S_THREADS = 64;
+constexpr int T2S_ROWS = 16;
+constexpr int T2S_TK = 32;
+
+template <typename T>
+int launch_nufft2_split(const void* x, const void* f, T h, int n, int m,
+                        int fft_order, int rows, int threads, void* partial,
+                        void* out, void* stream) {
+  if (rows != T2S_ROWS || threads != T2S_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const int slabs = (m + T2S_ROWS - 1) / T2S_ROWS;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid((n + T2S_THREADS - 1) / T2S_THREADS, slabs);
+  nufft2_2d_split_kernel<T, T2S_THREADS, T2S_ROWS, T2S_TK>
+      <<<grid, T2S_THREADS, 0, s>>>((const v2_t<T>*)x, (const v2_t<T>*)f, h,
+                                    n, m, fft_order, (v2_t<T>*)partial);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_reduce<T>(partial, slabs, n, out, s);
 }
 
 template <typename T, int G>
@@ -1147,6 +1261,23 @@ int gpq_nufft2_2d_f64(const void* x, const void* f, double h, int n, int m,
                       int fft_order, void* out, void* stream) {
   return launch_nufft2<double, T2_THREADS, 1>(x, f, h, n, m, 1, fft_order, out,
                                               stream);
+}
+
+// the single type-2's mode split (ops/cuda_nufft.py
+// type2_2d_single_geometry; its tensor-core path is
+// gpq_nufft2_2d_batched_tc_f32 at B 1)
+int gpq_nufft2_2d_split_f32(const void* x, const void* f, float h, int n,
+                            int m, int fft_order, int rows, int threads,
+                            void* partial, void* out, void* stream) {
+  return launch_nufft2_split<float>(x, f, h, n, m, fft_order, rows, threads,
+                                    partial, out, stream);
+}
+
+int gpq_nufft2_2d_split_f64(const void* x, const void* f, double h, int n,
+                            int m, int fft_order, int rows, int threads,
+                            void* partial, void* out, void* stream) {
+  return launch_nufft2_split<double>(x, f, h, n, m, fft_order, rows, threads,
+                                     partial, out, stream);
 }
 
 int gpq_nufft1_2d_f32(const void* x, const void* v, float h, int n, int m,

@@ -11,8 +11,14 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   one vector or a batch in one launch (gpquad maps the TPU kernel over a
   batch with ``lax.map``).
 - :func:`nufft2_2d` replaces ``pallas_nufft2_2d`` (pallas_nufft.py:113) and
-  its mode-tiled twin ``_pallas_nufft2_2d_tiled`` (:369): one kernel takes
-  any odd ``mtot``, tiling the modes inside.
+  its mode-tiled twin ``_pallas_nufft2_2d_tiled`` (:369), any odd ``mtot``,
+  on one of three paths that :func:`type2_2d_single_geometry` picks from
+  the shape: in float32 with many points the batched type-2's tensor-core
+  kernel at B 1 (:func:`nufft2_2d_batched_3xtf32_ref` is its twin); with
+  few points on a wide grid a split of the first mode axis into slabs, a
+  grid axis, whose partials a second pass adds in slab order
+  (:func:`nufft2_2d_split_ref`); else one thread a point on the CUDA
+  cores, tiling the modes inside.
 - :func:`nufft1_2d` replaces ``pallas_nufft1_2d`` (:195) and
   ``_pallas_nufft1_2d_tiled`` (:442): in float32 a GEMM over the points on
   the tensor cores with an explicit 3xTF32 split, one partial sum per point
@@ -68,9 +74,10 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
            "nufft1_2d_batched", "nufft2_2d_batched", "nufft1_2d_batched_ref",
            "nufft2_2d_batched_ref", "nufft1_2d_3xtf32_ref",
-           "nufft2_2d_batched_3xtf32_ref", "nufft1_3d", "nufft2_3d",
-           "nufft1_3d_ref", "nufft2_3d_ref", "type1_2d_chunk",
+           "nufft2_2d_batched_3xtf32_ref", "nufft2_2d_split_ref", "nufft1_3d",
+           "nufft2_3d", "nufft1_3d_ref", "nufft2_3d_ref", "type1_2d_chunk",
            "type1_2d_geometry", "type2_2d_geometry",
+           "type2_2d_single_geometry",
            "type2_2d_scratch_floats", "type1_3d_groups",
            "CudaNUFFT", "LAUNCHES",
            "LAUNCH_WIDTHS", "build", "library_path"]
@@ -118,6 +125,19 @@ TYPE2_2D_POINTS, TYPE2_2D_COLS, TYPE2_2D_STAGE = 128, 128, 32
 # 3's times of both kernels on the same inputs: the tensor cores from this
 # mtot on, the CUDA cores below it
 TYPE2_2D_TC_MIN_MTOT = 64
+# The single type-2's mode split (csrc/nufft_2d.cu nufft2_2d_split_kernel):
+# blocks of 64 points by slabs of 16 modes j, checked by its launch
+TYPE2_2D_SPLIT_THREADS, TYPE2_2D_SPLIT_ROWS = 64, 16
+# The single type-2's dispatch (type2_2d_single_geometry), from the times
+# of its paths on the same inputs (chip_smoke.py phase 3 at the driven
+# shapes, scripts/time_type2_single.py between them): the mode split from
+# this mtot on (three slabs and more) below a number of points by
+# precision (in float64 it leads by 5-14% at 60 000 points and ties the
+# CUDA cores within 4% at 100 000); in float32 the tensor cores from
+# TYPE2_2D_TC_MIN_MTOT and this many points
+TYPE2_2D_SPLIT_MIN_MTOT = 45
+TYPE2_2D_SPLIT_MAX_POINTS = {torch.float32: 16384, torch.float64: 65536}
+TYPE2_2D_SINGLE_TC_MIN_POINTS = 8192
 
 _lib = None
 
@@ -217,6 +237,12 @@ def _library():
                 tc.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, i32,
                                i32, ptr, ctypes.c_longlong, ptr, ptr]
                 tc.restype = i32
+            # the single type-2's mode split: its geometry (rows, threads),
+            # the slabs' partials and the output
+            t2s = getattr(lib, f"gpq_nufft2_2d_split_{prec}")
+            t2s.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, ptr, ptr,
+                            ptr]
+            t2s.restype = i32
             b1 = getattr(lib, f"gpq_nufft1_2d_batched_{prec}")
             b1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *geo, i32, ptr,
                            ptr, ptr]
@@ -491,6 +517,35 @@ def nufft2_2d_batched_3xtf32_ref(x, f, h, *, mtot: int,
     return out.T.contiguous()
 
 
+def nufft2_2d_split_ref(x, f, h, *, mtot: int, fft_order: bool = False,
+                        rows: int | None = None):
+    """Plain twin of the single type-2's mode split (csrc/nufft_2d.cu
+    ``nufft2_2d_split_kernel``), in x's precision with its sum order: for
+    each slab of ``rows`` modes j (by default the kernel's
+    :data:`TYPE2_2D_SPLIT_ROWS`), ``T[n, j] = sum_k f[j,k] e2(n,k)`` (here
+    a matmul, not the kernel's k-order chains), then the slab's sum of
+    ``e1(n,j) T[n,j]`` in j order from zero; the slabs' sums added in slab
+    order.  ``f`` (mtot, mtot) or (mtot^2,); returns complex (N,).  For the
+    tests on the CPU only."""
+    m = mtot
+    rows = rows or TYPE2_2D_SPLIT_ROWS
+    cdt = _complex_of(x.dtype)
+    F = f.reshape(m, m).to(cdt)
+    hq = torch.tensor(h, dtype=x.dtype)
+    k = _k_values(m, fft_order, x.dtype, x.device)
+    # e^{+2 pi i}: the conjugates of the type-1's phases
+    e1 = _phase_matrix(x[:, 0] * hq, k, cdt).conj()      # (N, m)
+    e2 = _phase_matrix(x[:, 1] * hq, k, cdt).conj()
+    out = None
+    for j0 in range(0, m, rows):
+        W = e1[:, j0:j0 + rows] * (e2 @ F[j0:j0 + rows].T)
+        part = W[:, 0]
+        for j in range(1, W.shape[1]):
+            part = part + W[:, j]
+        out = part if out is None else out + part
+    return out
+
+
 def nufft2_3d_ref(x, f, h, *, mtot: int, fft_order: bool = False):
     """Plain d=3 type-2: ``out[b,n] = sum f[b,j1,j2,j3] e^{+2 pi i h (x_n1
     k_j1 + x_n2 k_j2 + x_n3 k_j3)}`` with the per-j1 loop of the phase-matrix
@@ -576,17 +631,62 @@ def nufft1_1d(x, vals, h, *, mtot: int, fft_order: bool = False):
 
 
 def nufft2_2d(x, f, h, *, mtot: int, fft_order: bool = False):
-    """Fused type-2 apply for d=2 (replaces ``pallas_nufft2_2d``).
+    """Fused type-2 apply for d=2 (replaces ``pallas_nufft2_2d`` and
+    ``_pallas_nufft2_2d_tiled``).
 
     ``x`` (N, 2) real, ``f`` complex (mtot, mtot) or (mtot^2,), ``h`` the
     grid spacing; returns complex (N,).  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel."""
+    version; a CUDA tensor launches the path
+    :func:`type2_2d_single_geometry` picks from the shape: the tensor
+    cores (float32; a scratch of :func:`type2_2d_scratch_floats` floats at
+    B 1), the mode split (a scratch of ceil(mtot / 16) * N values), or
+    one thread a point on the CUDA cores.  Each counts one launch."""
     _check(x, mtot)
     if x.device.type == "cpu":
         return nufft2_2d_ref(x, f, h, mtot=mtot, fft_order=fft_order)
+    geo = type2_2d_single_geometry(x.shape[0], mtot, x.dtype)
+    return _nufft2_2d_on(x, f, h, mtot, fft_order, geo)
+
+
+def type2_2d_single_geometry(n: int, mtot: int, dtype) -> tuple:
+    """The single d=2 type-2's path and launch geometry for ``n`` points in
+    ``dtype``: ``("tc", points, cols, stage)``, the batched type-2's
+    tensor-core kernel at B 1 (:func:`type2_2d_geometry`'s geometry);
+    ``("split", rows, threads)``, the mode split, slabs of ``rows`` modes j
+    by blocks of ``threads`` points; or ``("cuda",)``, one thread a point,
+    the block fixed in its source.
+
+    A table from the times of every path on the same inputs (chip_smoke.py
+    phase 3 at the driven shapes, scripts/time_type2_single.py between
+    them).  Grids below :data:`TYPE2_2D_SPLIT_MIN_MTOT`, the headline's
+    mtot 29 among them, stay on the CUDA cores: one or two slabs do not pay
+    for the split's second pass.  In float32 the tensor cores take
+    :data:`TYPE2_2D_SINGLE_TC_MIN_POINTS` points and more from
+    :data:`TYPE2_2D_TC_MIN_MTOT` on.  Otherwise the split takes calls below
+    :data:`TYPE2_2D_SPLIT_MAX_POINTS` points, where one thread a point
+    leaves the card short of warps to hide its chains of dependent
+    multiply-adds (float64 feels them longer); past that the CUDA cores
+    keep them (the split makes a point's e2 phases once a slab, the
+    one-thread-a-point kernel its e1 phases once a tile of 32 modes k, and
+    the card is full either way), and the split's scratch of ceil(mtot / 16) * N values
+    stays small."""
+    if mtot < TYPE2_2D_SPLIT_MIN_MTOT:
+        return ("cuda",)
+    if (dtype == torch.float32 and mtot >= TYPE2_2D_TC_MIN_MTOT
+            and n >= TYPE2_2D_SINGLE_TC_MIN_POINTS):
+        return type2_2d_geometry(mtot)
+    if n < TYPE2_2D_SPLIT_MAX_POINTS[dtype]:
+        return ("split", TYPE2_2D_SPLIT_ROWS, TYPE2_2D_SPLIT_THREADS)
+    return ("cuda",)
+
+
+def _nufft2_2d_on(x, f, h, m, fft_order, geo):
+    """The single type-2's launch on CUDA tensors on the path and geometry
+    ``geo`` (:func:`type2_2d_single_geometry`), counted as one launch of
+    ``nufft2_2d``; chip_smoke.py also times every path through it."""
     cdtype = _complex_of(x.dtype)
-    if f.numel() != mtot * mtot:
-        raise ValueError(f"f has {f.numel()} entries, expected {mtot}^2")
+    if f.numel() != m * m:
+        raise ValueError(f"f has {f.numel()} entries, expected {m}^2")
     _check_cuda_operand("f", f, x, cdtype)
     n = x.shape[0]
     out = torch.empty(n, dtype=cdtype, device=x.device)
@@ -595,8 +695,26 @@ def nufft2_2d(x, f, h, *, mtot: int, fft_order: bool = False):
     x = x.contiguous()
     f = f.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
-    _launch("nufft2_2d", x, x.data_ptr(), f.data_ptr(), h, n, mtot,
-            int(fft_order), out.data_ptr(), mtot=mtot)
+    args, fo = (x.data_ptr(), f.data_ptr(), h, n, m), int(fft_order)
+    if geo[0] == "tc":
+        # the batched kernel at B 1
+        if x.dtype != torch.float32:
+            raise TypeError("the tensor-core single type-2 takes float32")
+        floats = type2_2d_scratch_floats(m, 1, geo)
+        scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
+        _launch("nufft2_2d", x, *args, 1, fo, *geo[1:], scratch.data_ptr(),
+                floats, out.data_ptr(), mtot=m,
+                symbol="gpq_nufft2_2d_batched_tc_f32")
+    elif geo[0] == "split":
+        partial = torch.empty((-(-m // geo[1]), n), dtype=cdtype,
+                              device=x.device)
+        prec = "f32" if x.dtype == torch.float32 else "f64"
+        _launch("nufft2_2d", x, *args, fo, *geo[1:], partial.data_ptr(),
+                out.data_ptr(), mtot=m, symbol=f"gpq_nufft2_2d_split_{prec}")
+    elif geo == ("cuda",):
+        _launch("nufft2_2d", x, *args, fo, out.data_ptr(), mtot=m)
+    else:
+        raise ValueError(f"no single type-2 path for geometry {geo}")
     return out
 
 

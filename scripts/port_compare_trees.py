@@ -22,6 +22,10 @@ pairs).  A run measures:
   so on the route each checkout gives it) at the headline (B 10, mtot 29)
   and at the scale configuration's Adam loop (B 5, n 1e6, mtot 339):
   CUDA-event medians of 5 and 3 trials;
+- the float32 single type-2 (``nufft2_2d``, through its wrapper) at the
+  scale configuration's F(D beta) (n 1e6, mtot 339), mean (2 000 points)
+  and variance evaluation (1 000 points, mtot 677 in FFT order):
+  CUDA-event medians of 3 and 5 trials;
 - three steps of chip_smoke.py phase 10's fixed-plan Adam loop at scale
   (n 1e6, SE l=0.006, mtot 339, kron, 5 trace samples, after one warm
   step): the host-clock time of each step, synchronised;
@@ -149,6 +153,25 @@ def one_run(root: Path) -> dict:
         lambda: cuda_nufft.nufft2_2d_batched(x10, f5, hq10, mtot=mtot10), 3,
         trials=3)
     del f5
+
+    # the single type-2 (through its wrapper, so on the path each checkout
+    # gives it) at the scale configuration's calls: F(D beta) (n 1e6), the
+    # mean (2 000 targets) and the variance evaluation (1 000 targets, the
+    # 2 mtot - 1 grid in FFT order)
+    lag10 = 2 * mtot10 - 1
+    f1, fl = (torch.as_tensor(gen.normal(size=(m, m))
+                              + 1j * gen.normal(size=(m, m)),
+                              device=dev).to(torch.complex64)
+              for m in (mtot10, lag10))
+    out[f"nufft2_2d_n1000000_m{mtot10}_ms"] = event_ms(
+        lambda: cuda_nufft.nufft2_2d(x10, f1, hq10, mtot=mtot10), 3,
+        trials=3)
+    out[f"nufft2_2d_n2000_m{mtot10}_ms"] = event_ms(
+        lambda: cuda_nufft.nufft2_2d(x10[:2000], f1, hq10, mtot=mtot10), 20)
+    out[f"nufft2_2d_n1000_m{lag10}_ms"] = event_ms(
+        lambda: cuda_nufft.nufft2_2d(x10[:1000], fl, hq10, mtot=lag10,
+                                     fft_order=True), 20)
+    del f1, fl
 
     # phase 10's fixed-plan Adam loop (bench.py's T=5, cg_tol 1e-3)
     params = gpquad_torch.HyperState.create(kern10, 0.01)

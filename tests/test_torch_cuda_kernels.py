@@ -786,3 +786,115 @@ def test_ski_on_card_matches_cpu(cuda_device):
                 assert stages[stage][k] > prev[k], (stage, k)
         prev = stages[stage]
     assert picks["banded"] == 0 and picks["unbanded"] == 0
+
+
+def _single_geometries(dtype):
+    """Every path of the single type-2 in ``dtype``: the mode split and the
+    CUDA cores, and in float32 the tensor cores."""
+    geos = {"split": ("split", cuda_nufft.TYPE2_2D_SPLIT_ROWS,
+                      cuda_nufft.TYPE2_2D_SPLIT_THREADS),
+            "cuda": ("cuda",)}
+    if dtype == torch.float32:
+        geos["tc"] = _TYPE2_TC
+    return geos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,mtot,h,fft_order", [
+    (1000, 29, 0.65, False),
+    (777, 57, 0.65, True),
+    (2000, 107, 0.1, False),
+    (1000, 339, 0.97, True),
+    (20_000, 339, 0.97, False),
+])
+def test_type2_single_paths_on_card(cuda_device, dtype, n, mtot, h,
+                                    fft_order):
+    """The single d=2 type-2 on each of its paths, on the same inputs: one
+    launch of ``nufft2_2d`` counted a call; float32 within max(2x the
+    float32 plain version's error, 1e-6) of max|ref| from float64 on the
+    tensor cores and the mode split (the CUDA-core kernel within 1e-4, as
+    before), float64 within 1e-13; bit for bit the same on a second launch;
+    the tensor cores within twice the bar of their 3xTF32 twin at B 1 and
+    the split within it of its twin; the wrapper's result that of the path
+    type2_2d_single_geometry gives the shape."""
+    rng = np.random.default_rng(7)
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 2)), device=cuda_device).to(dtype)
+    f = torch.as_tensor(rng.normal(size=(mtot, mtot))
+                        + 1j * rng.normal(size=(mtot, mtot)),
+                        device=cuda_device).to(cdt)
+    hq = float(torch.tensor(h, dtype=dtype))
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    ref = nufft2_2d_ref(x.double(), f.to(torch.complex128), hq, **kw)
+    scale = float(ref.abs().max())
+
+    def err(a):
+        return float((a.to(torch.complex128) - ref).abs().max()) / scale
+    bar = (max(2 * err(nufft2_2d_ref(x, f, hq, **kw)), 1e-6)
+           if dtype == torch.float32 else 1e-13)
+    outs = {}
+    for path, geo in _single_geometries(dtype).items():
+        before = cuda_nufft.LAUNCHES["nufft2_2d"]
+        got = cuda_nufft._nufft2_2d_on(x, f, hq, mtot, fft_order, geo)
+        torch.cuda.synchronize()
+        assert cuda_nufft.LAUNCHES["nufft2_2d"] == before + 1
+        assert got.shape == (n,)
+        assert torch.equal(
+            cuda_nufft._nufft2_2d_on(x, f, hq, mtot, fft_order, geo), got)
+        if path == "cuda" and dtype == torch.float32:
+            assert err(got) < 1e-4
+        else:
+            assert err(got) <= bar, path
+        outs[path] = got
+    if dtype == torch.float32:
+        twin = cuda_nufft.nufft2_2d_batched_3xtf32_ref(x.cpu(), f[None].cpu(),
+                                                       hq, **kw)[0]
+        assert float((outs["tc"].cpu() - twin).abs().max()) <= \
+            2 * bar * scale
+    split_twin = cuda_nufft.nufft2_2d_split_ref(x.cpu(), f.cpu(), hq, **kw)
+    assert float((outs["split"].cpu() - split_twin).abs().max()) <= \
+        2 * bar * scale
+    routed = nufft2_2d(x, f, hq, **kw)
+    path = cuda_nufft.type2_2d_single_geometry(n, mtot, dtype)[0]
+    assert torch.equal(routed, outs[path])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,geo", [
+    (torch.float32, ("split", 8, 64)),
+    (torch.float32, ("split", 32, 128)),
+    (torch.float64, ("split", 32, 64)),
+    (torch.float32, ("tc", 64, 128, 32)),
+    (torch.float32, ("tc", 128, 64, 32)),
+    (torch.float32, ("tc", 128, 128, 16)),
+])
+def test_type2_single_launch_refuses_foreign_geometry(cuda_device, dtype,
+                                                      geo):
+    """The single type-2's split and tensor-core launches take their
+    geometry from type2_2d_single_geometry and refuse one they have no
+    instance for (rows or threads, points, columns or stage changed): a
+    CUDA error is raised, and nothing is written."""
+    n, mtot = 1000, 107
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    x = torch.rand((n, 2), device=cuda_device, dtype=dtype)
+    f = torch.ones((mtot, mtot), dtype=cdt, device=cuda_device)
+    out = torch.zeros(n, dtype=cdt, device=cuda_device)
+    if geo[0] == "split":
+        scratch = torch.zeros((-(-mtot // geo[1]) + 8, n), dtype=cdt,
+                              device=cuda_device)
+        prec = "f32" if dtype == torch.float32 else "f64"
+        tail = (0, *geo[1:], scratch.data_ptr(), out.data_ptr())
+        symbol = f"gpq_nufft2_2d_split_{prec}"
+    else:
+        # the batched kernel at B 1
+        floats = cuda_nufft.type2_2d_scratch_floats(mtot, 1, _TYPE2_TC)
+        scratch = torch.zeros(floats, device=cuda_device)
+        tail = (1, 0, *geo[1:], scratch.data_ptr(), floats, out.data_ptr())
+        symbol = "gpq_nufft2_2d_batched_tc_f32"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft2_2d", x, x.data_ptr(), f.data_ptr(), 0.5, n,
+                           mtot, *tail, mtot=mtot, symbol=symbol)
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+    assert not bool(scratch.abs().any())
