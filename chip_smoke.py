@@ -28,7 +28,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launch, timed, with its scratch, the tensor cores' 3xTF32 bound and
      the split's bound with its partials, the path
      cuda_nufft.type2_2d_single_geometry picks, and a check that the pick
-     was the fastest path measured there (within DISPATCH_TIE);
+     was the fastest path measured there (within DISPATCH_TIE); the
+     float32 d=1 type-1 on both of its kernels, the tensor cores (3xTF32
+     on a split of the mode index, the wrapper's path) and the CUDA cores,
+     on the same inputs: each bit for bit against a second launch, the
+     tensor cores within max(2x the float32 plain version's error, 1e-6)
+     and within twice that of their twin nufft1_1d_3xtf32_ref, the card's
+     time of both in alternating rounds, the 3xTF32 bound beside the fp32
+     one, and a check that the tensor cores were the faster (within
+     DISPATCH_TIE);
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -85,8 +93,12 @@ Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
 and at mtot 57, 101 and 255, the two d=1 kernels at phase 8's shapes and
 at mtot 8191, and the two SKI interpolation kernels at phase 11's band
 tables (B 1, 3, 8 and 64) and the raster's (B 1, 3 and 8), with the
-column-sorted index's bytes; interp_T_2d also bit for bit against a
-second launch and its plain twin's walk.  Phase 10 prints its ms per Adam
+column-sorted index's bytes; both bit for bit against a second launch and
+their plain twins (interp_T_2d's column-sorted walk, interp_2d's
+point-order sum); interp_2d from the grid to point order, its band-slot
+API bit for bit against interp_2d_ref, the whole SKIOperator.interp one
+launch of it, timed with the host's enqueue and on the card beside the
+library call (the unbanded gather).  Phase 10 prints its ms per Adam
 step and the launches of its gradient and Adam loop; phase 11 its ms per
 Adam iteration and, beside the f32 variance, the f32 plain path's and the
 bfloat16-weight control's.
@@ -121,9 +133,10 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
-# the float32 d=2 type-1 on the tensor cores: three TF32 products (the
-# 3xTF32 split) per real product, 8 flops per point, output and vector each
-TC_TYPE1 = ("nufft1_2d", "nufft1_2d_batched")
+# the float32 type-1 on the tensor cores (d=2, and d=1 on a split of its
+# mode index): three TF32 products (the 3xTF32 split) per real product, 8
+# flops per point, output and vector each
+TC_TYPE1 = ("nufft1_2d", "nufft1_2d_batched", "nufft1_1d")
 # One phase e^{i 2 pi c} counted at its least cost: a rotation recurrence
 # along the modes (one complex multiply, 6 flops) re-anchored every 32 modes
 # by an exact sin/cos pair (20 flops: the 10 multiply-adds of the minimax
@@ -335,24 +348,23 @@ def kernel_work(name, n, m, dtype, B=1):
     return flops, nbytes
 
 
-def interp_work(name, nbands, cap, G2, dtype, B, listed=None):
+def interp_work(name, nbands, G1, G2, dtype, B, listed):
     """(flops, bytes) of an interpolation kernel on a band plan, at
-    INTERP_FLOPS a slot and vector; bytes of the tables (two int32 and
-    eight weights a slot), the B inputs read once (W v: the padded grid
-    under the slab view) and the B outputs written once.  W v works on every
-    slot (padded ones included: they are in its output); W^T u needs only
-    the ``listed`` slots of the column index (the valid ones), their values
-    and the index itself (a slot number each, G2 + 1 column starts a
-    band)."""
+    INTERP_FLOPS a slot and vector, over the ``listed`` slots of the column
+    index (the valid ones, one a point); bytes of their tables (three int32
+    and eight weights a slot), the B inputs read once and the B outputs
+    written once.  W^T u reads the slots' values and the index itself (a
+    slot number each, G2 + 1 column starts a band) and writes the band
+    slabs; W v reads the G1 x G2 grid and its tables' point of each slot
+    and writes the points."""
     s = 4 if dtype == torch.float32 else 8
-    rows = nbands * 8 + 3
+    tables = listed * (3 * 4 + 8 * s)
     if name == "interp_T_2d":
-        tables = listed * (3 * 4 + 8 * s) + nbands * (G2 + 1) * 4
+        tables += nbands * (G2 + 1) * 4
         io = B * listed * s + nbands * B * 11 * G2 * s
-        return INTERP_FLOPS[name] * B * listed, tables + io
-    tables = nbands * cap * (2 * 4 + 8 * s)
-    io = B * rows * G2 * s + nbands * B * cap * s
-    return INTERP_FLOPS[name] * B * nbands * cap, tables + io
+    else:
+        io = B * G1 * G2 * s + B * listed * s
+    return INTERP_FLOPS[name] * B * listed, tables + io
 
 
 def bound_ms(name, n, m, dtype, B=1, work=None):
@@ -362,17 +374,23 @@ def bound_ms(name, n, m, dtype, B=1, work=None):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound_3xtf32_ms(name, n, m, B=1):
-    """A float32 d=2 kernel's bound on the tensor cores (the type-1, and
-    the type-2's tensor-core kernel, batched or at B 1 for the single):
-    3 x 8 flops per point, mode pair and vector at the dense TF32 rate,
-    plus the rest of kernel_work's operations (the phases, once per point,
-    dimension and mode, and the products v e1 or e1 T) at the fp32 rate;
-    against its bytes."""
+def bound_3xtf32_ms(name, n, m, B=1, split=None):
+    """A float32 kernel's bound on the tensor cores (the type-1 at d=2 and
+    d=1, and the d=2 type-2's tensor-core kernel, batched or at B 1 for the
+    single): 3 x 8 flops per point, mode (pair) and vector at the dense TF32
+    rate, plus the rest of kernel_work's operations (the phases, once per
+    point, dimension and mode, and the products v e1 or e1 T) at the fp32
+    rate; against its bytes.  At d=1 ``split`` = (K, Q) of the mode split
+    k = K q + r (cuda_nufft.type1_1d_split) sets the rest: K + Q phases a
+    point, and the K products v e^{-2 pi i r t} a point and vector."""
+    d = int(name.split("_")[1][0])
     flops, nbytes = kernel_work(name, n, m, torch.float32, B)
-    tc = 3 * 8 * B * n * m * m
-    t_ops = (tc / PEAK_TF32 + (flops - 8 * B * n * m * m)
-             / PEAK_FLOPS[torch.float32]) * 1e3
+    tc = 3 * 8 * B * n * m ** d
+    rest = flops - 8 * B * n * m ** d
+    if split is not None:
+        K, Q = split
+        rest = n * (K + Q) * PHASE_FLOPS + 6 * B * n * K
+    t_ops = (tc / PEAK_TF32 + rest / PEAK_FLOPS[torch.float32]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -731,6 +749,60 @@ def main() -> int:
                 f"rel={out['cuda_core_rel_err']:.3e}")
         return out, line
 
+    def type1_1d_both(x, v, hq, m, fo, n, B, ref, scale, got, split_bar,
+                      reps):
+        """The float32 d=1 type-1 on its two kernels on the same inputs:
+        the tensor cores ("tc", the wrapper's path; type1_1d_geometry) and
+        today's CUDA-core kernel ("cuda", 2048-point chunks), each within
+        1e-4 of max|ref| (the tensor cores also within ``split_bar`` and
+        within twice that of their twin nufft1_1d_3xtf32_ref, run on the
+        card), bit for bit against a second launch; the card's time of
+        each (time_cuda_paths, the paths in turn each round).  Returns the
+        row's fields and a line for the log."""
+        geos = {"tc": cuda_nufft.type1_1d_geometry(n, m, B),
+                "cuda": ("cuda", cuda_nufft.TYPE1_CHUNK)}
+        vb = v.reshape(B, n)
+        calls = {r: (lambda geo=geo: cuda_nufft._nufft1_1d_on(
+            x, vb, hq, m, fo, geo)) for r, geo in geos.items()}
+        out = {"dispatch": "tc"}
+        for r, call in calls.items():
+            what = f"nufft1_1d ({r}) B={B} n={n} mtot={m}"
+            o = call()
+            sync()
+            rel = float((o.reshape(got.shape).to(torch.complex128)
+                         - ref).abs().max()) / scale
+            check(np.isfinite(rel) and rel <= 1e-4,
+                  f"{what}: error {rel:.3e} of max|ref| > 1e-4")
+            check(torch.equal(call(), o), f"{what}: a second launch differs")
+            if r == "tc":
+                check(rel <= split_bar,
+                      f"{what}: error {rel:.3e} over max(2 x the plain "
+                      f"version's, 1e-6) = {split_bar:.3e}")
+                check(torch.equal(o.reshape(got.shape), got),
+                      f"{what}: the wrapper's result is not this kernel's")
+                twin = cuda_nufft.nufft1_1d_3xtf32_ref(x, vb, hq, mtot=m,
+                                                       fft_order=fo)
+                diff = float((o - twin).abs().max())
+                check(diff <= 2 * split_bar * scale,
+                      f"{what}: {diff / scale:.3e} of max|ref| from its "
+                      f"twin, over 2 x {split_bar:.3e}")
+                out["twin_rel_diff"] = diff / scale
+            key = "tc" if r == "tc" else "cuda_core"
+            out[f"{key}_rel_err"] = rel
+        ms = time_cuda_paths(calls, reps, PATH_TRIALS)
+        out["tc_ms"], out["cuda_core_ms"] = ms["tc"], ms["cuda"]
+        out["geometry"] = list(geos["tc"][1:])
+        faster = min(ms, key=ms.get)
+        check(faster == "tc" or ms["tc"] <= max(
+            ms[faster] * (1 + DISPATCH_TIE[0]), ms[faster] + DISPATCH_TIE[1]),
+            f"nufft1_1d B={B} n={n} mtot={m}: the tensor cores take "
+            f"{ms['tc']:.4f} ms, the CUDA cores {ms['cuda']:.4f}")
+        line = (f" on the card: tensor cores ms={ms['tc']:.4f} rel="
+                f"{out['tc_rel_err']:.3e} (twin {out['twin_rel_diff']:.3e} "
+                f"apart), CUDA cores ms={ms['cuda']:.4f} rel="
+                f"{out['cuda_core_rel_err']:.3e}; geometry {geos['tc']}")
+        return out, line
+
     def type2_single(x, f, hq, m, fo, n, dtype, ref, scale, got, split_bar,
                      reps, trials):
         """The single type-2 on each of its paths, the tensor cores ("tc",
@@ -871,9 +943,15 @@ def main() -> int:
                 # the kernel's own bound is the tensor cores'; the fp32
                 # CUDA-core bound kept beside it
                 row["bound_fp32_ms"] = b_ms
-                row["bound_ms"], row["bound_by"] = bound_3xtf32_ms(name, n, m,
-                                                                   B)
-                geo = cuda_nufft.type1_2d_geometry(n, m, B, batched)
+                split = None
+                if d == 1:
+                    geo = cuda_nufft.type1_1d_geometry(n, m, B)[1:]
+                    K = geo[0] // geo[2]
+                    split = (K, cuda_nufft.type1_1d_split(m, K)[1])
+                else:
+                    geo = cuda_nufft.type1_2d_geometry(n, m, B, batched)
+                row["bound_ms"], row["bound_by"] = bound_3xtf32_ms(
+                    name, n, m, B, split)
                 groups = -(-n // geo[-1])
                 row["scratch_bytes"] = scratch
                 check(scratch < 256e6,
@@ -883,9 +961,14 @@ def main() -> int:
                 row["split_bar"] = split_bar
                 extra = (f" tile {row['tile']}, scratch {groups} groups "
                          f"{scratch / 1e6:.3f} MB (measured; partials "
-                         f"{groups * B * m * m * 8 / 1e6:.3f} MB), "
+                         f"{groups * B * m ** d * 8 / 1e6:.3f} MB), "
                          f"bound_3xtf32_ms={row['bound_ms']:.4f}")
                 b_ms, b_by = row["bound_fp32_ms"], "fp32 operations"
+                if d == 1:
+                    t1, line = type1_1d_both(x, arg, hq, m, fo, n, B, ref,
+                                             scale, got, split_bar, reps)
+                    row.update(t1)
+                    extra += line
             if name == "nufft2_2d_batched" and dtype == torch.float32:
                 t2, line = type2_both(x, arg, hq, m, fo, n, B, ref, scale,
                                       got, max(2 * plain_rel, 1e-6), reps,
@@ -990,6 +1073,9 @@ def main() -> int:
                                    (vp.stride(0), 8 * G2, G2, 1))
                 v = v64.to(dtype).reshape(B, G1 * G2)
                 idx_flat = op.idx.reshape(-1)
+                ptabs = (*tabs, t.pout)
+                ptabs64 = (*tabs64, t.pout)
+                pkw = dict(G1=G1, G2=G2, n=n_pts, bh=8)
 
                 def lib_T():
                     z = torch.zeros((B, G1 * G2), dtype=dtype, device=dev)
@@ -1008,19 +1094,20 @@ def main() -> int:
                                                             bh=8),
                         lambda: cuda_interp.interp_T_2d_ref(
                             us.double(), *tabs64, G2=G2, bh=8), lib_T),
+                    # W v from the grid to point order, one launch (on
+                    # the operator's plan, checked when it was made)
                     "interp_2d": (
-                        lambda: cuda_interp.interp_2d(vs, *tabs, bh=8),
-                        lambda: cuda_interp.interp_2d_ref(vs, *tabs, bh=8),
-                        lambda: cuda_interp.interp_2d_ref(
-                            vs.double(), *tabs64, bh=8), lib_fwd)}
+                        lambda: cuda_interp.interp_2d_points_trusted(
+                            v, *ptabs, **pkw),
+                        lambda: cuda_interp.interp_2d_points_ref(v, *ptabs,
+                                                                 **pkw),
+                        lambda: cuda_interp.interp_2d_points_ref(
+                            v.double(), *ptabs64, **pkw), lib_fwd)}
                 for name, (kern_fn, plain_fn, ref_fn, lib_fn) in \
                         calls.items():
                     got = kern_fn()
                     sync()
                     ref = ref_fn()
-                    if name == "interp_2d":     # the valid slots only
-                        keep = t.valid[:, None, :].expand_as(ref)
-                        got, ref = got[keep], ref[keep]
                     err = float((got.double() - ref).abs().max())
                     scale = float(ref.abs().max())
                     rel = err / scale
@@ -1028,15 +1115,34 @@ def main() -> int:
                     check(np.isfinite(rel) and rel <= bar,
                           f"{name} {tag} {dtype} B={B}: error {rel:.3e} of "
                           f"max|ref| > {bar:.0e}")
-                    if name == "interp_T_2d":
-                        # the same sums in the same order: a second launch
-                        # and the plain twin's column-sorted walk
-                        check(torch.equal(kern_fn(), got) and torch.equal(
-                            cuda_interp.interp_T_2d_sorted_ref(
-                                us, *tabs, *idx, G2=G2, bh=8), got),
-                            f"interp_T_2d {tag} {dtype} B={B}: not bit for "
-                            "bit the same on a second launch and in its twin")
-                    del got, ref
+                    # the same sums in the same order: a second launch and
+                    # the plain twin (interp_T_2d: its column-sorted walk)
+                    twin = (cuda_interp.interp_T_2d_sorted_ref(
+                        us, *tabs, *idx, G2=G2, bh=8)
+                        if name == "interp_T_2d" else plain_fn())
+                    check(torch.equal(kern_fn(), got)
+                          and torch.equal(twin, got),
+                          f"{name} {tag} {dtype} B={B}: not bit for bit the "
+                          "same on a second launch and in its twin")
+                    if name == "interp_2d":
+                        # the checked entry and the band-slot API on the
+                        # same kernel, and the whole operator, one launch
+                        check(torch.equal(
+                            cuda_interp.interp_2d_points(v, *ptabs, **pkw),
+                            got), f"interp_2d_points {tag} {dtype} B={B}: "
+                            "not the unchecked launch's result")
+                        check(torch.equal(
+                            cuda_interp.interp_2d(vs, *tabs, bh=8),
+                            cuda_interp.interp_2d_ref(vs, *tabs, bh=8)),
+                            f"interp_2d {tag} {dtype} B={B}: the band-slot "
+                            "API is not its plain version bit for bit")
+                        before = cuda_interp.LAUNCHES["interp_2d"]
+                        check(torch.equal(op.interp(v), got)
+                              and cuda_interp.LAUNCHES["interp_2d"]
+                              == before + 1,
+                              f"SKIOperator.interp {tag} {dtype} B={B}: not "
+                              "one launch of the kernel")
+                    del got, ref, twin
                     # calls of tens of microseconds: 100 a trial for the
                     # kernel and the library call alike, so that neither
                     # median rests on a few calls at a clock still ramping
@@ -1047,7 +1153,7 @@ def main() -> int:
                         plain_ms = time_cuda(plain_fn, 3, 3)
                         library_ms = time_cuda(lib_fn, 100)
                     b_ms, b_by = bound_ms(name, 0, 0, dtype, work=interp_work(
-                        name, nb, cap, G2, dtype, B, listed))
+                        name, nb, G1, G2, dtype, B, listed))
                     row = dict(name=name, serves=tag, B=B, nbands=nb,
                                cap=cap, G2=G2,
                                dtype=str(dtype).split(".")[-1],
@@ -1055,10 +1161,26 @@ def main() -> int:
                                rel_err=rel, ms=ms, plain_ms=plain_ms,
                                library_ms=library_ms, bound_ms=b_ms,
                                bound_by=b_by)
-                    phase3.append(row)
                     extra = "" if plain_ms is None else (
                         f" plain_ms={plain_ms:.4f} library (unbanded path) "
                         f"ms={library_ms:.4f}")
+                    if name == "interp_2d" and dtype == torch.float32:
+                        # the whole SKIOperator.interp beside the kernel and
+                        # the library call: with the host's enqueue (100
+                        # calls a trial), and the card's alone
+                        row["interp_ms"] = time_cuda(lambda: op.interp(v),
+                                                     100)
+                        card_ms = time_cuda_paths(
+                            {"kernel": kern_fn,
+                             "interp": lambda: op.interp(v),
+                             "library": lib_fn}, 100, PATH_TRIALS)
+                        row.update({f"{k}_card_ms": t_
+                                    for k, t_ in card_ms.items()})
+                        extra += (f" SKIOperator.interp ms="
+                                  f"{row['interp_ms']:.4f}; on the card: "
+                                  + " ".join(f"{k} {t_:.4f}" for k, t_ in
+                                             card_ms.items()))
+                    phase3.append(row)
                     print(f"[3] {name} {row['dtype']} {tag} B={B}: "
                           f"max_abs_err={err:.3e} rel={rel:.3e} "
                           f"ms={ms:.4f}{extra} bound_ms={b_ms:.4f} ({b_by}) "
@@ -2558,6 +2680,18 @@ def main() -> int:
                       key=lambda r: r["B"] * r["n"] * r["mtot"])
             extra = {"launches": launches_lc[name],
                      "launches_headline_facade": launches9[name]}
+            if name == "nufft1_1d":
+                # both kernels' card times on the same inputs, the 3xTF32
+                # bound (bound_ms) beside the fp32 one, at every light-curve
+                # call
+                keys = ("dispatch", "tc_ms", "cuda_core_ms", "tc_rel_err",
+                        "cuda_core_rel_err", "bound_fp32_ms")
+                extra.update({k: row[k] for k in keys})
+                extra["at_calls"] = {
+                    r["serves"]: {k: r[k] for k in keys + (
+                        "B", "n", "mtot", "ms", "bound_ms", "bound_by")}
+                    for r in f32_rows if r["serves"].startswith("light")
+                    or r["serves"] == "mtot 8191"}
         elif name in row_shape:
             m, fo = row_shape[name]
             row = next(r for r in f32_rows if r["mtot"] == m and
@@ -2652,8 +2786,24 @@ def main() -> int:
     for name in KERNELS_INTERP:
         row = next(r for r in phase3 if r["name"] == name and r["serves"] ==
                    "ski" and r["dtype"] == "float32" and r["B"] == 3)
+        if name == "interp_2d":
+            # the whole SKIOperator.interp (one launch) beside the library
+            # call, with the host's enqueue and on the card, at every batch
+            extra = {"interp_ms": row["interp_ms"],
+                     "card_ms": {k: row[f"{k}_card_ms"]
+                                 for k in ("kernel", "interp", "library")},
+                     "at_batches": {
+                         f"{r['serves']} B{r['B']}": {
+                             k: r[k] for k in (
+                                 "ms", "interp_ms", "library_ms",
+                                 "kernel_card_ms", "interp_card_ms",
+                                 "library_card_ms", "bound_ms")}
+                         for r in phase3 if r["name"] == name
+                         and r["dtype"] == "float32"}}
+        else:
+            extra = {}
         rows.append({"name": name, "route": "cuda", "source": source_of(name),
-                     "replaces": REPLACES[name],
+                     "replaces": REPLACES[name], **extra,
                      "launches": launches11[name],
                      "launches_by_stage_cumulative": {
                          stage: counts_[name]

@@ -18,7 +18,7 @@ import torch
 from .kernels import HyperState, make_kernel
 from .models.efgp import FitState, resolve_device
 from .models.ski import BandedInterpTables, SKIOperator
-from .ops.cuda_interp import column_index
+from .ops.cuda_interp import column_index, point_of_slot
 from .ops.kron_precond import KronPrecond
 from .ops.toeplitz import ToeplitzND
 
@@ -130,9 +130,11 @@ def ski_fit_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda"):
     from the arrays :func:`ski_fit_to_numpy` names (from the port or from a
     gpquad fit: ``np.asarray`` of its operator's fields, its Toeplitz
     ``fft_kernel``, ``alpha`` and ``raw``).  The column-sorted slot index
-    the ``interp_T_2d`` kernel walks is always made here from ``valid`` and
-    ``c0``, never read: it is derived data, and the kernel trusts its
-    slot numbers and ranges."""
+    the ``interp_T_2d`` kernel walks and the point each slot of ``W v``
+    writes are always made here from ``valid``, ``c0`` and ``pidx``, never
+    read: they are derived data, and the kernels trust their slot and point
+    numbers and ranges (each point is checked against n as it is made, and
+    ``SKIOperator`` checks the point table again)."""
     dev = resolve_device(device)
 
     def t(a, dtype=None):
@@ -143,10 +145,13 @@ def ski_fit_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda"):
     if arrays.get("banded_pidx") is not None:
         dtypes = {"pidx": torch.int64, "inv_slot": torch.int64,
                   "i0loc": torch.int32, "c0": torch.int32,
-                  "col_slots": torch.int32, "col_start": torch.int32}
+                  "col_slots": torch.int32, "col_start": torch.int32,
+                  "pout": torch.int32}
         tables = {k: arrays[f"banded_{k}"] for k in _BAND_TABLES}
         tables["col_slots"], tables["col_start"] = column_index(
             tables["valid"], tables["c0"], grid_shape[1])
+        tables["pout"] = point_of_slot(tables["valid"], tables["pidx"],
+                                       len(tables["inv_slot"]))
         banded = BandedInterpTables(**{k: t(a, dtypes.get(k))
                                        for k, a in tables.items()})
     fft_kernel = t(arrays["fft_kernel"])

@@ -29,22 +29,31 @@
 //    the S sums are added in a fixed order in shared memory at the end).  A
 //    tile of TK modes of the group's VB vectors is staged in shared memory
 //    and read as a broadcast; each phase is made once and applied to all VB.
-//  - nufft1_1d: the sum runs over points, so it is the deterministic
-//    two-stage reduction of nufft1_2d: a block owns 128 modes (one a thread),
-//    one chunk of 2048 points and one group of G vectors; it stages the
-//    points' folded t (and its rounding error) and the group's values in
-//    shared memory, makes one phase per point and mode and adds v_b e for
-//    every b of the group, in runs of SUB points.  The per-chunk partials
-//    (nchunk x B x mtot) are then added in chunk order by a second kernel.
-//    No atomics.
+//  - nufft1_1d in float32: tc_type1.cuh's tensor-core kernel (3xTF32) on a
+//    split of the mode index, k = K q + r (Type1Split1D below): a GEMM over
+//    the points whose rows are (vector, r) and columns q, the phases
+//    e^{-2 pi i r t} and e^{-2 pi i K q t} made per point, K + (columns)
+//    of them instead of mtot, each with phase_split so that the rounding of
+//    t = x*h goes into both; the (q, r) outside mtot are cropped in the
+//    epilogue, and the groups' partials added in group order in double.
+//  - nufft1_1d on the CUDA cores (float64, and the float32 control phase 3
+//    times beside the tensor cores): the sum runs over points, so it is the
+//    deterministic two-stage reduction of nufft1_2d: a block owns 128 modes
+//    (one a thread), one chunk of 2048 points and one group of G vectors;
+//    it stages the points' folded t (and its rounding error) and the
+//    group's values in shared memory, makes one phase per point and mode
+//    and adds v_b e for every b of the group, in runs of SUB points.  The
+//    per-chunk partials (nchunk x B x mtot) are then added in chunk order
+//    by a second kernel.  No atomics.
 //
-// Every kernel is templated on the scalar type: float is the main path, and
-// double tensors run a double instance of the same code.
+// The CUDA-core kernels are templated on the scalar type: float is the
+// type-2's main path, and double tensors run a double instance of the same
+// code.
 //
 // C interface (bound with ctypes): pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launches.
 
-#include "nufft_common.cuh"
+#include "tc_type1.cuh"
 
 namespace {
 
@@ -288,6 +297,59 @@ int launch_nufft1(const void* x, const void* v, T h, int n, int m, int nb,
   return launch_reduce<T>(partial, nchunk, nb * m, out, st);
 }
 
+// ---------------------------------------------------------------------------
+// type-1 in float32 on the tensor cores: tc_type1.cuh's kernel on the split
+// k = K q + r, K = TJ (64 for one vector, 32 for a batch in pairs): row r in
+// 0..K-1, column qi the q = qmin + qi of qmin = -ceil(half / K) ..
+// floor(half / K), half = (m - 1) / 2; output k if |k| <= half (index
+// k + half, or the FFT order's k mod m).  The stage coordinates are the
+// torus coordinate u and the rounding error te of t = x*h (torus_split);
+// both phases take them (phase_split), the column's at mode value K q.
+// ---------------------------------------------------------------------------
+struct Type1Split1D {
+  using X = float;
+  using Acc = double;
+  static __device__ void point(X xp, float h, float* a, float* b) {
+    *a = torus_split(xp, h, b);
+  }
+  static __device__ void row_phase(float a, float b, float k, float* c,
+                                   float* s) {
+    phase_split(a, b, k, c, s);
+  }
+  static __device__ void col_phase(float a, float b, float k, float* c,
+                                   float* s) {
+    phase_split(a, b, k, c, s);
+  }
+  template <int K>
+  static __host__ __device__ int qmin(int m) {
+    return -(((m - 1) / 2 + K - 1) / K);
+  }
+  template <int K>
+  static __device__ float row_mode(int r, int, int, bool* ok) {
+    *ok = true;
+    return (float)r;
+  }
+  template <int K>
+  static __device__ float col_mode(int qi, int m, int, bool* ok) {
+    *ok = qi < cols<K>(m);
+    return *ok ? (float)(K * (qmin<K>(m) + qi)) : 0.f;
+  }
+  template <int K>
+  static __host__ __device__ int rows(int) { return K; }
+  template <int K>
+  static __host__ __device__ int cols(int m) {
+    return (m - 1) / 2 / K - qmin<K>(m) + 1;
+  }
+  static __host__ __device__ long long outputs(int m) { return m; }
+  template <int K>
+  static __device__ long long out_index(int r, int qi, int m, int fft_order) {
+    const int half = (m - 1) / 2;
+    const int k = K * (qmin<K>(m) + qi) + r;
+    if (k < -half || k > half) return -1;
+    return fft_order ? (k >= 0 ? k : k + m) : k + half;
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -307,6 +369,21 @@ int gpq_nufft1_1d_f32(const void* x, const void* v, float h, int n, int m,
                       void* out, void* stream) {
   return launch_nufft1<float>(x, v, h, n, m, nb, fft_order, chunk, partial,
                               out, stream);
+}
+
+// float32 on the tensor cores, with the caller's geometry (ops/cuda_nufft.py
+// type1_1d_geometry): one vector in groups of G = 1, a batch of G = 2
+int gpq_nufft1_1d_tc_f32(const void* x, const void* v, float h, int n, int m,
+                         int nb, int fft_order, int rows, int cols, int group,
+                         int acc, int run, int chunk, void* partial,
+                         void* out, void* stream) {
+  if (group == 1)
+    return launch_type1_tc<Type1Split1D, 1>(x, v, h, n, m, nb, fft_order,
+                                            rows, cols, group, acc, run,
+                                            chunk, partial, out, stream);
+  return launch_type1_tc<Type1Split1D, 2>(x, v, h, n, m, nb, fft_order, rows,
+                                          cols, group, acc, run, chunk,
+                                          partial, out, stream);
 }
 
 int gpq_nufft1_1d_f64(const void* x, const void* v, double h, int n, int m,

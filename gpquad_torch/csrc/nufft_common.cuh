@@ -83,29 +83,29 @@ __device__ __forceinline__ void phase_split(T u, T te, T k, T* c, T* s) {
 }
 
 // Type-1 stage 2: out[i] = sum_c partial[c, i] over the mm outputs, in chunk
-// (or chunk-group) order.
-template <typename T>
+// (or chunk-group) order, the sum in Acc and rounded to T once.
+template <typename T, typename Acc>
 __global__ void nufft1_reduce_kernel(const v2_t<T>* __restrict__ partial,
                                      int nchunk, int mm,
                                      v2_t<T>* __restrict__ out) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= mm) return;
-  T re = 0, im = 0;
+  Acc re = 0, im = 0;
   for (int c = 0; c < nchunk; ++c) {
     const v2_t<T> p = partial[(size_t)c * mm + idx];
     re += p.x;
     im += p.y;
   }
   v2_t<T> o;
-  o.x = re;
-  o.y = im;
+  o.x = (T)re;
+  o.y = (T)im;
   out[idx] = o;
 }
 
-template <typename T>
+template <typename T, typename Acc = T>
 int launch_reduce(const void* partial, int nchunk, int mm, void* out,
                   cudaStream_t s) {
-  nufft1_reduce_kernel<T><<<(mm + 255) / 256, 256, 0, s>>>(
+  nufft1_reduce_kernel<T, Acc><<<(mm + 255) / 256, 256, 0, s>>>(
       (const v2_t<T>*)partial, nchunk, mm, (v2_t<T>*)out);
   return (int)cudaGetLastError();
 }

@@ -35,12 +35,12 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..kernels import make_kernel
 from ..ops.cg import pcg
-from ..ops.cuda_interp import (column_index, interp_2d, interp_T_2d,
-                               interp_T_2d_ref)
+from ..ops.cuda_interp import (check_point_tables, column_index,
+                               interp_2d_points_trusted, interp_T_2d,
+                               interp_T_2d_ref, point_of_slot)
 from ..ops.slq import _gauss_quadrature, lanczos_tridiag
 from ..ops.toeplitz import ToeplitzND, make_toeplitz
 from .efgp import _cdtype, resolve_device
@@ -185,9 +185,10 @@ def _fold_band_slabs(slabs, batch, G1: int, G2: int, bh: int):
 class BandedInterpTables(NamedTuple):
     """Point-to-band gather tables for the banded interpolation (d=2):
     points sorted by the stencil's base grid row, padded to a per-band
-    ``cap`` (host-planned).  The first seven are gpquad's tables; the last
-    two are the column-sorted slot index the ``interp_T_2d`` kernel walks
-    (``ops/cuda_interp.py`` :func:`column_index`)."""
+    ``cap`` (host-planned).  The first seven are gpquad's tables; then the
+    column-sorted slot index the ``interp_T_2d`` kernel walks
+    (``ops/cuda_interp.py`` :func:`column_index`) and the point each slot
+    of ``W v`` writes (:func:`point_of_slot`)."""
     pidx: torch.Tensor       # (nbands, cap) int64 original point index
     valid: torch.Tensor      # (nbands, cap) bool
     i0loc: torch.Tensor      # (nbands, cap) int32 local row offset 0..BH-1
@@ -197,6 +198,7 @@ class BandedInterpTables(NamedTuple):
     inv_slot: torch.Tensor   # (n,) int64 band-major slot of each point
     col_slots: torch.Tensor  # (nbands, cap) int32 valid slots sorted by c0
     col_start: torch.Tensor  # (nbands, G2+1) int32 where each c0 starts
+    pout: torch.Tensor       # (nbands, cap) int32 pidx on valid slots, else -1
 
 
 def _plan_banded_interp(i0, w1d, G1: int, G2: int, bh: int = _BANDED_BH,
@@ -233,7 +235,8 @@ def _plan_banded_interp(i0, w1d, G1: int, G2: int, bh: int = _BANDED_BH,
         pidx=t(pidx, torch.int64), valid=t(valid),
         i0loc=t(i0loc.astype(np.int32)), c0=t(c0),
         w_row=t(w1d[pidx, 0, :]), w_col=t(w1d[pidx, 1, :]),
-        inv_slot=t(inv_slot), col_slots=t(col_slots), col_start=t(col_start))
+        inv_slot=t(inv_slot), col_slots=t(col_slots), col_start=t(col_start),
+        pout=t(point_of_slot(valid, pidx, n)))
 
 
 def _banded_plan(i0, w1d, grid_shape, n: int, device):
@@ -261,6 +264,15 @@ class SKIOperator:
     dx: Optional[torch.Tensor] = None
     banded: Optional[BandedInterpTables] = None
 
+    def __post_init__(self):
+        # the W v kernel writes through the band plan's point table
+        # unchecked: the tables are checked once, here
+        t = self.banded
+        if t is not None and len(self.grid_shape) == 2:
+            check_point_tables(t.i0loc, t.c0, t.w_row, t.w_col, t.pout,
+                               n=t.inv_slot.shape[0], G1=self.grid_shape[0],
+                               bh=_BANDED_BH)
+
     @property
     def M(self) -> int:
         return int(np.prod(self.grid_shape))
@@ -277,19 +289,10 @@ class SKIOperator:
     def _interp_banded(self, v):
         t = self.banded
         G1, G2 = self.grid_shape
-        bh = _BANDED_BH
-        nbands, cap = t.pidx.shape
-        batch = tuple(v.shape[:-1])
-        vb = v.reshape(-1, G1, G2)
-        B = vb.shape[0]
-        # the per-band slabs as an overlapping view of the padded grid
-        vp = F.pad(vb, (0, 0, 0, nbands * bh + 3 - G1))
-        slabs = vp.as_strided((B, nbands, bh + 3, G2),
-                              (vp.stride(0), bh * G2, G2, 1))
         INTERP_PICKS["cuda"] += 1
-        pts = interp_2d(slabs, t.i0loc, t.c0, t.w_row, t.w_col, bh=bh)
-        flat = pts.transpose(0, 1).reshape(B, nbands * cap)
-        return flat[:, t.inv_slot].reshape(batch + tuple(t.inv_slot.shape))
+        return interp_2d_points_trusted(v, t.i0loc, t.c0, t.w_row, t.w_col,
+                                        t.pout, G1=G1, G2=G2,
+                                        n=t.inv_slot.shape[0], bh=_BANDED_BH)
 
     def interp_T(self, u):
         """W^T u: points -> grid; u (..., n) -> (..., M)."""

@@ -8,9 +8,14 @@ band of ``bh`` grid rows padded to ``cap`` slots):
 - :func:`interp_T_2d` replaces ``pallas_interp_T_2d`` (pallas_interp.py:104):
   the band slabs of ``W^T u``, (nbands, B, bh+3, G2), whose 3-row halo the
   caller folds into the next band;
-- :func:`interp_2d` replaces ``pallas_interp_2d`` (:237): ``W v`` at the
-  band-sorted slots, (nbands, B, cap), read from per-band slab views of the
-  grid.
+- :func:`interp_2d_points` replaces ``pallas_interp_2d`` (:237) with the
+  gather around it (gpquad/models/ski.py ``_interp_banded_pallas``):
+  ``W v`` from the grid (B, G1, G2) straight to point order (B, n), one
+  launch; :func:`interp_2d_points_ref` is its plain twin, in the kernel's
+  order;
+- :func:`interp_2d` is the same kernel on gpquad's band-slot API: ``W v``
+  at the band-sorted slots, (nbands, B, cap), read from per-band slab views
+  of the grid.
 
 The kernels (``csrc/interp_2d.cu``) are bound by bytes; the source says how
 they stage the work.  ``interp_T_2d`` walks a column-sorted index of each
@@ -31,12 +36,14 @@ import torch
 
 from . import cuda_nufft
 
-__all__ = ["interp_T_2d", "interp_2d", "interp_T_2d_ref", "interp_2d_ref",
-           "interp_T_2d_sorted_ref", "column_index", "LAUNCHES",
-           "KERNEL_BH"]
+__all__ = ["interp_T_2d", "interp_2d", "interp_2d_points", "interp_T_2d_ref",
+           "interp_2d_ref", "interp_2d_points_ref", "interp_T_2d_sorted_ref",
+           "interp_2d_points_trusted", "check_point_tables", "column_index",
+           "point_of_slot", "LAUNCHES", "KERNEL_BH"]
 
 # Launches of each kernel since the last reset (one wrapper call on a CUDA
-# tensor is one launch).
+# tensor is one launch; interp_2d and interp_2d_points launch the same
+# kernel and count as "interp_2d").
 LAUNCHES = {"interp_T_2d": 0, "interp_2d": 0}
 # The kernels hold the slab's bh + 3 rows in registers for this band height
 # (the plan's, models/ski.py _BANDED_BH); the plain versions take any.
@@ -92,6 +99,19 @@ def column_index(valid, c0, G2: int):
     return col_slots.astype(np.int32), col_start.astype(np.int32)
 
 
+def point_of_slot(valid, pidx, n: int):
+    """The point each slot of a band plan writes (host, numpy): ``pidx`` on
+    the valid slots, -1 on the padded ones; (nbands, cap) int32, the table
+    :func:`interp_2d_points` scatters its sums through.  Raises unless
+    every valid slot's point lies in [0, n)."""
+    valid = np.asarray(valid, dtype=bool)
+    live = np.asarray(pidx)[valid]
+    if live.size and (live.min() < 0 or live.max() >= n):
+        raise ValueError(f"pidx must lie in [0, {n}) on the valid slots, "
+                         f"got [{live.min()}, {live.max()}]")
+    return np.where(valid, np.asarray(pidx), -1).astype(np.int32)
+
+
 def _check_index(col_slots, col_start, nbands, cap, G2, device):
     if tuple(col_slots.shape) != (nbands, cap) or \
             tuple(col_start.shape) != (nbands, G2 + 1):
@@ -114,12 +134,11 @@ def _check_kernel_call(t, bh):
 
 def _launch(name, t, *args):
     """Call ``gpq_<name>_<f32|f64>`` with ``args`` and ``t``'s current
-    stream; raise on a CUDA error, count the launch."""
+    stream, on ``t``'s device; raise on a CUDA error, count the launch."""
     prec = "f32" if t.dtype == torch.float32 else "f64"
     fn = getattr(cuda_nufft._library(), f"gpq_{name}_{prec}")
     with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        rc = fn(*args, stream)
+        rc = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} "
                            f"({torch.cuda.get_device_name(t.device)})")
@@ -219,6 +238,42 @@ def interp_2d_ref(vs, i0loc, c0, w_row, w_col, *, bh: int):
     return out.transpose(0, 1)
 
 
+def interp_2d_points_ref(v, i0loc, c0, w_row, w_col, pout, *, G1: int,
+                         G2: int, n: int, bh: int):
+    """Plain twin of :func:`interp_2d_points`: ``W v`` in point order, the
+    kernel's sums in its order.  Each slot of band ``band`` sums
+    ``acc = sum_jc (sum_jr w_row[jr] v[b, band*bh + i0 + jr, c0 + jc])
+    w_col[jc]``, rows first, each product and sum rounded on its own (no
+    fused multiply-add), from zero; a cell outside the slab's bh + 3 rows,
+    past the grid's G1 rows or outside its G2 columns reads as zero.  The
+    valid slots (``pout >= 0``) write ``out[b, pout[slot]]``.  ``v`` (...,
+    G1 * G2) with any strides; returns (..., n)."""
+    lead = tuple(v.shape[:-1])
+    v = v.reshape(-1, G1, G2)
+    B = v.shape[0]
+    dev = v.device
+    nbands = i0loc.shape[0]
+    rows = bh + 3
+    band = torch.arange(nbands, device=dev)[:, None]
+    zero = torch.zeros((), dtype=v.dtype, device=dev)
+    acc = torch.zeros((B,) + tuple(i0loc.shape), dtype=v.dtype, device=dev)
+    for jc in range(4):
+        col = c0.long() + jc
+        okc = (col >= 0) & (col < G2)
+        inner = torch.zeros_like(acc)
+        for jr in range(4):
+            r = i0loc.long() + jr
+            grow = band * bh + r
+            ok = okc & (r >= 0) & (r < rows) & (grow < G1)
+            g = v[:, grow.clamp(0, G1 - 1), col.clamp(0, G2 - 1)]
+            inner = inner + w_row[None, :, :, jr] * torch.where(ok, g, zero)
+        acc = acc + inner * torch.where(okc, w_col[:, :, jc], zero)[None]
+    out = torch.zeros((B, n), dtype=v.dtype, device=dev)
+    live = pout >= 0
+    out[:, pout[live].long()] = acc[:, live]
+    return out.reshape(lead + (n,))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -252,11 +307,7 @@ def interp_T_2d(us, i0loc, c0, w_row, w_col, col_slots, col_start, *,
     if cap == 0:
         return out.zero_()
     us, i0loc, c0 = us.contiguous(), i0loc.contiguous(), c0.contiguous()
-    # the kernel reads a slot's four weights as one vector
-    w_row, w_col = (w if w.is_contiguous()
-                    and w.data_ptr() % (4 * w.element_size()) == 0
-                    else w.clone(memory_format=torch.contiguous_format)
-                    for w in (w_row, w_col))
+    w_row, w_col = _aligned_weights(w_row, w_col)
     col_slots, col_start = col_slots.contiguous(), col_start.contiguous()
     _launch("interp_T_2d", us, us.data_ptr(), i0loc.data_ptr(),
             c0.data_ptr(), w_row.data_ptr(), w_col.data_ptr(),
@@ -265,16 +316,33 @@ def interp_T_2d(us, i0loc, c0, w_row, w_col, col_slots, col_start, *,
     return out
 
 
+def _vector_rows(t, strides, G2):
+    """1 when the kernel may stage the grid's rows with 16-byte loads:
+    contiguous columns, whole vectors a row, aligned rows."""
+    V = 16 // t.element_size()
+    return int(strides[-1] == 1 and G2 % V == 0 and t.data_ptr() % 16 == 0
+               and all(st % V == 0 for st in strides[:-1]))
+
+
+def _aligned_weights(w_row, w_col):
+    """The weights as the kernels read them: a slot's four as one vector."""
+    return (w if w.is_contiguous()
+            and w.data_ptr() % (4 * w.element_size()) == 0
+            else w.clone(memory_format=torch.contiguous_format)
+            for w in (w_row, w_col))
+
+
 def interp_2d(vs, i0loc, c0, w_row, w_col, *, bh: int):
-    """``W v`` at the band-sorted slots (replaces ``pallas_interp_2d``).
+    """``W v`` at the band-sorted slots (gpquad's ``pallas_interp_2d``
+    API).
 
     ``vs`` (B, nbands, bh+3, G2): per-band slab views of the grid (core rows
-    and the 3-row halo of the next band); any strides with contiguous
-    columns, e.g. an overlapping ``as_strided`` view of the padded grid.
-    Tables as :func:`interp_T_2d`.  Returns (nbands, B, cap); padded slots
-    hold sums over the part of their stencil inside the slab (read only the
-    valid slots back).  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel."""
+    and the 3-row halo of the next band), any strides, e.g. an overlapping
+    ``as_strided`` view of the padded grid.  Tables as
+    :func:`interp_T_2d`.  Returns (nbands, B, cap); padded slots hold sums
+    over the part of their stencil inside the slab (read only the valid
+    slots back).  A CPU tensor takes the plain version; a CUDA tensor
+    launches the ``interp_2d_points`` kernel in band-slot order."""
     if vs.ndim != 4 or vs.shape[0] < 1 or vs.shape[2] != bh + 3:
         raise ValueError(f"vs must be (B, nbands, {bh + 3}, G2) with B >= 1, "
                          f"got {tuple(vs.shape)}")
@@ -284,15 +352,104 @@ def interp_2d(vs, i0loc, c0, w_row, w_col, *, bh: int):
     if vs.device.type == "cpu":
         return interp_2d_ref(vs, i0loc, c0, w_row, w_col, bh=bh)
     _check_kernel_call(vs, bh)
-    if vs.stride(3) != 1:
-        raise ValueError("vs must have contiguous columns (stride 1)")
-    B, _, rows, G2 = vs.shape
+    B, G2 = vs.shape[0], vs.shape[3]
     out = torch.empty((nbands, B, cap), dtype=vs.dtype, device=vs.device)
     if cap == 0:
         return out
     i0loc, c0 = i0loc.contiguous(), c0.contiguous()
-    w_row, w_col = w_row.contiguous(), w_col.contiguous()
-    _launch("interp_2d", vs, vs.data_ptr(), vs.stride(0), vs.stride(1),
-            vs.stride(2), i0loc.data_ptr(), c0.data_ptr(), w_row.data_ptr(),
-            w_col.data_ptr(), B, nbands, cap, rows, G2, out.data_ptr())
+    w_row, w_col = _aligned_weights(w_row, w_col)
+    # every row of the view holds data
+    _launch("interp_2d", vs, vs.data_ptr(), *vs.stride(), nbands * bh + 3,
+            _vector_rows(vs, vs.stride(), G2), i0loc.data_ptr(),
+            c0.data_ptr(), w_row.data_ptr(), w_col.data_ptr(), None, B,
+            nbands, cap, G2, 0, out.data_ptr())
+    return out
+
+
+def check_point_tables(i0loc, c0, w_row, w_col, pout, *, n: int, G1: int,
+                       bh: int):
+    """Check a band plan's tables for :func:`interp_2d_points_trusted`,
+    which launches on them unchecked: i0loc, c0 and pout (nbands, cap)
+    int32 with nbands = ceil(G1 / bh), w_row and w_col (nbands, cap, 4) of
+    one float dtype, all on one device and contiguous, the weights on the
+    card 16-byte aligned, and every pout in [-1, n) (one host read).
+    Raise on a fault; return (nbands, cap)."""
+    nbands, cap = _check_tables(i0loc, c0, w_row, w_col, w_row.dtype,
+                                w_row.device)
+    if tuple(pout.shape) != (nbands, cap) or pout.dtype != torch.int32 \
+            or pout.device != w_row.device:
+        raise TypeError(f"pout must be int32 ({nbands}, {cap}) on "
+                        f"{w_row.device}, got {pout.dtype} "
+                        f"{tuple(pout.shape)} on {pout.device}")
+    if nbands != -(-G1 // bh):
+        raise ValueError(f"a grid of {G1} rows has {-(-G1 // bh)} bands of "
+                         f"{bh}, the tables {nbands}")
+    for name, t in (("i0loc", i0loc), ("c0", c0), ("w_row", w_row),
+                    ("w_col", w_col), ("pout", pout)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("w_row", w_row), ("w_col", w_col)):
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (the kernel "
+                             f"reads a slot's weights as vectors)")
+    if pout.numel():
+        lo, hi = torch.stack(torch.aminmax(pout)).tolist()
+        if lo < -1 or hi >= n:
+            raise ValueError(f"pout must lie in [-1, {n}), got "
+                             f"[{lo}, {hi}]")
+    return nbands, cap
+
+
+def interp_2d_points(v, i0loc, c0, w_row, w_col, pout, *, G1: int, G2: int,
+                     n: int, bh: int):
+    """``W v`` from the grid straight to point order (replaces
+    ``pallas_interp_2d`` and the ``inv_slot`` gather around it).
+
+    ``v`` (..., G1 * G2), the grid row-major in its last axis, any strides
+    (e.g. the real part of a complex grid); tables as :func:`interp_T_2d`
+    on ``ceil(G1 / bh)`` bands, and ``pout`` (nbands, cap) int32 the point
+    of each valid slot, -1 on padded ones (:func:`point_of_slot`; every
+    point 0..n-1 on exactly one valid slot).  Returns (..., n).  The tables
+    are laid out and checked on every call (:func:`check_point_tables`),
+    then :func:`interp_2d_points_trusted` runs: a CPU tensor takes the plain
+    twin :func:`interp_2d_points_ref`; a CUDA tensor launches the kernel
+    once (counted as ``interp_2d``), which reads the grid's band slabs in
+    place, rows past G1 as zero, and writes each valid slot's point."""
+    i0loc, c0, pout = i0loc.contiguous(), c0.contiguous(), pout.contiguous()
+    w_row, w_col = _aligned_weights(w_row, w_col)
+    check_point_tables(i0loc, c0, w_row, w_col, pout, n=n, G1=G1, bh=bh)
+    return interp_2d_points_trusted(v, i0loc, c0, w_row, w_col, pout, G1=G1,
+                                    G2=G2, n=n, bh=bh)
+
+
+def interp_2d_points_trusted(v, i0loc, c0, w_row, w_col, pout, *, G1: int,
+                             G2: int, n: int, bh: int):
+    """:func:`interp_2d_points` on tables that :func:`check_point_tables`
+    passed (``SKIOperator`` checks its plan once, when it is made): checks
+    only ``v`` against them, so the kernel's writes through ``pout`` are as
+    safe as that check."""
+    if v.ndim < 1 or v.shape[-1] != G1 * G2 or v.numel() == 0:
+        raise ValueError(f"v must be (..., {G1} * {G2}) with a vector, got "
+                         f"{tuple(v.shape)}")
+    if v.dtype != w_row.dtype or v.device != w_row.device:
+        raise TypeError(f"v must be {w_row.dtype} on {w_row.device} as the "
+                        f"tables (w_row), got {v.dtype} on {v.device}")
+    if v.device.type == "cpu":
+        return interp_2d_points_ref(v, i0loc, c0, w_row, w_col, pout, G1=G1,
+                                    G2=G2, n=n, bh=bh)
+    _check_kernel_call(v, bh)
+    nbands, cap = pout.shape
+    out = torch.empty(v.shape[:-1] + (n,), dtype=v.dtype, device=v.device)
+    if n == 0:
+        return out
+    if v.ndim > 2:
+        v = v.reshape(-1, G1 * G2)
+    B = out.numel() // n
+    s_col = v.stride(-1)
+    strides = (v.stride(0) if v.ndim == 2 else 0, bh * G2 * s_col, G2 * s_col,
+               s_col)
+    _launch("interp_2d", v, v.data_ptr(), *strides, G1,
+            _vector_rows(v, strides, G2), i0loc.data_ptr(), c0.data_ptr(),
+            w_row.data_ptr(), w_col.data_ptr(), pout.data_ptr(), B, nbands,
+            cap, G2, n, out.data_ptr())
     return out

@@ -9,7 +9,10 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
 - :func:`nufft2_1d` replaces ``pallas_nufft2_1d`` (pallas_nufft.py:549) and
   :func:`nufft1_1d` replaces ``pallas_nufft1_1d`` (:584): any odd ``mtot``,
   one vector or a batch in one launch (gpquad maps the TPU kernel over a
-  batch with ``lax.map``).
+  batch with ``lax.map``).  In float32 the type-1 is the d=2 type-1's
+  tensor-core kernel on a split of the mode index, k = K q + r
+  (:func:`type1_1d_geometry`); :func:`nufft1_1d_3xtf32_ref` is its plain
+  twin.
 - :func:`nufft2_2d` replaces ``pallas_nufft2_2d`` (pallas_nufft.py:113) and
   its mode-tiled twin ``_pallas_nufft2_2d_tiled`` (:369), any odd ``mtot``,
   on one of three paths that :func:`type2_2d_single_geometry` picks from
@@ -42,9 +45,9 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
 
 All are bound by operations on an H100 (complex multiply-adds, ~8 mtot^d
 flops per point and vector, and at d=1 the phases themselves): fp32 outside
-the tensor cores, but for the d=2 type-1 and the batched type-2 in float32,
-which take three TF32 products per real product on the tensor cores; the
-sources say how the designs stage the work.  The wrappers take a tensor on the CPU to the plain
+the tensor cores, but for the d=1 and d=2 type-1 and the batched d=2
+type-2 in float32, which take three TF32 products per real product on the
+tensor cores; the sources say how the designs stage the work.  The wrappers take a tensor on the CPU to the plain
 version (``*_ref``, the phase-matrix backend of ``ops/nufft.py``); on a
 CUDA tensor they launch the kernel or raise.
 
@@ -74,7 +77,9 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
            "nufft1_2d_batched", "nufft2_2d_batched", "nufft1_2d_batched_ref",
            "nufft2_2d_batched_ref", "nufft1_2d_3xtf32_ref",
-           "nufft2_2d_batched_3xtf32_ref", "nufft2_2d_split_ref", "nufft1_3d",
+           "nufft2_2d_batched_3xtf32_ref", "nufft2_2d_split_ref",
+           "nufft1_1d_3xtf32_ref", "type1_1d_geometry", "type1_1d_split",
+           "nufft1_3d",
            "nufft2_3d", "nufft1_3d_ref", "nufft2_3d_ref", "type1_2d_chunk",
            "type1_2d_geometry", "type2_2d_geometry",
            "type2_2d_single_geometry",
@@ -92,19 +97,19 @@ LAUNCH_WIDTHS: dict[tuple[str, int], int] = {}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every file the library depends on (hashed); the .cu files are compiled
-_SOURCES = ("nufft_common.cuh", "nufft_1d.cu", "nufft_2d.cu", "nufft_3d.cu",
-            "interp_2d.cu")
+_SOURCES = ("nufft_common.cuh", "tc_type1.cuh", "nufft_1d.cu", "nufft_2d.cu",
+            "nufft_3d.cu", "interp_2d.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpquad_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 TYPE1_CHUNK = 2048
 # the d=3 type-1 sums its chunks in groups, enough for about this many blocks
 TYPE1_3D_BLOCKS = 1056
-# The geometry of the float32 d=2 type-1 (csrc/nufft_2d.cu
-# nufft1_2d_tc_kernel), owned here and passed to each launch
-# (type1_2d_geometry), which refuses one it has no instance for: output
-# tiles of 64 rows (one vector's 64 modes j, or two vectors' 32) by 128
-# modes k, or by 32 up to mtot 64 (where a wide tile is mostly padding),
+# The geometry of the float32 d=2 type-1 (csrc/tc_type1.cuh
+# type1_tc_kernel on nufft_2d.cu's Type1Grid2D), owned here and passed to
+# each launch (type1_2d_geometry), which refuses one it has no instance for:
+# output tiles of 64 rows (one vector's 64 modes j, or two vectors' 32) by
+# 128 modes k, or by 32 up to mtot 64 (where a wide tile is mostly padding),
 # runs of 1024 points, and point groups for about this many blocks (four
 # waves of one block on each of the card's 132 SMs)
 TYPE1_2D_ROWS, TYPE1_2D_COLS, TYPE1_2D_RUN = 64, 128, 1024
@@ -114,6 +119,13 @@ TYPE1_2D_NARROW_COLS = 32
 TYPE1_2D_STAGE = 256
 TYPE1_2D_BLOCKS = 528
 TYPE1_2D_BATCH_GROUP = 2
+# The float32 d=1 type-1 takes the same kernel (csrc/tc_type1.cuh) on a
+# split of its mode index (type1_1d_geometry): the tile, stage and batch
+# group above, runs of this many points, and point groups for about one
+# wave of blocks (one on each of the card's 132 SMs): at the light curve's
+# calls that was 10-14% faster than four waves (scripts/time_type1_1d.py)
+TYPE1_1D_RUN = 256
+TYPE1_1D_BLOCKS = 132
 # The float32 batched d=2 type-2 on the tensor cores (csrc/nufft_2d.cu
 # nufft2_2d_batched_tc_kernel), its geometry owned here
 # (type2_2d_geometry) and checked by its launch: blocks of 128 points
@@ -217,6 +229,13 @@ def _library():
             o1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, ptr, ptr,
                            ptr]
             o1.restype = i32
+            if prec == "f32":
+                # the tensor-core form: its geometry (rows, cols, group,
+                # stage, run, chunk) before the scratch
+                o1t = lib.gpq_nufft1_1d_tc_f32
+                o1t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 6,
+                                ptr, ptr, ptr]
+                o1t.restype = i32
             t2 = getattr(lib, f"gpq_nufft2_2d_{prec}")
             t2.argtypes = [ptr, ptr, real, i32, i32, i32, ptr, ptr]
             t2.restype = i32
@@ -261,8 +280,11 @@ def _library():
             it.restype = i32
             i64 = ctypes.c_longlong
             ip = getattr(lib, f"gpq_interp_2d_{prec}")
-            ip.argtypes = [ptr, i64, i64, i64, ptr, ptr, ptr, ptr, i32, i32,
-                           i32, i32, i32, ptr, ptr]
+            # the grid and its strides (batch, band, row, column), the rows
+            # holding data, 16-byte staging, the tables and the point of
+            # each slot (None: band-slot order), B, nbands, cap, G2, n
+            ip.argtypes = [ptr, i64, i64, i64, i64, i32, i32, ptr, ptr, ptr,
+                           ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr]
             ip.restype = i32
         _lib = lib
     return _lib
@@ -368,55 +390,44 @@ def _split3(a):
     return big, _tf32(a - big)
 
 
-def nufft1_2d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
-                         chunk: int | None = None, passes: int = 3):
-    """Plain twin of the float32 d=2 type-1 kernel (csrc/nufft_2d.cu
-    ``nufft1_2d_tc_kernel``), in float32 with its tiling algebra:
-    ``out[b,j,k] = sum_n v[b,n] e1(n,j) e2(n,k)`` as the real products
+def _type1_3xtf32_sums(A, E, *, chunk: int, run: int, stage: int,
+                       passes: int, group_dtype=torch.complex64):
+    """The tensor-core type-1's sums (csrc/tc_type1.cuh) in float32 with
+    its tiling algebra: ``out[b, r, c] = sum_n A[b, n, r] E[n, c]`` for
+    ``A`` (B, N, R) and ``E`` (N, C) complex64, as the real products
     ``Re = Ar^T Er + Ai^T (-Ei)``, ``Im = Ar^T Ei + Ai^T Er`` over k-steps of
     8 points, each operand split into ``big = tf32(a)`` and
     ``small = tf32(a - big)`` (``cvt.rna`` emulated bit for bit) and each
     product taken as small*big + big*small + big*big in that order, the six
     products of a k-step summed from zero (the kernel's chain of mma); the
-    k-steps of :data:`TYPE1_2D_STAGE` points added in fp32, those sums of a
-    run of :data:`TYPE1_2D_RUN` points added in fp32, the
-    runs into the group's total, the groups (``chunk`` points each, by
-    default :func:`type1_2d_chunk`'s) in group order.  ``passes=1`` keeps
-    big*big alone: plain TF32, the control the split is held against.
-
-    ``vals`` (N,) or (B, N); returns complex64 (mtot, mtot) or (B, mtot,
-    mtot).  The tensor cores' own rounding inside an 8-point product is not
-    emulated (here a float32 matmul).  For the tests on the CPU only."""
+    k-steps of ``stage`` points added in fp32, those sums of a run of
+    ``run`` points added in fp32, the runs into the group's total, the
+    groups of ``chunk`` points in group order in ``group_dtype``.
+    ``passes=1`` keeps big*big alone: plain TF32.  The tensor cores' own
+    rounding inside an 8-point product is not emulated (here a float32
+    matmul).  Returns (B, R, C) complex64."""
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
-    x = x.to(torch.float32)
-    n = x.shape[0]
-    single = vals.ndim == 1
-    V = vals.reshape(-1, n).to(torch.complex64)
-    B = V.shape[0]
-    if chunk is None:
-        chunk = type1_2d_chunk(n, mtot, B, batched=not single)
-    if chunk % TYPE1_2D_RUN:
-        raise ValueError(f"chunk must be a multiple of {TYPE1_2D_RUN}")
-    hq = torch.tensor(h, dtype=torch.float32)
-    k = _k_values(mtot, fft_order, torch.float32, x.device)
-    e1 = _phase_matrix(x[:, 0] * hq, k, torch.complex64)    # (N, m)
-    e2 = _phase_matrix(x[:, 1] * hq, k, torch.complex64)
+    if chunk % run:
+        raise ValueError(f"chunk must be a multiple of {run}")
+    B, n, R = A.shape
+    C = E.shape[1]
     n8 = -(-n // 8) * 8
     pad = (0, 0, 0, n8 - n)
-    A = torch.nn.functional.pad(V[:, :, None] * e1[None], pad + (0, 0))
-    E = torch.nn.functional.pad(e2, pad)
+    A = torch.nn.functional.pad(A, pad + (0, 0))
+    E = torch.nn.functional.pad(E, pad)
     steps = n8 // 8
     order = ((1, 0), (0, 1), (0, 0)) if passes == 3 else ((0, 0),)
 
     def products(s0, s1):
         """The six real 8-point products of each k-step s0..s1-1, in the
-        kernel's order, each (B, s1 - s0, m, m) complex (Re and Im parts
-        from the split (B, steps, 8, m) operands; -Ei in the real part)."""
+        kernel's order, each (B, s1 - s0, R, C) complex (Re and Im parts
+        from the split (B, steps, 8, R) and (steps, 8, C) operands; -Ei in
+        the real part)."""
         a_, e_ = A[:, s0 * 8:s1 * 8], E[s0 * 8:s1 * 8]
-        ar, ai = (_split3(t.reshape(B, s1 - s0, 8, mtot))
+        ar, ai = (_split3(t.reshape(B, s1 - s0, 8, R))
                   for t in (a_.real, a_.imag))
-        er, ei = (_split3(t.reshape(s1 - s0, 8, mtot))
+        er, ei = (_split3(t.reshape(s1 - s0, 8, C))
                   for t in (e_.real, e_.imag))
         nei = tuple(-t for t in ei)
 
@@ -428,27 +439,119 @@ def nufft1_2d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
             out_.append(torch.complex(mm(ai[i], nei[j]), mm(ai[i], er[j])))
         return out_
 
-    out = torch.zeros((B, mtot, mtot), dtype=torch.complex64,
-                      device=x.device)
-    run_steps, group_steps = TYPE1_2D_RUN // 8, chunk // 8
-    stage_steps = TYPE1_2D_STAGE // 8
+    out = torch.zeros((B, R, C), dtype=group_dtype, device=A.device)
+    run_steps, group_steps = run // 8, chunk // 8
+    stage_steps = stage // 8
     for g0 in range(0, steps, group_steps):
-        tot = torch.zeros_like(out)
+        tot = torch.zeros((B, R, C), dtype=torch.complex64, device=A.device)
         for r0 in range(g0, min(steps, g0 + group_steps), run_steps):
             r1 = min(steps, r0 + run_steps)
-            run = torch.zeros_like(out)
+            run_sum = torch.zeros_like(tot)
             for st0 in range(r0, r1, stage_steps):
                 st1 = min(r1, st0 + stage_steps)
                 prods = products(st0, st1)
-                acc = torch.zeros_like(out)
+                acc = torch.zeros_like(tot)
                 for s_ in range(st1 - st0):
                     d = prods[0][:, s_]
                     for p in prods[1:]:
                         d = d + p[:, s_]
                     acc = acc + d
-                run = run + acc
-            tot = tot + run
-        out = out + tot
+                run_sum = run_sum + acc
+            tot = tot + run_sum
+        out = out + tot.to(group_dtype)
+    return out.to(torch.complex64)
+
+
+def nufft1_2d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
+                         chunk: int | None = None, passes: int = 3):
+    """Plain twin of the float32 d=2 type-1 kernel (csrc/tc_type1.cuh
+    ``type1_tc_kernel`` on nufft_2d.cu's ``Type1Grid2D``):
+    ``out[b,j,k] = sum_n v[b,n] e1(n,j) e2(n,k)`` in the kernel's sums
+    (:func:`_type1_3xtf32_sums`: k-steps of 8 points, sums of
+    :data:`TYPE1_2D_STAGE` points, runs of :data:`TYPE1_2D_RUN`, groups of
+    ``chunk`` points, by default :func:`type1_2d_chunk`'s, in group order
+    in float32).  ``passes=1`` keeps big*big alone: plain TF32, the control
+    the split is held against.
+
+    ``vals`` (N,) or (B, N); returns complex64 (mtot, mtot) or (B, mtot,
+    mtot).  For the tests on the CPU only."""
+    x = x.to(torch.float32)
+    n = x.shape[0]
+    single = vals.ndim == 1
+    V = vals.reshape(-1, n).to(torch.complex64)
+    if chunk is None:
+        chunk = type1_2d_chunk(n, mtot, V.shape[0], batched=not single)
+    hq = torch.tensor(h, dtype=torch.float32)
+    k = _k_values(mtot, fft_order, torch.float32, x.device)
+    e1 = _phase_matrix(x[:, 0] * hq, k, torch.complex64)    # (N, m)
+    e2 = _phase_matrix(x[:, 1] * hq, k, torch.complex64)
+    out = _type1_3xtf32_sums(V[:, :, None] * e1[None], e2, chunk=chunk,
+                             run=TYPE1_2D_RUN, stage=TYPE1_2D_STAGE,
+                             passes=passes)
+    return out[0] if single else out
+
+
+def type1_1d_split(mtot: int, K: int) -> tuple[int, int]:
+    """The float32 d=1 type-1's split of the mode index, k = K q + r with
+    r in 0..K-1: ``(qmin, Q)``, q running over qmin .. qmin + Q - 1, the
+    fewest that reach every |k| <= (mtot - 1) / 2 (csrc/nufft_1d.cu
+    ``Type1Split1D``)."""
+    half = (mtot - 1) // 2
+    qmin = -half // K
+    return qmin, half // K - qmin + 1
+
+
+def _split_phases(x, h, modes):
+    """e^{-2 pi i t k} for t = x h taken exactly (the float32 x and h
+    multiplied in float64, as the kernel carries the rounding of t into the
+    phase) at the integer mode values ``modes``, reduced to the nearest
+    whole cycle in float64 and rounded to complex64: (N, len(modes))."""
+    t = x.to(torch.float64)[:, None] * float(torch.tensor(h,
+                                                          dtype=torch.float32))
+    cyc = t * modes.to(torch.float64)[None, :]
+    cyc = cyc - torch.round(cyc)
+    return torch.polar(torch.ones_like(cyc), -2 * torch.pi * cyc).to(
+        torch.complex64)
+
+
+def nufft1_1d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
+                         chunk: int | None = None, passes: int = 3):
+    """Plain twin of the float32 d=1 type-1 kernel on the tensor cores
+    (csrc/tc_type1.cuh ``type1_tc_kernel`` on nufft_1d.cu's
+    ``Type1Split1D``), in float32 with its tiling algebra: each mode split
+    as k = K q + r (:func:`type1_1d_split`, K = rows / group of
+    :func:`type1_1d_geometry`), ``out[b, r, q] = sum_n (v[b,n] e^{-2 pi i
+    r t_n}) e^{-2 pi i K q t_n}`` in the kernel's sums
+    (:func:`_type1_3xtf32_sums`: k-steps of 8 points, stage and run sums,
+    groups of ``chunk`` points, by default the geometry's, added in group
+    order in float64 and rounded once), then cropped to the mtot modes.
+    The phases are those of the exact t = x h (:func:`_split_phases`).
+    ``passes=1`` keeps big*big alone: plain TF32, the control the split is
+    held against.
+
+    ``x`` (N, 1); ``vals`` (N,) or (B, N); returns complex64 (mtot,) or
+    (B, mtot).  For the tests on the CPU only."""
+    x = x.reshape(-1).to(torch.float32)
+    n = x.shape[0]
+    single = vals.ndim == 1
+    V = vals.reshape(-1, n).to(torch.complex64)
+    B = V.shape[0]
+    _, rows, _, group, stage, run, geo_chunk = type1_1d_geometry(n, mtot, B)
+    K = rows // group
+    qmin, Q = type1_1d_split(mtot, K)
+    dev = x.device
+    e1 = _split_phases(x, h, torch.arange(K, device=dev))
+    e2 = _split_phases(x, h, K * (qmin + torch.arange(Q, device=dev)))
+    sums = _type1_3xtf32_sums(V[:, :, None] * e1[None], e2,
+                              chunk=chunk or geo_chunk, run=run, stage=stage,
+                              passes=passes, group_dtype=torch.complex128)
+    k = (K * (qmin + torch.arange(Q, device=dev)))[None, :] \
+        + torch.arange(K, device=dev)[:, None]              # (K, Q)
+    half = (mtot - 1) // 2
+    keep = k.abs() <= half
+    idx = torch.where(k >= 0, k, k + mtot) if fft_order else k + half
+    out = torch.zeros((B, mtot), dtype=torch.complex64, device=dev)
+    out[:, idx[keep]] = sums[:, keep]
     return out[0] if single else out
 
 
@@ -599,9 +702,12 @@ def nufft1_1d(x, vals, h, *, mtot: int, fft_order: bool = False):
     """Fused d=1 type-1 apply (replaces ``pallas_nufft1_1d``).
 
     ``x`` (N, 1) real; ``vals`` complex (N,) or (B, N), B >= 1; any odd
-    mtot.  Returns complex (mtot,) or (B, mtot) from one launch (two
-    kernels: per-chunk partials, then the chunk-order sum; scratch of
-    nchunk * B * mtot values).  A CPU tensor takes the plain version."""
+    mtot.  Returns complex (mtot,) or (B, mtot) from one launch of two
+    kernels: point-group partials, then their sum in group order.  In
+    float32 the partials come from the tensor cores on a split of the mode
+    index (:func:`type1_1d_geometry`; scratch of groups * B * mtot values),
+    in float64 from the CUDA cores over 2048-point chunks.  A CPU tensor
+    takes the plain version."""
     _check(x, mtot, 1)
     n = x.shape[0]
     if vals.ndim not in (1, 2) or vals.shape[-1] != n:
@@ -612,22 +718,65 @@ def nufft1_1d(x, vals, h, *, mtot: int, fft_order: bool = False):
     _check_batch(B, mtot, 1, max(1, -(-n // TYPE1_CHUNK)))
     if x.device.type == "cpu":
         return nufft1_1d_ref(x, vals, h, mtot=mtot, fft_order=fft_order)
+    geo = (type1_1d_geometry(n, mtot, B) if x.dtype == torch.float32
+           else ("cuda", TYPE1_CHUNK))
+    out = _nufft1_1d_on(x, vals.reshape(B, n), h, mtot, fft_order, geo)
+    return out[0] if single else out
+
+
+def type1_1d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
+    """The float32 d=1 type-1's path and launch geometry: ``("tc", rows,
+    cols, group, stage, run, chunk)``, the tensor-core kernel's arguments
+    before its scratch.
+
+    The kernel splits each mode as k = K q + r with K = rows / group
+    (:func:`type1_1d_split`): one vector takes K = 64, a batch runs in
+    pairs (group 2, K = 32).  Its output tile is :data:`TYPE1_2D_ROWS` rows
+    (the group's K values of r each) by ``cols`` values of q:
+    :data:`TYPE1_2D_NARROW_COLS`, or :data:`TYPE1_2D_COLS` where the Q
+    values of q pass twice that.  A register sum takes ``stage`` points and
+    a run ``run`` (:data:`TYPE1_1D_RUN`); the groups of ``chunk`` points
+    (whole runs) are as many as fill about :data:`TYPE1_1D_BLOCKS` blocks
+    of column tiles x point groups x batch groups without passing it, never
+    an empty one.  The scratch holds ceil(n / chunk) * B * mtot values."""
+    g = 1 if B == 1 else TYPE1_2D_BATCH_GROUP
+    _, q = type1_1d_split(mtot, TYPE1_2D_ROWS // g)
+    cols = (TYPE1_2D_NARROW_COLS if q <= 2 * TYPE1_2D_NARROW_COLS
+            else TYPE1_2D_COLS)
+    tiles = -(-q // cols) * -(-B // g)
+    nrun = max(1, -(-n // TYPE1_1D_RUN))
+    groups = min(nrun, max(1, TYPE1_1D_BLOCKS // tiles))
+    chunk = -(-nrun // groups) * TYPE1_1D_RUN
+    return ("tc", TYPE1_2D_ROWS, cols, g, TYPE1_2D_STAGE, TYPE1_1D_RUN,
+            chunk)
+
+
+def _nufft1_1d_on(x, vals, h, m, fft_order, geo):
+    """The d=1 type-1's launch on CUDA tensors, ``vals`` (B, N), on the
+    path ``geo``: ``("tc", ...)`` the tensor cores (float32,
+    :func:`type1_1d_geometry`) or ``("cuda", chunk)`` the CUDA cores over
+    chunks of ``chunk`` points; counted as one launch of ``nufft1_1d``
+    (chip_smoke.py also times both paths through it).  Returns (B, m)."""
+    if geo[0] not in ("tc", "cuda") or len(geo) != (7 if geo[0] == "tc"
+                                                    else 2):
+        raise ValueError(f"no d=1 type-1 path for geometry {geo}")
+    if geo[0] == "tc" and x.dtype != torch.float32:
+        raise TypeError("the tensor-core d=1 type-1 takes float32")
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("vals", vals, x, cdtype)
+    B, n = vals.shape
     if n == 0:
-        out = torch.zeros((B, mtot), dtype=cdtype, device=x.device)
-    else:
-        x = x.contiguous()
-        vals = vals.contiguous()
-        h = float(torch.as_tensor(h, dtype=x.dtype))
-        nchunk = -(-n // TYPE1_CHUNK)
-        partial = torch.empty((nchunk, B, mtot), dtype=cdtype,
-                              device=x.device)
-        out = torch.empty((B, mtot), dtype=cdtype, device=x.device)
-        _launch("nufft1_1d", x, x.data_ptr(), vals.data_ptr(), h, n, mtot, B,
-                int(fft_order), TYPE1_CHUNK, partial.data_ptr(),
-                out.data_ptr(), mtot=mtot)
-    return out[0] if single else out
+        return torch.zeros((B, m), dtype=cdtype, device=x.device)
+    x = x.contiguous()
+    vals = vals.contiguous()
+    h = float(torch.as_tensor(h, dtype=x.dtype))
+    partial = torch.empty((-(-n // geo[-1]), B, m), dtype=cdtype,
+                          device=x.device)
+    out = torch.empty((B, m), dtype=cdtype, device=x.device)
+    _launch("nufft1_1d", x, x.data_ptr(), vals.data_ptr(), h, n, m, B,
+            int(fft_order), *geo[1:], partial.data_ptr(), out.data_ptr(),
+            mtot=m, symbol="gpq_nufft1_1d_tc_f32" if geo[0] == "tc" else None)
+    return out
 
 
 def nufft2_2d(x, f, h, *, mtot: int, fft_order: bool = False):

@@ -29,8 +29,14 @@ pairs).  A run measures:
 - three steps of chip_smoke.py phase 10's fixed-plan Adam loop at scale
   (n 1e6, SE l=0.006, mtot 339, kron, 5 trace samples, after one warm
   step): the host-clock time of each step, synchronised;
-- the fitted SKI operator's ``W^T u`` and matvec at B 3: the host's
-  microseconds to issue a call, and the CUDA-event time of a call;
+- the fitted SKI operator's ``W^T u``, ``W v`` and matvec at B 3: the
+  host's microseconds to issue a call, and the CUDA-event time of a call;
+- phase 8's light-curve facade (``EFGP`` on the Kepler-cadence series of
+  chip_smoke.lightcurve_data, 50 Adam iterations, after a warm fit): the
+  median ms of an iteration (from the grid plan each one starts with);
+- the float32 ``nufft1_1d`` at the light curve's calls (F*y and F*Z at
+  mtot 1031, the lag table at 2061; through its wrapper): CUDA-event
+  medians of 5 trials;
 - the torch operations a one-iteration ``fit_ski_gp`` issues on the host
   (``torch.profiler``): their count and the 12 with the most self host
   time.
@@ -224,7 +230,10 @@ def one_run(root: Path) -> dict:
     op = fit["model"]["operator"]
     u3 = torch.randn((3, len(xs)), generator=torch.Generator(
         device=dev).manual_seed(3), device=dev)
+    g3 = torch.randn((3, op.M), generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev)
     for name, fn in (("interp_T", lambda: op.interp_T(u3)),
+                     ("interp", lambda: op.interp(g3)),
                      ("matvec", lambda: op.matvec(u3, 0.01))):
         fn()
         sync()
@@ -234,6 +243,42 @@ def one_run(root: Path) -> dict:
         out[f"ski_{name}_host_us"] = (time.perf_counter() - t) / 200 * 1e6
         sync()
         out[f"ski_{name}_ms"] = event_ms(fn, 100)
+
+    # phase 8's light-curve facade and its type-1 calls
+    from chip_smoke import LC_OPT, lightcurve_data
+    lc = lightcurve_data()
+    x8, y8 = (torch.as_tensor(lc[k], dtype=torch.float32, device=dev)
+              for k in ("x", "y"))
+    kern_lc = gpquad_torch.make_kernel("SE", 1,
+                                       lengthscale=np.float32(0.0015),
+                                       variance=np.float32(1.0))
+
+    def lc_iter_ms():
+        model = gpquad_torch.EFGP(x8, y8, kern_lc, sigmasq=0.01, eps=1e-4,
+                                  estimate_params=False, device=dev)
+        starts, plan = [], model._grid_plan
+
+        def timed_plan(bucket):
+            starts.append(time.perf_counter())
+            return plan(bucket)
+        model._grid_plan = timed_plan
+        model.optimize_hyperparameters(**LC_OPT)
+        sync()
+        return statistics.median((b - a) * 1e3
+                                 for a, b in zip(starts, starts[1:]))
+    lc_iter_ms()
+    out["lc_adam_iter_ms"] = lc_iter_ms()
+    n_lc = len(lc["x"])
+    _, h_lc, _ = gpquad_torch.spectral_grid(kern_lc, 1e-4, 1.0)
+    hq_lc = float(torch.tensor(h_lc, dtype=torch.float32))
+    v10 = torch.as_tensor(gen.normal(size=(10, n_lc))
+                          + 1j * gen.normal(size=(10, n_lc)),
+                          device=dev).to(torch.complex64)
+    for tag, arg, m in (("Fy", v10[0], 1031), ("lag", v10[0], 2061),
+                        ("FZ_B10", v10, 1031)):
+        out[f"nufft1_1d_{tag}_m{m}_ms"] = event_ms(
+            lambda: cuda_nufft.nufft1_1d(x8[:, None], arg, hq_lc, mtot=m),
+            20)
 
     # the torch operations the host issues in a one-iteration fit (its
     # final solve included), by count and self host time

@@ -2,7 +2,11 @@
 the CUDA pair ``interp_T_2d`` / ``interp_2d`` (gpquad_torch.ops.cuda_interp)
 against the Pallas kernels ``pallas_interp_T_2d`` / ``pallas_interp_2d``,
 which run in interpret mode off the TPU (pallas_interp.py:118-119), on the
-band tables of gpquad's own plan; the wrappers' dispatch on the CPU.
+band tables of gpquad's own plan; the point-order twin
+``interp_2d_points_ref`` against gpquad's ``W v`` on that plan
+(``pallas_interp_2d`` then the ``inv_slot`` gather) at 1e-6 * max|ref| in
+float32 and 1e-13 in float64 (the same sums; the TPU kernel's one-hot
+products add zeros); the wrappers' dispatch on the CPU.
 
 Tolerance 1e-10 * max|ref| in float64 (the same sums in another order, as
 tests/test_ski.py holds the Pallas kernels against the scatter path), and
@@ -25,9 +29,12 @@ from gpquad_torch.ops import cuda_interp
 from gpquad_torch import make_kernel
 from gpquad_torch.models import ski as torch_ski
 from gpquad_torch.ops.cuda_interp import (column_index, interp_2d,
+                                          interp_2d_points,
+                                          interp_2d_points_ref,
                                           interp_2d_ref, interp_T_2d,
                                           interp_T_2d_ref,
-                                          interp_T_2d_sorted_ref)
+                                          interp_T_2d_sorted_ref,
+                                          point_of_slot)
 
 torch.set_num_threads(1)
 
@@ -38,10 +45,10 @@ def _rel(got, want):
     return np.max(np.abs(got - want)) / max(1.0, np.max(np.abs(want)))
 
 
-def _plan(rng, n, grid):
+def _plan(rng, n, grid, dtype=np.float64):
     """gpquad's operator for n uniform points on [-1, 1]^2 and its band
     tables as torch tensors."""
-    x = rng.uniform(-1, 1, (n, 2))
+    x = rng.uniform(-1, 1, (n, 2)).astype(dtype)
     kern = JaxSE(lengthscale=0.3, variance=1.0, dimension=2)
     op = jax_build(jnp.asarray(x), kern, grid, ((-1.0, 1.0), (-1.0, 1.0)))
     assert op.banded is not None
@@ -277,3 +284,115 @@ def test_wrappers_validate_inputs():
                   bh=BH)
     with pytest.raises(ValueError, match=r"\(B, nbands, 11, G2\)"):
         interp_2d(torch.ones((1, nbands, BH + 2, G2)), i0, i0, w, w, bh=BH)
+
+
+# extended grids of 52 and 34 rows: G1 not a multiple of bh = 8, so the last
+# band's slab runs past the grid; every plan pads its bands (cap = 1.25 x
+# the fullest band's occupancy)
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6),
+                                       (np.float64, 1e-13)])
+@pytest.mark.parametrize("n,grid,B", [(4000, (48, 33), 3),
+                                      (1500, (30, 26), 1),
+                                      (2500, (40, 40), 21)])
+def test_points_twin_matches_gpquad_interp(rng, dtype, tol, n, grid, B):
+    """``interp_2d_points_ref`` on gpquad's band tables against gpquad's
+    ``SKIOperator`` W v on its Pallas route (``pallas_interp_2d`` in
+    interpret mode, then the ``inv_slot`` gather), same inputs."""
+    op, tabs = _plan(rng, n, grid, dtype)
+    G1, G2 = op.grid_shape
+    assert G1 % BH and not tabs["valid"].all()
+    v = rng.normal(size=(B, G1, G2)).astype(dtype)
+    want = np.asarray(op._interp_banded_pallas(
+        jnp.asarray(v.reshape(B, -1))))
+    tt = _torch_tables(tabs)
+    assert tt[2].dtype == torch.from_numpy(v).dtype
+    pout = torch.as_tensor(point_of_slot(tabs["valid"], tabs["pidx"], n))
+    got = interp_2d_points_ref(torch.as_tensor(v.reshape(B, -1)), *tt, pout,
+                               G1=G1, G2=G2, n=n, bh=BH)
+    assert got.shape == want.shape == (B, n)
+    assert _rel(got.numpy(), want) < tol
+    # the slot-order plain version, gathered back, takes the same sums in
+    # the same order
+    vp = torch.nn.functional.pad(torch.as_tensor(v),
+                                 (0, 0, 0, tt[0].shape[0] * BH + 3 - G1))
+    slabs = vp.as_strided((B, tt[0].shape[0], BH + 3, G2),
+                          (vp.stride(0), BH * G2, G2, 1))
+    slots = interp_2d_ref(slabs, *tt, bh=BH).transpose(0, 1).reshape(B, -1)
+    assert torch.equal(slots[:, torch.as_tensor(tabs["inv_slot"]).long()],
+                       got)
+
+
+def test_points_wrapper_on_cpu(rng, monkeypatch):
+    """On CPU tensors ``interp_2d_points`` calls its twin once and counts
+    no launch; a strided grid (the real part of a complex one) gives what
+    its contiguous copy gives, one vector and a batch of any rank their own
+    shapes; bad shapes and tables are refused."""
+    op, tabs = _plan(rng, 1500, (30, 26))
+    G1, G2 = op.grid_shape
+    tt = _torch_tables(tabs)
+    pout = torch.as_tensor(point_of_slot(tabs["valid"], tabs["pidx"], 1500))
+    kw = dict(G1=G1, G2=G2, n=1500, bh=BH)
+    calls = []
+    real = cuda_interp.interp_2d_points_ref
+    monkeypatch.setattr(cuda_interp, "interp_2d_points_ref",
+                        lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+    before = dict(cuda_interp.LAUNCHES)
+    z = torch.as_tensor(rng.normal(size=(2, 3, G1 * G2))
+                        + 1j * rng.normal(size=(2, 3, G1 * G2)))
+    got = interp_2d_points(z.real, *tt, pout, **kw)
+    assert calls == [1] and cuda_interp.LAUNCHES == before
+    assert got.shape == (2, 3, 1500)
+    assert torch.equal(got, real(z.real.contiguous(), *tt, pout, **kw))
+    assert torch.equal(interp_2d_points(z.real[1, 2], *tt, pout, **kw),
+                       got[1, 2])
+    with pytest.raises(ValueError, match="bands"):
+        interp_2d_points(z.real[..., :(G1 - BH) * G2], *tt, pout,
+                         **dict(kw, G1=G1 - BH))
+    with pytest.raises(ValueError, match="vector"):
+        interp_2d_points(z.real[..., 1:], *tt, pout, **kw)
+    with pytest.raises(TypeError, match="pout"):
+        interp_2d_points(z.real, *tt, pout.long(), **kw)
+    with pytest.raises(TypeError, match="w_row"):
+        interp_2d_points(z.real.float(), *tt, pout, **kw)
+    # a point past n (the kernel would write past the output) or below -1
+    for bad in (1500, -2):
+        wild = pout.clone()
+        wild[0, 0] = bad
+        with pytest.raises(ValueError, match=r"pout must lie in \[-1, 1500\)"):
+            interp_2d_points(z.real, *tt, wild, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_interp.check_point_tables(*tt, pout.t().contiguous().t(), n=1500,
+                                       G1=G1, bh=BH)
+
+
+def test_point_of_slot_covers_every_point_once(rng):
+    """The plan's point-of-slot table: each point on exactly one valid
+    slot, -1 on every padded one, and it equals the port's plan field."""
+    op, tabs = _plan(rng, 3000, (48, 33))
+    pout = point_of_slot(tabs["valid"], tabs["pidx"], 3000)
+    assert pout.dtype == np.int32
+    assert np.all(pout[~tabs["valid"]] == -1)
+    assert np.array_equal(np.sort(pout[tabs["valid"]]), np.arange(3000))
+    assert np.array_equal(
+        pout.reshape(-1)[tabs["inv_slot"]], np.arange(3000))
+
+
+def test_point_tables_are_checked_where_the_plan_is_made(rng):
+    """The point-of-slot table is checked against n where it is made
+    (``point_of_slot``) and once more when an ``SKIOperator`` takes a plan,
+    whose ``W v`` then launches on the tables unchecked: a point outside
+    [0, n) is refused before any kernel could write past the output."""
+    _, tabs = _plan(rng, 1500, (30, 26))
+    with pytest.raises(ValueError, match=r"pidx must lie in \[0, 1499\)"):
+        point_of_slot(tabs["valid"], tabs["pidx"], 1499)
+    x = torch.as_tensor(rng.uniform(-1, 1, (1500, 2)))
+    op = torch_ski.build_ski_operator(
+        x, make_kernel("SE", 2, lengthscale=0.3, variance=1.0), (30, 26),
+        ((-1.0, 1.0), (-1.0, 1.0)))
+    assert op.banded is not None
+    for bad in (1500, -2):
+        wild = op.banded.pout.clone()
+        wild[-1, 0] = bad
+        with pytest.raises(ValueError, match="pout must lie"):
+            torch_ski.SKIOperator(**dict(
+                vars(op), banded=op.banded._replace(pout=wild)))

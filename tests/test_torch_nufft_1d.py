@@ -8,7 +8,10 @@ Tolerances: 5e-5 * max|ref| against the Pallas kernels in float32, the bar
 of tests/test_pallas_nufft.py::test_pallas_1d_matches_mxu (two f32
 evaluations of the same sums with different sin/cos and summation order);
 1e-10 against gpquad's float64 phase matrices (the same arithmetic in a
-different summation order).
+different summation order).  The float32 tensor-core kernel's twin
+``nufft1_1d_3xtf32_ref`` is held to the Pallas kernel at 5e-5 and, against
+float64, to max(2x the float32 plain version's error, 1e-6) of max|ref|,
+which its plain-TF32 control (``passes=1``) must miss.
 """
 import jax
 import jax.numpy as jnp
@@ -21,8 +24,10 @@ from gpquad.ops.pallas_nufft import (PallasNUFFT, pallas_nufft1_1d,
                                      pallas_nufft2_1d)
 from gpquad_torch.ops import cuda_nufft
 from gpquad_torch.ops import nufft as tnufft
-from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_1d, nufft1_1d_ref,
-                                         nufft2_1d, nufft2_1d_ref)
+from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_1d,
+                                         nufft1_1d_3xtf32_ref, nufft1_1d_ref,
+                                         nufft2_1d, nufft2_1d_ref,
+                                         type1_1d_geometry, type1_1d_split)
 from gpquad_torch.ops.nufft import make_nufft
 
 # The parity problems are small: torch's intra-op threads cost more than
@@ -162,3 +167,77 @@ def test_1d_wrappers_validate_shapes():
         nufft1_1d(x, torch.zeros(5, dtype=torch.complex64), 0.1, mtot=4)
     with pytest.raises(ValueError, match="at least one"):
         nufft2_1d(x, torch.zeros((0, 3), dtype=torch.complex64), 0.1, mtot=3)
+
+
+# mtot 33 (one column of q at K 64), 1031 (the light curve's rung) and 2061
+# in FFT order (its lag table: two column tiles); B 3 runs in pairs (K 32),
+# its last pair half empty; n 1500 gives several point groups
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mtot,h,fft_order", [(33, 0.3, False),
+                                              (1031, 0.0097, False),
+                                              (2061, 0.0049, True)])
+def test_3xtf32_twin_matches_pallas(rng, B, mtot, h, fft_order):
+    n = 1500
+    x = rng.uniform(-1, 1, (n, 1)).astype(np.float32)
+    v = (rng.normal(size=(B, n))
+         + 1j * rng.normal(size=(B, n))).astype(np.complex64)
+    hq = float(np.float32(h))
+    xt, vt = torch.as_tensor(x), torch.as_tensor(v)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    arg = vt[0] if B == 1 else vt
+    twin = nufft1_1d_3xtf32_ref(xt, arg, hq, **kw).numpy()
+    assert twin.shape == ((mtot,) if B == 1 else (B, mtot))
+    twin = twin.reshape(B, mtot)
+    want = np.stack([np.asarray(pallas_nufft1_1d(
+        jnp.asarray(x), jnp.asarray(v[b]), hq, **kw)) for b in range(B)])
+    assert _rel(twin, want) < 5e-5
+    ref = nufft1_1d_ref(xt.double(), vt.to(torch.complex128), hq,
+                        **kw).numpy()
+    plain = nufft1_1d_ref(xt, vt, hq, **kw).numpy()
+    bar = max(2 * _rel(plain, ref), 1e-6)
+    assert _rel(twin, ref) <= bar
+    control = nufft1_1d_3xtf32_ref(xt, arg, hq, passes=1, **kw).numpy()
+    assert _rel(control.reshape(B, mtot), ref) > bar
+
+
+@pytest.mark.parametrize("n,mtot,B", [
+    (63_480, 1031, 1), (63_480, 2061, 1), (63_480, 1031, 10),
+    (20_000, 8191, 1), (1, 1, 1), (1500, 33, 3), (5000, 57, 2)])
+def test_type1_1d_geometry(n, mtot, B):
+    """The float32 d=1 type-1's geometry: K 64 for one vector and 32 for a
+    batch in pairs, the narrow tile while the q values fit two of them;
+    whole runs of whole register sums a group, no group empty, at most
+    TYPE1_1D_BLOCKS blocks; the split reaches every mode |k| <= half once
+    and the crop leaves out the rest."""
+    path, rows, cols, group, stage, run, chunk = type1_1d_geometry(n, mtot, B)
+    assert path == "tc" and rows == cuda_nufft.TYPE1_2D_ROWS
+    assert group == (1 if B == 1 else 2)
+    K = rows // group
+    qmin, Q = type1_1d_split(mtot, K)
+    assert cols == (32 if Q <= 64 else 128)
+    assert run % stage == 0 and chunk % run == 0
+    groups = -(-n // chunk)
+    assert (groups - 1) * chunk < n
+    tiles = -(-Q // cols) * -(-B // group)
+    assert tiles * groups <= max(tiles, cuda_nufft.TYPE1_1D_BLOCKS)
+    half = (mtot - 1) // 2
+    k = K * (qmin + np.arange(Q))[None, :] + np.arange(K)[:, None]
+    kept = np.sort(k[np.abs(k) <= half])
+    assert np.array_equal(kept, np.arange(-half, half + 1))
+    assert k.min() <= -half and k.max() >= half
+    # no q value is wholly cropped
+    assert np.all((np.abs(k) <= half).any(axis=0))
+
+
+def test_1d_type1_launch_refuses_foreign_path(rng):
+    """The d=1 type-1's launch takes ("tc", 6 fields) or ("cuda", chunk)
+    and refuses any other geometry before it touches the card; float64 has
+    no tensor-core path."""
+    x = torch.as_tensor(rng.uniform(0, 1, (64, 1)))
+    v = torch.ones((1, 64), dtype=torch.complex128)
+    geo = type1_1d_geometry(64, 33)
+    for bad in (("tc",) + geo[1:-1], ("split", 16), ("cuda",), geo + (1,)):
+        with pytest.raises(ValueError, match="no d=1 type-1 path"):
+            cuda_nufft._nufft1_1d_on(x, v, 0.3, 33, False, bad)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_nufft._nufft1_1d_on(x, v, 0.3, 33, False, geo)
