@@ -36,7 +36,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and within twice that of their twin nufft1_1d_3xtf32_ref, the card's
      time of both in alternating rounds, the 3xTF32 bound beside the fp32
      one, and a check that the tensor cores were the faster (within
-     DISPATCH_TIE);
+     DISPATCH_TIE); likewise the float32 d=1 type-2 on both of its kernels
+     (the tensor cores on a split of the mode index, nufft2_1d_3xtf32_ref
+     its twin, with the padding of its geometry) and the float32 d=3
+     type-1 on both of its kernels (the tensor cores on Type1Grid3D,
+     nufft1_3d_3xtf32_ref its twin, run where its operand stays under 1e9
+     values, with both scratches), each checked that the path
+     cuda_nufft.type2_1d_geometry / type1_3d_geometry picks was the
+     fastest measured there (within DISPATCH_TIE);
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -376,20 +383,23 @@ def bound_ms(name, n, m, dtype, B=1, work=None):
 
 def bound_3xtf32_ms(name, n, m, B=1, split=None):
     """A float32 kernel's bound on the tensor cores (the type-1 at d=2 and
-    d=1, and the d=2 type-2's tensor-core kernel, batched or at B 1 for the
-    single): 3 x 8 flops per point, mode (pair) and vector at the dense TF32
+    d=1, the d=2 type-2's tensor-core kernel, batched or at B 1 for the
+    single, and the d=1 type-2's): 3 x 8 flops per point, mode (pair) and vector at the dense TF32
     rate, plus the rest of kernel_work's operations (the phases, once per
     point, dimension and mode, and the products v e1 or e1 T) at the fp32
     rate; against its bytes.  At d=1 ``split`` = (K, Q) of the mode split
     k = K q + r (cuda_nufft.type1_1d_split) sets the rest: K + Q phases a
-    point, and the K products v e^{-2 pi i r t} a point and vector."""
+    point, and the K products a point and vector (the type-1's v
+    e^{-2 pi i r t}, 6 flops; the type-2's epilogue multiply-adds
+    e^{+2 pi i r t} T, 8)."""
     d = int(name.split("_")[1][0])
     flops, nbytes = kernel_work(name, n, m, torch.float32, B)
     tc = 3 * 8 * B * n * m ** d
     rest = flops - 8 * B * n * m ** d
     if split is not None:
         K, Q = split
-        rest = n * (K + Q) * PHASE_FLOPS + 6 * B * n * K
+        outer = 8 if name.startswith("nufft2") else 6
+        rest = n * (K + Q) * PHASE_FLOPS + outer * B * n * K
     t_ops = (tc / PEAK_TF32 + rest / PEAK_FLOPS[torch.float32]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -803,6 +813,150 @@ def main() -> int:
                 f"{out['cuda_core_rel_err']:.3e}; geometry {geos['tc']}")
         return out, line
 
+    def type2_1d_both(x, f, hq, m, fo, n, B, ref, scale, got, split_bar,
+                      reps):
+        """The float32 d=1 type-2 on its two kernels on the same inputs:
+        the tensor cores ("tc", 3xTF32 on the split k = K q + r, with the
+        tensor-core geometry of type2_1d_geometry's table) and the CUDA
+        cores ("cuda"), each within 1e-4 of max|ref| (the tensor cores also
+        within ``split_bar`` and within twice that of their twin
+        nufft2_1d_3xtf32_ref, run on the card), bit for bit against a
+        second launch; the wrapper's result bit for bit that of the path
+        type2_1d_geometry picks, and that path the fastest on the card
+        (time_cuda_paths, the paths in turn each round) within
+        DISPATCH_TIE.  Returns the row's fields and a line for the log."""
+        pick = cuda_nufft.type2_1d_geometry(n, m, B)
+        tc_geo = cuda_nufft.type2_1d_tc_geometry(B)
+        geos = {"tc": tc_geo, "cuda": ("cuda",)}
+        fb = f.reshape(B, m)
+        calls = {r: (lambda geo=geo: cuda_nufft._nufft2_1d_on(
+            x, fb, hq, m, fo, geo)) for r, geo in geos.items()}
+        out = {"dispatch": pick[0]}
+        for r, call in calls.items():
+            what = f"nufft2_1d ({r}) B={B} n={n} mtot={m}"
+            o = call()
+            sync()
+            rel = float((o.reshape(got.shape).to(torch.complex128)
+                         - ref).abs().max()) / scale
+            check(np.isfinite(rel) and rel <= 1e-4,
+                  f"{what}: error {rel:.3e} of max|ref| > 1e-4")
+            check(torch.equal(call(), o), f"{what}: a second launch differs")
+            if r == pick[0]:
+                check(torch.equal(o.reshape(got.shape), got),
+                      f"{what}: the wrapper's result is not this kernel's")
+            if r == "tc":
+                check(rel <= split_bar,
+                      f"{what}: error {rel:.3e} over max(2 x the plain "
+                      f"version's, 1e-6) = {split_bar:.3e}")
+                twin = cuda_nufft.nufft2_1d_3xtf32_ref(
+                    x, fb, hq, mtot=m, fft_order=fo, geometry=tc_geo)
+                diff = float((o - twin).abs().max())
+                check(diff <= 2 * split_bar * scale,
+                      f"{what}: {diff / scale:.3e} of max|ref| from its "
+                      f"twin, over 2 x {split_bar:.3e}")
+                out["twin_rel_diff"] = diff / scale
+            key = "tc" if r == "tc" else "cuda_core"
+            out[f"{key}_rel_err"] = rel
+        ms = time_cuda_paths(calls, reps, PATH_TRIALS)
+        out["tc_ms"], out["cuda_core_ms"] = ms["tc"], ms["cuda"]
+        out["geometry"] = list(tc_geo[1:])
+        _, points, K, cols, _ = tc_geo
+        Q = cuda_nufft.type1_1d_split(m, K)[1]
+        kq = -(-Q // cuda_nufft.TYPE2_1D_KSTEP) * cuda_nufft.TYPE2_1D_KSTEP
+        ncp = -(-B * K // cols) * cols
+        # products made a point against the B mtot needed
+        out["padding"] = kq * ncp / (B * m)
+        out["bound_3xtf32_ms"] = bound_3xtf32_ms("nufft2_1d", n, m, B,
+                                                 (K, Q))[0]
+        faster = min(ms, key=ms.get)
+        check(ms[pick[0]] <= max(ms[faster] * (1 + DISPATCH_TIE[0]),
+                                 ms[faster] + DISPATCH_TIE[1]),
+              f"nufft2_1d B={B} n={n} mtot={m}: the pick {pick[0]} takes "
+              f"{ms[pick[0]]:.4f} ms, {faster} {ms[faster]:.4f}")
+        line = (f" pick {pick[0]} (fastest on the card: {faster}); tensor "
+                f"cores ms={ms['tc']:.4f} rel={out['tc_rel_err']:.3e} (twin "
+                f"{out['twin_rel_diff']:.3e} apart), padding "
+                f"x{out['padding']:.3f}, bound_3xtf32_ms="
+                f"{out['bound_3xtf32_ms']:.4f}; CUDA cores ms={ms['cuda']:.4f}"
+                f" rel={out['cuda_core_rel_err']:.3e}; geometry {tc_geo}")
+        return out, line
+
+    def type1_3d_both(x, v, hq, m, fo, n, B, ref, scale, got, split_bar,
+                      reps, trials, twin_ok):
+        """The float32 d=3 type-1 on its two kernels on the same inputs: the
+        tensor cores ("tc", 3xTF32 on Type1Grid3D, type1_3d_tc_geometry) and
+        the CUDA-core kernel ("cuda"), each within 1e-4 of max|ref| (the
+        tensor cores also within ``split_bar`` and, where ``twin_ok``,
+        within twice that of their twin nufft1_3d_3xtf32_ref, run on the
+        card), bit for bit against a second launch, with its scratch (the
+        peak allocated in the call less the output); the wrapper's result
+        bit for bit that of the path type1_3d_geometry picks, and that path
+        the fastest on the card (time_cuda_paths) within DISPATCH_TIE.
+        Returns the row's fields and a line for the log."""
+        pick = cuda_nufft.type1_3d_geometry(n, m, B)
+        tc_geo = cuda_nufft.type1_3d_tc_geometry(n, m, B)
+        geos = {"tc": tc_geo, "cuda": ("cuda",)}
+        vb = v.reshape(B, n)
+        calls = {r: (lambda geo=geo: cuda_nufft._nufft1_3d_on(
+            x, vb, hq, m, fo, geo)) for r, geo in geos.items()}
+        out = {"dispatch": pick[0], "twin_rel_diff": None}
+        for r, call in calls.items():
+            what = f"nufft1_3d ({r}) B={B} n={n} mtot={m}"
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            o = call()
+            sync()
+            scratch = (torch.cuda.max_memory_allocated() - base
+                       - o.numel() * o.element_size())
+            rel = float((o.reshape(got.shape).to(torch.complex128)
+                         - ref).abs().max()) / scale
+            check(np.isfinite(rel) and rel <= 1e-4,
+                  f"{what}: error {rel:.3e} of max|ref| > 1e-4")
+            check(torch.equal(call(), o), f"{what}: a second launch differs")
+            check(scratch < 256e6, f"{what}: scratch {scratch} bytes >= 256 "
+                  "MB")
+            if r == pick[0]:
+                check(torch.equal(o.reshape(got.shape), got),
+                      f"{what}: the wrapper's result is not this kernel's")
+            if r == "tc":
+                check(rel <= split_bar,
+                      f"{what}: error {rel:.3e} over max(2 x the plain "
+                      f"version's, 1e-6) = {split_bar:.3e}")
+                if twin_ok:
+                    twin = cuda_nufft.nufft1_3d_3xtf32_ref(x, vb, hq, mtot=m,
+                                                           fft_order=fo)
+                    diff = float((o - twin).abs().max())
+                    del twin
+                    check(diff <= 2 * split_bar * scale,
+                          f"{what}: {diff / scale:.3e} of max|ref| from its "
+                          f"twin, over 2 x {split_bar:.3e}")
+                    out["twin_rel_diff"] = diff / scale
+            key = "tc" if r == "tc" else "cuda_core"
+            out[f"{key}_rel_err"] = rel
+            out[f"{key}_scratch_bytes"] = scratch
+            del o
+        ms = time_cuda_paths(calls, reps, max(trials, 3))
+        out["tc_ms"], out["cuda_core_ms"] = ms["tc"], ms["cuda"]
+        out["geometry"] = list(tc_geo[1:])
+        out["bound_3xtf32_ms"] = bound_3xtf32_ms("nufft1_3d", n, m, B)[0]
+        faster = min(ms, key=ms.get)
+        check(ms[pick[0]] <= max(ms[faster] * (1 + DISPATCH_TIE[0]),
+                                 ms[faster] + DISPATCH_TIE[1]),
+              f"nufft1_3d B={B} n={n} mtot={m}: the pick {pick[0]} takes "
+              f"{ms[pick[0]]:.4f} ms, {faster} {ms[faster]:.4f}")
+        twin = ("not run (its float32 phase products past 1e9 values)"
+                if out["twin_rel_diff"] is None
+                else f"{out['twin_rel_diff']:.3e} apart")
+        line = (f" pick {pick[0]} (fastest on the card: {faster}); tensor "
+                f"cores ms={ms['tc']:.4f} rel={out['tc_rel_err']:.3e} (twin "
+                f"{twin}) scratch {out['tc_scratch_bytes'] / 1e6:.3f} MB, "
+                f"bound_3xtf32_ms={out['bound_3xtf32_ms']:.4f}; CUDA cores "
+                f"ms={ms['cuda']:.4f} rel={out['cuda_core_rel_err']:.3e} "
+                f"scratch {out['cuda_core_scratch_bytes'] / 1e6:.3f} MB; "
+                f"geometry {tc_geo}")
+        return out, line
+
     def type2_single(x, f, hq, m, fo, n, dtype, ref, scale, got, split_bar,
                      reps, trials):
         """The single type-2 on each of its paths, the tensor cores ("tc",
@@ -969,6 +1123,17 @@ def main() -> int:
                                              scale, got, split_bar, reps)
                     row.update(t1)
                     extra += line
+            if name == "nufft2_1d" and dtype == torch.float32:
+                t2, line = type2_1d_both(x, arg, hq, m, fo, n, B, ref, scale,
+                                         got, max(2 * plain_rel, 1e-6), reps)
+                row.update(t2)
+                row["split_bar"] = max(2 * plain_rel, 1e-6)
+                row["bound_fp32_ms"] = b_ms
+                if t2["dispatch"] == "tc":
+                    row["bound_ms"], row["bound_by"] = (
+                        t2["bound_3xtf32_ms"], "operations")
+                    b_by = "fp32 operations"
+                extra += line
             if name == "nufft2_2d_batched" and dtype == torch.float32:
                 t2, line = type2_both(x, arg, hq, m, fo, n, B, ref, scale,
                                       got, max(2 * plain_rel, 1e-6), reps,
@@ -1001,10 +1166,25 @@ def main() -> int:
                     trials)
                 extra += f" {B}x single ms={row['singles_ms']:.4f}"
             if name == "nufft1_3d":
-                groups, _ = cuda_nufft.type1_3d_groups(n, m, B)
+                groups = cuda_nufft._type1_3d_groups_of(
+                    n, m, B, cuda_nufft.type1_3d_geometry(n, m, B)
+                    if dtype == torch.float32 else ("cuda",))
                 row["scratch_bytes"] = scratch
                 extra = (f" scratch {groups} groups {scratch / 1e6:.3f} MB "
                          f"(measured)")
+                if dtype == torch.float32:
+                    split_bar = max(2 * plain_rel, 1e-6)
+                    t1, line = type1_3d_both(x, arg, hq, m, fo, n, B, ref,
+                                             scale, got, split_bar, reps,
+                                             trials, B * n * m * m <= 1e9)
+                    row.update(t1)
+                    row["split_bar"] = split_bar
+                    row["bound_fp32_ms"] = b_ms
+                    if t1["dispatch"] == "tc":
+                        row["bound_ms"], row["bound_by"] = (
+                            t1["bound_3xtf32_ms"], "operations")
+                        b_by = "fp32 operations"
+                    extra += line
             phase3.append(row)
             print(f"[3] {name} {row['dtype']} B={B} n={n} mtot={m} "
                   f"fft_order={fo} ({what}): max_abs_err={err:.3e} "
@@ -2662,6 +2842,9 @@ def main() -> int:
                  "nufft1_2d_batched": (mtot_head, False),
                  "nufft2_2d_batched": (mtot_head, False)}
     rows = []
+    # the d=3 type-1's two kernels (phase 3's type1_3d_both)
+    TC3_KEYS = ("dispatch", "tc_ms", "cuda_core_ms", "tc_rel_err",
+                "cuda_core_rel_err", "bound_fp32_ms", "bound_3xtf32_ms")
 
     def single_at_scale(f32_rows, keys):
         """The single type-2's paths at the scale configuration's calls, by
@@ -2680,12 +2863,14 @@ def main() -> int:
                       key=lambda r: r["B"] * r["n"] * r["mtot"])
             extra = {"launches": launches_lc[name],
                      "launches_headline_facade": launches9[name]}
-            if name == "nufft1_1d":
+            if name in KERNELS_1D:
                 # both kernels' card times on the same inputs, the 3xTF32
                 # bound (bound_ms) beside the fp32 one, at every light-curve
-                # call
+                # call (the type-2 also its padding)
                 keys = ("dispatch", "tc_ms", "cuda_core_ms", "tc_rel_err",
                         "cuda_core_rel_err", "bound_fp32_ms")
+                if name == "nufft2_1d":
+                    keys += ("padding", "bound_3xtf32_ms")
                 extra.update({k: row[k] for k in keys})
                 extra["at_calls"] = {
                     r["serves"]: {k: r[k] for k in keys + (
@@ -2735,6 +2920,16 @@ def main() -> int:
             extra = {"launches": launches_d3[name],
                      "launches_hard3d": launches_h3[name]
                      + launches_var4[name] + launches_g4[name]}
+            if name == "nufft1_3d":
+                # both kernels' card times on the same inputs, the 3xTF32
+                # bound (bound_ms where the tensor cores are picked) beside
+                # the fp32 one, at every call phase 3 makes
+                extra.update({k: row[k] for k in TC3_KEYS})
+                extra["at_calls"] = {
+                    f"{r['serves']} (B {r['B']}, mtot {r['mtot']})": {
+                        k: r[k] for k in TC3_KEYS + (
+                            "B", "n", "mtot", "ms", "bound_ms", "bound_by")}
+                    for r in f32_rows}
         rows.append({"name": name, "route": "cuda", "source": source_of(name),
                      "replaces": REPLACES[name], **extra,
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -2765,6 +2960,8 @@ def main() -> int:
                          tiled_counts(widths_grad10)[tpu],
                      "launches_scale_adam_loop":
                          tiled_counts(widths_loop10)[tpu]}
+        if kernel == "nufft1_3d":
+            extra.update({k: row[k] for k in TC3_KEYS})
         if kernel == "nufft2_2d":
             keys = ("dispatch", "fastest", "tc_ms", "split_ms", "cuda_ms")
             extra.update({k: row[k] for k in keys})

@@ -19,11 +19,20 @@
 // multiply-add per vector (8 flops), against ~20 flops to make the phase, so
 // the phases are most of the work; per point the kernels read 4-8 bytes of x
 // and 8-16 of value, so they are bound by operations (fp32 outside the tensor
-// cores), not by bytes.  This first version makes every phase with the exact
-// compensated path and sincospi (no rotation recurrence), and shares each
-// phase among the vectors of a batch group:
+// cores), not by bytes.  Every phase is made with the exact compensated path
+// and sincospi (no rotation recurrence); in float32 both types cut the
+// phases from mtot a point to K + Q with a split of the mode index and run
+// the products on the tensor cores:
 //
-//  - nufft2_1d: one point per thread (or per S = 8 threads when the
+//  - nufft2_1d in float32 (where ops/cuda_nufft.py type2_1d_geometry sends
+//    it): tc_type2.cuh's tensor-core kernel (3xTF32) on a split of the
+//    mode index, k = K q + r (Type2Split1D below): a GEMM over q whose rows
+//    are the points and columns (vector, r), the sum over r in its
+//    epilogue; K + Q phases a point instead of mtot, each with
+//    phase_split;
+//  - nufft2_1d on the CUDA cores (float64, the float32 calls the geometry
+//    keeps there, and the control phase 3 times beside the tensor cores):
+//    one point per thread (or per S = 8 threads when the
 //    point-vectors are fewer than 65 536, e.g. 5 000 targets, so that enough
 //    warps fill the card; each takes every S-th mode of the staged tile and
 //    the S sums are added in a fixed order in shared memory at the end).  A
@@ -46,14 +55,13 @@
 //    per-chunk partials (nchunk x B x mtot) are then added in chunk order
 //    by a second kernel.  No atomics.
 //
-// The CUDA-core kernels are templated on the scalar type: float is the
-// type-2's main path, and double tensors run a double instance of the same
-// code.
+// The CUDA-core kernels are templated on the scalar type: double tensors
+// run a double instance of the float code.
 //
 // C interface (bound with ctypes): pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launches.
 
-#include "tc_type1.cuh"
+#include "tc_type2.cuh"
 
 namespace {
 
@@ -309,15 +317,19 @@ int launch_nufft1(const void* x, const void* v, T h, int n, int m, int nb,
 struct Type1Split1D {
   using X = float;
   using Acc = double;
-  static __device__ void point(X xp, float h, float* a, float* b) {
+  using Row = float;
+  using Col = float;
+  static constexpr int kTab = 0;
+  // (no third coordinate: the phases do not read it)
+  static __device__ void point(X xp, float h, float* a, float* b, float*) {
     *a = torus_split(xp, h, b);
   }
-  static __device__ void row_phase(float a, float b, float k, float* c,
-                                   float* s) {
+  static __device__ void row_phase(float a, float b, float, const float2*,
+                                   float k, float* c, float* s) {
     phase_split(a, b, k, c, s);
   }
-  static __device__ void col_phase(float a, float b, float k, float* c,
-                                   float* s) {
+  static __device__ void col_phase(float a, float b, float, const float2*,
+                                   float k, float* c, float* s) {
     phase_split(a, b, k, c, s);
   }
   template <int K>
@@ -329,7 +341,7 @@ struct Type1Split1D {
     *ok = true;
     return (float)r;
   }
-  template <int K>
+  template <int K, int COLS>
   static __device__ float col_mode(int qi, int m, int, bool* ok) {
     *ok = qi < cols<K>(m);
     return *ok ? (float)(K * (qmin<K>(m) + qi)) : 0.f;
@@ -350,6 +362,55 @@ struct Type1Split1D {
   }
 };
 
+// ---------------------------------------------------------------------------
+// type-2 in float32 on the tensor cores: tc_type2.cuh's kernel on the split
+// k = K q + r, K = 32: the reduction runs over q (index qi, q = qmin + qi,
+// the Q values that reach every |k| <= half, padded to whole k-steps of 8),
+// the epilogue over r in 0..K-1 (one vector's K columns, no pad); F_b[r,
+// qi] = f_b at mode K q + r, zero past half.  Both phases take the torus
+// coordinate u and the rounding error te of t = x*h (torus_split,
+// phase_split), e^{+2 pi i K q t} at mode value K q, e^{+2 pi i r t} at r.
+// ---------------------------------------------------------------------------
+constexpr int T2S_K = 32;
+
+struct Type2Split1D {
+  using X = float;
+  static constexpr bool kWholeStages = false;   // red_len: multiples of 8
+  static __device__ void point(X xp, float h, float* a, float* b) {
+    *a = torus_split(xp, h, b);
+  }
+  static __host__ __device__ int qmin(int m) {
+    return -(((m - 1) / 2 + T2S_K - 1) / T2S_K);
+  }
+  static __host__ __device__ int qcount(int m) {
+    return (m - 1) / 2 / T2S_K - qmin(m) + 1;
+  }
+  static __device__ float red_mode(int k, int m, int, bool* ok) {
+    *ok = k < qcount(m);
+    return (float)(T2S_K * (qmin(m) + k));
+  }
+  static __device__ void red_phase(float a, float b, float kv, float* c,
+                                   float* s) {
+    phase_split(a, b, kv, c, s);
+  }
+  static __device__ int epi_cols(int) { return T2S_K; }
+  static __device__ void epi_phase(float a, float b, int j, int, int,
+                                   float* c, float* s) {
+    phase_split(a, b, (float)j, c, s);
+  }
+  static int red_len(int m) { return (qcount(m) + 7) / 8 * 8; }
+  static int cols(int) { return T2S_K; }
+  static __device__ float2 coef(const float2* __restrict__ f, int b, int j,
+                                int k, int m, int fft_order) {
+    const int half = (m - 1) / 2;
+    const int kk = T2S_K * (qmin(m) + k) + j;
+    if (j >= T2S_K || k >= qcount(m) || kk < -half || kk > half)
+      return make_float2(0.f, 0.f);
+    return f[(size_t)b * m + (fft_order ? (kk >= 0 ? kk : kk + m)
+                                        : kk + half)];
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -357,6 +418,19 @@ extern "C" {
 int gpq_nufft2_1d_f32(const void* x, const void* f, float h, int n, int m,
                       int nb, int fft_order, void* out, void* stream) {
   return launch_nufft2<float>(x, f, h, n, m, nb, fft_order, out, stream);
+}
+
+// float32 on the tensor cores, with the caller's geometry (ops/cuda_nufft.py
+// type2_1d_geometry: points a block, K, columns a tile, modes a stage)
+int gpq_nufft2_1d_tc_f32(const void* x, const void* f, float h, int n, int m,
+                         int nb, int fft_order, int points, int k, int cols,
+                         int stage, void* scratch, long long scratch_floats,
+                         void* out, void* stream) {
+  if (k != T2S_K) return (int)cudaErrorInvalidValue;
+  // both tile widths: 32 (one vector's columns) and 128
+  return launch_type2_tc<Type2Split1D>(x, f, h, n, m, nb, fft_order, points,
+                                       cols, stage, 3, scratch,
+                                       scratch_floats, out, stream);
 }
 
 int gpq_nufft2_1d_f64(const void* x, const void* f, double h, int n, int m,

@@ -26,9 +26,10 @@
 //       headline's mtot 29), and float64 and the float32 batch below mtot
 //       64 with many points;
 //     - float32 from mtot 64 with many points, on the tensor cores
-//       (nufft2_2d_batched_tc_kernel): a GEMM over the modes k with a
-//       3xTF32 split, the sum over j in its epilogue; the single type-2
-//       takes it at B = 1 (each output still has one owner);
+//       (tc_type2.cuh's type2_tc_kernel on Type2Grid2D below): a GEMM over
+//       the modes k with a 3xTF32 split, the sum over j in its epilogue;
+//       the single type-2 takes it at B = 1 (each output still has one
+//       owner);
 //     - one vector, few points, three slabs of 16 modes j or more
 //       (nufft2_2d_split_kernel): a grid axis over the slabs, so that the
 //       card gets enough blocks, each thread keeping its slab's sums over k
@@ -73,7 +74,7 @@
 // C interface (bound with ctypes): pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launches.
 
-#include "tc_type1.cuh"
+#include "tc_type2.cuh"
 
 namespace {
 
@@ -373,16 +374,20 @@ nufft1_2d_partial_kernel(const v2_t<T>* __restrict__ x,
 struct Type1Grid2D {
   using X = float2;
   using Acc = float;
-  static __device__ void point(X xp, float h, float* a, float* b) {
+  using Row = float;
+  using Col = float;
+  static constexpr int kTab = 0;
+  // (no third coordinate: the phases do not read it)
+  static __device__ void point(X xp, float h, float* a, float* b, float*) {
     *a = torus(xp.x, h);
     *b = torus(xp.y, h);
   }
-  static __device__ void row_phase(float a, float, float k, float* c,
-                                   float* s) {
+  static __device__ void row_phase(float a, float, float, const float2*,
+                                   float k, float* c, float* s) {
     phase(a, k, c, s);
   }
-  static __device__ void col_phase(float, float b, float k, float* c,
-                                   float* s) {
+  static __device__ void col_phase(float, float b, float, const float2*,
+                                   float k, float* c, float* s) {
     phase(b, k, c, s);
   }
   template <int TJ>
@@ -390,7 +395,7 @@ struct Type1Grid2D {
     *ok = j < m;
     return *ok ? mode_value<float>(j, m, fft_order) : 0.f;
   }
-  template <int TJ>
+  template <int TJ, int COLS>
   static __device__ float col_mode(int k, int m, int fft_order, bool* ok) {
     return row_mode<TJ>(k, m, fft_order, ok);
   }
@@ -408,363 +413,43 @@ struct Type1Grid2D {
 };
 
 // ---------------------------------------------------------------------------
-// batched type-2 in float32 on the tensor cores.  It replaces
-// pallas_nufft2_2d_batched (gpquad/ops/pallas_nufft.py:838), whose kernel is
-// itself a matrix product (_type2_kernel_b, :809-833: T = F E2^T at HIGHEST
-// precision, then sum_j e1 T).  Here, for the block's P points:
-//   T[p, (b, j)] = sum_k e2(p, k) f_b[j, k]        a GEMM over the modes k,
-//   out[b, p]    = sum_j e1(p, j) T[p, (b, j)]     in its epilogue,
-// e = e^{+2 pi i c}, complex, as four real products:
-//   T_re = C2 Fr + S2 (-Fi),   T_im = C2 Fi + S2 Fr   (C2, S2: cos, sin of e2).
-// Each real operand is split into big and small tf32 values (split3), each
-// real product taken as small*big + big*small + big*big on mma.sync
-// m16n8k8, as in the type-1 (tc_type1.cuh).
-//
-// Operands:
-//  - A = E2 (points x modes) is made on chip and never written to device
-//    memory: per stage of T2C_KS modes, each thread makes whole A fragments
-//    (t2c_make_quad: the phases of points g, g + 8 at modes t, t + 4, from
-//    nufft_common.cuh with the rounding of t = x h the other d=2 kernels
-//    carry) and stores them split, in fragment order, into shared memory,
-//    so that a fragment is one 16-byte load and store (a row-major stage
-//    cost four register moves per mma).  E2 for all modes does not fit
-//    there (P x mtot x 16 bytes), so it is made again for every column
-//    tile.
-//  - B = F (modes x columns) is split once per call by
-//    nufft2_split_kernel into a scratch of big and small planes, laid out
-//    so that a stage of a column tile is contiguous (cp.async copies it) and
-//    a thread's fragment pair and both parts are one 16-byte load.  The
-//    columns are (b, j), each vector's padded to mq = a multiple of
-//    T2C_CHUNK; at B 10 and mtot 339 the scratch takes 20 MB, which stays
-//    in the L2.
-//
-// Block: 512 threads, P = 128 points, walking every column tile of
-// T2C_NT = 128 columns in order; 16 warps in an 8 x 2 grid of 16 x 64 warp
-// tiles (one m-tile by eight n-tiles, 64 fp32 sums a thread).  A stage:
-// start the copy of F's next stage into the other buffer (cp.async), make
-// E2's, wait for this stage's F, multiply; one role, so the phases and the
-// products of a block do not overlap.  scripts/time_type2_batched.py takes
-// the kernel apart on the card: at scale (B 10, mtot 339) most of the time
-// is the products, mma.sync TF32 reaches only part of the dense rate, and
-// the phases and E2's stores take most of the rest.  Other shapes (384 or
-// 256 threads, two blocks an SM, 64-column tiles, 4 x 4 warps, the next
-// stage's E2 made between this stage's k-steps) were slower.
-//
-// The sum, in a fixed order and with no atomics:
-//  - a k-step's 8 modes in the mma accumulators, one chain of six mma
-//    started from zero (Hopper's tensor cores do not round their fp32 sums
-//    to nearest; longer chains biased the f32 gradient, see tc_type1.cuh);
-//  - the k-steps added in fp32 registers, giving T;
-//  - the epilogue: T goes to shared memory; thread (p, q) adds
-//    e1(p, j) T[p, (b, j)] over the tile's q-th chunk of T2C_CHUNK columns
-//    (one vector b, e1 made from the point's u1), in j order, from zero;
-//  - thread p adds the chunks into out[b, p] in column order (the first
-//    chunk of a vector stores): each output has one owner, so the result
-//    is the same bit for bit on every launch.
-//
-// Bound: 3 x 8 flops per point, mode k and column on the tensor cores
-// (495 TFLOP/s dense TF32); the phases (e2 once per column tile, e1 once
-// per column) and the epilogue on the CUDA cores; F's scratch read from the
-// L2 once per block (P = 128: ~144 GB at scale, B 10).
+// batched type-2 in float32 on the tensor cores: tc_type2.cuh's kernel on
+// the d=2 problem.  It replaces pallas_nufft2_2d_batched
+// (gpquad/ops/pallas_nufft.py:838), whose kernel is itself a matrix product
+// (_type2_kernel_b, :809-833: T = F E2^T at HIGHEST precision, then
+// sum_j e1 T): the reduction runs over the modes k of the second axis (eA =
+// e2 from x2, phase() of the torus coordinate as the other d=2 kernels make
+// it), the epilogue over the modes j of the first (eE = e1 from x1); both
+// padded to a multiple of 32.
 // ---------------------------------------------------------------------------
-constexpr int T2C_THREADS = 512;
-constexpr int T2C_P = 128;         // points a block
-constexpr int T2C_NT = 128;        // columns (b, j) a column tile
-constexpr int T2C_KS = 32;         // modes k a stage
-constexpr int T2C_CHUNK = 32;      // columns of an epilogue sum
-constexpr int T2C_WM = 8;          // warps along the points
-constexpr int T2C_TS = T2C_NT + 1; // T's row stride (float2): odd, so a
-                                   // warp's 32 points read 32 banks
-static_assert(T2C_KS == T2C_CHUNK,
-              "the modes k are padded to mq as the columns j are");
-static_assert(T2C_THREADS / T2C_P == T2C_NT / T2C_CHUNK &&
-                  T2C_P / 16 * (T2C_KS / 8) * 32 % T2C_THREADS == 0,
-              "one epilogue thread a point and chunk; whole quads of E2 a "
-              "thread");
-
-struct T2cStage {
-  // E2 in fragment order: [k-step][cos, sin][big, small][m-tile][lane][reg],
-  // so that a thread's A fragment is one 16-byte load
-  unsigned a[T2C_KS / 8][2][2][T2C_P / 16][32][4];
-  float b[2][T2C_KS / 8][2][T2C_NT][16];   // F, two buffers:
-                                           // [k-step][Re, Im][column]
+struct Type2Grid2D {
+  using X = float2;
+  static constexpr bool kWholeStages = true;   // red_len: multiples of 32
+  static __device__ void point(X xp, float h, float* a, float* b) {
+    *a = torus(xp.x, h);
+    *b = torus(xp.y, h);
+  }
+  static __device__ float red_mode(int k, int m, int fft_order, bool* ok) {
+    *ok = k < m;
+    return mode_value<float>(k, m, fft_order);
+  }
+  static __device__ void red_phase(float, float b, float kv, float* c,
+                                   float* s) {
+    phase(b, kv, c, s);
+  }
+  static __device__ int epi_cols(int m) { return m; }
+  static __device__ void epi_phase(float a, float, int j, int m,
+                                   int fft_order, float* c, float* s) {
+    phase(a, mode_value<float>(j, m, fft_order), c, s);
+  }
+  static int red_len(int m) { return (m + 31) / 32 * 32; }
+  static int cols(int m) { return red_len(m); }
+  static __device__ float2 coef(const float2* __restrict__ f, int b, int j,
+                                int k, int m, int) {
+    return j < m && k < m ? f[((size_t)b * m + j) * m + k]
+                          : make_float2(0.f, 0.f);
+  }
 };
-
-struct T2cSmem {
-  union {
-    T2cStage st;
-    float2 t[T2C_P][T2C_TS];            // the column tile's T, epilogue
-  };
-  float2 red[T2C_NT / T2C_CHUNK][T2C_P];  // the chunks' sums
-  float u2[T2C_P];                      // the points' t = x h on the torus
-};
-
-// Where mode kk (0-7) of a k-step and part (0 big, 1 small) sit in F's
-// group of 16 floats: a thread's fragment pair (kk = t, t + 4) and both
-// parts are the float4 at 4 t.
-__device__ __forceinline__ int t2c_pos(int kk, int part) {
-  return (kk & 3) * 4 + part * 2 + (kk >> 2);
-}
-
-// One A fragment (4 tf32 values) from shared memory
-__device__ __forceinline__ void t2c_afrag(const unsigned* src,
-                                          unsigned (&o)[4]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copy F's stage at modes k0.. of the column tile c0.. (per k-step and part
-// T2C_NT columns x 16 floats, contiguous in fs) into buf, as one cp.async
-// group
-__device__ __forceinline__ void t2c_load_f(float (*buf)[2][T2C_NT][16],
-                                           const float4* __restrict__ fs,
-                                           int ncp, int c0, int k0, int tid) {
-  constexpr int ROW4 = T2C_NT * 4;   // float4 a (k-step, part)
-#pragma unroll
-  for (int e = tid; e < T2C_KS / 8 * 2 * ROW4; e += T2C_THREADS) {
-    const int r = e / ROW4, q4 = e % ROW4;
-    cp_async16(reinterpret_cast<float4*>(&buf[r >> 1][r & 1][0][0]) + q4,
-               fs + ((size_t)(k0 / 8 * 2 + r) * ncp + c0) * 4 + q4);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// F (B, m, m) complex -> the split scratch fs[k-step][Re, Im][column][16],
-// column (b, j) at b mq + j, zero past m, past B and in the ncp - B mq pad
-// columns.  One thread per (mode k, column), k fastest (coalesced reads).
-__global__ void nufft2_split_kernel(const float2* __restrict__ f, int m,
-                                    int nb, int mq, int ncp,
-                                    float* __restrict__ fs) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)mq * ncp) return;
-  const int k = (int)(idx % mq), col = (int)(idx / mq);
-  const int b = col / mq, j = col % mq;
-  float2 v = make_float2(0.f, 0.f);
-  if (b < nb && j < m && k < m) v = f[((size_t)b * m + j) * m + k];
-  unsigned rb, rs, ib, is;
-  split3(v.x, &rb, &rs);
-  split3(v.y, &ib, &is);
-  const int ks = k >> 3, kk = k & 7;
-  float* re = fs + ((size_t)(ks * 2) * ncp + col) * 16;
-  float* im = fs + ((size_t)(ks * 2 + 1) * ncp + col) * 16;
-  re[t2c_pos(kk, 0)] = __uint_as_float(rb);
-  re[t2c_pos(kk, 1)] = __uint_as_float(rs);
-  im[t2c_pos(kk, 0)] = __uint_as_float(ib);
-  im[t2c_pos(kk, 1)] = __uint_as_float(is);
-}
-
-// E2's A-fragment quad q of the stage at modes k0..: lane q % 32 = 4 g + t
-// of m-tile (q / 32) % (P / 16) and k-step q / (32 P / 16); registers a0
-// (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4) of cos and sin, each
-// split; zero past m
-__device__ __forceinline__ void t2c_make_quad(T2cSmem& sm, int q, int k0,
-                                              int m, int fft_order) {
-  constexpr int MT = T2C_P / 16;
-  const int lane = q & 31, mt = (q >> 5) % MT, ks = (q >> 5) / MT;
-  const int p = mt * 16 + (lane >> 2), k = k0 + ks * 8 + (lane & 3);
-  const float u[2] = {sm.u2[p], sm.u2[p + 8]};
-  float c[4], s[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kr = k + (r >> 1) * 4;
-    const float kv = mode_value<float>(kr, m, fft_order);
-    c[r] = 0.f;
-    s[r] = 0.f;
-    if (kr < m) phase(u[r & 1], kv, &c[r], &s[r]);
-  }
-  uint4 cb, cs, sb, ss;
-  split3(c[0], &cb.x, &cs.x);
-  split3(c[1], &cb.y, &cs.y);
-  split3(c[2], &cb.z, &cs.z);
-  split3(c[3], &cb.w, &cs.w);
-  split3(s[0], &sb.x, &ss.x);
-  split3(s[1], &sb.y, &ss.y);
-  split3(s[2], &sb.z, &ss.z);
-  split3(s[3], &sb.w, &ss.w);
-  *reinterpret_cast<uint4*>(sm.st.a[ks][0][0][mt][lane]) = cb;
-  *reinterpret_cast<uint4*>(sm.st.a[ks][0][1][mt][lane]) = cs;
-  *reinterpret_cast<uint4*>(sm.st.a[ks][1][0][mt][lane]) = sb;
-  *reinterpret_cast<uint4*>(sm.st.a[ks][1][1][mt][lane]) = ss;
-}
-
-__global__ void __launch_bounds__(T2C_THREADS, 1)
-nufft2_2d_batched_tc_kernel(const float2* __restrict__ x,
-                            const float4* __restrict__ fs, float h, int n,
-                            int m, int nb, int fft_order, int mq, int ncp,
-                            float2* __restrict__ out) {
-  extern __shared__ float4 t2c_smem[];
-  T2cSmem& sm = *reinterpret_cast<T2cSmem*>(t2c_smem);
-  const int tid = threadIdx.x;
-  const int p0 = blockIdx.x * T2C_P;
-  const int ncols = nb * mq;
-  // epilogue: point ep, chunk eq of the tile; u1 of the point in a
-  // register
-  const int ep = tid % T2C_P, eq = tid / T2C_P;
-  float u1;
-  {
-    float2 xp = make_float2(0.f, 0.f);
-    if (p0 + ep < n) xp = x[p0 + ep];
-    u1 = torus(xp.x, h);
-    if (tid < T2C_P) sm.u2[tid] = torus(xp.y, h);
-  }
-  // the products: WM x WN warps, warp tile (wr, wc) of MI m-tiles by NI
-  // n-tiles, fragment row / column (gq, tq)
-  constexpr int WM = T2C_WM, WN = T2C_THREADS / 32 / WM;
-  constexpr int MI = T2C_P / WM / 16, NI = T2C_NT / WN / 8;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
-  static_assert(MI * WM * 16 == T2C_P && NI * WN * 8 == T2C_NT,
-                "the warp grid covers the block's tile");
-  const int wr = (warp / WN) * (MI * 16), wc = (warp % WN) * (NI * 8);
-
-  for (int c0 = 0; c0 < ncols; c0 += T2C_NT) {
-    float acc[MI][NI][8];   // T: [m-tile][n-tile][re 4, im 4]
-#pragma unroll
-    for (int a = 0; a < MI; ++a)
-#pragma unroll
-      for (int b = 0; b < NI; ++b)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[a][b][c] = 0.f;
-    const int nst = mq / T2C_KS;
-    __syncthreads();   // the buffers are free (the last tile's epilogue)
-    t2c_load_f(sm.st.b[0], fs, ncp, c0, 0, tid);
-    for (int st = 0; st < nst; ++st) {
-      const int k0 = st * T2C_KS;
-      // F's next stage into the other buffer, while this one is used
-      if (st + 1 < nst)
-        t2c_load_f(sm.st.b[(st + 1) & 1], fs, ncp, c0, k0 + T2C_KS, tid);
-      // E2's stage, split: each thread makes whole A fragments, the
-      // quads of lane (g, t) of an m-tile and k-step (points g and g + 8,
-      // modes t and t + 4), one 16-byte store a part
-#pragma unroll
-      for (int q = tid; q < T2C_P / 16 * (T2C_KS / 8) * 32; q += T2C_THREADS)
-        t2c_make_quad(sm, q, k0, m, fft_order);
-      if (st + 1 < nst)
-        cp_async_wait<1>();   // all but the next stage's copy
-      else
-        cp_async_wait<0>();
-      __syncthreads();
-      const float(*fb)[2][T2C_NT][16] = sm.st.b[st & 1];
-#pragma unroll
-      for (int ks = 0; ks < T2C_KS / 8; ++ks) {
-        // A fragments of cos and sin: [m-tile][part][reg]
-        unsigned ca[MI][2][4], sa[MI][2][4];
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          const int mt = wr / 16 + mi;
-#pragma unroll
-          for (int part = 0; part < 2; ++part) {
-            t2c_afrag(sm.st.a[ks][0][part][mt][lane], ca[mi][part]);
-            t2c_afrag(sm.st.a[ks][1][part][mt][lane], sa[mi][part]);
-          }
-        }
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {
-          // B fragments b0 (t, g), b1 (t+4, g): [part][reg]
-          const int col = wc + ni * 8 + gq;
-          const uint4 r4 =
-              *reinterpret_cast<const uint4*>(&fb[ks][0][col][tq * 4]);
-          const uint4 i4 =
-              *reinterpret_cast<const uint4*>(&fb[ks][1][col][tq * 4]);
-          const unsigned fr[2][2] = {{r4.x, r4.y}, {r4.z, r4.w}};
-          const unsigned fi[2][2] = {{i4.x, i4.y}, {i4.z, i4.w}};
-          float d[MI][8];
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) d[mi][c] = 0.f;
-          // small*big, big*small, big*big; Re += C Fr + S (-Fi),
-          // Im += C Fi + S Fr: one chain of six mma a sum, from zero
-#pragma unroll
-          for (int pass = 0; pass < 3; ++pass) {
-            const int pa = pass == 0 ? 1 : 0;     // A's part
-            const int pb = pass == 1 ? 1 : 0;     // B's part
-            const unsigned nfi[2] = {fi[pb][0] ^ 0x80000000u,
-                                     fi[pb][1] ^ 0x80000000u};
-#pragma unroll
-            for (int mi = 0; mi < MI; ++mi) {
-              mma_tf32(&d[mi][0], ca[mi][pa], fr[pb]);
-              mma_tf32(&d[mi][4], ca[mi][pa], fi[pb]);
-            }
-#pragma unroll
-            for (int mi = 0; mi < MI; ++mi) {
-              mma_tf32(&d[mi][0], sa[mi][pa], nfi);
-              mma_tf32(&d[mi][4], sa[mi][pa], fr[pb]);
-            }
-          }
-#pragma unroll
-          for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-            for (int c = 0; c < 8; ++c)
-              acc[mi][ni][c] = __fadd_rn(acc[mi][ni][c], d[mi][c]);
-        }
-      }
-      __syncthreads();   // E2's buffer and this F buffer are free again
-    }
-    // the epilogue: T to shared memory (C fragment c0 (g, 2t), c1 (g, 2t+1),
-    // c2 (g+8, 2t), c3 (g+8, 2t+1))
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = wr + mi * 16 + gq + (i >> 1) * 8;
-          const int col = wc + ni * 8 + 2 * tq + (i & 1);
-          sm.t[row][col] = make_float2(acc[mi][ni][i], acc[mi][ni][4 + i]);
-        }
-    __syncthreads();
-    {
-      // chunk eq: one vector's columns j0.. in j order, from zero
-      const int cc = c0 + eq * T2C_CHUNK;
-      const int b = cc / mq, j0 = cc % mq;
-      float sr = 0.f, si = 0.f;
-      if (b < nb) {
-        const int jn = min(T2C_CHUNK, m - j0);
-        for (int jj = 0; jj < jn; ++jj) {
-          float c, s;
-          phase(u1, mode_value<float>(j0 + jj, m, fft_order), &c, &s);
-          const float2 tv = sm.t[ep][eq * T2C_CHUNK + jj];
-          // (c + i s)(T_re + i T_im)
-          sr = __fadd_rn(sr, fmaf(c, tv.x, -s * tv.y));
-          si = __fadd_rn(si, fmaf(c, tv.y, s * tv.x));
-        }
-      }
-      sm.red[eq][ep] = make_float2(sr, si);
-    }
-    __syncthreads();
-    if (tid < T2C_P && p0 + tid < n) {
-#pragma unroll
-      for (int q = 0; q < T2C_NT / T2C_CHUNK; ++q) {
-        const int cc = c0 + q * T2C_CHUNK;
-        const int b = cc / mq;
-        if (b >= nb) break;
-        float2* o = out + (size_t)b * n + p0 + tid;
-        float2 v = sm.red[q][tid];
-        if (cc % mq != 0) {   // not the vector's first chunk: add
-          const float2 prev = *o;
-          v.x = __fadd_rn(prev.x, v.x);
-          v.y = __fadd_rn(prev.y, v.y);
-        }
-        *o = v;
-      }
-    }
-  }
-}
 
 // The single kernels are the G = 1 instances (the single type-2's CUDA-core
 // path with 64 threads per block); a batch runs in groups of 4 (type-2, 128
@@ -831,39 +516,6 @@ int launch_nufft1(const void* x, const void* v, T h, int n, int m, int nb,
   return launch_reduce<T>(partial, nchunk, nb * m * m, out, s);
 }
 
-// float32 batched type-2 on the tensor cores: the caller's geometry (points
-// a block, columns a tile, modes a stage; ops/cuda_nufft.py
-// type2_2d_geometry) checked against the one instance, and the split F's
-// scratch (scratch_floats floats) against what it must hold
-int launch_nufft2_tc(const void* x, const void* f, float h, int n, int m,
-                     int nb, int fft_order, int points, int cols, int stage,
-                     void* scratch, long long scratch_floats, void* out,
-                     void* stream) {
-  if (points != T2C_P || cols != T2C_NT || stage != T2C_KS)
-    return (int)cudaErrorInvalidValue;
-  const int mq = (m + T2C_CHUNK - 1) / T2C_CHUNK * T2C_CHUNK;
-  const long long ncp =
-      ((long long)nb * mq + T2C_NT - 1) / T2C_NT * T2C_NT;
-  if (ncp * mq >= (1LL << 31) || ncp * mq * 4 > scratch_floats)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long cells = ncp * mq;
-  nufft2_split_kernel<<<(unsigned)((cells + 255) / 256), 256, 0, s>>>(
-      (const float2*)f, m, nb, mq, (int)ncp, (float*)scratch);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  constexpr int smem = sizeof(T2cSmem);
-  err = (int)cudaFuncSetAttribute(nufft2_2d_batched_tc_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem);
-  if (err != 0) return err;
-  nufft2_2d_batched_tc_kernel<<<(n + T2C_P - 1) / T2C_P, T2C_THREADS, smem,
-                                s>>>(
-      (const float2*)x, (const float4*)scratch, h, n, m, nb, fft_order, mq,
-      (int)ncp, (float2*)out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -925,8 +577,11 @@ int gpq_nufft2_2d_batched_tc_f32(const void* x, const void* f, float h,
                                  int points, int cols, int stage,
                                  void* scratch, long long scratch_floats,
                                  void* out, void* stream) {
-  return launch_nufft2_tc(x, f, h, n, m, nb, fft_order, points, cols, stage,
-                          scratch, scratch_floats, out, stream);
+  // the one tile width of the d=2 geometry (ops/cuda_nufft.py
+  // type2_2d_geometry): 128 columns
+  return launch_type2_tc<Type2Grid2D>(x, f, h, n, m, nb, fft_order, points,
+                                      cols, stage, 2, scratch,
+                                      scratch_floats, out, stream);
 }
 
 int gpq_nufft2_2d_batched_f64(const void* x, const void* f, double h, int n,

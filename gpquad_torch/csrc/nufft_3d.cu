@@ -36,7 +36,13 @@
 //    targets) G = 4 threads share a point, each taking every G-th second-axis
 //    mode of the staged tile, and their sums are added in a fixed order in
 //    shared memory at the end, so that enough warps fill the card.
-//  - nufft1_3d: for a fixed j1 this is the d=2 type-1 with weights
+//  - nufft1_3d in float32 (where ops/cuda_nufft.py type1_3d_geometry sends
+//    it, mtot up to 64): tc_type1.cuh's tensor-core kernel (3xTF32) on
+//    Type1Grid3D below, a GEMM over the points whose rows are (r, j3) and
+//    columns (q, j2) of a split of the first axis's mode, k1 = S q + r;
+//  - nufft1_3d on the CUDA cores (float64, the float32 widths the geometry
+//    keeps there, and the control phase 3 times beside the tensor cores):
+//    for a fixed j1 this is the d=2 type-1 with weights
 //    v e1(j1) (the Pallas kernel's own factoring).  A block owns a 16 x 16
 //    tile of (j2, j3) outputs for a slab of J1B = 8 first-axis modes (8
 //    accumulators per thread) and one group of 2048-point chunks; it stages
@@ -51,13 +57,15 @@
 //    scratch is groups x B x mtot^3 values (16 MB in f32 at n = 1e5,
 //    mtot 61, against 89 MB with one partial per chunk).
 //
-// Every kernel is templated on the scalar type: float is the main path, and
-// double tensors run a double instance of the same code.
+// The CUDA-core kernels are templated on the scalar type: double tensors
+// run a double instance of the float code.
 //
 // C interface (bound with ctypes): pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launches.
 
-#include "nufft_common.cuh"
+#include <algorithm>
+
+#include "tc_type1.cuh"
 
 namespace {
 
@@ -344,6 +352,155 @@ int launch_nufft1(const void* x, const void* v, T h, int n, int m, int nb,
   return launch_reduce<T>(partial, groups, nb * m * m * m, out, s);
 }
 
+// ---------------------------------------------------------------------------
+// type-1 in float32 on the tensor cores: tc_type1.cuh's kernel on the d=3
+// problem.  gpquad factors the sum as a product over the points per j1
+// (pallas_nufft.py:703-745, dot(uj.T, c3)); here the first axis's mode is
+// split as k1 = S q + r (r in 0..S-1, S = TJ / mtot where a tile's TJ rows
+// a vector hold two or more blocks of mtot, else 1), and
+//   out[(r, j3), (q, j2)] = sum_p (v_p e^{-2 pi i r u1} e3(j3))
+//                                 (e^{-2 pi i S q u1} e2(j2)):
+// rows (r, j3), S mtot of them, columns (q, j2), Q mtot of them (Q the
+// values of q that reach every |k1| <= half); outputs with |k1| past half
+// are cropped.  Each phase is the product of two folded phases, as the
+// CUDA-core kernel makes them: a row's e3(j3) directly (phase of u3), its
+// e^{-2 pi i r u1} and a column's two from a table the producers make once
+// a stage for the tile: [0, S) e^{-2 pi i r u1}; [S, S + nq) e^{-2 pi i S q
+// u1} at the tile's nq values of q; then e2 at the min(mtot, COLS) modes
+// j2 = (k0 + t) % mtot, t = 0.. (column k0 + b has j2 at t = b % mtot).
+// The column tiles are wide (128) up to mtot 64, where the table holds at
+// most 67 entries, and 32 past (35): the geometry (ops/cuda_nufft.py
+// type1_3d_geometry) keeps to that.  With rows (j1, j2) and columns j3 a
+// tile's columns were one axis's mtot modes, at most 32 of them at the
+// driven widths, and the producers, which remade e3 and the row table for
+// every row tile, held the kernel at 1.8-2.4x the CUDA cores' time
+// (scripts/time_type1_3d.py).
+// ---------------------------------------------------------------------------
+struct Type1Grid3D {
+  using X = float3;
+  using Acc = float;
+  struct Row {
+    int ir;       // e^{-2 pi i r u1} in the table
+    float k3;     // the mode value of j3
+  };
+  struct Col {
+    int iq, i2;   // e^{-2 pi i S q u1} and e2(j2) in the table
+  };
+  static constexpr int kTab = 72;
+  template <int TJ>
+  static __host__ __device__ int split(int m) {
+    return TJ >= 2 * m ? TJ / m : 1;
+  }
+  static __host__ __device__ int qmin(int m, int S) {
+    return -(((m - 1) / 2 + S - 1) / S);
+  }
+  static __host__ __device__ int qcount(int m, int S) {
+    return (m - 1) / 2 / S - qmin(m, S) + 1;
+  }
+  static __device__ void point(X xp, float h, float* a, float* b, float* c) {
+    *a = torus(xp.x, h);
+    *b = torus(xp.y, h);
+    *c = torus(xp.z, h);
+  }
+  // the values of q that the column tile from k0 reaches
+  template <int TJ, int COLS>
+  static __device__ int tab_q(int k0, int m) {
+    const int nc = qcount(m, split<TJ>(m)) * m;
+    return min(k0 + COLS - 1, nc - 1) / m - k0 / m + 1;
+  }
+  template <int TJ>
+  static __device__ Row row_mode(int i, int m, int fft_order, bool* ok) {
+    *ok = i < split<TJ>(m) * m;
+    return Row{i / m, mode_value<float>(i % m, m, fft_order)};
+  }
+  template <int TJ, int COLS>
+  static __device__ Col col_mode(int c, int m, int, bool* ok) {
+    const int S = split<TJ>(m);
+    *ok = c < qcount(m, S) * m;
+    const int k0 = c - c % COLS;
+    return Col{S + c / m - k0 / m, S + tab_q<TJ, COLS>(k0, m) + (c - k0) % m};
+  }
+  // the stage's table for the tile (rows from j0, columns from k0): thread
+  // ptid makes entries ptid % 8 + 8 i of point ptid / 8
+  template <int TJ, int COLS>
+  static __device__ void tab_fill(float2* tab, const float* u1,
+                                  const float* u2, const float*, int, int k0,
+                                  int m, int fft_order, int ptid) {
+    static_assert(TC_THREADS - TC_CONSUMERS == 8 * TC_P && kTab % 8 == 0,
+                  "eight producers a point");
+    const int S = split<TJ>(m);
+    const int q0 = qmin(m, S) + k0 / m;
+    const int nq = tab_q<TJ, COLS>(k0, m);
+    const int nt = S + nq + min(m, COLS);
+    const int q = ptid / 8;
+#pragma unroll
+    for (int i = 0; i < kTab / 8; ++i) {
+      const int t = ptid % 8 + 8 * i;
+      if (t < nt) {
+        float u, kv;
+        if (t < S) {
+          u = u1[q];
+          kv = (float)t;
+        } else if (t < S + nq) {
+          u = u1[q];
+          kv = (float)(S * (q0 + t - S));
+        } else {
+          u = u2[q];
+          kv = mode_value<float>((k0 + t - S - nq) % m, m, fft_order);
+        }
+        float c, s;
+        phase(u, kv, &c, &s);
+        tab[q * kTab + t] = make_float2(c, s);
+      }
+    }
+  }
+  // (c1 + i s1)(c2 + i s2) of two e^{-2 pi i c} as cos and sin of the sum
+  static __device__ void prod(float2 a, float2 b, float* c, float* s) {
+    *c = fmaf(a.x, b.x, -a.y * b.y);
+    *s = fmaf(a.y, b.x, a.x * b.y);
+  }
+  static __device__ void row_phase(float, float, float u3, const float2* tab,
+                                   Row r, float* c, float* s) {
+    float2 e3;
+    phase(u3, r.k3, &e3.x, &e3.y);
+    prod(tab[r.ir], e3, c, s);
+  }
+  static __device__ void col_phase(float, float, float, const float2* tab,
+                                   Col k, float* c, float* s) {
+    prod(tab[k.iq], tab[k.i2], c, s);
+  }
+  // whether every column tile's table fits in kTab entries (the launch
+  // refuses a geometry where it does not)
+  template <int TJ, int COLS>
+  static bool tab_fits(int m) {
+    const int S = split<TJ>(m), nc = qcount(m, S) * m;
+    for (int k0 = 0; k0 < nc; k0 += COLS) {
+      const int nq = std::min(k0 + COLS - 1, nc - 1) / m - k0 / m + 1;
+      if (S + nq + std::min(m, COLS) > kTab) return false;
+    }
+    return true;
+  }
+  template <int TJ>
+  static __host__ __device__ int rows(int m) { return split<TJ>(m) * m; }
+  template <int TJ>
+  static __host__ __device__ int cols(int m) {
+    return qcount(m, split<TJ>(m)) * m;
+  }
+  static __host__ __device__ long long outputs(int m) {
+    return (long long)m * m * m;
+  }
+  template <int TJ>
+  static __device__ long long out_index(int i, int c, int m, int fft_order) {
+    const int S = split<TJ>(m);
+    const int half = (m - 1) / 2;
+    const int k1 = S * (qmin(m, S) + c / m) + i / m;
+    if (i >= S * m || c >= qcount(m, S) * m || k1 < -half || k1 > half)
+      return -1;
+    const int j1 = fft_order ? (k1 >= 0 ? k1 : k1 + m) : k1 + half;
+    return ((long long)j1 * m + c % m) * m + i % m;
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -363,6 +520,21 @@ int gpq_nufft1_3d_f32(const void* x, const void* v, float h, int n, int m,
                       void* partial, void* out, void* stream) {
   return launch_nufft1<float>(x, v, h, n, m, nb, fft_order, chunk, groups,
                               partial, out, stream);
+}
+
+// float32 on the tensor cores, with the caller's geometry (ops/cuda_nufft.py
+// type1_3d_geometry): one vector in groups of G = 1, a batch of G = 2
+int gpq_nufft1_3d_tc_f32(const void* x, const void* v, float h, int n, int m,
+                         int nb, int fft_order, int rows, int cols, int group,
+                         int acc, int run, int chunk, void* partial,
+                         void* out, void* stream) {
+  if (group == 1)
+    return launch_type1_tc<Type1Grid3D, 1>(x, v, h, n, m, nb, fft_order,
+                                           rows, cols, group, acc, run,
+                                           chunk, partial, out, stream);
+  return launch_type1_tc<Type1Grid3D, 2>(x, v, h, n, m, nb, fft_order, rows,
+                                         cols, group, acc, run, chunk,
+                                         partial, out, stream);
 }
 
 int gpq_nufft1_3d_f64(const void* x, const void* v, double h, int n, int m,

@@ -1,7 +1,8 @@
 // The float32 type-1 NUFFT on the tensor cores, shared by nufft_2d.cu (the
-// d=2 type-1, single and batched) and nufft_1d.cu (the d=1 type-1 on a split
-// of its mode index): one kernel, type1_tc_kernel<P, G, COLS>, whose problem
-// type P says what its rows, columns and stage coordinates are.
+// d=2 type-1, single and batched), nufft_1d.cu (the d=1 type-1 on a split
+// of its mode index) and nufft_3d.cu (the d=3 type-1): one kernel,
+// type1_tc_kernel<P, G, COLS>, whose problem type P says what its rows,
+// columns and stage coordinates are.
 //
 // The sum over points is a GEMM whose reduction axis is the points (gpquad's
 // _type1_tiled_kernel, pallas_nufft.py:406-441):  out = A^T E2  with
@@ -21,7 +22,14 @@
 //    K = TC_ROWS / G: row r in 0..K-1 with e1 = e^{-2 pi i r t}, column q
 //    with e2 = e^{-2 pi i K q t}, so that e1 e2 = e^{-2 pi i k t}; each
 //    point makes K + (columns) phases, not mtot; the outputs with |k| past
-//    mtot's half are cropped in the epilogue.
+//    mtot's half are cropped in the epilogue;
+//  - d=3 (nufft_3d.cu Type1Grid3D): the first axis's mode split as
+//    k1 = S q + r, row (r, j3) with e1 = e^{-2 pi i r u1} e3(j3), column
+//    (q, j2) with e2 = e^{-2 pi i S q u1} e2(j2), each the product of two
+//    folded phases; output (j1, j2, j3) of the mtot^3 grid, the cells with
+//    |k1| past mtot's half cropped.  A stage's e^{-2 pi i r u1}, e^{-2 pi i
+//    S q u1} and e2 come from a table of the tile's (P::tab_fill), which
+//    the producers make once a stage.
 //
 // Block: 512 threads in four warpgroups over a TC_ROWS x COLS output
 // tile: rows are G vectors x TC_ROWS / G row modes (G = 1 for one vector,
@@ -31,9 +39,10 @@
 // specialised, so that the phases (CUDA cores) and the products (tensor
 // cores) of successive stages overlap:
 //  - two producer warpgroups make, per stage of TC_P points, the points'
-//    two stage coordinates (P::point: at d=2 both torus coordinates, at d=1
-//    the torus coordinate and the rounding error of t = x*h) and values,
-//    then v*e1 and e2, once into a shared-memory stage buffer (phases from
+//    stage coordinates (P::point: at d=2 and d=3 the torus coordinates, at
+//    d=1 the torus coordinate and the rounding error of t = x*h) and
+//    values, P's table where it has one (P::tab_fill), then v*e1 and e2,
+//    once into a shared-memory stage buffer (phases from
 //    nufft_common.cuh: P::row_phase, P::col_phase); each producer thread
 //    keeps one row mode and one column mode for the whole run; they give
 //    their registers to the consumers (setmaxnreg: 72 a thread); they
@@ -59,31 +68,39 @@
 //  - the runs of the block's point group added into the group's partial
 //    in device memory (each thread reading back only what it wrote);
 //  - launch_reduce adds the groups' partials in group order, in P::Acc
-//    (float at d=2; double at d=1, whose sorted time series keep the
-//    groups' partials large at the low modes).
+//    (float at d=2 and d=3; double at d=1, whose sorted time series keep
+//    the groups' partials large at the low modes).
 // Within a k-step and a pair of n-tiles each of the three passes runs over
 // 8 chains, so consecutive mma do not wait on each other.
 //
 // The caller owns the geometry (ops/cuda_nufft.py type1_2d_geometry,
-// type1_1d_geometry): it passes the tile (rows, cols), the batch group,
-// `acc`, `run` and the points of a group (`chunk`), and the launch refuses
-// a geometry it has no instance for.  The wrapper picks the group size (a
-// multiple of `run`) so that tiles x groups fill the 132 SMs about four
-// times: the scratch holds groups x B x outputs values.
+// type1_1d_geometry, type1_3d_geometry): it passes the tile (rows, cols),
+// the batch group, `acc`, `run` and the points of a group (`chunk`), and
+// the launch refuses a geometry it has no instance for.  The wrapper picks
+// the group size (a multiple of `run`) so that tiles x groups fill the 132
+// SMs about four times: the scratch holds groups x B x outputs values.
 //
 // Bound: 3 x 8 flops per point, output and vector on the tensor cores
 // (495 TFLOP/s dense TF32), the phases a share of (TJ + COLS) /
 // (TJ x COLS) of them on the CUDA cores.
 //
 // The problem type P provides: X, the point's type in x; point(x, h, &a,
-// &b), its two stage coordinates; row_phase(a, b, k, &c, &s) and
-// col_phase(a, b, k, &c, &s), cos and sin of 2 pi times the phase in
-// cycles at mode value k; row_mode<TJ>(j, m, fft_order, &ok) and
-// col_mode<TJ>(k, ...), the mode values of row j and column k (ok: the
-// mode has outputs); rows<TJ>(m) and cols<TJ>(m), the rows a vector and
-// the columns; outputs(m), the outputs a vector; out_index<TJ>(j, k, m,
-// fft_order), the output of row j and column k, or -1 (cropped); Acc, the
-// type in which the groups' partials are added.
+// &b, &c), its stage coordinates; Row and Col, what a producer keeps of
+// its row's and its column's mode (a mode value, or at d=3 places in the
+// table and a mode value); row_mode<TJ>(j, m, fft_order, &ok) and
+// col_mode<TJ, COLS>(k, ...), the modes of row j and column k (ok: the
+// mode has outputs); row_phase(a, b, c, tab, row, &cs, &sn) and
+// col_phase(a, b, c, tab, col, &cs, &sn), cos and sin of 2 pi times the
+// phase in cycles of the point (its coordinates a, b, c; tab, its row of
+// the table) at the row's or the column's mode; kTab, the table entries a
+// point (0: no table), and then tab_fill<TJ, COLS>(tab, u1, u2, u3, j0, k0,
+// m, fft_order, ptid), the stage's table for the tile (rows from j0,
+// columns from k0) made by the producers, and tab_fits<TJ, COLS>(m),
+// whether every tile's table fits (the launch refuses the width where not);
+// rows<TJ>(m) and cols<TJ>(m), the rows a vector and the columns;
+// outputs(m), the outputs a vector; out_index<TJ>(j, k, m, fft_order), the
+// output of row j and column k, or -1 (cropped); Acc, the type in which
+// the groups' partials are added.
 #pragma once
 
 #include "nufft_common.cuh"
@@ -120,7 +137,8 @@ struct TcStage {
                                   // Im small (tf32 bit patterns)
   float bre[TC_P][TcTile<COLS>::CS];   // Re(e2)
   float bim[TC_P][TcTile<COLS>::CS];
-  float u1[TC_P], u2[TC_P]; // the points' stage coordinates (P::point)
+  float u1[TC_P], u2[TC_P], u3[TC_P];   // the points' stage coordinates
+                                        // (P::point)
   float2 vq[2][TC_P];       // the values of up to two vectors
 };
 
@@ -160,25 +178,33 @@ __device__ __forceinline__ void bar_arrive(int id) {
 // stage's points ptid / TJ + i NP / TJ and ptid / COLS + i NP / COLS.
 template <class P, int G, int COLS>
 struct TcModes {
-  float k1, k2;       // mode values; 0 where not ok
+  typename P::Row k1; // the row's mode (P::row_mode)
+  typename P::Col k2; // the column's mode (P::col_mode)
   bool ok1, ok2;      // the mode has outputs
   __device__ TcModes(int ptid, int m, int fft_order, int j0, int k0) {
     constexpr int TJ = TC_ROWS / G;
     k1 = P::template row_mode<TJ>(j0 + ptid % TJ, m, fft_order, &ok1);
-    k2 = P::template col_mode<TJ>(k0 + ptid % COLS, m, fft_order, &ok2);
+    k2 = P::template col_mode<TJ, COLS>(k0 + ptid % COLS, m, fft_order,
+                                        &ok2);
   }
 };
 
-// One stage: the points p0.. up to p_end (their two stage coordinates,
-// once per point, and the values), then v e1 for G vectors x TJ row modes
-// and e2 for COLS column modes (zero where a mode has no output; a point
-// past p_end has zero values, so its products vanish)
+// One stage: the points p0.. up to p_end (their stage coordinates, once per
+// point, and the values), then, where P has a table, its phases of the
+// stage's points for the tile (P::tab_fill: one table, which only
+// the producers read, so one buffer serves both stages: the barrier after
+// the points keeps the next stage's fill from it until every producer is
+// done with it), then v e1 for G vectors x TJ row modes and e2 for COLS
+// column modes (zero where a mode has no output; a point past p_end has
+// zero values, so its products vanish)
 template <class P, int G, int COLS>
-__device__ __forceinline__ void tc_fill(TcStage<COLS>& st, int ptid,
+__device__ __forceinline__ void tc_fill(TcStage<COLS>& st, float2* tab,
+                                        int ptid,
                                         const TcModes<P, G, COLS>& md,
                                         const typename P::X* __restrict__ x,
                                         const float2* __restrict__ v,
-                                        float h, int n, int b0, int gn,
+                                        float h, int n, int m, int fft_order,
+                                        int b0, int gn, int j0, int k0,
                                         int p0, int p_end) {
   constexpr int TJ = TC_ROWS / G;
   constexpr int NP = TC_THREADS - TC_CONSUMERS;
@@ -187,19 +213,27 @@ __device__ __forceinline__ void tc_fill(TcStage<COLS>& st, int ptid,
     const bool ok = p < p_end;
     typename P::X xp = {};
     if (ok) xp = x[p];
-    P::point(xp, h, &st.u1[ptid], &st.u2[ptid]);
+    P::point(xp, h, &st.u1[ptid], &st.u2[ptid], &st.u3[ptid]);
 #pragma unroll
     for (int g = 0; g < G; ++g)
       st.vq[g][ptid] = ok && g < gn ? v[(size_t)(b0 + g) * n + p]
                                     : make_float2(0.f, 0.f);
   }
   asm volatile("bar.sync %0, %1;" ::"n"(TC_BAR_POINTS), "n"(NP) : "memory");
+  if constexpr (P::kTab > 0) {
+    P::template tab_fill<TJ, COLS>(tab, st.u1, st.u2, st.u3, j0, k0, m,
+                                   fft_order, ptid);
+    asm volatile("bar.sync %0, %1;" ::"n"(TC_BAR_POINTS), "n"(NP)
+                 : "memory");
+  }
   const int a = ptid % TJ, b = ptid % COLS;
 #pragma unroll
   for (int it = 0; it < TC_P * TJ / NP; ++it) {
     const int q = ptid / TJ + it * (NP / TJ);
     float c = 0.f, sn = 0.f;
-    if (md.ok1) P::row_phase(st.u1[q], st.u2[q], md.k1, &c, &sn);
+    if (md.ok1)
+      P::row_phase(st.u1[q], st.u2[q], st.u3[q], tab + q * P::kTab, md.k1,
+                   &c, &sn);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float2 vq = st.vq[g][q];
@@ -214,7 +248,9 @@ __device__ __forceinline__ void tc_fill(TcStage<COLS>& st, int ptid,
   for (int it = 0; it < TC_P * COLS / NP; ++it) {
     const int q = ptid / COLS + it * (NP / COLS);
     float c = 0.f, sn = 0.f;
-    if (md.ok2) P::col_phase(st.u1[q], st.u2[q], md.k2, &c, &sn);
+    if (md.ok2)
+      P::col_phase(st.u1[q], st.u2[q], st.u3[q], tab + q * P::kTab, md.k2,
+                   &c, &sn);
     st.bre[q][b] = c;
     st.bim[q][b] = -sn;
   }
@@ -246,13 +282,16 @@ type1_tc_kernel(const typename P::X* __restrict__ x,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n" ::);
     const int ptid = tid - TC_CONSUMERS;
     const TcModes<P, G, COLS> md(ptid, m, fft_order, j0, k0);
+    // P's table, past the run sums
+    float2* tab = reinterpret_cast<float2*>(
+        reinterpret_cast<float*>(stages + 2) + E * TC_CONSUMERS);
     int s = 0;
     for (int r0 = p_begin; r0 < p_end; r0 += run_points) {
       const int r_end = min(p_end, r0 + run_points);
       for (int p0 = r0; p0 < r_end; p0 += TC_P, ++s) {
         if (s >= 2) bar_sync(TC_BAR_EMPTY + (s & 1));
-        tc_fill<P, G, COLS>(stages[s & 1], ptid, md, x, v, h, n, b0, gn, p0,
-                            r_end);
+        tc_fill<P, G, COLS>(stages[s & 1], tab, ptid, md, x, v, h, n, m,
+                            fft_order, b0, gn, j0, k0, p0, r_end);
         bar_arrive(TC_BAR_FULL + (s & 1));
       }
     }
@@ -416,8 +455,12 @@ int launch_type1_tc_cols(const void* x, const void* v, float h, int n, int m,
                          int nb, int fft_order, int acc, int run, int chunk,
                          void* partial, void* out, cudaStream_t s) {
   constexpr int TJ = TC_ROWS / G;
-  constexpr int smem =
-      2 * sizeof(TcStage<COLS>) + TcTile<COLS>::E * TC_CONSUMERS * 4;
+  constexpr int smem = 2 * sizeof(TcStage<COLS>) +
+                       TcTile<COLS>::E * TC_CONSUMERS * 4 +
+                       TC_P * P::kTab * (int)sizeof(float2);
+  if constexpr (P::kTab > 0) {
+    if (!P::template tab_fits<TJ, COLS>(m)) return (int)cudaErrorInvalidValue;
+  }
   int err = (int)cudaFuncSetAttribute(
       type1_tc_kernel<P, G, COLS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

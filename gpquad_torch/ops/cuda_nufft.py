@@ -9,10 +9,11 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
 - :func:`nufft2_1d` replaces ``pallas_nufft2_1d`` (pallas_nufft.py:549) and
   :func:`nufft1_1d` replaces ``pallas_nufft1_1d`` (:584): any odd ``mtot``,
   one vector or a batch in one launch (gpquad maps the TPU kernel over a
-  batch with ``lax.map``).  In float32 the type-1 is the d=2 type-1's
-  tensor-core kernel on a split of the mode index, k = K q + r
-  (:func:`type1_1d_geometry`); :func:`nufft1_1d_3xtf32_ref` is its plain
-  twin.
+  batch with ``lax.map``).  In float32 both run on the tensor cores on a
+  split of the mode index, k = K q + r: the type-1 on the d=2 type-1's
+  kernel (:func:`type1_1d_geometry`; :func:`nufft1_1d_3xtf32_ref` is its
+  plain twin), the type-2, where :func:`type2_1d_geometry` sends it, on
+  the d=2 type-2's (:func:`nufft2_1d_3xtf32_ref`).
 - :func:`nufft2_2d` replaces ``pallas_nufft2_2d`` (pallas_nufft.py:113) and
   its mode-tiled twin ``_pallas_nufft2_2d_tiled`` (:369), any odd ``mtot``,
   on one of three paths that :func:`type2_2d_single_geometry` picks from
@@ -41,13 +42,17 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   first-dimension slab-tiled twin ``_pallas_nufft2_3d_tiled`` (:1034), and
   :func:`nufft1_3d` replaces ``pallas_nufft1_3d`` (:750) and
   ``_pallas_nufft1_3d_tiled`` (:1118): one vector or a batch in one launch,
-  any odd ``mtot`` up to 255 (the TPU's ``_D3_TILED_MAX``).
+  any odd ``mtot`` up to 255 (the TPU's ``_D3_TILED_MAX``).  In float32
+  the type-1 runs, where :func:`type1_3d_geometry` sends it, on the d=2
+  type-1's tensor-core kernel with rows (r, j3) and columns (q, j2) of a
+  split of the first axis's mode, k1 = S q + r
+  (:func:`nufft1_3d_3xtf32_ref` is its plain twin).
 
 All are bound by operations on an H100 (complex multiply-adds, ~8 mtot^d
 flops per point and vector, and at d=1 the phases themselves): fp32 outside
-the tensor cores, but for the d=1 and d=2 type-1 and the batched d=2
-type-2 in float32, which take three TF32 products per real product on the
-tensor cores; the sources say how the designs stage the work.  The wrappers take a tensor on the CPU to the plain
+the tensor cores, but for the float32 paths on the tensor cores (the type-1
+at d=1-3, the d=2 type-2 and the d=1 type-2), which take three TF32
+products per real product; the sources say how the designs stage the work.  The wrappers take a tensor on the CPU to the plain
 version (``*_ref``, the phase-matrix backend of ``ops/nufft.py``); on a
 CUDA tensor they launch the kernel or raise.
 
@@ -63,6 +68,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -79,11 +85,15 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft2_2d_batched_ref", "nufft1_2d_3xtf32_ref",
            "nufft2_2d_batched_3xtf32_ref", "nufft2_2d_split_ref",
            "nufft1_1d_3xtf32_ref", "type1_1d_geometry", "type1_1d_split",
+           "nufft2_1d_3xtf32_ref", "type2_1d_geometry",
+           "type2_1d_tc_geometry", "type2_1d_scratch_floats",
            "nufft1_3d",
            "nufft2_3d", "nufft1_3d_ref", "nufft2_3d_ref", "type1_2d_chunk",
            "type1_2d_geometry", "type2_2d_geometry",
            "type2_2d_single_geometry",
            "type2_2d_scratch_floats", "type1_3d_groups",
+           "type1_3d_geometry", "type1_3d_tc_geometry", "type1_3d_split",
+           "nufft1_3d_3xtf32_ref",
            "CudaNUFFT", "LAUNCHES",
            "LAUNCH_WIDTHS", "build", "library_path"]
 
@@ -97,8 +107,8 @@ LAUNCH_WIDTHS: dict[tuple[str, int], int] = {}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every file the library depends on (hashed); the .cu files are compiled
-_SOURCES = ("nufft_common.cuh", "tc_type1.cuh", "nufft_1d.cu", "nufft_2d.cu",
-            "nufft_3d.cu", "interp_2d.cu")
+_SOURCES = ("nufft_common.cuh", "tc_type1.cuh", "tc_type2.cuh", "nufft_1d.cu",
+            "nufft_2d.cu", "nufft_3d.cu", "interp_2d.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpquad_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -126,13 +136,43 @@ TYPE1_2D_BATCH_GROUP = 2
 # calls that was 10-14% faster than four waves (scripts/time_type1_1d.py)
 TYPE1_1D_RUN = 256
 TYPE1_1D_BLOCKS = 132
-# The float32 batched d=2 type-2 on the tensor cores (csrc/nufft_2d.cu
-# nufft2_2d_batched_tc_kernel), its geometry owned here
+# The float32 d=3 type-1 takes the same kernel on nufft_3d.cu's Type1Grid3D
+# (type1_3d_geometry): rows (r, j3), columns (q, j2) of the split k1 = S q +
+# r, the d=2 type-1's tiles, stage, runs and point groups; its dispatch from
+# the times of both kernels on the same inputs: the tensor cores up to this
+# mtot (the wide column tiles' table fits to 64), the CUDA cores past it
+TYPE1_3D_TC_MAX_MTOT = 64
+# its wide column tiles unless they give fewer blocks than one wave on the
+# card's 132 SMs and the narrow ones more (hard3d's F*y at 20 000 points:
+# 40 blocks of 64 x 128 against 120 of 64 x 32, 0.199 against 0.132 ms on
+# NVIDIA H100 80GB HBM3, 700 W, scripts/time_type1_3d.py)
+TYPE1_3D_MIN_BLOCKS = 132
+# The float32 batched d=2 type-2 on the tensor cores (csrc/tc_type2.cuh
+# type2_tc_kernel on nufft_2d.cu's Type2Grid2D), its geometry owned here
 # (type2_2d_geometry) and checked by its launch: blocks of 128 points
 # walking column tiles of 128 columns (vector, mode j), 32 modes k a stage;
 # each vector's columns, and the modes k, padded to a multiple of the stage
-# (which the source holds equal to the epilogue's chunk of modes j)
+# (the epilogue's chunk of modes j at this width)
 TYPE2_2D_POINTS, TYPE2_2D_COLS, TYPE2_2D_STAGE = 128, 128, 32
+# threads a block of the tensor-core type-2 (four a point in its epilogue,
+# each summing a chunk of cols / 4 columns)
+TYPE2_TC_THREADS = 512
+# The float32 d=1 type-2 takes the same kernel on a split of its mode index
+# (type2_1d_geometry): k = K q + r with K = 32, the points, stage and
+# column tiles above, or column tiles of this width where they hold whole
+# vectors (one vector's 32 columns); the q padded to whole k-steps of 8
+TYPE2_1D_K = 32
+TYPE2_1D_NARROW_COLS = 32
+TYPE2_1D_KSTEP = 8
+# The float32 d=1 type-2's dispatch, from the times of both kernels on the
+# same inputs (chip_smoke.py phase 3 at the driven shapes, and a sweep of
+# mtot 129-2061 by 1 000-20 000 points at B 1 and 10 on NVIDIA H100 80GB
+# HBM3, 700 W): the tensor cores from this mtot and this much work n mtot
+# a vector, for one vector and for a batch (whose column tiles a block
+# walks in turn, where the CUDA cores spread the vectors over blocks); the
+# CUDA cores below either
+TYPE2_1D_TC_MIN_MTOT = 512
+TYPE2_1D_TC_MIN_WORK = {False: 2 ** 20, True: 2 ** 23}
 # The float32 batched type-2's dispatch by mtot, from chip_smoke.py phase
 # 3's times of both kernels on the same inputs: the tensor cores from this
 # mtot on, the CUDA cores below it
@@ -230,8 +270,14 @@ def _library():
                            ptr]
             o1.restype = i32
             if prec == "f32":
-                # the tensor-core form: its geometry (rows, cols, group,
-                # stage, run, chunk) before the scratch
+                # the tensor-core forms: the type-2's geometry (points, K,
+                # cols, stage) and the split f's scratch and size before
+                # the output; the type-1's (rows, cols, group, stage, run,
+                # chunk) before the scratch
+                o2t = lib.gpq_nufft2_1d_tc_f32
+                o2t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 4,
+                                ptr, ctypes.c_longlong, ptr, ptr]
+                o2t.restype = i32
                 o1t = lib.gpq_nufft1_1d_tc_f32
                 o1t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 6,
                                 ptr, ptr, ptr]
@@ -273,6 +319,13 @@ def _library():
             d1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, i32, ptr,
                            ptr, ptr]
             d1.restype = i32
+            if prec == "f32":
+                # the tensor-core form: its geometry (rows, cols, group,
+                # stage, run, chunk) before the scratch
+                d1t = lib.gpq_nufft1_3d_tc_f32
+                d1t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 6,
+                                ptr, ptr, ptr]
+                d1t.restype = i32
             # the SKI interpolation kernels (ops/cuda_interp.py)
             it = getattr(lib, f"gpq_interp_T_2d_{prec}")
             it.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
@@ -555,29 +608,107 @@ def nufft1_1d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
     return out[0] if single else out
 
 
+def nufft1_3d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
+                         chunk: int | None = None, passes: int = 3):
+    """Plain twin of the float32 d=3 type-1 kernel on the tensor cores
+    (csrc/tc_type1.cuh ``type1_tc_kernel`` on nufft_3d.cu's
+    ``Type1Grid3D``), in float32 with its tiling algebra: ``out[b, (j1, j2),
+    j3] = sum_n (v[b,n] e1(n,j1) e2(n,j2)) e3(n,j3)`` in the kernel's sums
+    (:func:`_type1_3xtf32_sums`: k-steps of 8 points, sums of
+    :data:`TYPE1_2D_STAGE` points, runs of :data:`TYPE1_2D_RUN`, groups of
+    ``chunk`` points, by default :func:`type1_3d_tc_geometry`'s, in group
+    order in float32).  Those sums do not depend on where the kernel puts
+    an output (its rows (r, j3) and columns (q, j2) of k1 = S q + r); the
+    rounding of the phase products inside them does.  ``passes=1`` keeps
+    big*big alone: plain TF32, the control the split is held against.
+
+    ``x`` (N, 3); ``vals`` (N,) or (B, N); returns complex64 (mtot,)*3 or
+    (B,) + (mtot,)*3.  For the tests on the CPU only."""
+    x = x.to(torch.float32)
+    n, m = x.shape[0], mtot
+    single = vals.ndim == 1
+    V = vals.reshape(-1, n).to(torch.complex64)
+    B = V.shape[0]
+    geo = type1_3d_tc_geometry(n, m, B)
+    hq = torch.tensor(h, dtype=torch.float32)
+    k = _k_values(m, fft_order, torch.float32, x.device)
+    e1, e2, e3 = (_phase_matrix(x[:, i] * hq, k, torch.complex64)
+                  for i in range(3))                       # (N, m) each
+    e12 = (e1[:, :, None] * e2[:, None, :]).reshape(n, m * m)
+    out = _type1_3xtf32_sums(V[:, :, None] * e12[None], e3,
+                             chunk=chunk or geo[-1], run=TYPE1_2D_RUN,
+                             stage=TYPE1_2D_STAGE, passes=passes)
+    out = out.reshape((B,) + (m,) * 3)
+    return out[0] if single else out
+
+
+def _type2_3xtf32_sums(eA, F, eE, *, chunk: int, passes: int):
+    """The tensor-core type-2's sums (csrc/tc_type2.cuh) in float32 with
+    its tiling algebra: ``T[p, c] = sum_k eA[p, k] F[k, c]`` as the real
+    products ``T_re = C Fr + S (-Fi)``, ``T_im = C Fi + S Fr`` (C, S the
+    cos and sin of eA) over k-steps of 8 modes, each operand split into
+    ``big = tf32(a)`` and ``small = tf32(a - big)`` (``cvt.rna`` emulated
+    bit for bit) and each product taken as small*big + big*small + big*big
+    in that order, the six products of a k-step summed from zero (the
+    kernel's chain of mma) and the k-steps added in fp32; then
+    ``out[b, p] = sum_j eE[p, j] T[p, (b, j)]`` as the kernel's epilogue sums
+    it: chunks of ``chunk`` columns j, each summed in j order from zero,
+    added in chunk order.  ``passes=1`` keeps big*big alone: plain TF32.
+
+    ``eA`` (N, kq) complex64, kq a multiple of 8; ``F`` (kq, B * mc), columns
+    (b, j); ``eE`` (N, mc).  The tensor cores' own rounding inside an
+    8-mode product is not emulated (here a float32 matmul).  Returns
+    complex64 (B, N)."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    n, kq = eA.shape
+    mc = eE.shape[1]
+    B = F.shape[1] // mc
+    steps = kq // 8
+    # A: (steps, N, 8) cos and sin; B: (steps, 8, B mc) Re and Im
+    C, S = (_split3(t.contiguous().reshape(n, steps, 8).transpose(0, 1))
+            for t in (eA.real, eA.imag))
+    Fr, Fi = (_split3(t.contiguous().reshape(steps, 8, B * mc))
+              for t in (F.real, F.imag))
+    nFi = tuple(-t for t in Fi)
+    order = ((1, 0), (0, 1), (0, 0)) if passes == 3 else ((0, 0),)
+    t_re = torch.zeros((n, B * mc), dtype=torch.float32, device=eA.device)
+    t_im = torch.zeros_like(t_re)
+    for s in range(steps):
+        d_re = torch.zeros_like(t_re)
+        d_im = torch.zeros_like(t_re)
+        for i, j in order:
+            d_re = d_re + C[i][s] @ Fr[j][s]
+            d_im = d_im + C[i][s] @ Fi[j][s]
+            d_re = d_re + S[i][s] @ nFi[j][s]
+            d_im = d_im + S[i][s] @ Fr[j][s]
+        t_re = t_re + d_re
+        t_im = t_im + d_im
+    W = eE[:, None, :] * torch.complex(t_re, t_im).reshape(n, B, mc)
+    out = None
+    for j0 in range(0, mc, chunk):
+        part = W[:, :, j0]
+        for j in range(j0 + 1, min(mc, j0 + chunk)):
+            part = part + W[:, :, j]
+        out = part if out is None else out + part
+    return out.T.contiguous()
+
+
 def nufft2_2d_batched_3xtf32_ref(x, f, h, *, mtot: int,
                                  fft_order: bool = False, passes: int = 3):
     """Plain twin of the float32 batched d=2 type-2 kernel on the tensor
-    cores (csrc/nufft_2d.cu ``nufft2_2d_batched_tc_kernel``), in float32
-    with its tiling algebra: ``T[p, b, j] = sum_k e2(p,k) f[b,j,k]`` as the
-    real products ``T_re = C2 Fr + S2 (-Fi)``, ``T_im = C2 Fi + S2 Fr``
-    (C2, S2 the cos and sin of e2) over k-steps of 8 modes, each operand
-    split into ``big = tf32(a)`` and ``small = tf32(a - big)`` (``cvt.rna``
-    emulated bit for bit) and each product taken as small*big + big*small +
-    big*big in that order, the six products of a k-step summed from zero
-    (the kernel's chain of mma) and the k-steps added in fp32; then
-    ``out[b, p] = sum_j e1(p,j) T[p,b,j]`` as the kernel's epilogue sums it:
-    chunks of :data:`TYPE2_2D_STAGE` modes j, each summed in j order from zero, added in chunk
-    order.  ``passes=1`` keeps big*big alone: plain TF32, the control the
-    split is held against.
+    cores (csrc/tc_type2.cuh ``type2_tc_kernel`` on nufft_2d.cu's
+    ``Type2Grid2D``), in float32 with its tiling algebra
+    (:func:`_type2_3xtf32_sums`): ``T[p, b, j] = sum_k e2(p,k) f[b,j,k]``
+    over k-steps of 8 modes, then ``out[b, p] = sum_j e1(p,j) T[p,b,j]`` in
+    chunks of :data:`TYPE2_2D_STAGE` modes j, each summed in j order from
+    zero, added in chunk order.  ``passes=1`` keeps big*big alone: plain
+    TF32, the control the split is held against.
 
-    ``f`` (B, mtot, mtot) or (B, mtot^2); returns complex64 (B, N).  The
-    tensor cores' own rounding inside an 8-mode product is not emulated
-    (here a float32 matmul).  For the tests on the CPU only."""
-    if passes not in (1, 3):
-        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    ``f`` (B, mtot, mtot) or (B, mtot^2); returns complex64 (B, N).  For
+    the tests on the CPU only."""
     x = x.to(torch.float32)
-    n, m = x.shape[0], mtot
+    m = mtot
     F = f.reshape(-1, m, m).to(torch.complex64)       # (B, j, k)
     B = F.shape[0]
     hq = torch.tensor(h, dtype=torch.float32)
@@ -585,39 +716,56 @@ def nufft2_2d_batched_3xtf32_ref(x, f, h, *, mtot: int,
     # e^{+2 pi i}: the conjugates of the type-1's phases
     e1 = _phase_matrix(x[:, 0] * hq, k, torch.complex64).conj()   # (N, m)
     e2 = _phase_matrix(x[:, 1] * hq, k, torch.complex64).conj()
-    steps = -(-m // 8)
-    pad = (0, steps * 8 - m)
-    # A: (steps, N, 8) cos and sin; B: (steps, 8, B m) Re and Im, columns
-    # (b, j)
-    C2, S2 = (_split3(torch.nn.functional.pad(t.contiguous(), pad)
-                      .reshape(n, steps, 8).transpose(0, 1))
-              for t in (e2.real, e2.imag))
-    Fr, Fi = (_split3(torch.nn.functional.pad(t.contiguous(), pad)
-                      .reshape(B, m, steps, 8).permute(2, 3, 0, 1)
-                      .reshape(steps, 8, B * m))
-              for t in (F.real, F.imag))
-    nFi = tuple(-t for t in Fi)
-    order = ((1, 0), (0, 1), (0, 0)) if passes == 3 else ((0, 0),)
-    t_re = torch.zeros((n, B * m), dtype=torch.float32, device=x.device)
-    t_im = torch.zeros_like(t_re)
-    for s in range(steps):
-        d_re = torch.zeros_like(t_re)
-        d_im = torch.zeros_like(t_re)
-        for i, j in order:
-            d_re = d_re + C2[i][s] @ Fr[j][s]
-            d_im = d_im + C2[i][s] @ Fi[j][s]
-            d_re = d_re + S2[i][s] @ nFi[j][s]
-            d_im = d_im + S2[i][s] @ Fr[j][s]
-        t_re = t_re + d_re
-        t_im = t_im + d_im
-    W = e1[:, None, :] * torch.complex(t_re, t_im).reshape(n, B, m)
-    out = None
-    for j0 in range(0, m, TYPE2_2D_STAGE):
-        part = W[:, :, j0]
-        for j in range(j0 + 1, min(m, j0 + TYPE2_2D_STAGE)):
-            part = part + W[:, :, j]
-        out = part if out is None else out + part
-    return out.T.contiguous()
+    kq = _round_up(m, 8)
+    eA = torch.nn.functional.pad(e2, (0, kq - m))
+    Fk = torch.nn.functional.pad(F.permute(2, 0, 1), (0, 0, 0, 0, 0, kq - m))
+    return _type2_3xtf32_sums(eA, Fk.reshape(kq, B * m), e1,
+                              chunk=TYPE2_2D_STAGE, passes=passes)
+
+
+def nufft2_1d_3xtf32_ref(x, f, h, *, mtot: int, fft_order: bool = False,
+                         geometry: tuple | None = None, passes: int = 3):
+    """Plain twin of the float32 d=1 type-2 kernel on the tensor cores
+    (csrc/tc_type2.cuh ``type2_tc_kernel`` on nufft_1d.cu's
+    ``Type2Split1D``), in float32 with its tiling algebra
+    (:func:`_type2_3xtf32_sums`): each mode split as k = K q + r
+    (:func:`type1_1d_split`), ``T[p, b, r] = sum_q e^{+2 pi i K q t_p}
+    f_b[K q + r]`` over k-steps of 8 values of q (f zero past the mtot
+    modes), then ``out[b, p] = sum_r e^{+2 pi i r t_p} T[p, b, r]`` in
+    chunks of cols / 4 values of r (the epilogue's four threads a point),
+    each in r order from zero, added in chunk order.  The phases are those
+    of the exact t = x h (:func:`_split_phases`).  ``geometry`` is
+    :func:`type2_1d_geometry`'s tensor-core one (by default that of the
+    shape).  ``passes=1`` keeps big*big alone: plain TF32, the control the
+    split is held against.
+
+    ``x`` (N, 1); ``f`` (mtot,) or (B, mtot); returns complex64 (N,) or
+    (B, N).  For the tests on the CPU only."""
+    x = x.reshape(-1).to(torch.float32)
+    n = x.shape[0]
+    single = f.ndim == 1
+    F = f.reshape(-1, mtot).to(torch.complex64)
+    B = F.shape[0]
+    geo = geometry or type2_1d_tc_geometry(B)
+    _, points, K, cols, _ = geo
+    qmin, Q = type1_1d_split(mtot, K)
+    kq = _round_up(Q, TYPE2_1D_KSTEP)
+    dev = x.device
+    q = qmin + torch.arange(kq, device=dev)
+    eA = _split_phases(x, h, K * q).conj()
+    eA[:, Q:] = 0
+    eE = _split_phases(x, h, torch.arange(K, device=dev)).conj()
+    # the coefficients of (q, r): f at mode K q + r, zero past half
+    k = K * q[:, None] + torch.arange(K, device=dev)[None, :]   # (kq, K)
+    half = (mtot - 1) // 2
+    keep = (k.abs() <= half) & (torch.arange(kq, device=dev) < Q)[:, None]
+    idx = torch.where(k >= 0, k, k + mtot) if fft_order else k + half
+    Fq = torch.where(keep, F[:, idx.clamp(0, mtot - 1)],
+                     torch.zeros((), dtype=torch.complex64))   # (B, kq, K)
+    out = _type2_3xtf32_sums(eA, Fq.permute(1, 0, 2).reshape(kq, B * K), eE,
+                             chunk=cols * points // TYPE2_TC_THREADS,
+                             passes=passes)
+    return out[0] if single else out
 
 
 def nufft2_2d_split_ref(x, f, h, *, mtot: int, fft_order: bool = False,
@@ -675,7 +823,10 @@ def nufft2_1d(x, f, h, *, mtot: int, fft_order: bool = False):
     ``x`` (N, 1) real; ``f`` complex (mtot,) for one vector or (B, mtot)
     for a batch of B >= 1; any odd mtot.  Returns complex (N,) or (B, N)
     from one launch.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel."""
+    launches the kernel :func:`type2_1d_geometry` picks in float32 (the
+    tensor cores on a split of the mode index, with a scratch of
+    :func:`type2_1d_scratch_floats` floats, or the CUDA cores), the
+    CUDA-core kernel in float64."""
     _check(x, mtot, 1)
     if f.ndim not in (1, 2) or f.shape[-1] != mtot:
         raise ValueError(f"f must be ({mtot},) or (B, {mtot}), "
@@ -685,17 +836,83 @@ def nufft2_1d(x, f, h, *, mtot: int, fft_order: bool = False):
     _check_batch(B, mtot, 1)
     if x.device.type == "cpu":
         return nufft2_1d_ref(x, f, h, mtot=mtot, fft_order=fft_order)
+    geo = (type2_1d_geometry(x.shape[0], mtot, B)
+           if x.dtype == torch.float32 else ("cuda",))
+    out = _nufft2_1d_on(x, f.reshape(B, mtot), h, mtot, fft_order, geo)
+    return out[0] if single else out
+
+
+def type2_1d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
+    """The float32 d=1 type-2's path and launch geometry: ``("tc", points,
+    K, cols, stage)``, the tensor-core kernel's arguments before its
+    scratch, or ``("cuda",)``, the CUDA-core kernel, whose block is fixed
+    in its source.
+
+    The tensor-core kernel splits each mode as k = K q + r
+    (:func:`type1_1d_split`, K = :data:`TYPE2_1D_K`): a GEMM over the q
+    (padded to whole k-steps of 8) in blocks of ``points`` points, walking
+    column tiles of ``cols`` columns (vector, r): :data:`TYPE2_1D_NARROW_COLS`
+    for one vector, whose K columns are one such tile, else
+    :data:`TYPE2_2D_COLS`; ``stage`` modes q a stage.  The dispatch is a
+    table from the times of both kernels on the same inputs: the tensor
+    cores from :data:`TYPE2_1D_TC_MIN_MTOT` modes and
+    :data:`TYPE2_1D_TC_MIN_WORK` n mtot on (2^20 for one vector, 2^23 for a
+    batch), where the K + Q phases a point are far fewer than mtot and the
+    blocks enough to pay for the split's second launch."""
+    if (mtot < TYPE2_1D_TC_MIN_MTOT
+            or n * mtot < TYPE2_1D_TC_MIN_WORK[B > 1]):
+        return ("cuda",)
+    return type2_1d_tc_geometry(B)
+
+
+def type2_1d_tc_geometry(B: int) -> tuple:
+    """The tensor-core d=1 type-2's geometry for a batch of B vectors
+    (:func:`type2_1d_geometry`'s ``("tc", ...)``)."""
+    cols = TYPE2_1D_NARROW_COLS if B == 1 else TYPE2_2D_COLS
+    return ("tc", TYPE2_2D_POINTS, TYPE2_1D_K, cols, TYPE2_2D_STAGE)
+
+
+def type2_1d_scratch_floats(mtot: int, B: int, geometry: tuple) -> int:
+    """Floats of the tensor-core d=1 type-2's split f: big and small, real
+    and imaginary parts of each (q, column) cell, the q padded to whole
+    k-steps of 8, the B K columns to a whole number of tiles."""
+    _, _, K, cols, _ = geometry
+    kq = _round_up(type1_1d_split(mtot, K)[1], TYPE2_1D_KSTEP)
+    return 4 * kq * _round_up(B * K, cols)
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _nufft2_1d_on(x, f, h, m, fft_order, geo):
+    """The d=1 type-2's launch on CUDA tensors, ``f`` (B, m), on the path
+    ``geo`` (:func:`type2_1d_geometry`): the tensor cores (float32) or the
+    CUDA cores; counted as one launch of ``nufft2_1d`` (chip_smoke.py also
+    times both paths through it).  Returns (B, N)."""
+    if geo[0] not in ("tc", "cuda") or len(geo) != (5 if geo[0] == "tc"
+                                                    else 1):
+        raise ValueError(f"no d=1 type-2 path for geometry {geo}")
+    if geo[0] == "tc" and x.dtype != torch.float32:
+        raise TypeError("the tensor-core d=1 type-2 takes float32")
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("f", f, x, cdtype)
-    n = x.shape[0]
+    B, n = f.shape[0], x.shape[0]
     out = torch.empty((B, n), dtype=cdtype, device=x.device)
-    if n > 0:
-        x = x.contiguous()
-        f = f.contiguous()
-        h = float(torch.as_tensor(h, dtype=x.dtype))
-        _launch("nufft2_1d", x, x.data_ptr(), f.data_ptr(), h, n, mtot, B,
-                int(fft_order), out.data_ptr(), mtot=mtot)
-    return out[0] if single else out
+    if n == 0:
+        return out
+    x = x.contiguous()
+    f = f.contiguous()
+    h = float(torch.as_tensor(h, dtype=x.dtype))
+    args = (x.data_ptr(), f.data_ptr(), h, n, m, B, int(fft_order))
+    if geo[0] == "tc":
+        floats = type2_1d_scratch_floats(m, B, geo)
+        scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
+        _launch("nufft2_1d", x, *args, *geo[1:], scratch.data_ptr(), floats,
+                out.data_ptr(), mtot=m, symbol="gpq_nufft2_1d_tc_f32")
+    else:
+        _launch("nufft2_1d", x, *args, out.data_ptr(), mtot=m)
+    return out
 
 
 def nufft1_1d(x, vals, h, *, mtot: int, fft_order: bool = False):
@@ -1120,9 +1337,12 @@ def nufft1_3d(x, vals, h, *, mtot: int, fft_order: bool = False):
 
     ``x`` (N, 3) real; ``vals`` complex (N,) or (B, N), B >= 1; odd
     mtot <= 255.  Returns complex (mtot,)*3 or (B,) + (mtot,)*3 from one
-    launch (two kernels: grouped partial sums, then the group-order sum;
-    scratch of :func:`type1_3d_groups` * B * mtot^3 values).  A CPU tensor
-    takes the plain version."""
+    launch (two kernels: grouped partial sums, then the group-order sum).
+    In float32 the partials come from the path :func:`type1_3d_geometry`
+    picks: the tensor cores (groups of its ``chunk`` points) or the CUDA
+    cores (:func:`type1_3d_groups`), in float64 from the CUDA cores; the
+    scratch holds groups * B * mtot^3 values.  A CPU tensor takes the plain
+    version."""
     _check(x, mtot, 3)
     n = x.shape[0]
     if vals.ndim not in (1, 2) or vals.shape[-1] != n:
@@ -1130,26 +1350,117 @@ def nufft1_3d(x, vals, h, *, mtot: int, fft_order: bool = False):
                          f"got {tuple(vals.shape)}")
     single = vals.ndim == 1
     B = 1 if single else vals.shape[0]
-    groups, _ = type1_3d_groups(n, mtot, B)
-    _check_batch(B, mtot, 3, groups)
+    geo = (type1_3d_geometry(n, mtot, B) if x.dtype == torch.float32
+           else ("cuda",))
+    _check_batch(B, mtot, 3, _type1_3d_groups_of(n, mtot, B, geo))
     if x.device.type == "cpu":
         return nufft1_3d_ref(x, vals, h, mtot=mtot, fft_order=fft_order)
+    out = _nufft1_3d_on(x, vals.reshape(B, n), h, mtot, fft_order, geo)
+    return out[0] if single else out
+
+
+def type1_3d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
+    """The float32 d=3 type-1's path and launch geometry: ``("tc", rows,
+    cols, group, stage, run, chunk)``, the tensor-core kernel's arguments
+    before its scratch (:func:`type1_3d_tc_geometry`), or ``("cuda",)``,
+    the CUDA-core kernel (:func:`type1_3d_groups`).
+
+    A table from the times of both kernels on the same inputs
+    (chip_smoke.py phase 3 at the driven shapes, scripts/time_type1_3d.py):
+    the tensor cores up to :data:`TYPE1_3D_TC_MAX_MTOT` modes, where the
+    column tiles are wide (at mtot 101 and 255 the narrow ones took 1.7x
+    the CUDA cores' time)."""
+    if mtot > TYPE1_3D_TC_MAX_MTOT:
+        return ("cuda",)
+    return type1_3d_tc_geometry(n, mtot, B)
+
+
+def type1_3d_split(mtot: int, rows: int) -> tuple[int, int, int]:
+    """The float32 d=3 type-1's split of the first axis's mode, k1 = S q +
+    r with r in 0..S-1, for a tile of ``rows`` rows a vector
+    (csrc/nufft_3d.cu ``Type1Grid3D``): ``(S, qmin, Q)``, S = rows // mtot
+    where that is two or more, else 1; q runs over qmin .. qmin + Q - 1
+    (:func:`type1_1d_split` at K = S).  The kernel's rows are (r, j3), S
+    mtot of them, and its columns (q, j2), Q mtot."""
+    S = rows // mtot if rows >= 2 * mtot else 1
+    return (S,) + type1_1d_split(mtot, S)
+
+
+def type1_3d_tc_geometry(n: int, mtot: int, B: int = 1) -> tuple:
+    """The tensor-core d=3 type-1's geometry (:func:`type1_3d_geometry`'s
+    ``("tc", ...)``): output tiles of :data:`TYPE1_2D_ROWS` rows (one
+    vector's 64, or two vectors' 32: a batch runs in pairs) by
+    :data:`TYPE1_2D_COLS` columns (q, j2) up to mtot 64, where the stage's
+    phase table holds at most 67 entries a point, and where the columns
+    pass twice :data:`TYPE1_2D_NARROW_COLS` and the wide tiles give
+    :data:`TYPE1_3D_MIN_BLOCKS` blocks or the narrow ones no more; else by
+    :data:`TYPE1_2D_NARROW_COLS`.  The d=2
+    type-1's register sums, runs and point groups (:func:`type1_2d_geometry`:
+    groups for about :data:`TYPE1_2D_BLOCKS` blocks, one where the tiles
+    alone pass that); the scratch holds groups * B * mtot^3 values."""
+    g = 1 if B == 1 else TYPE1_2D_BATCH_GROUP
+    tj = TYPE1_2D_ROWS // g
+    S, _, Q = type1_3d_split(mtot, tj)
+    ncol = Q * mtot
+    nrun = max(1, -(-n // TYPE1_2D_RUN))
+
+    def tiles_groups(cols):
+        tiles = -(-S * mtot // tj) * -(-ncol // cols) * -(-B // g)
+        return tiles, min(nrun, max(1, TYPE1_2D_BLOCKS // tiles))
+    cols = (TYPE1_2D_COLS if mtot <= 64 and ncol > 2 * TYPE1_2D_NARROW_COLS
+            else TYPE1_2D_NARROW_COLS)
+    if cols == TYPE1_2D_COLS:
+        # few points: the narrow tile where the wide one leaves the card
+        # short of a wave of blocks and the narrow one gives more
+        wide = math.prod(tiles_groups(cols))
+        narrow = math.prod(tiles_groups(TYPE1_2D_NARROW_COLS))
+        if wide < TYPE1_3D_MIN_BLOCKS and narrow > wide:
+            cols = TYPE1_2D_NARROW_COLS
+    groups = tiles_groups(cols)[1]
+    chunk = -(-nrun // groups) * TYPE1_2D_RUN
+    return ("tc", TYPE1_2D_ROWS, cols, g, TYPE1_2D_STAGE, TYPE1_2D_RUN,
+            chunk)
+
+
+def _type1_3d_groups_of(n, mtot, B, geo):
+    """The point groups (partial sums) of the d=3 type-1 on path ``geo``."""
+    if geo[0] == "tc":
+        return max(1, -(-n // geo[-1]))
+    return type1_3d_groups(n, mtot, B)[0]
+
+
+def _nufft1_3d_on(x, vals, h, m, fft_order, geo):
+    """The d=3 type-1's launch on CUDA tensors, ``vals`` (B, N), on the
+    path ``geo``: ``("tc", ...)`` the tensor cores (float32,
+    :func:`type1_3d_geometry`) or ``("cuda",)`` the CUDA cores over groups
+    of 2048-point chunks (:func:`type1_3d_groups`); counted as one launch
+    of ``nufft1_3d`` (chip_smoke.py also times both paths through it).
+    Returns (B, m, m, m)."""
+    if geo[0] not in ("tc", "cuda") or len(geo) != (7 if geo[0] == "tc"
+                                                    else 1):
+        raise ValueError(f"no d=3 type-1 path for geometry {geo}")
+    if geo[0] == "tc" and x.dtype != torch.float32:
+        raise TypeError("the tensor-core d=3 type-1 takes float32")
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("vals", vals, x, cdtype)
-    shape = (B, mtot, mtot, mtot)
+    B, n = vals.shape
+    shape = (B, m, m, m)
     if n == 0:
-        out = torch.zeros(shape, dtype=cdtype, device=x.device)
+        return torch.zeros(shape, dtype=cdtype, device=x.device)
+    x = x.contiguous()
+    vals = vals.contiguous()
+    h = float(torch.as_tensor(h, dtype=x.dtype))
+    groups = _type1_3d_groups_of(n, m, B, geo)
+    partial = torch.empty((groups,) + shape, dtype=cdtype, device=x.device)
+    out = torch.empty(shape, dtype=cdtype, device=x.device)
+    args = (x.data_ptr(), vals.data_ptr(), h, n, m, B, int(fft_order))
+    if geo[0] == "tc":
+        _launch("nufft1_3d", x, *args, *geo[1:], partial.data_ptr(),
+                out.data_ptr(), mtot=m, symbol="gpq_nufft1_3d_tc_f32")
     else:
-        x = x.contiguous()
-        vals = vals.contiguous()
-        h = float(torch.as_tensor(h, dtype=x.dtype))
-        partial = torch.empty((groups,) + shape, dtype=cdtype,
-                              device=x.device)
-        out = torch.empty(shape, dtype=cdtype, device=x.device)
-        _launch("nufft1_3d", x, x.data_ptr(), vals.data_ptr(), h, n, mtot, B,
-                int(fft_order), TYPE1_CHUNK, groups, partial.data_ptr(),
-                out.data_ptr(), mtot=mtot)
-    return out[0] if single else out
+        _launch("nufft1_3d", x, *args, TYPE1_CHUNK, groups,
+                partial.data_ptr(), out.data_ptr(), mtot=m)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

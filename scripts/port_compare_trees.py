@@ -35,8 +35,12 @@ pairs).  A run measures:
   chip_smoke.lightcurve_data, 50 Adam iterations, after a warm fit): the
   median ms of an iteration (from the grid plan each one starts with);
 - the float32 ``nufft1_1d`` at the light curve's calls (F*y and F*Z at
-  mtot 1031, the lag table at 2061; through its wrapper): CUDA-event
-  medians of 5 trials;
+  mtot 1031, the lag table at 2061) and ``nufft2_1d`` (F(D beta), and
+  B 10), through their wrappers: CUDA-event medians of 5 trials;
+- phase 6's d3 fused call with kron (n 1e5 in [0,1]^3, mtot 31): the
+  host-clock median of 3 warm calls; and the float32 ``nufft1_3d`` at its
+  calls (F*y, the lag table at 61, F*Z at B 10; through the wrapper):
+  CUDA-event medians of 3 trials;
 - the torch operations a one-iteration ``fit_ski_gp`` issues on the host
   (``torch.profiler``): their count and the 12 with the most self host
   time.
@@ -279,6 +283,42 @@ def one_run(root: Path) -> dict:
         out[f"nufft1_1d_{tag}_m{m}_ms"] = event_ms(
             lambda: cuda_nufft.nufft1_1d(x8[:, None], arg, hq_lc, mtot=m),
             20)
+
+    # ... and its type-2 calls (F(D beta), and the B 10 probe batch)
+    f10 = torch.as_tensor(gen.normal(size=(10, 1031))
+                          + 1j * gen.normal(size=(10, 1031)),
+                          device=dev).to(torch.complex64)
+    for tag, arg in (("FDbeta", f10[0]), ("B10", f10)):
+        out[f"nufft2_1d_{tag}_m1031_ms"] = event_ms(
+            lambda: cuda_nufft.nufft2_1d(x8[:, None], arg, hq_lc, mtot=1031),
+            20)
+    del v10, f10
+
+    # phase 6's d3 fused call with kron (n 1e5 in [0,1]^3, SE l=0.1, mtot
+    # 31; host-clock median of 3 warm calls) and its type-1 calls (F*y, the
+    # lag table at 61, F*Z at B 10; through the wrapper)
+    from chip_smoke import FUSED3_KW, data_3d
+    xd, yd, xqd = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                   for a in data_3d(100_000, 10_000, seed=3))
+    kern3 = gpquad_torch.make_kernel("SE", 3, lengthscale=np.float32(0.1),
+                                     variance=np.float32(1.0))
+    _, h3, mtot3 = gpquad_torch.spectral_grid(kern3, 1e-6, 1.0)
+
+    def fused3():
+        return gpquad_torch.fit_predict_grad(
+            xd, yd, xqd, kern3, 0.01, h3,
+            torch.Generator(device=dev).manual_seed(0), mtot=mtot3,
+            nufft_method="auto", precond="kron", device=dev, **FUSED3_KW)
+    out["d3_fused_kron_ms"] = host_ms(fused3, reps=3)
+    hq3 = float(torch.tensor(h3, dtype=torch.float32))
+    v3 = torch.as_tensor(gen.normal(size=(10, len(xd)))
+                         + 1j * gen.normal(size=(10, len(xd))),
+                         device=dev).to(torch.complex64)
+    for tag, arg, m in (("Fy", v3[0], mtot3), ("lag", v3[0], 2 * mtot3 - 1),
+                        ("FZ_B10", v3, mtot3)):
+        out[f"nufft1_3d_{tag}_m{m}_ms"] = event_ms(
+            lambda: cuda_nufft.nufft1_3d(xd, arg, hq3, mtot=m), 3, trials=3)
+    del v3, xd, yd, xqd
 
     # the torch operations the host issues in a one-iteration fit (its
     # final solve included), by count and self host time

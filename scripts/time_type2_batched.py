@@ -1,12 +1,12 @@
 """Time the float32 batched d=2 type-2 on the tensor cores
-(``gpquad_torch/csrc/nufft_2d.cu`` ``nufft2_2d_batched_tc_kernel``) alone,
-with parts of it taken out, beside the CUDA-core kernel and the card's
-``mma.sync`` TF32 rate.
+(``gpquad_torch/csrc/tc_type2.cuh`` ``type2_tc_kernel`` on ``nufft_2d.cu``'s
+``Type2Grid2D``) alone, with parts of it taken out, beside the CUDA-core
+kernel and the card's ``mma.sync`` TF32 rate.
 
     python scripts/time_type2_batched.py [--shapes scale|all]
 
-It copies ``nufft_2d.cu`` into ``build/type2_ablation/`` and builds, one
-``nvcc`` each, all started together:
+It copies ``gpquad_torch/csrc`` into ``build/type2_ablation/<variant>/`` and
+builds ``nufft_2d.cu`` there, one ``nvcc`` each, all started together:
 
 - ``full``: the kernel as it is;
 - ``no_e2_phases``: E2's phases replaced by a product (the split and the
@@ -26,7 +26,7 @@ card's name and power limit.  It needs a CUDA device.
 
 It is a tool for work on the kernel, not a check: nothing on the main path,
 in the tests or in chip_smoke.py runs it, and it stops with an error where a
-line it replaces is no longer in ``nufft_2d.cu``.
+line it replaces is no longer in ``tc_type2.cuh``.
 """
 from __future__ import annotations
 
@@ -46,12 +46,12 @@ sys.path.insert(0, str(ROOT))
 from gpquad_torch.ops import cuda_nufft  # noqa: E402
 
 OUT = ROOT / "build" / "type2_ablation"
-# (the text in nufft_2d.cu, what replaces it)
-E2_PHASE = ("if (kr < m) phase(u[r & 1], kv, &c[r], &s[r]);",
-            "if (kr < m) { c[r] = u[r & 1] * kv; s[r] = c[r] + 1.f; }")
-E1_PHASE = ("phase(u1, mode_value<float>(j0 + jj, m, fft_order), &c, &s);",
-            "c = u1 + jj; s = u1;")
-KSTEPS = ("for (int ks = 0; ks < T2C_KS / 8; ++ks) {",
+# (the text in tc_type2.cuh, what replaces it)
+E2_PHASE = ("if (ok) P::red_phase(ua[r & 1], ub[r & 1], kv, &c[r], &s[r]);",
+            "if (ok) { c[r] = ub[r & 1] * kv; s[r] = c[r] + 1.f; }")
+E1_PHASE = ("P::epi_phase(ua, ub, j0 + jj, m, fft_order, &c, &s);",
+            "c = ua + jj; s = ua;")
+KSTEPS = ("for (int ks = 0; ks < NKS; ++ks) {",
           "for (int ks = 0; ks < 0; ++ks) {")
 VARIANTS = {"full": (), "no_e2_phases": (E2_PHASE,),
             "no_e1_phases": (E1_PHASE,), "mma_only": (E2_PHASE, E1_PHASE),
@@ -110,19 +110,21 @@ def build_variants(nvcc):
     variant's registers and spills."""
     OUT.mkdir(parents=True, exist_ok=True)
     csrc = ROOT / "gpquad_torch" / "csrc"
-    shutil.copy(csrc / "nufft_common.cuh", OUT)
-    src = (csrc / "nufft_2d.cu").read_text()
     procs = {}
     for name, hooks in VARIANTS.items():
-        text = src
+        d = OUT / name
+        if d.exists():
+            shutil.rmtree(d)
+        shutil.copytree(csrc, d)
+        text = (d / "tc_type2.cuh").read_text()
         for old, new in hooks:
             if old not in text:
-                raise RuntimeError(f"{name}: '{old}' is not in nufft_2d.cu")
+                raise RuntimeError(f"{name}: '{old}' is not in tc_type2.cuh")
             text = text.replace(old, new)
-        (OUT / f"{name}.cu").write_text(text)
+        (d / "tc_type2.cuh").write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *cuda_nufft.NVCC_FLAGS, "-shared", "-o",
-             str(OUT / f"{name}.so"), str(OUT / f"{name}.cu")],
+             str(OUT / f"{name}.so"), str(d / "nufft_2d.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     (OUT / "peak.cu").write_text(PEAK_SRC)
     procs["peak"] = subprocess.Popen(
@@ -143,7 +145,8 @@ def build_variants(nvcc):
             continue
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry" in line and "nufft2_2d_batched_tc" in line:
+            if "Compiling entry" in line and "Type2Grid2DELi128" in line \
+                    and "type2_tc_kernel" in line:
                 print(name, " ".join(ln.split(":", 1)[-1].strip()
                                      for ln in lines[i + 1:i + 4]))
                 break

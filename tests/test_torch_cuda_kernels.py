@@ -1058,3 +1058,175 @@ def test_type1_1d_launch_refuses_foreign_geometry(cuda_device, field, value):
                            symbol="gpq_nufft1_1d_tc_f32")
     torch.cuda.synchronize()
     assert not bool(out.abs().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (1, 5000, 1031, 0.99, False),
+    (1, 3000, 2061, 0.99, True),
+    (3, 1500, 33, 0.31, False),
+    (10, 20_000, 1031, 0.99, False),
+    (1, 20_000, 8191, 0.97, False),
+    (2, 777, 65, 0.5, True),
+])
+def test_type2_1d_tensor_core_kernel_on_card(cuda_device, B, n, mtot, h,
+                                             fft_order):
+    """The float32 d=1 type-2 on the tensor cores (type2_1d_tc_geometry):
+    one launch counted a call, bit for bit the same on a second launch;
+    within max(2x the float32 plain version's error, 1e-6) of max|ref| from
+    float64, and within twice that of its 3xTF32 twin (held to a bar, not
+    bit for bit: the tensor cores' rounding inside an 8-mode product is not
+    specified, and the twin's phases are float64 ones of the exact t = x h);
+    the wrapper's result that of the path type2_1d_geometry picks."""
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 1)),
+                        device=cuda_device).float()
+    F = torch.as_tensor(rng.normal(size=(B, mtot))
+                        + 1j * rng.normal(size=(B, mtot)),
+                        device=cuda_device).to(torch.complex64)
+    hq = float(torch.tensor(h, dtype=torch.float32))
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    geo = cuda_nufft.type2_1d_tc_geometry(B)
+    before = cuda_nufft.LAUNCHES["nufft2_1d"]
+    got = cuda_nufft._nufft2_1d_on(x, F, hq, mtot, fft_order, geo)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCHES["nufft2_1d"] == before + 1
+    assert got.shape == (B, n)
+    assert torch.equal(cuda_nufft._nufft2_1d_on(x, F, hq, mtot, fft_order,
+                                                geo), got)
+    ref = nufft2_1d_ref(x.double(), F.to(torch.complex128), hq, **kw)
+    scale = float(ref.abs().max())
+
+    def err(a):
+        return float((a.to(torch.complex128) - ref).abs().max()) / scale
+    bar = max(2 * err(nufft2_1d_ref(x, F, hq, **kw)), 1e-6)
+    assert err(got) <= bar
+    twin = cuda_nufft.nufft2_1d_3xtf32_ref(x, F, hq, geometry=geo, **kw)
+    assert float((got - twin).abs().max()) <= 2 * bar * scale
+    routed = nufft2_1d(x, F, hq, **kw)
+    if cuda_nufft.type2_1d_geometry(n, mtot, B)[0] == "tc":
+        assert torch.equal(routed, got)
+    else:
+        assert err(routed) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [(1, 64), (2, 64), (3, 64),
+                                         (4, 16)])
+def test_type2_1d_launch_refuses_foreign_geometry(cuda_device, field, value):
+    """The tensor-core d=1 type-2's launch takes its geometry from
+    type2_1d_geometry and refuses one it has no instance for (points, K,
+    columns or stage changed): a CUDA error is raised, and nothing is
+    written."""
+    n, mtot, B = 1000, 1031, 3
+    x = torch.rand((n, 1), device=cuda_device)
+    F = torch.ones((B, mtot), dtype=torch.complex64, device=cuda_device)
+    geo = list(cuda_nufft.type2_1d_tc_geometry(B))
+    floats = cuda_nufft.type2_1d_scratch_floats(mtot, B, tuple(geo))
+    geo[field] = value
+    scratch = torch.zeros(floats, device=cuda_device)
+    out = torch.zeros((B, n), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft2_1d", x, x.data_ptr(), F.data_ptr(), 0.5,
+                           n, mtot, B, 0, *geo[1:], scratch.data_ptr(),
+                           floats, out.data_ptr(), mtot=mtot,
+                           symbol="gpq_nufft2_1d_tc_f32")
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+    assert not bool(scratch.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (1, 5000, 9, 0.31, False),
+    (3, 4001, 21, 0.65, True),
+    (10, 3000, 31, 0.2, False),
+    (1, 20_000, 61, 0.2, False),
+    (1, 2000, 101, 0.2, True),
+])
+def test_type1_3d_tensor_core_kernel_on_card(cuda_device, B, n, mtot, h,
+                                             fft_order):
+    """The float32 d=3 type-1 on the tensor cores (type1_3d_tc_geometry):
+    one launch counted a call, bit for bit the same on a second launch;
+    within max(2x the float32 plain version's error, 1e-6) of max|ref| from
+    float64, and within twice that of its 3xTF32 twin; the wrapper's result
+    that of the path type1_3d_geometry picks."""
+    rng = np.random.default_rng(14)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 3)),
+                        device=cuda_device).float()
+    V = torch.as_tensor(rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n)),
+                        device=cuda_device).to(torch.complex64)
+    hq = float(torch.tensor(h, dtype=torch.float32))
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    geo = cuda_nufft.type1_3d_tc_geometry(n, mtot, B)
+    before = cuda_nufft.LAUNCHES["nufft1_3d"]
+    got = cuda_nufft._nufft1_3d_on(x, V, hq, mtot, fft_order, geo)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCHES["nufft1_3d"] == before + 1
+    assert got.shape == (B,) + (mtot,) * 3
+    assert torch.equal(cuda_nufft._nufft1_3d_on(x, V, hq, mtot, fft_order,
+                                                geo), got)
+    ref = nufft1_3d_ref(x.double(), V.to(torch.complex128), hq, **kw)
+    scale = float(ref.abs().max())
+
+    def err(a):
+        return float((a.to(torch.complex128) - ref).abs().max()) / scale
+    bar = max(2 * err(nufft1_3d_ref(x, V, hq, **kw)), 1e-6)
+    assert err(got) <= bar
+    twin = cuda_nufft.nufft1_3d_3xtf32_ref(x, V, hq, **kw)
+    assert float((got - twin).abs().max()) <= 2 * bar * scale
+    routed = nufft1_3d(x, V, hq, **kw)
+    if cuda_nufft.type1_3d_geometry(n, mtot, B)[0] == "tc":
+        assert torch.equal(routed, got)
+    else:
+        assert err(routed) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [
+    (1, 32), (2, 64), (3, 3), (4, 48), (5, 1000), (6, 1536)])
+def test_type1_3d_launch_refuses_foreign_geometry(cuda_device, field, value):
+    """The float32 d=3 type-1's launch takes its geometry from
+    type1_3d_geometry and refuses one it has no instance for (rows, cols,
+    group, stage, run or chunk changed): a CUDA error is raised, and
+    nothing is written."""
+    n, mtot = 4096, 21
+    x = torch.rand((n, 3), device=cuda_device)
+    v = torch.ones((1, n), dtype=torch.complex64, device=cuda_device)
+    geo = list(cuda_nufft.type1_3d_tc_geometry(n, mtot))
+    geo[field] = value
+    partial = torch.zeros((n, 1) + (mtot,) * 3, dtype=torch.complex64,
+                          device=cuda_device)
+    out = torch.zeros((1,) + (mtot,) * 3, dtype=torch.complex64,
+                      device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft1_3d", x, x.data_ptr(), v.data_ptr(), 0.5,
+                           n, mtot, 1, 0, *geo[1:], partial.data_ptr(),
+                           out.data_ptr(), mtot=mtot,
+                           symbol="gpq_nufft1_3d_tc_f32")
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+
+
+@pytest.mark.cuda
+def test_type1_3d_launch_refuses_overflowing_table(cuda_device):
+    """Past mtot 64 a 128-column tile's phase table would pass Type1Grid3D's
+    72 entries a point: the launch refuses that width (a CUDA error, nothing
+    written), and the geometry takes 32 there."""
+    n, mtot = 2048, 101
+    x = torch.rand((n, 3), device=cuda_device)
+    v = torch.ones((1, n), dtype=torch.complex64, device=cuda_device)
+    geo = list(cuda_nufft.type1_3d_tc_geometry(n, mtot))
+    assert geo[2] == 32
+    geo[2] = 128
+    partial = torch.zeros((1, 1) + (mtot,) * 3, dtype=torch.complex64,
+                          device=cuda_device)
+    out = torch.zeros((1,) + (mtot,) * 3, dtype=torch.complex64,
+                      device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft1_3d", x, x.data_ptr(), v.data_ptr(), 0.5,
+                           n, mtot, 1, 0, *geo[1:], partial.data_ptr(),
+                           out.data_ptr(), mtot=mtot,
+                           symbol="gpq_nufft1_3d_tc_f32")
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())

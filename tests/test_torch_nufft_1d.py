@@ -8,10 +8,11 @@ Tolerances: 5e-5 * max|ref| against the Pallas kernels in float32, the bar
 of tests/test_pallas_nufft.py::test_pallas_1d_matches_mxu (two f32
 evaluations of the same sums with different sin/cos and summation order);
 1e-10 against gpquad's float64 phase matrices (the same arithmetic in a
-different summation order).  The float32 tensor-core kernel's twin
-``nufft1_1d_3xtf32_ref`` is held to the Pallas kernel at 5e-5 and, against
-float64, to max(2x the float32 plain version's error, 1e-6) of max|ref|,
-which its plain-TF32 control (``passes=1``) must miss.
+different summation order).  The float32 tensor-core kernels' twins
+``nufft1_1d_3xtf32_ref`` and ``nufft2_1d_3xtf32_ref`` are held to the
+Pallas kernels at 5e-5 and, against float64, to max(2x the float32 plain
+version's error, 1e-6) of max|ref|, which their plain-TF32 controls
+(``passes=1``) must miss.
 """
 import jax
 import jax.numpy as jnp
@@ -26,8 +27,11 @@ from gpquad_torch.ops import cuda_nufft
 from gpquad_torch.ops import nufft as tnufft
 from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_1d,
                                          nufft1_1d_3xtf32_ref, nufft1_1d_ref,
-                                         nufft2_1d, nufft2_1d_ref,
-                                         type1_1d_geometry, type1_1d_split)
+                                         nufft2_1d, nufft2_1d_3xtf32_ref,
+                                         nufft2_1d_ref, type1_1d_geometry,
+                                         type1_1d_split, type2_1d_geometry,
+                                         type2_1d_scratch_floats,
+                                         type2_1d_tc_geometry)
 from gpquad_torch.ops.nufft import make_nufft
 
 # The parity problems are small: torch's intra-op threads cost more than
@@ -241,3 +245,95 @@ def test_1d_type1_launch_refuses_foreign_path(rng):
             cuda_nufft._nufft1_1d_on(x, v, 0.3, 33, False, bad)
     with pytest.raises(TypeError, match="float32"):
         cuda_nufft._nufft1_1d_on(x, v, 0.3, 33, False, geo)
+
+
+# the type-2's twin at the same shapes: mtot 33 (two values of q at K 32),
+# 1031 (the light curve's rung) and 2061 in FFT order (its variance
+# evaluation); B 1 on the 32-column tile (its epilogue in four chunks of 8
+# values of r), B 3 on the 128-column one (a chunk of 32 a vector, 96 of
+# 128 columns live)
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mtot,h,fft_order", [(33, 0.3, False),
+                                              (1031, 0.0097, False),
+                                              (2061, 0.0049, True)])
+def test_type2_3xtf32_twin_matches_pallas(rng, B, mtot, h, fft_order):
+    n = 1500
+    x = rng.uniform(-1, 1, (n, 1)).astype(np.float32)
+    f = (rng.normal(size=(B, mtot))
+         + 1j * rng.normal(size=(B, mtot))).astype(np.complex64)
+    hq = float(np.float32(h))
+    xt, ft = torch.as_tensor(x), torch.as_tensor(f)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    arg = ft[0] if B == 1 else ft
+    twin = nufft2_1d_3xtf32_ref(xt, arg, hq, **kw).numpy()
+    assert twin.shape == ((n,) if B == 1 else (B, n))
+    twin = twin.reshape(B, n)
+    want = np.stack([np.asarray(pallas_nufft2_1d(
+        jnp.asarray(x), jnp.asarray(f[b]), hq, **kw)) for b in range(B)])
+    assert _rel(twin, want) < 5e-5
+    ref = nufft2_1d_ref(xt.double(), ft.to(torch.complex128), hq,
+                        **kw).numpy()
+    plain = nufft2_1d_ref(xt, ft, hq, **kw).numpy()
+    bar = max(2 * _rel(plain, ref), 1e-6)
+    assert _rel(twin, ref) <= bar
+    control = nufft2_1d_3xtf32_ref(xt, arg, hq, passes=1, **kw).numpy()
+    assert _rel(control.reshape(B, n), ref) > bar
+
+
+@pytest.mark.parametrize("n,mtot,B", [
+    (63_480, 1031, 1), (63_480, 1031, 10), (5_000, 1031, 1),
+    (5_000, 2061, 1), (20_000, 8191, 1), (1500, 33, 3), (700, 63, 2),
+    (2_000, 513, 1), (1_000, 1031, 1), (1, 1, 1)])
+def test_type2_1d_geometry(n, mtot, B):
+    """The float32 d=1 type-2's path: the CUDA cores below
+    TYPE2_1D_TC_MIN_MTOT or TYPE2_1D_TC_MIN_WORK (n mtot, for one vector or
+    a batch), else the tensor cores with K 32, the 32-column tile for one
+    vector (one tile, no padded column) and the 128-column tile for a
+    batch; the q padded to whole k-steps of 8 only.  The light curve's
+    calls (5 000 and 63 480 points) and the widest lag table take the
+    tensor cores.  Each mode |k| <= half is one (q, r) cell of
+    the split, every other cell is zero (nothing to crop); the scratch and
+    the padding (products a point against the B mtot needed) is x1.24 at
+    1031 for one vector (32 x 40 cells) and x1.0 at 8191."""
+    geo = type2_1d_geometry(n, mtot, B)
+    if (n, mtot) in ((5_000, 1031), (5_000, 2061), (63_480, 1031),
+                     (20_000, 8191)):
+        assert geo[0] == "tc"
+    if (mtot < cuda_nufft.TYPE2_1D_TC_MIN_MTOT
+            or n * mtot < cuda_nufft.TYPE2_1D_TC_MIN_WORK[B > 1]):
+        assert geo == ("cuda",)
+        return
+    assert geo == type2_1d_tc_geometry(B)
+    _, points, K, cols, stage = geo
+    assert (points, K, stage) == (cuda_nufft.TYPE2_2D_POINTS,
+                                  cuda_nufft.TYPE2_1D_K,
+                                  cuda_nufft.TYPE2_2D_STAGE)
+    assert cols == (32 if B == 1 else 128)
+    qmin, Q = type1_1d_split(mtot, K)
+    kq = -(-Q // 8) * 8
+    assert kq - Q < 8
+    half = (mtot - 1) // 2
+    k = K * (qmin + np.arange(kq))[:, None] + np.arange(K)[None, :]
+    live = (np.abs(k) <= half) & (np.arange(kq) < Q)[:, None]
+    assert np.array_equal(np.sort(k[live]), np.arange(-half, half + 1))
+    ncp = -(-B * K // cols) * cols
+    assert type2_1d_scratch_floats(mtot, B, geo) == 4 * kq * ncp
+    padding = kq * ncp / (B * mtot)
+    if mtot == 1031 and B == 1:
+        assert abs(padding - 1280 / 1031) < 1e-12
+    if mtot == 8191:
+        assert abs(padding - 1.0) < 1e-3
+
+
+def test_1d_type2_launch_refuses_foreign_path(rng):
+    """The d=1 type-2's launch takes ("tc", 4 fields) or ("cuda",) and
+    refuses any other geometry before it touches the card; float64 has no
+    tensor-core path."""
+    x = torch.as_tensor(rng.uniform(0, 1, (64, 1)))
+    f = torch.ones((1, 1031), dtype=torch.complex128)
+    geo = type2_1d_tc_geometry(1)
+    for bad in (geo[:-1], ("split", 16), ("cuda", 1), geo + (1,)):
+        with pytest.raises(ValueError, match="no d=1 type-2 path"):
+            cuda_nufft._nufft2_1d_on(x, f, 0.3, 1031, False, bad)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_nufft._nufft2_1d_on(x, f, 0.3, 1031, False, geo)

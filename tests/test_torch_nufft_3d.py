@@ -8,7 +8,11 @@ float32: the bar of tests/test_pallas_nufft.py::test_pallas_3d_matches_mxu
 (two f32 evaluations of sums of up to 61^3 terms, with different sin/cos and
 summation order).  Batches are held against PallasNUFFT (one Pallas launch
 per vector, ``lax.map``), and float64 against gpquad's phase-matrix backend
-at 1e-10.
+at 1e-10.  The float32 tensor-core kernel's twin ``nufft1_3d_3xtf32_ref``
+is held to ``pallas_nufft1_3d`` at 5e-5 (both within ~3e-7 of float64 at
+these sizes) and, against float64, to max(2x the float32 plain version's
+error, 1e-6) of max|ref|, which its plain-TF32 control (``passes=1``) must
+miss.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,9 +23,10 @@ from gpquad.ops.nufft import make_nufft as jax_make_nufft
 from gpquad.ops.pallas_nufft import pallas_nufft1_3d, pallas_nufft2_3d
 from gpquad_torch.ops import cuda_nufft
 from gpquad_torch.ops import nufft as tnufft
-from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_3d, nufft1_3d_ref,
+from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_3d,
+                                         nufft1_3d_3xtf32_ref, nufft1_3d_ref,
                                          nufft2_3d, nufft2_3d_ref,
-                                         type1_3d_groups)
+                                         type1_3d_geometry, type1_3d_groups)
 from gpquad_torch.ops.nufft import CUDA_D3_MAX_MTOT, make_nufft
 
 # The parity problems are small: torch's intra-op threads cost more than
@@ -215,3 +220,145 @@ def test_type1_3d_groups_bound_the_scratch(n, mtot, B):
     # at the d3 configuration's lag table: 9 groups, 16 MB, not 49 chunks
     if (n, mtot, B) == (100_000, 61, 1):
         assert groups == 9 and groups * mtot ** 3 * 8 < 17e6
+
+
+# mtot 9 and 21 (hard3d's grid), n 400 (one group at most a few runs); B 3
+# runs in pairs, its last pair half empty
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mtot,fft_order", [(9, False), (21, True)])
+def test_3xtf32_twin_matches_pallas(rng, B, mtot, fft_order):
+    n, h = 400, 0.11
+    x, v, _ = _inputs(rng, n, mtot, B)
+    xt, vt = torch.as_tensor(x), torch.as_tensor(v)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    arg = vt[0] if B == 1 else vt
+    twin = nufft1_3d_3xtf32_ref(xt, arg, h, **kw).numpy()
+    assert twin.shape == ((mtot,) * 3 if B == 1 else (B,) + (mtot,) * 3)
+    twin = twin.reshape((B,) + (mtot,) * 3)
+    want = np.stack([np.asarray(pallas_nufft1_3d(
+        jnp.asarray(x), jnp.asarray(v[b]), h, **kw)) for b in range(B)])
+    assert _rel(twin, want) < 5e-5
+    ref = nufft1_3d_ref(xt.double(), vt.to(torch.complex128), h,
+                        **kw).numpy()
+    plain = nufft1_3d_ref(xt, vt, h, **kw).numpy()
+    bar = max(2 * _rel(plain, ref), 1e-6)
+    assert _rel(twin, ref) <= bar
+    control = nufft1_3d_3xtf32_ref(xt, arg, h, passes=1, **kw).numpy()
+    assert _rel(control.reshape(twin.shape), ref) > bar
+
+
+def _grid3d_table(k0, m, TJ, cols):
+    """csrc/nufft_3d.cu Type1Grid3D's table for the column tile from k0:
+    its entries' phases as (axis, mode value), and each column's two
+    entries (col_mode); the rows' entries (row_mode: e^{-2 pi i r u1} at
+    index r)."""
+    S, qmin, Q = cuda_nufft.type1_3d_split(m, TJ)
+    nc = Q * m
+    nq = min(k0 + cols - 1, nc - 1) // m - k0 // m + 1
+    half = (m - 1) // 2
+    entries = ([(1, r) for r in range(S)]
+               + [(1, S * (qmin + k0 // m + t)) for t in range(nq)]
+               + [(2, (k0 + t) % m - half) for t in range(min(m, cols))])
+    col_idx = [(S + c // m - k0 // m, S + nq + (c - k0) % m)
+               for c in range(k0, min(k0 + cols, nc))]
+    return entries, col_idx
+
+
+@pytest.mark.parametrize("n,mtot,B", [
+    (100_000, 31, 1), (100_000, 61, 1), (100_000, 31, 10), (20_000, 21, 1),
+    (20_000, 41, 1), (20_000, 21, 10), (20_000, 57, 1), (20_000, 101, 1),
+    (20_000, 255, 1), (400, 9, 3), (1, 3, 1)])
+def test_type1_3d_geometry(n, mtot, B):
+    """The float32 d=3 type-1's geometry: the tensor cores up to
+    TYPE1_3D_TC_MAX_MTOT, else the CUDA cores.  On
+    the tensor cores the first axis's mode splits as k1 = S q + r (S = 64 /
+    mtot rows a vector where that is two or more, 32 for a batch in pairs):
+    rows (r, j3), columns (q, j2) in tiles of 128 up to mtot 64 (where they
+    pass 64 and give a wave of blocks) and 32 past; whole runs of whole register sums a group, no
+    group empty, at most TYPE1_2D_BLOCKS blocks (or one group), the
+    partials within 256 MB.  Every output (j1, j2, j3) is one (row, column)
+    cell, every other cell cropped (|k1| past half); each column's two
+    table entries are its e^{-2 pi i S q u1} and e2(j2), and a tile's table
+    holds at most kTab = 72 phases a point."""
+    geo = type1_3d_geometry(n, mtot, B)
+    tc = cuda_nufft.type1_3d_tc_geometry(n, mtot, B)
+    assert geo == (tc if mtot <= cuda_nufft.TYPE1_3D_TC_MAX_MTOT
+                   else ("cuda",))
+    path, rows, cols, group, stage, run, chunk = tc
+    assert path == "tc" and rows == cuda_nufft.TYPE1_2D_ROWS
+    assert group == (1 if B == 1 else 2)
+    TJ = rows // group
+    S, qmin, Q = cuda_nufft.type1_3d_split(mtot, TJ)
+    assert S == (TJ // mtot if TJ >= 2 * mtot else 1)
+    assert run % stage == 0 and chunk % run == 0
+    groups = -(-n // chunk)
+    assert (groups - 1) * chunk < n
+    tiles = -(-S * mtot // TJ) * -(-Q * mtot // cols) * -(-B // group)
+    nrun = -(-n // run)
+
+    def blocks(width):
+        t = -(-S * mtot // TJ) * -(-Q * mtot // width) * -(-B // group)
+        return t * min(nrun, max(1, cuda_nufft.TYPE1_2D_BLOCKS // t))
+    # the narrow tile where the wide one leaves the card short of a wave of
+    # blocks and the narrow one gives more
+    wide = (mtot <= 64 and Q * mtot > 64
+            and not (blocks(128) < cuda_nufft.TYPE1_3D_MIN_BLOCKS
+                     and blocks(32) > blocks(128)))
+    assert cols == (128 if wide else 32)
+    assert tiles * groups == blocks(cols)
+    if (n, mtot, B) == (20_000, 21, 1):
+        assert cols == 32 and tiles * groups == 120
+    assert tiles * groups <= max(tiles, cuda_nufft.TYPE1_2D_BLOCKS)
+    assert groups * B * mtot ** 3 * 8 < 256e6
+    # every output once, the rest cropped (csrc Type1Grid3D out_index)
+    half = (mtot - 1) // 2
+    r, j3 = np.divmod(np.arange(S * mtot), mtot)
+    q, j2 = np.divmod(np.arange(Q * mtot), mtot)
+    k1 = S * (qmin + q)[None, :] + r[:, None]
+    keep = np.abs(k1) <= half
+    out = ((k1 + half) * mtot + j2[None, :]) * mtot + j3[:, None]
+    assert np.array_equal(np.sort(out[keep]), np.arange(mtot ** 3))
+    for k0 in range(0, Q * mtot, cols):
+        entries, col_idx = _grid3d_table(k0, mtot, TJ, cols)
+        assert len(entries) <= 72
+        for c, (iq, i2) in zip(range(k0, k0 + cols), col_idx):
+            assert entries[iq] == (1, S * (qmin + c // mtot))
+            assert entries[i2] == (2, c % mtot - half)
+        for i in range(S):
+            assert entries[i] == (1, i)
+
+
+def test_3d_type1_table_bound_at_every_width():
+    """Type1Grid3D's table (kTab = 72 entries a point) holds every column
+    tile's phases at every odd mtot the kernels take on the tile width the
+    geometry picks, for one vector's 64 rows and a pair's 32; 128-column
+    tiles would overflow it past mtot 64 (there the geometry takes 32, and
+    the launch refuses 128)."""
+    over = set()
+    for mtot in range(1, cuda_nufft.CUDA_D3_MAX_MTOT + 1, 2):
+        for B in (1, 2):
+            geo = cuda_nufft.type1_3d_tc_geometry(1000, mtot, B)
+            TJ = geo[1] // geo[3]
+            for cols in (32, 128):
+                Q = cuda_nufft.type1_3d_split(mtot, TJ)[2]
+                size = max(len(_grid3d_table(k0, mtot, TJ, cols)[0])
+                           for k0 in range(0, Q * mtot, cols))
+                if cols == geo[2]:
+                    assert size <= 72, (mtot, B)
+                elif size > 72:
+                    over.add(mtot)
+    assert min(over) > 64
+
+
+def test_3d_type1_launch_refuses_foreign_path(rng):
+    """The d=3 type-1's launch takes ("tc", 6 fields) or ("cuda",) and
+    refuses any other geometry before it touches the card; float64 has no
+    tensor-core path."""
+    x = torch.as_tensor(rng.uniform(0, 1, (64, 3)))
+    v = torch.ones((1, 64), dtype=torch.complex128)
+    geo = type1_3d_geometry(64, 9)
+    for bad in (geo[:-1], ("split", 16), ("cuda", 2048), geo + (1,)):
+        with pytest.raises(ValueError, match="no d=3 type-1 path"):
+            cuda_nufft._nufft1_3d_on(x, v, 0.3, 9, False, bad)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_nufft._nufft1_3d_on(x, v, 0.3, 9, False, geo)
