@@ -39,11 +39,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      DISPATCH_TIE); likewise the float32 d=1 type-2 on both of its kernels
      (the tensor cores on a split of the mode index, nufft2_1d_3xtf32_ref
      its twin, with the padding of its geometry) and the float32 d=3
-     type-1 on both of its kernels (the tensor cores on Type1Grid3D,
-     nufft1_3d_3xtf32_ref its twin, run where its operand stays under 1e9
-     values, with both scratches), each checked that the path
-     cuda_nufft.type2_1d_geometry / type1_3d_geometry picks was the
-     fastest measured there (within DISPATCH_TIE);
+     type-1 and type-2 on both of their kernels (the tensor cores on
+     Type1Grid3D and Type2Grid3D, nufft1_3d_3xtf32_ref and
+     nufft2_3d_3xtf32_ref their twins, run where the operand stays under
+     1e9 values, with both scratches, the card's times with the host
+     ahead), each checked that the path cuda_nufft.type2_1d_geometry /
+     type1_3d_geometry / type2_3d_geometry picks was the fastest measured
+     there (within DISPATCH_TIE);
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -382,20 +384,25 @@ def bound_ms(name, n, m, dtype, B=1, work=None):
 
 
 def bound_3xtf32_ms(name, n, m, B=1, split=None):
-    """A float32 kernel's bound on the tensor cores (the type-1 at d=2 and
-    d=1, the d=2 type-2's tensor-core kernel, batched or at B 1 for the
-    single, and the d=1 type-2's): 3 x 8 flops per point, mode (pair) and vector at the dense TF32
-    rate, plus the rest of kernel_work's operations (the phases, once per
-    point, dimension and mode, and the products v e1 or e1 T) at the fp32
-    rate; against its bytes.  At d=1 ``split`` = (K, Q) of the mode split
-    k = K q + r (cuda_nufft.type1_1d_split) sets the rest: K + Q phases a
-    point, and the K products a point and vector (the type-1's v
-    e^{-2 pi i r t}, 6 flops; the type-2's epilogue multiply-adds
-    e^{+2 pi i r t} T, 8)."""
+    """A float32 kernel's bound on the tensor cores (the type-1 at d=1, 2
+    and 3, the d=2 type-2's tensor-core kernel, batched or at B 1 for the
+    single, and the d=1 and d=3 type-2's): 3 x 8 flops per point, mode
+    (pair or triple) and vector at the dense TF32 rate, plus the rest of
+    kernel_work's operations (the phases, once per point, dimension and
+    mode, and the products v e1 or e1 T) at the fp32 rate; against its
+    bytes.  The d=3 type-2 contracts the pairs (j2, j3) in the GEMM, so its
+    rest is the phases, the mtot^2 products e2 e3 once a point (6 flops)
+    and the epilogue's mtot multiply-adds e1 T a point and vector (8).  At
+    d=1 ``split`` = (K, Q) of the mode split k = K q + r
+    (cuda_nufft.type1_1d_split) sets the rest: K + Q phases a point, and
+    the K products a point and vector (the type-1's v e^{-2 pi i r t}, 6
+    flops; the type-2's epilogue multiply-adds e^{+2 pi i r t} T, 8)."""
     d = int(name.split("_")[1][0])
     flops, nbytes = kernel_work(name, n, m, torch.float32, B)
     tc = 3 * 8 * B * n * m ** d
     rest = flops - 8 * B * n * m ** d
+    if name == "nufft2_3d":
+        rest = d * n * m * PHASE_FLOPS + 6 * n * m ** 2 + 8 * B * n * m
     if split is not None:
         K, Q = split
         outer = 8 if name.startswith("nufft2") else 6
@@ -881,27 +888,32 @@ def main() -> int:
                 f" rel={out['cuda_core_rel_err']:.3e}; geometry {tc_geo}")
         return out, line
 
-    def type1_3d_both(x, v, hq, m, fo, n, B, ref, scale, got, split_bar,
-                      reps, trials, twin_ok):
-        """The float32 d=3 type-1 on its two kernels on the same inputs: the
-        tensor cores ("tc", 3xTF32 on Type1Grid3D, type1_3d_tc_geometry) and
-        the CUDA-core kernel ("cuda"), each within 1e-4 of max|ref| (the
-        tensor cores also within ``split_bar`` and, where ``twin_ok``,
-        within twice that of their twin nufft1_3d_3xtf32_ref, run on the
-        card), bit for bit against a second launch, with its scratch (the
-        peak allocated in the call less the output); the wrapper's result
-        bit for bit that of the path type1_3d_geometry picks, and that path
-        the fastest on the card (time_cuda_paths) within DISPATCH_TIE.
-        Returns the row's fields and a line for the log."""
-        pick = cuda_nufft.type1_3d_geometry(n, m, B)
-        tc_geo = cuda_nufft.type1_3d_tc_geometry(n, m, B)
+    def tc_3d_both(name, x, arg, hq, m, fo, n, B, ref, scale, got,
+                   split_bar, reps, trials, twin_ok):
+        """A float32 d=3 function (``name``: nufft1_3d or nufft2_3d) on its
+        two kernels on the same inputs: the tensor cores ("tc", 3xTF32 on
+        Type1Grid3D or Type2Grid3D with the geometry of
+        type1_3d_tc_geometry or type2_3d_tc_geometry) and the CUDA-core
+        kernel ("cuda"), each within 1e-4 of max|ref| (the tensor cores
+        also within ``split_bar`` and, where ``twin_ok``, within twice that
+        of their twin nufft1_3d_3xtf32_ref or nufft2_3d_3xtf32_ref, run on
+        the card), bit for bit against a second launch, with its scratch
+        (the peak allocated in the call less the output); the wrapper's
+        result bit for bit that of the path type1_3d_geometry or
+        type2_3d_geometry picks, and that path the fastest on the card
+        (time_cuda_paths, the host ahead) within DISPATCH_TIE.  Returns the
+        row's fields and a line for the log."""
+        kind = name.split("_")[0][-1]               # "1" or "2"
+        pick = getattr(cuda_nufft, f"type{kind}_3d_geometry")(n, m, B)
+        tc_geo = getattr(cuda_nufft, f"type{kind}_3d_tc_geometry")(n, m, B)
         geos = {"tc": tc_geo, "cuda": ("cuda",)}
-        vb = v.reshape(B, n)
-        calls = {r: (lambda geo=geo: cuda_nufft._nufft1_3d_on(
-            x, vb, hq, m, fo, geo)) for r, geo in geos.items()}
+        on = getattr(cuda_nufft, f"_{name}_on")
+        ab = arg.reshape(B, n if kind == "1" else m ** 3)
+        calls = {r: (lambda geo=geo: on(x, ab, hq, m, fo, geo))
+                 for r, geo in geos.items()}
         out = {"dispatch": pick[0], "twin_rel_diff": None}
         for r, call in calls.items():
-            what = f"nufft1_3d ({r}) B={B} n={n} mtot={m}"
+            what = f"{name} ({r}) B={B} n={n} mtot={m}"
             sync()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -914,8 +926,18 @@ def main() -> int:
             check(np.isfinite(rel) and rel <= 1e-4,
                   f"{what}: error {rel:.3e} of max|ref| > 1e-4")
             check(torch.equal(call(), o), f"{what}: a second launch differs")
-            check(scratch < 256e6, f"{what}: scratch {scratch} bytes >= 256 "
-                  "MB")
+            # under 256 MB; the tensor-core type-2's split f (268 MB at
+            # mtot 255 and B 1, growing with B) and partials under 300 MB
+            # at the driven shapes, and no more than its geometry counts
+            limit = 256e6
+            if r == "tc" and kind == "2":
+                limit = 300e6
+                counted = 4 * cuda_nufft.type2_3d_scratch_floats(
+                    n, m, B, tc_geo) + 2 ** 21
+                check(scratch < counted, f"{what}: scratch {scratch} bytes "
+                      f">= its geometry's {counted:.0f}")
+            check(scratch < limit,
+                  f"{what}: scratch {scratch} bytes >= {limit:.0f}")
             if r == pick[0]:
                 check(torch.equal(o.reshape(got.shape), got),
                       f"{what}: the wrapper's result is not this kernel's")
@@ -924,8 +946,11 @@ def main() -> int:
                       f"{what}: error {rel:.3e} over max(2 x the plain "
                       f"version's, 1e-6) = {split_bar:.3e}")
                 if twin_ok:
-                    twin = cuda_nufft.nufft1_3d_3xtf32_ref(x, vb, hq, mtot=m,
-                                                           fft_order=fo)
+                    twin = (cuda_nufft.nufft1_3d_3xtf32_ref(
+                        x, ab, hq, mtot=m, fft_order=fo) if kind == "1"
+                        else cuda_nufft.nufft2_3d_3xtf32_ref(
+                            x, ab, hq, mtot=m, fft_order=fo,
+                            geometry=tc_geo))
                     diff = float((o - twin).abs().max())
                     del twin
                     check(diff <= 2 * split_bar * scale,
@@ -939,11 +964,11 @@ def main() -> int:
         ms = time_cuda_paths(calls, reps, max(trials, 3))
         out["tc_ms"], out["cuda_core_ms"] = ms["tc"], ms["cuda"]
         out["geometry"] = list(tc_geo[1:])
-        out["bound_3xtf32_ms"] = bound_3xtf32_ms("nufft1_3d", n, m, B)[0]
+        out["bound_3xtf32_ms"] = bound_3xtf32_ms(name, n, m, B)[0]
         faster = min(ms, key=ms.get)
         check(ms[pick[0]] <= max(ms[faster] * (1 + DISPATCH_TIE[0]),
                                  ms[faster] + DISPATCH_TIE[1]),
-              f"nufft1_3d B={B} n={n} mtot={m}: the pick {pick[0]} takes "
+              f"{name} B={B} n={n} mtot={m}: the pick {pick[0]} takes "
               f"{ms[pick[0]]:.4f} ms, {faster} {ms[faster]:.4f}")
         twin = ("not run (its float32 phase products past 1e9 values)"
                 if out["twin_rel_diff"] is None
@@ -1172,19 +1197,21 @@ def main() -> int:
                 row["scratch_bytes"] = scratch
                 extra = (f" scratch {groups} groups {scratch / 1e6:.3f} MB "
                          f"(measured)")
-                if dtype == torch.float32:
-                    split_bar = max(2 * plain_rel, 1e-6)
-                    t1, line = type1_3d_both(x, arg, hq, m, fo, n, B, ref,
-                                             scale, got, split_bar, reps,
-                                             trials, B * n * m * m <= 1e9)
-                    row.update(t1)
-                    row["split_bar"] = split_bar
-                    row["bound_fp32_ms"] = b_ms
-                    if t1["dispatch"] == "tc":
-                        row["bound_ms"], row["bound_by"] = (
-                            t1["bound_3xtf32_ms"], "operations")
-                        b_by = "fp32 operations"
-                    extra += line
+            if d == 3 and dtype == torch.float32:
+                # both kernels of the d=3 function (the tensor cores' twin
+                # where its float32 operand stays under 1e9 values)
+                split_bar = max(2 * plain_rel, 1e-6)
+                t3, line = tc_3d_both(name, x, arg, hq, m, fo, n, B, ref,
+                                      scale, got, split_bar, reps, trials,
+                                      B * n * m * m <= 1e9)
+                row.update(t3)
+                row["split_bar"] = split_bar
+                row["bound_fp32_ms"] = b_ms
+                if t3["dispatch"] == "tc":
+                    row["bound_ms"], row["bound_by"] = (
+                        t3["bound_3xtf32_ms"], "operations")
+                    b_by = "fp32 operations"
+                extra += line
             phase3.append(row)
             print(f"[3] {name} {row['dtype']} B={B} n={n} mtot={m} "
                   f"fft_order={fo} ({what}): max_abs_err={err:.3e} "
@@ -1829,6 +1856,30 @@ def main() -> int:
     y3 = torch.as_tensor(yd3, dtype=torch.float32, device=dev)
     xq3 = torch.as_tensor(xqd3, dtype=torch.float32, device=dev)
 
+    def type2_3d_on_cuda_cores(fn):
+        """fn() with nufft2_3d's float32 calls sent to the CUDA-core kernel
+        (the dispatch replaced for the call): the control of the d=3
+        gradients' accuracy watch, on the same inputs and probes."""
+        keep = cuda_nufft.type2_3d_geometry
+        cuda_nufft.type2_3d_geometry = lambda n, mtot, B=1: ("cuda",)
+        try:
+            return fn()
+        finally:
+            cuda_nufft.type2_3d_geometry = keep
+
+    def watch_line(tag, rel, rel_cc):
+        """The accuracy watch's line: a gradient's relative error per
+        component with the type-2 as dispatched and on the CUDA cores, and
+        their ratio (a move past 2x is named)."""
+        ratio = [a / b if b > 0 else float("inf") for a, b in
+                 zip(rel, rel_cc)]
+        moved = [i for i, r in enumerate(ratio) if not 0.5 <= r <= 2]
+        return (f"{tag} gradient rel err vs float64 per component: type-2 "
+                f"as dispatched [{', '.join(f'{r:.3e}' for r in rel)}], on "
+                f"the CUDA cores [{', '.join(f'{r:.3e}' for r in rel_cc)}], "
+                f"ratio [{', '.join(f'{r:.2f}' for r in ratio)}]"
+                + (f"; components {moved} moved past 2x" if moved else ""))
+
     def fused3(x, y, xq, method, seed=0):
         return gpquad_torch.fit_predict_grad(
             x, y, xq, kern_d3, sigmasq, h_d3,
@@ -1978,6 +2029,14 @@ def main() -> int:
           f"d3 kron variance error {d3k_err_var:.3e} > 5e-2 * max|var64|")
     check(all(r <= 5e-2 for r in d3k_grad_rel),
           f"d3 kron gradient relative error {d3k_grad_rel} > 5e-2")
+    # the accuracy watch: both calls' gradients again with the type-2 on
+    # the CUDA cores (same inputs, generator seed and float64 runs)
+    d3_grad_rel_cc = rel_to(type2_3d_on_cuda_cores(
+        lambda: fused3(x3, y3, xq3, "auto")).grad, out3_64.grad)
+    d3k_grad_rel_cc = rel_to(type2_3d_on_cuda_cores(
+        lambda: fused3k(x3, y3, xq3, "auto")).grad, out3k_64.grad)
+    print(watch_line("[6] d3 Jacobi", d3_grad_rel, d3_grad_rel_cc))
+    print(watch_line("[6] d3 kron", d3k_grad_rel, d3k_grad_rel_cc))
     record["phases"]["d3"] = dict(
         var_max_cg_iter=D3_VAR_MAX_CG_ITER, var_solves=var_solves,
         mtot=mtot_d3, M=mtot_d3 ** 3, launches=launches_d3,
@@ -1989,13 +2048,15 @@ def main() -> int:
                   trace_cg_iters=int(out3k.trace_cg_iters),
                   var_solves=var_solves_k, err_mean=d3k_err_mean,
                   err_var=d3k_err_var, max_abs_var64=d3k_var_scale,
-                  grad_rel_err=d3k_grad_rel),
+                  grad_rel_err=d3k_grad_rel,
+                  grad_rel_err_type2_cuda_cores=d3k_grad_rel_cc),
         mean_cg_iters=int(out3.mean_cg_iters),
         mean_cg_iters_f64=int(out3_64.mean_cg_iters),
         trace_cg_iters=int(out3.trace_cg_iters),
         trace_cg_iters_f64=int(out3_64.trace_cg_iters),
         err_mean=d3_err_mean, err_var=d3_err_var,
         max_abs_var64=d3_var_scale, grad_rel_err=d3_grad_rel,
+        grad_rel_err_type2_cuda_cores=d3_grad_rel_cc,
         grad_f32=out3.grad.tolist(), grad_f64=out3_64.grad.tolist())
     phase_s["6"] = time.perf_counter() - t_phase
     print(f"[6] phase wall time {phase_s['6']:.1f} s")
@@ -2114,6 +2175,17 @@ def main() -> int:
               for k, v in g4_vs_tight.items())
           + f"; f32 cg_tol 1e-6 trace PCG iters "
           f"{int(g4_tight.trace_cg_iters)}")
+    # the accuracy watch: both f32 gradients with the type-2 on the CUDA
+    # cores (same state, probes and reference)
+    g4_watch = {}
+    for tol_tag, g_, tol in (("cg_tol 1e-4", g4, FUSED_KW["grad_cg_tol"]),
+                             ("cg_tol 1e-6", g4_tight, 1e-6)):
+        g_cc = type2_3d_on_cuda_cores(lambda: grad_h3(x4, y4, s4, "auto",
+                                                      tol))
+        g4_watch[tol_tag] = (rel_to(g_.grad, g4_ref),
+                             rel_to(g_cc.grad, g4_ref))
+        print(watch_line(f"[7] hard3d f32 {tol_tag} (against float64 "
+                         "solved to 1e-10)", *g4_watch[tol_tag]))
     record["phases"]["hard3d"] = dict(
         mtot=s4.mtot, M=M4, precond_rank=rank, iters=iters_h3,
         iters_f64=int(s4_64.mean_cg_iters), fit_mean_s=t4,
@@ -2124,7 +2196,8 @@ def main() -> int:
         grad_trace_iters=int(g4.trace_cg_iters),
         grad_trace_iters_f64=int(g4_64.trace_cg_iters),
         grad_converged=g4_conv, launches_grad=launches_g4,
-        grad_rel_err=g4_rel, grad_rel_err_vs_tight_f64=g4_vs_tight)
+        grad_rel_err=g4_rel, grad_rel_err_vs_tight_f64=g4_vs_tight,
+        grad_rel_err_watch=g4_watch)
     phase_s["7"] = time.perf_counter() - t_phase
     print(f"[7] phase wall time {phase_s['7']:.1f} s")
 
@@ -2842,7 +2915,7 @@ def main() -> int:
                  "nufft1_2d_batched": (mtot_head, False),
                  "nufft2_2d_batched": (mtot_head, False)}
     rows = []
-    # the d=3 type-1's two kernels (phase 3's type1_3d_both)
+    # the d=3 functions' two kernels each (phase 3's tc_3d_both)
     TC3_KEYS = ("dispatch", "tc_ms", "cuda_core_ms", "tc_rel_err",
                 "cuda_core_rel_err", "bound_fp32_ms", "bound_3xtf32_ms")
 
@@ -2920,7 +2993,7 @@ def main() -> int:
             extra = {"launches": launches_d3[name],
                      "launches_hard3d": launches_h3[name]
                      + launches_var4[name] + launches_g4[name]}
-            if name == "nufft1_3d":
+            if name in KERNELS_3D:
                 # both kernels' card times on the same inputs, the 3xTF32
                 # bound (bound_ms where the tensor cores are picked) beside
                 # the fp32 one, at every call phase 3 makes
@@ -2960,7 +3033,7 @@ def main() -> int:
                          tiled_counts(widths_grad10)[tpu],
                      "launches_scale_adam_loop":
                          tiled_counts(widths_loop10)[tpu]}
-        if kernel == "nufft1_3d":
+        if kernel in KERNELS_3D:
             extra.update({k: row[k] for k in TC3_KEYS})
         if kernel == "nufft2_2d":
             keys = ("dispatch", "fastest", "tc_ms", "split_ms", "cuda_ms")

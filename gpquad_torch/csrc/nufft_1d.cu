@@ -376,6 +376,8 @@ constexpr int T2S_K = 32;
 struct Type2Split1D {
   using X = float;
   static constexpr bool kWholeStages = false;   // red_len: multiples of 8
+  static constexpr bool kStagePhases = false;
+  static constexpr bool kSplitK = false;
   static __device__ void point(X xp, float h, float* a, float* b) {
     *a = torus_split(xp, h, b);
   }
@@ -428,9 +430,9 @@ int gpq_nufft2_1d_tc_f32(const void* x, const void* f, float h, int n, int m,
                          void* out, void* stream) {
   if (k != T2S_K) return (int)cudaErrorInvalidValue;
   // both tile widths: 32 (one vector's columns) and 128
-  return launch_type2_tc<Type2Split1D>(x, f, h, n, m, nb, fft_order, points,
-                                       cols, stage, 3, scratch,
-                                       scratch_floats, out, stream);
+  return launch_type2_tc<Type2Split1D, 3>(x, f, h, n, m, nb, fft_order,
+                                          points, cols, stage, 1, scratch,
+                                          scratch_floats, out, stream);
 }
 
 int gpq_nufft2_1d_f64(const void* x, const void* f, double h, int n, int m,

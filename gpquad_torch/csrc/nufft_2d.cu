@@ -425,6 +425,8 @@ struct Type1Grid2D {
 struct Type2Grid2D {
   using X = float2;
   static constexpr bool kWholeStages = true;   // red_len: multiples of 32
+  static constexpr bool kStagePhases = false;
+  static constexpr bool kSplitK = false;
   static __device__ void point(X xp, float h, float* a, float* b) {
     *a = torus(xp.x, h);
     *b = torus(xp.y, h);
@@ -579,9 +581,9 @@ int gpq_nufft2_2d_batched_tc_f32(const void* x, const void* f, float h,
                                  void* out, void* stream) {
   // the one tile width of the d=2 geometry (ops/cuda_nufft.py
   // type2_2d_geometry): 128 columns
-  return launch_type2_tc<Type2Grid2D>(x, f, h, n, m, nb, fft_order, points,
-                                      cols, stage, 2, scratch,
-                                      scratch_floats, out, stream);
+  return launch_type2_tc<Type2Grid2D, 2>(x, f, h, n, m, nb, fft_order,
+                                         points, cols, stage, 1, scratch,
+                                         scratch_floats, out, stream);
 }
 
 int gpq_nufft2_2d_batched_f64(const void* x, const void* f, double h, int n,

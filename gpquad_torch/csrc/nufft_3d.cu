@@ -20,11 +20,18 @@
 // What bounds them on an H100: per point and vector both do mtot^3 complex
 // multiply-adds (8 flops each) against 12 bytes of point data and 8 bytes of
 // value, so they are bound by operations (fp32 outside the tensor cores), not
-// by bytes.  At mtot 61 that is 227k multiply-adds per point.  This first
-// version keeps the multiply-adds in registers fed by broadcast reads of
-// shared memory, and makes each phase a small share of them:
+// by bytes.  At mtot 61 that is 227k multiply-adds per point.  The float32
+// paths the geometry sends there run on the tensor cores (3xTF32); the
+// CUDA-core kernels keep the multiply-adds in registers fed by broadcast
+// reads of shared memory, and make each phase a small share of them:
 //
-//  - nufft2_3d: one point per thread (or per G threads, below).  For a tile
+//  - nufft2_3d in float32 (where ops/cuda_nufft.py type2_3d_geometry sends
+//    it): tc_type2.cuh's tensor-core kernel (3xTF32) on Type2Grid3D below,
+//    a GEMM over the points' (j2, j3) phases whose columns are (b, j1),
+//    the sum over j1 in its epilogue;
+//  - nufft2_3d on the CUDA cores (float64, the float32 shapes the geometry
+//    keeps there, and the control phase 3 times beside the tensor cores):
+//    one point per thread (or per G threads, below).  For a tile
 //    of TK third-axis modes the point's e3 phases live in registers; for a
 //    slab of TJ1 first-axis modes the thread keeps TJ1 partial sums
 //    u[j1] = sum_{j2} e2(j2) sum_{j3 in tile} e3(j3) f[j1,j2,j3]; the f tile
@@ -65,7 +72,7 @@
 
 #include <algorithm>
 
-#include "tc_type1.cuh"
+#include "tc_type2.cuh"
 
 namespace {
 
@@ -501,6 +508,72 @@ struct Type1Grid3D {
   }
 };
 
+// ---------------------------------------------------------------------------
+// type-2 in float32 on the tensor cores: tc_type2.cuh's kernel on the d=3
+// problem.  gpquad contracts only j3 on the MXU (pallas_nufft.py
+// _type2_3d_kernel, dot(fre, c3.T)) and leaves mtot^2 products a point and
+// vector to the VPU; here the GEMM's reduction runs over the pairs (j2,
+// j3), j3 padded to J3 = a multiple of 32 so that a stage of 32 modes is
+// one j2 and 32 modes j3, in the order k = (jb m + j2) 32 + j3 % 32 (jb =
+// j3 / 32): a run of m stages holds one block of 32 modes j3.
+//   eA(p, k) = e2(p, j2) e3(p, j3), the product of two folded phases
+//   (phase() of the torus coordinate, as the CUDA-core kernel makes each):
+//   tc_type2.cuh's per-stage phase source makes e2 once a stage at a
+//   thread's two points and e3 once a run at its quads' modes;
+//   the columns are (b, j1), each vector's j1 padded to a multiple of 32,
+//   in tiles of 32 or 64; eE = e1.
+// The reduction is long (m J3 modes: 992 at mtot 31, 3 904 at 61), so the
+// stages of a column tile are many; for few points the launch splits them
+// over a grid axis (kSplitK; ops/cuda_nufft.py type2_3d_geometry).
+// ---------------------------------------------------------------------------
+struct Type2Grid3D {
+  using X = float3;
+  static constexpr bool kWholeStages = true;   // red_len: multiples of 32
+  static constexpr bool kStagePhases = true;
+  static constexpr bool kSplitK = true;
+  static __host__ __device__ int j3_len(int m) { return (m + 31) / 32 * 32; }
+  static __device__ void point(X xp, float h, float* a, float* b, float* c) {
+    *a = torus(xp.x, h);
+    *b = torus(xp.y, h);
+    *c = torus(xp.z, h);
+  }
+  static __device__ int inner_run(int st, int m) { return st / m; }
+  static __device__ float inner_mode(int run, int kk, int m, int fft_order,
+                                     bool* ok) {
+    const int j3 = run * T2C_KS + kk;
+    *ok = j3 < m;
+    return mode_value<float>(j3, m, fft_order);
+  }
+  static __device__ float outer_mode(int st, int m, int fft_order) {
+    return mode_value<float>(st % m, m, fft_order);
+  }
+  static __device__ void inner_phase(float, float, float u3, float kv,
+                                     float* c, float* s) {
+    phase(u3, kv, c, s);
+  }
+  static __device__ void outer_phase(float, float u2, float, float kv,
+                                     float* c, float* s) {
+    phase(u2, kv, c, s);
+  }
+  static __device__ void prod(float2 a, float2 b, float* c, float* s) {
+    Type1Grid3D::prod(a, b, c, s);
+  }
+  static __device__ int epi_cols(int m) { return m; }
+  static __device__ void epi_phase(float u1, float, int j, int m,
+                                   int fft_order, float* c, float* s) {
+    phase(u1, mode_value<float>(j, m, fft_order), c, s);
+  }
+  static int red_len(int m) { return m * j3_len(m); }
+  static int cols(int m) { return (m + 31) / 32 * 32; }
+  static __device__ float2 coef(const float2* __restrict__ f, int b, int j,
+                                int k, int m, int) {
+    const int st = k / T2C_KS;
+    const int j2 = st % m, j3 = st / m * T2C_KS + k % T2C_KS;
+    return j < m && j3 < m ? f[(((size_t)b * m + j) * m + j2) * m + j3]
+                           : make_float2(0.f, 0.f);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -513,6 +586,21 @@ int gpq_nufft2_3d_f32(const void* x, const void* f, float h, int n, int m,
 int gpq_nufft2_3d_f64(const void* x, const void* f, double h, int n, int m,
                       int nb, int fft_order, void* out, void* stream) {
   return launch_nufft2<double>(x, f, h, n, m, nb, fft_order, out, stream);
+}
+
+// float32 on the tensor cores, with the caller's geometry (ops/cuda_nufft.py
+// type2_3d_geometry: points a block, columns a tile (32 or 64: at 128 the
+// stage buffers, T and the per-stage phase source's table pass the 227 KB
+// of shared memory a block may take), modes a stage, splits of the
+// stages); the scratch holds the split f and, for two splits or more,
+// their partials
+int gpq_nufft2_3d_tc_f32(const void* x, const void* f, float h, int n, int m,
+                         int nb, int fft_order, int points, int cols,
+                         int stage, int splits, void* scratch,
+                         long long scratch_floats, void* out, void* stream) {
+  return launch_type2_tc<Type2Grid3D, 5>(x, f, h, n, m, nb, fft_order,
+                                         points, cols, stage, splits, scratch,
+                                         scratch_floats, out, stream);
 }
 
 int gpq_nufft1_3d_f32(const void* x, const void* v, float h, int n, int m,

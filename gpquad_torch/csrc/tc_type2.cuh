@@ -1,8 +1,8 @@
 // The float32 type-2 NUFFT on the tensor cores, shared by nufft_2d.cu (the
-// d=2 type-2, batched and at B 1 for the single) and nufft_1d.cu (the d=1
-// type-2 on a split of its mode index): one kernel,
-// type2_tc_kernel<P, NT>, whose problem type P says what its reduction
-// modes, its columns and its point coordinates are.
+// d=2 type-2, batched and at B 1 for the single), nufft_1d.cu (the d=1
+// type-2 on a split of its mode index) and nufft_3d.cu (the d=3 type-2):
+// one kernel, type2_tc_kernel<P, NT>, whose problem type P says what its
+// reduction modes, its columns and its point coordinates are.
 //
 // For the block's P points (e = e^{+2 pi i c}, complex):
 //   T[p, (b, j)] = sum_k eA(p, k) F_b[j, k]      a GEMM over the modes k,
@@ -27,7 +27,12 @@
 //    cropped; each point makes K + Q phases, not mtot, each from the torus
 //    coordinate and the rounding error of t = x*h (phase_split).  The q
 //    are padded to whole k-steps of 8 only: a stage of 32 modes may end
-//    early.
+//    early;
+//  - d=3 (nufft_3d.cu Type2Grid3D): k the pairs (j2, j3), j3 padded to a
+//    multiple of 32 so that a stage is one j2 and 32 modes j3; eA = e2 e3,
+//    a product of two folded phases from a per-stage phase source (below);
+//    j the modes of the first axis (eE = e1); the reduction may be split
+//    over a grid axis for few points (P::kSplitK, below).
 //
 // Operands:
 //  - A = eA (points x modes) is made on chip and never written to device
@@ -44,17 +49,30 @@
 //    columns are (b, j), each vector's padded to mq (a multiple of the
 //    epilogue's chunk); at d=2, B 10 and mtot 339 the scratch takes 20 MB,
 //    which stays in the L2.
+//  - The per-stage phase source (P::kStagePhases, d=3): eA(p, k) =
+//    eO(p, st) eI(p, k % 32), an outer phase at one mode a stage st and an
+//    inner phase at one of 32 modes that repeat over a run of stages.  A
+//    thread's A quads are the same two points g, g + 8 and the same modes
+//    of a stage in every stage, so it keeps their inner phases in its own
+//    slots of shared memory (T2cStaged, after T2cSmem), remade when the
+//    run changes, and makes its two points' outer phase once a stage: two
+//    phases and eight complex products a stage and thread, where the
+//    others make eight phases (t2c_make_staged).
 //
 // Block: 512 threads, P = 128 points, walking every column tile of NT
 // columns in order (NT 128, or 32 where one vector has 32 columns: the d=1
-// split at B 1); 16 warps in an 8 x 2 grid of 16 x NT/2 warp tiles (one
-// m-tile by NT/16 n-tiles).  A stage: start the copy of F's next stage into
-// the other buffer (cp.async), make eA's, wait for this stage's F,
-// multiply; one role, so the phases and the products of a block do not
-// overlap.  scripts/time_type2_batched.py takes the d=2 instance apart on
+// split at B 1; at d=3 32 or 64, whose shared memory leaves room for the
+// per-stage phase source's 33 KB); 16 warps in an 8 x 2 grid of 16 x NT/2
+// warp tiles (one m-tile by NT/16 n-tiles).  A stage: start the copy of F's
+// next stage into the other buffer (cp.async), make eA's, wait for this
+// stage's F, multiply; one role, so the phases and the products of a block
+// do not overlap.  Where P::kSplitK, grid axis y cuts the stages into as
+// many runs of whole stages, each block's epilogue writes its run's sums
+// to a partial of the output, and launch_reduce adds the partials in split
+// order.  scripts/time_type2_batched.py takes the d=2 instance apart on
 // the card (most of its time at scale is the products; mma.sync TF32
 // reaches only part of the dense rate), scripts/time_type2_1d.py the d=1
-// instance.
+// instance, scripts/time_type2_3d.py the d=3 one.
 //
 // The sum, in a fixed order and with no atomics:
 //  - a k-step's 8 modes in the mma accumulators, one chain of six mma
@@ -74,7 +92,8 @@
 // once per block.
 //
 // The caller owns the geometry (ops/cuda_nufft.py type2_2d_geometry,
-// type2_1d_geometry) and the launch refuses one it has no instance for.
+// type2_1d_geometry, type2_3d_geometry) and the launch refuses one it has
+// no instance for.
 //
 // The problem type P provides: X, the point's type in x; point(x, h, &a,
 // &b), its two coordinates; red_mode(k, m, fft_order, &ok) and
@@ -86,7 +105,15 @@
 // vector's columns in the scratch (whole epilogue chunks of every tile
 // width); kWholeStages, whether red_len is always a whole number of
 // stages (then every stage runs the same unrolled code); coef(f, b, j, k,
-// m, fft_order), F_b[j, k] or zero.
+// m, fft_order), F_b[j, k] or zero; kStagePhases and kSplitK, compile-time
+// switches of the per-stage phase source and the split reduction.  With
+// kStagePhases (and whole stages) P provides instead of point, red_mode
+// and red_phase: point(x, h, &a, &b, &c), three coordinates;
+// inner_run(st, m), the run of stage st; inner_mode(run, kk, m, fft_order,
+// &ok), the inner mode value at position kk of the run's stages (ok: it
+// has coefficients); outer_mode(st, m, fft_order); inner_phase and
+// outer_phase(a, b, c, kv, &c, &s); prod(e, f, &c, &s), the product of two
+// phases.
 #pragma once
 
 #include "tc_type1.cuh"
@@ -100,10 +127,13 @@ constexpr int T2C_WM = 8;          // warps along the points
 constexpr int T2C_EQ = T2C_THREADS / T2C_P;   // epilogue threads a point
 static_assert(T2C_P / 16 * (T2C_KS / 8) * 32 % T2C_THREADS == 0,
               "whole quads of eA a thread");
+// eA's quads a thread a whole stage
+constexpr int T2C_NQ = T2C_P / 16 * (T2C_KS / 8) * 32 / T2C_THREADS;
 
 template <int NT>
 struct T2cTile {
-  static_assert(NT == 32 || NT == 128, "tile widths: 32, 128");
+  static_assert(NT == 32 || NT == 64 || NT == 128,
+                "tile widths: 32, 64, 128");
   static constexpr int CHUNK = NT / T2C_EQ;   // columns of an epilogue sum
   static constexpr int TS = NT + 1;  // T's row stride (float2): odd, so a
                                      // warp's 32 points read 32 banks
@@ -126,6 +156,15 @@ struct T2cSmem {
   };
   float2 red[T2C_EQ][T2C_P];   // the chunks' sums
   float ua[T2C_P], ub[T2C_P];  // the points' coordinates (P::point)
+};
+
+// The per-stage phase source's shared memory (P::kStagePhases), after
+// T2cSmem: each thread's quads' inner phases, which only that thread
+// writes and reads ([quad][register][thread]: a warp's loads are
+// contiguous), and the points' third coordinates
+struct T2cStaged {
+  float2 inner[T2C_NQ][4][T2C_THREADS];
+  float uc[T2C_P];
 };
 
 // Where mode kk (0-7) of a k-step and part (0 big, 1 small) sit in F's
@@ -201,10 +240,32 @@ __global__ void type2_split_kernel(const float2* __restrict__ f, int m,
   im[t2c_pos(kk, 1)] = __uint_as_float(is);
 }
 
-// eA's A-fragment quad q of the stage at modes k0..: lane q % 32 = 4 g + t
-// of m-tile (q / 32) % (P / 16) and k-step q / (32 P / 16); registers a0
-// (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4) of cos and sin, each
-// split; zero where the mode has no coefficients
+// An A-fragment quad of eA's stage, lane 4 g + t of m-tile mt and k-step
+// ks: registers a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4) of cos
+// and sin, each split, one 16-byte store a part
+template <int NT>
+__device__ __forceinline__ void t2c_store_quad(T2cSmem<NT>& sm, int ks,
+                                               int mt, int lane,
+                                               const float (&c)[4],
+                                               const float (&s)[4]) {
+  uint4 cb, cs, sb, ss;
+  split3(c[0], &cb.x, &cs.x);
+  split3(c[1], &cb.y, &cs.y);
+  split3(c[2], &cb.z, &cs.z);
+  split3(c[3], &cb.w, &cs.w);
+  split3(s[0], &sb.x, &ss.x);
+  split3(s[1], &sb.y, &ss.y);
+  split3(s[2], &sb.z, &ss.z);
+  split3(s[3], &sb.w, &ss.w);
+  *reinterpret_cast<uint4*>(sm.st.a[ks][0][0][mt][lane]) = cb;
+  *reinterpret_cast<uint4*>(sm.st.a[ks][0][1][mt][lane]) = cs;
+  *reinterpret_cast<uint4*>(sm.st.a[ks][1][0][mt][lane]) = sb;
+  *reinterpret_cast<uint4*>(sm.st.a[ks][1][1][mt][lane]) = ss;
+}
+
+// eA's A-fragment quad q of the stage at modes k0..: lane q % 32 of m-tile
+// (q / 32) % (P / 16) and k-step q / (32 P / 16); zero where the mode has
+// no coefficients
 template <class P, int NT>
 __device__ __forceinline__ void t2c_make_quad(T2cSmem<NT>& sm, int q, int k0,
                                               int m, int fft_order) {
@@ -223,19 +284,56 @@ __device__ __forceinline__ void t2c_make_quad(T2cSmem<NT>& sm, int q, int k0,
     s[r] = 0.f;
     if (ok) P::red_phase(ua[r & 1], ub[r & 1], kv, &c[r], &s[r]);
   }
-  uint4 cb, cs, sb, ss;
-  split3(c[0], &cb.x, &cs.x);
-  split3(c[1], &cb.y, &cs.y);
-  split3(c[2], &cb.z, &cs.z);
-  split3(c[3], &cb.w, &cs.w);
-  split3(s[0], &sb.x, &ss.x);
-  split3(s[1], &sb.y, &ss.y);
-  split3(s[2], &sb.z, &ss.z);
-  split3(s[3], &sb.w, &ss.w);
-  *reinterpret_cast<uint4*>(sm.st.a[ks][0][0][mt][lane]) = cb;
-  *reinterpret_cast<uint4*>(sm.st.a[ks][0][1][mt][lane]) = cs;
-  *reinterpret_cast<uint4*>(sm.st.a[ks][1][0][mt][lane]) = sb;
-  *reinterpret_cast<uint4*>(sm.st.a[ks][1][1][mt][lane]) = ss;
+  t2c_store_quad<NT>(sm, ks, mt, lane, c, s);
+}
+
+// eA's stage st from the per-stage phase source (P::kStagePhases): thread
+// tid's quads tid + i T2C_THREADS (i < T2C_NQ) are of the same m-tile
+// (points g, g + 8) at k-steps ks_i; their inner phases are remade when
+// the stage's run is not `run` (the same for every thread), then each
+// register is the product of its point's outer phase and its inner phase
+template <class P, int NT>
+__device__ __forceinline__ void t2c_make_staged(T2cSmem<NT>& sm,
+                                                T2cStaged& sg, int& run,
+                                                int st, int m, int fft_order,
+                                                int tid) {
+  constexpr int MT = T2C_P / 16;
+  const int lane = tid & 31, mt = (tid >> 5) % MT;
+  const int p = mt * 16 + (lane >> 2);
+  const int r0 = P::inner_run(st, m);
+  if (r0 != run) {
+    run = r0;
+#pragma unroll
+    for (int i = 0; i < T2C_NQ; ++i) {
+      const int ks = ((tid + i * T2C_THREADS) >> 5) / MT;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int pp = p + (r & 1) * 8;
+        bool ok;
+        const float kv = P::inner_mode(r0, ks * 8 + (lane & 3) + (r >> 1) * 4,
+                                       m, fft_order, &ok);
+        float2 e = make_float2(0.f, 0.f);
+        if (ok)
+          P::inner_phase(sm.ua[pp], sm.ub[pp], sg.uc[pp], kv, &e.x, &e.y);
+        sg.inner[i][r][tid] = e;
+      }
+    }
+  }
+  const float ko = P::outer_mode(st, m, fft_order);
+  float2 eo[2];
+#pragma unroll
+  for (int g = 0; g < 2; ++g)
+    P::outer_phase(sm.ua[p + 8 * g], sm.ub[p + 8 * g], sg.uc[p + 8 * g], ko,
+                   &eo[g].x, &eo[g].y);
+#pragma unroll
+  for (int i = 0; i < T2C_NQ; ++i) {
+    float c[4], s[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      P::prod(eo[r & 1], sg.inner[i][r][tid], &c[r], &s[r]);
+    t2c_store_quad<NT>(sm, ((tid + i * T2C_THREADS) >> 5) / MT, mt, lane, c,
+                       s);
+  }
 }
 
 // The products of NKS k-steps of the stage in buffer `buf`: per k-step and
@@ -308,19 +406,26 @@ __device__ __forceinline__ void t2c_products(
 // stage (next_nks k-steps, if `more`) into the other buffer while this one
 // is used, eA's stage made and split (each thread whole A fragments, the
 // quads of lane (g, t) of an m-tile and k-step: points g and g + 8, modes t
-// and t + 4, one 16-byte store a part), then the products
+// and t + 4, one 16-byte store a part; from the per-stage phase source
+// where P::kStagePhases: sg, run), then the products
 template <class P, int NT, int NKS>
 __device__ __forceinline__ void t2c_stage(
     T2cSmem<NT>& sm,
     float (&acc)[T2C_P / T2C_WM / 16][NT / (T2C_THREADS / 32 / T2C_WM) / 8][8],
     const float4* __restrict__ fs, int ncp, int c0, int k0, bool more,
     int next_nks, int buf, int m, int fft_order, int tid, int lane, int wr,
-    int wc, int gq, int tq) {
+    int wc, int gq, int tq, T2cStaged* sg, int& run) {
   if (more)
     t2c_load_f<NT>(sm.st.b[buf ^ 1], fs, ncp, c0, k0 + T2C_KS, next_nks, tid);
+  if constexpr (P::kStagePhases) {
+    static_assert(P::kWholeStages && NKS == T2C_KS / 8,
+                  "the per-stage phase source takes whole stages");
+    t2c_make_staged<P, NT>(sm, *sg, run, k0 / T2C_KS, m, fft_order, tid);
+  } else {
 #pragma unroll
-  for (int q = tid; q < T2C_P / 16 * NKS * 32; q += T2C_THREADS)
-    t2c_make_quad<P, NT>(sm, q, k0, m, fft_order);
+    for (int q = tid; q < T2C_P / 16 * NKS * 32; q += T2C_THREADS)
+      t2c_make_quad<P, NT>(sm, q, k0, m, fft_order);
+  }
   if (more)
     cp_async_wait<1>();   // all but the next stage's copy
   else
@@ -342,6 +447,10 @@ type2_tc_kernel(const typename P::X* __restrict__ x,
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * T2C_P;
   const int ncols = nb * mq;
+  // the per-stage phase source's shared memory, after sm (P::kStagePhases)
+  T2cStaged* sg = nullptr;
+  if constexpr (P::kStagePhases)
+    sg = reinterpret_cast<T2cStaged*>(&sm + 1);
   // epilogue: point ep, chunk eq of the tile; the point's coordinates in
   // registers
   const int ep = tid % T2C_P, eq = tid / T2C_P;
@@ -349,7 +458,13 @@ type2_tc_kernel(const typename P::X* __restrict__ x,
   {
     typename P::X xp = {};
     if (p0 + ep < n) xp = x[p0 + ep];
-    P::point(xp, h, &ua, &ub);
+    if constexpr (P::kStagePhases) {
+      float uc;
+      P::point(xp, h, &ua, &ub, &uc);
+      if (tid < T2C_P) sg->uc[tid] = uc;
+    } else {
+      P::point(xp, h, &ua, &ub);
+    }
     if (tid < T2C_P) {
       sm.ua[tid] = ua;
       sm.ub[tid] = ub;
@@ -365,6 +480,18 @@ type2_tc_kernel(const typename P::X* __restrict__ x,
                 "the warp grid covers the block's tile");
   const int wr = (warp / WN) * (MI * 16), wc = (warp % WN) * (NI * 8);
   const int nst = (kq + T2C_KS - 1) / T2C_KS;
+  // the block's stages st0 .. st1 - 1: all, or where P::kSplitK the
+  // run of grid row y (whole stages, none empty: the launch checks), whose
+  // sums go to partial y of the output
+  int st0 = 0, st1 = nst;
+  if constexpr (P::kSplitK) {
+    static_assert(P::kWholeStages, "a split takes whole stages");
+    const int per = (nst + gridDim.y - 1) / gridDim.y;
+    st0 = blockIdx.y * per;
+    st1 = min(nst, st0 + per);
+    out += (size_t)blockIdx.y * nb * n;
+  }
+  int run = -1;   // the run whose inner phases sg holds (P::kStagePhases)
 
   for (int c0 = 0; c0 < ncols; c0 += NT) {
     float acc[MI][NI][8];   // T: [m-tile][n-tile][re 4, im 4]
@@ -375,14 +502,15 @@ type2_tc_kernel(const typename P::X* __restrict__ x,
 #pragma unroll
         for (int c = 0; c < 8; ++c) acc[a][b][c] = 0.f;
     __syncthreads();   // the buffers are free (the last tile's epilogue)
-    t2c_load_f<NT>(sm.st.b[0], fs, ncp, c0, 0,
+    t2c_load_f<NT>(sm.st.b[0], fs, ncp, c0, st0 * T2C_KS,
                    P::kWholeStages ? T2C_KS / 8 : min(T2C_KS, kq) / 8, tid);
-    for (int st = 0; st < nst; ++st) {
+    for (int st = st0; st < st1; ++st) {
       const int k0 = st * T2C_KS;
       if constexpr (P::kWholeStages) {
-        t2c_stage<P, NT, T2C_KS / 8>(sm, acc, fs, ncp, c0, k0, st + 1 < nst,
-                                     T2C_KS / 8, st & 1, m, fft_order, tid,
-                                     lane, wr, wc, gq, tq);
+        t2c_stage<P, NT, T2C_KS / 8>(sm, acc, fs, ncp, c0, k0, st + 1 < st1,
+                                     T2C_KS / 8, (st - st0) & 1, m,
+                                     fft_order, tid, lane, wr, wc, gq, tq, sg,
+                                     run);
       } else {
         // the last stage of a d=1 split's q may hold 1-3 k-steps
         const int nks = min(T2C_KS, kq - k0) / 8;
@@ -391,16 +519,16 @@ type2_tc_kernel(const typename P::X* __restrict__ x,
         if (nks == T2C_KS / 8)
           t2c_stage<P, NT, T2C_KS / 8>(sm, acc, fs, ncp, c0, k0, next > 0,
                                        next, st & 1, m, fft_order, tid, lane,
-                                       wr, wc, gq, tq);
+                                       wr, wc, gq, tq, sg, run);
         else if (nks == 3)
           t2c_stage<P, NT, 3>(sm, acc, fs, ncp, c0, k0, false, 0, st & 1, m,
-                              fft_order, tid, lane, wr, wc, gq, tq);
+                              fft_order, tid, lane, wr, wc, gq, tq, sg, run);
         else if (nks == 2)
           t2c_stage<P, NT, 2>(sm, acc, fs, ncp, c0, k0, false, 0, st & 1, m,
-                              fft_order, tid, lane, wr, wc, gq, tq);
+                              fft_order, tid, lane, wr, wc, gq, tq, sg, run);
         else
           t2c_stage<P, NT, 1>(sm, acc, fs, ncp, c0, k0, false, 0, st & 1, m,
-                              fft_order, tid, lane, wr, wc, gq, tq);
+                              fft_order, tid, lane, wr, wc, gq, tq, sg, run);
       }
     }
     // the epilogue: T to shared memory (C fragment c0 (g, 2t), c1 (g, 2t+1),
@@ -457,45 +585,68 @@ type2_tc_kernel(const typename P::X* __restrict__ x,
 template <class P, int NT>
 int launch_type2_tc_cols(const void* x, const void* scratch, float h, int n,
                          int m, int nb, int fft_order, int kq, int mq,
-                         int ncp, void* out, cudaStream_t s) {
-  constexpr int smem = sizeof(T2cSmem<NT>);
+                         int ncp, int splits, void* out, cudaStream_t s) {
+  constexpr int smem =
+      sizeof(T2cSmem<NT>) + (P::kStagePhases ? sizeof(T2cStaged) : 0);
   int err = (int)cudaFuncSetAttribute(
       type2_tc_kernel<P, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != 0) return err;
-  type2_tc_kernel<P, NT><<<(n + T2C_P - 1) / T2C_P, T2C_THREADS, smem, s>>>(
+  const dim3 grid((n + T2C_P - 1) / T2C_P, splits);
+  type2_tc_kernel<P, NT><<<grid, T2C_THREADS, smem, s>>>(
       (const typename P::X*)x, (const float4*)scratch, h, n, m, nb,
       fft_order, kq, mq, ncp, (float2*)out);
   return (int)cudaGetLastError();
 }
 
-// The caller's geometry (points a block, columns a tile, modes a stage)
-// checked against the instances there are (tile widths `widths`: bit 0 for
-// 32, bit 1 for 128), and the split F's scratch (scratch_floats floats)
-// against what it must hold; then the split and the kernel
-template <class P>
+// The caller's geometry (points a block, columns a tile, modes a stage,
+// splits of the stages) checked against the instances there are (tile
+// widths WIDTHS: bit 0 for 32, bit 1 for 128, bit 2 for 64; splits only
+// where P::kSplitK, none empty), and the scratch (scratch_floats floats)
+// against what it must hold: the split F, then, for two splits or more,
+// their partials (splits x nb x n values); then the split, the kernel and
+// the partials' sum in split order
+template <class P, int WIDTHS>
 int launch_type2_tc(const void* x, const void* f, float h, int n, int m,
                     int nb, int fft_order, int points, int cols, int stage,
-                    int widths, void* scratch, long long scratch_floats,
+                    int splits, void* scratch, long long scratch_floats,
                     void* out, void* stream) {
-  const int bit = cols == 32 ? 1 : cols == 128 ? 2 : 0;
-  if (points != T2C_P || stage != T2C_KS || !(bit & widths))
+  const int bit = cols == 32 ? 1 : cols == 128 ? 2 : cols == 64 ? 4 : 0;
+  if (points != T2C_P || stage != T2C_KS || !(bit & WIDTHS))
     return (int)cudaErrorInvalidValue;
   const int kq = P::red_len(m), mq = P::cols(m);
   const long long ncp = ((long long)nb * mq + cols - 1) / cols * cols;
-  if (ncp * kq >= (1LL << 31) || ncp * kq * 4 > scratch_floats)
+  const int nst = (kq + T2C_KS - 1) / T2C_KS;
+  if (splits < 1 || (splits > 1 && !P::kSplitK))
+    return (int)cudaErrorInvalidValue;
+  const int per = (nst + splits - 1) / splits;   // stages a split
+  if ((nst + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
+  const long long fsz = ncp * kq * 4;
+  const long long psz = splits > 1 ? 2LL * splits * nb * n : 0;
+  if (ncp * kq >= (1LL << 31) || fsz + psz > scratch_floats ||
+      (long long)nb * n >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long cells = ncp * kq;
-  type2_split_kernel<P><<<(unsigned)((cells + 255) / 256), 256, 0, s>>>(
+  type2_split_kernel<P><<<(unsigned)((ncp * kq + 255) / 256), 256, 0, s>>>(
       (const float2*)f, m, nb, fft_order, kq, mq, (int)ncp, (float*)scratch);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  if (cols == 32)
-    return launch_type2_tc_cols<P, 32>(x, scratch, h, n, m, nb, fft_order,
-                                       kq, mq, (int)ncp, out, s);
-  return launch_type2_tc_cols<P, 128>(x, scratch, h, n, m, nb, fft_order,
-                                      kq, mq, (int)ncp, out, s);
+  void* dst = splits > 1 ? (void*)((float*)scratch + fsz) : out;
+  err = (int)cudaErrorInvalidValue;
+  if constexpr ((WIDTHS & 1) != 0)
+    if (cols == 32)
+      err = launch_type2_tc_cols<P, 32>(x, scratch, h, n, m, nb, fft_order,
+                                        kq, mq, (int)ncp, splits, dst, s);
+  if constexpr ((WIDTHS & 4) != 0)
+    if (cols == 64)
+      err = launch_type2_tc_cols<P, 64>(x, scratch, h, n, m, nb, fft_order,
+                                        kq, mq, (int)ncp, splits, dst, s);
+  if constexpr ((WIDTHS & 2) != 0)
+    if (cols == 128)
+      err = launch_type2_tc_cols<P, 128>(x, scratch, h, n, m, nb, fft_order,
+                                         kq, mq, (int)ncp, splits, dst, s);
+  if (err != 0 || splits == 1) return err;
+  return launch_reduce<float>(dst, splits, nb * n, out, s);
 }
 
 }  // namespace

@@ -46,12 +46,15 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   the type-1 runs, where :func:`type1_3d_geometry` sends it, on the d=2
   type-1's tensor-core kernel with rows (r, j3) and columns (q, j2) of a
   split of the first axis's mode, k1 = S q + r
-  (:func:`nufft1_3d_3xtf32_ref` is its plain twin).
+  (:func:`nufft1_3d_3xtf32_ref` is its plain twin), and the type-2, where
+  :func:`type2_3d_geometry` sends it, on the d=2 type-2's tensor-core
+  kernel as a GEMM over the pairs (j2, j3) with columns (vector, j1) and
+  the sum over j1 in its epilogue (:func:`nufft2_3d_3xtf32_ref`).
 
 All are bound by operations on an H100 (complex multiply-adds, ~8 mtot^d
 flops per point and vector, and at d=1 the phases themselves): fp32 outside
 the tensor cores, but for the float32 paths on the tensor cores (the type-1
-at d=1-3, the d=2 type-2 and the d=1 type-2), which take three TF32
+and the type-2 at d=1-3), which take three TF32
 products per real product; the sources say how the designs stage the work.  The wrappers take a tensor on the CPU to the plain
 version (``*_ref``, the phase-matrix backend of ``ops/nufft.py``); on a
 CUDA tensor they launch the kernel or raise.
@@ -93,7 +96,9 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "type2_2d_single_geometry",
            "type2_2d_scratch_floats", "type1_3d_groups",
            "type1_3d_geometry", "type1_3d_tc_geometry", "type1_3d_split",
-           "nufft1_3d_3xtf32_ref",
+           "nufft1_3d_3xtf32_ref", "nufft2_3d_3xtf32_ref",
+           "type2_3d_geometry", "type2_3d_tc_geometry",
+           "type2_3d_scratch_floats", "type2_3d_split",
            "CudaNUFFT", "LAUNCHES",
            "LAUNCH_WIDTHS", "build", "library_path"]
 
@@ -113,6 +118,9 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpquad_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 TYPE1_CHUNK = 2048
+# the card's streaming multiprocessors (an H100 SXM's 132), on which the
+# tensor-core geometries below count their waves of blocks
+CARD_SMS = 132
 # the d=3 type-1 sums its chunks in groups, enough for about this many blocks
 TYPE1_3D_BLOCKS = 1056
 # The geometry of the float32 d=2 type-1 (csrc/tc_type1.cuh
@@ -121,21 +129,21 @@ TYPE1_3D_BLOCKS = 1056
 # output tiles of 64 rows (one vector's 64 modes j, or two vectors' 32) by
 # 128 modes k, or by 32 up to mtot 64 (where a wide tile is mostly padding),
 # runs of 1024 points, and point groups for about this many blocks (four
-# waves of one block on each of the card's 132 SMs)
+# waves of one block on each of the card's CARD_SMS SMs)
 TYPE1_2D_ROWS, TYPE1_2D_COLS, TYPE1_2D_RUN = 64, 128, 1024
 TYPE1_2D_NARROW_COLS = 32
 # points a sum of k-steps in fp32 registers (each k-step of 8 points a chain
 # in the tensor cores' accumulators), then added into a run
 TYPE1_2D_STAGE = 256
-TYPE1_2D_BLOCKS = 528
+TYPE1_2D_BLOCKS = 4 * CARD_SMS
 TYPE1_2D_BATCH_GROUP = 2
 # The float32 d=1 type-1 takes the same kernel (csrc/tc_type1.cuh) on a
 # split of its mode index (type1_1d_geometry): the tile, stage and batch
 # group above, runs of this many points, and point groups for about one
-# wave of blocks (one on each of the card's 132 SMs): at the light curve's
-# calls that was 10-14% faster than four waves (scripts/time_type1_1d.py)
+# wave of blocks (one on each of the card's CARD_SMS SMs): at the light
+# curve's calls that was 10-14% faster than four waves
+# (scripts/time_type1_1d.py)
 TYPE1_1D_RUN = 256
-TYPE1_1D_BLOCKS = 132
 # The float32 d=3 type-1 takes the same kernel on nufft_3d.cu's Type1Grid3D
 # (type1_3d_geometry): rows (r, j3), columns (q, j2) of the split k1 = S q +
 # r, the d=2 type-1's tiles, stage, runs and point groups; its dispatch from
@@ -143,10 +151,9 @@ TYPE1_1D_BLOCKS = 132
 # mtot (the wide column tiles' table fits to 64), the CUDA cores past it
 TYPE1_3D_TC_MAX_MTOT = 64
 # its wide column tiles unless they give fewer blocks than one wave on the
-# card's 132 SMs and the narrow ones more (hard3d's F*y at 20 000 points:
-# 40 blocks of 64 x 128 against 120 of 64 x 32, 0.199 against 0.132 ms on
-# NVIDIA H100 80GB HBM3, 700 W, scripts/time_type1_3d.py)
-TYPE1_3D_MIN_BLOCKS = 132
+# card's CARD_SMS SMs and the narrow ones more (hard3d's F*y at 20 000
+# points: 40 blocks of 64 x 128 against 120 of 64 x 32, 0.199 against 0.132
+# ms on NVIDIA H100 80GB HBM3, 700 W, scripts/time_type1_3d.py)
 # The float32 batched d=2 type-2 on the tensor cores (csrc/tc_type2.cuh
 # type2_tc_kernel on nufft_2d.cu's Type2Grid2D), its geometry owned here
 # (type2_2d_geometry) and checked by its launch: blocks of 128 points
@@ -190,6 +197,35 @@ TYPE2_2D_SPLIT_THREADS, TYPE2_2D_SPLIT_ROWS = 64, 16
 TYPE2_2D_SPLIT_MIN_MTOT = 45
 TYPE2_2D_SPLIT_MAX_POINTS = {torch.float32: 16384, torch.float64: 65536}
 TYPE2_2D_SINGLE_TC_MIN_POINTS = 8192
+# The float32 d=3 type-2 takes the same kernel on nufft_3d.cu's Type2Grid3D
+# (type2_3d_geometry): a GEMM over the pairs (j2, j3), j3 padded to a
+# multiple of the stage (one j2 and 32 modes j3 a stage), with columns
+# (vector, j1) in tiles of 32 or 64 (at 128 its shared memory would pass
+# the block's 227 KB), each vector's j1 padded to a multiple of 32, blocks
+# of TYPE2_2D_POINTS points; for few points the
+# stages split over a grid axis into at most this many runs, whose partials
+# a second pass adds in split order, as many as fill the card's SMs best
+TYPE2_3D_WIDTHS = (32, 64)
+TYPE2_3D_MAX_SPLITS = 16
+# a split's cost beyond its stages, in stages (its first F copy, which no
+# stage hides, and its epilogue), in the split's choice
+TYPE2_3D_SPLIT_OVERHEAD = 2
+# The float32 d=3 type-2's dispatch, from the times of both kernels on the
+# same inputs (chip_smoke.py phase 3 at the driven shapes, and
+# scripts/time_type2_3d.py's sweep of mtot 21-71 at 1e4-1e5 points and B 1
+# and 10 on NVIDIA H100 80GB HBM3, 700 W): the CUDA cores where the tensor
+# cores' padding, (mtot rounded up to 32 / mtot)^2 for j1 and j3, passes
+# this and the call has this many point-vectors n B (where the CUDA-core
+# kernel runs a thread a point): at mtot 21, 23 and 33-39 (padding 2.3,
+# 1.9, 2.7-3.8) they took 1.10-1.25x its time at 2e4 x B 10 and 1e5
+# points, and at 25 (1.6) 0.79-0.93x; the tensor cores elsewhere.  The
+# padding is not the whole story: the CUDA-core kernel's slabs of 8 modes
+# j1 step up at 41, so at 41-47 (padding 1.9-2.4) the tensor cores take
+# 0.94-0.99x its time, and at 65-71 (1.8-2.2) 0.94-0.95x at 2e4 x B 10 but
+# 1.16-1.18x at 1e5 x B 1; the rule keeps all of these on the CUDA cores
+# (at most 6% slower than the pick could be; no driven shape is there)
+TYPE2_3D_MAX_PADDING = 1.8
+TYPE2_3D_FEW_POINTS = 65536
 
 _lib = None
 
@@ -326,6 +362,12 @@ def _library():
                 d1t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 6,
                                 ptr, ptr, ptr]
                 d1t.restype = i32
+                # the type-2's: its geometry (points, cols, stage, splits)
+                # and the scratch and its size before the output
+                d2t = lib.gpq_nufft2_3d_tc_f32
+                d2t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 4,
+                                ptr, ctypes.c_longlong, ptr, ptr]
+                d2t.restype = i32
             # the SKI interpolation kernels (ops/cuda_interp.py)
             it = getattr(lib, f"gpq_interp_T_2d_{prec}")
             it.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
@@ -642,6 +684,56 @@ def nufft1_3d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
     return out[0] if single else out
 
 
+def nufft2_3d_3xtf32_ref(x, f, h, *, mtot: int, fft_order: bool = False,
+                         geometry: tuple | None = None, passes: int = 3):
+    """Plain twin of the float32 d=3 type-2 kernel on the tensor cores
+    (csrc/tc_type2.cuh ``type2_tc_kernel`` on nufft_3d.cu's
+    ``Type2Grid3D``), in float32 with its tiling algebra
+    (:func:`_type2_3xtf32_sums`): the modes j3 padded to J3, a multiple of
+    32 (:func:`type2_3d_split`), the reduction index k = (jb mtot + j2) 32 +
+    j3 % 32 (jb = j3 / 32), ``T[p, b, j1] = sum_k e2(p,j2) e3(p,j3)
+    f[b,j1,j2,j3]`` over k-steps of 8 modes (f and e3 zero past mtot), then
+    ``out[b, p] = sum_j1 e1(p,j1) T[p,b,j1]`` in chunks of cols / 4 modes
+    j1 (the epilogue's four threads a point, each vector's j1 padded to a
+    multiple of 32), each in j1 order from zero, added in chunk order; with
+    ``splits`` runs of whole stages of 32 modes k, each run's sums so
+    taken and the runs' added in split order in float32.  ``geometry`` is
+    :func:`type2_3d_tc_geometry`'s (by default that of the shape).
+    ``passes=1`` keeps big*big alone: plain TF32, the control the split is
+    held against.
+
+    ``x`` (N, 3); ``f`` as :func:`nufft2_3d` takes it; returns complex64
+    (N,) or (B, N).  For the tests on the CPU only."""
+    x = x.to(torch.float32)
+    n, m = x.shape[0], mtot
+    single, B = _type2_3d_batch(f, m)
+    F = f.reshape(B, m, m, m).to(torch.complex64)      # (B, j1, j2, j3)
+    _, points, cols, _, splits = (geometry
+                                  or type2_3d_tc_geometry(n, m, B))
+    J3, nst = type2_3d_split(m)
+    mq = _round_up(m, TYPE2_2D_STAGE)
+    hq = torch.tensor(h, dtype=torch.float32)
+    k = _k_values(m, fft_order, torch.float32, x.device)
+    # e^{+2 pi i}: the conjugates of the type-1's phases
+    e1, e2, e3 = (_phase_matrix(x[:, i] * hq, k, torch.complex64).conj()
+                  for i in range(3))                   # (N, m) each
+    nblk = J3 // TYPE2_2D_STAGE
+    e3 = torch.nn.functional.pad(e3, (0, J3 - m)).reshape(n, nblk, 1, -1)
+    eA = (e2[:, None, :, None] * e3).reshape(n, nst * TYPE2_2D_STAGE)
+    Fk = torch.nn.functional.pad(F, (0, J3 - m, 0, 0, 0, mq - m))
+    Fk = Fk.reshape(B, mq, m, nblk, TYPE2_2D_STAGE).permute(3, 2, 4, 0, 1)
+    Fk = Fk.reshape(nst * TYPE2_2D_STAGE, B * mq)
+    eE = torch.nn.functional.pad(e1, (0, mq - m))
+    per = -(-nst // splits) * TYPE2_2D_STAGE
+    out = None
+    for k0 in range(0, nst * TYPE2_2D_STAGE, per):
+        part = _type2_3xtf32_sums(eA[:, k0:k0 + per], Fk[k0:k0 + per], eE,
+                                  chunk=cols * points // TYPE2_TC_THREADS,
+                                  passes=passes)
+        out = part if out is None else out + part
+    return out[0] if single else out
+
+
 def _type2_3xtf32_sums(eA, F, eE, *, chunk: int, passes: int):
     """The tensor-core type-2's sums (csrc/tc_type2.cuh) in float32 with
     its tiling algebra: ``T[p, c] = sum_k eA[p, k] F[k, c]`` as the real
@@ -953,7 +1045,7 @@ def type1_1d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
     :data:`TYPE1_2D_NARROW_COLS`, or :data:`TYPE1_2D_COLS` where the Q
     values of q pass twice that.  A register sum takes ``stage`` points and
     a run ``run`` (:data:`TYPE1_1D_RUN`); the groups of ``chunk`` points
-    (whole runs) are as many as fill about :data:`TYPE1_1D_BLOCKS` blocks
+    (whole runs) are as many as fill about :data:`CARD_SMS` blocks
     of column tiles x point groups x batch groups without passing it, never
     an empty one.  The scratch holds ceil(n / chunk) * B * mtot values."""
     g = 1 if B == 1 else TYPE1_2D_BATCH_GROUP
@@ -962,7 +1054,7 @@ def type1_1d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
             else TYPE1_2D_COLS)
     tiles = -(-q // cols) * -(-B // g)
     nrun = max(1, -(-n // TYPE1_1D_RUN))
-    groups = min(nrun, max(1, TYPE1_1D_BLOCKS // tiles))
+    groups = min(nrun, max(1, CARD_SMS // tiles))
     chunk = -(-nrun // groups) * TYPE1_1D_RUN
     return ("tc", TYPE1_2D_ROWS, cols, g, TYPE1_2D_STAGE, TYPE1_1D_RUN,
             chunk)
@@ -1297,6 +1389,18 @@ def type1_3d_groups(n: int, mtot: int, B: int = 1) -> tuple[int, int]:
     return -(-nchunk // cpg), cpg
 
 
+def _type2_3d_batch(f, m: int) -> tuple[bool, int]:
+    """(single, B) of the d=3 type-2's coefficients ``f``: (m,)*3 or (m^3,)
+    for one vector, with a leading batch for B >= 1."""
+    M = m ** 3
+    if tuple(f.shape) in ((M,), (m, m, m)):
+        return True, 1
+    if f.ndim in (2, 4) and tuple(f.shape[1:]) in ((M,), (m, m, m)):
+        return False, f.shape[0]
+    raise ValueError(f"f must be ({m}, {m}, {m}) or ({M},), with an "
+                     f"optional leading batch, got {tuple(f.shape)}")
+
+
 def nufft2_3d(x, f, h, *, mtot: int, fft_order: bool = False):
     """Fused d=3 type-2 apply (replaces ``pallas_nufft2_3d`` and
     ``_pallas_nufft2_3d_tiled``).
@@ -1304,31 +1408,123 @@ def nufft2_3d(x, f, h, *, mtot: int, fft_order: bool = False):
     ``x`` (N, 3) real; ``f`` complex (mtot,)*3 or (mtot^3,) for one vector,
     (B, mtot, mtot, mtot) or (B, mtot^3) for a batch of B >= 1; odd
     mtot <= 255.  Returns complex (N,) or (B, N) from one launch.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    :func:`type2_3d_geometry` picks in float32 (the tensor cores, with a
+    scratch of :func:`type2_3d_scratch_floats` floats, or the CUDA cores),
+    the CUDA-core kernel in float64."""
     _check(x, mtot, 3)
     m = mtot
-    M = m ** 3
-    if tuple(f.shape) in ((M,), (m, m, m)):
-        single, B = True, 1
-    elif f.ndim in (2, 4) and tuple(f.shape[1:]) in ((M,), (m, m, m)):
-        single, B = False, f.shape[0]
-    else:
-        raise ValueError(f"f must be ({m}, {m}, {m}) or ({M},), with an "
-                         f"optional leading batch, got {tuple(f.shape)}")
+    single, B = _type2_3d_batch(f, m)
     _check_batch(B, m, 3)
     if x.device.type == "cpu":
         return nufft2_3d_ref(x, f, h, mtot=m, fft_order=fft_order)
+    geo = (type2_3d_geometry(x.shape[0], m, B)
+           if x.dtype == torch.float32 else ("cuda",))
+    out = _nufft2_3d_on(x, f.reshape(B, m ** 3), h, m, fft_order, geo)
+    return out[0] if single else out
+
+
+def type2_3d_split(mtot: int) -> tuple[int, int]:
+    """The float32 d=3 type-2's reduction on the tensor cores
+    (csrc/nufft_3d.cu ``Type2Grid3D``): ``(J3, stages)``, the modes j3
+    padded to J3, a multiple of the stage's 32 modes, and the stages of 32
+    modes k = (jb mtot + j2) 32 + j3 % 32 (jb = j3 / 32), mtot J3 / 32 of
+    them; a run of mtot stages holds one block of 32 modes j3."""
+    J3 = _round_up(mtot, TYPE2_2D_STAGE)
+    return J3, mtot * J3 // TYPE2_2D_STAGE
+
+
+def type2_3d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
+    """The float32 d=3 type-2's path and launch geometry: ``("tc", points,
+    cols, stage, splits)``, the tensor-core kernel's arguments before its
+    scratch (:func:`type2_3d_tc_geometry`), or ``("cuda",)``, the CUDA-core
+    kernel, whose block is fixed in its source.
+
+    A table from the times of both kernels on the same inputs
+    (chip_smoke.py phase 3 at the driven shapes, scripts/time_type2_3d.py's
+    sweep of mtot 21-71): the CUDA cores where the tensor cores pad j1 and
+    j3 by more than :data:`TYPE2_3D_MAX_PADDING` together ((mtot rounded
+    up to 32 / mtot)^2: mtot up to 23, 33-47 and 65-71) and the call has
+    :data:`TYPE2_3D_FEW_POINTS` point-vectors n B or more (hard3d's
+    probe batches, 2e4 x B 10 at mtot 21); the tensor cores elsewhere,
+    those few-point calls included (their splits fill the card).  The
+    sweep found the rule up to 6% slower than the tensor cores at mtot
+    41-47, and at 65-71 with 2e4 points x B 10 (the constant's comment
+    says why); past 71 it is timed only at chip_smoke.py's 101 and 255."""
+    padding = (_round_up(mtot, TYPE2_2D_STAGE) / mtot) ** 2
+    if padding > TYPE2_3D_MAX_PADDING and n * B >= TYPE2_3D_FEW_POINTS:
+        return ("cuda",)
+    return type2_3d_tc_geometry(n, mtot, B)
+
+
+def type2_3d_tc_geometry(n: int, mtot: int, B: int = 1) -> tuple:
+    """The tensor-core d=3 type-2's geometry (:func:`type2_3d_geometry`'s
+    ``("tc", points, cols, stage, splits)``): blocks of
+    :data:`TYPE2_2D_POINTS` points, stages of :data:`TYPE2_2D_STAGE` modes
+    k; column tiles of ``cols`` columns (vector, j1), the width of
+    :data:`TYPE2_3D_WIDTHS` that walks the fewest columns (each vector's j1
+    padded to a multiple of 32), the widest of a tie (it makes eA for fewer
+    tiles): one vector at mtot 31 takes 32, B 10 at 31 takes 64;
+    ``splits`` runs of whole stages, the number up to
+    :data:`TYPE2_3D_MAX_SPLITS` that costs least, a split's cost its waves
+    of blocks on :data:`CARD_SMS` SMs times its stages and
+    :data:`TYPE2_3D_SPLIT_OVERHEAD` (the fewest splits of a tie; one where
+    the blocks fill the card), made canonical: none empty."""
+    mq = _round_up(mtot, TYPE2_2D_STAGE)
+    cols = min(TYPE2_3D_WIDTHS[::-1], key=lambda w: _round_up(B * mq, w))
+    nst = type2_3d_split(mtot)[1]
+    blocks = -(-n // TYPE2_2D_POINTS)
+
+    def cost(s):
+        waves = -(-blocks * s // CARD_SMS)
+        return waves * (-(-nst // s) + TYPE2_3D_SPLIT_OVERHEAD)
+    splits = min(range(1, min(TYPE2_3D_MAX_SPLITS, nst) + 1), key=cost)
+    per = -(-nst // splits)
+    return ("tc", TYPE2_2D_POINTS, cols, TYPE2_2D_STAGE, -(-nst // per))
+
+
+def type2_3d_scratch_floats(n: int, mtot: int, B: int,
+                            geometry: tuple) -> int:
+    """Floats of the tensor-core d=3 type-2's scratch: the split f (big
+    and small, real and imaginary parts of each (mode k, column) cell, mtot
+    J3 modes k, the B vectors' columns, each vector's j1 padded to a
+    multiple of 32, padded to whole tiles), then, for two splits or more,
+    their partial outputs (splits x B x n complex values)."""
+    _, _, cols, _, splits = geometry
+    kq = type2_3d_split(mtot)[1] * TYPE2_2D_STAGE
+    ncp = _round_up(B * _round_up(mtot, TYPE2_2D_STAGE), cols)
+    return 4 * kq * ncp + (2 * splits * B * n if splits > 1 else 0)
+
+
+def _nufft2_3d_on(x, f, h, m, fft_order, geo):
+    """The d=3 type-2's launch on CUDA tensors, ``f`` (B, m^3), on the path
+    ``geo`` (:func:`type2_3d_geometry`): the tensor cores (float32) or the
+    CUDA cores; counted as one launch of ``nufft2_3d`` (a split's second
+    pass inside it; chip_smoke.py also times both paths through it).
+    Returns (B, N)."""
+    if geo[0] not in ("tc", "cuda") or len(geo) != (5 if geo[0] == "tc"
+                                                    else 1):
+        raise ValueError(f"no d=3 type-2 path for geometry {geo}")
+    if geo[0] == "tc" and x.dtype != torch.float32:
+        raise TypeError("the tensor-core d=3 type-2 takes float32")
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("f", f, x, cdtype)
-    n = x.shape[0]
+    B, n = f.shape[0], x.shape[0]
     out = torch.empty((B, n), dtype=cdtype, device=x.device)
-    if n > 0:
-        x = x.contiguous()
-        f = f.contiguous()
-        h = float(torch.as_tensor(h, dtype=x.dtype))
-        _launch("nufft2_3d", x, x.data_ptr(), f.data_ptr(), h, n, m, B,
-                int(fft_order), out.data_ptr(), mtot=m)
-    return out[0] if single else out
+    if n == 0:
+        return out
+    x = x.contiguous()
+    f = f.contiguous()
+    h = float(torch.as_tensor(h, dtype=x.dtype))
+    args = (x.data_ptr(), f.data_ptr(), h, n, m, B, int(fft_order))
+    if geo[0] == "tc":
+        floats = type2_3d_scratch_floats(n, m, B, geo)
+        scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
+        _launch("nufft2_3d", x, *args, *geo[1:], scratch.data_ptr(), floats,
+                out.data_ptr(), mtot=m, symbol="gpq_nufft2_3d_tc_f32")
+    else:
+        _launch("nufft2_3d", x, *args, out.data_ptr(), mtot=m)
+    return out
 
 
 def nufft1_3d(x, vals, h, *, mtot: int, fft_order: bool = False):
@@ -1393,7 +1589,7 @@ def type1_3d_tc_geometry(n: int, mtot: int, B: int = 1) -> tuple:
     :data:`TYPE1_2D_COLS` columns (q, j2) up to mtot 64, where the stage's
     phase table holds at most 67 entries a point, and where the columns
     pass twice :data:`TYPE1_2D_NARROW_COLS` and the wide tiles give
-    :data:`TYPE1_3D_MIN_BLOCKS` blocks or the narrow ones no more; else by
+    :data:`CARD_SMS` blocks (one wave) or the narrow ones no more; else by
     :data:`TYPE1_2D_NARROW_COLS`.  The d=2
     type-1's register sums, runs and point groups (:func:`type1_2d_geometry`:
     groups for about :data:`TYPE1_2D_BLOCKS` blocks, one where the tiles
@@ -1414,7 +1610,7 @@ def type1_3d_tc_geometry(n: int, mtot: int, B: int = 1) -> tuple:
         # short of a wave of blocks and the narrow one gives more
         wide = math.prod(tiles_groups(cols))
         narrow = math.prod(tiles_groups(TYPE1_2D_NARROW_COLS))
-        if wide < TYPE1_3D_MIN_BLOCKS and narrow > wide:
+        if wide < CARD_SMS and narrow > wide:
             cols = TYPE1_2D_NARROW_COLS
     groups = tiles_groups(cols)[1]
     chunk = -(-nrun // groups) * TYPE1_2D_RUN

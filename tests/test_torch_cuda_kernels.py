@@ -1230,3 +1230,103 @@ def test_type1_3d_launch_refuses_overflowing_table(cuda_device):
                            symbol="gpq_nufft1_3d_tc_f32")
     torch.cuda.synchronize()
     assert not bool(out.abs().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,mtot,h,fft_order,cols,splits", [
+    (1, 5000, 9, 0.31, False, None, None),
+    (3, 4001, 21, 0.65, True, None, None),
+    (10, 3000, 31, 0.2, False, None, 1),
+    (10, 3000, 31, 0.2, False, 32, 5),
+    (1, 1000, 61, 0.2, True, None, None),
+    (1, 2000, 101, 0.2, False, 32, None),
+])
+def test_type2_3d_tensor_core_kernel_on_card(cuda_device, B, n, mtot, h,
+                                             fft_order, cols, splits):
+    """The float32 d=3 type-2 on the tensor cores (type2_3d_tc_geometry, its
+    tile width and splits as given or the geometry's): one launch counted a
+    call, bit for bit the same on a second launch; within max(2x the
+    float32 plain version's error, 1e-6) of max|ref| from float64, and
+    within twice that of its 3xTF32 twin with the same geometry; the
+    wrapper's result that of the path type2_3d_geometry picks."""
+    rng = np.random.default_rng(15)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 3)),
+                        device=cuda_device).float()
+    F = torch.as_tensor(rng.normal(size=(B, mtot ** 3))
+                        + 1j * rng.normal(size=(B, mtot ** 3)),
+                        device=cuda_device).to(torch.complex64)
+    hq = float(torch.tensor(h, dtype=torch.float32))
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    geo = list(cuda_nufft.type2_3d_tc_geometry(n, mtot, B))
+    geo[2], geo[4] = cols or geo[2], splits or geo[4]
+    geo = tuple(geo)
+    before = cuda_nufft.LAUNCHES["nufft2_3d"]
+    got = cuda_nufft._nufft2_3d_on(x, F, hq, mtot, fft_order, geo)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCHES["nufft2_3d"] == before + 1
+    assert got.shape == (B, n)
+    assert torch.equal(cuda_nufft._nufft2_3d_on(x, F, hq, mtot, fft_order,
+                                                geo), got)
+    ref = nufft2_3d_ref(x.double(), F.to(torch.complex128), hq, **kw)
+    scale = float(ref.abs().max())
+
+    def err(a):
+        return float((a.to(torch.complex128) - ref).abs().max()) / scale
+    bar = max(2 * err(nufft2_3d_ref(x, F, hq, **kw)), 1e-6)
+    assert err(got) <= bar
+    twin = cuda_nufft.nufft2_3d_3xtf32_ref(x, F, hq, geometry=geo, **kw)
+    assert float((got - twin).abs().max()) <= 2 * bar * scale
+    routed = nufft2_3d(x, F, hq, **kw)
+    if cuda_nufft.type2_3d_geometry(n, mtot, B) == geo:
+        assert torch.equal(routed, got)
+    else:
+        assert err(routed) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [
+    (1, 64), (2, 128), (2, 48), (3, 16), (4, 0), (4, 20)])
+def test_type2_3d_launch_refuses_foreign_geometry(cuda_device, field, value):
+    """The float32 d=3 type-2's launch takes its geometry from
+    type2_3d_geometry and refuses one it has no instance for (points,
+    stage, a column tile other than 32 or 64, no split, or splits with an
+    empty one: 20 of mtot 21's 21 stages): a CUDA error is raised, and
+    nothing is written."""
+    n, mtot, B = 1000, 21, 2
+    x = torch.rand((n, 3), device=cuda_device)
+    F = torch.ones((B, mtot ** 3), dtype=torch.complex64, device=cuda_device)
+    geo = list(cuda_nufft.type2_3d_tc_geometry(n, mtot, B))
+    geo[field] = value
+    floats = 4 * 21 * 32 * 128 + 2 * 21 * B * n
+    scratch = torch.zeros(floats, device=cuda_device)
+    out = torch.zeros((B, n), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft2_3d", x, x.data_ptr(), F.data_ptr(), 0.5,
+                           n, mtot, B, 0, *geo[1:], scratch.data_ptr(),
+                           floats, out.data_ptr(), mtot=mtot,
+                           symbol="gpq_nufft2_3d_tc_f32")
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+    assert not bool(scratch.any())
+
+
+@pytest.mark.cuda
+def test_type2_3d_launch_refuses_short_scratch(cuda_device):
+    """The launch checks the scratch against the split f and the splits'
+    partials it must hold (type2_3d_scratch_floats): one float short is
+    refused, nothing written."""
+    n, mtot, B = 1000, 21, 2
+    x = torch.rand((n, 3), device=cuda_device)
+    F = torch.ones((B, mtot ** 3), dtype=torch.complex64, device=cuda_device)
+    geo = cuda_nufft.type2_3d_tc_geometry(n, mtot, B)
+    assert geo[-1] > 1
+    floats = cuda_nufft.type2_3d_scratch_floats(n, mtot, B, geo) - 1
+    scratch = torch.zeros(floats, device=cuda_device)
+    out = torch.zeros((B, n), dtype=torch.complex64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft2_3d", x, x.data_ptr(), F.data_ptr(), 0.5,
+                           n, mtot, B, 0, *geo[1:], scratch.data_ptr(),
+                           floats, out.data_ptr(), mtot=mtot,
+                           symbol="gpq_nufft2_3d_tc_f32")
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())

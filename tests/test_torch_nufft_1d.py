@@ -211,7 +211,7 @@ def test_type1_1d_geometry(n, mtot, B):
     """The float32 d=1 type-1's geometry: K 64 for one vector and 32 for a
     batch in pairs, the narrow tile while the q values fit two of them;
     whole runs of whole register sums a group, no group empty, at most
-    TYPE1_1D_BLOCKS blocks; the split reaches every mode |k| <= half once
+    CARD_SMS blocks; the split reaches every mode |k| <= half once
     and the crop leaves out the rest."""
     path, rows, cols, group, stage, run, chunk = type1_1d_geometry(n, mtot, B)
     assert path == "tc" and rows == cuda_nufft.TYPE1_2D_ROWS
@@ -223,7 +223,7 @@ def test_type1_1d_geometry(n, mtot, B):
     groups = -(-n // chunk)
     assert (groups - 1) * chunk < n
     tiles = -(-Q // cols) * -(-B // group)
-    assert tiles * groups <= max(tiles, cuda_nufft.TYPE1_1D_BLOCKS)
+    assert tiles * groups <= max(tiles, cuda_nufft.CARD_SMS)
     half = (mtot - 1) // 2
     k = K * (qmin + np.arange(Q))[None, :] + np.arange(K)[:, None]
     kept = np.sort(k[np.abs(k) <= half])

@@ -12,7 +12,8 @@ at 1e-10.  The float32 tensor-core kernel's twin ``nufft1_3d_3xtf32_ref``
 is held to ``pallas_nufft1_3d`` at 5e-5 (both within ~3e-7 of float64 at
 these sizes) and, against float64, to max(2x the float32 plain version's
 error, 1e-6) of max|ref|, which its plain-TF32 control (``passes=1``) must
-miss.
+miss; the float32 type-2's twin ``nufft2_3d_3xtf32_ref`` likewise against
+``pallas_nufft2_3d`` (and its slab-tiled branch past 56 modes).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +26,11 @@ from gpquad_torch.ops import cuda_nufft
 from gpquad_torch.ops import nufft as tnufft
 from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_3d,
                                          nufft1_3d_3xtf32_ref, nufft1_3d_ref,
-                                         nufft2_3d, nufft2_3d_ref,
-                                         type1_3d_geometry, type1_3d_groups)
+                                         nufft2_3d, nufft2_3d_3xtf32_ref,
+                                         nufft2_3d_ref, type1_3d_geometry,
+                                         type1_3d_groups, type2_3d_geometry,
+                                         type2_3d_scratch_floats,
+                                         type2_3d_split)
 from gpquad_torch.ops.nufft import CUDA_D3_MAX_MTOT, make_nufft
 
 # The parity problems are small: torch's intra-op threads cost more than
@@ -302,7 +306,7 @@ def test_type1_3d_geometry(n, mtot, B):
     # the narrow tile where the wide one leaves the card short of a wave of
     # blocks and the narrow one gives more
     wide = (mtot <= 64 and Q * mtot > 64
-            and not (blocks(128) < cuda_nufft.TYPE1_3D_MIN_BLOCKS
+            and not (blocks(128) < cuda_nufft.CARD_SMS
                      and blocks(32) > blocks(128)))
     assert cols == (128 if wide else 32)
     assert tiles * groups == blocks(cols)
@@ -362,3 +366,139 @@ def test_3d_type1_launch_refuses_foreign_path(rng):
             cuda_nufft._nufft1_3d_on(x, v, 0.3, 9, False, bad)
     with pytest.raises(TypeError, match="float32"):
         cuda_nufft._nufft1_3d_on(x, v, 0.3, 9, False, geo)
+
+
+# mtot 9 and 21 (hard3d's grid) hold one block of 32 modes j3, 57 (past the
+# TPU's single-block 56: _pallas_nufft2_3d_tiled) two, the second mostly
+# padding; every call's default geometry splits its stages (a few blocks of
+# points); B 3 loops gpquad's single-vector kernel over the vectors
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("mtot,fft_order,n", [(9, False, 300), (21, True, 300),
+                                              (57, False, 96),
+                                              (57, True, 96)])
+def test_type2_3d_3xtf32_twin_matches_pallas(rng, B, mtot, fft_order, n):
+    h = 0.11
+    x, _, f = _inputs(rng, n, mtot, B)
+    xt, ft = torch.as_tensor(x), torch.as_tensor(f)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    arg = ft[0] if B == 1 else ft
+    geo = cuda_nufft.type2_3d_tc_geometry(n, mtot, B)
+    assert geo[-1] > 1
+    twin = nufft2_3d_3xtf32_ref(xt, arg, h, **kw).numpy()
+    assert twin.shape == ((n,) if B == 1 else (B, n))
+    twin = twin.reshape(B, n)
+    want = np.stack([np.asarray(pallas_nufft2_3d(
+        jnp.asarray(x), jnp.asarray(f[b]), h, **kw)) for b in range(B)])
+    assert _rel(twin, want) < 5e-5
+    ref = nufft2_3d_ref(xt.double(), ft.to(torch.complex128), h,
+                        **kw).numpy()
+    plain = nufft2_3d_ref(xt, ft, h, **kw).numpy()
+    bar = max(2 * _rel(plain, ref), 1e-6)
+    assert _rel(twin, ref) <= bar
+    # the stages in one run: the same bar, other sums
+    whole = nufft2_3d_3xtf32_ref(xt, ft, h, geometry=geo[:-1] + (1,),
+                                 **kw).numpy()
+    assert _rel(whole, ref) <= bar and not np.array_equal(whole, twin)
+    control = nufft2_3d_3xtf32_ref(xt, ft, h, passes=1, **kw).numpy()
+    assert _rel(control, ref) > bar
+
+
+def _grid3d_type2_cells(mtot):
+    """csrc/nufft_3d.cu Type2Grid3D's coef(): for each reduction index k
+    and column j1 of one vector, the flat index (j1, j2, j3) of f it
+    holds, -1 where the cell is zero (j1 or j3 past mtot)."""
+    J3, nst = type2_3d_split(mtot)
+    k = np.arange(nst * 32)[:, None]
+    j1 = np.arange(-(-mtot // 32) * 32)[None, :]
+    st = k // 32
+    j2, j3 = st % mtot, st // mtot * 32 + k % 32
+    flat = (j1 * mtot + j2) * mtot + j3
+    return np.where((j1 < mtot) & (j3 < mtot), flat, -1)
+
+
+@pytest.mark.parametrize("B", [1, 5, 10])
+def test_type2_3d_geometry(B):
+    """The float32 d=3 type-2's geometry at every odd mtot the kernels take:
+    the CUDA cores where the tensor cores' padding of j1 and j3 to 32,
+    (mq / mtot)^2, passes 1.8 and the call has 65 536 point-vectors or
+    more, else the tensor cores.  On
+    the tensor cores: blocks of 128 points, stages of 32 modes k (J3 / 32
+    of them a j2), column tiles of 32 or 64 (the wider where both walk the
+    fewest columns), each vector's j1 padded to 32 so that no
+    epilogue chunk (cols / 4 columns) holds two vectors; splits of whole
+    stages, none empty, at most TYPE2_3D_MAX_SPLITS, of the least cost
+    (waves of blocks on the card's SMs times stages and overhead a split),
+    one at 100 000 points; the split f's cells and the partials'
+    within the kernels' 32-bit index range, and the scratch exactly the
+    split f and, for two splits or more, the partials."""
+    for mtot in range(1, cuda_nufft.CUDA_D3_MAX_MTOT + 1, 2):
+        J3, nst = type2_3d_split(mtot)
+        assert J3 % 32 == 0 and mtot <= J3 < mtot + 32
+        assert nst == mtot * J3 // 32
+        mq = -(-mtot // 32) * 32
+        for n in (1, 1000, 10_000, 20_000, 100_000):
+            geo = type2_3d_geometry(n, mtot, B)
+            tc = cuda_nufft.type2_3d_tc_geometry(n, mtot, B)
+            cuda = (mq / mtot) ** 2 > 1.8 and n * B >= 65536
+            assert geo == (("cuda",) if cuda else tc)
+            path, points, cols, stage, splits = tc
+            assert (path, points, stage) == ("tc", 128, 32)
+            assert mq % (cols // 4) == 0
+            walked = {w: -(-B * mq // w) * w for w in (32, 64)}
+            assert walked[cols] == min(walked.values())
+            assert all(w <= cols for w in walked
+                       if walked[w] == walked[cols])
+            per = -(-nst // splits)
+            assert 1 <= splits <= cuda_nufft.TYPE2_3D_MAX_SPLITS
+            assert -(-nst // per) == splits and (splits - 1) * per < nst
+            blocks = -(-n // 128)
+
+            def cost(k):
+                return -(-blocks * k // cuda_nufft.CARD_SMS) * (
+                    -(-nst // k) + cuda_nufft.TYPE2_3D_SPLIT_OVERHEAD)
+            assert cost(splits) == min(
+                cost(k) for k in range(1, min(nst, 16) + 1))
+            if n == 100_000:
+                assert splits == 1
+            ncp = -(-B * mq // cols) * cols
+            assert ncp * nst * 32 < 2 ** 31 and splits * B * n < 2 ** 31
+            floats = type2_3d_scratch_floats(n, mtot, B, tc)
+            assert floats == 4 * nst * 32 * ncp + (
+                2 * splits * B * n if splits > 1 else 0)
+    # the driven shapes: d3's mean and B 10, the variance evaluation;
+    # hard3d's calls but its probe batches on the tensor cores
+    assert cuda_nufft.type2_3d_tc_geometry(10_000, 31, 1)[2] == 32
+    assert [type2_3d_geometry(n, 21, B)[0] for n, B in (
+        (1000, 1), (20_000, 1), (20_000, 10))] == ["tc", "tc", "cuda"]
+    assert type2_3d_geometry(1000, 41, 1)[0] == "tc"
+    assert cuda_nufft.type2_3d_tc_geometry(100_000, 31, 10)[2] == 64
+    assert cuda_nufft.type2_3d_tc_geometry(10_000, 61, 1)[2] == 64
+
+
+@pytest.mark.parametrize("mtot", [1, 9, 31, 41, 61])
+def test_type2_3d_cells_hold_every_coefficient(mtot):
+    """Type2Grid3D's reduction index k = (jb mtot + j2) 32 + j3 % 32 and
+    columns j1 hold every coefficient f[j1, j2, j3] once, the other cells
+    zero; a run of mtot stages holds one block of 32 modes j3."""
+    cells = _grid3d_type2_cells(mtot)
+    held = cells[cells >= 0]
+    assert np.array_equal(np.sort(held), np.arange(mtot ** 3))
+    J3, nst = type2_3d_split(mtot)
+    j3 = (cells % mtot).reshape(J3 // 32, mtot * 32, -1)
+    for jb in range(J3 // 32):
+        used = j3[jb][cells.reshape(J3 // 32, mtot * 32, -1)[jb] >= 0]
+        assert used.min() >= jb * 32 and used.max() < (jb + 1) * 32
+
+
+def test_3d_type2_launch_refuses_foreign_path(rng):
+    """The d=3 type-2's launch takes ("tc", 4 fields) or ("cuda",) and
+    refuses any other geometry before it touches the card; float64 has no
+    tensor-core path."""
+    x = torch.as_tensor(rng.uniform(0, 1, (64, 3)))
+    f = torch.ones((1, 729), dtype=torch.complex128)
+    geo = type2_3d_geometry(64, 9)
+    for bad in (geo[:-1], ("split", 16), ("cuda", 2048), geo + (1,)):
+        with pytest.raises(ValueError, match="no d=3 type-2 path"):
+            cuda_nufft._nufft2_3d_on(x, f, 0.3, 9, False, bad)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_nufft._nufft2_3d_on(x, f, 0.3, 9, False, geo)
