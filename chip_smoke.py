@@ -97,7 +97,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
      interpolation weights;
  11b. examples/temperature_map.py's flow on data/frozen_raster_v1.npz:
      the EFGP facade (15 Adam iterations) and fit_ski_gp (4096 grid
-     points, 15 iterations) in float32, with the example's assertions.
+     points, 15 iterations) in float32, with the example's assertions;
+ 12. the exact variances and the high-precision tier, each call warmed and
+     then timed with the launch counts (by kernel, precision and mtot) set
+     to 0 just before it: at the headline (phase 4's data) fit_high +
+     predict_mean_high, gradient_high with seeded probes, variance_high at
+     512 targets and fit_predict_grad_high (host clock and CUDA events),
+     predict_var "regular" at all 10 000 targets and "chebyshev" with
+     automatic nodes on phase 4's float32 fit and on a float64 fit, and
+     the float64 gradient on that fit; at hard (phase 5's data, bench.py:
+     270-310) the matrix-free fit_high with deflation 2048, gradient_high
+     and variance_high at 256 targets (rank 4096, 4 passes, ir_tol 1e-4);
+     Matérn-3/2 (bench.py:645-740: n 2e4, l 0.14, eps 1e-4 -> mtot 93) the
+     float32 CG fit and mean, fit_high and gradient_high; at scale (phase
+     10's data, n 1e6, mtot 339) fit_high with deflation 2048 and the mean
+     at 500 targets.  Each is held against the port's float64 oracles
+     (gpquad_torch/utils/f64_oracles.py, on the plain path: dense LU, or a
+     float64 Toeplitz PCG at scale): the high means within 1e-6 absolute,
+     gradient_high and variance_high within 1e-6 relative, the float32
+     exact variances within 1e-4 absolute of the float64 "regular".  The
+     high tier's NUFFTs are all float64 CUDA launches (rows 1-4, 9 and 10
+     of PERF.md's table each at least once), none takes the plain path,
+     and it prints a float64 row (kernel, plain and bound ms) for every
+     float64 NUFFT shape it launched.
 Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
 and at mtot 57, 101 and 255, the two d=1 kernels at phase 8's shapes and
 at mtot 8191, and the two SKI interpolation kernels at phase 11's band
@@ -128,6 +150,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -467,6 +490,18 @@ def headline_data(n, targets, seed=0):
     return xh, yh, xnew
 
 
+def scale_data(n, seed=10):
+    """Phase 10's data (bench.py:441-470, the scale configuration): points
+    uniform in [0,1]^2, the headline's field plus noise of sd 0.1, then
+    2 000 targets, from numpy seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(0, 1, size=(n, 2))
+    ys = (np.sin(3 * np.pi * xs[:, 0]) * np.cos(2 * np.pi * xs[:, 1])
+          + 0.5 * np.sin(7 * xs[:, 0] + 5 * xs[:, 1])
+          + 0.1 * rng.normal(size=n))
+    return xs, ys, rng.uniform(0, 1, size=(2000, 2))
+
+
 def data_3d(n, targets, seed):
     """bench.py:378-381 (hard3d_config): points uniform in [0,1]^3,
     y = sin(3 pi x0) cos(2 pi x1) cos(pi x2) + 0.1 N(0,1), then the targets,
@@ -521,6 +556,416 @@ def launch_counts(**nonzero):
     """The LAUNCHES dict a path should leave: every kernel 0 but those
     named."""
     return {k: nonzero.get(k, 0) for k in KERNELS_NUFFT}
+
+
+# phase 12: the exact variances and the high-precision tier (bench.py's
+# headline :836-975, hard :270-310, Matérn :645-740 and scale :609-620)
+HIGH_MEAN_BAR = 1e-6        # absolute, against the float64 oracle
+HIGH_REL_BAR = 1e-6         # gradient_high and variance_high, relative
+VAR_ABS_BAR = 1e-4          # the f32 regular and chebyshev variances
+# BENCH_r05's rel_err_var_cheb (2.1e-4 of max|var|, ROADMAP A.1)
+CHEB_REL_BAR = 2.1e-4
+HIGH_RANK = 2048            # bench.py --hard-precond-rank
+STAGE_CALLS = 3             # timed calls of each phase 12 item (median)
+MATERN_N, MATERN_L, MATERN_EPS, MATERN_TARGETS = 20_000, 0.14, 1e-4, 1_000
+# the float64 d=2 functions phase 12 launches, by PERF.md's table rows
+ROWS_F64 = {"1": ("nufft2_2d", False), "3": ("nufft2_2d", True),
+            "2": ("nufft1_2d", False), "4": ("nufft1_2d", True),
+            "9": ("nufft2_2d_batched", None),
+            "10": ("nufft1_2d_batched", None)}
+
+
+def matern_data(n, targets, seed=12):
+    """bench.py:664-670 (matern_config): points uniform in [0,1]^2, the
+    headline's field plus noise of sd 0.1, then the targets, from numpy
+    seed ``seed``."""
+    rng = np.random.default_rng(seed)
+    xh = rng.uniform(0, 1, size=(n, 2))
+    fh = (np.sin(3 * np.pi * xh[:, 0]) * np.cos(2 * np.pi * xh[:, 1])
+          + 0.5 * np.sin(7 * xh[:, 0] + 5 * xh[:, 1]))
+    yh = fh + 0.1 * rng.normal(size=n)
+    return xh, yh, rng.uniform(0, 1, size=(targets, 2))
+
+
+def rademacher(seed, T, n, M, device):
+    """(Z, V): +-1 probes of shapes (T, n) and (T, M) from numpy seed
+    ``seed`` (bench.py draws them so, :908-913)."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.integers(0, 2, (T, k)) * 2.0 - 1,
+                                 dtype=torch.float32, device=device)
+                 for k in (n, M))
+
+
+def precision_counts(counter, prec=None):
+    """{kernel: launches} of one precision ("f32" / "f64", or both) in
+    ``LAUNCH_PRECISIONS``."""
+    out = {}
+    for (name, p, _), c in counter.items():
+        if c and (prec is None or p == prec):
+            out[name] = out.get(name, 0) + c
+    return out
+
+
+def phase_high(c):
+    """Phase 12.  ``c``: a namespace of main()'s dev, card, counters,
+    gpquad_torch and its modules, phase 3's rows and plain versions, and
+    the headline, hard and scale configurations.  Returns the phase's
+    record."""
+    gt, orc, nm, cn = c.gt, c.orc, c.nufft_mod, c.cuda_nufft
+    dev, card, sig = c.dev, c.card, c.sigmasq
+    rec = {"f64_launches": {}}
+    totals = {}                     # (name, precision, mtot) -> launches
+
+    def stage(tag, fn, *, all_f64=True):
+        """One warm call, then STAGE_CALLS timed calls: ``ms`` is the median
+        of their CUDA-event times, ``host_ms`` the first one's host clock.
+        The counts are set to 0 just before the first and read just after
+        it."""
+        fn()
+        sync()
+        times = []
+        for i in range(STAGE_CALLS):
+            if i == 0:
+                reset_counts(*c.counters)
+                t = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            r = fn()
+            end.record()
+            sync()
+            times.append(start.elapsed_time(end))
+            if i == 0:
+                host_ms = (time.perf_counter() - t) * 1e3
+                prec = dict(cn.LAUNCH_PRECISIONS)
+                picks = dict(nm.BACKEND_PICKS)
+        ms = statistics.median(times)
+        check(picks["matmul"] == 0, f"{tag}: the plain path was taken {picks}")
+        if all_f64:
+            check(not precision_counts(prec, "f32"),
+                  f"{tag}: float32 NUFFTs launched {precision_counts(prec)}")
+        for key, n_ in prec.items():
+            if n_:
+                totals[key] = totals.get(key, 0) + n_
+        info = dict(ms=ms, host_ms=host_ms, cuda_ms_calls=times,
+                    f32=precision_counts(prec, "f32"),
+                    f64=precision_counts(prec, "f64"),
+                    f64_widths={f"{k}@{m}": n_ for (k, p, m), n_ in
+                                sorted(prec.items()) if n_ and p == "f64"},
+                    picks=picks)
+        print(f"[12] {tag}: {ms:.2f} ms (CUDA events, median of "
+              f"{STAGE_CALLS} warm calls {[round(t_, 2) for t_ in times]}; "
+              f"host clock of the first {host_ms:.2f}) {card}; float64 "
+              f"launches {info['f64']} (by mtot {info['f64_widths']}), "
+              f"float32 {info['f32']}; backend_picks={picks}")
+        return r, info
+
+    def rel_max(got, want):
+        return float(((got.double() - want).abs() / want.abs()).max())
+
+    def high_config(tag, x, y, xq, kern, h, mtot, *, fit_kw, probes=None,
+                    grad_kw=None, var_x=None, var_kw=None, oracle="dense"):
+        """fit_high + mean, gradient_high and variance_high in turn, each a
+        stage, then the float64 oracle on the plain path and the bars."""
+        out = {}
+        (hs, mh), out["fit_high+mean"] = stage(
+            f"{tag} fit_high + predict_mean_high", lambda: (
+                lambda hs_: (hs_, gt.predict_mean_high(hs_, xq)))(
+                gt.fit_high(x, y, kern, sig, h, mtot, device=dev, **fit_kw)))
+        out["residual"] = float(hs.residual)
+        out["inner_iters"] = int(hs.state.mean_cg_iters)
+        gh = vh = None
+        if probes is not None:
+            gh, out["gradient_high"] = stage(
+                f"{tag} gradient_high", lambda: gt.gradient_high(
+                    x, y, kern, sig, h, mtot, probes=probes, device=dev,
+                    **(grad_kw or {})))
+        if var_x is not None:
+            vh, out["variance_high"] = stage(
+                f"{tag} variance_high ({len(var_x)} targets)",
+                lambda: gt.variance_high(x, kern, sig, h, mtot, var_x,
+                                         device=dev, **(var_kw or {})))
+        t = time.perf_counter()
+        obj = None
+        if oracle == "dense":
+            obj = orc.efgp_f64_objects_kernel(x, y, kern, sig, h, mtot,
+                                              device=dev)
+            mean64 = orc.mean_f64(obj, xq)
+        else:
+            mean64, iters, res = orc.toeplitz_cg_oracle_f64(
+                x, y, kern, sig, h, mtot, xq, tol=1e-10, maxiter=8000,
+                device=dev)
+            out["oracle_cg_iters"], out["oracle_residual"] = iters, res
+        out["err_mean_high"] = float((mh - mean64).abs().max())
+        line = (f"[12] {tag} vs the float64 oracle ({oracle}, plain path): "
+                f"mean_high max abs err {out['err_mean_high']:.3e} (bar "
+                f"{HIGH_MEAN_BAR:.0e}), refit residual {out['residual']:.3e}"
+                f", inner iterations {out['inner_iters']}")
+        check(out["err_mean_high"] <= HIGH_MEAN_BAR,
+              f"{tag}: high mean error {out['err_mean_high']:.3e}")
+        if gh is not None:
+            g64 = orc.gradient_f64(obj, *probes)
+            out["grad_high_rel_err"] = rel_max(gh.grad, g64)
+            out["grad_high"], out["grad_f64"] = gh.grad.tolist(), \
+                g64.tolist()
+            line += (f"; gradient_high rel err {out['grad_high_rel_err']:.3e}"
+                     f" (bar {HIGH_REL_BAR:.0e}) {gh.grad.tolist()}")
+            check(out["grad_high_rel_err"] <= HIGH_REL_BAR,
+                  f"{tag}: gradient_high error {out['grad_high_rel_err']}")
+        if vh is not None:
+            out["var_high_rel_err"] = rel_max(vh, orc.regular_var_f64(
+                obj, var_x))
+            line += (f"; variance_high rel err {out['var_high_rel_err']:.3e}"
+                     f" (bar {HIGH_REL_BAR:.0e})")
+            check(out["var_high_rel_err"] <= HIGH_REL_BAR,
+                  f"{tag}: variance_high error {out['var_high_rel_err']}")
+        out["oracle_s"] = time.perf_counter() - t
+        print(line + f"; oracle {out['oracle_s']:.1f} s")
+        return out, obj, mean64
+
+    T = FUSED_KW["trace_samples"]
+
+    # 12a: the headline (phase 4's data, the dense tier)
+    x, y, xq, kern = c.x32, c.y32, c.xq32, c.kernel32
+    h, mtot = c.h_head, c.mtot_head
+    probes = rademacher(12, T, x.shape[0], mtot ** 2, dev)
+    head, obj, mean64 = high_config(
+        "headline", x, y, xq, kern, h, mtot, fit_kw={}, probes=probes,
+        var_x=xq[:512], var_kw=dict(slab=256))
+
+    def fpgh():
+        return gt.fit_predict_grad_high(
+            x, y, xq, kern, sig, h, torch.Generator(device=dev).manual_seed(0),
+            mtot=mtot, device=dev, **FUSED_KW)
+    fres, head["fit_predict_grad_high"] = stage(
+        "headline fit_predict_grad_high", fpgh, all_f64=False)
+    info = head["fit_predict_grad_high"]
+    # the fused f32 pass as phase 4's, then the refit's F*y and lag table
+    # and the float64 mean
+    check(info["f32"] == {"nufft1_2d": 3, "nufft2_2d": 3,
+                          "nufft1_2d_batched": 1, "nufft2_2d_batched": 2}
+          and info["f64"] == {"nufft1_2d": 2, "nufft2_2d": 1},
+          f"fit_predict_grad_high launches {info}")
+    head["fpgh_cuda_event_ms"] = info["ms"]
+    head["fpgh_err_mean_high"] = float((fres.mean_high - mean64).abs().max())
+    head["fpgh_err_mean_f32"] = float((fres.fused.mean.double()
+                                       - mean64).abs().max())
+    print(f"[12] headline fit_predict_grad_high: {info['host_ms']:.2f} ms "
+          f"host clock, {head['fpgh_cuda_event_ms']:.2f} ms CUDA events "
+          f"(median of {STAGE_CALLS} warm calls) {card}; mean_high err "
+          f"{head['fpgh_err_mean_high']:.3e} (bar {HIGH_MEAN_BAR:.0e}), the "
+          f"f32 pass's mean {head['fpgh_err_mean_f32']:.3e} (bar 5e-4), "
+          f"refit residual {float(fres.high_residual):.3e}")
+    check(head["fpgh_err_mean_high"] <= HIGH_MEAN_BAR
+          and head["fpgh_err_mean_f32"] <= 5e-4,
+          "fit_predict_grad_high: mean errors over their bars")
+
+    # the exact variances at all 10 000 targets: float32 on phase 4's fit,
+    # float64 on a float64 fit (the kernels' float64 instances), against
+    # the oracle's "regular"
+    var64 = orc.regular_var_f64(obj, xq)
+    scale64 = float(var64.abs().max())
+    auto = c.efgp_mod._auto_chebyshev_nodes(c.st, xq)
+    check(int(np.prod(auto)) < xq.shape[0],
+          f"chebyshev: automatic nodes {auto} fall back to regular")
+    st64, head["fit_f64"] = stage(
+        "headline float64 fit on the kernels (cg_tol 1e-12)",
+        lambda: gt.fit(x.double(), y.double(), kern, sig, eps=c.eps,
+                       cg_tol=1e-12, device=dev))
+    for state, prec in ((c.st, "f32"), (st64, "f64")):
+        for method in ("regular", "chebyshev"):
+            v, info = stage(
+                f"headline predict_var {method} {prec} ({len(xq)} targets)",
+                lambda: gt.predict_var(state, xq, method=method,
+                                       cg_tol=1e-5, max_cg_iter=600),
+                all_f64=False)
+            check(not precision_counts(cn.LAUNCH_PRECISIONS),
+                  f"predict_var {method} launched a NUFFT")
+            err = float((v.double() - var64).abs().max())
+            head[f"var_{method}_{prec}"] = dict(info, max_abs_err=err,
+                                                rel_to_max=err / scale64)
+            # float32: 1e-4 absolute and phase 4's 5e-2 of max|var64| (the
+            # variance is ~4e-4 here, so the absolute bar alone is loose;
+            # the f32 solve at condition ~6e5 sits at ~2e-3 of it)
+            bar = (min(VAR_ABS_BAR, 5e-2 * scale64) if prec == "f32" else
+                   (1e-8 * scale64 if method == "regular"
+                    else CHEB_REL_BAR * scale64))
+            print(f"[12] headline {method} {prec} vs the oracle's regular: "
+                  f"max abs err {err:.3e} ({err / scale64:.3e} of max|var| "
+                  f"{scale64:.3e}; bar {bar:.3e})"
+                  + (f"; nodes {auto}" if method == "chebyshev" else ""))
+            check(err <= bar, f"{method} {prec} variance error {err:.3e}")
+    head["cheb_nodes"] = auto
+    g64k, head["gradient_f64_kernels"] = stage(
+        "headline gradient_with_grid float64 (state=float64 fit, cg_tol "
+        "1e-10)", lambda: gt.gradient_with_grid(
+            x.double(), y.double(), kern, sig, st64.h, mtot=st64.mtot,
+            probes=probes, cg_tol=1e-10, state=st64, device=dev))
+    g64 = orc.gradient_f64(obj, *probes)
+    head["grad_f64_kernels_rel_err"] = rel_max(g64k.grad, g64)
+    print(f"[12] headline float64 gradient on the kernels vs the oracle: rel "
+          f"err {head['grad_f64_kernels_rel_err']:.3e} (bar "
+          f"{HIGH_REL_BAR:.0e})")
+    check(head["grad_f64_kernels_rel_err"] <= HIGH_REL_BAR,
+          "float64 gradient on the kernels over its bar")
+    rec["headline"] = head
+    del obj, var64, st64
+    torch.cuda.empty_cache()
+
+    # 12b: hard (phase 5's data, mtot 107, the matrix-free refinement)
+    x, y, xq = c.x2, c.y2, c.xq2
+    probes = rademacher(13, T, x.shape[0], c.mtot_hard ** 2, dev)
+    rank_var = min(2 * HIGH_RANK, c.mtot_hard ** 2)
+    rec["hard"], obj, _ = high_config(
+        "hard", x, y, xq, c.kern_hard, c.h_hard, c.mtot_hard,
+        fit_kw=dict(solver="iterative", precond_rank=HIGH_RANK),
+        probes=probes, grad_kw=dict(precond_rank=HIGH_RANK),
+        var_x=xq[:256], var_kw=dict(precond_rank=rank_var, passes=4,
+                                    ir_tol=1e-4))
+    del obj
+    torch.cuda.empty_cache()
+
+    # 12c: Matérn-3/2 (bench.py:645-740): the f32 CG tier, then the high
+    # tier
+    xm, ym, xqm = matern_data(MATERN_N, MATERN_TARGETS)
+    x = torch.as_tensor(xm, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(ym, dtype=torch.float32, device=dev)
+    xq = torch.as_tensor(xqm, dtype=torch.float32, device=dev)
+    kern = gt.make_kernel("Matern32", 2, lengthscale=np.float32(MATERN_L),
+                          variance=np.float32(1.0))
+    _, h, mtot = gt.spectral_grid(kern, MATERN_EPS, 1.0)
+    check(mtot == 93, f"Matérn planned mtot {mtot}, not bench.py's 93")
+    rank = min(HIGH_RANK, mtot ** 2)
+    (sm, mm), f32_info = stage("matern f32 fit (CG, deflation) + mean",
+                               lambda: (lambda s_: (s_, gt.predict_mean(
+                                   s_, xq)))(gt.fit_with_grid(
+                                       x, y, kern, sig, h, mtot, cg_tol=1e-6,
+                                       max_cg_iter=2000, solver="cg",
+                                       precond_rank=rank, device=dev)),
+                               all_f64=False)
+    check(f32_info["f32"] == {"nufft1_2d": 2, "nufft2_2d": 1}
+          and not f32_info["f64"], f"Matérn f32 launches {f32_info}")
+    probes = rademacher(14, T, x.shape[0], mtot ** 2, dev)
+    mat, obj, mean64 = high_config(
+        "matern", x, y, xq, kern, h, mtot,
+        fit_kw=dict(solver="iterative", precond_rank=rank), probes=probes,
+        grad_kw=dict(precond_rank=rank))
+    mat["f32_fit_mean"] = f32_info
+    mat["f32_cg_iters"] = int(sm.mean_cg_iters)
+    mat["err_mean_f32"] = float((mm.double() - mean64).abs().max())
+    print(f"[12] matern mtot {mtot} M {mtot ** 2}: f32 mean max abs err vs "
+          f"the oracle {mat['err_mean_f32']:.3e} (bar 5e-4), PCG iterations "
+          f"{mat['f32_cg_iters']}")
+    check(mat["err_mean_f32"] <= 5e-4, "Matérn f32 mean over its bar")
+    rec["matern"] = dict(mat, mtot=mtot, h=h)
+    del obj, x, y, xq, sm
+    torch.cuda.empty_cache()
+
+    # 12d: scale (phase 10's data, n 1e6, mtot 339): the float64 type-1 at
+    # 339 and 677; the oracle is a float64 Toeplitz PCG
+    xs, ys, xqs = scale_data(c.n10)
+    x = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(ys, dtype=torch.float32, device=dev)
+    xq = torch.as_tensor(xqs[:500], dtype=torch.float32, device=dev)
+    del xs, ys
+    rec["scale"], _, _ = high_config(
+        "scale", x, y, xq, c.kern10, c.h10, c.mtot10,
+        fit_kw=dict(solver="iterative", precond_rank=HIGH_RANK),
+        oracle="toeplitz")
+    del x, y
+    torch.cuda.empty_cache()
+
+    # every float64 d=2 function the phase launched, by PERF.md's rows
+    for row, (name, wide) in ROWS_F64.items():
+        n_ = sum(v for (k, p, m), v in totals.items() if k == name and
+                 p == "f64" and (wide is None or (m > 256) == wide))
+        rec["f64_launches"][row] = n_
+        check(n_ > 0, f"row {row} ({name}) had no float64 launch")
+    rec["launches"] = {f"{k}/{p}@{m}": v for (k, p, m), v in
+                       sorted(totals.items())}
+    print(f"[12] float64 launches by TPU row {rec['f64_launches']}; all "
+          f"launches by kernel/precision@mtot {rec['launches']}")
+    rec["f64_shapes"] = f64_shape_table(c, totals, rec["matern"]["h"])
+    return rec
+
+
+def f64_shape_table(c, totals, h_matern):
+    """The float64 calls phase 12 made, with the kernel's, the plain
+    version's and the bound's ms: phase 3's float64 row where phase 3 ran
+    the shape, else timed here the way phase 3 times (CUDA events, the
+    kernel and the plain version on the same inputs, the kernel held within
+    1e-10 of max|ref| of the plain version)."""
+    head, hard = (c.h_head, c.mtot_head), (c.h_hard, c.mtot_hard)
+    m29, m107, m339 = head[1], hard[1], c.mtot10
+    shapes = [  # (name, n, mtot, B, h, serves)
+        ("nufft1_2d", 100_000, m29, 1, head[0], "headline F*y"),
+        ("nufft1_2d", 100_000, 2 * m29 - 1, 1, head[0],
+         "headline lag table"),
+        ("nufft2_2d", 10_000, m29, 1, head[0], "headline mean_high"),
+        ("nufft2_2d", 100_000, m29, 1, head[0],
+         "headline f64 gradient F(D beta)"),
+        ("nufft1_2d_batched", 100_000, m29, 10, head[0],
+         "headline gradient_high F*Z"),
+        ("nufft2_2d_batched", 100_000, m29, 10, head[0],
+         "headline f64 gradient F(D'F*Z), F(D Beta)"),
+        ("nufft1_2d", 100_000, m107, 1, hard[0], "hard F*y"),
+        ("nufft1_2d", 100_000, 2 * m107 - 1, 1, hard[0], "hard lag table"),
+        ("nufft2_2d", 2_000, m107, 1, hard[0], "hard mean_high"),
+        ("nufft1_2d_batched", 100_000, m107, 10, hard[0],
+         "hard gradient_high F*Z"),
+        ("nufft1_2d", MATERN_N, 93, 1, h_matern, "matern F*y"),
+        ("nufft1_2d", MATERN_N, 185, 1, h_matern, "matern lag table"),
+        ("nufft2_2d", MATERN_TARGETS, 93, 1, h_matern, "matern mean_high"),
+        ("nufft1_2d_batched", MATERN_N, 93, 10, h_matern,
+         "matern gradient_high F*Z"),
+        ("nufft1_2d", c.n10, m339, 1, c.h10, "scale F*y"),
+        ("nufft1_2d", c.n10, 2 * m339 - 1, 1, c.h10, "scale lag table"),
+        ("nufft2_2d", 500, m339, 1, c.h10, "scale mean_high"),
+    ]
+    gen = np.random.default_rng(120)
+    rows = []
+    for name, n, m, B, h, serves in shapes:
+        row = next((r for r in c.phase3 if r["name"] == name and r["n"] == n
+                    and r["mtot"] == m and r["B"] == B and not r["fft_order"]
+                    and r["dtype"] == "float64"), None)
+        if row is not None:
+            ms, plain_ms, b_ms, src = (row["ms"], row["plain_ms"],
+                                       row["bound_ms"], "phase 3")
+            rel = row["rel_err"]
+        else:
+            x = torch.as_tensor(gen.uniform(0, 1, (n, 2)), device=c.dev)
+            lead = (B,) if B > 1 else ()
+            shape = lead + ((n,) if name.startswith("nufft1") else (m, m))
+            arg = torch.as_tensor(gen.normal(size=shape)
+                                  + 1j * gen.normal(size=shape),
+                                  device=c.dev)
+            hq = float(h)
+            got = c.kernels[name](x, arg, hq, mtot=m)
+            ref = c.plains[name](x, arg, hq, mtot=m)
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            check(rel <= 1e-10, f"{name} f64 n={n} mtot={m} B={B}: error "
+                  f"{rel:.3e} of max|ref|")
+            reps = max(3, min(50, int(2e9 / (B * n * m * m))))
+            ms = time_cuda(lambda: c.kernels[name](x, arg, hq, mtot=m), reps,
+                           3)
+            plain_ms = time_cuda(lambda: c.plains[name](x, arg, hq, mtot=m),
+                                 max(2, reps // 4), 3)
+            b_ms, src = bound_ms(name, n, m, torch.float64, B)[0], "phase 12"
+            del x, arg, got, ref
+        launched = totals.get((name, "f64", m), 0)
+        rows.append(dict(name=name, n=n, mtot=m, B=B, serves=serves, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, rel_err=rel,
+                         timed_in=src, launches_phase12=launched))
+        print(f"[12] float64 {name} n={n} mtot={m} B={B} ({serves}): "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms, "
+              f"rel err {rel:.3e} ({src}); phase 12 launched it "
+              f"{launched} times at this mtot {c.card}")
+    covered = {(r["name"], r["mtot"]) for r in rows}
+    missing = sorted(f"{k}@{m}" for (k, p, m), n_ in totals.items()
+                     if n_ and p == "f64" and (k, m) not in covered)
+    check(not missing, f"phase 12 launched float64 shapes that the table "
+          f"does not hold against the plain version: {missing}")
+    return rows
 
 
 def main() -> int:
@@ -2378,13 +2823,8 @@ def main() -> int:
 
     # -- phase 10: the scale configuration with kron -------------------------
     t_phase = time.perf_counter()
-    rng10 = np.random.default_rng(10)
-    xs = rng10.uniform(0, 1, size=(n10, 2))
-    ys = (np.sin(3 * np.pi * xs[:, 0]) * np.cos(2 * np.pi * xs[:, 1])
-          + 0.5 * np.sin(7 * xs[:, 0] + 5 * xs[:, 1])
-          + 0.1 * rng10.normal(size=n10))
-    xq10 = torch.as_tensor(rng10.uniform(0, 1, size=(2000, 2)),
-                           dtype=torch.float32, device=dev)
+    xs, ys, xqs = scale_data(n10)
+    xq10 = torch.as_tensor(xqs, dtype=torch.float32, device=dev)
     x10 = torch.as_tensor(xs, dtype=torch.float32, device=dev)
     y10 = torch.as_tensor(ys, dtype=torch.float32, device=dev)
     del xs, ys
@@ -2906,6 +3346,21 @@ def main() -> int:
     phase_s["11b"] = time.perf_counter() - t_phase
     print(f"[11b] phase wall time {phase_s['11b']:.1f} s")
 
+    # -- phase 12: the exact variances and the high-precision tier ---------
+    t_phase = time.perf_counter()
+    from gpquad_torch.utils import f64_oracles
+    record["phases"]["high"] = high = phase_high(types.SimpleNamespace(
+        gt=gpquad_torch, orc=f64_oracles, nufft_mod=nufft_mod,
+        cuda_nufft=cuda_nufft, efgp_mod=efgp_mod, dev=dev, card=card,
+        counters=counters + (cuda_nufft.LAUNCH_PRECISIONS,),
+        sigmasq=sigmasq, eps=eps, phase3=phase3, kernels=kernels,
+        plains=plains, x32=x32, y32=y32, xq32=xq32, kernel32=kernel32,
+        h_head=h_head, mtot_head=mtot_head, st=st, x2=x2, y2=y2, xq2=xq2,
+        kern_hard=kern_hard, h_hard=h_hard, mtot_hard=mtot_hard, n10=n10,
+        kern10=kern10, h10=h10, mtot10=mtot10))
+    phase_s["12"] = time.perf_counter() - t_phase
+    print(f"[12] phase wall time {phase_s['12']:.1f} s")
+
     # -- the record ----------------------------------------------------------
     # each kernel's row: its largest float32 call on a driven path (the
     # headline's for d=2, the light curve's for d=1, the d=3 paths' by work
@@ -2915,6 +3370,17 @@ def main() -> int:
                  "nufft1_2d_batched": (mtot_head, False),
                  "nufft2_2d_batched": (mtot_head, False)}
     rows = []
+
+    def high_launches(names, above=0):
+        """Phase 12's launches of the kernels ``names`` past mtot ``above``,
+        by precision."""
+        out = {"f32": 0, "f64": 0}
+        for key, v in high["launches"].items():
+            k, rest = key.split("/")
+            p, m = rest.split("@")
+            if k in names and int(m) > above:
+                out[p] += v
+        return out
     # the d=3 functions' two kernels each (phase 3's tc_3d_both)
     TC3_KEYS = ("dispatch", "tc_ms", "cuda_core_ms", "tc_rel_err",
                 "cuda_core_rel_err", "bound_fp32_ms", "bound_3xtf32_ms")
@@ -2959,7 +3425,8 @@ def main() -> int:
                      "launches_cg_tier": launches_cg[name]
                      + launches_gcg[name],
                      "launches_headline_facade": launches9[name],
-                     "launches_scale_fit_mean": launches10[name]}
+                     "launches_scale_fit_mean": launches10[name],
+                     "launches_high_tier": high_launches((name,))}
             if name == "nufft2_2d":
                 # its paths here and at the scale configuration's mean,
                 # variance evaluation and gradient, and the scale
@@ -3032,7 +3499,9 @@ def main() -> int:
                      "launches_scale_gradient":
                          tiled_counts(widths_grad10)[tpu],
                      "launches_scale_adam_loop":
-                         tiled_counts(widths_loop10)[tpu]}
+                         tiled_counts(widths_loop10)[tpu],
+                     "launches_high_tier": high_launches(
+                         (kernel, kernel + "_batched"), limit)}
         if kernel in KERNELS_3D:
             extra.update({k: row[k] for k in TC3_KEYS})
         if kernel == "nufft2_2d":

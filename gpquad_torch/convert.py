@@ -15,15 +15,17 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .kernels import HyperState, make_kernel
+from .kernels import HyperState, Matern, make_kernel
 from .models.efgp import FitState, resolve_device
+from .models.precision import HighState
 from .models.ski import BandedInterpTables, SKIOperator
 from .ops.cuda_interp import column_index, point_of_slot
 from .ops.kron_precond import KronPrecond
 from .ops.toeplitz import ToeplitzND
 
 __all__ = ["kernel_from_numpy", "fit_state_from_numpy", "fit_state_to_numpy",
-           "hyper_state_from_numpy", "hyper_state_to_numpy",
+           "high_state_from_numpy", "hyper_state_from_numpy",
+           "hyper_state_to_numpy",
            "ski_fit_from_numpy", "ski_fit_to_numpy"]
 
 # gpquad's band tables, the ones a SKI fit's arrays carry
@@ -32,10 +34,15 @@ _STATE_ARRAYS = ("beta", "ws", "h", "sigmasq", "fft_kernel", "diag_scale",
                  "A_dense", "P_dense", "defl_idx", "defl_P", "mean_cg_iters")
 
 
-def kernel_from_numpy(name, hypers, dimension: int):
-    """Kernel ``name`` with the hyper vector ``hypers`` (``hyper_names``
-    order, as ``AbstractKernel.hyper_vector`` gives it)."""
-    kernel = make_kernel(name, dimension)
+def kernel_from_numpy(name, hypers, dimension: int, nu=None):
+    """Kernel ``name`` ("SE", "SquaredExponential", "Matern12/32/52", or
+    "Matern" with its ``nu``) with the hyper vector ``hypers``
+    (``hyper_names`` order, as ``AbstractKernel.hyper_vector`` gives
+    it)."""
+    if str(name).lower() == "matern":
+        kernel = Matern(dimension=dimension, nu=2.5 if nu is None else nu)
+    else:
+        kernel = make_kernel(name, dimension)
     return kernel.with_hypers(torch.as_tensor(np.array(hypers)))
 
 
@@ -87,6 +94,32 @@ def fit_state_to_numpy(state: FitState) -> dict:
             if v is not None}
 
 
+def high_state_from_numpy(arrays: Mapping[str, np.ndarray], mtot: int,
+                          d: int, device="cuda") -> HighState:
+    """The port's ``HighState`` from a gpquad ``HighState``'s arrays: its
+    state's (as :func:`fit_state_from_numpy` reads them) and the low words
+    ``ws_lo``, ``h_lo`` and, from the matrix-free fit, ``beta_lo``.  Each
+    float64 word is the sum of its pair taken in float64: ``ws = Re(ws) +
+    ws_lo``, ``h = h + h_lo``, ``beta = beta + beta_lo``.  gpquad keeps no
+    residual on its state: ``residual`` is NaN."""
+    dev = resolve_device(device)
+    state = fit_state_from_numpy(arrays, mtot, d, device=dev)
+
+    def f64(key, dtype=np.float64):
+        return np.asarray(arrays[key]).astype(dtype)
+
+    beta = f64("beta", np.complex128)
+    if arrays.get("beta_lo") is not None:
+        beta = beta + f64("beta_lo", np.complex128)
+    return HighState(
+        state=state,
+        ws=torch.as_tensor(np.real(f64("ws", np.complex128)) + f64("ws_lo"),
+                           device=dev),
+        h=torch.as_tensor(f64("h") + f64("h_lo"), device=dev),
+        beta=torch.as_tensor(beta, device=dev),
+        residual=torch.tensor(float("nan"), dtype=torch.float64, device=dev))
+
+
 def hyper_state_from_numpy(raw, names, device="cuda") -> HyperState:
     """The port's ``HyperState`` from a log-space ``raw`` vector (kernel
     hypers, then the noise variance) and the kernel's hyper ``names``."""
@@ -109,7 +142,8 @@ def ski_fit_to_numpy(fit) -> dict:
     column index is derived from them on reading), ``grid_shape``, ``lo``,
     ``dx``, the Toeplitz ``fft_kernel``, ``alpha``, ``raw`` (log-space
     hypers, the noise variance last), and the kernel's ``kernel_name`` and
-    ``hypers`` (``hyper_names`` order)."""
+    ``hypers`` (``hyper_names`` order), with ``kernel_nu`` for a Matérn
+    kernel."""
     model = fit["model"]
     op = model["operator"]
     fields = {"idx": op.idx, "wvals": op.wvals, "lo": op.lo, "dx": op.dx,
@@ -122,6 +156,8 @@ def ski_fit_to_numpy(fit) -> dict:
     out = {k: v.detach().cpu().numpy() for k, v in fields.items()}
     out["grid_shape"] = np.asarray(op.grid_shape)
     out["kernel_name"] = type(model["kernel"]).__name__
+    if isinstance(model["kernel"], Matern):
+        out["kernel_nu"] = np.float64(model["kernel"].nu)
     return out
 
 
@@ -161,8 +197,10 @@ def ski_fit_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda"):
                      wvals=t(arrays["wvals"]), toeplitz=toeplitz,
                      grid_shape=grid_shape, lo=t(arrays["lo"]),
                      dx=t(arrays["dx"]), banded=banded)
+    nu = arrays.get("kernel_nu")
     kernel = kernel_from_numpy(str(arrays["kernel_name"]), arrays["hypers"],
-                               len(grid_shape)).to(dev)
+                               len(grid_shape),
+                               nu=None if nu is None else float(nu)).to(dev)
     return {"model": {"kernel": kernel, "raw": t(arrays["raw"]),
                       "alpha": t(arrays["alpha"]), "operator": op,
                       "toeplitz": toeplitz}}

@@ -37,6 +37,12 @@ class AbstractKernel(nn.Module):
         if hypers:
             raise TypeError(f"Unknown hyperparameters: {sorted(hypers)}")
 
+    def _static_kwargs(self) -> dict:
+        """Constructor arguments that are not hypers (the dimension, and a
+        Matérn kernel's nu): carried over to the kernels
+        :meth:`with_hypers` and :meth:`set_hyper` make."""
+        return {"dimension": self.dimension}
+
     @property
     def num_hypers(self) -> int:
         """Number of hyperparameters *including* the noise variance."""
@@ -59,7 +65,7 @@ class AbstractKernel(nn.Module):
         device."""
         vec = torch.as_tensor(vec)
         updates = {n: vec[i] for i, n in enumerate(self.hyper_names)}
-        return type(self)(dimension=self.dimension, **updates)
+        return type(self)(**self._static_kwargs(), **updates)
 
     def set_hyper(self, name: str, value) -> "AbstractKernel":
         """A new kernel with hyper ``name`` set to ``value``."""
@@ -67,7 +73,7 @@ class AbstractKernel(nn.Module):
             raise ValueError(f"Unknown hyperparameter: {name}")
         hypers = dict(self.iter_hypers())
         hypers[name] = torch.as_tensor(value)
-        return type(self)(dimension=self.dimension, **hypers)
+        return type(self)(**self._static_kwargs(), **hypers)
 
     def iter_hypers(self):
         for n in self.hyper_names:

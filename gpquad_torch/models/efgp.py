@@ -1,4 +1,7 @@
-"""EFGP regression serving path: fit, posterior mean, stochastic variance.
+"""EFGP regression serving path: fit, posterior mean, and the posterior
+variance by exact per-target solves ("regular"), Hutchinson probes
+("stochastic") or Chebyshev interpolation of exact node solves
+("chebyshev").
 
 Port of ``gpquad/models/efgp.py``.  Plain functions on tensors: the fit
 returns a :class:`FitState` dataclass, and prediction reads it.  The NUFFTs
@@ -13,9 +16,11 @@ state's device, and fails when CUDA is asked for and absent.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops.cg import CGResult, pcg
@@ -24,16 +29,17 @@ from ..ops.deflation import (DEFLATION_RANK, deflation_block,
 from ..ops.dense_solve import (DENSE_SOLVER_MAX_M, dense_gram, dense_inverse,
                                refine_solve)
 from ..ops.kron_precond import KronPrecond, kron_eig_build, make_kron_precond
-from ..ops.nufft import make_nufft
+from ..ops.nufft import make_nufft, make_phase_nufft
 from ..ops.operators import (convolution_vector, make_A_mean, make_A_var,
                              make_jacobi_precond)
 from ..ops.toeplitz import ToeplitzND, _next_smooth, make_toeplitz, \
     toeplitz_diag_scale
 from ..quadrature import spectral_grid
+from .pg_core import chebyshev_lobatto_nodes
 
 __all__ = ["FitState", "resolve_device", "resolve_solver", "resolve_precond",
            "tensor_grid", "quadrature_weights", "fit_with_grid", "fit",
-           "predict_mean", "predict_var"]
+           "predict_mean", "predict_var", "posterior_fourier_rows"]
 
 _PROBE_CHUNK = 256
 
@@ -330,23 +336,179 @@ def _variance_stochastic(state: FitState, x_new, generator, *, probes: int,
     return nufft.type2(est_sums).real
 
 
+def posterior_fourier_rows(x_new, h, mtot: int, d: int) -> torch.Tensor:
+    """Rows ``f_x = exp(+2 pi i x . xi)`` of the Fourier design at the
+    targets, (B, mtot^d): the outer product of per-axis phase vectors.
+    They are made by the phase-matrix code of ``ops/nufft.py`` (the
+    angle ``t = x h`` rounded in x's precision, folded onto the torus), as
+    gpquad takes them from its phase-matrix operator; no NUFFT is
+    applied."""
+    fs = [p.conj_physical() for p in make_phase_nufft(x_new, h, mtot).phases]
+    if d == 1:
+        return fs[0]
+    if d == 2:
+        return torch.einsum("nj,nk->njk", fs[0], fs[1]).reshape(
+            x_new.shape[0], -1)
+    if d == 3:
+        return torch.einsum("nj,nk,nl->njkl", fs[0], fs[1], fs[2]).reshape(
+            x_new.shape[0], -1)
+    raise NotImplementedError("d <= 3")
+
+
+def _variance_regular(state: FitState, x_new, *, cg_tol, max_cg_iter,
+                      microbatch: int = 8192) -> torch.Tensor:
+    """Exact per-target variance ``Re f_x^T W A_var^{-1} W conj(f_x)``, in
+    microbatches of ``microbatch`` targets: the fit's dense inverse with
+    refinement on the dense tier, one batched PCG a microbatch (with the
+    fit's preconditioner) otherwise."""
+    out = []
+    for xb in torch.split(x_new, microbatch):
+        fx = posterior_fourier_rows(xb, state.h, state.mtot, state.d)
+        res = _solve_var(state, state.ws * fx.conj(), cg_tol=cg_tol,
+                         max_cg_iter=max_cg_iter)
+        out.append(torch.clamp(
+            torch.sum(fx * (state.ws * res.x), dim=-1).real, min=0.0))
+    return torch.cat(out)
+
+
+def _auto_chebyshev_nodes(state: FitState, x_new, *, mass: float = 0.999,
+                          c: float = 4.0, floor: int = 20, cap: int = 96):
+    """Per-dimension Chebyshev node counts from the variance surface's
+    bandwidth (host numpy, as gpquad).
+
+    The variance is a trigonometric polynomial in x whose spectral envelope
+    is the Woodbury-damped ``q = ws^2 / (n ws^2 + sigma^2)``, not ``ws^2``.
+    Per dimension, B is the q-weighted ``mass``-quantile of |xi| and W the
+    targets' width; Chebyshev interpolation of e^{2 pi i B x} over W needs
+    about pi nodes a wavelength, so N = ceil(2 c B W), clipped to [floor,
+    cap]."""
+    m = (state.mtot - 1) // 2
+    xis1 = np.arange(-m, m + 1) * float(state.h)
+    w2 = (torch.abs(state.ws) ** 2).cpu().numpy()
+    w2 = w2 / (float(state.diag_scale) * w2 + float(state.sigmasq))
+    w2 = w2.reshape((state.mtot,) * state.d)
+    xh = x_new.cpu().numpy()
+    order = np.argsort(np.abs(xis1))
+    fsorted = np.abs(xis1)[order]
+    out = []
+    for dim in range(state.d):
+        axes = tuple(i for i in range(state.d) if i != dim)
+        wdim = w2.sum(axis=axes) if axes else w2
+        cs = np.cumsum(wdim[order])
+        B = fsorted[min(int(np.searchsorted(cs, mass * cs[-1])),
+                        len(fsorted) - 1)]
+        W = float(xh[:, dim].max() - xh[:, dim].min())
+        out.append(int(np.clip(np.ceil(2.0 * c * B * W), floor, cap)))
+    return out
+
+
+def _variance_chebyshev(state: FitState, x_new, *, n_nodes_per_dim,
+                        cg_tol, max_cg_iter) -> torch.Tensor:
+    """The exact variance on a Chebyshev-Lobatto tensor grid over the
+    targets' box, barycentric-interpolated to the targets.
+    ``n_nodes_per_dim`` is an int, a per-dimension sequence, or None
+    (:func:`_auto_chebyshev_nodes`)."""
+    xh = x_new.cpu().numpy()
+    d = xh.shape[1]
+    if n_nodes_per_dim is None:
+        n_per_dim = _auto_chebyshev_nodes(state, x_new)
+    elif np.ndim(n_nodes_per_dim) == 0:
+        n_per_dim = [int(n_nodes_per_dim)] * d
+    else:
+        n_per_dim = [int(v) for v in n_nodes_per_dim]
+    axes_nodes, axes_weights = [], []
+    for dim in range(d):
+        lo, hi = float(xh[:, dim].min()), float(xh[:, dim].max())
+        if np.isclose(lo, hi):
+            pad = max(abs(lo), 1.0) * 1e-6
+            lo, hi = lo - pad, hi + pad
+        nodes, weights = chebyshev_lobatto_nodes(lo, hi, n_per_dim[dim])
+        axes_nodes.append(torch.as_tensor(nodes, dtype=x_new.dtype,
+                                          device=x_new.device))
+        axes_weights.append(torch.as_tensor(weights, dtype=x_new.dtype,
+                                            device=x_new.device))
+    mesh = torch.stack(torch.meshgrid(*axes_nodes, indexing="ij"),
+                       dim=-1).reshape(-1, d)
+    return _cheb_eval(state, x_new, axes_nodes, axes_weights, mesh,
+                      cg_tol=cg_tol, max_cg_iter=max_cg_iter)
+
+
+def _bary_rows(nodes, weights, t):
+    """Barycentric interpolation rows (targets, nodes).  The barycentric
+    form normalises itself as t -> node, so only exact hits take the
+    one-hot row."""
+    diff = t[:, None] - nodes[None, :]
+    hit = diff == 0.0
+    matched = hit.any(dim=1)
+    raw = weights[None, :] / torch.where(hit, torch.ones_like(diff), diff)
+    raw = torch.where(hit, torch.zeros_like(raw), raw)
+    smooth = raw / raw.sum(dim=1, keepdim=True)
+    return torch.where(matched[:, None], hit.to(t.dtype), smooth)
+
+
+@contextlib.contextmanager
+def _full_fp32_matmul():
+    """CUDA float32 matmuls in full fp32 (TF32 off) inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _cheb_eval(state, x_new, nodes, weights, mesh, *, cg_tol, max_cg_iter):
+    d = len(nodes)
+    node_var = _variance_regular(state, mesh, cg_tol=cg_tol,
+                                 max_cg_iter=max_cg_iter)
+    node_grid = node_var.reshape(tuple(n.shape[0] for n in nodes))
+    mats = [_bary_rows(nodes[i], weights[i], x_new[:, i]) for i in range(d)]
+    letters = "abcdefghij"[:d]
+    expr = ",".join(f"n{c}" for c in letters) + "," + letters + "->n"
+    # full fp32: the rows carry alternating-sign O(1) weights, and a
+    # reduced-precision contraction (a bfloat16 pass on the TPU) left ~4e-3
+    # of the variance's scale (gpquad/models/efgp.py:585-590)
+    with _full_fp32_matmul():
+        return torch.clamp(torch.einsum(expr, *mats, node_grid), min=0.0)
+
+
 def predict_var(state: FitState, x_new, *, method: str = "stochastic",
                 generator: Optional[torch.Generator] = None,
                 probes: int = 1000, cg_tol: float = 1e-4,
-                max_cg_iter: int = 1000, nufft_method: str = "auto",
+                max_cg_iter: int = 1000, microbatch: int = 8192,
+                chebyshev_nodes=None, nufft_method: str = "auto",
                 etas=None) -> torch.Tensor:
-    """Posterior variance at ``x_new``.  Only ``method="stochastic"`` is
-    ported; its probes come from ``generator`` (a fresh generator on the
-    state's device seeded 0 when None) unless ``etas`` is given."""
+    """Posterior variance at ``x_new``.
+
+    ``method="regular"``: exact per-target solves in microbatches of
+    ``microbatch``.  ``"stochastic"``: the Hutchinson diag-sums estimator,
+    its probes from ``generator`` (a fresh generator on the state's device
+    seeded 0 when None) unless ``etas`` is given.  ``"chebyshev"``: the
+    exact variance at Chebyshev-Lobatto nodes, interpolated to the targets;
+    ``chebyshev_nodes`` (int or per dimension) or None for the automatic
+    count, which falls back to "regular" when its grid would be no smaller
+    than the target set."""
     x_new = _as_points(x_new, state.device, state.h.dtype)
     method = method.lower()
+    if method == "regular":
+        return _variance_regular(state, x_new, cg_tol=cg_tol,
+                                 max_cg_iter=max_cg_iter,
+                                 microbatch=microbatch)
     if method == "stochastic":
         return _variance_stochastic(state, x_new, generator, probes=probes,
                                     cg_tol=cg_tol, max_cg_iter=max_cg_iter,
                                     nufft_method=nufft_method, etas=etas)
-    if method in ("regular", "chebyshev"):
-        raise NotImplementedError(
-            f"variance method '{method}' is not ported yet (ROADMAP A.8)")
+    if method == "chebyshev":
+        if chebyshev_nodes is None:
+            auto = _auto_chebyshev_nodes(state, x_new)
+            if int(np.prod(auto)) >= x_new.shape[0]:
+                return _variance_regular(state, x_new, cg_tol=cg_tol,
+                                         max_cg_iter=max_cg_iter,
+                                         microbatch=microbatch)
+            chebyshev_nodes = auto
+        return _variance_chebyshev(state, x_new,
+                                   n_nodes_per_dim=chebyshev_nodes,
+                                   cg_tol=cg_tol, max_cg_iter=max_cg_iter)
     raise ValueError(
         f"Variance method '{method}' not implemented. Choose 'regular', "
         f"'stochastic' or 'chebyshev'.")

@@ -1,6 +1,7 @@
 """The north-star workload in one call: fit + posterior mean + stochastic
-variance + one hyper-gradient; port of ``gpquad/models/pipeline.py``
-(``fit_predict_grad``).
+variance + one hyper-gradient, and with it the high-precision refit and
+mean; port of ``gpquad/models/pipeline.py`` (``fit_predict_grad``,
+``fit_predict_grad_high``).
 
 The JAX version compiles the whole pass into one XLA program, which shares
 the grid set-up, lag table and Toeplitz spectrum between the stages.  Here
@@ -27,8 +28,10 @@ from .efgp import (FitState, _as_points, _cdtype, _variance_stochastic,
                    predict_mean, quadrature_weights, resolve_device,
                    resolve_precond, resolve_solver, tensor_grid)
 from .gradient import gradient_with_grid
+from .precision import fit_high, predict_mean_high
 
-__all__ = ["FusedResult", "fit_predict_grad"]
+__all__ = ["FusedResult", "fit_predict_grad", "FusedHighResult",
+           "fit_predict_grad_high"]
 
 
 class FusedResult(NamedTuple):
@@ -120,3 +123,31 @@ def fit_predict_grad(x, y, xnew, kernel, sigmasq, h, generator=None, *,
                        mean_cg_iters=res_mean.iters,
                        trace_cg_iters=gres.trace_cg_iters,
                        mean_converged=res_mean.converged)
+
+
+class FusedHighResult(NamedTuple):
+    fused: FusedResult
+    mean_high: torch.Tensor       # (B,) float64 posterior mean
+    high_residual: torch.Tensor   # float64 relative residual of the refit
+
+
+def fit_predict_grad_high(x, y, xnew, kernel, sigmasq, h, generator=None, *,
+                          mtot: int, passes: int = 8, chunk: int = 8,
+                          slab: int = 2048, fuse: bool = True,
+                          exact_tables: bool = False, device="cuda",
+                          **kw) -> FusedHighResult:
+    """The fused float32 pass (:func:`fit_predict_grad`, ``**kw`` its
+    options) followed by the float64 high-precision refit on the dense
+    tier (``precision.fit_high(solver="dense")``, ``passes`` refinements)
+    and the float64 mean at ``xnew``.  ``h``, ``sigmasq`` and the hypers
+    are concrete host float64 values.  gpquad's ``fuse`` chose between one
+    XLA program and two, ``chunk`` and ``exact_tables`` between its
+    double-word table routines, and ``slab`` bounded its type-2's memory:
+    here the stages run in turn either way and the four are accepted and
+    ignored."""
+    fused = fit_predict_grad(x, y, xnew, kernel, sigmasq, h, generator,
+                             mtot=mtot, device=device, **kw)
+    hs = fit_high(x, y, kernel, sigmasq, h, mtot, passes=passes,
+                  solver="dense", device=device)
+    return FusedHighResult(fused=fused, mean_high=predict_mean_high(hs, xnew),
+                           high_residual=hs.residual)

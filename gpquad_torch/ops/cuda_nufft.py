@@ -100,15 +100,17 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "type2_3d_geometry", "type2_3d_tc_geometry",
            "type2_3d_scratch_floats", "type2_3d_split",
            "CudaNUFFT", "LAUNCHES",
-           "LAUNCH_WIDTHS", "build", "library_path"]
+           "LAUNCH_WIDTHS", "LAUNCH_PRECISIONS", "build", "library_path"]
 
 # Launches of each kernel since the last reset (a launch is one wrapper call
 # on a CUDA tensor; the two stages of type-1 count once).
 LAUNCHES = {"nufft1_1d": 0, "nufft2_1d": 0, "nufft1_2d": 0, "nufft2_2d": 0,
             "nufft1_2d_batched": 0, "nufft2_2d_batched": 0, "nufft1_3d": 0,
             "nufft2_3d": 0}
-# The same launches by (kernel, mtot), counted at the same place.
+# The same launches by (kernel, mtot), and by (kernel, "f32" | "f64", mtot),
+# counted at the same place.
 LAUNCH_WIDTHS: dict[tuple[str, int], int] = {}
+LAUNCH_PRECISIONS: dict[tuple[str, str, int], int] = {}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every file the library depends on (hashed); the .cu files are compiled
@@ -413,8 +415,8 @@ def _launch(name: str, x: torch.Tensor, *args, mtot: int,
             symbol: str | None = None):
     """Call ``gpq_<name>_<f32|f64>`` (x's precision), or the C function
     ``symbol`` where given, with ``args`` and x's current stream; raise on a
-    CUDA error, count the launch of ``name`` (by kernel and by kernel and
-    ``mtot``)."""
+    CUDA error, count the launch of ``name`` (by kernel, by kernel and
+    ``mtot``, and by kernel, precision and ``mtot``)."""
     prec = "f32" if x.dtype == torch.float32 else "f64"
     fn = getattr(_library(), symbol or f"gpq_{name}_{prec}")
     with torch.cuda.device(x.device):
@@ -425,6 +427,8 @@ def _launch(name: str, x: torch.Tensor, *args, mtot: int,
                            f"({torch.cuda.get_device_name(x.device)})")
     LAUNCHES[name] += 1
     LAUNCH_WIDTHS[name, mtot] = LAUNCH_WIDTHS.get((name, mtot), 0) + 1
+    LAUNCH_PRECISIONS[name, prec, mtot] = LAUNCH_PRECISIONS.get(
+        (name, prec, mtot), 0) + 1
 
 
 # ---------------------------------------------------------------------------

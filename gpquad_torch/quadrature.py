@@ -6,8 +6,9 @@ Planning always runs on the host in float64, so ``(h, mtot)`` equal what
 the JAX package computes with x64 enabled:
 
   - ``h = 1 / (L + Ltime)`` where ``k(Ltime) = eps`` (aliasing control);
-  - ``hm = ceil(Lfreq / h)`` where ``|r|^(d-1) S(r) / S(0) = eps``
-    (truncation control), or the closed-form SE heuristic.
+  - ``hm = ceil(Lfreq / h)`` where ``|r|^(d-1) S(r) / S(0) = trunc_eps``
+    (truncation control, ``trunc_eps = eps`` by default), or the
+    closed-form SE and Matérn heuristics.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .kernels.matern import Matern
 from .kernels.squared_exponential import SquaredExponential
 
 __all__ = ["truncation_bound", "grid_geometry", "spectral_grid",
@@ -61,11 +63,15 @@ def _host_f64(kernel):
     return kernel.with_hypers(kernel.hyper_vector().to("cpu", _F64))
 
 
-def grid_geometry(kernel, eps, L, *, use_integral: bool = True):
+def grid_geometry(kernel, eps, L, *, use_integral: bool = True,
+                  trunc_eps=None):
     """Quadrature geometry ``(h, hm_real)`` as float64 0-d tensors; callers
-    take ``mtot = 2 * ceil(hm_real) + 1``."""
+    take ``mtot = 2 * ceil(hm_real) + 1``.  ``trunc_eps`` (default ``eps``)
+    is the integral method's truncation level for the spectral tail."""
     kernel = _host_f64(kernel)
     L = torch.as_tensor(L, dtype=_F64)
+    if trunc_eps is None:
+        trunc_eps = eps
 
     if use_integral:
         Ltime = truncation_bound(lambda r: kernel.kernel(r), eps)
@@ -77,27 +83,34 @@ def grid_geometry(kernel, eps, L, *, use_integral: bool = True):
             return (torch.abs(r ** (d - 1))
                     * kernel.spectral_density(r.reshape(1))[0] / s0)
 
-        Lfreq = truncation_bound(khat_mod, eps)
+        Lfreq = truncation_bound(khat_mod, trunc_eps)
         return h, Lfreq / h
 
-    if not isinstance(kernel, SquaredExponential):
-        raise NotImplementedError(
-            "Heuristic grid selection is ported for SE only; use "
-            "use_integral=True.")
     l = kernel.lengthscale
     var = kernel.variance
     d = kernel.dimension
     eps_use = eps / var
-    h =1.0 / (L + l * torch.sqrt(2.0 * torch.log(4 * d * 3 ** d / eps_use)))
-    hm_real = (torch.sqrt(torch.log(d * 4.0 ** (d + 1) / eps_use) / 2.0)
-               / math.pi / l) / h
-    return h, hm_real
+    if isinstance(kernel, Matern):
+        nu = kernel.nu
+        h = 1.0 / (L + 0.85 * l / math.sqrt(nu) * torch.log(1.0 / eps_use))
+        hm_real = ((math.pi ** (nu + d / 2) * l ** (2 * nu) * eps_use / 0.15)
+                   ** (-1.0 / (2 * nu + d / 2))) / h
+        return h, hm_real
+    if isinstance(kernel, SquaredExponential):
+        h = 1.0 / (L + l * torch.sqrt(2.0 * torch.log(4 * d * 3 ** d
+                                                      / eps_use)))
+        hm_real = (torch.sqrt(torch.log(d * 4.0 ** (d + 1) / eps_use) / 2.0)
+                   / math.pi / l) / h
+        return h, hm_real
+    raise NotImplementedError(
+        "Heuristic grid selection only for SE/Matérn; use use_integral=True.")
 
 
-def spectral_grid(kernel, eps, L, *, use_integral: bool = True
-                  ) -> Tuple[np.ndarray, float, int]:
+def spectral_grid(kernel, eps, L, *, use_integral: bool = True,
+                  trunc_eps=None) -> Tuple[np.ndarray, float, int]:
     """Concrete ``(xis_1d, h, mtot)`` with ``xis = arange(-hm, hm+1) * h``."""
-    h, hm_real = grid_geometry(kernel, eps, L, use_integral=use_integral)
+    h, hm_real = grid_geometry(kernel, eps, L, use_integral=use_integral,
+                               trunc_eps=trunc_eps)
     h = float(h)
     hm = int(math.ceil(float(hm_real) - 1e-12))
     xis = np.arange(-hm, hm + 1, dtype=np.float64) * h

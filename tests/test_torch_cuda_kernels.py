@@ -1330,3 +1330,58 @@ def test_type2_3d_launch_refuses_short_scratch(cuda_device):
                            symbol="gpq_nufft2_3d_tc_f32")
     torch.cuda.synchronize()
     assert not bool(out.abs().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,mtot,h,ell", [(1, 9, 0.31, 0.25),
+                                          (2, 9, 0.31, 0.25),
+                                          (3, 7, 0.35, 0.375)])
+def test_high_tier_on_card(cuda_device, d, mtot, h, ell):
+    """fit_high + predict_mean_high, gradient_high, variance_high and the
+    exact variance of a float64 fit on the card, against the port's float64
+    oracles on the plain path (``utils/f64_oracles.py``) at 1e-8 (mean
+    relative to max|mean|, gradient and variance per entry); every NUFFT of
+    the high tier is a float64 launch of a CUDA kernel (BACKEND_PICKS
+    "matmul" 0)."""
+    from gpquad_torch.utils import f64_oracles as orc
+    rng = np.random.default_rng(d)
+    n, sig = 2000, 0.05
+    x = torch.as_tensor(rng.uniform(0, 1, (n, d)), dtype=torch.float32,
+                        device=cuda_device)
+    y = torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
+                        device=cuda_device)
+    xq = torch.as_tensor(rng.uniform(0.1, 0.9, (60, d)), dtype=torch.float32,
+                         device=cuda_device)
+    Z = torch.as_tensor(rng.integers(0, 2, (4, n)) * 2.0 - 1,
+                        device=cuda_device)
+    V = torch.as_tensor(rng.integers(0, 2, (4, mtot ** d)) * 2.0 - 1,
+                        device=cuda_device)
+    kern = gpquad_torch.make_kernel("SE", d, lengthscale=ell, variance=1.25)
+    for counter in (nufft_mod.BACKEND_PICKS, cuda_nufft.LAUNCH_PRECISIONS):
+        for k in counter:
+            counter[k] = 0
+    hs = gpquad_torch.fit_high(x, y, kern, sig, h, mtot, device=cuda_device)
+    mean = gpquad_torch.predict_mean_high(hs, xq)
+    grad = gpquad_torch.gradient_high(x, y, kern, sig, h, mtot,
+                                      probes=(Z, V), device=cuda_device).grad
+    var = gpquad_torch.variance_high(x, kern, sig, h, mtot, xq,
+                                     device=cuda_device)
+    torch.cuda.synchronize()
+    assert nufft_mod.BACKEND_PICKS["matmul"] == 0
+    assert nufft_mod.BACKEND_PICKS["cuda"] > 0
+    launched = {k: c for k, c in cuda_nufft.LAUNCH_PRECISIONS.items() if c}
+    assert launched and all(p == "f64" for _, p, _ in launched)
+    obj = orc.efgp_f64_objects_kernel(x, y, kern, sig, h, mtot)
+    ref = orc.mean_f64(obj, xq)
+    assert float((mean - ref).abs().max()) <= 1e-8 * float(ref.abs().max())
+    g64 = orc.gradient_f64(obj, Z, V)
+    assert float(((grad - g64).abs() / g64.abs()).max()) < 1e-8
+    v64 = orc.regular_var_f64(obj, xq)
+    assert float(((var - v64).abs() / v64).max()) < 1e-8
+    st = gpquad_torch.fit_with_grid(x.double(), y.double(), kern, sig, h,
+                                    mtot, cg_tol=1e-12, device=cuda_device)
+    for method in ("regular", "chebyshev"):
+        v = gpquad_torch.predict_var(st, xq, method=method,
+                                     chebyshev_nodes=24, cg_tol=1e-12)
+        assert float((v - v64).abs().max()) <= (
+            1e-8 if method == "regular" else 1e-5) * float(v64.max())

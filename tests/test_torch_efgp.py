@@ -180,7 +180,8 @@ def test_entry_points_fail_without_card(data):
 def test_unported_options_raise(data):
     """kron (also 'adaptive' at n >= M) runs and keeps its factors on the
     state; precond_rank runs the deflation preconditioner and keeps its
-    block on the state; the variance methods of A.8 raise."""
+    block on the state; the "regular" and "chebyshev" variances run and an
+    unknown method raises."""
     x, y, xq = data
     tk = gpquad_torch.make_kernel("SE", 2, lengthscale=0.3, variance=1.0)
     betas = []
@@ -200,9 +201,11 @@ def test_unported_options_raise(data):
     # gpquad's known quirk (ROADMAP §C): 'kron' at d > 3 becomes Jacobi
     assert tefgp.resolve_precond("kron", 0, True, 4) == "jacobi"
     st = gpquad_torch.fit(x[:200], y[:200], tk, 0.1, eps=1e-3, device="cpu")
+    # the exact and the Chebyshev variances are ported
+    # (tests/test_torch_variance.py holds them against gpquad)
     for method in ("regular", "chebyshev"):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            gpquad_torch.predict_var(st, xq, method=method)
+        var = gpquad_torch.predict_var(st, xq, method=method)
+        assert var.shape == (len(xq),) and bool(torch.all(var >= 0))
     with pytest.raises(ValueError):
         gpquad_torch.predict_var(st, xq, method="exact")
 

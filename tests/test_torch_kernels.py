@@ -50,9 +50,11 @@ def test_hyper_plumbing():
 
 def test_make_kernel_names():
     assert isinstance(make_kernel("SquaredExponential", 1), SquaredExponential)
-    for name in ("Matern12", "Matern32", "Matern52"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_kernel(name, 2)
+    for name, nu in (("Matern12", 0.5), ("Matern32", 1.5),
+                     ("Matern52", 2.5)):
+        k = make_kernel(name, 2, lengthscale=0.3)
+        assert type(k).__name__ == "Matern" and k.nu == nu
+        assert k.with_hypers(torch.tensor([0.5, 2.0])).nu == nu
     with pytest.raises(ValueError):
         make_kernel("Cauchy", 1)
 

@@ -419,8 +419,12 @@ def test_estimated_start_and_string_kernel(rng):
                                [float(l), float(v), float(nv)], rtol=1e-15)
     mean, var = model.predict(np.asarray(x)[:10], hutchinson_probes=32)
     assert mean.shape == (10,) and var.shape == (10,)
-    with pytest.raises(NotImplementedError, match="A.1"):
-        EFGP(np.asarray(x), np.asarray(y), "Matern32", device="cpu")
+    # Matérn starts from the median distance itself (SE from half of it)
+    matern = EFGP(np.asarray(x), np.asarray(y), "Matern32", eps=1e-3,
+                  device="cpu")
+    assert matern.kernel.nu == 1.5
+    np.testing.assert_allclose(float(matern.params.pos[0]), 2 * float(l),
+                               rtol=1e-15)
     with pytest.raises(ValueError, match="Unsupported optimizer"):
         model.optimize_hyperparameters(optimizer="sgd", max_iters=1)
 

@@ -1,0 +1,299 @@
+"""Port parity for the high-precision fit and mean (``models/precision.py``),
+the fused ``fit_predict_grad_high``, ``convert.high_state_from_numpy`` and
+the port's float64 oracles (``utils/f64_oracles.py``), on the CPU.
+
+The port runs gpquad's refinement with float64 words where gpquad keeps
+double-word float32 pairs, so it is held against gpquad's dense numpy
+float64 oracles (``gpquad/utils/f64_oracles.py``) at 1e-8 of max|mean|,
+against gpquad's double-word outputs at gpquad's own bars for the same case
+(``tests/test_precision.py``: 2e-6 absolute for the SE mean, 5e-6 for
+Matérn), and its own oracles against gpquad's at 1e-12 (relative; on a
+problem of condition ~1e3, where two float64 dense solves agree to that).
+Where gpquad takes float32 hypers, the port takes the same values in
+float64.
+gpquad's double-word functions take seconds each on XLA:CPU: each is
+called once, in a module-scoped fixture.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpquad.kernels import Matern as JaxMatern
+from gpquad.kernels import SquaredExponential as JaxSE
+from gpquad.models import precision as jprec
+from gpquad.models.pipeline import fit_predict_grad_high as jax_fpgh
+from gpquad.utils import f64_oracles as jor
+import gpquad_torch
+from gpquad_torch import convert
+from gpquad_torch.models import precision as tprec
+from gpquad_torch.utils import f64_oracles as tor
+
+torch.set_num_threads(1)
+
+# tests/test_precision.py's sizes: d -> (n, mtot, h, sigmasq, lengthscale)
+SIZES = {1: (3000, 9, 0.31, 0.05, 0.25), 2: (4000, 11, 0.31, 0.05, 0.25),
+         3: (3000, 7, 0.35, 0.05, 0.35)}
+VAR = 1.25
+# test_fit_high_matern's case, its variance 1.2 moved to 1.25 (exact in
+# float32)
+MATERN = (3000, 15, 0.22, 0.05, 0.3)
+
+
+def _data(d, n, seed=0, nq=100):
+    rng = np.random.default_rng(seed + d)
+    x = rng.uniform(0, 1, (n, d)).astype(np.float32)
+    y = rng.normal(size=n).astype(np.float32)
+    xt = rng.uniform(0.1, 0.9, (nq, d)).astype(np.float32)
+    return x, y, xt
+
+
+def _oracle_mean(obj, xt):
+    Ft = np.exp(2j * np.pi * (xt.astype(np.float64) @ obj["xis"].T))
+    return np.real(Ft @ (obj["ws"] * obj["beta_raw"]))
+
+
+@pytest.fixture(scope="module", params=[1, 2, 3], ids=lambda d: f"d{d}")
+def prob(request):
+    d = request.param
+    n, mtot, h, sig, ell = SIZES[d]
+    x, y, xt = _data(d, n)
+    obj = jor.efgp_f64_objects(x, y, ell, VAR, sig, h, mtot)
+    kernel = gpquad_torch.make_kernel("SE", d, lengthscale=ell, variance=VAR)
+    return dict(d=d, x=x, y=y, xt=xt, h=h, mtot=mtot, sig=sig, ell=ell,
+                kernel=kernel, mean64=_oracle_mean(obj, xt))
+
+
+@pytest.mark.parametrize("solver,rank", [("dense", 0), ("iterative", 0),
+                                         ("iterative", 24)])
+def test_fit_high_matches_oracle(prob, solver, rank):
+    hs = gpquad_torch.fit_high(prob["x"], prob["y"], prob["kernel"],
+                               prob["sig"], prob["h"], prob["mtot"],
+                               solver=solver, precond_rank=rank,
+                               device="cpu")
+    mean = gpquad_torch.predict_mean_high(hs, prob["xt"]).numpy()
+    assert mean.dtype == np.float64 and hs.beta.dtype == torch.complex128
+    ref = prob["mean64"]
+    err = np.max(np.abs(mean - ref))
+    assert err <= 1e-8 * np.max(np.abs(ref)), err
+    assert float(hs.residual) < 1e-10
+    # the float32 companion serves the ordinary float32 paths
+    st = hs.state
+    assert st.beta.dtype == torch.complex64 and st.h.dtype == torch.float32
+    assert (st.P_dense is not None) == (solver == "dense")
+    m32 = gpquad_torch.predict_mean(st, prob["xt"]).numpy()
+    assert np.max(np.abs(m32 - ref)) < 1e-4 * np.max(np.abs(ref))
+
+
+def test_fit_high_guards():
+    x = np.zeros((8, 2), np.float32)
+    k = gpquad_torch.make_kernel("SE", 2, lengthscale=0.1)
+    with pytest.raises(ValueError, match="DENSE_SOLVER_MAX_M"):
+        gpquad_torch.fit_high(x, x[:, 0], k, 0.1, 0.05, 101, solver="dense",
+                              device="cpu")
+    with pytest.raises(ValueError, match="Unknown solver"):
+        gpquad_torch.fit_high(x, x[:, 0], k, 0.1, 0.05, 5, solver="cg",
+                              device="cpu")
+
+
+def test_ir_solve_stops_on_residual():
+    """The refinement stops at ``passes``, or at the first pass whose
+    starting residual is within ``rtol * |b|``."""
+    rng = np.random.default_rng(3)
+    M = 40
+    Q = rng.normal(size=(M, M)) + 1j * rng.normal(size=(M, M))
+    A = torch.as_tensor(Q @ Q.conj().T + M * np.eye(M))
+    b = torch.as_tensor(rng.normal(size=M) + 1j * rng.normal(size=M))
+    P = torch.linalg.inv(A.to(torch.complex64))
+    kw = dict(ir_tol=0.0, ir_maxiter=0, solve32=lambda r: r @ P.T)
+    x, iters, _ = tprec.ir_solve(None, None, lambda z: z @ A.T, b, passes=6,
+                                 rtol=1e-14, **kw)
+    exact = torch.linalg.solve(A, b)
+    assert float((x - exact).abs().max() / exact.abs().max()) < 1e-14
+    assert int(iters) < 6
+    _, iters, _ = tprec.ir_solve(None, None, lambda z: z @ A.T, b, passes=6,
+                                 rtol=0.0, **kw)
+    assert int(iters) == 6
+
+
+# ---------------------------------------------------------------------------
+# Matérn, and gpquad's double-word outputs (one call each)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def matern():
+    n, mtot, h, sig, ell = MATERN
+    x, y, xt = _data(1, n, seed=5)
+    jk = JaxMatern(lengthscale=jnp.float32(ell), variance=jnp.float32(VAR),
+                   dimension=1, nu=1.5)
+    obj = jor.efgp_f64_objects_kernel(x, y, jk, sig, h, mtot)
+    hs = jprec.fit_high(jnp.asarray(x), jnp.asarray(y), jk, sig, h, mtot)
+    return dict(x=x, y=y, xt=xt, h=h, mtot=mtot, sig=sig, jk=jk,
+                tk=gpquad_torch.Matern(dimension=1, nu=1.5,
+                                       lengthscale=float(np.float32(ell)),
+                                       variance=VAR),
+                mean64=_oracle_mean(obj, xt),
+                jmean=np.asarray(jprec.predict_mean_high(hs, jnp.asarray(xt),
+                                                         slab=128)))
+
+
+@pytest.mark.parametrize("solver", ["dense", "iterative"])
+def test_fit_high_matern(matern, solver):
+    hs = gpquad_torch.fit_high(matern["x"], matern["y"], matern["tk"],
+                               matern["sig"], matern["h"], matern["mtot"],
+                               solver=solver, device="cpu")
+    mean = gpquad_torch.predict_mean_high(hs, matern["xt"]).numpy()
+    ref = matern["mean64"]
+    assert np.max(np.abs(mean - ref)) <= 1e-8 * np.max(np.abs(ref))
+    # gpquad's double-word fit (tests/test_precision.py's bar 5e-6)
+    assert np.max(np.abs(mean - matern["jmean"])) < 5e-6
+
+
+@pytest.fixture(scope="module")
+def jax_high():
+    """gpquad's double-word fits at d=2 (dense) and d=1 (matrix-free, with
+    the low word of beta), their means, and its unfused
+    fit_predict_grad_high at d=2."""
+    out = {}
+    for d, solver in ((2, "dense"), (1, "iterative")):
+        n, mtot, h, sig, ell = SIZES[d]
+        x, y, xt = _data(d, n)
+        jk = JaxSE(lengthscale=jnp.float32(ell), variance=jnp.float32(VAR),
+                   dimension=d)
+        hs = jprec.fit_high(jnp.asarray(x), jnp.asarray(y), jk, sig, h, mtot,
+                            chunk=64, solver=solver)
+        mean = np.asarray(jprec.predict_mean_high(hs, jnp.asarray(xt),
+                                                  slab=256))
+        out[d] = dict(hs=hs, mean=mean, x=x, y=y, xt=xt, mtot=mtot)
+    n, mtot, h, sig, ell = SIZES[2]
+    x, y, xt = _data(2, n)
+    jk = JaxSE(lengthscale=jnp.float32(ell), variance=jnp.float32(VAR),
+               dimension=2)
+    out["fused"] = jax_fpgh(jnp.asarray(x), jnp.asarray(y), jnp.asarray(xt),
+                            jk, sig, h, jax.random.PRNGKey(0), mtot=mtot,
+                            fuse=False)
+    return out
+
+
+def _prob_of(d):
+    n, mtot, h, sig, ell = SIZES[d]
+    x, y, xt = _data(d, n)
+    return x, y, xt, h, mtot, sig, gpquad_torch.make_kernel(
+        "SE", d, lengthscale=ell, variance=VAR)
+
+
+@pytest.mark.parametrize("d,solver", [(2, "dense"), (1, "iterative")])
+def test_fit_high_matches_gpquad_double_word(jax_high, d, solver):
+    x, y, xt, h, mtot, sig, k = _prob_of(d)
+    hs = gpquad_torch.fit_high(x, y, k, sig, h, mtot, solver=solver,
+                               device="cpu")
+    mean = gpquad_torch.predict_mean_high(hs, xt).numpy()
+    assert np.max(np.abs(mean - jax_high[d]["mean"])) < 2e-6
+
+
+@pytest.mark.parametrize("d", [2, 1])
+def test_high_state_from_numpy(jax_high, d):
+    """gpquad's HighState carried across: the port's float64 mean of the
+    summed words equals gpquad's double-word mean, which gpquad returns
+    rounded to float32: within one float32 ulp of each entry."""
+    hs = jax_high[d]["hs"]
+    st = hs.state
+    arrays = {k: np.asarray(getattr(st, k)) for k in
+              ("beta", "ws", "h", "sigmasq", "diag_scale", "mean_cg_iters")}
+    if st.A_dense is not None:
+        arrays.update(A_dense=np.asarray(st.A_dense),
+                      P_dense=np.asarray(st.P_dense))
+    arrays["fft_kernel"] = np.asarray(st.toeplitz.fft_kernel)
+    arrays.update(ws_lo=np.asarray(hs.ws_lo), h_lo=np.asarray(hs.h_lo))
+    if hs.beta_lo is not None:
+        arrays["beta_lo"] = np.asarray(hs.beta_lo)
+    ths = convert.high_state_from_numpy(arrays, st.mtot, st.d, device="cpu")
+    assert ths.ws.dtype == torch.float64 and ths.beta.dtype == \
+        torch.complex128
+    assert float(ths.h) == float(np.float64(np.asarray(st.h))
+                                 + np.float64(np.asarray(hs.h_lo)))
+    mean = gpquad_torch.predict_mean_high(ths, jax_high[d]["xt"]).numpy()
+    want = jax_high[d]["mean"]
+    assert want.dtype == np.float32
+    assert np.all(np.abs(mean - want) <= np.spacing(np.abs(want)))
+
+
+def test_fit_predict_grad_high(jax_high):
+    """The port's fused call against gpquad's unfused one on the same
+    data: the float64 mean against the oracle (1e-8) and gpquad's
+    double-word mean (2e-6); the float32 pass's mean against gpquad's
+    (1e-4 of max; beta, a float32 solution of a system of condition ~1e4,
+    differs by ~1e-3 of max between any two float32 solvers, and the
+    variance and the gradient draw their probes from different
+    generators)."""
+    x, y, xt, h, mtot, sig, k = _prob_of(2)
+    res = gpquad_torch.fit_predict_grad_high(x, y, xt, k, sig, h, mtot=mtot,
+                                             device="cpu")
+    jres = jax_high["fused"]
+    ref = _oracle_mean(jor.efgp_f64_objects(x, y, SIZES[2][4], VAR, sig, h,
+                                            mtot), xt)
+    mh = res.mean_high.numpy()
+    assert mh.dtype == np.float64
+    assert np.max(np.abs(mh - ref)) <= 1e-8 * np.max(np.abs(ref))
+    assert np.max(np.abs(mh - np.asarray(jres.mean_high))) < 2e-6
+    assert float(res.high_residual) < 1e-12
+    f, jf = res.fused, jres.fused
+    want = np.asarray(jf.mean)
+    assert np.max(np.abs(f.mean.numpy() - want)) < 1e-4 * np.max(
+        np.abs(want))
+    assert f.grad.shape == (3,) and bool(torch.isfinite(f.grad).all())
+    assert f.var.shape == (len(xt),)
+
+
+# ---------------------------------------------------------------------------
+# the port's float64 oracles against gpquad's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["SE-d1", "SE-d2", "SE-d3", "Matern-d2"])
+def test_f64_oracles_match_gpquad(kind):
+    name, d = kind.split("-d")
+    d = int(d)
+    n, mtot, h, sig, ell = 800, {1: 13, 2: 9, 3: 5}[d], 0.31, 0.5, 0.25
+    x, y, xt = _data(d, n, seed=9, nq=30)
+    if name == "SE":
+        jobj = jor.efgp_f64_objects(x, y, ell, VAR, sig, h, mtot)
+        tobj = tor.efgp_f64_objects(x, y, ell, VAR, sig, h, mtot)
+    else:
+        jk = JaxMatern(lengthscale=jnp.float32(ell),
+                       variance=jnp.float32(VAR), dimension=d, nu=2.5)
+        tk = gpquad_torch.make_kernel("Matern52", d, lengthscale=ell,
+                                      variance=VAR)
+        jobj = jor.efgp_f64_objects_kernel(x, y, jk, sig, h, mtot)
+        tobj = tor.efgp_f64_objects_kernel(x, y, tk, sig, h, mtot)
+
+    def rel(got, want):
+        got = got.numpy() if torch.is_tensor(got) else got
+        return np.max(np.abs(got - want)) / np.max(np.abs(want))
+
+    for key in ("T", "A", "ws", "Fy", "beta_raw", "Dl"):
+        assert rel(tobj[key], jobj[key]) < 1e-12, key
+    rng = np.random.default_rng(d)
+    M = mtot ** d
+    Z = rng.integers(0, 2, (3, n)) * 2.0 - 1
+    V = rng.integers(0, 2, (3, M)) * 2.0 - 1
+    etas = rng.integers(0, 2, (6, M)) * 2.0 - 1
+    assert rel(tor.mean_f64(tobj, xt), _oracle_mean(jobj, xt)) < 1e-12
+    g = tor.gradient_f64(tobj, Z, V).numpy()
+    jg = jor.gradient_f64(jobj, Z, V)
+    assert np.max(np.abs(g - jg) / np.abs(jg)) < 1e-12
+    assert rel(tor.regular_var_f64(tobj, xt),
+               jor.regular_var_f64(jobj, xt)) < 1e-12
+    assert rel(tor.stochastic_var_f64(tobj, etas, xt),
+               jor.stochastic_var_f64(jobj, etas, xt)) < 1e-12
+
+
+def test_toeplitz_cg_oracle_matches_dense():
+    n, mtot, h, sig, ell = 3000, 21, 0.31, 0.05, 0.12
+    x, y, xt = _data(2, n, seed=4, nq=40)
+    k = gpquad_torch.make_kernel("SE", 2, lengthscale=ell, variance=VAR)
+    mean, iters, rel = tor.toeplitz_cg_oracle_f64(x, y, k, sig, h, mtot, xt,
+                                                  tol=1e-13)
+    ref = _oracle_mean(jor.efgp_f64_objects(x, y, ell, VAR, sig, h, mtot), xt)
+    assert rel < 1e-12 and 0 < iters < 4000
+    assert np.max(np.abs(mean.numpy() - ref)) < 1e-10 * np.max(np.abs(ref))

@@ -376,10 +376,15 @@ def test_fit_validates_inputs():
     with pytest.raises(ValueError):
         tski.fit_ski_gp(np.zeros((10, 1)), np.zeros(10), kernel="exp",
                         device="cpu")
-    # the Matérn names map as gpquad's, then wait for the Matérn kernel
-    with pytest.raises(NotImplementedError, match="Mat"):
-        tski.fit_ski_gp(np.zeros((10, 1)), np.arange(10.0),
-                        kernel="Matern32", device="cpu")
+    # the Matérn names map as gpquad's, to the Matérn kernel
+    fit_m = tski.fit_ski_gp(np.zeros((10, 1)), np.arange(10.0),
+                            kernel="Matern32", max_iters=1, verbose=False,
+                            device="cpu")
+    assert fit_m["model"]["kernel"].nu == 1.5
+    assert np.isfinite(fit_m["history"]["loss"][0])
+    back = convert.ski_fit_from_numpy(convert.ski_fit_to_numpy(fit_m),
+                                      device="cpu")
+    assert back["model"]["kernel"].nu == 1.5
     with pytest.raises(TypeError):
         tski.fit_ski_gp(np.zeros((10, 1)), np.zeros(10), kernel=42,
                         device="cpu")
