@@ -120,6 +120,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
      of PERF.md's table each at least once), none takes the plain path,
      and it prints a float64 row (kernel, plain and bound ms) for every
      float64 NUFFT shape it launched.
+ 13. the Polya-Gamma estimators: 13a scripts/pg_scale.py's classifier
+     (n=1e5 in [-1,1]^2, labels from an SE latent drawn by random Fourier
+     features, l 0.3 at the start -> mtot 21, lag grid 41), the main path
+     fit -> predict_proba on examples/classification.py's 30x30 grid -> the
+     exact (dense), stochastic and chebyshev variances at 10 000 targets,
+     with the counts set to 0 just before it (TPU rows 1, 2, 9 and 10 each
+     launched, no plain path), its ms an outer iteration (CUDA events) and
+     one profiled iteration; the float64 fit with the same probes (hypers
+     and labels against the float32 fit), the float32 core on that fit's
+     state against float64 (E-step mean, M-step gradient, the three
+     variances), predict_latent_high against the float64 oracles; 13b the
+     spatial-transcriptomics plan (n 24 010, l 0.1 at the start -> mtot 43,
+     float64 as its script runs), its exact variance dense and by the
+     batched PCG; 13c examples/negative_binomial.py at n=1e5, fixed r and
+     then r learned (float32 against float64 with the same probes); 13d
+     scripts/verify_pg_high.py's SE and Matérn-3/2 configurations
+     (pg_predict_high against the float64 oracles); then each (kernel,
+     precision, n, mtot, B) shape it launched, held against its plain
+     version and timed beside it and its bound, every one a row of
+     PERF.md's table (PG_SHAPES).
 Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
 and at mtot 57, 101 and 255, the two d=1 kernels at phase 8's shapes and
 at mtot 8191, and the two SKI interpolation kernels at phase 11's band
@@ -965,6 +985,577 @@ def f64_shape_table(c, totals, h_matern):
                      if n_ and p == "f64" and (k, m) not in covered)
     check(not missing, f"phase 12 launched float64 shapes that the table "
           f"does not hold against the plain version: {missing}")
+    return rows
+
+
+# phase 13: the Polya-Gamma estimators.  13a scripts/pg_scale.py:33-45 (n
+# 1e5 in [-1,1]^2, labels from an SE latent at l 0.4, variance 4), 13b
+# scripts/pg_spatial_transcriptomics.py (--iters 15, --lengthscale-init 0.1,
+# float64 as the script runs it; n_train 24 010 and the positive fraction of
+# experiments/pg_spatial_transcriptomics.json, on synthetic labels), 13c
+# examples/negative_binomial.py:37-71 at n 1e5 (2 500 in the example), 13d
+# scripts/verify_pg_high.py:95-115 (n 2e4, 128 targets)
+PG_N, PG_TARGETS, PG_GRID = 100_000, 10_000, 30
+PG_CLF = dict(max_iter=10, lengthscale_init=0.3, lr=0.05, n_e_probes=10,
+              n_m_probes=10, random_state=0)
+ST_N, ST_ITERS, ST_L0, ST_POS, ST_TARGETS = (24_010, 15, 0.1,
+                                             0.20857628361043548, 2_000)
+NB_N, NB_R = 100_000, 3.0
+PGH_N, PGH_TARGETS = 20_000, 128
+# the bars (PERF.md section 6): the float32 core on the float64 fit's
+# state against float64 (of max|mean|, relative per gradient component, of
+# max|var|); the float32 fit against the float64 fit with the same probes
+# (hypers relative, the share of equal labels); the high leg against the
+# float64 oracles (of max|mean| and max|var|)
+PG_BARS = dict(estep_mean=1e-4, mstep_grad=1e-3, var_exact=2e-4,
+               var_cheb=2e-4, var_sto=3e-3, hypers=1e-4, labels=0.999,
+               high=1e-10)
+# PERF.md's rows of the functions the PG path must launch
+PG_ROWS = {"1": "nufft2_2d", "2": "nufft1_2d", "9": "nufft2_2d_batched",
+           "10": "nufft1_2d_batched"}
+# every (kernel, precision, n, mtot, B, FFT order) call phase 13 makes, as
+# PERF.md's kernel table lists them: 13c's mtot 17 and lag grid 33, 13d's
+# mtot 15 and 29 (lag grid 57) and 128 targets, 13a's float64 fit and 13b
+# beside the main path's
+PG_SHAPES = frozenset([
+    ('nufft1_2d', 'f32', 100000, 17, 1, False),
+    ('nufft1_2d', 'f32', 100000, 21, 1, False),
+    ('nufft1_2d', 'f32', 100000, 33, 1, False),
+    ('nufft1_2d', 'f32', 100000, 41, 1, False),
+    ('nufft1_2d', 'f64', 20000, 15, 1, False),
+    ('nufft1_2d', 'f64', 20000, 29, 1, False),
+    ('nufft1_2d', 'f64', 20000, 57, 1, False),
+    ('nufft1_2d', 'f64', 24010, 43, 1, False),
+    ('nufft1_2d', 'f64', 24010, 85, 1, False),
+    ('nufft1_2d', 'f64', 100000, 17, 1, False),
+    ('nufft1_2d', 'f64', 100000, 21, 1, False),
+    ('nufft1_2d', 'f64', 100000, 33, 1, False),
+    ('nufft1_2d', 'f64', 100000, 41, 1, False),
+    ('nufft1_2d_batched', 'f32', 100000, 17, 10, False),
+    ('nufft1_2d_batched', 'f32', 100000, 17, 11, False),
+    ('nufft1_2d_batched', 'f32', 100000, 21, 10, False),
+    ('nufft1_2d_batched', 'f32', 100000, 21, 11, False),
+    ('nufft1_2d_batched', 'f64', 24010, 43, 10, False),
+    ('nufft1_2d_batched', 'f64', 24010, 43, 11, False),
+    ('nufft1_2d_batched', 'f64', 100000, 17, 10, False),
+    ('nufft1_2d_batched', 'f64', 100000, 17, 11, False),
+    ('nufft1_2d_batched', 'f64', 100000, 21, 10, False),
+    ('nufft1_2d_batched', 'f64', 100000, 21, 11, False),
+    ('nufft2_2d', 'f32', 900, 21, 1, False),
+    ('nufft2_2d', 'f32', 10000, 21, 1, False),
+    ('nufft2_2d', 'f32', 10000, 41, 1, True),
+    ('nufft2_2d', 'f64', 128, 15, 1, False),
+    ('nufft2_2d', 'f64', 128, 21, 1, False),
+    ('nufft2_2d', 'f64', 128, 29, 1, False),
+    ('nufft2_2d', 'f64', 2000, 43, 1, False),
+    ('nufft2_2d', 'f64', 10000, 21, 1, False),
+    ('nufft2_2d', 'f64', 10000, 41, 1, True),
+    ('nufft2_2d_batched', 'f32', 100000, 17, 11, False),
+    ('nufft2_2d_batched', 'f32', 100000, 21, 11, False),
+    ('nufft2_2d_batched', 'f64', 24010, 43, 11, False),
+    ('nufft2_2d_batched', 'f64', 100000, 17, 11, False),
+    ('nufft2_2d_batched', 'f64', 100000, 21, 11, False),
+])
+
+
+def rff_latent(x, lengthscale, variance, seed, dev, features=4096):
+    """A latent drawn from the SE prior (lengthscale, variance) at the
+    points x (n, d) by random Fourier features: frequencies N(0, 1/l^2),
+    phases U(0, 2 pi), weights N(0, 1) from numpy seed ``seed``, evaluated
+    in float64 on the card.  (gpquad draws its labels with its spectral
+    sampler, which the port does not have yet.)"""
+    rng = np.random.default_rng(seed)
+    W = rng.normal(scale=1.0 / lengthscale, size=(x.shape[1], features))
+    b = rng.uniform(0, 2 * np.pi, features)
+    a = rng.normal(size=features)
+    def t(v):
+        return torch.as_tensor(v, dtype=torch.float64, device=dev)
+    f = torch.cos(t(x) @ t(W) + t(b)) @ t(a)
+    return (f * (2.0 * variance / features) ** 0.5).cpu().numpy()
+
+
+def pg_class_data(n, lengthscale, variance, seed, dev, pos_frac=None):
+    """Points uniform in [-1,1]^2 from numpy seed ``seed``, the latent of
+    rff_latent and Bernoulli labels of sigmoid(latent + c): c is 0, or with
+    ``pos_frac`` the offset whose mean probability is that fraction."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, size=(n, 2))
+    f = rff_latent(x, lengthscale, variance, seed + 1, dev)
+    c = 0.0
+    if pos_frac is not None:
+        lo, hi = -20.0, 20.0
+        for _ in range(60):
+            c = 0.5 * (lo + hi)
+            if np.mean(1 / (1 + np.exp(-(f + c)))) > pos_frac:
+                hi = c
+            else:
+                lo = c
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-(f + c)))).astype(int)
+    return x, y, f + c
+
+
+def timed(fn):
+    """``fn()`` once on the host clock, the card synchronised on both
+    sides: (result, ms)."""
+    sync()
+    t = time.perf_counter()
+    r = fn()
+    sync()
+    return r, (time.perf_counter() - t) * 1e3
+
+
+def cg_iters(history):
+    """PCG iterations of a fit's E-steps and M-steps and of its final
+    E-step and beta solve (store_history=True)."""
+    loop = [r for r in history if "e_iters_used" in r]
+    return dict(estep=[int(r["e_cg_iters"]) for r in loop],
+                mstep=[int(r["m_cg_iters"]) for r in loop],
+                final_estep=int(history[-1]["e_cg_iters"]),
+                beta=int(history[-1]["m_cg_iters"]))
+
+
+def rel_of_max(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def phase_pg(c):
+    """Phase 13.  ``c``: a namespace of main()'s dev, card, counters,
+    gpquad_torch and its modules, and phase 3's kernels and plain
+    versions.  Returns the phase's record."""
+    gt, cn, nm, dev, card = c.gt, c.cuda_nufft, c.nufft_mod, c.dev, c.card
+    from gpquad_torch.models import pg_core
+    from gpquad_torch.utils import f64_oracles as orc
+    rec = {}
+    shapes = {}   # (kernel, precision, n, mtot, B, fft_order) -> launches
+
+    def recorder(name, fn):
+        def launch(x, arg, h, *, mtot, fft_order=False):
+            if x.is_cuda:
+                key = (name, "f32" if x.dtype == torch.float32 else "f64",
+                       x.shape[0], mtot,
+                       arg.shape[0] if name.endswith("batched") else 1,
+                       bool(fft_order))
+                shapes[key] = shapes.get(key, 0) + 1
+            return fn(x, arg, h, mtot=mtot, fft_order=fft_order)
+        return launch
+
+    steps = []                      # CUDA events around each outer step
+    orig_step = pg_core.outer_step
+
+    def timed_step(*a, **k):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        r = orig_step(*a, **k)
+        e.record()
+        steps.append((s, e))
+        return r
+
+    def step_ms(first):
+        """The CUDA-event ms of the outer steps from index ``first`` on,
+        and the median of all but the first."""
+        sync()
+        ms = [s.elapsed_time(e) for s, e in steps[first:]]
+        return ms, statistics.median(ms[1:] if len(ms) > 1 else ms)
+
+    def clf(dtype, **kw):
+        return gt.PolyagammaGPClassifier(
+            dtype=dtype, device=dev, store_history=True,
+            **dict(PG_CLF, **kw))
+
+    originals = {k: getattr(cn, k) for k in KERNELS_2D}
+    for k, fn in originals.items():
+        setattr(cn, k, recorder(k, fn))
+    pg_core.outer_step = timed_step
+    try:
+        # -- 13a: the main path, counts set to 0 just before it ----------
+        a = rec["13a"] = {}
+        x, y, f = pg_class_data(PG_N, 0.4, 4.0, 0, dev)
+        # the accuracy of the true latent's sign: the labels' noise floor
+        a["bayes_acc"] = float(np.mean((f > 0) == (y == 1)))
+        rng = np.random.default_rng(130)
+        xq = rng.uniform(-1, 1, size=(PG_TARGETS, 2))
+        g1 = np.linspace(-1, 1, PG_GRID)
+        Xg = np.stack(np.meshgrid(g1, g1), -1).reshape(-1, 2)
+        # warm: cuFFT plans, the cuBLAS and cuSOLVER handles, at the main
+        # path's shapes
+        clf("float32", max_iter=1).fit(x, y)
+        reset_counts(*c.counters)
+        first = len(steps)
+        est, a["fit_ms"] = timed(lambda: clf("float32").fit(x, y))
+        a["step_ms"], a["step_median_ms"] = step_ms(first)
+        sp = est._spectral_state_
+        check(sp.mtot == 21, f"13a planned mtot {sp.mtot}, not 21")
+        proba, a["predict_proba_ms"] = timed(lambda: est.predict_proba(Xg))
+        var32 = {}
+        a["var_ms"] = {}
+        for method in ("exact", "stochastic", "chebyshev"):
+            est.predictive_variance_method = method
+            var32[method], ms = timed(lambda: est.predictive_variance(xq))
+            _, ms2 = timed(lambda: est.predictive_variance(xq))
+            a["var_ms"][method] = dict(cold=ms, warm=ms2)
+        a["launches"] = dict(cn.LAUNCHES)
+        a["picks"] = dict(nm.BACKEND_PICKS)
+        a["rows"] = {r: a["launches"][k] for r, k in PG_ROWS.items()}
+        est.predictive_variance_method = "exact"
+        labels32 = est.predict(xq)
+        a["train_acc"] = float(np.mean(est.predict(x) == y))
+        a["pcg_iters"] = it = cg_iters(est.history_)
+        a.update(mtot=sp.mtot, hm=est._hm_, lengthscale=est.lengthscale_,
+                 variance=est.variance_)
+        print(f"[13a] pg_scale n={PG_N} mtot {sp.mtot} (lag grid "
+              f"{2 * sp.mtot - 1}): fit {a['fit_ms']:.1f} ms host clock, "
+              f"{a['step_median_ms']:.2f} ms an outer iteration (CUDA "
+              f"events, median of the warm "
+              f"{[round(s_, 2) for s_ in a['step_ms']]}) {card}")
+        print(f"[13a] learned l {est.lengthscale_:.6f} variance "
+              f"{est.variance_:.6f}; train accuracy {a['train_acc']:.4f} "
+              f"(the true latent's sign {a['bayes_acc']:.4f}); "
+              f"PCG iterations E-step {it['estep']} M-step {it['mstep']} "
+              f"final E-step {it['final_estep']} beta {it['beta']}")
+        print(f"[13a] predict_proba 30x30 {a['predict_proba_ms']:.2f} ms; "
+              f"variance at {PG_TARGETS} targets (cold / warm ms): "
+              + ", ".join(f"{m} {v['cold']:.2f} / {v['warm']:.2f}"
+                          for m, v in a["var_ms"].items()) + f" {card}")
+        print(f"[13a] main path launches {a['launches']} (TPU rows "
+              f"{a['rows']}), backend_picks {a['picks']}")
+        check(a["picks"]["matmul"] == 0,
+              f"13a: the plain path was taken {a['picks']}")
+        check(all(v > 0 for v in a["rows"].values()),
+              f"13a: a PG row had no launch {a['rows']}")
+        check(np.all(np.isfinite(proba)) and proba.shape == (PG_GRID ** 2, 2)
+              and np.allclose(proba.sum(1), 1.0), "13a: predict_proba")
+        for method, v in var32.items():
+            check(v.shape == (PG_TARGETS,) and np.all(np.isfinite(v))
+                  and np.all(v >= 0), f"13a: {method} variance")
+        check(a["train_acc"] >= a["bayes_acc"] - 0.02,
+              f"13a: training accuracy {a['train_acc']}")
+
+        # one outer iteration at the fitted state, profiled
+        yt = torch.as_tensor((y == est.classes_[1]).astype(np.float64),
+                             dtype=torch.float32, device=dev)
+        lik = est._make_likelihood()
+        kappa, pg_b = lik.kappa(yt), lik.pg_b(yt)
+        kern, h, mtot, mask, _ = est._plan_grid(
+            est._X_train_t_, est.lengthscale_, est.variance_)
+        e_pr = est._draw_probes(17, (10, PG_N))
+        m_pr = est._draw_probes(10_009, (10, PG_N))
+
+        def one_step():
+            raw = torch.log(torch.tensor(
+                [est.lengthscale_, est.variance_], dtype=torch.float32,
+                device=dev))
+            return orig_step(est._X_train_t_, kern, h, mask, est._delta_t_,
+                             kappa, pg_b, e_pr, m_pr, raw,
+                             torch.optim.Adam([raw], lr=0.05), mtot=mtot,
+                             e_iters=1, rho0=0.7, gamma=1e-3, e_tol=1e-4,
+                             cg_tol=1e-6)
+        one_step()
+        a["profile"] = prof = profile_run(one_step)
+        print_profile("[13a] profiled outer iteration:", prof, card)
+
+        # the float64 fit with the same probes
+        est64, a["fit64_ms"] = timed(lambda: clf("float64").fit(x, y))
+        hyp32 = np.array([est.lengthscale_, est.variance_])
+        hyp64 = np.array([est64.lengthscale_, est64.variance_])
+        a["hypers_rel"] = float(np.max(np.abs(hyp32 - hyp64) / hyp64))
+        labels64 = est64.predict(xq)
+        a["labels_equal"] = float(np.mean(labels32 == labels64))
+        print(f"[13a] float32 fit vs float64 fit (same probes, "
+              f"{a['fit64_ms']:.1f} ms): hypers {hyp32.tolist()} vs "
+              f"{hyp64.tolist()}, rel {a['hypers_rel']:.3e} (bar "
+              f"{PG_BARS['hypers']:.0e}); predict labels equal on "
+              f"{a['labels_equal']:.5f} of {PG_TARGETS} targets (bar "
+              f"{PG_BARS['labels']})")
+        check(a["hypers_rel"] <= PG_BARS["hypers"], "13a: hypers")
+        check(a["labels_equal"] >= PG_BARS["labels"], "13a: labels")
+        a["fixed_state"] = pg_fixed_state(gt, pg_core, est64, yt, xq, dev)
+        fs = a["fixed_state"]
+        print(f"[13a] float32 core on the float64 fit's state vs float64: "
+              + ", ".join(f"{k} {v:.3e} (bar {PG_BARS[k]:.0e})"
+                          for k, v in fs.items()))
+        for k, v in fs.items():
+            check(v <= PG_BARS[k], f"13a fixed state: {k} {v:.3e}")
+
+        # predict_latent_high on the float32 fit against the oracles
+        # the targets as the estimator takes them, in its float32
+        xh = xq[:PGH_TARGETS].astype(np.float32).astype(np.float64)
+        (mh, vh), a["latent_high_ms"] = timed(
+            lambda: est.predict_latent_high(xh))
+        obj = orc.pg_f64_objects(est._X_train_t_, est._delta_t_,
+                                 est._make_kernel_obj(est.lengthscale_,
+                                                      est.variance_, 2),
+                                 float(sp.h), sp.mtot, est._hm_, device=dev)
+        beta64 = orc.pg_beta_mean_f64(obj, est._kappa_t_)
+        a["latent_high_mean_rel"] = rel_of_max(
+            mh, orc.pg_mean_f64(obj, xh, beta64).cpu())
+        a["latent_high_var_rel"] = rel_of_max(
+            vh, orc.pg_var_f64(obj, xh).cpu())
+        print(f"[13a] predict_latent_high ({PGH_TARGETS} targets, "
+              f"{a['latent_high_ms']:.1f} ms) vs the float64 oracle: mean "
+              f"{a['latent_high_mean_rel']:.3e}, var "
+              f"{a['latent_high_var_rel']:.3e} of max (bar "
+              f"{PG_BARS['high']:.0e})")
+        check(max(a["latent_high_mean_rel"], a["latent_high_var_rel"])
+              <= PG_BARS["high"], "13a: predict_latent_high")
+        del est, est64, obj
+        torch.cuda.empty_cache()
+
+        rec["13b"] = pg_spatial(clf, step_ms, steps, dev, card)
+        rec["13c"] = pg_negative_binomial(gt, step_ms, steps, dev, card)
+        rec["13d"] = pg_high_leg(gt, orc, dev, card)
+    finally:
+        for k, fn in originals.items():
+            setattr(cn, k, fn)
+        pg_core.outer_step = orig_step
+    rec["shapes"] = pg_shape_table(c, shapes)
+    return rec
+
+
+def pg_fixed_state(gt, pg_core, est64, yt, xq, dev):
+    """The float32 core against the float64 core on the float64 fit's
+    state: its delta, hypers, grid and the fit's probes (the E-step's,
+    the last M-step's, the stochastic variance's etas), errors as PG_BARS
+    reads them."""
+    out = {}
+    sp64, X64 = est64._spectral_state_, est64._X_train_t_
+    kern32 = est64._make_kernel_obj(est64.lengthscale_, est64.variance_, 2)
+    mask = gt.quadrature.flat_grid_mask(sp64.mtot, 2, est64._hm_,
+                                        device=dev)
+    X32 = X64.float()
+    sp32 = pg_core.build_pg_spectral_state(X32, kern32, float(sp64.h),
+                                           mtot=sp64.mtot, ws_mask=mask)
+    lik = est64._make_likelihood()
+    e_pr = est64._draw_probes(17, (10, X64.shape[0]))
+    m_pr = est64._draw_probes(10_000 + PG_CLF["max_iter"] - 1,
+                              (10, X64.shape[0]))
+    etas = est64._draw_probes(2_000_000, (16, sp64.M))
+    res = {}
+    for tag, sp, X, tol in (("f32", sp32, X32, 1e-6),
+                            ("f64", sp64, X64, 1e-12)):
+        rd = X.dtype
+        y_ = yt.to(rd)
+        kappa, pg_b = lik.kappa(y_), lik.pg_b(y_)
+        delta = est64._delta_t_.to(rd)
+        e = pg_core.estep_pass(sp, X, delta, kappa, pg_b, e_pr.to(rd),
+                               max_iters=1, rho0=0.7, gamma=1e-3,
+                               cg_tol=tol)
+        m = pg_core.mstep_gradient(sp, X, delta, kappa, m_pr.to(rd),
+                                   cg_tol=tol)
+        xt = torch.as_tensor(xq, dtype=rd, device=dev)
+        system = pg_core.dense_feature_system(sp, X, delta)
+        v_ex = pg_core.predictive_variance_exact_dense(sp, X, delta, xt,
+                                                       system=system)
+        sums = pg_core.stochastic_variance_sums(sp, X, delta, etas.to(rd),
+                                                cg_tol=tol)
+        v_st = pg_core.evaluate_variance_sums(sp, sums, xt)
+        v_ch = pg_core.predictive_variance_chebyshev(
+            sp, X, delta, xt, n_nodes_per_dim=7, cg_tol=tol,
+            solver="dense", system=system)
+        res[tag] = [t.double().cpu().numpy() for t in
+                    (e.mean, m.grad, v_ex, v_st, v_ch)]
+    a, b = res["f32"], res["f64"]
+    out["estep_mean"] = rel_of_max(a[0], b[0])
+    out["mstep_grad"] = float(np.max(np.abs(a[1] - b[1]) / np.abs(b[1])))
+    out["var_exact"] = rel_of_max(a[2], b[2])
+    out["var_sto"] = rel_of_max(a[3], b[3])
+    out["var_cheb"] = rel_of_max(a[4], b[4])
+    return out
+
+
+def pg_spatial(clf, step_ms, steps, dev, card):
+    """13b: the spatial-transcriptomics plan (mtot 43, lag grid 85) in
+    float64, its exact variance by the dense tier and by the batched
+    PCG."""
+    out = {}
+    x, y, _ = pg_class_data(ST_N, 0.09, 2.0, 2, dev, pos_frac=ST_POS)
+    xv = np.random.default_rng(131).uniform(-1, 1, size=(ST_TARGETS, 2))
+    first = len(steps)
+    est, out["fit_ms"] = timed(lambda: clf(
+        "float64", max_iter=ST_ITERS, lengthscale_init=ST_L0,
+        n_e_probes=10, n_m_probes=10, lr=0.05).fit(x, y))
+    out["step_ms"], out["step_median_ms"] = step_ms(first)
+    sp = est._spectral_state_
+    check(sp.mtot == 43, f"13b planned mtot {sp.mtot}, not 43")
+    p, out["predict_proba_ms"] = timed(lambda: est.predict_proba(xv))
+    v = {}
+    for solver in ("dense", "cg"):
+        est.prediction_solver = solver
+        est._dense_system_ = None
+        v[solver], out[f"var_{solver}_ms"] = timed(
+            lambda: est.predictive_variance(xv))
+    out["var_dense_vs_cg"] = rel_of_max(v["cg"], v["dense"])
+    out["pcg_iters"] = it = cg_iters(est.history_)
+    out.update(mtot=sp.mtot, hm=est._hm_, lengthscale=est.lengthscale_,
+               variance=est.variance_, pos_frac=float(np.mean(y)),
+               train_acc=float(np.mean(est.predict(x) == y)))
+    print(f"[13b] spatial n={ST_N} float64 mtot {sp.mtot} (lag grid "
+          f"{2 * sp.mtot - 1}), positive fraction {out['pos_frac']:.4f}: "
+          f"fit {out['fit_ms']:.1f} ms, {out['step_median_ms']:.2f} ms an "
+          f"outer iteration (CUDA events, median of the warm "
+          f"{[round(s_, 2) for s_ in out['step_ms']]}) {card}")
+    print(f"[13b] learned l {est.lengthscale_:.6f} variance "
+          f"{est.variance_:.6f}, train accuracy {out['train_acc']:.4f}; PCG "
+          f"iterations E-step {it['estep']} M-step {it['mstep']} beta "
+          f"{it['beta']}; predict_proba ({ST_TARGETS}) "
+          f"{out['predict_proba_ms']:.1f} ms; exact variance dense "
+          f"{out['var_dense_ms']:.1f} ms, cg (batches of 64) "
+          f"{out['var_cg_ms']:.1f} ms, cg vs dense "
+          f"{out['var_dense_vs_cg']:.3e} of max {card}")
+    check(np.all(np.isfinite(p)) and out["var_dense_vs_cg"] <= 1e-4,
+          "13b: predictions")
+    return out
+
+
+def pg_negative_binomial(gt, step_ms, steps, dev, card):
+    """13c: examples/negative_binomial.py at n 1e5, float32: the fixed-r
+    fit and the learned dispersion, with the example's assertions."""
+    out = {}
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-1, 1, size=(NB_N, 2))
+    f = 0.9 * np.sin(2.2 * X[:, 0]) * np.cos(1.7 * X[:, 1]) - 0.3
+    p = 1.0 / (1.0 + np.exp(-f))
+    y = rng.negative_binomial(NB_R, 1.0 - p)
+    common = dict(lengthscale_init=0.5, lr=0.05, n_e_probes=10,
+                  n_m_probes=10, random_state=0, dtype="float32",
+                  device=dev, store_history=True)
+    first = len(steps)
+    reg, out["fit_ms"] = timed(lambda: gt.PolyagammaGPNegativeBinomialRegressor(
+        total_count=NB_R, max_iter=12, **common).fit(X, y))
+    out["step_ms"], out["step_median_ms"] = step_ms(first)
+    mu = reg.predict(X)
+    rate = NB_R * np.exp(f)
+    out["corr"] = float(np.corrcoef(mu, rate)[0, 1])
+    out["mtot"] = reg._spectral_state_.mtot
+    first = len(steps)
+    reg2, out["fit2_ms"] = timed(
+        lambda: gt.PolyagammaGPNegativeBinomialRegressor(
+            total_count=1.0, learn_total_count=True, total_count_lr=0.1,
+            total_count_update_frequency=1, max_iter=30, **common).fit(X, y))
+    out["step2_ms"], out["step2_median_ms"] = step_ms(first)
+    out["learned_r"] = reg2.total_count_
+    out["r_path"] = [r["total_count"] for r in reg2.history_]
+    # the same learned dispersion in float64 with the same probes
+    reg64, out["fit2_f64_ms"] = timed(
+        lambda: gt.PolyagammaGPNegativeBinomialRegressor(
+            total_count=1.0, learn_total_count=True, total_count_lr=0.1,
+            total_count_update_frequency=1, max_iter=30,
+            **dict(common, dtype="float64")).fit(X, y))
+    out["learned_r_f64"] = reg64.total_count_
+    out["r_rel_f32_f64"] = abs(reg2.total_count_ - reg64.total_count_) \
+        / reg64.total_count_
+    print(f"[13c] negative binomial n={NB_N} mtot {out['mtot']}: fixed r "
+          f"{NB_R} fit {out['fit_ms']:.1f} ms ({out['step_median_ms']:.2f} "
+          f"ms an outer iteration), corr(mean count, true rate) "
+          f"{out['corr']:.4f} (example's bar 0.8); learned r "
+          f"{out['learned_r']:.4f} beside r {NB_R} (from 1, 30 iterations, "
+          f"{out['fit2_ms']:.1f} ms, {out['step2_median_ms']:.2f} ms an "
+          f"outer iteration; float64 with the same probes "
+          f"{out['learned_r_f64']:.6f}, rel {out['r_rel_f32_f64']:.3e}, bar "
+          f"{PG_BARS['hypers']:.0e}) {card}")
+    print(f"[13c] learned r by iteration "
+          f"{[round(r, 4) for r in out['r_path']]}")
+    check(out["corr"] > 0.8, "13c: the rate is not tracked")
+    check(np.isfinite(out["learned_r"]) and out["learned_r"] > 0
+          and out["r_rel_f32_f64"] <= PG_BARS["hypers"],
+          "13c: learned dispersion")
+    return out
+
+
+def pg_high_leg(gt, orc, dev, card):
+    """13d: pg_predict_high against the float64 oracles at
+    scripts/verify_pg_high.py's two configurations."""
+    out = {}
+    rng = np.random.default_rng(0)
+    for tag, name, ls, var, eps in (("se", "SE", 0.25, 2.0, 1e-4),
+                                    ("matern32", "Matern32", 0.3, 1.5,
+                                     1e-3)):
+        x = rng.uniform(0, 1, size=(PGH_N, 2)).astype(np.float32)
+        kern = gt.make_kernel(name, 2, lengthscale=np.float32(ls),
+                              variance=np.float32(var))
+        _, h, mtot = gt.spectral_grid(kern, eps, 1.0)
+        delta = (0.1 + 0.15 * rng.uniform(size=PGH_N)).astype(np.float32)
+        kappa = (rng.integers(0, 2, PGH_N) - 0.5).astype(np.float32)
+        xt = rng.uniform(0.1, 0.9, size=(PGH_TARGETS, 2)).astype(np.float32)
+        xd = torch.as_tensor(x, device=dev)
+
+        def run():
+            return gt.pg_predict_high(xd, kern, h, mtot, delta, kappa, xt,
+                                      device=dev)
+        run()
+        res, ms = timed(run)
+        obj = orc.pg_f64_objects(xd, delta, kern, h, mtot, device=dev)
+        beta64 = orc.pg_beta_mean_f64(obj, kappa)
+        r = dict(mtot=mtot, ms=ms,
+                 mean_rel=rel_of_max(res.mean.cpu(),
+                                     orc.pg_mean_f64(obj, xt, beta64).cpu()),
+                 var_rel=rel_of_max(res.var.cpu(),
+                                    orc.pg_var_f64(obj, xt).cpu()),
+                 solve_iters=int(res.solve_iters),
+                 residual=float(res.residual))
+        out[tag] = r
+        print(f"[13d] {tag} n={PGH_N} mtot {mtot}: pg_predict_high "
+              f"{ms:.1f} ms (warm), mean {r['mean_rel']:.3e} and var "
+              f"{r['var_rel']:.3e} of max vs the float64 oracle (bar "
+              f"{PG_BARS['high']:.0e}), inner iterations "
+              f"{r['solve_iters']} {card}")
+        check(mtot == {"se": 15, "matern32": 29}[tag],
+              f"13d {tag}: planned mtot {mtot}")
+        check(max(r["mean_rel"], r["var_rel"]) <= PG_BARS["high"],
+              f"13d {tag}: over the bar")
+    return out
+
+
+def pg_shape_table(c, shapes):
+    """Each (kernel, precision, n, mtot, B, FFT order) call of phase 13 with
+    the kernel's, the plain version's and the bound's ms on inputs of that
+    shape (CUDA events; the kernel within 1e-4 of max|ref| of the plain
+    version in float32, 1e-10 in float64)."""
+    gen = np.random.default_rng(132)
+    rows = []
+    for (name, prec, n, m, B, fo), launched in sorted(shapes.items()):
+        dtype = torch.float32 if prec == "f32" else torch.float64
+        x = torch.as_tensor(gen.uniform(-1, 1, (n, 2)), dtype=dtype,
+                            device=c.dev)
+        lead = (B,) if name.endswith("batched") else ()
+        shape = lead + ((n,) if name.startswith("nufft1") else (m, m))
+        arg = torch.as_tensor(gen.normal(size=shape)
+                              + 1j * gen.normal(size=shape),
+                              device=c.dev).to(c.cuda_nufft._complex_of(dtype))
+        hq = 0.4
+        got = c.kernels[name](x, arg, hq, mtot=m, fft_order=fo)
+        ref = c.plains[name](x.double(), arg.to(torch.complex128), hq,
+                             mtot=m, fft_order=fo)
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        check(rel <= (1e-4 if prec == "f32" else 1e-10),
+              f"{name} {prec} n={n} mtot={m} B={B}: error {rel:.3e}")
+        reps = max(3, min(50, int(2e9 / (B * n * m * m))))
+        ms = time_cuda(lambda: c.kernels[name](x, arg, hq, mtot=m,
+                                               fft_order=fo), reps, 3)
+        plain_ms = time_cuda(lambda: c.plains[name](x, arg, hq, mtot=m,
+                                                    fft_order=fo),
+                             max(2, reps // 4), 3)
+        tc = (prec == "f32" and (name in TC_TYPE1 or (
+            name == "nufft2_2d_batched"
+            and c.cuda_nufft.type2_2d_geometry(m)[0] == "tc") or (
+            name == "nufft2_2d" and c.cuda_nufft.type2_2d_single_geometry(
+                n, m, dtype)[0] == "tc")))
+        b_ms, b_by = (bound_3xtf32_ms(name, n, m, B) if tc
+                      else bound_ms(name, n, m, dtype, B))
+        rows.append(dict(name=name, precision=prec, n=n, mtot=m, B=B,
+                         fft_order=fo, launches=launched, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         rel_err=rel))
+        print(f"[13] {name} {prec} n={n} mtot={m} B={B}"
+              f"{' fft_order' if fo else ''}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), rel err "
+              f"{rel:.3e}; launched {launched} times in phase 13 {c.card}")
+        del x, arg, got, ref
+    launched = {(r["name"], r["precision"], r["n"], r["mtot"], r["B"],
+                 r["fft_order"]) for r in rows}
+    missing = sorted(launched - PG_SHAPES)
+    check(not missing, f"phase 13 launched shapes that PERF.md's table "
+          f"lacks: {missing}")
     return rows
 
 
@@ -3361,6 +3952,15 @@ def main() -> int:
     phase_s["12"] = time.perf_counter() - t_phase
     print(f"[12] phase wall time {phase_s['12']:.1f} s")
 
+    # -- phase 13: the Polya-Gamma estimators --------------------------------
+    t_phase = time.perf_counter()
+    record["phases"]["pg"] = pg = phase_pg(types.SimpleNamespace(
+        gt=gpquad_torch, cuda_nufft=cuda_nufft, nufft_mod=nufft_mod,
+        dev=dev, card=card, counters=counters + (cuda_nufft.LAUNCH_PRECISIONS,),
+        kernels=kernels, plains=plains))
+    phase_s["13"] = time.perf_counter() - t_phase
+    print(f"[13] phase wall time {phase_s['13']:.1f} s")
+
     # -- the record ----------------------------------------------------------
     # each kernel's row: its largest float32 call on a driven path (the
     # headline's for d=2, the light curve's for d=1, the d=3 paths' by work
@@ -3426,7 +4026,8 @@ def main() -> int:
                      + launches_gcg[name],
                      "launches_headline_facade": launches9[name],
                      "launches_scale_fit_mean": launches10[name],
-                     "launches_high_tier": high_launches((name,))}
+                     "launches_high_tier": high_launches((name,)),
+                     "launches_pg": pg["13a"]["launches"][name]}
             if name == "nufft2_2d":
                 # its paths here and at the scale configuration's mean,
                 # variance evaluation and gradient, and the scale

@@ -1,8 +1,9 @@
 """gpquad_torch: the EFGP regression path of ``gpquad`` in PyTorch (SE and
 Matérn kernels, the three variance estimators, the float64 high-precision
-tier), with the d=1, d=2 and d=3 NUFFTs on hand-written CUDA kernels for
-Hopper, and the SKI baseline with its d=2 interpolation on hand-written CUDA
-kernels.
+tier), the Polya-Gamma classifier and negative-binomial regressor with
+their float64 leg, with the d=1, d=2 and d=3 NUFFTs on hand-written CUDA
+kernels for Hopper, and the SKI baseline with its d=2 interpolation on
+hand-written CUDA kernels.
 
 The package imports neither JAX nor ``gpquad``.  Entry points run on the
 CUDA device unless the caller passes ``device="cpu"``.
@@ -13,6 +14,9 @@ from .models.efgp import (FitState, fit, fit_with_grid, predict_mean,
 from .models.gradient import GradientResult, gradient, gradient_with_grid
 from .models.gradient_high import GradientHighResult, gradient_high
 from .models.model import EFGP
+from .models.pg import (PolyagammaGPClassifier,
+                        PolyagammaGPNegativeBinomialRegressor)
+from .models.pg_high import PGHighResult, pg_beta_mean_high, pg_predict_high
 from .models.pipeline import (FusedHighResult, FusedResult,
                               fit_predict_grad, fit_predict_grad_high)
 from .models.precision import HighState, fit_high, predict_mean_high
@@ -23,10 +27,13 @@ from .quadrature import spectral_grid
 
 __all__ = ["EFGP", "FitState", "FusedHighResult", "FusedResult",
            "GradientHighResult", "GradientResult", "HighState", "HyperState",
-           "Matern", "SKIOperator", "SquaredExponential",
+           "Matern", "PGHighResult", "PolyagammaGPClassifier",
+           "PolyagammaGPNegativeBinomialRegressor", "SKIOperator",
+           "SquaredExponential",
            "build_ski_operator", "fit", "fit_high", "fit_predict_grad",
            "fit_predict_grad_high", "fit_ski_gp", "fit_with_grid",
            "gradient", "gradient_high", "gradient_with_grid", "make_kernel",
+           "pg_beta_mean_high", "pg_predict_high",
            "predict_mean", "predict_mean_high", "predict_var",
            "ski_predict_mean", "ski_predict_var", "spectral_grid",
            "variance_high"]

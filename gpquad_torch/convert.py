@@ -6,7 +6,9 @@ Toeplitz operator as its ``fft_kernel``, a Kronecker preconditioner as
 ``kron_Us`` (its d unitaries stacked) and ``kron_denom``) becomes the port's
 :class:`~gpquad_torch.models.efgp.FitState`, and back, so that the port can
 predict from a JAX fit and JAX from the port's.  A ``HyperState``'s ``raw``
-and ``names`` carry the hypers of an ``EFGP`` either way.
+and ``names`` carry the hypers of an ``EFGP`` either way, and a fitted
+Polya-Gamma estimator's state becomes a fitted port estimator
+(:func:`pg_state_from_numpy`).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from .ops.toeplitz import ToeplitzND
 __all__ = ["kernel_from_numpy", "fit_state_from_numpy", "fit_state_to_numpy",
            "high_state_from_numpy", "hyper_state_from_numpy",
            "hyper_state_to_numpy",
-           "ski_fit_from_numpy", "ski_fit_to_numpy"]
+           "pg_state_from_numpy", "ski_fit_from_numpy", "ski_fit_to_numpy"]
 
 # gpquad's band tables, the ones a SKI fit's arrays carry
 _BAND_TABLES = ("pidx", "valid", "i0loc", "c0", "w_row", "w_col", "inv_slot")
@@ -204,3 +206,53 @@ def ski_fit_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda"):
     return {"model": {"kernel": kernel, "raw": t(arrays["raw"]),
                       "alpha": t(arrays["alpha"]), "operator": op,
                       "toeplitz": toeplitz}}
+
+
+_PG_STATE = ("X", "delta", "beta_mean", "lengthscale", "variance", "h",
+             "mtot", "hm", "kappa")
+
+
+def pg_state_from_numpy(arrays: Mapping[str, np.ndarray], params=None, *,
+                        kind: str = "classifier", device="cuda"):
+    """A fitted port PG estimator (``kind`` "classifier" or
+    "negative_binomial") at a fitted state given as numpy arrays, so that
+    predictions compare at one fixed state.
+
+    ``arrays``: the training points ``X`` (n, d), the posterior ``delta``
+    and ``kappa`` (n,), ``beta_mean`` (M,) complex, ``lengthscale``,
+    ``variance``, the grid plan's ``h``, ``mtot`` and ``hm``, optionally
+    ``posterior_mean`` and ``posterior_var_diag`` (n,), and the
+    likelihood's fields: ``classes`` for the classifier, ``total_count``
+    for the regressor.  From a gpquad estimator: its ``delta_``,
+    ``beta_mean_``, ``lengthscale_``, ``variance_``, the spectral state's
+    ``h`` and ``mtot``, ``_hm_``, ``_kappa_t_`` cut to the first n
+    entries, and ``classes_`` or ``total_count_``.  ``params`` are the
+    estimator's constructor arguments (its ``get_params()``)."""
+    from .models.pg import (PolyagammaGPClassifier,
+                            PolyagammaGPNegativeBinomialRegressor)
+    params = dict(params or {})
+    params["device"] = device
+    missing = [k for k in _PG_STATE if k not in arrays]
+    if missing:
+        raise KeyError(f"pg_state_from_numpy: missing {missing}")
+    if kind == "classifier":
+        est = PolyagammaGPClassifier(**params)
+        est.classes_ = np.asarray(arrays["classes"])
+    elif kind == "negative_binomial":
+        params["total_count"] = float(arrays["total_count"])
+        params["learn_total_count"] = False
+        est = PolyagammaGPNegativeBinomialRegressor(**params)
+        est.total_count_ = est.shape_parameter_ = float(
+            arrays["total_count"])
+    else:
+        raise ValueError(f"Unknown PG estimator kind {kind!r} "
+                         "(classifier | negative_binomial)")
+    n = np.asarray(arrays["X"]).shape[0]
+    return est._load_state(
+        X=arrays["X"], delta=np.asarray(arrays["delta"])[:n],
+        beta_mean=arrays["beta_mean"], lengthscale=arrays["lengthscale"],
+        variance=arrays["variance"], h=float(arrays["h"]),
+        mtot=int(arrays["mtot"]), hm=int(arrays["hm"]),
+        kappa=np.asarray(arrays["kappa"])[:n],
+        posterior_mean=arrays.get("posterior_mean"),
+        posterior_var_diag=arrays.get("posterior_var_diag"))

@@ -35,7 +35,6 @@ from ..ops.operators import (convolution_vector, make_A_mean, make_A_var,
 from ..ops.toeplitz import ToeplitzND, _next_smooth, make_toeplitz, \
     toeplitz_diag_scale
 from ..quadrature import spectral_grid
-from .pg_core import chebyshev_lobatto_nodes
 
 __all__ = ["FitState", "resolve_device", "resolve_solver", "resolve_precond",
            "tensor_grid", "quadrature_weights", "fit_with_grid", "fit",
@@ -408,6 +407,7 @@ def _variance_chebyshev(state: FitState, x_new, *, n_nodes_per_dim,
     targets' box, barycentric-interpolated to the targets.
     ``n_nodes_per_dim`` is an int, a per-dimension sequence, or None
     (:func:`_auto_chebyshev_nodes`)."""
+    from .pg_core import chebyshev_lobatto_nodes
     xh = x_new.cpu().numpy()
     d = xh.shape[1]
     if n_nodes_per_dim is None:

@@ -1,4 +1,4 @@
-"""Float64 same-probe oracles for the EFGP estimators; port of the EFGP part
+"""Float64 same-probe oracles for the EFGP and Polya-Gamma estimators; port
 of ``gpquad/utils/f64_oracles.py``, in torch float64 on any device.
 
 Replicas of the estimators' exact algebra that take their probes as
@@ -34,7 +34,8 @@ from ..quadrature import _host_f64
 
 __all__ = ["plain_type1_f64", "efgp_f64_objects", "efgp_f64_objects_kernel",
            "mean_f64", "gradient_f64", "stochastic_var_f64",
-           "regular_var_f64", "toeplitz_cg_oracle_f64"]
+           "regular_var_f64", "toeplitz_cg_oracle_f64", "pg_f64_objects",
+           "pg_beta_mean_f64", "pg_mean_f64", "pg_var_f64"]
 
 _F64, _C128 = torch.float64, torch.complex128
 # points a phase-matrix chunk takes: (chunk, 4 mtot) complex128 matrices,
@@ -240,3 +241,69 @@ def toeplitz_cg_oracle_f64(x, y, kernel, sigmasq, h, mtot: int, x_targets,
     mean = make_phase_nufft(_f64(x_targets, device), h, mtot).type2(
         (ws * res.x).reshape((mtot,) * d)).real
     return mean, int(res.iters), float(rel)
+
+
+# ---------------------------------------------------------------------------
+# the Polya-Gamma prediction system
+# ---------------------------------------------------------------------------
+
+def pg_f64_objects(x, delta, kernel, h, mtot: int, hm=None, *,
+                   device=None, chunk: int = _CHUNK) -> Dict:
+    """Dense float64 PG feature system for a fixed posterior ``delta``:
+
+        T_w = F* diag(delta) F,   Ds = sqrt(max(ws2, eps_d)),
+        A   = I + Ds T_w Ds,
+
+    ``T_w`` gathered from the plain float64 type-1 of ``delta`` on the
+    doubled grid, ``ws2 = S h^d`` from the kernel's density in float64 on
+    the host (with ``hm``, zero on the bucketed rung's surplus nodes), and
+    ``A``'s LU factors.  ``x``, ``delta`` go to ``device`` (default:
+    ``x``'s, or the CPU)."""
+    if device is None:
+        device = x.device if torch.is_tensor(x) else "cpu"
+    x = _f64(x, device)
+    x = x[:, None] if x.ndim == 1 else x
+    delta = _f64(delta, device)
+    n, d = x.shape
+    h = float(h)
+    m = (mtot - 1) // 2
+    xis, S, _ = _spectral_tables(kernel, h, mtot, d)
+    ws2 = S * h ** d
+    if hm is not None and hm < m:
+        k = torch.round(xis / h).abs().amax(-1)
+        ws2 = torch.where(k <= hm, ws2, torch.zeros_like(ws2))
+    eps_d = max(float(torch.mean(ws2)) * 1e-14, 1e-14)
+    Ds = torch.sqrt(torch.clamp(ws2, min=eps_d))
+    ws2, Ds = ws2.to(device), Ds.to(device)
+    v = plain_type1_f64(x, delta, h, 4 * m + 1, chunk=chunk)
+    Tw = dense_toeplitz(v.reshape((4 * m + 1,) * d), mtot, d)
+    M = Tw.shape[0]
+    A = torch.eye(M, dtype=_C128, device=device) + Ds[:, None] * Tw \
+        * Ds[None, :]
+    return dict(x=x, A=A, lu=torch.linalg.lu_factor(A), ws2=ws2, Ds=Ds,
+                xis=xis.to(device), n=n, d=d, M=M, h=h, mtot=mtot,
+                chunk=chunk)
+
+
+def pg_beta_mean_f64(obj: Dict, kappa) -> torch.Tensor:
+    """Float64 beta mean: ``(I + Ds T_w Ds) z = Ds F* kappa``, ``beta =
+    Ds^-1 z``."""
+    q = plain_type1_f64(obj["x"], _f64(kappa, obj["x"].device), obj["h"],
+                        obj["mtot"], chunk=obj["chunk"])
+    return _solve(obj, obj["Ds"] * q) / obj["Ds"]
+
+
+def pg_mean_f64(obj: Dict, x_new, beta) -> torch.Tensor:
+    """Float64 latent predictive mean ``Re F_new (ws2 beta)``."""
+    beta = torch.as_tensor(beta, device=obj["x"].device).to(_C128)
+    return (_rows(obj, x_new) @ (obj["ws2"] * beta)).real
+
+
+def pg_var_f64(obj: Dict, x_new) -> torch.Tensor:
+    """Float64 exact latent variance: ``phi`` the conjugate rows, ``var =
+    Re <phi, ws2 Ds^-1 z>``, ``(I + Ds T_w Ds) z = Ds phi``."""
+    Ds, ws2 = obj["Ds"], obj["ws2"]
+    phi = _rows(obj, x_new).conj()                           # (B, M)
+    Z = _solve(obj, Ds * phi)
+    return torch.clamp(torch.sum(phi.conj() * ((ws2 / Ds) * Z),
+                                 dim=-1).real, min=0.0)

@@ -1,6 +1,6 @@
 """The port stands alone: ``gpquad_torch``, ``chip_smoke.py`` and
 ``scripts/port_compare_trees.py`` import neither JAX nor the JAX package
-``gpquad``."""
+``gpquad``, and the Polya-Gamma estimators neither sklearn nor optax."""
 import ast
 import subprocess
 import sys
@@ -10,6 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "gpquad")
+# what gpquad's PG estimators import and the card's machine does not have
+FORBIDDEN_PG = ("sklearn", "optax")
 
 
 def _sources():
@@ -40,9 +42,10 @@ def test_import_pulls_in_no_jax():
             "gpquad_torch.models.pg_core, gpquad_torch.models.precision, "
             "gpquad_torch.models.gradient_high, "
             "gpquad_torch.models.variance_high, "
+            "gpquad_torch.models.pg, gpquad_torch.models.pg_high, "
             "gpquad_torch.utils.f64_oracles\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN!r})\n"
+            f"{FORBIDDEN + FORBIDDEN_PG!r})\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -64,6 +67,8 @@ def test_scan_covers_the_port():
                    "gpquad_torch/kernels/bessel.py",
                    "gpquad_torch/kernels/matern.py",
                    "gpquad_torch/models/pg_core.py",
+                   "gpquad_torch/models/pg.py",
+                   "gpquad_torch/models/pg_high.py",
                    "gpquad_torch/models/precision.py",
                    "gpquad_torch/models/gradient_high.py",
                    "gpquad_torch/models/variance_high.py",
@@ -74,5 +79,5 @@ def test_scan_covers_the_port():
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_forbidden_import_statements(path):
     assert path.exists(), path
-    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN + FORBIDDEN_PG))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
