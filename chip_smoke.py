@@ -140,6 +140,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
      precision, n, mtot, B) shape it launched, held against its plain
      version and timed beside it and its bound, every one a row of
      PERF.md's table (PG_SHAPES).
+ 14. the spreading NUFFT backends and the samplers: 14a each backend
+     ("spread" at d=2, "banded" and "sub" at d=2 and d=3) and type against
+     the exact kernels in float64 on the same inputs (the float32 exact
+     kernel's own error beside it) at the scale configuration's
+     shapes (n 1e6 at mtot 339 and 677, B 5 at 339) and d3's (n 1e5 at
+     mtot 31 and 61), float32 within 1e-5 and "banded" in float64 at 339
+     within 1e-6 of max|ref|, with the warm and first-call CUDA-event ms
+     beside the exact kernel's, the peak memory and equal bits over two
+     calls ("banded", "sub"); the adjoint identity and the NaN of a cap too
+     small; 14b the scale configuration on nufft_method="banded" as phase
+     10 runs it (caps planned on the host, fit + mean, the gradient with
+     phase 10's probes, the 20-step Adam loop, one profiled step) beside
+     phase 10's numbers: the mean within 5e-4 of phase 10's float64 fit,
+     the gradient within 1e-2 of phase 10's; 14c the samplers:
+     examples/sampling.py's 1-D flow, 64 spectral draws at n 1e5 (d=2),
+     scripts/pg_scale.py's labels from sample_bernoulli_gp_spectral,
+     tests/test_sampling.py's covariance and pathwise checks at their
+     sizes, and the pathwise sampler on the headline state (16 draws at
+     10 000 targets, its CG iterations), with its launches by shape.
 Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
 and at mtot 57, 101 and 255, the two d=1 kernels at phase 8's shapes and
 at mtot 8191, and the two SKI interpolation kernels at phase 11's band
@@ -1063,7 +1082,10 @@ def rff_latent(x, lengthscale, variance, seed, dev, features=4096):
     points x (n, d) by random Fourier features: frequencies N(0, 1/l^2),
     phases U(0, 2 pi), weights N(0, 1) from numpy seed ``seed``, evaluated
     in float64 on the card.  (gpquad draws its labels with its spectral
-    sampler, which the port does not have yet.)"""
+    sampler.  Phase 14c draws the port's, sample_bernoulli_gp_spectral, at
+    this size; phase 13 keeps these labels, on which PG_BARS were set: on
+    the sampler's, 13a's float32 M-step gradient reads 2.6e-3 of a small
+    component against the 1e-3 bar, ROADMAP section C.)"""
     rng = np.random.default_rng(seed)
     W = rng.normal(scale=1.0 / lengthscale, size=(x.shape[1], features))
     b = rng.uniform(0, 2 * np.pi, features)
@@ -1119,6 +1141,27 @@ def rel_of_max(got, want):
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
 
 
+def recorder(cn, shapes, names):
+    """Wrap the kernels ``names`` of ``cn`` to count each (kernel,
+    precision, n, mtot, B, FFT order) launched on the card in ``shapes``;
+    returns the originals."""
+    originals = {k: getattr(cn, k) for k in names}
+
+    def wrap(name, fn):
+        def launch(x, arg, h, *, mtot, fft_order=False):
+            if x.is_cuda:
+                B = (arg.shape[0] if name.endswith("batched")
+                     or name in KERNELS_1D else 1)
+                key = (name, "f32" if x.dtype == torch.float32 else "f64",
+                       x.shape[0], mtot, B, bool(fft_order))
+                shapes[key] = shapes.get(key, 0) + 1
+            return fn(x, arg, h, mtot=mtot, fft_order=fft_order)
+        return launch
+    for k, fn in originals.items():
+        setattr(cn, k, wrap(k, fn))
+    return originals
+
+
 def phase_pg(c):
     """Phase 13.  ``c``: a namespace of main()'s dev, card, counters,
     gpquad_torch and its modules, and phase 3's kernels and plain
@@ -1128,17 +1171,6 @@ def phase_pg(c):
     from gpquad_torch.utils import f64_oracles as orc
     rec = {}
     shapes = {}   # (kernel, precision, n, mtot, B, fft_order) -> launches
-
-    def recorder(name, fn):
-        def launch(x, arg, h, *, mtot, fft_order=False):
-            if x.is_cuda:
-                key = (name, "f32" if x.dtype == torch.float32 else "f64",
-                       x.shape[0], mtot,
-                       arg.shape[0] if name.endswith("batched") else 1,
-                       bool(fft_order))
-                shapes[key] = shapes.get(key, 0) + 1
-            return fn(x, arg, h, mtot=mtot, fft_order=fft_order)
-        return launch
 
     steps = []                      # CUDA events around each outer step
     orig_step = pg_core.outer_step
@@ -1163,9 +1195,7 @@ def phase_pg(c):
             dtype=dtype, device=dev, store_history=True,
             **dict(PG_CLF, **kw))
 
-    originals = {k: getattr(cn, k) for k in KERNELS_2D}
-    for k, fn in originals.items():
-        setattr(cn, k, recorder(k, fn))
+    originals = recorder(cn, shapes, KERNELS_2D)
     pg_core.outer_step = timed_step
     try:
         # -- 13a: the main path, counts set to 0 just before it ----------
@@ -1557,6 +1587,417 @@ def pg_shape_table(c, shapes):
     check(not missing, f"phase 13 launched shapes that PERF.md's table "
           f"lacks: {missing}")
     return rows
+
+
+# phase 14: the spreading NUFFT backends and the samplers.  14a holds each
+# backend against the exact CUDA kernels in float64 on the same inputs (the
+# float32 exact kernel's own error at n 1e6, ~1.5e-5-4e-5 of max|ref| from
+# its sums over the points, is printed beside it) at the scale
+# configuration's d=2 shapes (n 1e6 at mtot 339 and its lag grid 677, and
+# the batched pair at B 5 on 339) and d3's (n 1e5 at mtot 31 and 61); 14b
+# runs bench.py's scale configuration (bench.py:441-603) on
+# nufft_method="banded"; 14c drives the samplers (examples/sampling.py's
+# 1-D sizes, a 64-draw spectral sample at n 1e5, the pathwise sampler on
+# the headline state, and tests/test_sampling.py's statistical checks).
+SPREAD_BAR = {torch.float32: 1e-5, torch.float64: 1e-6}
+SPREAD_ADJOINT_BAR = {torch.float32: 1e-4, torch.float64: 1e-9}
+# 14b: the mean against the float64 kron fit (phase 10's bar) and the
+# gradient against phase 10's, same probes, relative to max|grad|
+SCALE_MEAN_BAR, SCALE_GRAD_BAR = 5e-4, 1e-2
+PATHWISE_MAX_ITER = 1000
+
+
+def spread_backend_case(c, x, h, mtot, B, kind, methods):
+    """Each backend of ``methods`` against the exact kernels on the same
+    inputs: the error relative to max|ref| of the float64 exact kernel
+    (points as given, h rounded to their precision, as the backends take
+    it), beside the float32 exact kernel's own error and the backend's
+    difference from it; the first call's CUDA-event ms (its plan included)
+    and the warm call's, the exact kernel's, the peak memory of the first
+    call and equal bits over two calls.  Returns the rows."""
+    d = x.shape[1]
+    gen = np.random.default_rng(140 + mtot + B)
+    cdtype = torch.complex64 if x.dtype == torch.float32 else torch.complex128
+    shape = ((B,) if B > 1 else ()) + (
+        (x.shape[0],) if kind == 1 else (mtot,) * d)
+    arg = torch.complex(*(torch.as_tensor(gen.standard_normal(shape),
+                                          dtype=x.dtype, device=c.dev)
+                          for _ in range(2))).to(cdtype)
+    apply = (lambda op, a: op.type1(a)) if kind == 1 else \
+        (lambda op, a: op.type2(a))
+    h_in = float(torch.as_tensor(h, dtype=x.dtype))
+    ref = apply(c.nufft_mod.make_nufft(x.double(), h_in, mtot),
+                arg.to(torch.complex128))
+    scale = float(ref.abs().max())
+    exact = c.nufft_mod.make_nufft(x, h, mtot)
+    ref_in = apply(exact, arg)
+    exact_err = float((ref_in - ref).abs().max()) / scale
+    exact_ms = time_cuda(lambda: apply(exact, arg), 1, 3)
+    rows = []
+    for method in methods:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        op = c.nufft_mod.make_nufft(x, h, mtot, method=method)
+        make_ms = (time.perf_counter() - t) * 1e3
+        s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s_.record()
+        out1 = apply(op, arg)
+        e_.record()
+        sync()
+        first_ms = s_.elapsed_time(e_)
+        peak = torch.cuda.max_memory_allocated() - base
+        err = float((out1 - ref).abs().max()) / scale
+        vs_exact = float((out1 - ref_in).abs().max()) / scale
+        ms = time_cuda(lambda: apply(op, arg), 1, 3)
+        same = bool(torch.equal(apply(op, arg), out1))
+        prec = "f32" if x.dtype == torch.float32 else "f64"
+        row = dict(method=method, type=kind, d=d, n=x.shape[0], mtot=mtot,
+                   B=B, precision=prec, rel_err=err, exact_rel_err=exact_err,
+                   rel_diff_exact=vs_exact, ms=ms, first_ms=first_ms,
+                   make_ms=make_ms, exact_ms=exact_ms,
+                   peak_mb=peak / 2 ** 20, equal_bits=same,
+                   cap=getattr(op, "cap", None))
+        rows.append(row)
+        print(f"[14a] {method} type-{kind} d={d} {prec} n={x.shape[0]} "
+              f"mtot={mtot} B={B}"
+              f"{'' if row['cap'] is None else ' cap ' + str(row['cap'])}: "
+              f"rel err {err:.3e} (bar {SPREAD_BAR[x.dtype]:.0e}; the exact "
+              f"kernel {exact_err:.3e}, the two apart {vs_exact:.3e}); "
+              f"{ms:.3f} ms warm, {first_ms:.3f} ms first call with its "
+              f"plan (make_nufft {make_ms:.2f} ms host), exact kernel "
+              f"{exact_ms:.3f} ms; peak {peak / 2 ** 20:.1f} MB; equal "
+              f"bits over two calls {same} {c.card}")
+        check(err <= SPREAD_BAR[x.dtype], f"14a {method} type-{kind} d={d} "
+              f"mtot={mtot} B={B} {prec}: error {err:.3e}")
+        check(same or method == "spread", f"14a {method} type-{kind} d={d} "
+              f"mtot={mtot} B={B}: two calls differ")
+        del op, out1
+    return rows
+
+
+def spread_checks(c, x, h, mtot):
+    """The adjoint identity of the banded pair and the NaN poison of a cap
+    set too small, at one shape."""
+    out = {}
+    gen = np.random.default_rng(141)
+    for dtype in (torch.float32, torch.float64):
+        xd = x.to(dtype)
+        cdtype = (torch.complex64 if dtype == torch.float32
+                  else torch.complex128)
+
+        def rnd(*shape):
+            return torch.complex(
+                *(torch.as_tensor(gen.standard_normal(shape), dtype=dtype,
+                                  device=c.dev) for _ in range(2))).to(cdtype)
+        v, f = rnd(x.shape[0]), rnd(mtot, mtot)
+        op = c.nufft_mod.make_nufft(xd, h, mtot, method="banded")
+        lhs = complex(torch.sum(op.type1(v).conj().to(torch.complex128)
+                                * f.to(torch.complex128)))
+        rhs = complex(torch.sum(v.conj().to(torch.complex128)
+                                * op.type2(f).to(torch.complex128)))
+        rel = abs(lhs - rhs) / abs(lhs)
+        out[f"adjoint_rel_{dtype}".replace("torch.", "")] = rel
+        print(f"[14a] banded adjoint <F* v, f> vs <v, F f> ({dtype}, n="
+              f"{x.shape[0]}, mtot {mtot}): rel {rel:.3e} (bar "
+              f"{SPREAD_ADJOINT_BAR[dtype]:.0e})")
+        check(rel <= SPREAD_ADJOINT_BAR[dtype], f"14a adjoint {dtype}: {rel}")
+    from gpquad_torch.ops.spread_banded import BandedNUFFT
+    small = BandedNUFFT(x, h, mtot, cap=8)
+    poison = (bool(torch.isnan(small.type1(v.to(torch.complex64))).all()),
+              bool(torch.isnan(small.type2(f.to(torch.complex64))).all()))
+    out["nan_poison"] = poison
+    print(f"[14a] banded with cap 8 at n={x.shape[0]}, mtot {mtot}: type-1 "
+          f"all NaN {poison[0]}, type-2 all NaN {poison[1]}")
+    check(all(poison), "14a: a cap too small did not poison the output")
+    return out
+
+
+def phase_spread(c):
+    """Phase 14.  ``c``: a namespace of main()'s dev, card, counters,
+    gpquad_torch and its modules, phase 10's configuration, record and
+    results (its mean against float64, its gradient), phase 4's headline
+    fit and data, and phase 6's d=3 grid.  Returns the phase's record."""
+    gt, nm, cn, dev, card = c.gt, c.nufft_mod, c.cuda_nufft, c.dev, c.card
+    rec = {}
+    t0 = time.perf_counter()
+    # -- 14a: the backends against the exact kernels -----------------------
+    xs, ys, xqs = scale_data(c.n10)
+    x2 = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+    xd3 = torch.as_tensor(data_3d(c.n_d3, 10_000, seed=3)[0],
+                          dtype=torch.float32, device=dev)
+    rows = []
+    d2 = ("spread", "banded", "sub")
+    for mtot, B in ((c.mtot10, 1), (2 * c.mtot10 - 1, 1), (c.mtot10, 5)):
+        for kind in (1, 2):
+            rows += spread_backend_case(c, x2, c.h10, mtot, B, kind, d2)
+    for mtot in (c.mtot_d3, 2 * c.mtot_d3 - 1):
+        for kind in (1, 2):
+            rows += spread_backend_case(c, xd3, c.h_d3, mtot, 1, kind,
+                                        ("banded", "sub"))
+    for kind in (1, 2):
+        rows += spread_backend_case(c, x2.double(), c.h10, c.mtot10, 1, kind,
+                                    ("banded",))
+    rec["14a"] = dict(rows=rows, **spread_checks(c, x2, c.h10, c.mtot10))
+    del xd3
+    torch.cuda.empty_cache()
+    rec["14a_s"] = time.perf_counter() - t0
+
+    # -- 14b: the scale configuration on nufft_method="banded" -------------
+    t1 = time.perf_counter()
+    y2 = torch.as_tensor(ys, dtype=torch.float32, device=dev)
+    xq2 = torch.as_tensor(xqs, dtype=torch.float32, device=dev)
+    kw = dict(solver="cg", precond="kron", fft_smooth=True,
+              nufft_method="banded", device=dev)
+    reset_counts(*c.counters)
+    t = time.perf_counter()
+    caps = gt.models.efgp.plan_nufft_caps(x2, c.h10, c.mtot10)
+    plan_ms = (time.perf_counter() - t) * 1e3
+    kw["nufft_caps"] = caps
+
+    def fit_mean():
+        st_ = gt.fit_with_grid(x2, y2, c.kern10, c.sigmasq, c.h10, c.mtot10,
+                               cg_tol=1e-6, max_cg_iter=2000, **kw)
+        return st_, gt.predict_mean(st_, xq2)
+
+    (st, mean), fit_ms = timed(fit_mean)
+    err = float((mean.double() - c.mean10_64).abs().max())
+    picks_fit = dict(nm.BACKEND_PICKS)
+
+    def grad(kern, s2, gen, **gkw):
+        return gt.gradient_with_grid(x2, y2, kern, s2, c.h10, gen,
+                                     mtot=c.mtot10, **kw, **gkw)
+
+    gr, grad_ms = timed(lambda: grad(c.kern10, c.sigmasq, c.seeded(),
+                                     trace_samples=10, cg_tol=1e-4,
+                                     max_cg_iter=1000))
+    grad_rel = float((gr.grad - c.grad10).abs().max()
+                     / c.grad10.abs().max())
+    params = gt.HyperState.create(c.kern10, c.sigmasq)
+    raw = params.raw.to(dev).clone()
+    adam = torch.optim.Adam([raw], lr=0.05)
+    gen10 = c.seeded()
+
+    def hyper_iter():
+        p = params.replace_raw(raw.detach())
+        res = grad(p.kernel_of(c.kern10), p.sig2, gen10, trace_samples=5,
+                   cg_tol=1e-3, max_cg_iter=500)
+        raw.grad = res.grad.to(raw.dtype) * torch.exp(raw.detach())
+        adam.step()
+        return res
+
+    hyper_iter()                                           # warm
+    raw.data.copy_(params.raw.to(dev))
+    adam = torch.optim.Adam([raw], lr=0.05)
+    t = time.perf_counter()
+    loop_iters = [int(hyper_iter().trace_cg_iters) for _ in range(20)]
+    sync()
+    step_ms = (time.perf_counter() - t) / 20 * 1e3
+    picks = dict(nm.BACKEND_PICKS)
+    prof = profile_run(hyper_iter)
+    p10 = c.scale_rec
+    rec["14b"] = b = dict(
+        caps=list(caps), plan_caps_ms=plan_ms, fit_mean_ms=fit_ms,
+        kron_iters=int(st.mean_cg_iters), err_mean=err,
+        grad_ms=grad_ms, grad_rel_vs_exact=grad_rel,
+        grad_trace_iters=int(gr.trace_cg_iters),
+        grad_mean_iters=int(gr.mean_cg_iters), loop_trace_iters=loop_iters,
+        ms_per_adam_step=step_ms, picks_fit=picks_fit, picks=picks,
+        profile=prof, learned_raw=raw.detach().tolist(),
+        exact=dict(fit_mean_ms=p10["stages_s"]["fit_mean_s"] * 1e3,
+                   kron_iters=p10["kron_iters"], err_mean=p10["err_mean"],
+                   grad_ms=p10["stages_s"]["grad_s"] * 1e3,
+                   ms_per_adam_step=p10["ms_per_adam_step"],
+                   loop_trace_iters=p10["loop_trace_iters"]))
+    print(f"[14b] scale n={c.n10} mtot={c.mtot10} on banded: caps "
+          f"{list(caps)} planned in {plan_ms:.1f} ms (host); fit + mean "
+          f"{fit_ms:.1f} ms (exact kernels, phase 10: "
+          f"{b['exact']['fit_mean_ms']:.1f} ms), kron PCG iters "
+          f"{b['kron_iters']} (phase 10: {p10['kron_iters']}); max|mean err| "
+          f"vs the f64 kron fit {err:.3e} (bar {SCALE_MEAN_BAR:.0e}; phase "
+          f"10: {p10['err_mean']:.3e}) {card}")
+    print(f"[14b] gradient (T=10, phase 10's probes) {grad_ms:.1f} ms "
+          f"(phase 10: {b['exact']['grad_ms']:.1f} ms), rel to phase 10's "
+          f"{grad_rel:.3e} (bar {SCALE_GRAD_BAR:.0e}), trace PCG iters "
+          f"{b['grad_trace_iters']}, mean {b['grad_mean_iters']}; 20 Adam "
+          f"iterations {step_ms:.1f} ms per Adam step (host clock; phase 10 "
+          f"on the exact kernels {p10['ms_per_adam_step']:.1f} ms), trace "
+          f"iters {loop_iters}; backend_picks {picks} {card}")
+    print_profile("[14b] profiled Adam step on banded:", prof, card)
+    check(err <= SCALE_MEAN_BAR, f"14b: mean error {err:.3e}")
+    check(grad_rel <= SCALE_GRAD_BAR, f"14b: gradient rel {grad_rel:.3e}")
+    check(picks_fit["banded"] == 2 and picks["banded"] >= 2 + 2 * 21,
+          f"14b: banded did not run {picks_fit} {picks}")
+    check(b["kron_iters"] <= KRON_MAX_ITERS, "14b: kron iterations")
+    check(all(bool(torch.isfinite(t_).all()) for t_ in (mean, gr.grad, raw)),
+          "14b: non-finite output")
+    del st, gr, x2, y2, xq2
+    torch.cuda.empty_cache()
+    rec["14b_s"] = time.perf_counter() - t1
+
+    # -- 14c: the samplers ---------------------------------------------------
+    t2 = time.perf_counter()
+    shapes = {}
+    originals = recorder(cn, shapes, KERNELS_2D + KERNELS_1D)
+    try:
+        rec["14c"] = sampler_checks(c)
+    finally:
+        for k, fn in originals.items():
+            setattr(cn, k, fn)
+    rec["14c"]["shapes"] = {f"{k[0]} {k[1]} n={k[2]} mtot={k[3]} B={k[4]}"
+                            f"{' fft_order' if k[5] else ''}": v
+                            for k, v in sorted(shapes.items())}
+    print(f"[14c] launches by (kernel, precision, n, mtot, B): "
+          f"{rec['14c']['shapes']}")
+    rec["14c_s"] = time.perf_counter() - t2
+    return rec
+
+
+def sampler_checks(c):
+    """14c's sampler runs and checks."""
+    gt, dev, card = c.gt, c.dev, c.card
+    from gpquad_torch.models import sampling
+    out = {}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # examples/sampling.py's 1-D sizes, float32 as the example runs there
+    x1 = torch.as_tensor(np.sort(np.random.default_rng(0).uniform(0, 1, 400)),
+                         dtype=torch.float32, device=dev)[:, None]
+    kern1 = gt.make_kernel("SE", 1, lengthscale=0.15, variance=1.0)
+    y_dense = gt.sample_gp_dense(gen(1), x1, kern1, noise_variance=0.01,
+                                 device=dev)
+    y_spec, ms_spec = timed(lambda: gt.sample_gp_spectral(
+        gen(2), x1, lengthscale=0.15, variance=1.0, device=dev))
+    y_mat = gt.sample_gp_matern(gen(3), x1, nu=1.5, lengthscale=0.2,
+                                noise_variance=0.01, device=dev)
+    labels, _ = gt.sample_bernoulli_gp_spectral(gen(4), x1, lengthscale=0.2,
+                                                variance=2.0, device=dev)
+    model = gt.EFGP(x1, y_spec, kern1, sigmasq=0.01, eps=1e-4,
+                    estimate_params=False, device=dev)
+    xq1 = torch.linspace(0.1, 0.9, 50, device=dev)[:, None]
+    mu, _ = model.predict(xq1, return_variance=False)
+    st1 = model.state
+    (pw1, it1), ms_pw1 = timed(lambda: sampling._pathwise_draw(
+        x1, y_spec, st1.ws, st1.sigmasq, st1.toeplitz, st1.h, xq1, gen(11),
+        mtot=st1.mtot, num_samples=512, cg_tol=1e-8,
+        max_cg_iter=PATHWISE_MAX_ITER))
+    dev1 = float((pw1.mean(0) - mu).abs().max())
+    out["1d"] = dict(spectral_ms=ms_spec, pathwise_ms=ms_pw1,
+                     pathwise_iters=int(it1), mtot=st1.mtot,
+                     pathwise_mean_dev=dev1,
+                     positive_rate=float(labels.mean()))
+    print(f"[14c] examples/sampling.py (n 400, d=1, float32): dense sd "
+          f"{float(y_dense.std()):.3f}, spectral sd {float(y_spec.std()):.3f}"
+          f" ({ms_spec:.2f} ms), matern sd {float(y_mat.std()):.3f}, "
+          f"bernoulli positive rate {float(labels.mean()):.2f}; pathwise 512 "
+          f"draws at 50 targets (mtot {st1.mtot}) {ms_pw1:.2f} ms, CG "
+          f"{int(it1)} iterations (cap {PATHWISE_MAX_ITER}), mean vs "
+          f"predict max dev {dev1:.3f} (the example's bar 0.2) {card}")
+    check(all(bool(torch.isfinite(t_).all())
+              for t_ in (y_dense, y_spec, y_mat, pw1)), "14c: 1-D samples")
+    check(dev1 < 0.2, f"14c: pathwise mean deviates {dev1:.3f}")
+
+    # 64 spectral draws at n 1e5 in 2-D (the batched type-2)
+    s64, ms64 = timed(lambda: gt.sample_gp_spectral(
+        gen(5), c.x32, lengthscale=0.1, variance=1.0, num_samples=64,
+        device=dev))
+    out["2d_64"] = dict(ms=ms64, shape=list(s64.shape),
+                        sd=float(s64.std()))
+    print(f"[14c] sample_gp_spectral n={c.x32.shape[0]} d=2, 64 draws (l "
+          f"0.1): {ms64:.2f} ms host clock, shape {tuple(s64.shape)}, sd "
+          f"{float(s64.std()):.3f} {card}")
+    check(tuple(s64.shape) == (c.x32.shape[0], 64)
+          and bool(torch.isfinite(s64).all()), "14c: 2-D spectral draws")
+    del s64
+
+    # scripts/pg_scale.py:36-39's labels on phase 13a's points (n 1e5 in
+    # [-1,1]^2, l 0.4, var 4), drawn from a CPU generator: the same labels
+    # on any card
+    xpg = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (PG_N, 2)),
+                          dtype=torch.float32, device=dev)
+    (ypg, fpg), ms_pg = timed(lambda: gt.sample_bernoulli_gp_spectral(
+        torch.Generator().manual_seed(1), xpg, lengthscale=0.4, variance=4.0,
+        device=dev))
+    out["pg_scale_labels"] = dict(ms=ms_pg, positive_rate=float(ypg.mean()),
+                                  latent_sd=float(fpg.std()))
+    print(f"[14c] sample_bernoulli_gp_spectral at pg_scale's size (n {PG_N}, "
+          f"l 0.4, variance 4): {ms_pg:.2f} ms host clock, positive rate "
+          f"{float(ypg.mean()):.4f}, latent sd {float(fpg.std()):.3f} {card}")
+    check(bool(torch.isfinite(fpg).all()) and set(ypg.unique().tolist())
+          <= {0.0, 1.0}, "14c: pg_scale labels")
+    # 13a's fixed-state comparison on these labels, printed beside PG_BARS
+    # and not held to them: why phase 13 keeps its own (ROADMAP section C)
+    from gpquad_torch.models import pg_core
+    xl, yl = xpg.double().cpu().numpy(), ypg.cpu().numpy().astype(int)
+    est64 = gt.PolyagammaGPClassifier(dtype="float64", device=dev,
+                                      **PG_CLF).fit(xl, yl)
+    yt = torch.as_tensor((yl == est64.classes_[1]).astype(np.float64),
+                         dtype=torch.float32, device=dev)
+    xq = np.random.default_rng(130).uniform(-1, 1, size=(PG_TARGETS, 2))
+    fs = out["pg_scale_labels"]["fixed_state"] = pg_fixed_state(
+        gt, pg_core, est64, yt, xq, dev)
+    print(f"[14c] 13a's float32 core on these labels' float64 fit (l "
+          f"{est64.lengthscale_:.4f}, variance {est64.variance_:.4f}), not "
+          f"held: " + ", ".join(f"{k} {v:.3e} (13a's bar {PG_BARS[k]:.0e})"
+                                for k, v in fs.items()))
+    del xpg, ypg, fpg, est64
+
+    # tests/test_sampling.py:33-44 on the card
+    rng = np.random.default_rng(0)
+    x25 = torch.as_tensor(rng.uniform(0, 1, size=(25, 1)), device=dev)
+    k25 = gt.make_kernel("SE", 1, lengthscale=0.3, variance=1.0)
+    S = gt.sample_gp_spectral(gen(2), x25, lengthscale=0.3, variance=1.0,
+                              num_samples=30000, spectral_eps=1e-6,
+                              trunc_eps=1e-6, device=dev)
+    cov_err = float((S @ S.T / 30000 - k25.kernel_matrix(x25, x25)).abs()
+                    .max())
+    out["covariance_err"] = cov_err
+    print(f"[14c] spectral covariance (25 points, 30 000 draws, float64): "
+          f"max err {cov_err:.4f} (bar 0.05)")
+    check(cov_err < 0.05, f"14c: spectral covariance {cov_err:.4f}")
+
+    # the pathwise sampler on the headline state: 16 draws, 10 000 targets
+    st = c.st
+    (pw, it), ms_pw = timed(lambda: sampling._pathwise_draw(
+        c.x32, c.y32, st.ws, st.sigmasq, st.toeplitz, st.h, c.xq32, gen(6),
+        mtot=st.mtot, num_samples=16, cg_tol=1e-6,
+        max_cg_iter=PATHWISE_MAX_ITER))
+    out["headline"] = dict(ms=ms_pw, iters=int(it), mtot=st.mtot,
+                           shape=list(pw.shape))
+    print(f"[14c] sample_posterior_pathwise on the headline state (n "
+          f"{c.x32.shape[0]}, mtot {st.mtot}): 16 draws at "
+          f"{c.xq32.shape[0]} targets {ms_pw:.1f} ms host clock, CG "
+          f"{int(it)} iterations (cg_tol 1e-6, cap {PATHWISE_MAX_ITER}) "
+          f"{card}")
+    check(tuple(pw.shape) == (16, c.xq32.shape[0])
+          and bool(torch.isfinite(pw).all()), "14c: headline pathwise")
+
+    # tests/test_sampling.py:64-88 on the card
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(0, 1, (120, 1)), device=dev)
+    y = torch.sin(6 * x[:, 0]) + 0.2 * torch.as_tensor(
+        rng.normal(size=120), device=dev)
+    kern = gt.make_kernel("SE", 1, lengthscale=0.2, variance=1.0)
+    st = gt.fit(x, y, kern, 0.05, eps=1e-5, cg_tol=1e-10, device=dev)
+    xq = torch.as_tensor(np.linspace(0.05, 0.95, 7)[:, None], device=dev)
+    mean = gt.predict_mean(st, xq)
+    var = gt.predict_var(st, xq, method="regular", cg_tol=1e-10)
+    S = 4000
+    samp = gt.sample_posterior_pathwise(x, y, st, xq, gen(0), num_samples=S,
+                                        cg_tol=1e-10)
+    z = ((samp.mean(0) - mean).abs() / torch.sqrt(var / S)).max()
+    rel = ((samp.var(0) - var).abs() / var).max()
+    out["pathwise_stats"] = dict(mean_z=float(z), var_rel=float(rel),
+                                 var_bar=6 * (2.0 / S) ** 0.5)
+    print(f"[14c] pathwise statistics (n 120, 4 000 draws, float64): mean "
+          f"within {float(z):.2f} standard errors (bar 5), variance rel "
+          f"{float(rel):.4f} (bar {6 * (2.0 / S) ** 0.5:.4f})")
+    check(float(z) < 5 and float(rel) < 6 * (2.0 / S) ** 0.5,
+          "14c: pathwise statistics")
+    return out
 
 
 def main() -> int:
@@ -3960,6 +4401,23 @@ def main() -> int:
         kernels=kernels, plains=plains))
     phase_s["13"] = time.perf_counter() - t_phase
     print(f"[13] phase wall time {phase_s['13']:.1f} s")
+
+    # -- phase 14: the spreading NUFFT backends and the samplers ------------
+    t_phase = time.perf_counter()
+    record["phases"]["spread"] = phase_spread(types.SimpleNamespace(
+        gt=gpquad_torch, nufft_mod=nufft_mod, cuda_nufft=cuda_nufft,
+        dev=dev, card=card, counters=counters, sigmasq=sigmasq, n10=n10,
+        kern10=kern10, h10=h10, mtot10=mtot10, seeded=seeded,
+        scale_rec=record["phases"]["scale"], mean10_64=mean10_64,
+        grad10=gr10.grad, n_d3=100_000, h_d3=h_d3, mtot_d3=mtot_d3, st=st,
+        x32=x32,
+        y32=y32, xq32=xq32))
+    phase_s["14"] = time.perf_counter() - t_phase
+    print(f"[14] phase wall time {phase_s['14']:.1f} s (14a "
+          f"{record['phases']['spread']['14a_s']:.1f} s, 14b "
+          f"{record['phases']['spread']['14b_s']:.1f} s, 14c "
+          f"{record['phases']['spread']['14c_s']:.1f} s); the script so far "
+          f"{time.perf_counter() - t_run:.1f} s")
 
     # -- the record ----------------------------------------------------------
     # each kernel's row: its largest float32 call on a driven path (the

@@ -7,6 +7,9 @@ from .pg import (PolyagammaGPClassifier,
                  PolyagammaGPNegativeBinomialRegressor)
 from .pg_high import PGHighResult, pg_beta_mean_high, pg_predict_high
 from .pipeline import FusedResult, fit_predict_grad
+from .sampling import (sample_bernoulli_gp, sample_bernoulli_gp_spectral,
+                       sample_gp_dense, sample_gp_matern, sample_gp_spectral,
+                       sample_posterior_pathwise)
 from .ski import (SKIOperator, build_ski_operator, fit_ski_gp,
                   ski_predict_mean, ski_predict_var)
 
@@ -18,4 +21,7 @@ __all__ = ["EFGP", "FitState", "FusedResult", "GradientResult", "fit",
            "predict_var",
            "quadrature_weights", "tensor_grid", "SKIOperator",
            "build_ski_operator", "fit_ski_gp", "ski_predict_mean",
-           "ski_predict_var"]
+           "ski_predict_var", "sample_bernoulli_gp",
+           "sample_bernoulli_gp_spectral", "sample_gp_dense",
+           "sample_gp_matern", "sample_gp_spectral",
+           "sample_posterior_pathwise"]

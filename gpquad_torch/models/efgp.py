@@ -29,7 +29,7 @@ from ..ops.deflation import (DEFLATION_RANK, deflation_block,
 from ..ops.dense_solve import (DENSE_SOLVER_MAX_M, dense_gram, dense_inverse,
                                refine_solve)
 from ..ops.kron_precond import KronPrecond, kron_eig_build, make_kron_precond
-from ..ops.nufft import make_nufft, make_phase_nufft
+from ..ops.nufft import SPREADING, make_nufft, make_phase_nufft
 from ..ops.operators import (convolution_vector, make_A_mean, make_A_var,
                              make_jacobi_precond)
 from ..ops.toeplitz import ToeplitzND, _next_smooth, make_toeplitz, \
@@ -38,7 +38,8 @@ from ..quadrature import spectral_grid
 
 __all__ = ["FitState", "resolve_device", "resolve_solver", "resolve_precond",
            "tensor_grid", "quadrature_weights", "fit_with_grid", "fit",
-           "predict_mean", "predict_var", "posterior_fourier_rows"]
+           "plan_nufft_caps", "predict_mean", "predict_var",
+           "posterior_fourier_rows"]
 
 _PROBE_CHUNK = 256
 
@@ -139,11 +140,30 @@ def _as_points(x, device, dtype=None):
     return x[:, None] if x.ndim == 1 else x
 
 
+def plan_nufft_caps(x, h, mtot: int) -> tuple:
+    """Host-side band caps of the banded backend: (the fit grid's, the
+    doubled lag grid's), from one copy of the points to the host."""
+    from ..ops.spread_banded import (_host_points, banded_plan_cap,
+                                     banded_plan_cap_3d)
+    xh = _host_points(x)
+    m = (mtot - 1) // 2
+    plan = banded_plan_cap if xh.shape[1] == 2 else banded_plan_cap_3d
+    return plan(xh, float(h), mtot), plan(xh, float(h), 4 * m + 1)
+
+
+def serving_method(nufft_method: str) -> str:
+    """The backend of the posterior mean and the stochastic variance for a
+    fit on ``nufft_method``: the spreading backends fit, and the exact
+    default serves, as in gpquad (efgp.py:311, 462; pipeline.py:106)."""
+    return "auto" if nufft_method in SPREADING else nufft_method
+
+
 def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
                   cg_tol: float = 1e-4, max_cg_iter: Optional[int] = None,
                   beta0: Optional[torch.Tensor] = None,
                   use_precond: bool = True, ws_mask=None,
                   nufft_method: str = "auto",
+                  nufft_caps: Optional[tuple] = None,
                   solver: str = "auto",
                   precond_rank: int = 0,
                   precond: str = "auto",
@@ -158,8 +178,10 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
     state keeps either, so that the variance and the gradient reuse it.
     ``ws_mask`` ((M,), optional) zeroes padded grid nodes (a bucketed grid
     stays algebraically exact); ``fft_smooth`` pads the Toeplitz FFT to a
-    2,3,5,7-smooth size instead of a power of two.  Runs in ``x``'s
-    floating dtype."""
+    2,3,5,7-smooth size instead of a power of two.  ``nufft_caps`` (the fit
+    grid's and the lag grid's band caps, :func:`plan_nufft_caps`) serves
+    ``nufft_method="banded"``; ``make_nufft`` plans a None cap on the host.
+    Runs in ``x``'s floating dtype."""
     dev = resolve_device(device)
     x = _as_points(x, dev)
     n, d = x.shape
@@ -177,10 +199,11 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
     ws = quadrature_weights(kernel, tensor_grid(xis_1d, d), h, d,
                             mask=ws_mask)
 
-    nufft = make_nufft(x, h, mtot, method=nufft_method)
+    caps = nufft_caps or (None, None)
+    nufft = make_nufft(x, h, mtot, method=nufft_method, cap=caps[0])
     rhs = ws * nufft.type1(y.to(cdtype)).reshape(-1)
 
-    v = convolution_vector(m, x, h, nufft_method=nufft_method)
+    v = convolution_vector(m, x, h, nufft_method=nufft_method, cap=caps[1])
     toeplitz = make_toeplitz(v, force_pow2=not fft_smooth)
     diag_scale = toeplitz_diag_scale(v)
     A_dense = P_dense = defl_idx = defl_P = kron = None
@@ -285,8 +308,9 @@ def _variance_stochastic(state: FitState, x_new, generator, *, probes: int,
     Rademacher probes in chunks of 256, cross-correlate ``gamma = D u`` with
     ``eta`` on a 2,3,5,7-smooth FFT grid of size >= 2 mtot - 1, keep the
     +-(mtot-1) lags, and evaluate the lag sums at the targets with one
-    FFT-ordered type-2 apply.  ``etas`` ((probes, M), +-1) replaces the
-    generated probes, for same-probe comparisons."""
+    FFT-ordered type-2 apply (on :func:`serving_method`'s backend: the
+    spreading backends take no FFT order).  ``etas`` ((probes, M), +-1)
+    replaces the generated probes, for same-probe comparisons."""
     mtot, d = state.mtot, state.d
     M = mtot ** d
     rdtype = state.h.dtype
@@ -331,7 +355,7 @@ def _variance_stochastic(state: FitState, x_new, generator, *, probes: int,
             est_sums = torch.index_select(est_sums, ax, lag_idx)
 
     nufft = make_nufft(x_new, state.h, 2 * mtot - 1, fft_order=True,
-                       method=nufft_method)
+                       method=serving_method(nufft_method))
     return nufft.type2(est_sums).real
 
 

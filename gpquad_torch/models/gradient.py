@@ -77,7 +77,8 @@ def gradient_with_grid(
         probes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         compute_log_marginal: bool = False, log_marginal_probes: int = 100,
         log_marginal_steps: int = 25, nufft_method: str = "auto",
-        solver: str = "auto", precond_rank: int = 0, precond: str = "auto",
+        nufft_caps: Optional[Tuple[int, int]] = None, solver: str = "auto",
+        precond_rank: int = 0, precond: str = "auto",
         fft_smooth: bool = False, state=None,
         device="cuda") -> GradientResult:
     """One gradient evaluation on a fixed-size frequency grid.
@@ -89,6 +90,8 @@ def gradient_with_grid(
     the fused pipeline passes it.  With ``state`` and a binding
     ``noise_floor`` the dense tier solves with the state's un-floored
     ``A_dense``, as gpquad does (ROADMAP §C known quirk).
+    ``nufft_caps`` (the fit grid's and the lag grid's band caps) serves
+    ``nufft_method="banded"``; a None cap is planned by ``make_nufft``.
 
     Probes: ``probes=(Z, V)`` ((T, n) and (T, M), +-1) or, when None, drawn
     from ``generator`` in this order: ``Z`` (T, n), then ``V`` (T, M), then
@@ -134,7 +137,8 @@ def gradient_with_grid(
     M = Dprime.shape[0]
 
     # --- stage 2/3: NUFFT + Toeplitz + operators ---------------------------
-    nufft = make_nufft(x, h, mtot, method=nufft_method)
+    caps = nufft_caps or (None, None)
+    nufft = make_nufft(x, h, mtot, method=nufft_method, cap=caps[0])
 
     def fadj(v):
         return nufft.type1(v).reshape(v.shape[:-1] + (M,))
@@ -160,7 +164,8 @@ def gradient_with_grid(
                                                diag_scale=diag_scale)
     else:
         ws = quadrature_weights(kernel, xis, h, d, mask=ws_mask)
-        v_kernel = convolution_vector(m, x, h, nufft_method=nufft_method)
+        v_kernel = convolution_vector(m, x, h, nufft_method=nufft_method,
+                                      cap=caps[1])
         toeplitz = make_toeplitz(v_kernel, force_pow2=not fft_smooth)
         diag_scale = toeplitz_diag_scale(v_kernel)
         use_dense = resolve_solver(solver, mtot, d) == "dense"

@@ -17,6 +17,12 @@ padded step equals the tight one.  ``torch.optim.Adam`` (the defaults of
 Per Adam iteration the host reads the hypers once, to plan the grid (float64
 bisection on the host); the gradients, iteration counts and hypers of the
 history stay on the device until the loop ends and are read in bulk.
+
+``opts["nufft_method"]`` picks the fit's and the gradient's NUFFT backend
+(``"auto"``, ``"matmul"``, ``"spread"``, ``"banded"`` or ``"sub"``); for
+``"banded"`` each grid's band caps are planned on the host from a copy of
+the points made once (``plan_nufft_caps``).  Predictions serve on the exact
+default after a spreading fit, as gpquad's do.
 """
 from __future__ import annotations
 
@@ -31,8 +37,8 @@ from ..kernels import HyperState, make_kernel
 from ..ops.slq import logdet_slq
 from ..quadrature import bucket_mtot, flat_grid_mask, grid_geometry, \
     spectral_grid
-from .efgp import (FitState, _as_points, fit_with_grid, predict_mean,
-                   predict_var, resolve_device)
+from .efgp import (FitState, _as_points, fit_with_grid, plan_nufft_caps,
+                   predict_mean, predict_var, resolve_device, serving_method)
 from .gradient import gradient_with_grid
 
 __all__ = ["EFGP"]
@@ -81,6 +87,7 @@ class EFGP:
         self._fitted_raw = None
         self._last_gradient_beta = None
         self._mtot_floor = 0
+        self._x_host = None
         self.last_gradient_stats: Dict = {}
         self.training_log: Dict = {}
 
@@ -119,6 +126,15 @@ class EFGP:
         self.fit()
         return self._state
 
+    def _nufft_caps(self, h, mtot: int):
+        """The banded backend's band caps for a grid of ``mtot`` (None for
+        the other backends)."""
+        if self._opt("nufft_method", "auto") != "banded":
+            return None
+        if self._x_host is None:
+            self._x_host = self.x.cpu().numpy()
+        return plan_nufft_caps(self._x_host, h, mtot)
+
     def _warm_beta(self, beta, mtot: int):
         """``beta`` as a CG warm start on a grid of ``mtot``, if the option
         allows it and the sizes agree."""
@@ -144,6 +160,7 @@ class EFGP:
             beta0=beta0,
             use_precond=self._opt("mean_cg_preconditioner", True),
             nufft_method=self._opt("nufft_method", "auto"),
+            nufft_caps=self._nufft_caps(h, mtot),
             solver=self._opt("solver", "auto"),
             precond_rank=self._opt("precond_rank", 0),
             precond=self._opt("precond", "auto"), device=self.device)
@@ -163,7 +180,7 @@ class EFGP:
         self.fit(force_recompute=force_recompute)
         st = self._state
         method = self._opt("nufft_method", "auto")
-        mean = predict_mean(st, x_new, nufft_method=method)
+        mean = predict_mean(st, x_new, nufft_method=serving_method(method))
         var = None
         if return_variance:
             var = predict_var(
@@ -190,8 +207,8 @@ class EFGP:
             generator if generator is not None else self.generator,
             probes=self._opt("log_marginal_probes", 100),
             steps=self._opt("log_marginal_steps", 25), n=n)
-        yhat = predict_mean(st, self.x,
-                            nufft_method=self._opt("nufft_method", "auto"))
+        yhat = predict_mean(st, self.x, nufft_method=serving_method(
+            self._opt("nufft_method", "auto")))
         y = self.y.to(yhat.dtype)
         data_fit = torch.sum(y * (y - yhat)) / st.sigmasq
         return -0.5 * (data_fit + log_det + n * math.log(2 * math.pi))
@@ -255,7 +272,7 @@ class EFGP:
             probes=probes, compute_log_marginal=compute_log_marginal,
             log_marginal_probes=log_marginal_probes,
             log_marginal_steps=log_marginal_steps, device=self.device,
-            **self._gradient_options())
+            nufft_caps=self._nufft_caps(h, mtot), **self._gradient_options())
         self._last_gradient_beta = res.beta
         self.last_gradient_stats = {
             "mean_cg_iters": int(res.mean_cg_iters),
@@ -358,7 +375,8 @@ class EFGP:
                     self.x, self.y, kern, pos[-1].to(rdtype), h,
                     self.generator, mtot=mtot,
                     beta0=self._warm_beta(self._last_gradient_beta, mtot),
-                    ws_mask=ws_mask, device=self.device, **gw)
+                    ws_mask=ws_mask, device=self.device,
+                    nufft_caps=self._nufft_caps(h, mtot), **gw)
                 grad_raw = res.grad.to(raw.dtype) * pos
                 self._last_gradient_beta = res.beta
                 self._last_mtot = mtot

@@ -26,7 +26,8 @@ from ..ops.operators import (convolution_vector, make_A_mean,
 from ..ops.toeplitz import make_toeplitz, toeplitz_diag_scale
 from .efgp import (FitState, _as_points, _cdtype, _variance_stochastic,
                    predict_mean, quadrature_weights, resolve_device,
-                   resolve_precond, resolve_solver, tensor_grid)
+                   resolve_precond, resolve_solver, serving_method,
+                   tensor_grid)
 from .gradient import gradient_with_grid
 from .precision import fit_high, predict_mean_high
 
@@ -51,6 +52,7 @@ def fit_predict_grad(x, y, xnew, kernel, sigmasq, h, generator=None, *,
                      max_cg_iter: int = 1000,
                      var_max_cg_iter: Optional[int] = None, ws_mask=None,
                      solver: str = "auto", nufft_method: str = "auto",
+                     nufft_caps: Optional[tuple] = None,
                      precond: str = "auto", fft_smooth: bool = False,
                      device="cuda") -> FusedResult:
     """Mean fit + target mean and stochastic variance + one hyper-gradient.
@@ -59,6 +61,10 @@ def fit_predict_grad(x, y, xnew, kernel, sigmasq, h, generator=None, *,
     when None), in this order: the variance's (var_probes, M) ``etas``, then
     the gradient's ``Z`` (T, n), then its ``V`` (T, M).  The same seed
     therefore gives the same +-1 probes in a float32 and a float64 run.
+    ``nufft_method`` takes the fit's and the gradient's NUFFTs, with
+    ``nufft_caps`` for "banded" (a None cap planned by ``make_nufft``); the
+    mean and the variance take :func:`~.efgp.serving_method`'s, as gpquad's
+    do.
     """
     dev = resolve_device(device)
     x = _as_points(x, dev)
@@ -79,8 +85,9 @@ def fit_predict_grad(x, y, xnew, kernel, sigmasq, h, generator=None, *,
     xis = tensor_grid(torch.arange(-m, m + 1, dtype=rdtype, device=dev) * h,
                       d)
     ws = quadrature_weights(kernel, xis, h, d, mask=ws_mask)
-    nufft = make_nufft(x, h, mtot, method=nufft_method)
-    v = convolution_vector(m, x, h, nufft_method=nufft_method)
+    caps = nufft_caps or (None, None)
+    nufft = make_nufft(x, h, mtot, method=nufft_method, cap=caps[0])
+    v = convolution_vector(m, x, h, nufft_method=nufft_method, cap=caps[1])
     toeplitz = make_toeplitz(v, force_pow2=not fft_smooth)
     diag_scale = toeplitz_diag_scale(v)
     rhs = ws * nufft.type1(y.to(cdtype)).reshape(-1)
@@ -107,7 +114,8 @@ def fit_predict_grad(x, y, xnew, kernel, sigmasq, h, generator=None, *,
                      diag_scale=diag_scale, A_dense=A_dense, P_dense=P_dense,
                      kron=kron, mtot=mtot, d=d)
 
-    mean = predict_mean(state, xnew, nufft_method=nufft_method)
+    mean = predict_mean(state, xnew,
+                        nufft_method=serving_method(nufft_method))
     var = _variance_stochastic(
         state, xnew, generator, probes=var_probes, cg_tol=var_cg_tol,
         max_cg_iter=var_max_cg_iter if var_max_cg_iter is not None
@@ -117,8 +125,8 @@ def fit_predict_grad(x, y, xnew, kernel, sigmasq, h, generator=None, *,
                               cg_tol=grad_cg_tol, max_cg_iter=max_cg_iter,
                               beta0=res_mean.x, ws_mask=ws_mask,
                               solver=solver, nufft_method=nufft_method,
-                              precond=precond, fft_smooth=fft_smooth,
-                              state=state)
+                              nufft_caps=nufft_caps, precond=precond,
+                              fft_smooth=fft_smooth, state=state)
     return FusedResult(mean=mean, var=var, grad=gres.grad, beta=res_mean.x,
                        mean_cg_iters=res_mean.iters,
                        trace_cg_iters=gres.trace_cg_iters,
@@ -137,8 +145,9 @@ def fit_predict_grad_high(x, y, xnew, kernel, sigmasq, h, generator=None, *,
                           exact_tables: bool = False, device="cuda",
                           **kw) -> FusedHighResult:
     """The fused float32 pass (:func:`fit_predict_grad`, ``**kw`` its
-    options) followed by the float64 high-precision refit on the dense
-    tier (``precision.fit_high(solver="dense")``, ``passes`` refinements)
+    options, ``nufft_method`` and ``nufft_caps`` among them) followed by
+    the float64 high-precision refit on the dense tier
+    (``precision.fit_high(solver="dense")``, ``passes`` refinements)
     and the float64 mean at ``xnew``.  ``h``, ``sigmasq`` and the hypers
     are concrete host float64 values.  gpquad's ``fuse`` chose between one
     XLA program and two, ``chunk`` and ``exact_tables`` between its

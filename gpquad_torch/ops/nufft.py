@@ -19,14 +19,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = ["NUFFT", "make_nufft", "make_phase_nufft", "BACKEND_PICKS"]
 
 # How often make_nufft picked each backend since the last reset.
-BACKEND_PICKS = {"cuda": 0, "matmul": 0}
+BACKEND_PICKS = {"cuda": 0, "matmul": 0, "spread": 0, "banded": 0, "sub": 0}
+
+# The spreading backends (ops/spread_nufft.py, ops/spread_banded.py) and
+# the dimensions each takes
+SPREADING = {"spread": (2,), "banded": (2, 3), "sub": (2, 3)}
 
 # Widest d=3 grid the CUDA kernels take: the TPU kernels' _D3_TILED_MAX
 # (pallas_nufft.py:966); wider d=3 grids take the phase matrices, as gpquad's
@@ -178,23 +182,36 @@ def make_phase_nufft(x: torch.Tensor, h, mtot: int, *,
     return NUFFT(phases=phases, mtot=mtot)
 
 
-def make_nufft(x: torch.Tensor, h, mtot: int, *, fft_order: bool = False,
-               method: str = "auto"):
+def make_nufft(x: torch.Tensor, h, mtot: int, *, xcen=None,
+               fft_order: bool = False, method: str = "auto",
+               cap: Optional[int] = None):
     """Build the NUFFT operator for points ``x`` (N, d).
 
     ``method="auto"`` launches the hand-written kernels
     (``ops/cuda_nufft.py``) for points on a CUDA device with d=1 or d=2 (any
     odd mtot), or d=3 and ``mtot <= CUDA_D3_MAX_MTOT``, and uses the
-    phase-matrix backend otherwise: on the CPU and for wider d=3 grids.  ``method="matmul"`` always takes the phase-matrix
-    backend.  The pick is counted in :data:`BACKEND_PICKS`.
+    phase-matrix backend otherwise: on the CPU and for wider d=3 grids.
+    ``method="matmul"`` always takes the phase-matrix backend.  The
+    spreading backends take symmetric mode ordering only:
+    ``method="spread"`` (d=2) the scatter/gather ES-kernel spread,
+    ``method="banded"`` (d=2 or 3) the banded spread with a band ``cap``
+    (planned on the host from ``x`` when None), ``method="sub"`` (d=2 or 3)
+    the subproblem-scheduled banded spread, whose planning needs no data.
+    ``xcen`` ((d,), optional) shifts the points, ``x - xcen``, before any
+    backend sees them.  The pick is counted in :data:`BACKEND_PICKS`.
     """
     if x.ndim == 1:
         x = x[:, None]
     if mtot % 2 != 1:
         raise ValueError(f"mtot must be odd (symmetric grid -m..m), got {mtot}")
-    if method not in ("auto", "matmul"):
-        raise ValueError(f"Unknown NUFFT method '{method}' (auto | matmul)")
+    if method not in ("auto", "matmul") + tuple(SPREADING):
+        raise ValueError(f"Unknown NUFFT method '{method}' "
+                         "(auto | matmul | spread | banded | sub)")
+    if xcen is not None:
+        x = x - torch.as_tensor(xcen, dtype=x.dtype, device=x.device)[None, :]
     d = x.shape[1]
+    if method in SPREADING:
+        return _make_spreading(x, h, mtot, method, fft_order, cap)
     if method == "auto" and x.is_cuda and (
             d in (1, 2) or (d == 3 and mtot <= CUDA_D3_MAX_MTOT)):
         from .cuda_nufft import CudaNUFFT
@@ -205,3 +222,28 @@ def make_nufft(x: torch.Tensor, h, mtot: int, *, fft_order: bool = False,
         return CudaNUFFT(x=x, h=h, mtot=mtot, fft_order=fft_order)
     BACKEND_PICKS["matmul"] += 1
     return make_phase_nufft(x, h, mtot, fft_order=fft_order)
+
+
+def _make_spreading(x, h, mtot: int, method: str, fft_order: bool, cap):
+    """The spreading backend ``method`` with gpquad's limits
+    (gpquad/ops/nufft.py:229-261)."""
+    d = x.shape[1]
+    dims = SPREADING[method]
+    if d not in dims or fft_order:
+        raise NotImplementedError(
+            f"{method} NUFFT supports d in {set(dims)} with symmetric mode "
+            "ordering")
+    from . import spread_banded as sb
+    from .spread_nufft import SpreadNUFFT
+    h = float(torch.as_tensor(h, dtype=x.dtype))
+    BACKEND_PICKS[method] += 1
+    if method == "spread":
+        return SpreadNUFFT(x=x, h=h, mtot=mtot)
+    if method == "sub":
+        cls = sb.SubNUFFT if d == 2 else sb.SubNUFFT3D
+        return cls(x=x, h=h, mtot=mtot)
+    if cap is None:
+        plan = sb.banded_plan_cap if d == 2 else sb.banded_plan_cap_3d
+        cap = plan(x, h, mtot)
+    cls = sb.BandedNUFFT if d == 2 else sb.BandedNUFFT3D
+    return cls(x=x, h=h, mtot=mtot, cap=cap)

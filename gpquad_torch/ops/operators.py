@@ -7,7 +7,7 @@
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -19,12 +19,14 @@ __all__ = ["convolution_vector", "make_Gv", "make_A_mean", "make_A_var",
 
 
 def convolution_vector(m: int, x: torch.Tensor, h, *,
-                       nufft_method: str = "auto") -> torch.Tensor:
+                       nufft_method: str = "auto",
+                       cap: Optional[int] = None) -> torch.Tensor:
     """Toeplitz lag table ``v[k] = sum_n exp(-2 pi i <k, h x_n>)``, k in
-    [-2m, 2m]^d: a type-1 NUFFT of ones on the doubled grid."""
+    [-2m, 2m]^d: a type-1 NUFFT of ones on the doubled grid (``cap``: the
+    banded backend's band cap on that grid, planned when None)."""
     if x.ndim == 1:
         x = x[:, None]
-    op = make_nufft(x, h, 4 * m + 1, method=nufft_method)
+    op = make_nufft(x, h, 4 * m + 1, method=nufft_method, cap=cap)
     cdtype = torch.complex64 if x.dtype == torch.float32 else torch.complex128
     ones = torch.ones((x.shape[0],), dtype=cdtype, device=x.device)
     return op.type1(ones)

@@ -43,7 +43,8 @@ def test_import_pulls_in_no_jax():
             "gpquad_torch.models.gradient_high, "
             "gpquad_torch.models.variance_high, "
             "gpquad_torch.models.pg, gpquad_torch.models.pg_high, "
-            "gpquad_torch.utils.f64_oracles\n"
+            "gpquad_torch.utils.f64_oracles, gpquad_torch.ops.spread_nufft, "
+            "gpquad_torch.ops.spread_banded, gpquad_torch.models.sampling\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + FORBIDDEN_PG!r})\n"
             "print(bad)\n"
@@ -72,7 +73,10 @@ def test_scan_covers_the_port():
                    "gpquad_torch/models/precision.py",
                    "gpquad_torch/models/gradient_high.py",
                    "gpquad_torch/models/variance_high.py",
-                   "gpquad_torch/utils/f64_oracles.py", "chip_smoke.py"):
+                   "gpquad_torch/utils/f64_oracles.py",
+                   "gpquad_torch/ops/spread_nufft.py",
+                   "gpquad_torch/ops/spread_banded.py",
+                   "gpquad_torch/models/sampling.py", "chip_smoke.py"):
         assert module in names, module
 
 
