@@ -121,8 +121,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and it prints a float64 row (kernel, plain and bound ms) for every
      float64 NUFFT shape it launched.
  13. the Polya-Gamma estimators: 13a scripts/pg_scale.py's classifier
-     (n=1e5 in [-1,1]^2, labels from an SE latent drawn by random Fourier
-     features, l 0.3 at the start -> mtot 21, lag grid 41), the main path
+     (n=1e5 in [-1,1]^2, labels from sample_bernoulli_gp_spectral as the
+     script draws them, l 0.3 at the start -> mtot 21, lag grid 41; 13b's
+     from random Fourier features at its positive fraction), the main path
      fit -> predict_proba on examples/classification.py's 30x30 grid -> the
      exact (dense), stochastic and chebyshev variances at 10 000 targets,
      with the counts set to 0 just before it (TPU rows 1, 2, 9 and 10 each
@@ -155,10 +156,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      phase 10's numbers: the mean within 5e-4 of phase 10's float64 fit,
      the gradient within 1e-2 of phase 10's; 14c the samplers:
      examples/sampling.py's 1-D flow, 64 spectral draws at n 1e5 (d=2),
-     scripts/pg_scale.py's labels from sample_bernoulli_gp_spectral,
+     13a's float32 M-step gradient on pg_scale's labels of a second seed
+     on the kernels and on the plain path beside the two terms it is the
+     difference of (the kernels' error within 1e-4 of the larger),
      tests/test_sampling.py's covariance and pathwise checks at their
      sizes, and the pathwise sampler on the headline state (16 draws at
-     10 000 targets, its CG iterations), with its launches by shape.
+     10 000 targets at the CG's default cap and with room to converge,
+     its iterations and residual, each set's mean within 5 standard
+     errors of predict_mean); then each shape 14c launched, held against
+     its plain version and timed beside it and its bound, every one a row
+     of PERF.md's table (SAMPLER_SHAPES).
 Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
 and at mtot 57, 101 and 255, the two d=1 kernels at phase 8's shapes and
 at mtot 8191, and the two SKI interpolation kernels at phase 11's band
@@ -303,11 +310,11 @@ def source_of(name):
     return f"gpquad_torch/csrc/nufft_{name.split('_')[1]}.cu"
 
 
-def time_cuda(fn, reps, trials=5):
+def time_cuda(fn, reps, trials=5, warm=2):
     """Median over ``trials`` of the CUDA-event time of ``reps`` calls (ms
-    per call), after two warm calls."""
-    fn()
-    fn()
+    per call), after ``warm`` warm calls."""
+    for _ in range(warm):
+        fn()
     sync()
     times = []
     for _ in range(trials):
@@ -1008,7 +1015,8 @@ def f64_shape_table(c, totals, h_matern):
 
 
 # phase 13: the Polya-Gamma estimators.  13a scripts/pg_scale.py:33-45 (n
-# 1e5 in [-1,1]^2, labels from an SE latent at l 0.4, variance 4), 13b
+# 1e5 in [-1,1]^2, labels from sample_bernoulli_gp_spectral at l 0.4,
+# variance 4, as the script draws them), 13b
 # scripts/pg_spatial_transcriptomics.py (--iters 15, --lengthscale-init 0.1,
 # float64 as the script runs it; n_train 24 010 and the positive fraction of
 # experiments/pg_spatial_transcriptomics.json, on synthetic labels), 13c
@@ -1034,8 +1042,8 @@ PG_ROWS = {"1": "nufft2_2d", "2": "nufft1_2d", "9": "nufft2_2d_batched",
            "10": "nufft1_2d_batched"}
 # every (kernel, precision, n, mtot, B, FFT order) call phase 13 makes, as
 # PERF.md's kernel table lists them: 13c's mtot 17 and lag grid 33, 13d's
-# mtot 15 and 29 (lag grid 57) and 128 targets, 13a's float64 fit and 13b
-# beside the main path's
+# mtot 15 and 29 (lag grid 57) and 128 targets, 13a's float64 fit, its
+# labels' draw (1e5 x 15) and 13b beside the main path's
 PG_SHAPES = frozenset([
     ('nufft1_2d', 'f32', 100000, 17, 1, False),
     ('nufft1_2d', 'f32', 100000, 21, 1, False),
@@ -1063,6 +1071,7 @@ PG_SHAPES = frozenset([
     ('nufft2_2d', 'f32', 900, 21, 1, False),
     ('nufft2_2d', 'f32', 10000, 21, 1, False),
     ('nufft2_2d', 'f32', 10000, 41, 1, True),
+    ('nufft2_2d', 'f32', 100000, 15, 1, False),
     ('nufft2_2d', 'f64', 128, 15, 1, False),
     ('nufft2_2d', 'f64', 128, 21, 1, False),
     ('nufft2_2d', 'f64', 128, 29, 1, False),
@@ -1081,11 +1090,8 @@ def rff_latent(x, lengthscale, variance, seed, dev, features=4096):
     """A latent drawn from the SE prior (lengthscale, variance) at the
     points x (n, d) by random Fourier features: frequencies N(0, 1/l^2),
     phases U(0, 2 pi), weights N(0, 1) from numpy seed ``seed``, evaluated
-    in float64 on the card.  (gpquad draws its labels with its spectral
-    sampler.  Phase 14c draws the port's, sample_bernoulli_gp_spectral, at
-    this size; phase 13 keeps these labels, on which PG_BARS were set: on
-    the sampler's, 13a's float32 M-step gradient reads 2.6e-3 of a small
-    component against the 1e-3 bar, ROADMAP section C.)"""
+    in float64 on the card (13b's labels, at a positive fraction that
+    needs an offset the sampler does not take)."""
     rng = np.random.default_rng(seed)
     W = rng.normal(scale=1.0 / lengthscale, size=(x.shape[1], features))
     b = rng.uniform(0, 2 * np.pi, features)
@@ -1094,6 +1100,20 @@ def rff_latent(x, lengthscale, variance, seed, dev, features=4096):
         return torch.as_tensor(v, dtype=torch.float64, device=dev)
     f = torch.cos(t(x) @ t(W) + t(b)) @ t(a)
     return (f * (2.0 * variance / features) ** 0.5).cpu().numpy()
+
+
+def pg_scale_data(gt, n, seed, dev):
+    """scripts/pg_scale.py:36-39's data: n points uniform in [-1,1]^2 from
+    numpy seed 0, Bernoulli labels from sample_bernoulli_gp_spectral (l
+    0.4, variance 4) on the points in float32, drawn from a CPU generator
+    seeded ``seed`` (0 as pg_scale.py's key) so that any card draws the
+    same normals.  Returns (points, labels, latent) as numpy."""
+    x = np.random.default_rng(0).uniform(-1, 1, size=(n, 2))
+    y, f = gt.sample_bernoulli_gp_spectral(
+        torch.Generator().manual_seed(seed),
+        torch.as_tensor(x, dtype=torch.float32, device=dev),
+        lengthscale=0.4, variance=4.0, device=dev)
+    return x, y.cpu().numpy().astype(int), f.double().cpu().numpy()
 
 
 def pg_class_data(n, lengthscale, variance, seed, dev, pos_frac=None):
@@ -1151,7 +1171,7 @@ def recorder(cn, shapes, names):
         def launch(x, arg, h, *, mtot, fft_order=False):
             if x.is_cuda:
                 B = (arg.shape[0] if name.endswith("batched")
-                     or name in KERNELS_1D else 1)
+                     or (name in KERNELS_1D and arg.ndim == 2) else 1)
                 key = (name, "f32" if x.dtype == torch.float32 else "f64",
                        x.shape[0], mtot, B, bool(fft_order))
                 shapes[key] = shapes.get(key, 0) + 1
@@ -1200,7 +1220,7 @@ def phase_pg(c):
     try:
         # -- 13a: the main path, counts set to 0 just before it ----------
         a = rec["13a"] = {}
-        x, y, f = pg_class_data(PG_N, 0.4, 4.0, 0, dev)
+        x, y, f = pg_scale_data(gt, PG_N, 0, dev)
         # the accuracy of the true latent's sign: the labels' noise floor
         a["bayes_acc"] = float(np.mean((f > 0) == (y == 1)))
         rng = np.random.default_rng(130)
@@ -1338,7 +1358,7 @@ def phase_pg(c):
         for k, fn in originals.items():
             setattr(cn, k, fn)
         pg_core.outer_step = orig_step
-    rec["shapes"] = pg_shape_table(c, shapes)
+    rec["shapes"] = shape_table(c, shapes, PG_SHAPES, "13")
     return rec
 
 
@@ -1536,19 +1556,23 @@ def pg_high_leg(gt, orc, dev, card):
     return out
 
 
-def pg_shape_table(c, shapes):
-    """Each (kernel, precision, n, mtot, B, FFT order) call of phase 13 with
-    the kernel's, the plain version's and the bound's ms on inputs of that
-    shape (CUDA events; the kernel within 1e-4 of max|ref| of the plain
-    version in float32, 1e-10 in float64)."""
+def shape_table(c, shapes, known, tag):
+    """Each (kernel, precision, n, mtot, B, FFT order) call that phase
+    ``tag`` launched (``shapes``: launches by key) with the kernel's, the
+    plain version's and the bound's ms on inputs of that shape (CUDA
+    events; the kernel within 1e-4 of max|ref| of the float64 plain version
+    in float32, 1e-10 in float64).  Fails on a launched shape that
+    ``known``, the code's copy of PERF.md's rows, lacks."""
     gen = np.random.default_rng(132)
     rows = []
     for (name, prec, n, m, B, fo), launched in sorted(shapes.items()):
+        d = int(name.split("_")[1][0])
         dtype = torch.float32 if prec == "f32" else torch.float64
-        x = torch.as_tensor(gen.uniform(-1, 1, (n, 2)), dtype=dtype,
+        x = torch.as_tensor(gen.uniform(-1, 1, (n, d)), dtype=dtype,
                             device=c.dev)
-        lead = (B,) if name.endswith("batched") else ()
-        shape = lead + ((n,) if name.startswith("nufft1") else (m, m))
+        lead = ((B,) if name.endswith("batched") or name in KERNELS_1D
+                else ())
+        shape = lead + ((n,) if name.startswith("nufft1") else (m,) * d)
         arg = torch.as_tensor(gen.normal(size=shape)
                               + 1j * gen.normal(size=shape),
                               device=c.dev).to(c.cuda_nufft._complex_of(dtype))
@@ -1558,33 +1582,47 @@ def pg_shape_table(c, shapes):
                              mtot=m, fft_order=fo)
         rel = float((got - ref).abs().max() / ref.abs().max())
         check(rel <= (1e-4 if prec == "f32" else 1e-10),
-              f"{name} {prec} n={n} mtot={m} B={B}: error {rel:.3e}")
-        reps = max(3, min(50, int(2e9 / (B * n * m * m))))
+              f"[{tag}] {name} {prec} n={n} mtot={m} B={B}: error {rel:.3e}")
+        reps = max(3, min(50, int(2e9 / (B * n * m ** d))))
         ms = time_cuda(lambda: c.kernels[name](x, arg, hq, mtot=m,
                                                fft_order=fo), reps, 3)
-        plain_ms = time_cuda(lambda: c.plains[name](x, arg, hq, mtot=m,
-                                                    fft_order=fo),
-                             max(2, reps // 4), 3)
-        tc = (prec == "f32" and (name in TC_TYPE1 or (
-            name == "nufft2_2d_batched"
-            and c.cuda_nufft.type2_2d_geometry(m)[0] == "tc") or (
-            name == "nufft2_2d" and c.cuda_nufft.type2_2d_single_geometry(
-                n, m, dtype)[0] == "tc")))
-        b_ms, b_by = (bound_3xtf32_ms(name, n, m, B) if tc
-                      else bound_ms(name, n, m, dtype, B))
+        def plain():
+            return c.plains[name](x, arg, hq, mtot=m, fft_order=fo)
+        _, once = timed(plain)
+        # a plain version past 50 ms (the d=1 ones at B in the thousands):
+        # one more call, timed alone
+        plain_ms = (time_cuda(plain, 1, 1, warm=0) if once > 50 else
+                    time_cuda(plain, max(2, reps // 4), 3))
+        b_ms, b_by = bound_ms(name, n, m, dtype, B)
+        if prec == "f32":
+            cn = c.cuda_nufft
+            if name == "nufft1_1d":
+                geo = cn.type1_1d_geometry(n, m, B)[1:]
+                K = geo[0] // geo[2]
+                b_ms, b_by = bound_3xtf32_ms(
+                    name, n, m, B, (K, cn.type1_1d_split(m, K)[1]))
+            elif name == "nufft2_1d":
+                if cn.type2_1d_geometry(n, m, B)[0] == "tc":
+                    K = cn.TYPE2_1D_K
+                    b_ms, b_by = bound_3xtf32_ms(
+                        name, n, m, B, (K, cn.type1_1d_split(m, K)[1]))
+            elif (name in TC_TYPE1 or (
+                    name == "nufft2_2d_batched"
+                    and cn.type2_2d_geometry(m)[0] == "tc") or (
+                    name == "nufft2_2d" and cn.type2_2d_single_geometry(
+                        n, m, dtype)[0] == "tc")):
+                b_ms, b_by = bound_3xtf32_ms(name, n, m, B)
         rows.append(dict(name=name, precision=prec, n=n, mtot=m, B=B,
                          fft_order=fo, launches=launched, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          rel_err=rel))
-        print(f"[13] {name} {prec} n={n} mtot={m} B={B}"
+        print(f"[{tag}] {name} {prec} n={n} mtot={m} B={B}"
               f"{' fft_order' if fo else ''}: {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), rel err "
-              f"{rel:.3e}; launched {launched} times in phase 13 {c.card}")
+              f"{rel:.3e}; launched {launched} times in phase {tag} {c.card}")
         del x, arg, got, ref
-    launched = {(r["name"], r["precision"], r["n"], r["mtot"], r["B"],
-                 r["fft_order"]) for r in rows}
-    missing = sorted(launched - PG_SHAPES)
-    check(not missing, f"phase 13 launched shapes that PERF.md's table "
+    missing = sorted(set(shapes) - known)
+    check(not missing, f"phase {tag} launched shapes that PERF.md's table "
           f"lacks: {missing}")
     return rows
 
@@ -1604,7 +1642,47 @@ SPREAD_ADJOINT_BAR = {torch.float32: 1e-4, torch.float64: 1e-9}
 # 14b: the mean against the float64 kron fit (phase 10's bar) and the
 # gradient against phase 10's, same probes, relative to max|grad|
 SCALE_MEAN_BAR, SCALE_GRAD_BAR = 5e-4, 1e-2
-PATHWISE_MAX_ITER = 1000
+# the pathwise sampler's CG: its default cap, and room to converge (the
+# float32 headline solve needs ~1 500 iterations, ROADMAP section C)
+PATHWISE_MAX_ITER, PATHWISE_ROOM = 1000, 4000
+# every (kernel, precision, n, mtot, B, FFT order) call 14c makes, as
+# PERF.md's kernel table lists them: examples/sampling.py's 1-D sizes, the
+# 64 draws at n 1e5, the headline's pathwise draws and its mean, the
+# second seed's float64 PG fit and M-step, tests/test_sampling.py's sizes
+SAMPLER_SHAPES = frozenset([
+    ('nufft1_1d', 'f32', 400, 17, 1, False),
+    ('nufft1_1d', 'f32', 400, 17, 512, False),
+    ('nufft1_1d', 'f32', 400, 33, 1, False),
+    ('nufft1_1d', 'f64', 120, 17, 1, False),
+    ('nufft1_1d', 'f64', 120, 17, 4000, False),
+    ('nufft1_1d', 'f64', 120, 33, 1, False),
+    ('nufft1_2d', 'f32', 100000, 21, 1, False),
+    ('nufft1_2d', 'f32', 100000, 41, 1, False),
+    ('nufft1_2d', 'f64', 100000, 21, 1, False),
+    ('nufft1_2d', 'f64', 100000, 41, 1, False),
+    ('nufft1_2d_batched', 'f32', 100000, 21, 10, False),
+    ('nufft1_2d_batched', 'f32', 100000, 29, 16, False),
+    ('nufft1_2d_batched', 'f64', 100000, 21, 10, False),
+    ('nufft1_2d_batched', 'f64', 100000, 21, 11, False),
+    ('nufft2_1d', 'f32', 50, 17, 1, False),
+    ('nufft2_1d', 'f32', 50, 17, 512, False),
+    ('nufft2_1d', 'f32', 400, 15, 1, False),
+    ('nufft2_1d', 'f32', 400, 17, 1, False),
+    ('nufft2_1d', 'f32', 400, 17, 512, False),
+    ('nufft2_1d', 'f64', 7, 17, 1, False),
+    ('nufft2_1d', 'f64', 7, 17, 4000, False),
+    ('nufft2_1d', 'f64', 25, 15, 30000, False),
+    ('nufft2_1d', 'f64', 120, 17, 4000, False),
+    ('nufft2_2d', 'f32', 10000, 29, 1, False),
+    ('nufft2_2d', 'f32', 100000, 15, 1, False),
+    ('nufft2_2d_batched', 'f32', 10000, 29, 16, False),
+    ('nufft2_2d_batched', 'f32', 100000, 23, 64, False),
+    ('nufft2_2d_batched', 'f32', 100000, 29, 16, False),
+    ('nufft2_2d_batched', 'f64', 100000, 21, 11, False),
+])
+# 14c: the float32 M-step gradient's error relative to the larger of the
+# two terms it is the difference of (per component)
+MSTEP_TERM_BAR = 1e-4
 
 
 def spread_backend_case(c, x, h, mtot, B, kind, methods):
@@ -1845,13 +1923,75 @@ def phase_spread(c):
     finally:
         for k, fn in originals.items():
             setattr(cn, k, fn)
-    rec["14c"]["shapes"] = {f"{k[0]} {k[1]} n={k[2]} mtot={k[3]} B={k[4]}"
-                            f"{' fft_order' if k[5] else ''}": v
-                            for k, v in sorted(shapes.items())}
-    print(f"[14c] launches by (kernel, precision, n, mtot, B): "
-          f"{rec['14c']['shapes']}")
+    rec["14c"]["shapes"] = shape_table(c, shapes, SAMPLER_SHAPES, "14c")
     rec["14c_s"] = time.perf_counter() - t2
     return rec
+
+
+def mstep_cancellation(c, seed):
+    """13a's fixed-state M-step gradient (the float64 fit's state and
+    final M-step probes) on pg_scale's labels from ``seed``: float32 on the
+    kernels and on the plain path against float64, per component beside
+    term1 and term2, whose half difference it is.  Holds the kernels'
+    error to MSTEP_TERM_BAR of the larger term."""
+    gt, dev, nm = c.gt, c.dev, c.nufft_mod
+    from gpquad_torch.models import pg_core
+    from gpquad_torch.ops import operators
+    x, y, _ = pg_scale_data(gt, PG_N, seed, dev)
+    est64 = gt.PolyagammaGPClassifier(dtype="float64", device=dev,
+                                      **PG_CLF).fit(x, y)
+    yt = torch.as_tensor((y == est64.classes_[1]).astype(np.float64),
+                         device=dev)
+    sp64, X64 = est64._spectral_state_, est64._X_train_t_
+    kern = est64._make_kernel_obj(est64.lengthscale_, est64.variance_, 2)
+    mask = gt.quadrature.flat_grid_mask(sp64.mtot, 2, est64._hm_,
+                                        device=dev)
+    lik = est64._make_likelihood()
+    m_pr = est64._draw_probes(10_000 + PG_CLF["max_iter"] - 1,
+                              (10, X64.shape[0]))
+    make = nm.make_nufft
+    res = {}
+    try:
+        for tag, rd, tol, method in (("f64", torch.float64, 1e-12, "auto"),
+                                     ("kernels", torch.float32, 1e-6, "auto"),
+                                     ("plain", torch.float32, 1e-6,
+                                      "matmul")):
+            def pick(*a, _m=method, **k):
+                return make(*a, **dict(k, method=_m))
+            pg_core.make_nufft = operators.make_nufft = pick
+            X = X64.to(rd)
+            sp = sp64 if rd == torch.float64 else \
+                pg_core.build_pg_spectral_state(X, kern, float(sp64.h),
+                                                mtot=sp64.mtot, ws_mask=mask)
+            m = pg_core.mstep_gradient(sp, X, est64._delta_t_.to(rd),
+                                       lik.kappa(yt.to(rd)), m_pr.to(rd),
+                                       cg_tol=tol)
+            res[tag] = [t.double().cpu().numpy()
+                        for t in (m.grad, m.term1, m.term2)]
+    finally:
+        pg_core.make_nufft = operators.make_nufft = make
+    g, t1, t2 = res["f64"]
+    terms = np.maximum(np.abs(t1), np.abs(t2))
+    out = dict(seed=seed, lengthscale=est64.lengthscale_,
+               variance=est64.variance_, grad=g.tolist(), term1=t1.tolist(),
+               term2=t2.tolist())
+    for tag in ("kernels", "plain"):
+        err = np.abs(res[tag][0] - g)
+        out[f"{tag}_of_grad"] = (err / np.abs(g)).tolist()
+        out[f"{tag}_of_terms"] = (err / terms).tolist()
+    print(f"[14c] 13a's M-step gradient on pg_scale's labels of seed {seed} "
+          f"(float64 fit l {est64.lengthscale_:.4f}, variance "
+          f"{est64.variance_:.4f}): float64 grad {g.tolist()}, term1 "
+          f"{t1.tolist()}, term2 {t2.tolist()}; float32 error per component "
+          f"of |grad| on the kernels {out['kernels_of_grad']} and the plain "
+          f"path {out['plain_of_grad']} (13a's bar {PG_BARS['mstep_grad']:.0e}"
+          f", not held here); of the larger term: kernels "
+          f"{out['kernels_of_terms']}, plain {out['plain_of_terms']} (bar "
+          f"{MSTEP_TERM_BAR:.0e})")
+    check(max(out["kernels_of_terms"]) <= MSTEP_TERM_BAR,
+          f"14c: the float32 M-step gradient of seed {seed} is "
+          f"{max(out['kernels_of_terms']):.3e} of its terms")
+    return out
 
 
 def sampler_checks(c):
@@ -1880,7 +2020,7 @@ def sampler_checks(c):
     xq1 = torch.linspace(0.1, 0.9, 50, device=dev)[:, None]
     mu, _ = model.predict(xq1, return_variance=False)
     st1 = model.state
-    (pw1, it1), ms_pw1 = timed(lambda: sampling._pathwise_draw(
+    (pw1, it1, _), ms_pw1 = timed(lambda: sampling._pathwise_draw(
         x1, y_spec, st1.ws, st1.sigmasq, st1.toeplitz, st1.h, xq1, gen(11),
         mtot=st1.mtot, num_samples=512, cg_tol=1e-8,
         max_cg_iter=PATHWISE_MAX_ITER))
@@ -1913,37 +2053,9 @@ def sampler_checks(c):
           and bool(torch.isfinite(s64).all()), "14c: 2-D spectral draws")
     del s64
 
-    # scripts/pg_scale.py:36-39's labels on phase 13a's points (n 1e5 in
-    # [-1,1]^2, l 0.4, var 4), drawn from a CPU generator: the same labels
-    # on any card
-    xpg = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (PG_N, 2)),
-                          dtype=torch.float32, device=dev)
-    (ypg, fpg), ms_pg = timed(lambda: gt.sample_bernoulli_gp_spectral(
-        torch.Generator().manual_seed(1), xpg, lengthscale=0.4, variance=4.0,
-        device=dev))
-    out["pg_scale_labels"] = dict(ms=ms_pg, positive_rate=float(ypg.mean()),
-                                  latent_sd=float(fpg.std()))
-    print(f"[14c] sample_bernoulli_gp_spectral at pg_scale's size (n {PG_N}, "
-          f"l 0.4, variance 4): {ms_pg:.2f} ms host clock, positive rate "
-          f"{float(ypg.mean()):.4f}, latent sd {float(fpg.std()):.3f} {card}")
-    check(bool(torch.isfinite(fpg).all()) and set(ypg.unique().tolist())
-          <= {0.0, 1.0}, "14c: pg_scale labels")
-    # 13a's fixed-state comparison on these labels, printed beside PG_BARS
-    # and not held to them: why phase 13 keeps its own (ROADMAP section C)
-    from gpquad_torch.models import pg_core
-    xl, yl = xpg.double().cpu().numpy(), ypg.cpu().numpy().astype(int)
-    est64 = gt.PolyagammaGPClassifier(dtype="float64", device=dev,
-                                      **PG_CLF).fit(xl, yl)
-    yt = torch.as_tensor((yl == est64.classes_[1]).astype(np.float64),
-                         dtype=torch.float32, device=dev)
-    xq = np.random.default_rng(130).uniform(-1, 1, size=(PG_TARGETS, 2))
-    fs = out["pg_scale_labels"]["fixed_state"] = pg_fixed_state(
-        gt, pg_core, est64, yt, xq, dev)
-    print(f"[14c] 13a's float32 core on these labels' float64 fit (l "
-          f"{est64.lengthscale_:.4f}, variance {est64.variance_:.4f}), not "
-          f"held: " + ", ".join(f"{k} {v:.3e} (13a's bar {PG_BARS[k]:.0e})"
-                                for k, v in fs.items()))
-    del xpg, ypg, fpg, est64
+    # 13a's float32 M-step gradient on pg_scale's labels from the second
+    # seed, on the kernels and on the plain path, beside its terms
+    out["mstep_seed1"] = mstep_cancellation(c, 1)
 
     # tests/test_sampling.py:33-44 on the card
     rng = np.random.default_rng(0)
@@ -1959,21 +2071,39 @@ def sampler_checks(c):
           f"max err {cov_err:.4f} (bar 0.05)")
     check(cov_err < 0.05, f"14c: spectral covariance {cov_err:.4f}")
 
-    # the pathwise sampler on the headline state: 16 draws, 10 000 targets
+    # the pathwise sampler on the headline state: 16 draws at 10 000
+    # targets at the sampler's default CG cap, then with room to converge;
+    # each set's mean against predict_mean within 5 standard errors of the
+    # exact ("regular") variance
     st = c.st
-    (pw, it), ms_pw = timed(lambda: sampling._pathwise_draw(
-        c.x32, c.y32, st.ws, st.sigmasq, st.toeplitz, st.h, c.xq32, gen(6),
-        mtot=st.mtot, num_samples=16, cg_tol=1e-6,
-        max_cg_iter=PATHWISE_MAX_ITER))
-    out["headline"] = dict(ms=ms_pw, iters=int(it), mtot=st.mtot,
-                           shape=list(pw.shape))
-    print(f"[14c] sample_posterior_pathwise on the headline state (n "
-          f"{c.x32.shape[0]}, mtot {st.mtot}): 16 draws at "
-          f"{c.xq32.shape[0]} targets {ms_pw:.1f} ms host clock, CG "
-          f"{int(it)} iterations (cg_tol 1e-6, cap {PATHWISE_MAX_ITER}) "
-          f"{card}")
-    check(tuple(pw.shape) == (16, c.xq32.shape[0])
-          and bool(torch.isfinite(pw).all()), "14c: headline pathwise")
+    mu = gt.predict_mean(st, c.xq32).double()
+    var = gt.predict_var(st, c.xq32, method="regular", cg_tol=1e-5,
+                         max_cg_iter=600).double()
+    out["headline"] = {}
+    for cap in (PATHWISE_MAX_ITER, PATHWISE_ROOM):
+        (pw, it, rel), ms_pw = timed(lambda: sampling._pathwise_draw(
+            c.x32, c.y32, st.ws, st.sigmasq, st.toeplitz, st.h, c.xq32,
+            gen(6), mtot=st.mtot, num_samples=16, cg_tol=1e-6,
+            max_cg_iter=cap))
+        z = float(((pw.double().mean(0) - mu).abs()
+                   / torch.sqrt(var / 16)).max())
+        r = out["headline"][cap] = dict(
+            ms=ms_pw, iters=int(it), rel_resid=float(rel.max()),
+            converged=bool((rel < 1e-6).all()), mean_z=z, mtot=st.mtot)
+        print(f"[14c] sample_posterior_pathwise on the headline state (n "
+              f"{c.x32.shape[0]}, mtot {st.mtot}, float32): 16 draws at "
+              f"{c.xq32.shape[0]} targets {ms_pw:.1f} ms host clock, CG "
+              f"{r['iters']} iterations (cap {cap}, cg_tol 1e-6), largest "
+              f"relative residual {r['rel_resid']:.3e} (converged "
+              f"{r['converged']}); mean within {z:.2f} standard errors of "
+              f"predict_mean (bar 5) {card}")
+        check(tuple(pw.shape) == (16, c.xq32.shape[0])
+              and bool(torch.isfinite(pw).all()), "14c: headline pathwise")
+        check(z < 5, f"14c: headline pathwise mean {z:.2f} standard errors "
+              f"from predict_mean (cap {cap})")
+    check(out["headline"][PATHWISE_ROOM]["converged"],
+          f"14c: the headline pathwise CG did not converge in "
+          f"{PATHWISE_ROOM} iterations")
 
     # tests/test_sampling.py:64-88 on the card
     rng = np.random.default_rng(0)
@@ -4410,8 +4540,7 @@ def main() -> int:
         kern10=kern10, h10=h10, mtot10=mtot10, seeded=seeded,
         scale_rec=record["phases"]["scale"], mean10_64=mean10_64,
         grad10=gr10.grad, n_d3=100_000, h_d3=h_d3, mtot_d3=mtot_d3, st=st,
-        x32=x32,
-        y32=y32, xq32=xq32))
+        x32=x32, y32=y32, xq32=xq32, kernels=kernels, plains=plains))
     phase_s["14"] = time.perf_counter() - t_phase
     print(f"[14] phase wall time {phase_s['14']:.1f} s (14a "
           f"{record['phases']['spread']['14a_s']:.1f} s, 14b "

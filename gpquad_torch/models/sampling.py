@@ -177,7 +177,8 @@ def sample_bernoulli_gp_spectral(generator, x, *, lengthscale: float = 1.0,
 def _pathwise_draw(x, y, ws, sigmasq, toeplitz, h, x_new, generator, *,
                    mtot: int, num_samples: int, cg_tol: float,
                    max_cg_iter: int):
-    """(samples (S, n_new), PCG iterations): prior draws with SHARED
+    """(samples (S, n_new), CG iterations, (S,) final residuals relative to
+    the right-hand sides): prior draws with SHARED
     Fourier coefficients at the data and the targets, the residuals with
     observation noise solved in feature space (unpreconditioned batched
     CG, as gpquad's), one type-2 update."""
@@ -202,7 +203,8 @@ def _pathwise_draw(x, y, ws, sigmasq, toeplitz, h, x_new, generator, *,
     res = pcg(make_A_mean(ws, toeplitz, sigmasq), rhs, tol=cg_tol,
               maxiter=max_cg_iter)
     update = nufft_t.type2(ws[None, :] * res.x).real
-    return f_t + update, res.iters
+    rel = res.resnorm / torch.linalg.vector_norm(rhs, dim=-1)
+    return f_t + update, res.iters, rel
 
 
 def sample_posterior_pathwise(x, y, state, x_new, generator=None, *,
@@ -221,7 +223,7 @@ def sample_posterior_pathwise(x, y, state, x_new, generator=None, *,
     x = _as_points(x, dev)
     x_new = _as_points(x_new, dev, x.dtype)
     y = torch.as_tensor(y, device=dev).to(x.dtype)
-    samples, _ = _pathwise_draw(
+    samples, _, _ = _pathwise_draw(
         x, y, state.ws, state.sigmasq, state.toeplitz, state.h, x_new,
         _generator(generator, dev), mtot=state.mtot,
         num_samples=num_samples, cg_tol=cg_tol, max_cg_iter=max_cg_iter)

@@ -153,6 +153,30 @@ def test_pathwise_sampler_matches_gpquad(gpquad_draws, pathwise_fits):
     assert got.shape == want.shape and _rel(got, want) < 1e-10
 
 
+@pytest.mark.parametrize("cap,converged", [(1000, True), (2, False)])
+def test_pathwise_draw_reports_its_residual(pathwise_fits, cap, converged):
+    """``_pathwise_draw``'s third output is each draw's final CG residual
+    relative to its right-hand side: below cg_tol when the CG stopped
+    before its cap, above it when the cap cut the solve; the samples are
+    the public sampler's."""
+    p = pathwise_fits
+    st = p["ts"]
+    x, xq = torch.as_tensor(p["x"]), torch.as_tensor(p["xq"])
+    y = torch.as_tensor(p["y"])
+
+    def gen():
+        return torch.Generator().manual_seed(3)
+    samples, iters, rel = tsamp._pathwise_draw(
+        x, y, st.ws, st.sigmasq, st.toeplitz, st.h, xq, gen(),
+        mtot=st.mtot, num_samples=5, cg_tol=1e-8, max_cg_iter=cap)
+    assert rel.shape == (5,) and bool(torch.all(rel < 1e-8)) == converged
+    assert (int(iters) < cap) == converged
+    public = tsamp.sample_posterior_pathwise(x, y, st, xq, gen(),
+                                             num_samples=5, cg_tol=1e-8,
+                                             max_cg_iter=cap)
+    assert torch.equal(samples, public)
+
+
 # ---------------------------------------------------------------------------
 # gpquad's statistical tests (tests/test_sampling.py) on the port
 # ---------------------------------------------------------------------------
