@@ -111,15 +111,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      Matérn-3/2 (bench.py:645-740: n 2e4, l 0.14, eps 1e-4 -> mtot 93) the
      float32 CG fit and mean, fit_high and gradient_high; at scale (phase
      10's data, n 1e6, mtot 339) fit_high with deflation 2048 and the mean
-     at 500 targets.  Each is held against the port's float64 oracles
+     at 500 targets; 12e hard3d (phase 7's data, bench.py:416-436 as
+     written) fit_high with deflation 2048 and predict_mean_high(slab=256)
+     at 1 000 targets.  Each is held against the port's float64 oracles
      (gpquad_torch/utils/f64_oracles.py, on the plain path: dense LU, or a
-     float64 Toeplitz PCG at scale): the high means within 1e-6 absolute,
-     gradient_high and variance_high within 1e-6 relative, the float32
-     exact variances within 1e-4 absolute of the float64 "regular".  The
-     high tier's NUFFTs are all float64 CUDA launches (rows 1-4, 9 and 10
-     of PERF.md's table each at least once), none takes the plain path,
-     and it prints a float64 row (kernel, plain and bound ms) for every
-     float64 NUFFT shape it launched.
+     float64 Toeplitz PCG at scale and hard3d): the high means within 1e-6
+     absolute, gradient_high and variance_high within 1e-6 relative, the
+     float32 exact variances within 1e-4 absolute of the float64
+     "regular".  The high tier's NUFFTs are all float64 CUDA launches (rows
+     1-4, 7-10 of PERF.md's table each at least once), none takes the
+     plain path, and it prints a float64 row (kernel, plain and bound ms)
+     for every float64 NUFFT shape it launched.
  13. the Polya-Gamma estimators: 13a scripts/pg_scale.py's classifier
      (n=1e5 in [-1,1]^2, labels from sample_bernoulli_gp_spectral as the
      script draws them, l 0.3 at the start -> mtot 21, lag grid 41; 13b's
@@ -166,6 +168,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      errors of predict_mean); then each shape 14c launched, held against
      its plain version and timed beside it and its bound, every one a row
      of PERF.md's table (SAMPLER_SHAPES).
+ 15. the utilities: 15a traces (gpquad_torch.utils.profiling.trace) of
+     phase 4's fused call, phase 5's kron CG fit and mean and one
+     light-curve Adam iteration, read back: the scopes gpquad names
+     (nufft_type1, nufft_type2, toeplitz_matvec, and 4_solve_cg or
+     7_batch_cg_solve) each entered with a CUDA kernel launched inside it;
+     a StageTimer table of the headline's fit, mean, variance and
+     gradient; the host cost of a scope with no profiler, times the
+     scope entries of the fused call and of the light-curve iteration,
+     under 1% of each path's wall time; 15b phase 9's facade saved with
+     save_efgp and restored into a fresh EFGP (another sigmasq): the raw
+     hypers equal, predict (mean and stochastic variance) the same bits,
+     one more Adam step, and the checkpoint restored on the CPU; 15c
+     native/libgpquad_native.so built, the float64 nufft1_2d and
+     nufft2_2d at n 2e4, mtot 29 within 1e-10 of max|ref| of its C++
+     direct sums; 15d load_synthetic_gp(n=1e5, d=2) twice, the same bits,
+     x numpy's draw, each shape it launched held against its plain
+     version (LOADER_SHAPES).
 Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
 and at mtot 57, 101 and 255, the two d=1 kernels at phase 8's shapes and
 at mtot 8191, and the two SKI interpolation kernels at phase 11's band
@@ -192,6 +211,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -359,11 +379,17 @@ def time_cuda_paths(fns, reps, trials=5):
 
 def profile_run(fn, top=8):
     """Run ``fn`` once under torch.profiler: host wall time, device busy
-    time (union of the CUDA events' intervals), idle share, and the
-    kernels with the most device time.  Device numbers are None when the
-    profiler saw no CUDA event."""
+    time (union of the intervals of the kernels and memory copies on the
+    device), idle share, and the kernels with the most device time.  The
+    device spans of ``record_function`` scopes (the port's own, as
+    ``profiling.stage`` opens them, and torch's) are left out: each runs
+    from the first kernel inside it to the last and so covers the idle gaps
+    between them.  Device numbers are None when the profiler saw no CUDA
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from gpquad_torch.utils import profiling
+    scopes = set(SCOPES) | set(profiling.STAGES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -372,7 +398,9 @@ def profile_run(fn, top=8):
         wall_ms = (time.perf_counter() - t) * 1e3
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.name in scopes):
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -388,6 +416,11 @@ def profile_run(fn, top=8):
         else:
             cur_e = max(cur_e, e_)
     busy_ms = (busy + cur_e - cur_s) / 1e3
+    own_ms = sum(by_name.values())
+    assert busy_ms <= own_ms * (1 + 1e-9) + 1e-6, (
+        f"device busy {busy_ms} ms exceeds the kernels' own {own_ms} ms")
+    assert busy_ms <= wall_ms, (
+        f"device busy {busy_ms} ms exceeds the wall time {wall_ms} ms")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms,
@@ -614,11 +647,16 @@ CHEB_REL_BAR = 2.1e-4
 HIGH_RANK = 2048            # bench.py --hard-precond-rank
 STAGE_CALLS = 3             # timed calls of each phase 12 item (median)
 MATERN_N, MATERN_L, MATERN_EPS, MATERN_TARGETS = 20_000, 0.14, 1e-4, 1_000
-# the float64 d=2 functions phase 12 launches, by PERF.md's table rows
+# the float64 functions phase 12 launches, by PERF.md's table rows: the
+# kernel, and whether the launch is past the TPU's single-block width (None:
+# either); d=3 from 12e, hard3d's mtot 21 and lag grid 41, both within it
 ROWS_F64 = {"1": ("nufft2_2d", False), "3": ("nufft2_2d", True),
             "2": ("nufft1_2d", False), "4": ("nufft1_2d", True),
             "9": ("nufft2_2d_batched", None),
-            "10": ("nufft1_2d_batched", None)}
+            "10": ("nufft1_2d_batched", None),
+            "7": ("nufft2_3d", False), "8": ("nufft1_3d", False)}
+# the TPU's single-block width of each kernel's function (TILED's limits)
+BLOCK_LIMIT = {kernel: limit for kernel, _, limit in TILED.values()}
 
 
 def matern_data(n, targets, seed=12):
@@ -709,14 +747,16 @@ def phase_high(c):
     def rel_max(got, want):
         return float(((got.double() - want).abs() / want.abs()).max())
 
-    def high_config(tag, x, y, xq, kern, h, mtot, *, fit_kw, probes=None,
-                    grad_kw=None, var_x=None, var_kw=None, oracle="dense"):
+    def high_config(tag, x, y, xq, kern, h, mtot, *, fit_kw, mean_kw=None,
+                    probes=None, grad_kw=None, var_x=None, var_kw=None,
+                    oracle="dense", oracle_maxiter=8000):
         """fit_high + mean, gradient_high and variance_high in turn, each a
         stage, then the float64 oracle on the plain path and the bars."""
         out = {}
         (hs, mh), out["fit_high+mean"] = stage(
             f"{tag} fit_high + predict_mean_high", lambda: (
-                lambda hs_: (hs_, gt.predict_mean_high(hs_, xq)))(
+                lambda hs_: (hs_, gt.predict_mean_high(
+                    hs_, xq, **(mean_kw or {}))))(
                 gt.fit_high(x, y, kern, sig, h, mtot, device=dev, **fit_kw)))
         out["residual"] = float(hs.residual)
         out["inner_iters"] = int(hs.state.mean_cg_iters)
@@ -739,14 +779,19 @@ def phase_high(c):
             mean64 = orc.mean_f64(obj, xq)
         else:
             mean64, iters, res = orc.toeplitz_cg_oracle_f64(
-                x, y, kern, sig, h, mtot, xq, tol=1e-10, maxiter=8000,
-                device=dev)
+                x, y, kern, sig, h, mtot, xq, tol=1e-10,
+                maxiter=oracle_maxiter, device=dev)
             out["oracle_cg_iters"], out["oracle_residual"] = iters, res
         out["err_mean_high"] = float((mh - mean64).abs().max())
         line = (f"[12] {tag} vs the float64 oracle ({oracle}, plain path): "
                 f"mean_high max abs err {out['err_mean_high']:.3e} (bar "
-                f"{HIGH_MEAN_BAR:.0e}), refit residual {out['residual']:.3e}"
+                f"{HIGH_MEAN_BAR:.0e}), fit_high + mean "
+                f"{out['fit_high+mean']['ms']:.2f} ms (CUDA events, median "
+                f"of {STAGE_CALLS}), refit residual {out['residual']:.3e}"
                 f", inner iterations {out['inner_iters']}")
+        if oracle != "dense":
+            line += (f", oracle PCG iterations {out['oracle_cg_iters']} "
+                     f"(residual {float(out['oracle_residual']):.3e})")
         check(out["err_mean_high"] <= HIGH_MEAN_BAR,
               f"{tag}: high mean error {out['err_mean_high']:.3e}")
         if gh is not None:
@@ -766,7 +811,7 @@ def phase_high(c):
             check(out["var_high_rel_err"] <= HIGH_REL_BAR,
                   f"{tag}: variance_high error {out['var_high_rel_err']}")
         out["oracle_s"] = time.perf_counter() - t
-        print(line + f"; oracle {out['oracle_s']:.1f} s")
+        print(line + f"; oracle {out['oracle_s']:.1f} s {card}")
         return out, obj, mean64
 
     T = FUSED_KW["trace_samples"]
@@ -921,10 +966,26 @@ def phase_high(c):
     del x, y
     torch.cuda.empty_cache()
 
-    # every float64 d=2 function the phase launched, by PERF.md's rows
+    # 12e: hard3d (bench.py:416-436 as written: phase 7's data, fit_high
+    # with deflation 2048, predict_mean_high(slab=256) at 1 000 targets;
+    # no gradient_high or variance_high there): the float64 d=3 type-1 at
+    # 21 and 41 and type-2 at 21; the oracle a float64 Toeplitz PCG, given
+    # bench.py's 12 000 iterations
+    x = torch.as_tensor(c.xh3, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(c.yh3, dtype=torch.float32, device=dev)
+    xq = torch.as_tensor(c.xqh3, dtype=torch.float32, device=dev)
+    rec["hard3d"], _, _ = high_config(
+        "hard3d", x, y, xq, c.kern_h3, c.h_h3, c.mtot_h3,
+        fit_kw=dict(solver="iterative", precond_rank=HIGH_RANK),
+        mean_kw=dict(slab=256), oracle="toeplitz", oracle_maxiter=12_000)
+    del x, y
+    torch.cuda.empty_cache()
+
+    # every float64 function the phase launched, by PERF.md's rows
     for row, (name, wide) in ROWS_F64.items():
+        limit = BLOCK_LIMIT[name.replace("_batched", "")]
         n_ = sum(v for (k, p, m), v in totals.items() if k == name and
-                 p == "f64" and (wide is None or (m > 256) == wide))
+                 p == "f64" and (wide is None or (m > limit) == wide))
         rec["f64_launches"][row] = n_
         check(n_ > 0, f"row {row} ({name}) had no float64 launch")
     rec["launches"] = {f"{k}/{p}@{m}": v for (k, p, m), v in
@@ -967,6 +1028,10 @@ def f64_shape_table(c, totals, h_matern):
         ("nufft1_2d", c.n10, m339, 1, c.h10, "scale F*y"),
         ("nufft1_2d", c.n10, 2 * m339 - 1, 1, c.h10, "scale lag table"),
         ("nufft2_2d", 500, m339, 1, c.h10, "scale mean_high"),
+        ("nufft1_3d", 20_000, c.mtot_h3, 1, c.h_h3, "hard3d F*y"),
+        ("nufft1_3d", 20_000, 2 * c.mtot_h3 - 1, 1, c.h_h3,
+         "hard3d lag table"),
+        ("nufft2_3d", 1_000, c.mtot_h3, 1, c.h_h3, "hard3d mean_high"),
     ]
     gen = np.random.default_rng(120)
     rows = []
@@ -979,9 +1044,10 @@ def f64_shape_table(c, totals, h_matern):
                                        row["bound_ms"], "phase 3")
             rel = row["rel_err"]
         else:
-            x = torch.as_tensor(gen.uniform(0, 1, (n, 2)), device=c.dev)
+            d = int(name.split("_")[1][0])
+            x = torch.as_tensor(gen.uniform(0, 1, (n, d)), device=c.dev)
             lead = (B,) if B > 1 else ()
-            shape = lead + ((n,) if name.startswith("nufft1") else (m, m))
+            shape = lead + ((n,) if name.startswith("nufft1") else (m,) * d)
             arg = torch.as_tensor(gen.normal(size=shape)
                                   + 1j * gen.normal(size=shape),
                                   device=c.dev)
@@ -991,7 +1057,7 @@ def f64_shape_table(c, totals, h_matern):
             rel = float((got - ref).abs().max() / ref.abs().max())
             check(rel <= 1e-10, f"{name} f64 n={n} mtot={m} B={B}: error "
                   f"{rel:.3e} of max|ref|")
-            reps = max(3, min(50, int(2e9 / (B * n * m * m))))
+            reps = max(3, min(50, int(2e9 / (B * n * m ** d))))
             ms = time_cuda(lambda: c.kernels[name](x, arg, hq, mtot=m), reps,
                            3)
             plain_ms = time_cuda(lambda: c.plains[name](x, arg, hq, mtot=m),
@@ -2128,6 +2194,242 @@ def sampler_checks(c):
     check(float(z) < 5 and float(rel) < 6 * (2.0 / S) ** 0.5,
           "14c: pathwise statistics")
     return out
+
+
+# phase 15: the utilities.  15a the profiling scopes that gpquad names
+# (ops/nufft.py:93,157, ops/toeplitz.py:65, ops/cg.py:70) in traces of phase
+# 4's fused call (the dense tier: no PCG), phase 5's kron CG fit and mean
+# and one light-curve Adam iteration (with the facade's refit), each scope
+# with a CUDA kernel launched inside it, and what a scope costs with no
+# profiler; 15b phase 9's facade saved and restored; 15c the native C++
+# float64 oracles against the float64 d=2 pair; 15d the synthetic-GP
+# loader.
+SCOPES = ("nufft_type1", "nufft_type2", "toeplitz_matvec", "4_solve_cg",
+          "7_batch_cg_solve")
+STAGE_SHARE_BAR = 0.01      # the scopes' host cost with no profiler
+STAGE_ENTRIES_TIMED = 200_000
+NATIVE_N, NATIVE_MTOT = 20_000, 29
+# the float64 type-2 of load_synthetic_gp(n=1e5, d=2): l 0.5 and
+# spectral_eps 1e-4 on [0,1]^2 plan mtot 11
+LOADER_SHAPES = frozenset([("nufft2_2d", "f64", 100000, 11, 1, False)])
+
+
+def trace_scopes(log_dir, names):
+    """Per scope name in ``names``: its entries in the Chrome trace that
+    ``profiling.trace`` wrote to ``log_dir``, and the CUDA kernels launched
+    inside them (a launch on the scope's thread within its span, matched
+    to its kernel by correlation id) with their names."""
+    from gpquad_torch.utils import profiling
+    events = json.loads((log_dir / profiling.TRACE_FILE).read_text())[
+        "traceEvents"]
+    kernels = {e["args"]["correlation"]: e["name"] for e in events
+               if e.get("cat") == "kernel"
+               and "correlation" in e.get("args", {})}
+    launches = [e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("args", {}).get("correlation") in kernels]
+    out = {name: dict(entries=0, kernels=0, names={}) for name in names}
+    for e in events:
+        r = out.get(e.get("name"))
+        if r is not None and e.get("cat") == "user_annotation":
+            r["entries"] += 1
+            t0, t1 = e["ts"], e["ts"] + e.get("dur", 0)
+            for launch in launches:
+                if (launch.get("pid"), launch.get("tid")) == (
+                        e.get("pid"), e.get("tid")) and \
+                        t0 <= launch["ts"] <= t1:
+                    r["kernels"] += 1
+                    k = kernels[launch["args"]["correlation"]]
+                    r["names"][k] = r["names"].get(k, 0) + 1
+    return out
+
+
+def phase_utils(c):
+    """Phase 15.  ``c``: a namespace of main()'s dev, card, gpquad_torch,
+    cuda_nufft, phase 3's kernels and plain versions, phase 4's data, fit
+    settings, fused call and its ms, phase 5's kron CG fit, phase 8's
+    facade maker and its ms an iteration, and phase 9's facade.  Returns
+    the phase's record."""
+    from gpquad_torch import native
+    from gpquad_torch.utils import checkpoint, loaders, profiling
+    gt, dev, card = c.gt, c.dev, c.card
+    rec = {}
+    out_dir = ROOT / "build" / "phase15"
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # -- 15a: the profiling scopes ----------------------------------------
+    t_a = time.perf_counter()
+    traces = {}
+    for tag, fn in (("fused", c.fused), ("cg_kron", c.cg_kron),
+                    ("lightcurve_iteration", c.lc_iteration)):
+        fn()
+        sync()
+        with profiling.trace(out_dir / tag) as log_dir:
+            fn()
+        traces[tag] = trace_scopes(log_dir, SCOPES + profiling.STAGES)
+        for name in SCOPES:
+            r = traces[tag][name]
+            top = sorted(r["names"].items(), key=lambda kv: -kv[1])[:3]
+            print(f"[15a] {tag} trace: scope {name}: {r['entries']} entries,"
+                  f" {r['kernels']} CUDA kernels launched inside; kernels "
+                  f"{[(k[:60], n_) for k, n_ in top]}")
+
+    def held(name):
+        return any(tr[name]["kernels"] > 0 for tr in traces.values())
+    for name in ("nufft_type1", "nufft_type2", "toeplitz_matvec"):
+        check(held(name), f"15a: no trace holds scope {name} with a CUDA "
+              f"kernel inside it")
+    check(held("4_solve_cg") or held("7_batch_cg_solve"),
+          "15a: no trace holds a PCG scope with a CUDA kernel inside it")
+    rec["traces"] = {tag: {k: dict(v, names=dict(sorted(
+        v["names"].items(), key=lambda kv: -kv[1])[:8]))
+        for k, v in tr.items() if v["entries"]} for tag, tr in
+        traces.items()}
+
+    # StageTimer on the headline serving path and gradient (phase 4's
+    # settings), three rounds
+    timer = profiling.StageTimer()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(3):
+        with timer.time("fit", sync=c.x32):
+            st = gt.fit(c.x32, c.y32, c.kernel32, c.sigmasq, eps=c.eps,
+                        cg_tol=1e-6, device=dev)
+        with timer.time("mean", sync=c.x32):
+            gt.predict_mean(st, c.xq32)
+        with timer.time("variance", sync=c.x32):
+            gt.predict_var(st, c.xq32, method="stochastic", probes=256,
+                           cg_tol=1e-4, generator=gen)
+        with timer.time("gradient", sync=c.x32):
+            gt.gradient_with_grid(
+                c.x32, c.y32, c.kernel32, c.sigmasq, st.h, gen,
+                mtot=st.mtot, trace_samples=FUSED_KW["trace_samples"],
+                cg_tol=FUSED_KW["grad_cg_tol"],
+                max_cg_iter=FUSED_KW["max_cg_iter"], beta0=st.beta, state=st)
+    print(f"[15a] StageTimer, the headline (phase 4's data), host clock "
+          f"with the card synchronised, {card}:")
+    for line in timer.table().splitlines():
+        print(f"[15a]   {line}")
+    rec["stage_timer_s"] = timer.records
+
+    # a scope with no profiler, on the host, against the paths' wall time
+    t = time.perf_counter()
+    for _ in range(STAGE_ENTRIES_TIMED):
+        with profiling.stage("toeplitz_matvec"):
+            pass
+    stage_us = (time.perf_counter() - t) / STAGE_ENTRIES_TIMED * 1e6
+    rec["stage_us"] = stage_us
+    rec["share"] = {}
+    for tag, wall_ms in (("fused", c.fused_ms),
+                         ("lightcurve_iteration", c.lc_iter_ms)):
+        entries = sum(v["entries"] for v in traces[tag].values())
+        share = stage_us * entries / (wall_ms * 1e3)
+        rec["share"][tag] = dict(entries=entries, wall_ms=wall_ms,
+                                 share=share)
+        print(f"[15a] stage() with no profiler: {stage_us:.3f} us an entry "
+              f"(host); {tag}: {entries} scope entries x {stage_us:.3f} us "
+              f"= {stage_us * entries:.1f} us of {wall_ms:.2f} ms, share "
+              f"{share:.2e} (bar {STAGE_SHARE_BAR}) {card}")
+        check(share < STAGE_SHARE_BAR, f"15a: the scopes take {share:.2e} "
+              f"of the {tag} path")
+    rec["15a_s"] = time.perf_counter() - t_a
+
+    # -- 15b: checkpoint ----------------------------------------------------
+    t_b = time.perf_counter()
+    m9, ck = c.m9, out_dir / "ckpt"
+    checkpoint.save_efgp(m9, ck)
+    m2 = gt.EFGP(c.x32, c.y32, "SE", sigmasq=0.5, eps=c.eps, device=dev)
+    checkpoint.restore_efgp(m2, ck)
+    raw_equal = torch.equal(m2.params.raw, m9.params.raw)
+    mean1, var1 = m9.predict(c.xq32, hutchinson_probes=256)
+    mean2, var2 = m2.predict(c.xq32, hutchinson_probes=256)
+    same = torch.equal(mean1, mean2) and torch.equal(var1, var2)
+    (_, step_ms) = timed(lambda: m2.optimize_hyperparameters(
+        max_iters=1, lr=0.05, trace_samples=10))
+    cpu_tree = checkpoint.restore_checkpoint(ck, device="cpu")
+    cpu_equal = (cpu_tree["raw"].device.type == "cpu"
+                 and torch.equal(cpu_tree["raw"], m9.params.raw.cpu()))
+    rec["15b"] = dict(raw_equal=raw_equal, predict_same_bits=same,
+                      step_ms=step_ms, cpu_raw_equal=cpu_equal,
+                      raw=m9.params.raw.tolist(),
+                      raw_after_step=m2.params.raw.tolist(),
+                      files={p_.name: p_.stat().st_size
+                             for p_ in sorted(ck.iterdir())})
+    print(f"[15b] save_efgp of phase 9's facade, restore_efgp into an EFGP "
+          f"built with sigmasq 0.5: raw equal {raw_equal}; predict at "
+          f"{c.xq32.shape[0]} targets (mean and the 256-probe stochastic "
+          f"variance) the same bits {same}; one more Adam step "
+          f"{step_ms:.1f} ms host clock, raw {m2.params.raw.tolist()}; "
+          f"restored with device='cpu': raw equal {cpu_equal}; files "
+          f"{rec['15b']['files']} {card}")
+    check(raw_equal and same and cpu_equal,
+          "15b: the restored facade differs")
+    check(bool(torch.isfinite(m2.params.raw).all()),
+          "15b: the resumed Adam step is not finite")
+    rec["15b_s"] = time.perf_counter() - t_b
+
+    # -- 15c: the native float64 oracles ------------------------------------
+    t_c = time.perf_counter()
+    check(native.build(), "15c: native/libgpquad_native.so did not build "
+          "(scripts/build_native.sh)")
+    g = np.random.default_rng(150)
+    xn = g.uniform(0, 1, (NATIVE_N, 2))
+    vn = g.normal(size=NATIVE_N) + 1j * g.normal(size=NATIVE_N)
+    fn_ = (g.normal(size=(NATIVE_MTOT,) * 2)
+           + 1j * g.normal(size=(NATIVE_MTOT,) * 2))
+    h, m = float(c.h_head), NATIVE_MTOT
+    xt = torch.as_tensor(xn, device=dev)
+    rec["15c"] = {}
+    for name, arg, direct in (("nufft1_2d", vn, native.direct_nufft1_2d),
+                              ("nufft2_2d", fn_, native.direct_nufft2_2d)):
+        at = torch.as_tensor(arg, device=dev)
+        got = c.kernels[name](xt, at, h, mtot=m).cpu().numpy()
+        plain = c.plains[name](xt, at, h, mtot=m).cpu().numpy()
+        t = time.perf_counter()
+        ref = direct(xn, arg, h, m)
+        ms = (time.perf_counter() - t) * 1e3
+        scale = float(np.abs(ref).max())
+        rel = float(np.abs(got - ref).max()) / scale
+        rel_plain = float(np.abs(plain - ref).max()) / scale
+        rec["15c"][name] = dict(rel_err=rel, plain_rel_err=rel_plain,
+                                native_ms=ms)
+        print(f"[15c] float64 {name} (n {NATIVE_N}, mtot {m}) against the "
+              f"C++ oracle: rel err {rel:.3e} of max|ref| (bar 1e-10); the "
+              f"plain version {rel_plain:.3e}; the oracle {ms:.1f} ms host "
+              f"{card}")
+        check(rel <= 1e-10, f"15c: {name} f64 vs the C++ oracle {rel:.3e}")
+    rec["15c_s"] = time.perf_counter() - t_c
+
+    # -- 15d: the synthetic-GP loader ---------------------------------------
+    t_d = time.perf_counter()
+    shapes = {}
+    originals = recorder(c.cuda_nufft, shapes, KERNELS_2D)
+    try:
+        (xa, ya), load_ms = timed(lambda: loaders.load_synthetic_gp(
+            n=100_000, d=2, seed=0, device=dev))
+        xb, yb = loaders.load_synthetic_gp(n=100_000, d=2, seed=0,
+                                           device=dev)
+    finally:
+        for k, fn in originals.items():
+            setattr(c.cuda_nufft, k, fn)
+    x_numpy = np.array_equal(
+        xa, np.random.default_rng(0).uniform(0, 1, (100_000, 2)))
+    twice = np.array_equal(xa, xb) and np.array_equal(ya, yb)
+    rec["15d"] = dict(ms=load_ms, x_is_numpys=x_numpy, same_bits=twice,
+                      y_sd=float(np.std(ya)),
+                      launches={"/".join(map(str, k)): v
+                                for k, v in shapes.items()})
+    print(f"[15d] load_synthetic_gp(n=100000, d=2, seed=0): {load_ms:.1f} "
+          f"ms host clock {card}; x equals numpy's draw {x_numpy}; two calls"
+          f" the same bits {twice}; y sd {np.std(ya):.4f}; launches "
+          f"{rec['15d']['launches']}")
+    check(xa.shape == (100_000, 2) and ya.shape == (100_000,)
+          and bool(np.isfinite(ya).all()), "15d: the loader's draw")
+    check(x_numpy and twice, "15d: the loader is not reproducible")
+    check(any(k[0].startswith("nufft2_2d") for k in shapes),
+          f"15d: the loader launched no d=2 type-2 {shapes}")
+    rec["15d"]["shapes"] = shape_table(c, shapes, LOADER_SHAPES, "15d")
+    rec["15d_s"] = time.perf_counter() - t_d
+    return rec
 
 
 def main() -> int:
@@ -4519,7 +4821,8 @@ def main() -> int:
         plains=plains, x32=x32, y32=y32, xq32=xq32, kernel32=kernel32,
         h_head=h_head, mtot_head=mtot_head, st=st, x2=x2, y2=y2, xq2=xq2,
         kern_hard=kern_hard, h_hard=h_hard, mtot_hard=mtot_hard, n10=n10,
-        kern10=kern10, h10=h10, mtot10=mtot10))
+        kern10=kern10, h10=h10, mtot10=mtot10, xh3=xh3, yh3=yh3, xqh3=xqh3,
+        kern_h3=kern_h3, h_h3=h_h3, mtot_h3=mtot_h3))
     phase_s["12"] = time.perf_counter() - t_phase
     print(f"[12] phase wall time {phase_s['12']:.1f} s")
 
@@ -4547,6 +4850,24 @@ def main() -> int:
           f"{record['phases']['spread']['14b_s']:.1f} s, 14c "
           f"{record['phases']['spread']['14c_s']:.1f} s); the script so far "
           f"{time.perf_counter() - t_run:.1f} s")
+
+    # -- phase 15: the utilities ---------------------------------------------
+    t_phase = time.perf_counter()
+    record["phases"]["utils"] = utils15 = phase_utils(types.SimpleNamespace(
+        gt=gpquad_torch, cuda_nufft=cuda_nufft, dev=dev, card=card,
+        kernels=kernels, plains=plains, x32=x32, y32=y32, xq32=xq32,
+        kernel32=kernel32, sigmasq=sigmasq, eps=eps, h_head=h_head,
+        fused=lambda: fused(x32, y32, xq32, "auto"), fused_ms=fused_ms,
+        cg_kron=lambda: run_cg(x2, y2, xq2, kern_hard, "auto",
+                               precond="kron"),
+        lc_iteration=lambda: lc_model(x8, y8).optimize_hyperparameters(
+            **dict(LC_OPT, max_iters=1)),
+        lc_iter_ms=statistics.median(iter_ms), m9=m9))
+    phase_s["15"] = time.perf_counter() - t_phase
+    print(f"[15] phase wall time {phase_s['15']:.1f} s (15a "
+          f"{utils15['15a_s']:.1f} s, 15b {utils15['15b_s']:.1f} s, 15c "
+          f"{utils15['15c_s']:.1f} s, 15d {utils15['15d_s']:.1f} s); the "
+          f"script so far {time.perf_counter() - t_run:.1f} s")
 
     # -- the record ----------------------------------------------------------
     # each kernel's row: its largest float32 call on a driven path (the
@@ -4647,7 +4968,8 @@ def main() -> int:
                       key=lambda r: r["B"] * r["n"] * r["mtot"] ** 3)
             extra = {"launches": launches_d3[name],
                      "launches_hard3d": launches_h3[name]
-                     + launches_var4[name] + launches_g4[name]}
+                     + launches_var4[name] + launches_g4[name],
+                     "launches_high_tier": high_launches((name,))}
             if name in KERNELS_3D:
                 # both kernels' card times on the same inputs, the 3xTF32
                 # bound (bound_ms where the tensor cores are picked) beside

@@ -18,6 +18,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils import profiling
+
 __all__ = ["pcg", "CGResult"]
 
 _DIV_EPS = 1e-16
@@ -55,6 +57,12 @@ def pcg(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
     else:
         Ab, Mb = A, M_inv
 
+    name = "4_solve_cg" if b.shape[0] == 1 else "7_batch_cg_solve"
+    with profiling.stage(name):
+        return _pcg_body(Ab, b, x0, Mb, tol, maxiter, single)
+
+
+def _pcg_body(Ab, b, x0, Mb, tol, maxiter, single):
     B, n = b.shape
     if maxiter is None:
         maxiter = 2 * n

@@ -79,6 +79,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
 from .nufft import (CUDA_D3_MAX_MTOT, _k_values, _phase_matrix,
                     make_phase_nufft)
 
@@ -1687,6 +1688,14 @@ class CudaNUFFT:
         return self.x.shape[0]
 
     def type1(self, vals):
+        with profiling.stage("nufft_type1"):
+            return self._type1(vals)
+
+    def type2(self, fk):
+        with profiling.stage("nufft_type2"):
+            return self._type2(fk)
+
+    def _type1(self, vals):
         cdtype = _complex_of(self.x.dtype)
         kw = dict(mtot=self.mtot, fft_order=self.fft_order)
         lead = tuple(vals.shape[:-1])
@@ -1701,7 +1710,7 @@ class CudaNUFFT:
             out = nufft1_2d_batched(self.x, flat, self.h, **kw)
         return out.reshape(lead + (self.mtot,) * self.d)
 
-    def type2(self, fk):
+    def _type2(self, fk):
         cdtype = _complex_of(self.x.dtype)
         m, d = self.mtot, self.d
         M, block = m ** d, (m,) * d

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import profiling
+
 __all__ = ["NUFFT", "make_nufft", "make_phase_nufft", "BACKEND_PICKS"]
 
 # How often make_nufft picked each backend since the last reset.
@@ -93,9 +95,10 @@ class NUFFT:
 
     def type1(self, vals: torch.Tensor) -> torch.Tensor:
         """Adjoint apply F*: (N,) or (B, N) -> (mtot,)*d or (B,)+(mtot,)*d."""
-        if vals.ndim == 1:
-            return self._type1_single(vals)
-        return torch.stack([self._type1_single(v) for v in vals])
+        with profiling.stage("nufft_type1"):
+            if vals.ndim == 1:
+                return self._type1_single(vals)
+            return torch.stack([self._type1_single(v) for v in vals])
 
     def _type1_single(self, vals):
         cdtype = self.phases[0].dtype
@@ -137,6 +140,10 @@ class NUFFT:
     def type2(self, fk: torch.Tensor) -> torch.Tensor:
         """Forward apply F: flat (M,) or block (mtot,)*d, optionally with
         leading batch dims -> (N,) or (B, N)."""
+        with profiling.stage("nufft_type2"):
+            return self._type2(fk)
+
+    def _type2(self, fk):
         block = (self.mtot,) * self.d
         M = self.mtot ** self.d
         if tuple(fk.shape) == (M,):

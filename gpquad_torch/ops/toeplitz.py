@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils import profiling
+
 __all__ = ["ToeplitzND", "make_toeplitz", "toeplitz_diag_scale"]
 
 
@@ -52,6 +54,10 @@ class ToeplitzND:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Apply T to ``x`` with trailing flat (M,) or block ``ns`` layout."""
+        with profiling.stage("toeplitz_matvec"):
+            return self._apply(x)
+
+    def _apply(self, x: torch.Tensor) -> torch.Tensor:
         d = self.d
         flat = x.shape[-1] == self.size and (
             x.ndim < d or tuple(x.shape[-d:]) != tuple(self.ns))

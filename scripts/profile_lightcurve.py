@@ -140,6 +140,12 @@ def one_run(root: Path, variant: str) -> dict:
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    # the device spans of the ops' record_function scopes run from their
+    # first kernel to their last, idle gaps included: busy time counts
+    # kernels and copies only (named here, as a --base checkout may
+    # predate gpquad_torch.utils.profiling)
+    scopes = {"nufft_type1", "nufft_type2", "toeplitz_matvec", "4_solve_cg",
+              "7_batch_cg_solve"}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -150,7 +156,9 @@ def one_run(root: Path, variant: str) -> dict:
     host_ops = sum(e.count for e in events)
     spans = []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and e.name not in scopes):
             spans.append((e.time_range.start, e.time_range.end))
     busy = 0.0
     if spans:
@@ -175,7 +183,7 @@ def one_run(root: Path, variant: str) -> dict:
         "idle_share": 1 - busy_ms / wall_ms if spans else None,
         "top_device": [[e.key[:80], e.count, round(dev_time(e) / 1e3, 3)]
                        for e in sorted(events, key=lambda e: -dev_time(e))
-                       [:12]],
+                       if e.key not in scopes][:12],
         "top_host": [[e.key[:80], e.count,
                       round(e.self_cpu_time_total / 1e3, 3)]
                      for e in sorted(events,

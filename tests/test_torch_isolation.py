@@ -1,6 +1,8 @@
 """The port stands alone: ``gpquad_torch``, ``chip_smoke.py`` and
 ``scripts/port_compare_trees.py`` import neither JAX nor the JAX package
-``gpquad``, and the Polya-Gamma estimators neither sklearn nor optax."""
+``gpquad``, the Polya-Gamma estimators neither sklearn nor optax, and the
+utilities neither orbax nor, when imported, the loaders' optional h5py,
+pandas and PIL (imported inside the loaders that read those formats)."""
 import ast
 import subprocess
 import sys
@@ -12,6 +14,10 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "gpquad")
 # what gpquad's PG estimators import and the card's machine does not have
 FORBIDDEN_PG = ("sklearn", "optax")
+# gpquad's checkpoint backend, and the loaders' optional file-format
+# packages, which the card's machine does not have
+FORBIDDEN_UTILS = ("orbax",)
+OPTIONAL = ("h5py", "pandas", "PIL")
 
 
 def _sources():
@@ -44,9 +50,12 @@ def test_import_pulls_in_no_jax():
             "gpquad_torch.models.variance_high, "
             "gpquad_torch.models.pg, gpquad_torch.models.pg_high, "
             "gpquad_torch.utils.f64_oracles, gpquad_torch.ops.spread_nufft, "
-            "gpquad_torch.ops.spread_banded, gpquad_torch.models.sampling\n"
+            "gpquad_torch.ops.spread_banded, gpquad_torch.models.sampling, "
+            "gpquad_torch.utils, gpquad_torch.utils.profiling, "
+            "gpquad_torch.utils.checkpoint, gpquad_torch.utils.loaders, "
+            "gpquad_torch.native\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN + FORBIDDEN_PG!r})\n"
+            f"{FORBIDDEN + FORBIDDEN_PG + FORBIDDEN_UTILS + OPTIONAL!r})\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -76,12 +85,58 @@ def test_scan_covers_the_port():
                    "gpquad_torch/utils/f64_oracles.py",
                    "gpquad_torch/ops/spread_nufft.py",
                    "gpquad_torch/ops/spread_banded.py",
-                   "gpquad_torch/models/sampling.py", "chip_smoke.py"):
+                   "gpquad_torch/models/sampling.py",
+                   "gpquad_torch/utils/__init__.py",
+                   "gpquad_torch/utils/profiling.py",
+                   "gpquad_torch/utils/checkpoint.py",
+                   "gpquad_torch/utils/loaders.py",
+                   "gpquad_torch/native.py", "chip_smoke.py"):
         assert module in names, module
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
 def test_no_forbidden_import_statements(path):
     assert path.exists(), path
-    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN + FORBIDDEN_PG))
+    bad = sorted(set(_imported_roots(path))
+                 & set(FORBIDDEN + FORBIDDEN_PG + FORBIDDEN_UTILS))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_optional_packages_not_imported_at_module_level():
+    """h5py, pandas and PIL only inside the functions that need them (the
+    loaders), never in a module's top-level statements."""
+    for path in _sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = [n for stmt in tree.body for n in ast.walk(stmt)
+               if not isinstance(stmt, (ast.FunctionDef,
+                                        ast.AsyncFunctionDef,
+                                        ast.ClassDef))]
+        roots = set()
+        for node in top:
+            if isinstance(node, ast.Import):
+                roots |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots.add(node.module.split(".")[0])
+        bad = sorted(roots & set(OPTIONAL))
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad} at the top"
+
+
+def test_ops_do_not_load_the_loaders():
+    """The ops open ``utils.profiling``'s scopes; importing them does not
+    load the dataset loaders, which still resolve as ``gpquad_torch.utils``'s
+    names."""
+    code = ("import sys\n"
+            "import gpquad_torch.ops.cg, gpquad_torch.ops.nufft, "
+            "gpquad_torch.ops.toeplitz, gpquad_torch.ops.cuda_nufft\n"
+            "loaded = 'gpquad_torch.utils.loaders' in sys.modules\n"
+            "from gpquad_torch import utils\n"
+            "from gpquad_torch.utils import load_synthetic_gp\n"
+            "assert load_synthetic_gp.__module__ == "
+            "'gpquad_torch.utils.loaders'\n"
+            "assert all(callable(getattr(utils, n)) "
+            "for n in utils.__all__)\n"
+            "print(loaded)\n"
+            "sys.exit(1 if loaded else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

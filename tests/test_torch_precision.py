@@ -150,19 +150,29 @@ def test_fit_high_matern(matern, solver):
     assert np.max(np.abs(mean - matern["jmean"])) < 5e-6
 
 
+# the double-word fits held against gpquad's: d -> fit_high's keywords.
+# d=3 is hard3d's solver path (bench.py's hard3d row): the deflated PCG,
+# and the tables from the chunked type-1 that gpquad's exact_tables=None
+# picks at hard3d's n (2 mtot - 1)^3, past 3e8 (the port's tables always
+# come from its float64 type-1 and it ignores the flag).
+HIGH_FITS = {2: dict(solver="dense"), 1: dict(solver="iterative"),
+             3: dict(solver="iterative", precond_rank=24,
+                     exact_tables=False)}
+
+
 @pytest.fixture(scope="module")
 def jax_high():
-    """gpquad's double-word fits at d=2 (dense) and d=1 (matrix-free, with
-    the low word of beta), their means, and its unfused
-    fit_predict_grad_high at d=2."""
+    """gpquad's double-word fits at d=2 (dense), d=1 and d=3 (matrix-free,
+    with the low word of beta; d=3 deflated, as hard3d), their means, and
+    its unfused fit_predict_grad_high at d=2."""
     out = {}
-    for d, solver in ((2, "dense"), (1, "iterative")):
+    for d, kw in HIGH_FITS.items():
         n, mtot, h, sig, ell = SIZES[d]
         x, y, xt = _data(d, n)
         jk = JaxSE(lengthscale=jnp.float32(ell), variance=jnp.float32(VAR),
                    dimension=d)
         hs = jprec.fit_high(jnp.asarray(x), jnp.asarray(y), jk, sig, h, mtot,
-                            chunk=64, solver=solver)
+                            chunk=64, **kw)
         mean = np.asarray(jprec.predict_mean_high(hs, jnp.asarray(xt),
                                                   slab=256))
         out[d] = dict(hs=hs, mean=mean, x=x, y=y, xt=xt, mtot=mtot)
@@ -183,11 +193,13 @@ def _prob_of(d):
         "SE", d, lengthscale=ell, variance=VAR)
 
 
-@pytest.mark.parametrize("d,solver", [(2, "dense"), (1, "iterative")])
+@pytest.mark.parametrize("d,solver", [(2, "dense"), (1, "iterative"),
+                                      (3, "iterative")])
 def test_fit_high_matches_gpquad_double_word(jax_high, d, solver):
+    assert HIGH_FITS[d]["solver"] == solver
     x, y, xt, h, mtot, sig, k = _prob_of(d)
-    hs = gpquad_torch.fit_high(x, y, k, sig, h, mtot, solver=solver,
-                               device="cpu")
+    hs = gpquad_torch.fit_high(x, y, k, sig, h, mtot, device="cpu",
+                               **HIGH_FITS[d])
     mean = gpquad_torch.predict_mean_high(hs, xt).numpy()
     assert np.max(np.abs(mean - jax_high[d]["mean"])) < 2e-6
 
