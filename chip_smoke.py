@@ -185,6 +185,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
      direct sums; 15d load_synthetic_gp(n=1e5, d=2) twice, the same bits,
      x numpy's draw, each shape it launched held against its plain
      version (LOADER_SHAPES).
+ 16. the scale-out (gpquad_torch.parallel) on NCCL at world size 1 (one
+     card; NCCL takes one rank a device, so every collective is a copy
+     and the program the sharded one): 16a the process group (a FileStore
+     under build/), make_mesh(1) and a 1 x 1 dp x probe mesh, each
+     collective the port uses against the identity; 16b sharded_fit +
+     predict_mean and sharded_gradient at the scale configuration (phase
+     10's settings and generator) with the unsharded calls' bits; 16c the
+     M-sharded (pencil) fit + mean at scale against phase 10's float64
+     mean (5e-4), msharded_gradient at hard against float64 with the same
+     probes (1e-2, 2e-2 on the noise), msharded_predict_var at 256 of
+     hard's targets against float64 "regular" (1e-4), one profiled fit
+     with the busy ms of NCCL, copies and cuFFT; 16d the slab fit + mean
+     and gradient at d3 against float64 (5e-4, 5e-2); 16e
+     msharded_fit_high + predict_mean_high at hard3d within 1e-6 of 12e's
+     oracle and its beta within 1e-9 of fit_high's (Jacobi inner PCG),
+     with the float64 d=3 pair launched; 16f one sharded_pg_outer_step at
+     13a's configuration with the unsharded step's bits.  Each PCG under
+     its cap; every call's CUDA-event ms beside the unsharded call's, its
+     launches by kernel and precision, the spectrum slab's bytes and the
+     peak allocated; TPU rows 1-4, 7-10 and 12 each launched.
 Phase 3 also holds the two d=3 kernels at every shape of phases 6 and 7
 and at mtot 57, 101 and 255, the two d=1 kernels at phase 8's shapes and
 at mtot 8191, and the two SKI interpolation kernels at phase 11's band
@@ -377,7 +397,7 @@ def time_cuda_paths(fns, reps, trials=5):
     return {r: statistics.median(t) for r, t in times.items()}
 
 
-def profile_run(fn, top=8):
+def profile_run(fn, top=8, groups=None):
     """Run ``fn`` once under torch.profiler: host wall time, device busy
     time (union of the intervals of the kernels and memory copies on the
     device), idle share, and the kernels with the most device time.  The
@@ -385,7 +405,8 @@ def profile_run(fn, top=8):
     ``profiling.stage`` opens them, and torch's) are left out: each runs
     from the first kernel inside it to the last and so covers the idle gaps
     between them.  Device numbers are None when the profiler saw no CUDA
-    kernel."""
+    kernel.  ``groups`` ({label: substrings}) adds each group's device ms:
+    the kernels whose name holds one of its substrings."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from gpquad_torch.utils import profiling
@@ -422,9 +443,15 @@ def profile_run(fn, top=8):
     assert busy_ms <= wall_ms, (
         f"device busy {busy_ms} ms exceeds the wall time {wall_ms} ms")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                idle_share=1.0 - busy_ms / wall_ms,
-                top=[(name[:90], ms) for name, ms in ranked])
+    out = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+               idle_share=1.0 - busy_ms / wall_ms,
+               top=[(name[:90], ms) for name, ms in ranked])
+    if groups:
+        out["groups_ms"] = {
+            g: sum(ms for name, ms in by_name.items()
+                   if any(k in name for k in keys))
+            for g, keys in groups.items()}
+    return out
 
 
 def print_profile(tag, prof, card):
@@ -974,7 +1001,8 @@ def phase_high(c):
     x = torch.as_tensor(c.xh3, dtype=torch.float32, device=dev)
     y = torch.as_tensor(c.yh3, dtype=torch.float32, device=dev)
     xq = torch.as_tensor(c.xqh3, dtype=torch.float32, device=dev)
-    rec["hard3d"], _, _ = high_config(
+    # the oracle's mean stays on ``c`` for phase 16e
+    rec["hard3d"], _, c.hard3d_mean64 = high_config(
         "hard3d", x, y, xq, c.kern_h3, c.h_h3, c.mtot_h3,
         fit_kw=dict(solver="iterative", precond_rank=HIGH_RANK),
         mean_kw=dict(slab=256), oracle="toeplitz", oracle_maxiter=12_000)
@@ -1262,6 +1290,10 @@ def phase_pg(c):
     orig_step = pg_core.outer_step
 
     def timed_step(*a, **k):
+        if c.pg_step is None:
+            # the first outer step's inputs, its Adam state before the
+            # step, for phase 16f
+            c.pg_step = capture_step(a, k)
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
         r = orig_step(*a, **k)
@@ -2429,6 +2461,483 @@ def phase_utils(c):
           f"15d: the loader launched no d=2 type-2 {shapes}")
     rec["15d"]["shapes"] = shape_table(c, shapes, LOADER_SHAPES, "15d")
     rec["15d_s"] = time.perf_counter() - t_d
+    return rec
+
+
+# phase 16: the scale-out (gpquad_torch.parallel) at world size 1 on NCCL.
+# The card is one H100, and NCCL takes one rank a device: every collective
+# is a copy, but the program is the sharded one.  PERF.md's rows that
+# phase 16 must launch, as (kernel, past the TPU's single-block width; None:
+# either)
+SCALEOUT_ROWS = {"1": ("nufft2_2d", False), "2": ("nufft1_2d", False),
+                 "3": ("nufft2_2d", True), "4": ("nufft1_2d", True),
+                 "7": ("nufft2_3d", False), "8": ("nufft1_3d", False),
+                 "9": ("nufft2_2d_batched", None),
+                 "10": ("nufft1_2d_batched", None),
+                 "12": ("nufft1_3d", True)}
+SCALEOUT_TIMEOUT_S = 120    # a collective that does not finish fails
+SCALEOUT_CG_CAP = 2000      # the M-sharded Jacobi PCGs (d=2)
+D3_GRAD_CG_CAP = D3_VAR_MAX_CG_ITER     # d3's Jacobi fit and trace solves
+# 16b and 16f hold the sharded calls to the unsharded ones bit for bit; the
+# groups of kernels whose share of 16c's profiled fit is printed
+# (at world size 1 NCCL's collectives are device-to-device copies)
+PROFILE_GROUPS = {"NCCL (kernels, device-to-device copies)": ("nccl",
+                                                             "Memcpy DtoD"),
+                  "copies (permutes, padding, the gather's concatenation)":
+                  ("direct_copy", "CatArrayBatchedCopy", "copy_kernel"),
+                  "cuFFT": ("fft",)}
+
+
+def capture_step(a, k):
+    """An outer step's arguments with copies of what the step changes: the
+    raw hypers (updated in place) and its optimiser's state before it."""
+    import copy
+    opt = a[10]
+    return dict(args=a[:9], kw=dict(k), raw=a[9].detach().clone(),
+                requires_grad=a[9].requires_grad, opt_cls=type(opt),
+                opt_defaults=dict(opt.defaults),
+                opt_state=copy.deepcopy(opt.state_dict()))
+
+
+def replay_step(step, fn, **extra):
+    """``fn`` (pg_core.outer_step or its sharded twin) on a captured
+    step's inputs, with a fresh copy of its raw hypers and optimiser."""
+    import copy
+    raw = step["raw"].clone().requires_grad_(step["requires_grad"])
+    opt = step["opt_cls"]([raw], **step["opt_defaults"])
+    opt.load_state_dict(copy.deepcopy(step["opt_state"]))
+    return fn(*step["args"], raw, opt, **step["kw"], **extra)
+
+
+def same_bits(a, b):
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def phase_scaleout(c):
+    """Phase 16.  ``c``: a namespace of main()'s dev, card, counters,
+    gpquad_torch and its modules, and the data and float64 references of
+    phases 5 (hard: points, targets, the float32 and float64 Jacobi fits),
+    6 (d3: points, targets, the float64 mean), 10 (scale: the
+    configuration, the float64 mean at its 2 000 targets, the generator),
+    12e (hard3d: points, targets, the oracle's mean) and 13a (the captured
+    outer step).  Returns the phase's record."""
+    import os
+    from datetime import timedelta
+    import torch.distributed as dist
+    from gpquad_torch import parallel
+    from gpquad_torch.models import efgp as efgp_mod, pg_core
+    from gpquad_torch.ops import collectives
+    from gpquad_torch.parallel import msharded
+    gt, cn, nm, dev, card, sig = (c.gt, c.cuda_nufft, c.nufft_mod, c.dev,
+                                  c.card, c.sigmasq)
+    rec = {"sub_s": {}}
+    totals = {}                 # (kernel, precision, mtot) -> launches
+
+    def cuda_ms(fn):
+        """``fn()`` once between two CUDA events: (result, ms)."""
+        sync()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        r = fn()
+        e.record()
+        sync()
+        return r, s.elapsed_time(e)
+
+    def sharded(tag, fn):
+        """``fn()`` (a sharded call) with the counts set to 0 just before
+        it and read just after, and the memory allocated at its peak
+        beyond what was allocated before it: (result, record)."""
+        sync()
+        reset_counts(*c.counters)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        r, ms = cuda_ms(fn)
+        peak = torch.cuda.max_memory_allocated() - base
+        prec = dict(cn.LAUNCH_PRECISIONS)
+        picks = dict(nm.BACKEND_PICKS)
+        check(picks["matmul"] == 0, f"{tag}: the plain path was taken "
+              f"{picks}")
+        launches = {}
+        for (k, p, m), n_ in prec.items():
+            if n_:
+                totals[(k, p, m)] = totals.get((k, p, m), 0) + n_
+                launches[f"{k}/{p}"] = launches.get(f"{k}/{p}", 0) + n_
+        return r, dict(ms=ms, launches=launches, peak_mb=peak / 2 ** 20,
+                       by_mtot={f"{k}/{p}@{m}": n_ for (k, p, m), n_ in
+                                sorted(prec.items()) if n_})
+
+    def line(tag, info, ms_unsharded, extra=""):
+        print(f"[{tag}] sharded {info['ms']:.2f} ms, unsharded "
+              f"{ms_unsharded:.2f} ms (CUDA events, one call each) "
+              f"{card}; launches {info['launches']}; peak allocated "
+              f"{info['peak_mb']:.1f} MiB{extra}")
+
+    def slab(st):
+        """Bytes of this rank's slab of the spectrum (world size 1: the
+        whole padded grid)."""
+        t = st.toeplitz
+        return (t.fft_kernel.numel() // mesh.size()
+                * t.fft_kernel.element_size())
+
+    check(dist.is_available() and dist.is_nccl_available(),
+          "16a: this torch has no NCCL")
+    store = ROOT / "build" / "phase16.store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    # the one rank's communicator talks only to itself
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t_a = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, timeout=timedelta(
+                                seconds=SCALEOUT_TIMEOUT_S))
+    pcg_runs = []      # the variance's PCGs: (iterations, all converged)
+    orig_pcg = efgp_mod.pcg
+
+    def recording_pcg(*a, **k):
+        res = orig_pcg(*a, **k)
+        pcg_runs.append((int(res.iters), bool(res.converged.all())))
+        return res
+    try:
+        # -- 16a: the group, the meshes and the collectives ----------------
+        mesh = parallel.make_mesh(1)
+        mesh2 = parallel.make_mesh(1, axes=("dp", "probe"), shape=(1, 1))
+        group = mesh.get_group("dp")
+        check(mesh.device_type == "cuda" and mesh.size() == 1
+              and tuple(mesh2.mesh.shape) == (1, 1)
+              and mesh2.mesh_dim_names == ("dp", "probe"),
+              f"16a: meshes {mesh} {mesh2}")
+        gen = torch.Generator(device=dev).manual_seed(16)
+        ident = {}
+        for dt in (torch.complex64, torch.complex128):
+            a = torch.randn(4096, dtype=dt, device=dev, generator=gen)
+            ident[f"all_reduce sum {dt}"] = same_bits(
+                collectives.all_reduce(a.clone(), "sum", group), a)
+        i7 = torch.tensor(7, dtype=torch.int32, device=dev)
+        ident["all_reduce max int32"] = int(
+            collectives.all_reduce(i7.clone(), "max", group)) == 7
+        b = torch.randn((3, 64, 128), dtype=torch.complex64, device=dev,
+                        generator=gen)
+        ident["all_to_all_single"] = same_bits(
+            msharded._transpose(b, 2, 1, group, 1), b)
+        ident["all_gather"] = same_bits(collectives.all_gather(b, group, 1),
+                                        b)
+        rec["16a"] = dict(init_s=time.perf_counter() - t_a, identity=ident)
+        nccl = torch.cuda.nccl.version()
+        nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else nccl
+        print(f"[16a] NCCL {nccl} "
+              f"at world size 1: group, meshes {tuple(mesh.mesh.shape)} "
+              f"{mesh.mesh_dim_names} and {tuple(mesh2.mesh.shape)} "
+              f"{mesh2.mesh_dim_names} in {rec['16a']['init_s']:.2f} s; "
+              f"each collective the identity: {ident} {card}")
+        check(all(ident.values()), f"16a: a collective changed its input "
+              f"{ident}")
+        rec["sub_s"]["16a"] = time.perf_counter() - t_a
+
+        # -- 16b: scale, data parallel, against phase 10's calls ----------
+        t_b = time.perf_counter()
+        xs, ys, xqs = scale_data(c.n10)
+        x10, y10, xq10 = (torch.as_tensor(a_, dtype=torch.float32,
+                                          device=dev) for a_ in (xs, ys, xqs))
+        del xs, ys
+        kron_kw = dict(solver="cg", precond="kron", fft_smooth=True)
+        fkw = dict(cg_tol=1e-6, max_cg_iter=2000, **kron_kw)
+        gkw = dict(trace_samples=10, cg_tol=1e-4, max_cg_iter=1000,
+                   **kron_kw)
+
+        def fit_mean(fit):
+            st_ = fit()
+            return st_, gt.predict_mean(st_, xq10)
+
+        (su, mu), ms_u = cuda_ms(lambda: fit_mean(
+            lambda: gt.fit_with_grid(x10, y10, c.kern10, sig, c.h10,
+                                     c.mtot10, device=dev, **fkw)))
+
+        def fit_s():
+            return fit_mean(lambda: parallel.sharded_fit(
+                x10, y10, c.kern10, sig, c.h10, c.mtot10, mesh, **fkw))
+        fit_s()
+        (ss, ms_), info = sharded("16b fit", fit_s)
+        bits_fit = same_bits(ss.beta, su.beta) and same_bits(ms_, mu)
+        err = float((ms_.double() - c.mean10_64).abs().max())
+        gu, gms_u = cuda_ms(lambda: gt.gradient_with_grid(
+            x10, y10, c.kern10, sig, c.h10, c.seeded(), mtot=c.mtot10,
+            device=dev, **gkw))
+
+        def grad_s():
+            return parallel.sharded_gradient(
+                x10, y10, c.kern10, sig, c.h10, c.seeded(), mesh=mesh2,
+                mtot=c.mtot10, **gkw)
+        grad_s()
+        gs, ginfo = sharded("16b gradient", grad_s)
+        bits_grad = all(same_bits(getattr(gs, f), getattr(gu, f)) for f in
+                        ("grad", "beta", "mean_cg_iters", "trace_cg_iters",
+                         "trace_conv_iters"))
+        rec["16b"] = dict(fit=info, fit_ms_unsharded=ms_u,
+                          grad=ginfo, grad_ms_unsharded=gms_u,
+                          same_bits_fit=bits_fit, same_bits_grad=bits_grad,
+                          err_mean_vs_f64=err, slab_bytes=slab(ss),
+                          kron_iters=int(ss.mean_cg_iters),
+                          same_bits_as_phase10=same_bits(ms_, c.mean10)
+                          and same_bits(gs.grad, c.grad10))
+        line("16b", info, ms_u, f"; sharded_fit (kron) + predict_mean "
+             f"at n {c.n10}, mtot {c.mtot10}: the unsharded bits "
+             f"{bits_fit}, max|mean err| vs phase 10's float64 {err:.3e}, "
+             f"kron PCG iters {int(ss.mean_cg_iters)}, spectrum "
+             f"{slab(ss) / 2 ** 20:.1f} MiB")
+        line("16b", ginfo, gms_u, f"; sharded_gradient (T 10, kron): the "
+             f"unsharded bits {bits_grad}, trace PCG iters "
+             f"{int(gs.trace_cg_iters)}; phase 10's bits "
+             f"{rec['16b']['same_bits_as_phase10']}")
+        check(bits_fit, "16b: sharded_fit + predict_mean differ from the "
+              "unsharded call")
+        check(bits_grad, "16b: sharded_gradient differs from the unsharded "
+              "call")
+        rec["sub_s"]["16b"] = time.perf_counter() - t_b
+
+        # -- 16c: 2-D pencils: scale's fit, hard's gradient and variance --
+        t_c = time.perf_counter()
+        mkw = dict(cg_tol=1e-6, max_cg_iter=SCALEOUT_CG_CAP)
+
+        def mfit():
+            return fit_mean(lambda: parallel.msharded_fit(
+                x10, y10, c.kern10, sig, c.h10, c.mtot10, mesh, **mkw))
+        _, ms_u = cuda_ms(lambda: fit_mean(lambda: gt.fit_with_grid(
+            x10, y10, c.kern10, sig, c.h10, c.mtot10, solver="cg",
+            device=dev, **mkw)))
+        mfit()
+        (sm, mm), info = sharded("16c fit", mfit)
+        prof = profile_run(mfit, groups=PROFILE_GROUPS)
+        err = float((mm.double() - c.mean10_64).abs().max())
+        iters = int(sm.mean_cg_iters)
+        c16 = rec["16c"] = dict(fit=info, fit_ms_unsharded=ms_u,
+                                err_mean_vs_f64=err, iters=iters,
+                                slab_bytes=slab(sm), profile=prof,
+                                fft_shape=list(sm.toeplitz.fft_shape))
+        line("16c", info, ms_u, f"; msharded_fit (Jacobi PCG, pad "
+             f"{sm.toeplitz.fft_shape}) + predict_mean at n {c.n10}, mtot "
+             f"{c.mtot10}: {iters} iterations (cap {SCALEOUT_CG_CAP}), max|"
+             f"mean err| vs phase 10's float64 {err:.3e} (bar 5e-4), "
+             f"spectrum slab {slab(sm) / 2 ** 20:.1f} MiB")
+        print_profile("[16c] profiled msharded_fit + mean:", prof, card)
+        if prof["busy_ms"]:
+            print(f"[16c] busy shares of the profiled fit: "
+                  + ", ".join(f"{g} {ms:.2f} ms ({ms / prof['busy_ms']:.3f})"
+                              for g, ms in prof["groups_ms"].items()))
+        check(iters < SCALEOUT_CG_CAP, f"16c: the scale fit's PCG reached "
+              f"its cap {SCALEOUT_CG_CAP}")
+        check(err <= 5e-4, f"16c: the scale mean's error {err:.3e} > 5e-4")
+        del sm, mm, ss, ms_, su, mu, gs, gu, x10, y10
+
+        # hard (phase 5's data): the gradient against float64 with the
+        # same probes, phase 5's cg_tol
+        T, n2, M2 = 10, c.x2.shape[0], c.mtot_hard ** 2
+        Z, V = rademacher(16, T, n2, M2, dev)
+        hkw = dict(mtot=c.mtot_hard, trace_samples=T, cg_tol=1e-4,
+                   max_cg_iter=1000)
+
+        def mgrad():
+            return parallel.msharded_gradient(
+                c.x2, c.y2, c.kern_hard, sig, c.h_hard, None, mesh,
+                probes=(Z, V), **hkw)
+        _, gms_u = cuda_ms(lambda: gt.gradient_with_grid(
+            c.x2, c.y2, c.kern_hard, sig, c.h_hard, probes=(Z, V),
+            solver="cg", precond="jacobi", device=dev, **hkw))
+        mgrad()
+        gm, ginfo = sharded("16c gradient", mgrad)
+        g64 = gt.gradient_with_grid(
+            c.x2.double(), c.y2.double(), c.kern_hard, sig, c.h_hard,
+            probes=(Z.double(), V.double()), solver="cg", precond="jacobi",
+            nufft_method="matmul", device=dev, **hkw)
+        rel = ((gm.grad.double() - g64.grad).abs() / g64.grad.abs()).tolist()
+        conv = bool((gm.trace_conv_iters < hkw["max_cg_iter"]).all())
+        c16.update(grad=ginfo, grad_ms_unsharded=gms_u, grad_rel_err=rel,
+                   grad_mean_iters=int(gm.mean_cg_iters),
+                   grad_trace_iters=int(gm.trace_cg_iters),
+                   grad_trace_iters_f64=int(g64.trace_cg_iters),
+                   grad_f32=gm.grad.tolist(), grad_f64=g64.grad.tolist())
+        line("16c", ginfo, gms_u, f"; msharded_gradient at hard (n {n2}, "
+             f"mtot {c.mtot_hard}, T {T}, cg_tol 1e-4): mean PCG "
+             f"{int(gm.mean_cg_iters)}, trace PCG {int(gm.trace_cg_iters)} "
+             f"iterations (f64 {int(g64.trace_cg_iters)}; cap "
+             f"{hkw['max_cg_iter']}), rel err vs float64 "
+             f"{[f'{r:.3e}' for r in rel]} (bars 1e-2, 1e-2, 2e-2)")
+        check(int(gm.mean_cg_iters) < hkw["max_cg_iter"] and conv,
+              "16c: a hard gradient PCG reached its cap")
+        check(rel[0] <= 1e-2 and rel[1] <= 1e-2 and rel[2] <= 2e-2,
+              f"16c: hard gradient relative error {rel}")
+
+        # hard's exact variance at 256 targets on phase 5's float32 fit,
+        # against "regular" on its float64 fit
+        xv = c.xq2[:256]
+        vkw = dict(cg_tol=1e-6, max_cg_iter=SCALEOUT_CG_CAP)
+        _, vms_u = cuda_ms(lambda: gt.predict_var(c.s2, xv, method="regular",
+                                                  **vkw))
+        efgp_mod.pcg = recording_pcg
+        vm, vinfo = sharded("16c variance", lambda: parallel.
+                            msharded_predict_var(c.s2, xv, mesh, **vkw))
+        efgp_mod.pcg = orig_pcg
+        v_iters, v_conv = pcg_runs[-1]
+        v64 = gt.predict_var(c.s64, xv.double(), method="regular",
+                             cg_tol=1e-8, max_cg_iter=4000)
+        verr = float((vm.double() - v64).abs().max())
+        c16.update(var=vinfo, var_ms_unsharded=vms_u, var_err=verr,
+                   var_iters=v_iters, var_max=float(v64.abs().max()))
+        line("16c", vinfo, vms_u, f"; msharded_predict_var at 256 of "
+             f"hard's targets: {v_iters} PCG iterations (cap "
+             f"{SCALEOUT_CG_CAP}, converged {v_conv}), max|var err| vs "
+             f"float64 'regular' {verr:.3e} (bar {VAR_ABS_BAR:.0e}; max|var|"
+             f" {c16['var_max']:.3e})")
+        check(v_conv and v_iters < SCALEOUT_CG_CAP,
+              "16c: the variance PCG did not converge under its cap")
+        check(verr <= VAR_ABS_BAR, f"16c: variance error {verr:.3e}")
+        rec["sub_s"]["16c"] = time.perf_counter() - t_c
+
+        # -- 16d: 3-D slabs at d3 (phase 6's data) -------------------------
+        t_d = time.perf_counter()
+        dkw = dict(cg_tol=FUSED_KW["cg_tol"], max_cg_iter=D3_GRAD_CG_CAP)
+
+        def mfit3():
+            st_ = parallel.msharded_fit(c.x3, c.y3, c.kern_d3, sig, c.h_d3,
+                                        c.mtot_d3, mesh, **dkw)
+            return st_, gt.predict_mean(st_, c.xq3)
+        _, ms_u = cuda_ms(lambda: gt.predict_mean(gt.fit_with_grid(
+            c.x3, c.y3, c.kern_d3, sig, c.h_d3, c.mtot_d3, solver="cg",
+            device=dev, **dkw), c.xq3))
+        mfit3()
+        (s3, m3), info = sharded("16d fit", mfit3)
+        err = float((m3.double() - c.mean3_64).abs().max())
+        T3, n3, M3 = 10, c.x3.shape[0], c.mtot_d3 ** 3
+        Z3, V3 = rademacher(17, T3, n3, M3, dev)
+        g3kw = dict(mtot=c.mtot_d3, trace_samples=T3,
+                    cg_tol=FUSED_KW["grad_cg_tol"], max_cg_iter=D3_GRAD_CG_CAP)
+
+        def mgrad3():
+            return parallel.msharded_gradient(
+                c.x3, c.y3, c.kern_d3, sig, c.h_d3, None, mesh,
+                probes=(Z3, V3), **g3kw)
+        _, gms_u = cuda_ms(lambda: gt.gradient_with_grid(
+            c.x3, c.y3, c.kern_d3, sig, c.h_d3, probes=(Z3, V3), solver="cg",
+            precond="jacobi", device=dev, **g3kw))
+        g3, ginfo = sharded("16d gradient", mgrad3)
+        g3_64 = gt.gradient_with_grid(
+            c.x3.double(), c.y3.double(), c.kern_d3, sig, c.h_d3,
+            probes=(Z3.double(), V3.double()), solver="cg",
+            precond="jacobi", nufft_method="matmul", device=dev, **g3kw)
+        rel3 = ((g3.grad.double() - g3_64.grad).abs()
+                / g3_64.grad.abs()).tolist()
+        conv3 = bool((g3.trace_conv_iters < D3_GRAD_CG_CAP).all())
+        rec["16d"] = dict(fit=info, fit_ms_unsharded=ms_u,
+                          err_mean_vs_f64=err, iters=int(s3.mean_cg_iters),
+                          slab_bytes=slab(s3),
+                          fft_shape=list(s3.toeplitz.fft_shape),
+                          grad=ginfo, grad_ms_unsharded=gms_u,
+                          grad_rel_err=rel3,
+                          grad_trace_iters=int(g3.trace_cg_iters),
+                          grad_trace_iters_f64=int(g3_64.trace_cg_iters))
+        line("16d", info, ms_u, f"; msharded_fit (pad "
+             f"{s3.toeplitz.fft_shape}) + predict_mean at d3 (n {n3}, mtot "
+             f"{c.mtot_d3}): {int(s3.mean_cg_iters)} iterations (cap "
+             f"{dkw['max_cg_iter']}), max|mean err| vs phase 6's float64 "
+             f"{err:.3e} (bar 5e-4), spectrum slab "
+             f"{slab(s3) / 2 ** 20:.1f} MiB")
+        line("16d", ginfo, gms_u, f"; msharded_gradient at d3 (T {T3}, "
+             f"cg_tol {g3kw['cg_tol']}): trace PCG "
+             f"{int(g3.trace_cg_iters)} iterations (f64 "
+             f"{int(g3_64.trace_cg_iters)}; cap {D3_GRAD_CG_CAP}), rel err "
+             f"vs float64 {[f'{r:.3e}' for r in rel3]} (bar 5e-2)")
+        check(int(s3.mean_cg_iters) < dkw["max_cg_iter"],
+              "16d: the d3 fit's PCG reached its cap")
+        check(err <= 5e-4, f"16d: d3 mean error {err:.3e} > 5e-4")
+        check(int(g3.mean_cg_iters) < D3_GRAD_CG_CAP and conv3,
+              "16d: a d3 gradient PCG reached its cap")
+        check(all(r <= 5e-2 for r in rel3),
+              f"16d: d3 gradient relative error {rel3} > 5e-2")
+        del s3, m3, g3, g3_64
+        rec["sub_s"]["16d"] = time.perf_counter() - t_d
+
+        # -- 16e: float64 at hard3d (12e's data and oracle) ----------------
+        t_e = time.perf_counter()
+        # refined near the float64 floor, where the two fits' betas agree
+        # to rounding: at gpquad's ir_tol 1e-2 and ir_maxiter 600 the
+        # Jacobi passes stop near 1e-10 and the two betas ~2.5e-9 apart (a
+        # CPU rehearsal at this size)
+        hkw3 = dict(ir_passes=8, ir_tol=1e-3, ir_maxiter=2000, ir_rtol=1e-11)
+        xh3, yh3, xqh3 = (torch.as_tensor(a_, dtype=torch.float32,
+                                          device=dev)
+                          for a_ in (c.xh3, c.yh3, c.xqh3))
+        hs_u, ms_u = cuda_ms(lambda: gt.fit_high(
+            xh3, yh3, c.kern_h3, sig, c.h_h3, c.mtot_h3, solver="iterative",
+            device=dev, **hkw3))
+
+        def mhigh():
+            hs_ = parallel.msharded_fit_high(
+                xh3, yh3, c.kern_h3, sig, c.h_h3, c.mtot_h3, mesh,
+                **hkw3)
+            return hs_, gt.predict_mean_high(hs_, xqh3)
+        (hs, mh), info = sharded("16e fit_high", mhigh)
+        err = float((mh - c.hard3d_mean64).abs().max())
+        scale = float(hs_u.beta.abs().max())
+        dbeta = float((hs.beta - hs_u.beta).abs().max())
+        f64 = {f"{k}@{m}": n_ for (k, p, m), n_ in totals.items()
+               if p == "f64" and k.endswith("_3d")}
+        rec["16e"] = dict(fit=info, fit_ms_unsharded=ms_u, err_mean=err,
+                          beta_diff_rel=dbeta / scale,
+                          inner_iters=int(hs.state.mean_cg_iters),
+                          residual=float(hs.residual),
+                          slab_bytes=slab(hs.state), f64_launches=f64)
+        line("16e", info, ms_u, f" (the unsharded call without the mean); "
+             f"msharded_fit_high + predict_mean_high at hard3d (n "
+             f"{xh3.shape[0]}, mtot {c.mtot_h3}, 1 000 targets): "
+             f"{int(hs.state.mean_cg_iters)} inner PCG iterations, residual "
+             f"{float(hs.residual):.3e}; max|mean err| vs 12e's float64 "
+             f"oracle {err:.3e} (bar {HIGH_MEAN_BAR:.0e}); max|beta - "
+             f"fit_high's| {dbeta / scale:.3e} of max|beta| (bar 1e-9); "
+             f"float64 d=3 launches {f64}")
+        check(err <= HIGH_MEAN_BAR, f"16e: high mean error {err:.3e}")
+        check(dbeta <= 1e-9 * scale, f"16e: beta differs from fit_high's "
+              f"by {dbeta / scale:.3e} of max|beta|")
+        for key in (("nufft1_3d", c.mtot_h3), ("nufft1_3d",
+                                               2 * c.mtot_h3 - 1),
+                    ("nufft2_3d", c.mtot_h3)):
+            check(totals.get((key[0], "f64", key[1]), 0) > 0,
+                  f"16e: no float64 {key[0]} launch at mtot {key[1]}")
+        rec["sub_s"]["16e"] = time.perf_counter() - t_e
+
+        # -- 16f: one PG outer step at 13a's configuration -----------------
+        t_f = time.perf_counter()
+        step = c.pg_step
+        ru, ms_u = cuda_ms(lambda: replay_step(step, pg_core.outer_step))
+        replay_step(step, parallel.sharded_pg_outer_step, mesh=mesh2)
+        rs, info = sharded("16f", lambda: replay_step(
+            step, parallel.sharded_pg_outer_step, mesh=mesh2))
+        bits = {f: same_bits(getattr(rs, f), getattr(ru, f))
+                for f in ("delta", "mean", "sigma_diag", "m_grad", "raw",
+                          "e_cg_iters", "m_cg_iters")}
+        rec["16f"] = dict(step=info, step_ms_unsharded=ms_u, same_bits=bits,
+                          n=step["args"][0].shape[0], mtot=step["kw"]["mtot"])
+        line("16f", info, ms_u, f"; sharded_pg_outer_step at 13a's "
+             f"configuration (n {rec['16f']['n']}, mtot {rec['16f']['mtot']}"
+             f"): the unsharded bits {bits}")
+        check(all(bits.values()), f"16f: the sharded PG step differs {bits}")
+        rec["sub_s"]["16f"] = time.perf_counter() - t_f
+    finally:
+        efgp_mod.pcg = orig_pcg
+        dist.destroy_process_group()
+
+    # every row the phase must launch, from its launches by mtot
+    rows = {}
+    for row, (name, wide) in SCALEOUT_ROWS.items():
+        limit = BLOCK_LIMIT[name.replace("_batched", "")]
+        rows[row] = sum(n_ for (k, p, m), n_ in totals.items() if k == name
+                        and (wide is None or (m > limit) == wide))
+    rec["rows"] = rows
+    rec["launches"] = {f"{k}/{p}@{m}": n_ for (k, p, m), n_ in
+                       sorted(totals.items())}
+    print(f"[16] launches by PERF.md row {rows}; by kernel/precision@mtot "
+          f"{rec['launches']}")
+    for row, n_ in rows.items():
+        check(n_ > 0, f"16: row {row} ({SCALEOUT_ROWS[row][0]}) was not "
+              f"launched")
     return rec
 
 
@@ -4813,7 +5322,7 @@ def main() -> int:
     # -- phase 12: the exact variances and the high-precision tier ---------
     t_phase = time.perf_counter()
     from gpquad_torch.utils import f64_oracles
-    record["phases"]["high"] = high = phase_high(types.SimpleNamespace(
+    ns12 = types.SimpleNamespace(
         gt=gpquad_torch, orc=f64_oracles, nufft_mod=nufft_mod,
         cuda_nufft=cuda_nufft, efgp_mod=efgp_mod, dev=dev, card=card,
         counters=counters + (cuda_nufft.LAUNCH_PRECISIONS,),
@@ -4822,16 +5331,18 @@ def main() -> int:
         h_head=h_head, mtot_head=mtot_head, st=st, x2=x2, y2=y2, xq2=xq2,
         kern_hard=kern_hard, h_hard=h_hard, mtot_hard=mtot_hard, n10=n10,
         kern10=kern10, h10=h10, mtot10=mtot10, xh3=xh3, yh3=yh3, xqh3=xqh3,
-        kern_h3=kern_h3, h_h3=h_h3, mtot_h3=mtot_h3))
+        kern_h3=kern_h3, h_h3=h_h3, mtot_h3=mtot_h3)
+    record["phases"]["high"] = high = phase_high(ns12)
     phase_s["12"] = time.perf_counter() - t_phase
     print(f"[12] phase wall time {phase_s['12']:.1f} s")
 
     # -- phase 13: the Polya-Gamma estimators --------------------------------
     t_phase = time.perf_counter()
-    record["phases"]["pg"] = pg = phase_pg(types.SimpleNamespace(
+    ns13 = types.SimpleNamespace(
         gt=gpquad_torch, cuda_nufft=cuda_nufft, nufft_mod=nufft_mod,
         dev=dev, card=card, counters=counters + (cuda_nufft.LAUNCH_PRECISIONS,),
-        kernels=kernels, plains=plains))
+        kernels=kernels, plains=plains, pg_step=None)
+    record["phases"]["pg"] = pg = phase_pg(ns13)
     phase_s["13"] = time.perf_counter() - t_phase
     print(f"[13] phase wall time {phase_s['13']:.1f} s")
 
@@ -4869,6 +5380,24 @@ def main() -> int:
           f"{utils15['15c_s']:.1f} s, 15d {utils15['15d_s']:.1f} s); the "
           f"script so far {time.perf_counter() - t_run:.1f} s")
 
+    # -- phase 16: the scale-out at world size 1 on NCCL --------------------
+    t_phase = time.perf_counter()
+    record["phases"]["scaleout"] = so = phase_scaleout(types.SimpleNamespace(
+        gt=gpquad_torch, cuda_nufft=cuda_nufft, nufft_mod=nufft_mod, dev=dev,
+        card=card, counters=counters + (cuda_nufft.LAUNCH_PRECISIONS,),
+        sigmasq=sigmasq, seeded=seeded, n10=n10, kern10=kern10, h10=h10,
+        mtot10=mtot10, mean10=mean10, mean10_64=mean10_64, grad10=gr10.grad,
+        x2=x2, y2=y2, xq2=xq2, kern_hard=kern_hard, h_hard=h_hard,
+        mtot_hard=mtot_hard, s2=s2, s64=s64, x3=x3, y3=y3, xq3=xq3,
+        kern_d3=kern_d3, h_d3=h_d3, mtot_d3=mtot_d3, mean3_64=out3_64.mean,
+        xh3=xh3, yh3=yh3, xqh3=xqh3, kern_h3=kern_h3, h_h3=h_h3,
+        mtot_h3=mtot_h3, hard3d_mean64=ns12.hard3d_mean64,
+        pg_step=ns13.pg_step))
+    phase_s["16"] = time.perf_counter() - t_phase
+    print(f"[16] phase wall time {phase_s['16']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in so["sub_s"].items())
+          + f"); the script so far {time.perf_counter() - t_run:.1f} s")
+
     # -- the record ----------------------------------------------------------
     # each kernel's row: its largest float32 call on a driven path (the
     # headline's for d=2, the light curve's for d=1, the d=3 paths' by work
@@ -4888,6 +5417,16 @@ def main() -> int:
             p, m = rest.split("@")
             if k in names and int(m) > above:
                 out[p] += v
+        return out
+
+    def scaleout_launches(names, above=0):
+        """Phase 16's launches of the kernels ``names`` past mtot
+        ``above``, both precisions."""
+        out = 0
+        for key, v in so["launches"].items():
+            k, rest = key.split("/")
+            if k in names and int(rest.split("@")[1]) > above:
+                out += v
         return out
     # the d=3 functions' two kernels each (phase 3's tc_3d_both)
     TC3_KEYS = ("dispatch", "tc_ms", "cuda_core_ms", "tc_rel_err",
@@ -4980,6 +5519,7 @@ def main() -> int:
                         k: r[k] for k in TC3_KEYS + (
                             "B", "n", "mtot", "ms", "bound_ms", "bound_by")}
                     for r in f32_rows}
+        extra["launches_scaleout"] = scaleout_launches((name,))
         rows.append({"name": name, "route": "cuda", "source": source_of(name),
                      "replaces": REPLACES[name], **extra,
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -5020,6 +5560,9 @@ def main() -> int:
             extra["at_scale"] = single_at_scale(
                 [r for r in phase3 if r["name"] == kernel
                  and r["dtype"] == "float32"], keys)
+        extra["launches_scaleout"] = scaleout_launches(
+            (kernel, kernel + "_batched") if "_2d" in kernel else (kernel,),
+            limit)
         rows.append({"name": f"{kernel} (mtot > {limit}, for {tpu})",
                      "route": "cuda", "source": source_of(kernel),
                      "replaces": replaces, "launches": launched[tpu], **extra,

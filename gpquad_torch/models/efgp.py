@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import collectives
 from ..ops.cg import CGResult, pcg
 from ..ops.deflation import (DEFLATION_RANK, deflation_block,
                              make_block_precond)
@@ -181,10 +182,14 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
     2,3,5,7-smooth size instead of a power of two.  ``nufft_caps`` (the fit
     grid's and the lag grid's band caps, :func:`plan_nufft_caps`) serves
     ``nufft_method="banded"``; ``make_nufft`` plans a None cap on the host.
-    Runs in ``x``'s floating dtype."""
+    Runs in ``x``'s floating dtype.  Inside ``collectives.sharded`` (the
+    scale-out, ``gpquad_torch.parallel``) ``x`` and ``y`` are this rank's
+    block of the points, and both type-1 sums are reduced over the ranks."""
+    sh = collectives.current()
     dev = resolve_device(device)
     x = _as_points(x, dev)
-    n, d = x.shape
+    d = x.shape[1]
+    n = sh.n_points(x.shape[0])
     rdtype = x.dtype
     cdtype = _cdtype(rdtype)
     y = torch.as_tensor(y, device=dev)
@@ -201,9 +206,10 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
 
     caps = nufft_caps or (None, None)
     nufft = make_nufft(x, h, mtot, method=nufft_method, cap=caps[0])
-    rhs = ws * nufft.type1(y.to(cdtype)).reshape(-1)
+    rhs = ws * sh.points(nufft.type1(y.to(cdtype))).reshape(-1)
 
-    v = convolution_vector(m, x, h, nufft_method=nufft_method, cap=caps[1])
+    v = sh.points(convolution_vector(m, x, h, nufft_method=nufft_method,
+                                     cap=caps[1]))
     toeplitz = make_toeplitz(v, force_pow2=not fft_smooth)
     diag_scale = toeplitz_diag_scale(v)
     A_dense = P_dense = defl_idx = defl_P = kron = None
@@ -229,7 +235,8 @@ def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
             M_inv = make_jacobi_precond(ws, sigmasq, diag_scale=diag_scale)
         if beta0 is not None:
             beta0 = torch.as_tensor(beta0, device=dev)
-        res = pcg(make_A_mean(ws, toeplitz, sigmasq), rhs, beta0, tol=cg_tol,
+        res = pcg(make_A_mean(ws, sh.toeplitz(toeplitz), sigmasq), rhs,
+                  beta0, tol=cg_tol,
                   maxiter=max_cg_iter if max_cg_iter is not None
                   else 2 * rhs.shape[0],
                   M_inv=M_inv)
@@ -278,7 +285,8 @@ def _solve_var(state: FitState, rhs, *, cg_tol, max_cg_iter) -> CGResult:
     if state.P_dense is not None:
         return refine_solve(state.A_dense, state.P_dense, rhs,
                             scale=1.0 / state.sigmasq, tol=cg_tol)
-    A_var = make_A_var(state.ws, state.toeplitz, state.sigmasq)
+    A_var = make_A_var(state.ws, collectives.current().toeplitz(
+        state.toeplitz), state.sigmasq)
     return pcg(A_var, rhs, tol=cg_tol, maxiter=max_cg_iter,
                M_inv=_var_precond(state))
 

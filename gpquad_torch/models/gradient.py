@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops import collectives
 from ..ops.cg import pcg
 from ..ops.deflation import (DEFLATION_RANK, make_block_precond,
                              make_deflation_precond)
@@ -98,10 +99,18 @@ def gradient_with_grid(
     (with ``compute_log_marginal``) the SLQ probes.  A None generator is a
     fresh generator on the run's device seeded 0.  Runs on ``state``'s
     device when a state is given, else on ``device``.
+
+    Inside ``collectives.sharded`` (the scale-out, ``gpquad_torch.parallel``)
+    ``x``, ``y`` and the columns of ``Z`` are this rank's block of the
+    points and the rows of ``Z`` and ``V`` its block of the probes: the
+    type-1 sums and the point sums are reduced over the point ranks, the
+    probe means over the probe ranks.
     """
+    sh = collectives.current()
     dev = state.device if state is not None else resolve_device(device)
     x = _as_points(x, dev)
-    n, d = x.shape
+    d = x.shape[1]
+    n = sh.n_points(x.shape[0])
     rdtype = x.dtype
     cdtype = _cdtype(rdtype)
     y = torch.as_tensor(y, device=dev).to(rdtype)
@@ -141,12 +150,12 @@ def gradient_with_grid(
     nufft = make_nufft(x, h, mtot, method=nufft_method, cap=caps[0])
 
     def fadj(v):
-        return nufft.type1(v).reshape(v.shape[:-1] + (M,))
+        return sh.points(nufft.type1(v)).reshape(v.shape[:-1] + (M,))
 
     fwd = nufft.type2
     if state is not None:
         ws = state.ws
-        toeplitz = state.toeplitz
+        toeplitz = sh.toeplitz(state.toeplitz)
         diag_scale = state.diag_scale
         use_dense = state.P_dense is not None
         if use_dense:
@@ -164,9 +173,10 @@ def gradient_with_grid(
                                                diag_scale=diag_scale)
     else:
         ws = quadrature_weights(kernel, xis, h, d, mask=ws_mask)
-        v_kernel = convolution_vector(m, x, h, nufft_method=nufft_method,
-                                      cap=caps[1])
-        toeplitz = make_toeplitz(v_kernel, force_pow2=not fft_smooth)
+        v_kernel = sh.points(convolution_vector(
+            m, x, h, nufft_method=nufft_method, cap=caps[1]))
+        toeplitz = sh.toeplitz(make_toeplitz(v_kernel,
+                                             force_pow2=not fft_smooth))
         diag_scale = toeplitz_diag_scale(v_kernel)
         use_dense = resolve_solver(solver, mtot, d) == "dense"
         if use_dense:
@@ -221,10 +231,10 @@ def gradient_with_grid(
     for i in range(kernel_hyper_count):
         term2[i] = torch.sum(fadj_alpha.conj()
                              * (Dprime[:, i] * fadj_alpha)).real
-    alpha_norm = torch.sum(alpha.conj() * alpha).real
+    alpha_norm = sh.points(torch.sum(alpha.conj() * alpha).real)
     if variance_idx is not None:
         variance = kernel.get_hyper("variance").to(rdtype)
-        y_alpha = torch.sum(yc.conj() * alpha).real
+        y_alpha = sh.points(torch.sum(yc.conj() * alpha).real)
         term2[variance_idx] = (y_alpha - sigmasq_eff * alpha_norm) / variance
     term2[-1] = alpha_norm
 
@@ -236,6 +246,9 @@ def gradient_with_grid(
     else:
         Z = _rademacher_rows(generator, T, n, rdtype, dev)
         V = _rademacher_rows(generator, T, M, rdtype, dev)
+    # this rank's probe rows; the means divide by the count of all rows
+    T = Z.shape[0]
+    T_all = sh.n_probes(T)
 
     if tk > 0:
         fadjZ = fadj(Z.to(cdtype))                            # (T, M)
@@ -263,16 +276,18 @@ def gradient_with_grid(
     if tk > 0:
         Beta_kernel = ws * Beta_all[:tk * T]
         fwdBeta = fwd(Beta_kernel)                            # (tk*T, n)
-        Alpha = ((rhs_data - fwdBeta) / sig_c).reshape(tk, T, n)
-        t1_kernel = torch.mean(
-            torch.sum(Z[None, :, :].to(cdtype) * Alpha, dim=2).real, dim=1)
+        Alpha = ((rhs_data - fwdBeta) / sig_c).reshape(tk, T, -1)
+        t1_kernel = sh.probes(torch.sum(sh.points(
+            torch.sum(Z[None, :, :].to(cdtype) * Alpha, dim=2).real),
+            dim=1)) / T_all
         for slot, idx in enumerate(trace_kernel_indices):
             term1[idx] = t1_kernel[slot]
 
     Beta_noise = Beta_all[tk * T:]
     term1_noise = (n / sigmasq_eff
-                   - torch.mean(torch.sum(V.to(cdtype).conj() * Beta_noise,
-                                          dim=1).real / sigmasq_eff))
+                   - sh.probes(torch.sum(
+                       torch.sum(V.to(cdtype).conj() * Beta_noise,
+                                 dim=1).real / sigmasq_eff)) / T_all)
     if variance_idx is not None:
         term1[variance_idx] = (n - sigmasq_eff * term1_noise) / variance
     term1[-1] = term1_noise
@@ -285,16 +300,17 @@ def gradient_with_grid(
         det_term = logdet_slq(ws, sigmasq_eff, toeplitz, generator,
                               probes=log_marginal_probes,
                               steps=log_marginal_steps, n=n)
-        vdot_term = torch.sum(yc.conj() * alpha).real
+        vdot_term = sh.points(torch.sum(yc.conj() * alpha).real)
         log_marginal = (-0.5 * vdot_term - 0.5 * det_term
                         - 0.5 * n * math.log(2 * math.pi))
     else:
         log_marginal = torch.tensor(float("nan"), dtype=rdtype, device=dev)
 
-    return GradientResult(grad=grad, beta=beta_raw, log_marginal=log_marginal,
-                          mean_cg_iters=res_mean.iters,
-                          trace_cg_iters=res_trace.iters,
-                          trace_conv_iters=res_trace.conv_iters)
+    return GradientResult(
+        grad=grad, beta=beta_raw, log_marginal=log_marginal,
+        mean_cg_iters=res_mean.iters,
+        trace_cg_iters=sh.probe_max(res_trace.iters),
+        trace_conv_iters=sh.gather_probe_rows(res_trace.conv_iters, tk + 1))
 
 
 def gradient(x, y, kernel, sigmasq, eps, generator=None, *,

@@ -20,6 +20,12 @@ Plain functions on tensors in the points' dtype.  The NUFFTs go through
 points on the card; the probes are arguments (the estimator draws them).
 gpquad compiles each pass once per grid bucket; here each is eager, and
 the E-step's damped fixed point is a Python loop.
+
+Inside ``collectives.sharded`` (``gpquad_torch.parallel.
+sharded_pg_outer_step``) the points and the point axis of the probes are
+this rank's block, and the probe rows may be split too: every type-1 over
+the training points is reduced over the point ranks, the probe means over
+the probe ranks.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import collectives
 from ..ops.cg import pcg
 from ..ops.dense_solve import (DENSE_SOLVER_MAX_M, dense_inverse,
                                dense_toeplitz, refine_solve)
@@ -182,7 +189,8 @@ def weighted_toeplitz_from_points(x, h, mtot: int, delta) -> ToeplitzND:
     if x.ndim == 1:
         x = x[:, None]
     op = make_nufft(x, h, 2 * mtot - 1)
-    return make_toeplitz(op.type1(delta.to(_cdtype(x.dtype))))
+    return make_toeplitz(collectives.current().points(
+        op.type1(delta.to(_cdtype(x.dtype)))))
 
 
 def weighted_toeplitz(spectral: PGSpectralState, x, delta) -> ToeplitzND:
@@ -265,6 +273,7 @@ def estep_pass(spectral: PGSpectralState, x, delta0, kappa, pg_b, probes, *,
     iterations that ran.  The check gates the next iteration, so the
     residual is read on the host only when ``max_iters > 1``.
     """
+    sh = collectives.current()
     rdtype = kappa.dtype
     cdtype = spectral.ws.dtype
     n = kappa.shape[0]
@@ -284,7 +293,8 @@ def estep_pass(spectral: PGSpectralState, x, delta0, kappa, pg_b, probes, *,
             break
         wtoe = weighted_toeplitz_from_points(x, spectral.h, spectral.mtot,
                                              delta)
-        rhs = ws[None, :] * spectral.nufft.type1(Z).reshape(Z.shape[0], -1)
+        rhs = ws[None, :] * sh.points(spectral.nufft.type1(Z)).reshape(
+            Z.shape[0], -1)
 
         def A_feat(u, wtoe=wtoe):
             return u + ws * wtoe(ws * u)
@@ -294,14 +304,15 @@ def estep_pass(spectral: PGSpectralState, x, delta0, kappa, pg_b, probes, *,
         S_all = spectral.nufft.type2(ws[None, :] * res.x).real
         mean = S_all[0]
         Sz = S_all[1:]
-        sigma_diag = (torch.mean(probes * Sz, dim=0) if n_probes > 0
+        sigma_diag = (sh.probes(torch.sum(probes * Sz, dim=0))
+                      / sh.n_probes(n_probes) if n_probes > 0
                       else torch.zeros_like(mean))
         c = torch.sqrt(torch.clamp(sigma_diag + mean ** 2, min=1e-12))
         Lam = pg_omega_expectation(c, pg_b)
         rho = rho0 / (1.0 + gamma * it)
         delta = torch.clamp((1.0 - rho) * delta + rho * Lam, min=0.0)
-        residual = torch.max(torch.abs(delta - Lam))
-        iters = res.iters
+        residual = sh.all_max(torch.max(torch.abs(delta - Lam)))
+        iters = sh.probe_max(res.iters)
         used += 1
     return EstepResult(delta=delta, mean=mean, sigma_diag=sigma_diag,
                        residual=residual, cg_iters=iters, iters_used=used)
@@ -327,6 +338,7 @@ def mstep_gradient(spectral: PGSpectralState, x, delta, kappa, probes, *,
       term2 = E_probes Re[(conj(F* Omega z) . beta_z)^T Dprime]   (trace)
       grad  = 0.5 (term1 - term2), the ELBO's ascent direction.
     """
+    sh = collectives.current()
     cdtype = spectral.ws.dtype
     wtoe = weighted_toeplitz_from_points(x, spectral.h, spectral.mtot, delta)
     solve = _feature_solver(spectral, wtoe, cg_tol=cg_tol,
@@ -334,13 +346,15 @@ def mstep_gradient(spectral: PGSpectralState, x, delta, kappa, probes, *,
     n_probes = probes.shape[0]
     pz = probes.to(cdtype)
     nufft = spectral.nufft
-    Q = nufft.type1(pz).reshape(n_probes, -1)
-    q_y = nufft.type1(kappa.to(cdtype)).reshape(-1)
+    Q = sh.points(nufft.type1(pz)).reshape(n_probes, -1)
+    q_y = sh.points(nufft.type1(kappa.to(cdtype))).reshape(-1)
     beta_all, iters = solve(torch.cat([Q, q_y[None, :]], dim=0))
     beta_probes, beta_k = beta_all[:-1], beta_all[-1]
-    Rfeat = nufft.type1(delta.to(cdtype) * pz).reshape(n_probes, -1)
+    Rfeat = sh.points(nufft.type1(delta.to(cdtype) * pz)).reshape(n_probes,
+                                                                  -1)
     vals = ((torch.conj(Rfeat) * beta_probes) @ spectral.Dprime).real
-    term2 = torch.mean(vals, dim=0)
+    term2 = sh.probes(torch.sum(vals, dim=0)) / sh.n_probes(n_probes)
+    iters = sh.probe_max(iters)
     term1 = spectral.Dprime.real.T @ torch.abs(beta_k) ** 2
     grad = 0.5 * (term1 - term2)
     return MstepResult(grad=grad, term1=term1, term2=term2,
@@ -355,7 +369,8 @@ def solve_beta_mean(spectral: PGSpectralState, x, delta, kappa, *,
     wtoe = weighted_toeplitz_from_points(x, spectral.h, spectral.mtot, delta)
     solve = _feature_solver(spectral, wtoe, cg_tol=cg_tol,
                             max_cg_iter=max_cg_iter)
-    q_y = spectral.nufft.type1(kappa.to(cdtype)).reshape(-1)
+    q_y = collectives.current().points(
+        spectral.nufft.type1(kappa.to(cdtype))).reshape(-1)
     beta, iters = solve(q_y[None, :])
     return beta[0], iters
 
@@ -412,7 +427,7 @@ def dense_feature_system(spectral: PGSpectralState, x, delta):
     Returns ``(A, P, Ds)`` with ``P ~ inv(A)``."""
     cdtype = spectral.ws.dtype
     op = make_nufft(x, spectral.h, 2 * spectral.mtot - 1)
-    v = op.type1(delta.to(cdtype))
+    v = collectives.current().points(op.type1(delta.to(cdtype)))
     Tw = dense_toeplitz(v, spectral.mtot, spectral.d)
     Ds = _floored_Ds(spectral)
     A = Ds[:, None] * Tw * Ds[None, :] + torch.eye(

@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..ops import collectives
 from ..ops.cg import pcg
 from ..ops.deflation import deflation_block, make_block_precond
 from ..ops.dense_solve import DENSE_SOLVER_MAX_M, dense_gram, dense_inverse
@@ -129,18 +130,22 @@ def _high_operators(x64, ws64, h64: float, sig64: float, mtot: int, *,
     """The float64 lag table (type-1 NUFFT of ones on the doubled grid)
     and the operators built from it.  ``inner``: "dense" (the float32
     inverse of the float32 A), "deflation" (the inner PCG with the
-    top-``precond_rank`` block) or "jacobi"."""
+    top-``precond_rank`` block) or "jacobi".  Inside
+    ``collectives.sharded`` ``x64`` is this rank's block of the points, the
+    lag table is reduced over the ranks and both Grams apply as the
+    sharding's ``toeplitz``."""
+    sh = collectives.current()
     d = x64.shape[1]
     m = (mtot - 1) // 2
-    v = convolution_vector(m, x64, h64)
+    v = sh.points(convolution_vector(m, x64, h64))
     T64 = make_toeplitz(v)
     ws_c = ws64.to(_C128)
-    A64 = make_A_mean(ws_c, T64, sig64)
+    A64 = make_A_mean(ws_c, sh.toeplitz(T64), sig64)
     v32 = v.to(_C64)
     toeplitz32 = make_toeplitz(v32)
     ws32 = ws64.to(_C64)
     sig32 = torch.tensor(sig64, dtype=torch.float32, device=x64.device)
-    A_mean32 = make_A_mean(ws32, toeplitz32, sig32)
+    A_mean32 = make_A_mean(ws32, sh.toeplitz(toeplitz32), sig32)
     diag_scale = toeplitz_diag_scale(v32)
     M_inv = solve32 = P = A32 = None
     if inner == "dense":
@@ -204,7 +209,8 @@ def fit_high(x, y, kernel, sigmasq, h, mtot: int, *, passes: int = 8,
             f"Use solver='iterative'.")
     sig64 = float(sigmasq)
     y64 = torch.as_tensor(y, device=dev).to(_F64)
-    Fy = make_nufft(x64, h64, mtot).type1(y64.to(_C128)).reshape(-1)
+    Fy = collectives.current().points(
+        make_nufft(x64, h64, mtot).type1(y64.to(_C128))).reshape(-1)
     b = ws64 * Fy
     if solver == "dense":
         ops = _high_operators(x64, ws64, h64, sig64, mtot, inner="dense")

@@ -53,7 +53,9 @@ def test_import_pulls_in_no_jax():
             "gpquad_torch.ops.spread_banded, gpquad_torch.models.sampling, "
             "gpquad_torch.utils, gpquad_torch.utils.profiling, "
             "gpquad_torch.utils.checkpoint, gpquad_torch.utils.loaders, "
-            "gpquad_torch.native\n"
+            "gpquad_torch.native, gpquad_torch.parallel, "
+            "gpquad_torch.parallel.sharding, "
+            "gpquad_torch.parallel.msharded\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN + FORBIDDEN_PG + FORBIDDEN_UTILS + OPTIONAL!r})\n"
             "print(bad)\n"
@@ -90,7 +92,10 @@ def test_scan_covers_the_port():
                    "gpquad_torch/utils/profiling.py",
                    "gpquad_torch/utils/checkpoint.py",
                    "gpquad_torch/utils/loaders.py",
-                   "gpquad_torch/native.py", "chip_smoke.py"):
+                   "gpquad_torch/native.py",
+                   "gpquad_torch/parallel/__init__.py",
+                   "gpquad_torch/parallel/sharding.py",
+                   "gpquad_torch/parallel/msharded.py", "chip_smoke.py"):
         assert module in names, module
 
 
