@@ -45,7 +45,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      1e9 values, with both scratches, the card's times with the host
      ahead), each checked that the path cuda_nufft.type2_1d_geometry /
      type1_3d_geometry / type2_3d_geometry picks was the fastest measured
-     there (within DISPATCH_TIE);
+     there (within DISPATCH_TIE); the float64 d=2 type-1, single and
+     batched, on the FP64 tensor cores (DMMA, csrc/tc_type1_f64.cuh) at
+     every float64 shape the driven paths launch (phase 12's Matérn and
+     phase 13's PG probe batches too, in float64 alone): within 1e-10 of
+     max|ref|, bit for bit against a second launch, with its scratch,
+     within 1e-12 of its twin nufft1_2d_f64_tc_ref up to 25 000 points,
+     the wrapper's time (ms) and the card's alone (tc_ms), and the FP64
+     tensor-core bound beside the float64 CUDA-core one;
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -121,7 +128,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      "regular".  The high tier's NUFFTs are all float64 CUDA launches (rows
      1-4, 7-10 of PERF.md's table each at least once), none takes the
      plain path, and it prints a float64 row (kernel, plain and bound ms)
-     for every float64 NUFFT shape it launched.
+     for every float64 NUFFT shape it launched (the d=2 type-1's bound its
+     FP64 tensor-core one, the CUDA cores' beside it); 12d checks that its
+     float64 type-1s ran at 339 and 677 and prints its ms beside the
+     2 455.70 ms PERF.md records for it on the CUDA-core type-1 before
+     (scripts/time_high_scale.py compares the two checkouts in one call).
  13. the Polya-Gamma estimators: 13a scripts/pg_scale.py's classifier
      (n=1e5 in [-1,1]^2, labels from sample_bernoulli_gp_spectral as the
      script draws them, l 0.3 at the start -> mtot 21, lag grid 41; 13b's
@@ -220,9 +231,11 @@ Adam iteration and, beside the f32 variance, the f32 plain path's and the
 bfloat16-weight control's.
 
 It prints each phase's wall time, the kernels' JSON line (the eight NUFFT
-kernels, the four TPU mode-tiled functions they cover, with the launches
-made past the TPU's single-block width, and the two interpolation kernels:
-all 14 TPU functions), then the card's nvidia-smi line, then
+kernels, the float64 d=2 type-1's FP64 tensor-core kernel, single and
+batched, with its launches in phase 12, the four TPU mode-tiled functions
+they cover, with the launches made past the TPU's single-block width, and
+the two interpolation kernels: all 14 TPU functions), then the card's
+nvidia-smi line, then
 ``{"ok": true, "device": ...}`` as the last line, and writes the full
 record to build/chip_smoke.json.  Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -250,6 +263,8 @@ ROOT = Path(__file__).resolve().parent
 # bandwidth.
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_TF32 = 495e12
+# dense float64 on the tensor cores (DMMA; the float64 d=2 type-1)
+PEAK_FP64_TC = 67e12
 PEAK_BYTES = 3.35e12
 # the float32 type-1 on the tensor cores (d=2, and d=1 on a split of its
 # mode index): three TF32 products (the 3xTF32 split) per real product, 8
@@ -295,6 +310,9 @@ LC_GAPS = ((330, 360), (700, 745), (1050, 1080))
 LC_NOISE = 5e-4
 LC_OPT = dict(max_iters=50, lr=0.05, trace_samples=1, cg_tol=1e-6,
               noise_floor=1e-4, min_lengthscale=2e-4)
+# phase 3 runs the float64 d=2 type-1's twin on the card up to this many
+# points (its k-steps are a loop of small operations)
+TWIN_F64_MAX_N = 25_000
 # How much slower than the fastest path measured at a shape the single d=2
 # type-2's pick may be in phase 3, relative and in ms, whichever is larger:
 # device times of one shape spread by up to 4% between runs (PERF.md
@@ -397,7 +415,7 @@ def time_cuda_paths(fns, reps, trials=5):
     return {r: statistics.median(t) for r, t in times.items()}
 
 
-def profile_run(fn, top=8, groups=None):
+def profile_run(fn, top=8, groups=None, host_top=0):
     """Run ``fn`` once under torch.profiler: host wall time, device busy
     time (union of the intervals of the kernels and memory copies on the
     device), idle share, and the kernels with the most device time.  The
@@ -406,7 +424,9 @@ def profile_run(fn, top=8, groups=None):
     from the first kernel inside it to the last and so covers the idle gaps
     between them.  Device numbers are None when the profiler saw no CUDA
     kernel.  ``groups`` ({label: substrings}) adds each group's device ms:
-    the kernels whose name holds one of its substrings."""
+    the kernels whose name holds one of its substrings.  ``host_top`` > 0
+    adds the host operators with the most self time on the CPU (name, ms,
+    calls), the profiler's own cost on each included."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from gpquad_torch.utils import profiling
@@ -451,6 +471,10 @@ def profile_run(fn, top=8, groups=None):
             g: sum(ms for name, ms in by_name.items()
                    if any(k in name for k in keys))
             for g, keys in groups.items()}
+    if host_top:
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        out["host_top"] = [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
+                           for e in ops[:host_top]]
     return out
 
 
@@ -537,6 +561,20 @@ def bound_3xtf32_ms(name, n, m, B=1, split=None):
         outer = 8 if name.startswith("nufft2") else 6
         rest = n * (K + Q) * PHASE_FLOPS + outer * B * n * K
     t_ops = (tc / PEAK_TF32 + rest / PEAK_FLOPS[torch.float32]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound_fp64_tc_ms(name, n, m, B=1):
+    """The float64 d=2 type-1's bound on the FP64 tensor cores
+    (csrc/tc_type1_f64.cuh): 8 flops a point, mode pair and vector at the
+    dense FP64 tensor-core rate, the rest of kernel_work's operations (the
+    phases, the products v e1) at the float64 CUDA-core rate; against its
+    bytes."""
+    flops, nbytes = kernel_work(name, n, m, torch.float64, B)
+    tc = 8 * B * n * m ** 2
+    t_ops = (tc / PEAK_FP64_TC
+             + (flops - tc) / PEAK_FLOPS[torch.float64]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -990,6 +1028,16 @@ def phase_high(c):
         "scale", x, y, xq, c.kern10, c.h10, c.mtot10,
         fit_kw=dict(solver="iterative", precond_rank=HIGH_RANK),
         oracle="toeplitz")
+    # its float64 type-1s (F*y at 339, the lag table at 677), on the FP64
+    # tensor cores
+    info = rec["scale"]["fit_high+mean"]
+    widths = {int(k.split("@")[1]): v for k, v in info["f64_widths"].items()
+              if k.startswith("nufft1_2d@")}
+    check(set(widths) == {c.mtot10, 2 * c.mtot10 - 1},
+          f"scale fit_high + mean: float64 type-1 launches by mtot {widths}")
+    print(f"[12] scale fit_high + predict_mean_high {info['ms']:.2f} ms "
+          f"(on the CUDA-core type-1 before: 2 455.70 ms, PERF.md); float64 "
+          f"type-1 launches by mtot {widths} {card}")
     del x, y
     torch.cuda.empty_cache()
 
@@ -1029,7 +1077,9 @@ def f64_shape_table(c, totals, h_matern):
     version's and the bound's ms: phase 3's float64 row where phase 3 ran
     the shape, else timed here the way phase 3 times (CUDA events, the
     kernel and the plain version on the same inputs, the kernel held within
-    1e-10 of max|ref| of the plain version)."""
+    1e-10 of max|ref| of the plain version).  The bound is the picked
+    kernel's (the d=2 type-1's on the FP64 tensor cores,
+    bound_fp64_tc_ms), the CUDA cores' float64 bound beside it."""
     head, hard = (c.h_head, c.mtot_head), (c.h_hard, c.mtot_hard)
     m29, m107, m339 = head[1], hard[1], c.mtot10
     shapes = [  # (name, n, mtot, B, h, serves)
@@ -1090,16 +1140,21 @@ def f64_shape_table(c, totals, h_matern):
                            3)
             plain_ms = time_cuda(lambda: c.plains[name](x, arg, hq, mtot=m),
                                  max(2, reps // 4), 3)
-            b_ms, src = bound_ms(name, n, m, torch.float64, B)[0], "phase 12"
+            b_ms, src = (bound_fp64_tc_ms(name, n, m, B)[0]
+                         if name.startswith("nufft1_2d") else
+                         bound_ms(name, n, m, torch.float64, B)[0]), \
+                "phase 12"
             del x, arg, got, ref
+        b_cc = bound_ms(name, n, m, torch.float64, B)[0]
         launched = totals.get((name, "f64", m), 0)
         rows.append(dict(name=name, n=n, mtot=m, B=B, serves=serves, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, rel_err=rel,
+                         plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_cuda_core_ms=b_cc, rel_err=rel,
                          timed_in=src, launches_phase12=launched))
         print(f"[12] float64 {name} n={n} mtot={m} B={B} ({serves}): "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms, "
-              f"rel err {rel:.3e} ({src}); phase 12 launched it "
-              f"{launched} times at this mtot {c.card}")
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"(CUDA cores {b_cc:.4f}), rel err {rel:.3e} ({src}); phase "
+              f"12 launched it {launched} times at this mtot {c.card}")
     covered = {(r["name"], r["mtot"]) for r in rows}
     missing = sorted(f"{k}@{m}" for (k, p, m), n_ in totals.items()
                      if n_ and p == "f64" and (k, m) not in covered)
@@ -1692,6 +1747,9 @@ def shape_table(c, shapes, known, tag):
         plain_ms = (time_cuda(plain, 1, 1, warm=0) if once > 50 else
                     time_cuda(plain, max(2, reps // 4), 3))
         b_ms, b_by = bound_ms(name, n, m, dtype, B)
+        if prec == "f64" and name.startswith("nufft1_2d"):
+            # the kernel's own, the FP64 tensor cores'
+            b_ms, b_by = bound_fp64_tc_ms(name, n, m, B)
         if prec == "f32":
             cn = c.cuda_nufft
             if name == "nufft1_1d":
@@ -3080,6 +3138,31 @@ def main() -> int:
             ("nufft2_2d_batched", n10, mtot10, False, h10,
              "scale gradient F(D'F*Z), F(D Beta)", B),
         ]
+    # the float64 d=2 type-1 at the other shapes its driven paths launch,
+    # in float64 only: phase 12's Matérn configuration (F*y, the lag table,
+    # gradient_high's F*Z), phase 13's PG probe batches (13a's classifier,
+    # 13b's spatial plan; B 10 and 11) and its single calls (PG_SHAPES;
+    # 14c's are among them)
+    kern_mat = gpquad_torch.make_kernel("Matern32", 2,
+                                        lengthscale=np.float32(MATERN_L),
+                                        variance=np.float32(1.0))
+    _, h_mat, mtot_mat = gpquad_torch.spectral_grid(kern_mat, MATERN_EPS,
+                                                    1.0)
+    check(mtot_mat == 93, f"Matérn planned mtot {mtot_mat}, not 93")
+    shapes_f64 = [
+        ("nufft1_2d", MATERN_N, mtot_mat, False, h_mat, "matern F*y", 1),
+        ("nufft1_2d", MATERN_N, 2 * mtot_mat - 1, False, h_mat,
+         "matern lag table", 1),
+        ("nufft1_2d_batched", MATERN_N, mtot_mat, False, h_mat,
+         "matern gradient_high F*Z", 10)]
+    shapes_f64 += [("nufft1_2d_batched", n, m, False, 0.4, what, B)
+                   for n, m, what in ((100_000, 17, "PG F*Z"),
+                                      (100_000, 21, "PG F*Z"),
+                                      (ST_N, 43, "PG spatial F*Z"))
+                   for B in (10, 11)]
+    shapes_f64 += [("nufft1_2d", n, m, False, 0.4, "PG", 1)
+                   for name, prec, n, m, B, _ in sorted(PG_SHAPES)
+                   if (name, prec, B) == ("nufft1_2d", "f64", 1)]
     for tag, n, nq, m, h in (("d3", 100_000, 10_000, mtot_d3, h_d3),
                              ("hard3d", 20_000, 1_000, mtot_h3, h_h3)):
         shapes += [
@@ -3236,6 +3319,50 @@ def main() -> int:
                 f"{out['tc_rel_err']:.3e} (twin {out['twin_rel_diff']:.3e} "
                 f"apart), CUDA cores ms={ms['cuda']:.4f} rel="
                 f"{out['cuda_core_rel_err']:.3e}; geometry {geos['tc']}")
+        return out, line
+
+    def type1_f64_card(name, x, v, hq, m, fo, n, B, scale, got, reps):
+        """The float64 d=2 type-1 on the FP64 tensor cores beyond the row's
+        checks: the kernel's launch at type1_2d_geometry's float64 geometry
+        gives the wrapper's result and the same bits again, within 1e-12 of
+        max|ref| of its twin nufft1_2d_f64_tc_ref (run on the card) up to
+        TWIN_F64_MAX_N points; the card's time alone (tc_ms,
+        time_cuda_paths: the host ahead; one call a run in 3 rounds where a
+        call does over 1e11 mode-point products) and the FP64 tensor-core
+        bound.  Returns the row's fields and a line for the log."""
+        batched = name.endswith("_batched")
+        V = v.reshape(B, n)
+        geo = cuda_nufft.type1_2d_geometry(n, m, B, batched, torch.float64)
+
+        def call():
+            return cuda_nufft._nufft1_2d_on(x, V, hq, m, fo, geo, batched)
+        what = f"{name} float64 B={B} n={n} mtot={m}"
+        o = call()
+        check(torch.equal(o.reshape(got.shape), got),
+              f"{what}: the wrapper's result is not this kernel's")
+        check(torch.equal(call(), o), f"{what}: a second launch differs")
+        out = {"geometry": list(geo)}
+        if n <= TWIN_F64_MAX_N:
+            twin = cuda_nufft.nufft1_2d_f64_tc_ref(
+                x, V if batched else V[0], hq, mtot=m, fft_order=fo)
+            diff = float((o.reshape(twin.shape) - twin).abs().max())
+            check(diff <= 1e-12 * scale,
+                  f"{what}: {diff / scale:.3e} of max|ref| from its twin "
+                  f"(bar 1e-12)")
+            out["twin_rel_diff"] = diff / scale
+            del twin
+        del o
+        big = B * n * m * m > 1e11
+        out["tc_ms"] = time_cuda_paths({"tc": call}, 1 if big else reps,
+                                       3 if big else PATH_TRIALS)["tc"]
+        out["bound_fp64_tc_ms"], out["bound_fp64_tc_by"] = \
+            bound_fp64_tc_ms(name, n, m, B)
+        line = (f" FP64 tensor cores: the card's time tc_ms="
+                f"{out['tc_ms']:.4f}"
+                + (f", twin {out['twin_rel_diff']:.3e} apart"
+                   if "twin_rel_diff" in out else "")
+                + f"; geometry {geo}; bound_fp64_tc_ms="
+                f"{out['bound_fp64_tc_ms']:.4f}")
         return out, line
 
     def type2_1d_both(x, f, hq, m, fo, n, B, ref, scale, got, split_bar,
@@ -3469,7 +3596,7 @@ def main() -> int:
         return out, line
 
     phase3 = []
-    for name, n, m, fo, h, what, B in shapes:
+    for name, n, m, fo, h, what, B in shapes + shapes_f64:
         d = int(name.split("_")[1][0])
         batched = name.endswith("_batched")
         lead = (B,) if batched or B > 1 else ()
@@ -3478,6 +3605,9 @@ def main() -> int:
         arg64 = torch.as_tensor(gen.normal(size=shape)
                                 + 1j * gen.normal(size=shape), device=dev)
         for dtype in (torch.float32, torch.float64):
+            if dtype == torch.float32 and (name, n, m, fo, h, what,
+                                           B) in shapes_f64:
+                continue
             if dtype == torch.float64 and batched and n == n10:
                 # the scale path's probe batches run in float32 only (its
                 # float64 run is the fit and the mean)
@@ -3536,6 +3666,19 @@ def main() -> int:
                        plain_rel_err=plain_rel, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by)
             extra = ""
+            if name in TC_TYPE1 and dtype == torch.float64 and d == 2:
+                # the kernel's own bound is the FP64 tensor cores'; the
+                # float64 CUDA-core bound kept beside it
+                t1, extra = type1_f64_card(name, x, arg, hq, m, fo, n, B,
+                                           scale, got, reps)
+                row.update(t1)
+                row["bound_f64_ms"] = b_ms
+                row["scratch_bytes"] = scratch
+                row["bound_ms"] = t1["bound_fp64_tc_ms"]
+                row["bound_by"] = t1["bound_fp64_tc_by"]
+                extra = (f" scratch {scratch / 1e6:.3f} MB (measured)"
+                         + extra)
+                b_by = f"float64 CUDA cores, {b_by}"
             if tc:
                 # the kernel's own bound is the tensor cores'; the fp32
                 # CUDA-core bound kept beside it
@@ -5531,6 +5674,31 @@ def main() -> int:
                                "fft_order": row["fft_order"],
                                "serves": row["serves"],
                                "dtype": "float32"}})
+    # the float64 d=2 type-1 on the FP64 tensor cores (csrc/tc_type1_f64.cuh),
+    # single and batched: its largest float64 call on a driven path (12d's
+    # lag table; the hard configuration's gradient_high F*Z), the wrapper's
+    # time and the card's alone there; launches from phase 12's high tier
+    # (its float64 launches, all on this kernel), which must hold each
+    for name, serves in (("nufft1_2d", "scale lag table"),
+                         ("nufft1_2d_batched", "CG tier gradient F*Z")):
+        row = next(r for r in phase3 if r["name"] == name
+                   and r["dtype"] == "float64" and r["serves"] == serves)
+        launched = high_launches((name,))["f64"]
+        check(launched > 0, f"phase 12 launched {name}'s FP64 tensor-core "
+              f"kernel no time")
+        rows.append({
+            "name": f"{name} (float64, FP64 tensor cores)", "route": "cuda",
+            "source": "gpquad_torch/csrc/tc_type1_f64.cuh",
+            "replaces": REPLACES[name], "launches": launched,
+            **{k: row[k] for k in ("tc_ms", "scratch_bytes",
+                                   "bound_f64_ms")},
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_fp64_tc_ms"],
+            "bound_by": row["bound_fp64_tc_by"], "library_ms": None,
+            "shape": {"B": row["B"], "n": row["n"], "mtot": row["mtot"],
+                      "fft_order": row["fft_order"],
+                      "serves": row["serves"], "dtype": "float64"}})
     # the TPU's mode-tiled functions, each covered by the kernel above: its
     # float32 call past the single-block limit on the path that drives it
     # (scale fit + mean at d=2, the d3 fused call at d=3)

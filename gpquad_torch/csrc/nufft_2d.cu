@@ -41,11 +41,11 @@
 //    taken in stages (mma accumulators), runs (shared memory) and a total
 //    (the group's partial); a second pass adds the groups' partials in
 //    group order.  No atomics: the result is deterministic.
-//  - type-1, float64 (the oracle and the high-precision runs): the CUDA-core
-//    design, a reduction over 2048-point chunks across blocks.  Stage 1:
-//    each block owns a 16 x 16 tile of outputs and one chunk, stages v*E1
-//    and E2 for sub-tiles of P points in shared memory, and writes its
-//    partial sum.  Stage 2 adds the partials of all chunks in chunk order.
+//  - type-1, float64 (the oracle and the high-precision runs): a GEMM over
+//    the points on the FP64 tensor cores (tc_type1_f64.cuh's kernel, DMMA
+//    m16n8k8), the mode index split so that a point makes few phases a
+//    tile, the points in a fixed number of groups, a second pass adding
+//    the groups' partials in group order.
 //
 // The batched pair serves B vectors against the same points in one launch,
 // the hyper-gradient's probe batches:
@@ -53,7 +53,7 @@
 //   nufft1_2d_batched replaces pallas_nufft1_2d_batched: v (B, N) -> (B, m, m)
 // Each kernel template has the batch group size G as a parameter; the single
 // kernels are its G = 1 instances (the single type-2 on the CUDA cores, the
-// float64 type-1).  A point's phases are made once per
+// type-1).  A point's phases are made once per
 // group and reused for every vector of the group; the products are done B
 // times.  The batch runs in groups of a fixed size (a grid axis over
 // groups), so the per-thread accumulators are a fixed number of registers
@@ -62,11 +62,7 @@
 //    shared memory, and each e1 phase is made once and applied to all G.
 //  - type-1 in float32: a group of 2 vectors takes the output tile's rows
 //    (32 modes j each) and shares its e2 tile.
-//  - type-1 in float64: e1 and e2 for a sub-tile of points are staged once
-//    in shared memory with the group's values; each thread forms e1*e2 for
-//    its output once per point and adds v_b * (e1*e2) for every b of the
-//    group (at G = 1 v is folded into the staged e1 instead).  The partials
-//    are (chunk, b, j, k) and the same chunk-order reduction adds them.
+//  - type-1 in float64: likewise, on the FP64 tensor cores.
 //
 // The type-2 kernels are templated on the scalar type: float is the main
 // path, and double tensors run a double instance of the same code.
@@ -74,6 +70,7 @@
 // C interface (bound with ctypes): pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launches.
 
+#include "tc_type1_f64.cuh"
 #include "tc_type2.cuh"
 
 namespace {
@@ -243,129 +240,6 @@ nufft2_2d_split_kernel(const v2_t<T>* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// type-1 stage 1: partial[c, b, j, k] = sum_{n in chunk c} v[b, n] e1(n,j)
-// e2(n,k), e = e^{-2 pi i c}.  Block = one 16 x 16 output tile, one chunk of
-// points (grid axis y), one group of up to G batch elements (grid axis z).
-// At G = 1 (the single kernel) the value is folded into the staged e1
-// (v * e1), so each point and output costs one complex multiply-add; a group
-// of G > 1 stages e1 alone, forms e1 * e2 once per point and output, and adds
-// v_b * (e1 * e2) for every b of the group.
-// ---------------------------------------------------------------------------
-constexpr int T1_TJ = 16;
-constexpr int T1_TK = 16;
-constexpr int T1_THREADS = T1_TJ * T1_TK;
-
-template <typename T, int P, int G>
-__global__ void __launch_bounds__(T1_THREADS)
-nufft1_2d_partial_kernel(const v2_t<T>* __restrict__ x,
-                         const v2_t<T>* __restrict__ v, T h, int n, int m,
-                         int nb, int fft_order, int chunk,
-                         v2_t<T>* __restrict__ partial) {
-  __shared__ T su1[P], su2[P];
-  __shared__ v2_t<T> sv[G][P];
-  __shared__ v2_t<T> e1[P][T1_TJ];   // e1(p, j), times v_p when G = 1
-  __shared__ v2_t<T> e2[P][T1_TK];   // e2(p, k)
-  const int ntk = (m + T1_TK - 1) / T1_TK;
-  const int j0 = (blockIdx.x / ntk) * T1_TJ;
-  const int k0 = (blockIdx.x % ntk) * T1_TK;
-  const int jj = threadIdx.x / T1_TK, kk = threadIdx.x % T1_TK;
-  const int b0 = blockIdx.z * G;
-  const int gn = G == 1 ? 1 : min(G, nb - b0);
-  const int p_begin = blockIdx.y * chunk;
-  const int p_end = min(n, p_begin + chunk);
-  T acc_re[G], acc_im[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    acc_re[g] = 0;
-    acc_im[g] = 0;
-  }
-  for (int p0 = p_begin; p0 < p_end; p0 += P) {
-    const int pn = min(P, p_end - p0);
-    __syncthreads();
-    for (int q = threadIdx.x; q < pn; q += T1_THREADS) {
-      const v2_t<T> xq = x[p0 + q];
-      su1[q] = torus(xq.x, h);
-      su2[q] = torus(xq.y, h);
-    }
-    for (int e = threadIdx.x; e < G * P; e += T1_THREADS) {
-      const int g = e / P, q = e % P;
-      v2_t<T> val;
-      val.x = 0;
-      val.y = 0;
-      if (g < gn && q < pn) val = v[(size_t)(b0 + g) * n + p0 + q];
-      sv[g][q] = val;
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < pn * T1_TJ; e += T1_THREADS) {
-      const int q = e / T1_TJ, a = e % T1_TJ;
-      v2_t<T> w;
-      w.x = 0;
-      w.y = 0;
-      if (j0 + a < m) {
-        T c, s;
-        phase(su1[q], mode_value<T>(j0 + a, m, fft_order), &c, &s);
-        if constexpr (G == 1) {
-          const v2_t<T> vq = sv[0][q];
-          // (c - i s)(vr + i vi)
-          w.x = fma(c, vq.x, s * vq.y);
-          w.y = fma(c, vq.y, -s * vq.x);
-        } else {
-          w.x = c;
-          w.y = -s;
-        }
-      }
-      e1[q][a] = w;
-    }
-    for (int e = threadIdx.x; e < pn * T1_TK; e += T1_THREADS) {
-      const int q = e / T1_TK, b = e % T1_TK;
-      v2_t<T> w;
-      w.x = 0;
-      w.y = 0;
-      if (k0 + b < m) {
-        T c, s;
-        phase(su2[q], mode_value<T>(k0 + b, m, fft_order), &c, &s);
-        w.x = c;
-        w.y = -s;
-      }
-      e2[q][b] = w;
-    }
-    __syncthreads();
-    for (int q = 0; q < pn; ++q) {
-      const v2_t<T> a = e1[q][jj];
-      const v2_t<T> b = e2[q][kk];
-      if constexpr (G == 1) {
-        acc_re[0] = fma(a.x, b.x, fma(-a.y, b.y, acc_re[0]));
-        acc_im[0] = fma(a.x, b.y, fma(a.y, b.x, acc_im[0]));
-      } else {
-        const T er = fma(a.x, b.x, -a.y * b.y);
-        const T ei = fma(a.x, b.y, a.y * b.x);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          if (g < gn) {   // uniform over the block
-            const v2_t<T> vq = sv[g][q];
-            acc_re[g] = fma(vq.x, er, fma(-vq.y, ei, acc_re[g]));
-            acc_im[g] = fma(vq.x, ei, fma(vq.y, er, acc_im[g]));
-          }
-        }
-      }
-    }
-  }
-  if (j0 + jj < m && k0 + kk < m) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (g < gn) {
-        v2_t<T> o;
-        o.x = acc_re[g];
-        o.y = acc_im[g];
-        partial[(((size_t)blockIdx.y * nb + b0 + g) * m + (j0 + jj)) * m
-                + (k0 + kk)] = o;
-      }
-    }
-  }
-}
-
-
-// ---------------------------------------------------------------------------
 // type-1 in float32 on the tensor cores: tc_type1.cuh's kernel on the d=2
 // problem, rows the modes j of the first axis (e1 from x1), columns the
 // modes k of the second (e2 from x2), output (j, k) of the mtot x mtot grid;
@@ -454,13 +328,11 @@ struct Type2Grid2D {
 };
 
 // The single kernels are the G = 1 instances (the single type-2's CUDA-core
-// path with 64 threads per block); a batch runs in groups of 4 (type-2, 128
-// threads) or 8 (the float64 type-1) vectors, and the float32 type-1 on the
-// tensor cores in groups of 2.
+// path with 64 threads per block); a batch runs in groups of 4 vectors
+// (type-2, 128 threads), and the type-1 (float32 and float64) in groups of 2.
 constexpr int T2_THREADS = 64;
 constexpr int T2B_THREADS = 128;
 constexpr int T2B_GROUP = 4;
-constexpr int T1B_GROUP = 8;
 constexpr int TCB_GROUP = 2;
 
 template <typename T, int THREADS, int G>
@@ -499,23 +371,6 @@ int launch_nufft2_split(const void* x, const void* f, T h, int n, int m,
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   return launch_reduce<T>(partial, slabs, n, out, s);
-}
-
-template <typename T, int G>
-int launch_nufft1(const void* x, const void* v, T h, int n, int m, int nb,
-                  int fft_order, int chunk, void* partial, void* out,
-                  void* stream) {
-  constexpr int P = 64;     // the float64 instances; float32 takes the tc kernel
-  const int ntj = (m + T1_TJ - 1) / T1_TJ;
-  const int nchunk = (n + chunk - 1) / chunk;
-  const dim3 grid(ntj * ntj, nchunk, (nb + G - 1) / G);
-  cudaStream_t s = (cudaStream_t)stream;
-  nufft1_2d_partial_kernel<T, P, G><<<grid, T1_THREADS, 0, s>>>(
-      (const v2_t<T>*)x, (const v2_t<T>*)v, h, n, m, nb, fft_order, chunk,
-      (v2_t<T>*)partial);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return launch_reduce<T>(partial, nchunk, nb * m * m, out, s);
 }
 
 }  // namespace
@@ -560,11 +415,22 @@ int gpq_nufft1_2d_f32(const void* x, const void* v, float h, int n, int m,
                                          partial, out, stream);
 }
 
+// the float64 type-1 on the FP64 tensor cores (tc_type1_f64.cuh), its
+// geometry (rows, cols, group, run, chunk) from ops/cuda_nufft.py
+// type1_2d_geometry
 int gpq_nufft1_2d_f64(const void* x, const void* v, double h, int n, int m,
-                      int fft_order, int chunk, void* partial, void* out,
-                      void* stream) {
-  return launch_nufft1<double, 1>(x, v, h, n, m, 1, fft_order, chunk, partial, out,
-                                  stream);
+                      int fft_order, int rows, int cols, int group, int run,
+                      int chunk, void* partial, void* out, void* stream) {
+  return launch_type1_f64<1>(x, v, h, n, m, 1, fft_order, rows, cols, group,
+                             run, chunk, partial, out, stream);
+}
+
+int gpq_nufft1_2d_batched_f64(const void* x, const void* v, double h, int n,
+                              int m, int nb, int fft_order, int rows,
+                              int cols, int group, int run, int chunk,
+                              void* partial, void* out, void* stream) {
+  return launch_type1_f64<TCB_GROUP>(x, v, h, n, m, nb, fft_order, rows, cols,
+                                     group, run, chunk, partial, out, stream);
 }
 
 int gpq_nufft2_2d_batched_f32(const void* x, const void* f, float h, int n,
@@ -602,13 +468,6 @@ int gpq_nufft1_2d_batched_f32(const void* x, const void* v, float h, int n,
                                                  fft_order, rows, cols, group,
                                                  acc, run, chunk, partial,
                                                  out, stream);
-}
-
-int gpq_nufft1_2d_batched_f64(const void* x, const void* v, double h, int n,
-                              int m, int nb, int fft_order, int chunk,
-                              void* partial, void* out, void* stream) {
-  return launch_nufft1<double, T1B_GROUP>(x, v, h, n, m, nb, fft_order, chunk,
-                                          partial, out, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,434 @@
+// The float64 d=2 type-1 NUFFT on the H100's FP64 tensor cores (DMMA,
+// mma.sync.aligned.m16n8k8 .f64), single and batched: type1_f64_kernel<G,
+// COLS>, included by nufft_2d.cu.  It replaces, in float64, the TPU's
+// pallas_nufft1_2d / _pallas_nufft1_2d_tiled (gpquad/ops/pallas_nufft.py:195,
+// :442) and pallas_nufft1_2d_batched (:914), whose float64 form gpquad runs
+// as its double-word type-1 (gpquad/ops/nufft_df.py:95 df_nufft1); here
+// float64 is native.
+//
+// The sum over points is a GEMM whose reduction axis is the points:
+//   out = A^T E2,  A[p, (b, j)] = v_b[p] e1(p, j),  E2[p, k] = e2(p, k),
+// complex (e = e^{-2 pi i c}), as four real float64 products on the tensor
+// cores:  out_re = Ar^T Er + Ai^T (-Ei),  out_im = Ar^T Ei + Ai^T Er.  No
+// split of the operands: DMMA takes float64 as it is.
+//
+// What bounds it on an H100: 8 flops a point, output and vector on the
+// tensor cores (67 TFLOP/s dense float64), and the phases on the CUDA cores
+// (34 TFLOP/s).  A float64 sincospi costs tens of flops, and a tile of TJ x
+// COLS outputs would need TJ + COLS phases a point, nearly as many flops as
+// the products.  So the mode index is split: the rows are taken in
+// symmetric order (row j is mode j - half; the epilogue writes FFT order
+// where asked), and mode j - half = (K s - half) + r with r = j mod K, so
+//   e(u, j - half) = e(u, K s - half) e(u, r),
+// each factor from nufft_common.cuh's phase<double> (the torus fold, the
+// compensated u k, sincospi).  A point then makes K + TJ / K row phases and
+// K + COLS / K column phases a tile (32 at 64 x 64, not 128), and one
+// complex product an operand entry.  The factor e(u, K s - half) does not
+// depend on the tile, so the twin (ops/cuda_nufft.py
+// nufft1_2d_f64_tc_ref) forms every entry the same way.
+//
+// Block: 512 threads in four warpgroups over a 64 x COLS output tile (rows:
+// G vectors x TJ = 64 / G modes j; COLS 32 or 64 modes k), grid (row tiles x
+// column tiles, point groups, batch groups):
+//  - two producer warpgroups (setmaxnreg 72) make, per stage of T64_P
+//    points, the points' torus coordinates and values (loaded from device
+//    memory a stage ahead), then the split's phase factors (T64Tables:
+//    e(u1, r), e(u2, r), v_g e(u1, K s - half), e(u2, K s - half)), then
+//    the stage's operands A = v e1 and E2 into a shared-memory stage
+//    buffer, each entry one complex product of two factors, a producer
+//    writing the K entries of one factor in 16-byte stores;
+//  - two consumer warpgroups (setmaxnreg 184), 8 warps of WM x WN warp
+//    tiles (32 x 16 at COLS 64, 16 x 16 at 32), run the stage's k-steps of
+//    8 points, four m16n8k8 DMMA a 16 x 8 output tile and k-step.
+// Two stage buffers; named barriers hand each one over (as tc_type1.cuh).
+// Taken apart on the card (scripts/time_type1_2d_f64.py: no phases, no
+// fill, no mma), the consumers alone run at ~83% of the FP64 tensor-core
+// rate at n 1e6 x mtot 339 and the producers alone take ~0.8x their time;
+// together the kernel reaches ~40% of its bound there: the two roles'
+// work adds more than it overlaps.
+//
+// The sum, in a fixed order and with no atomics:
+//  - a run of `run` points in the DMMA accumulators: k-step after k-step
+//    from zero, each k-step adding Ar Er then Ai (-Ei) into the real part
+//    and Ar Ei then Ai Er into the imaginary part (the tensor cores add a
+//    k-step's 8 products and the accumulator in their own order);
+//  - the runs of the block's point group added into the group's partial
+//    in device memory, in run order (each thread reading back only what it
+//    wrote);
+//  - launch_reduce adds the groups' partials in group order.
+// The same bits on every launch.  ops/cuda_nufft.py type1_2d_geometry
+// owns the geometry (tile, group, run, the points a group) and the launch
+// refuses one it has no instance for; the scratch holds groups x B x mtot^2
+// values.
+#pragma once
+
+#include "tc_type1.cuh"
+
+namespace {
+
+constexpr int T64_THREADS = 512;
+constexpr int T64_CONSUMERS = 256;   // warpgroups 0-1; 2-3 produce
+constexpr int T64_ROWS = 64;
+constexpr int T64_P = 32;            // points a stage
+constexpr int T64_K = 8;             // the split's r = 0 .. K - 1
+constexpr int T64_RS = T64_ROWS + 4;  // padded strides (doubles): a
+                                      // fragment load's half-warp reads 16
+                                      // distinct 8-byte bank pairs
+
+// The consumers' warp grid over a T64_ROWS x COLS tile: WR x WC warps of
+// MI 16-row m-tiles by NI 8-column n-tiles.
+template <int COLS>
+struct T64Tile {
+  static_assert(COLS == 32 || COLS == 64, "tile widths: 32, 64");
+  static constexpr int WC = COLS == 64 ? 4 : 2;
+  static constexpr int WR = T64_CONSUMERS / 32 / WC;
+  static constexpr int WM = T64_ROWS / WR, WN = COLS / WC;
+  static constexpr int MI = WM / 16, NI = WN / 8;
+  static constexpr int CS = COLS + 4;
+};
+
+// A stage's operands, point-major: A's real and imaginary parts (rows (g,
+// j)) and E2's (columns k)
+template <int COLS>
+struct T64Stage {
+  double ar[T64_P][T64_RS], ai[T64_P][T64_RS];
+  double br[T64_P][T64Tile<COLS>::CS], bi[T64_P][T64Tile<COLS>::CS];
+};
+
+// What the producers make of a stage's points before its operands (one
+// copy: only the producers read it, and their barriers order its uses)
+template <int G, int COLS>
+struct T64Tables {
+  static constexpr int S1 = T64_ROWS / G / T64_K, S2 = COLS / T64_K;
+  double u1[T64_P], u2[T64_P];     // torus coordinates
+  double2 v[G][T64_P];             // the group's values
+  double2 r1[T64_P][T64_K];        // e(u1, r)
+  double2 r2[T64_P][T64_K];        // e(u2, r)
+  double2 s1[T64_P][G][S1];        // v_g e(u1, K s - half), the tile's s
+  double2 s2[T64_P][S2];           // e(u2, K s - half)
+};
+
+// d += A (16x8, row) * B (8x8, col) on the FP64 tensor cores
+__device__ __forceinline__ void mma_f64(double* d, const double* a,
+                                        const double* b) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// (a.x + i a.y)(b.x + i b.y)
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(fma(a.x, b.x, -a.y * b.y), fma(a.x, b.y, a.y * b.x));
+}
+
+// A stage's point (producer thread ptid < T64_P): its coordinates and
+// values, loaded one stage ahead of their use
+template <int G>
+struct T64Point {
+  double2 x;
+  double2 v[G];
+  // point p0 + ptid of a stage that ends at p_end (zero values past it, so
+  // that its products vanish)
+  __device__ __forceinline__ void load(const double2* __restrict__ xs,
+                                       const double2* __restrict__ vs, int n,
+                                       int b0, int gn, int ptid, int p0,
+                                       int p_end) {
+    const int p = p0 + ptid;
+    const bool ok = ptid < T64_P && p < p_end;
+    x = ok ? xs[p] : make_double2(0.0, 0.0);
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      v[g] = ok && g < gn ? vs[(size_t)(b0 + g) * n + p]
+                          : make_double2(0.0, 0.0);
+  }
+};
+
+// One stage: its points (`pt`, loaded a stage ahead; then the next stage's,
+// from np0 up to np_end, are loaded into `pt`), then the split's factors,
+// then the operands.  kb1 and kb2 are the tile's first row and column modes
+// (j0 - half, k0 - half).
+template <int G, int COLS>
+__device__ __forceinline__ void t64_fill(T64Stage<COLS>& st,
+                                         T64Tables<G, COLS>& tb, int ptid,
+                                         T64Point<G>& pt,
+                                         const double2* __restrict__ x,
+                                         const double2* __restrict__ v,
+                                         double h, int n, int b0, int gn,
+                                         int kb1, int kb2, int np0,
+                                         int np_end) {
+  using Tb = T64Tables<G, COLS>;
+  constexpr int NP = T64_THREADS - T64_CONSUMERS;
+  constexpr int TJ = T64_ROWS / G, K = T64_K;
+  constexpr int NE = 2 * K + Tb::S1 + Tb::S2;   // factors a point
+  constexpr int NIT = (T64_P * NE + NP - 1) / NP;
+  if (ptid < T64_P) {
+    tb.u1[ptid] = torus(pt.x.x, h);
+    tb.u2[ptid] = torus(pt.x.y, h);
+#pragma unroll
+    for (int g = 0; g < G; ++g) tb.v[g][ptid] = pt.v[g];
+    pt.load(x, v, n, b0, gn, ptid, np0, np_end);
+  }
+  asm volatile("bar.sync %0, %1;" ::"n"(TC_BAR_POINTS), "n"(NP) : "memory");
+#pragma unroll
+  for (int it = 0; it < NIT; ++it) {
+    const int e = ptid + it * NP;
+    if (e >= T64_P * NE) break;
+    const int q = e / NE, t = e % NE;
+    const bool first_axis = t < K || (t >= 2 * K && t < 2 * K + Tb::S1);
+    int k;
+    if (t < 2 * K)
+      k = t % K;
+    else if (t < 2 * K + Tb::S1)
+      k = kb1 + K * (t - 2 * K);
+    else
+      k = kb2 + K * (t - 2 * K - Tb::S1);
+    double c, sn;
+    phase(first_axis ? tb.u1[q] : tb.u2[q], (double)k, &c, &sn);
+    const double2 w = make_double2(c, -sn);
+    if (t < K) {
+      tb.r1[q][t] = w;
+    } else if (t < 2 * K) {
+      tb.r2[q][t - K] = w;
+    } else if (t < 2 * K + Tb::S1) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) tb.s1[q][g][t - 2 * K] = cmul(tb.v[g][q], w);
+    } else {
+      tb.s2[q][t - 2 * K - Tb::S1] = w;
+    }
+  }
+  asm volatile("bar.sync %0, %1;" ::"n"(TC_BAR_POINTS), "n"(NP) : "memory");
+  // the operands: a thread takes one factor e(u, K s - half) (v folded in
+  // for A) and the K factors e(u, r) of its point, and writes K entries,
+  // pairs in a rotated order (first pair (s' >> 1) & 3, s' its factor's
+  // place among the point's 8), so that the 16-byte stores of 8
+  // neighbouring threads fall on distinct banks
+  static_assert(T64_P * Tb::S1 * G == NP, "one A factor a producer");
+  static_assert(T64_P * Tb::S2 <= NP, "at most one E2 factor a producer");
+  {
+    const int q = ptid / (G * Tb::S1), gs = ptid % (G * Tb::S1);
+    const double2 f = tb.s1[q][gs / Tb::S1][gs % Tb::S1];
+    const int base = (gs / Tb::S1) * TJ + (gs % Tb::S1) * K;
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i) {
+      const int r = 2 * ((i + (gs >> 1)) & (K / 2 - 1));
+      const double2 a0 = cmul(f, tb.r1[q][r]), a1 = cmul(f, tb.r1[q][r + 1]);
+      *reinterpret_cast<double2*>(&st.ar[q][base + r]) =
+          make_double2(a0.x, a1.x);
+      *reinterpret_cast<double2*>(&st.ai[q][base + r]) =
+          make_double2(a0.y, a1.y);
+    }
+  }
+  if (ptid < T64_P * Tb::S2) {
+    const int q = ptid / Tb::S2, sc = ptid % Tb::S2;
+    const double2 f = tb.s2[q][sc];
+    const int base = sc * K;
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i) {
+      const int r = 2 * ((i + (sc >> 1)) & (K / 2 - 1));
+      const double2 b0 = cmul(f, tb.r2[q][r]), b1 = cmul(f, tb.r2[q][r + 1]);
+      *reinterpret_cast<double2*>(&st.br[q][base + r]) =
+          make_double2(b0.x, b1.x);
+      *reinterpret_cast<double2*>(&st.bi[q][base + r]) =
+          make_double2(b0.y, b1.y);
+    }
+  }
+}
+
+// a symmetric-order mode index j (mode j - half) -> its output index
+__device__ __forceinline__ int t64_out(int j, int m, int fft_order) {
+  const int half = (m - 1) / 2;
+  return fft_order ? (j >= half ? j - half : j + m - half) : j;
+}
+
+template <int G, int COLS>
+__global__ void __launch_bounds__(T64_THREADS, 1)
+type1_f64_kernel(const double2* __restrict__ x,
+                 const double2* __restrict__ v, double h, int n, int m,
+                 int nb, int fft_order, int run_points, int chunk,
+                 double2* __restrict__ partial) {
+  using Tile = T64Tile<COLS>;
+  constexpr int TJ = T64_ROWS / G;
+  constexpr int MI = Tile::MI, NI = Tile::NI;
+  extern __shared__ double2 t64_smem[];
+  T64Stage<COLS>* stages = reinterpret_cast<T64Stage<COLS>*>(t64_smem);
+  const int ntk = (m + COLS - 1) / COLS;
+  const int j0 = (blockIdx.x / ntk) * TJ;
+  const int k0 = (blockIdx.x % ntk) * COLS;
+  const int b0 = blockIdx.z * G;
+  const int gn = min(G, nb - b0);
+  const int p_begin = blockIdx.y * chunk;
+  const int p_end = min(n, p_begin + chunk);
+  const int tid = threadIdx.x;
+
+  if (tid >= T64_CONSUMERS) {
+    // producers: fill stage s into buffer s & 1 once the consumers are done
+    // with stage s - 2; at the end take the consumers' last two releases
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n" ::);
+    const int ptid = tid - T64_CONSUMERS;
+    const int half = (m - 1) / 2;
+    T64Tables<G, COLS>& tb =
+        *reinterpret_cast<T64Tables<G, COLS>*>(stages + 2);
+    T64Point<G> pt;
+    pt.load(x, v, n, b0, gn, ptid, p_begin,
+            min(p_end, p_begin + run_points));
+    int s = 0;
+    for (int r0 = p_begin; r0 < p_end; r0 += run_points) {
+      const int r_end = min(p_end, r0 + run_points);
+      for (int p0 = r0; p0 < r_end; p0 += T64_P, ++s) {
+        // the stage after this one: in this run, or the next run's first
+        const bool last = p0 + T64_P >= r_end;
+        const int np0 = last ? r_end : p0 + T64_P;
+        const int np_end = last ? min(p_end, r_end + run_points) : r_end;
+        if (s >= 2) bar_sync(TC_BAR_EMPTY + (s & 1));
+        t64_fill<G, COLS>(stages[s & 1], tb, ptid, pt, x, v, h, n, b0, gn,
+                          j0 - half, k0 - half, np0, np_end);
+        bar_arrive(TC_BAR_FULL + (s & 1));
+      }
+    }
+    for (int t = max(s - 2, 0); t < s; ++t) bar_sync(TC_BAR_EMPTY + (t & 1));
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 184;\n" ::);
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;     // fragment row / column
+  const int wr = (warp / Tile::WC) * Tile::WM;
+  const int wc = (warp % Tile::WC) * Tile::WN;
+  const size_t mm = (size_t)m * m;
+
+  int s = 0;
+  double acc[MI][NI][8];   // a run's sums: [m][n][re 4, im 4]
+  for (int r0 = p_begin; r0 < p_end; r0 += run_points) {
+    const int r_end = min(p_end, r0 + run_points);
+#pragma unroll
+    for (int a = 0; a < MI; ++a)
+#pragma unroll
+      for (int b = 0; b < NI; ++b)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[a][b][c] = 0.0;
+    for (int p0 = r0; p0 < r_end; p0 += T64_P, ++s) {
+      bar_sync(TC_BAR_FULL + (s & 1));
+      const T64Stage<COLS>& st = stages[s & 1];
+#pragma unroll
+      for (int ks = 0; ks < T64_P; ks += 8) {
+        // A fragments: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
+        // rows are output rows, columns points
+        double ar[MI][4], ai[MI][4];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          const int r = wr + mi * 16 + gq;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int q = ks + tq + (i >> 1) * 4;
+            const int rr = r + (i & 1) * 8;
+            ar[mi][i] = st.ar[q][rr];
+            ai[mi][i] = st.ai[q][rr];
+          }
+        }
+        // B fragments: b0 (t, g), b1 (t+4, g); rows points, columns modes
+        double br[NI][2], bi[NI][2], nbi[NI][2];
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          const int cidx = wc + ni * 8 + gq;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int q = ks + tq + i * 4;
+            br[ni][i] = st.br[q][cidx];
+            bi[ni][i] = st.bi[q][cidx];
+            nbi[ni][i] = -bi[ni][i];
+          }
+        }
+        // Re += Ar Er, Im += Ar Ei; then Re += Ai (-Ei), Im += Ai Er.  Each
+        // pass runs over all the warp's accumulators, so that consecutive
+        // mma do not wait on each other.
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            mma_f64(&acc[mi][ni][0], ar[mi], br[ni]);
+            mma_f64(&acc[mi][ni][4], ar[mi], bi[ni]);
+          }
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            mma_f64(&acc[mi][ni][0], ai[mi], nbi[ni]);
+            mma_f64(&acc[mi][ni][4], ai[mi], br[ni]);
+          }
+      }
+      bar_arrive(TC_BAR_EMPTY + (s & 1));
+    }
+    // the run's sums into the group's partial, in run order (each thread
+    // reads back only what it wrote)
+    const bool first = r0 == p_begin;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // C fragment: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+          const int row = wr + mi * 16 + gq + (i >> 1) * 8;
+          const int g = row / TJ, j = j0 + row % TJ;
+          const int k = k0 + wc + ni * 8 + 2 * tq + (i & 1);
+          if (g < gn && j < m && k < m) {
+            double2* o = partial + ((size_t)blockIdx.y * nb + b0 + g) * mm +
+                         (size_t)t64_out(j, m, fft_order) * m +
+                         t64_out(k, m, fft_order);
+            double2 t = first ? make_double2(0.0, 0.0) : *o;
+            t.x = __dadd_rn(t.x, acc[mi][ni][i]);
+            t.y = __dadd_rn(t.y, acc[mi][ni][4 + i]);
+            *o = t;
+          }
+        }
+  }
+}
+
+// `chunk` points a group, one partial per group, then the groups' partials
+// added in group order
+template <int G, int COLS>
+int launch_type1_f64_cols(const void* x, const void* v, double h, int n,
+                          int m, int nb, int fft_order, int run, int chunk,
+                          void* partial, void* out, cudaStream_t s) {
+  constexpr int TJ = T64_ROWS / G;
+  constexpr int smem =
+      2 * sizeof(T64Stage<COLS>) + sizeof(T64Tables<G, COLS>);
+  int err = (int)cudaFuncSetAttribute(
+      type1_f64_kernel<G, COLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != 0) return err;
+  const int ntj = (m + TJ - 1) / TJ;
+  const int ntk = (m + COLS - 1) / COLS;
+  const int groups = (n + chunk - 1) / chunk;
+  const dim3 grid(ntj * ntk, groups, (nb + G - 1) / G);
+  type1_f64_kernel<G, COLS><<<grid, T64_THREADS, smem, s>>>(
+      (const double2*)x, (const double2*)v, h, n, m, nb, fft_order, run,
+      chunk, (double2*)partial);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return launch_reduce<double>(partial, groups, nb * m * m, out, s);
+}
+
+// The caller's geometry (rows x cols tile, batch group, points a run and a
+// group), checked against the instances there are
+template <int G>
+int launch_type1_f64(const void* x, const void* v, double h, int n, int m,
+                     int nb, int fft_order, int rows, int cols, int group,
+                     int run, int chunk, void* partial, void* out,
+                     void* stream) {
+  if (rows != T64_ROWS || group != G || run <= 0 || run % T64_P != 0 ||
+      chunk <= 0 || chunk % run != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cols == 32)
+    return launch_type1_f64_cols<G, 32>(x, v, h, n, m, nb, fft_order, run,
+                                        chunk, partial, out, s);
+  if (cols == 64)
+    return launch_type1_f64_cols<G, 64>(x, v, h, n, m, nb, fft_order, run,
+                                        chunk, partial, out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace

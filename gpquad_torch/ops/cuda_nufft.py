@@ -28,7 +28,10 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   the tensor cores with an explicit 3xTF32 split, one partial sum per point
   group (:func:`type1_2d_chunk`), then a second pass adds the partials in
   group order; :func:`nufft1_2d_3xtf32_ref` is its plain twin.  In float64
-  per-block partial sums over chunks of 2048 points on the CUDA cores.
+  the same GEMM on the FP64 tensor cores (DMMA, no split of the operands;
+  the mode index split so that a point makes few phases a tile;
+  :func:`type1_2d_geometry` at float64, and :func:`nufft1_2d_f64_tc_ref`
+  its plain twin).  :func:`nufft1_2d_batched` takes the same kernels.
 - :func:`nufft2_2d_batched` replaces ``pallas_nufft2_2d_batched`` (:838)
   and :func:`nufft1_2d_batched` replaces ``pallas_nufft1_2d_batched``
   (:914): B vectors against the same points in one launch, the phases made
@@ -87,6 +90,7 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
            "nufft1_2d_batched", "nufft2_2d_batched", "nufft1_2d_batched_ref",
            "nufft2_2d_batched_ref", "nufft1_2d_3xtf32_ref",
+           "nufft1_2d_f64_tc_ref",
            "nufft2_2d_batched_3xtf32_ref", "nufft2_2d_split_ref",
            "nufft1_1d_3xtf32_ref", "type1_1d_geometry", "type1_1d_split",
            "nufft2_1d_3xtf32_ref", "type2_1d_geometry",
@@ -115,8 +119,9 @@ LAUNCH_PRECISIONS: dict[tuple[str, str, int], int] = {}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every file the library depends on (hashed); the .cu files are compiled
-_SOURCES = ("nufft_common.cuh", "tc_type1.cuh", "tc_type2.cuh", "nufft_1d.cu",
-            "nufft_2d.cu", "nufft_3d.cu", "interp_2d.cu")
+_SOURCES = ("nufft_common.cuh", "tc_type1.cuh", "tc_type1_f64.cuh",
+            "tc_type2.cuh", "nufft_1d.cu", "nufft_2d.cu", "nufft_3d.cu",
+            "interp_2d.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpquad_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -140,6 +145,22 @@ TYPE1_2D_NARROW_COLS = 32
 TYPE1_2D_STAGE = 256
 TYPE1_2D_BLOCKS = 4 * CARD_SMS
 TYPE1_2D_BATCH_GROUP = 2
+# The float64 d=2 type-1 on the FP64 tensor cores (csrc/tc_type1_f64.cuh
+# type1_f64_kernel), its geometry owned here (type1_2d_geometry at float64)
+# and checked by its launch: output tiles of TYPE1_2D_ROWS rows (one
+# vector's 64 modes j, or a batch group of two vectors' 32) by 64 modes k,
+# or by 32
+# where 64 would pad the columns this many times more (mtot up to 32 and
+# 65-96: at 2e4 x 93 the narrow tiles took 0.74x the time of the wide, at
+# 1e5 x 213, padded 1.14x more, 1.25x; scripts/time_type1_2d_f64.py on
+# NVIDIA H100 80GB HBM3, 700 W); runs of TYPE1_2D_F64_RUN points in the
+# DMMA accumulators; point groups for about TYPE1_2D_BLOCKS blocks.  The
+# mode index is split as (K s - half) + r, r < TYPE1_2D_F64_K (the
+# source's T64_K).
+TYPE1_2D_F64_COLS, TYPE1_2D_F64_NARROW_COLS = 64, 32
+TYPE1_2D_F64_NARROW_PADDING = 1.25
+TYPE1_2D_F64_RUN = 512
+TYPE1_2D_F64_K = 8
 # The float32 d=1 type-1 takes the same kernel (csrc/tc_type1.cuh) on a
 # split of its mode index (type1_1d_geometry): the tile, stage and batch
 # group above, runs of this many points, and point groups for about one
@@ -324,9 +345,9 @@ def _library():
             t2 = getattr(lib, f"gpq_nufft2_2d_{prec}")
             t2.argtypes = [ptr, ptr, real, i32, i32, i32, ptr, ptr]
             t2.restype = i32
-            # the float32 d=2 type-1 also takes its geometry (rows, cols,
-            # group, stage, run) before the chunk
-            geo = [i32] * 5 if prec == "f32" else []
+            # the d=2 type-1 takes its geometry (rows, cols, group, the
+            # float32 kernel's stage, run) before the chunk
+            geo = [i32] * (5 if prec == "f32" else 4)
             t1 = getattr(lib, f"gpq_nufft1_2d_{prec}")
             t1.argtypes = [ptr, ptr, real, i32, i32, i32, *geo, i32, ptr, ptr,
                            ptr]
@@ -588,6 +609,103 @@ def nufft1_2d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
     out = _type1_3xtf32_sums(V[:, :, None] * e1[None], e2, chunk=chunk,
                              run=TYPE1_2D_RUN, stage=TYPE1_2D_STAGE,
                              passes=passes)
+    return out[0] if single else out
+
+
+def _type1_f64_sums(A, E, *, chunk: int, run: int):
+    """The float64 tensor-core type-1's sums (csrc/tc_type1_f64.cuh) in
+    its order: ``out[b, r, c] = sum_n A[b, n, r] E[n, c]`` for ``A`` (B, N,
+    R) and ``E`` (N, C) complex128, as the real products
+    ``Re = Ar^T Er + Ai^T (-Ei)``, ``Im = Ar^T Ei + Ai^T Er`` over k-steps
+    of 8 points.  A run of ``run`` points starts from zero and takes its
+    k-steps in order, each adding Ar Er then Ai (-Ei) into the real part
+    and Ar Ei then Ai Er into the imaginary part (the kernel's DMMA
+    accumulators; the tensor cores' own order inside a k-step, its 8
+    products and the accumulator, is not emulated: here a float64 matmul
+    of the 8 points, then one add); the runs of a group of ``chunk`` points
+    are added in run order into the group's partial, the groups' partials
+    in group order.  Returns (B, R, C) complex128."""
+    if chunk % run or run % 8:
+        raise ValueError(f"chunk {chunk} must be a multiple of run {run}, "
+                         "and run of 8")
+    B, n, R = A.shape
+    C = E.shape[1]
+    n8 = -(-n // 8) * 8
+    A = torch.nn.functional.pad(A, (0, 0, 0, n8 - n))
+    E = torch.nn.functional.pad(E, (0, 0, 0, n8 - n))
+    steps = n8 // 8
+    ar, ai = (t.reshape(B, steps, 8, R).transpose(-1, -2)
+              for t in (A.real, A.imag))
+    er, ei = (t.reshape(steps, 8, C) for t in (E.real, E.imag))
+    zeros = A.real.new_zeros((B, R, C))
+    out_re, out_im = zeros.clone(), zeros.clone()
+    # k-steps whose products are formed at once: ~64 MB of them
+    block = max(1, min(64, 2 ** 23 // max(1, B * R * C)))
+    run_steps, group_steps = run // 8, chunk // 8
+    for g0 in range(0, steps, group_steps):
+        g1 = min(steps, g0 + group_steps)
+        p_re = p_im = None
+        for r0 in range(g0, g1, run_steps):
+            r1 = min(g1, r0 + run_steps)
+            d_re, d_im = zeros.clone(), zeros.clone()
+            for s0 in range(r0, r1, block):
+                s1 = min(r1, s0 + block)
+                a_r, a_i = ar[:, s0:s1], ai[:, s0:s1]
+                e_r, e_i = er[s0:s1], ei[s0:s1]
+                prods = (torch.matmul(a_r, e_r), torch.matmul(a_i, -e_i),
+                         torch.matmul(a_r, e_i), torch.matmul(a_i, e_r))
+                for k in range(s1 - s0):
+                    d_re = d_re + prods[0][:, k]
+                    d_re = d_re + prods[1][:, k]
+                    d_im = d_im + prods[2][:, k]
+                    d_im = d_im + prods[3][:, k]
+            p_re = d_re if p_re is None else p_re + d_re
+            p_im = d_im if p_im is None else p_im + d_im
+        out_re = out_re + p_re
+        out_im = out_im + p_im
+    return torch.complex(out_re, out_im)
+
+
+def nufft1_2d_f64_tc_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
+                         chunk: int | None = None):
+    """Plain twin of the float64 d=2 type-1 kernel on the FP64 tensor cores
+    (csrc/tc_type1_f64.cuh ``type1_f64_kernel``): ``out[b,j,k] = sum_n
+    v[b,n] e1(n,j) e2(n,k)`` with the kernel's operands and sums.  The rows
+    and columns are the modes in symmetric order, index i for mode i -
+    half, each phase the product of the mode split's two factors
+    e(t, K s - half) e(t, r) for i = K s + r (K = :data:`TYPE1_2D_F64_K`;
+    ``ops/nufft.py`` ``_phase_matrix`` on t = x h), v folded into e1's
+    first factor; then :func:`_type1_f64_sums` (runs of
+    :data:`TYPE1_2D_F64_RUN` points, groups of ``chunk`` points, by default
+    :func:`type1_2d_geometry`'s at float64), and FFT order where asked.
+
+    ``vals`` (N,) or (B, N); returns complex128 (mtot, mtot) or (B, mtot,
+    mtot).  The tests run it on the CPU; chip_smoke.py on the card."""
+    x = x.to(torch.float64)
+    n = x.shape[0]
+    single = vals.ndim == 1
+    V = vals.reshape(-1, n).to(torch.complex128)
+    B = V.shape[0]
+    if chunk is None:
+        chunk = type1_2d_geometry(n, mtot, B, not single,
+                                  torch.float64)[-1]
+    K, half, dev = TYPE1_2D_F64_K, (mtot - 1) // 2, x.device
+    i = torch.arange(mtot, device=dev)
+    base = (K * torch.arange(-(-mtot // K), device=dev) - half).double()
+    r = torch.arange(K, device=dev).double()
+    hq = float(h)
+    t1, t2 = x[:, 0] * hq, x[:, 1] * hq
+    e1 = ((V[:, :, None] * _phase_matrix(t1, base, torch.complex128)[None])
+          [:, :, i // K] * _phase_matrix(t1, r, torch.complex128)[None][
+              :, :, i % K])                                    # (B, N, m)
+    e2 = (_phase_matrix(t2, base, torch.complex128)[:, i // K]
+          * _phase_matrix(t2, r, torch.complex128)[:, i % K])  # (N, m)
+    out = _type1_f64_sums(e1, e2, chunk=chunk, run=TYPE1_2D_F64_RUN)
+    if fft_order:
+        idx = torch.where(i >= half, i - half, i + mtot - half)
+        fo = torch.empty_like(out)
+        fo[:, idx[:, None], idx[None, :]] = out
+        out = fo
     return out[0] if single else out
 
 
@@ -1058,9 +1176,7 @@ def type1_1d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
     cols = (TYPE1_2D_NARROW_COLS if q <= 2 * TYPE1_2D_NARROW_COLS
             else TYPE1_2D_COLS)
     tiles = -(-q // cols) * -(-B // g)
-    nrun = max(1, -(-n // TYPE1_1D_RUN))
-    groups = min(nrun, max(1, CARD_SMS // tiles))
-    chunk = -(-nrun // groups) * TYPE1_1D_RUN
+    chunk = _type1_chunk(n, TYPE1_1D_RUN, tiles, CARD_SMS)
     return ("tc", TYPE1_2D_ROWS, cols, g, TYPE1_2D_STAGE, TYPE1_1D_RUN,
             chunk)
 
@@ -1187,53 +1303,66 @@ def nufft1_2d(x, vals, h, *, mtot: int, fft_order: bool = False):
     ``x`` (N, 2) real, ``vals`` complex (N,); returns complex
     (mtot, mtot).  A CPU tensor takes the plain version; a CUDA tensor
     launches the two-stage kernel (float32: point-group partials on the
-    tensor cores, scratch of ceil(N / :func:`type1_2d_chunk`) * mtot^2
-    values; float64: 2048-point chunk partials)."""
+    tensor cores, float64: on the FP64 tensor cores; scratch of
+    ceil(N / :func:`type1_2d_chunk`) * mtot^2 values)."""
     _check(x, mtot)
     if x.device.type == "cpu":
         return nufft1_2d_ref(x, vals, h, mtot=mtot, fft_order=fft_order)
-    cdtype = _complex_of(x.dtype)
     n = x.shape[0]
     if vals.shape != (n,):
         raise ValueError(f"vals must be ({n},), got {tuple(vals.shape)}")
-    _check_cuda_operand("vals", vals, x, cdtype)
-    if n == 0:
-        return torch.zeros((mtot, mtot), dtype=cdtype, device=x.device)
-    x = x.contiguous()
-    vals = vals.contiguous()
-    h = float(torch.as_tensor(h, dtype=x.dtype))
-    geo = _type1_2d_launch_geometry(x, n, mtot, 1, False)
-    partial = torch.empty((-(-n // geo[-1]), mtot, mtot), dtype=cdtype,
-                          device=x.device)
-    out = torch.empty((mtot, mtot), dtype=cdtype, device=x.device)
-    _launch("nufft1_2d", x, x.data_ptr(), vals.data_ptr(), h, n, mtot,
-            int(fft_order), *geo, partial.data_ptr(), out.data_ptr(),
-            mtot=mtot)
-    return out
+    geo = type1_2d_geometry(n, mtot, dtype=x.dtype)
+    return _nufft1_2d_on(x, vals[None], h, mtot, fft_order, geo, False)[0]
 
 
-def type1_2d_geometry(n: int, mtot: int, B: int = 1,
-                      batched: bool = False) -> tuple[int, ...]:
-    """The float32 d=2 type-1's launch geometry: ``(rows, cols, group,
-    stage, run, chunk)``, the arguments its launch takes before the scratch.
+def type1_2d_geometry(n: int, mtot: int, B: int = 1, batched: bool = False,
+                      dtype: torch.dtype = torch.float32) -> tuple[int, ...]:
+    """The d=2 type-1's launch geometry in ``dtype``, the arguments its
+    launch takes before the scratch: ``(rows, cols, group, stage, run,
+    chunk)`` in float32 (csrc/tc_type1.cuh), ``(rows, cols, group, run,
+    chunk)`` in float64 (csrc/tc_type1_f64.cuh).
 
     The output tile is :data:`TYPE1_2D_ROWS` rows (``group`` vectors of
-    ``rows / group`` modes j) by ``cols`` modes k: :data:`TYPE1_2D_COLS`,
-    or :data:`TYPE1_2D_NARROW_COLS` where ``mtot`` is at most twice that.
-    A register sum takes ``stage`` points and a run ``run``.  The kernel's
-    blocks are output tiles x point groups x batch groups; the groups of
-    ``chunk`` points (a multiple of ``run``) are as many as fill about
+    ``rows / group`` modes j: one for a single vector,
+    :data:`TYPE1_2D_BATCH_GROUP` for a batch) by ``cols`` modes k.  In
+    float32 ``cols`` is :data:`TYPE1_2D_COLS`, or
+    :data:`TYPE1_2D_NARROW_COLS` where ``mtot`` is at most twice that, a
+    register sum takes ``stage`` points and a run :data:`TYPE1_2D_RUN`; in
+    float64 it is :data:`TYPE1_2D_F64_COLS`, or
+    :data:`TYPE1_2D_F64_NARROW_COLS` where the wide tiles would pad the
+    columns :data:`TYPE1_2D_F64_NARROW_PADDING` times as far or more, and a
+    run takes :data:`TYPE1_2D_F64_RUN` points.  The kernel's blocks are
+    output tiles x point groups x batch groups; the groups of ``chunk``
+    points (whole runs, :func:`_type1_chunk`) are as many as fill about
     :data:`TYPE1_2D_BLOCKS` blocks without passing it, never an empty one.
     The scratch holds ceil(n / chunk) * B * mtot^2 values."""
     g = TYPE1_2D_BATCH_GROUP if batched else 1
-    cols = (TYPE1_2D_NARROW_COLS if mtot <= 2 * TYPE1_2D_NARROW_COLS
-            else TYPE1_2D_COLS)
+    if dtype == torch.float32:
+        cols = (TYPE1_2D_NARROW_COLS if mtot <= 2 * TYPE1_2D_NARROW_COLS
+                else TYPE1_2D_COLS)
+        run = TYPE1_2D_RUN
+    else:
+        wide, narrow = (-(-mtot // c) * c for c in (TYPE1_2D_F64_COLS,
+                                                    TYPE1_2D_F64_NARROW_COLS))
+        cols = (TYPE1_2D_F64_NARROW_COLS
+                if wide >= TYPE1_2D_F64_NARROW_PADDING * narrow
+                else TYPE1_2D_F64_COLS)
+        run = TYPE1_2D_F64_RUN
     tiles = (-(-mtot // (TYPE1_2D_ROWS // g)) * -(-mtot // cols)
              * -(-B // g))
-    nrun = max(1, -(-n // TYPE1_2D_RUN))
-    groups = min(nrun, max(1, TYPE1_2D_BLOCKS // tiles))
-    chunk = -(-nrun // groups) * TYPE1_2D_RUN
-    return TYPE1_2D_ROWS, cols, g, TYPE1_2D_STAGE, TYPE1_2D_RUN, chunk
+    chunk = _type1_chunk(n, run, tiles, TYPE1_2D_BLOCKS)
+    stage = (TYPE1_2D_STAGE,) if dtype == torch.float32 else ()
+    return (TYPE1_2D_ROWS, cols, g, *stage, run, chunk)
+
+
+def _type1_chunk(n: int, run: int, tiles: int, blocks: int) -> int:
+    """Points a group of a type-1 on the tensor cores: whole runs of
+    ``run`` points, in as many groups as fill about ``blocks`` blocks of
+    ``tiles`` output tiles x groups without passing it, never an empty
+    one."""
+    nrun = max(1, -(-n // run))
+    groups = min(nrun, max(1, blocks // tiles))
+    return -(-nrun // groups) * run
 
 
 def type1_2d_chunk(n: int, mtot: int, B: int = 1,
@@ -1242,13 +1371,30 @@ def type1_2d_chunk(n: int, mtot: int, B: int = 1,
     return type1_2d_geometry(n, mtot, B, batched)[-1]
 
 
-def _type1_2d_launch_geometry(x, n, mtot, B, batched):
-    """What the d=2 type-1 launch takes before its scratch, in x's
-    precision: the float32 kernel's geometry, or the float64 kernel's
-    2048-point chunk.  The last entry is the points a partial sum."""
-    if x.dtype == torch.float32:
-        return type1_2d_geometry(n, mtot, B, batched)
-    return (TYPE1_CHUNK,)
+def _nufft1_2d_on(x, vals, h, m, fft_order, geo, batched):
+    """The d=2 type-1's launch on CUDA tensors, ``vals`` (B, N), with
+    :func:`type1_2d_geometry`'s geometry ``geo`` in x's precision (the
+    tensor cores in float32, the FP64 tensor cores in float64).  Counted as
+    one launch of ``nufft1_2d_batched`` (``batched``) or ``nufft1_2d``.
+    Returns (B, m, m)."""
+    name = "nufft1_2d_batched" if batched else "nufft1_2d"
+    if len(geo) != (6 if x.dtype == torch.float32 else 5):
+        raise ValueError(f"no {x.dtype} d=2 type-1 kernel for geometry {geo}")
+    cdtype = _complex_of(x.dtype)
+    _check_cuda_operand("vals", vals, x, cdtype)
+    B, n = vals.shape
+    if n == 0:
+        return torch.zeros((B, m, m), dtype=cdtype, device=x.device)
+    x = x.contiguous()
+    vals = vals.contiguous()
+    h = float(torch.as_tensor(h, dtype=x.dtype))
+    partial = torch.empty((-(-n // geo[-1]), B, m, m), dtype=cdtype,
+                          device=x.device)
+    out = torch.empty((B, m, m), dtype=cdtype, device=x.device)
+    lead = (n, m, B) if batched else (n, m)
+    _launch(name, x, x.data_ptr(), vals.data_ptr(), h, *lead,
+            int(fft_order), *geo, partial.data_ptr(), out.data_ptr(), mtot=m)
+    return out
 
 
 def _check_batch(B: int, mtot: int, d: int = 2, groups: int = 1):
@@ -1361,21 +1507,8 @@ def nufft1_2d_batched(x, vals, h, *, mtot: int, fft_order: bool = False):
     if x.device.type == "cpu":
         return nufft1_2d_batched_ref(x, vals, h, mtot=mtot,
                                      fft_order=fft_order)
-    cdtype = _complex_of(x.dtype)
-    _check_cuda_operand("vals", vals, x, cdtype)
-    if n == 0:
-        return torch.zeros((B, mtot, mtot), dtype=cdtype, device=x.device)
-    x = x.contiguous()
-    vals = vals.contiguous()
-    h = float(torch.as_tensor(h, dtype=x.dtype))
-    geo = _type1_2d_launch_geometry(x, n, mtot, B, True)
-    partial = torch.empty((-(-n // geo[-1]), B, mtot, mtot), dtype=cdtype,
-                          device=x.device)
-    out = torch.empty((B, mtot, mtot), dtype=cdtype, device=x.device)
-    _launch("nufft1_2d_batched", x, x.data_ptr(), vals.data_ptr(), h, n, mtot,
-            B, int(fft_order), *geo, partial.data_ptr(), out.data_ptr(),
-            mtot=mtot)
-    return out
+    geo = type1_2d_geometry(n, mtot, B, True, x.dtype)
+    return _nufft1_2d_on(x, vals, h, mtot, fft_order, geo, True)
 
 
 def type1_3d_groups(n: int, mtot: int, B: int = 1) -> tuple[int, int]:

@@ -343,7 +343,8 @@ def test_3d_dispatch_launches_kernels(cuda_device):
         "nufft1_1d": 0, "nufft2_1d": 0,
         "nufft1_2d": 0, "nufft2_2d": 0, "nufft1_2d_batched": 0,
         "nufft2_2d_batched": 0, "nufft1_3d": 2, "nufft2_3d": 2}
-    assert nufft_mod.BACKEND_PICKS == {"cuda": 1, "matmul": 0}
+    assert nufft_mod.BACKEND_PICKS == {"cuda": 1, "matmul": 0, "spread": 0,
+                                       "banded": 0, "sub": 0}
 
 
 @pytest.mark.cuda
@@ -729,6 +730,72 @@ def test_type1_2d_launch_refuses_foreign_geometry(cuda_device, field, value):
     partial = torch.zeros((-(-n // geo[-1]) + 1, mtot, mtot),
                           dtype=torch.complex64, device=cuda_device)
     out = torch.zeros((mtot, mtot), dtype=torch.complex64,
+                      device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft1_2d", x, x.data_ptr(), v.data_ptr(), 0.5,
+                           n, mtot, 0, *geo, partial.data_ptr(),
+                           out.data_ptr(), mtot=mtot)
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (1, 5000, 29, 0.65, False),
+    (3, 5001, 57, 0.4, True),
+    (1, 3000, 93, 0.13, True),
+    (5, 20_000, 107, 0.1, False),
+    (1, 30_000, 339, 0.97, True),
+])
+def test_type1_f64_tensor_core_kernel_on_card(cuda_device, B, n, mtot, h,
+                                              fft_order):
+    """The float64 d=2 type-1 on the FP64 tensor cores: one float64 launch a
+    call; within 1e-10 of max|ref| of the float64 plain version; bit for
+    bit the same on a second launch; within 1e-12 of max|ref| of its twin
+    nufft1_2d_f64_tc_ref; the wrapper's result this kernel's."""
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 2)), device=cuda_device)
+    V = torch.as_tensor(rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n)),
+                        device=cuda_device)
+    batched = B > 1
+    name = "nufft1_2d_batched" if batched else "nufft1_2d"
+    geo = cuda_nufft.type1_2d_geometry(n, mtot, B, batched, torch.float64)
+    key = (name, "f64", mtot)
+    before = cuda_nufft.LAUNCH_PRECISIONS.get(key, 0)
+    got = cuda_nufft._nufft1_2d_on(x, V, h, mtot, fft_order, geo, batched)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCH_PRECISIONS[key] == before + 1
+    assert got.shape == (B, mtot, mtot)
+    assert torch.equal(cuda_nufft._nufft1_2d_on(x, V, h, mtot, fft_order, geo,
+                                                batched), got)
+    ref = nufft1_2d_batched_ref(x, V, h, mtot=mtot, fft_order=fft_order)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-10 * scale
+    twin = cuda_nufft.nufft1_2d_f64_tc_ref(x.cpu(), V.cpu(), h, mtot=mtot,
+                                           fft_order=fft_order)
+    assert float((got.cpu() - twin).abs().max()) <= 1e-12 * scale
+    routed = (nufft1_2d_batched(x, V, h, mtot=mtot, fft_order=fft_order)
+              if batched else nufft1_2d(x, V[0], h, mtot=mtot,
+                                        fft_order=fft_order)[None])
+    assert torch.equal(routed, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [
+    (0, 32), (1, 128), (2, 2), (3, 100), (4, 1000)])
+def test_type1_f64_launch_refuses_foreign_geometry(cuda_device, field, value):
+    """The FP64 tensor-core type-1's launch takes its geometry from
+    ``type1_2d_geometry`` at float64 and refuses one it has no instance for
+    (rows, cols, group, run or chunk changed): a CUDA error is raised, and
+    nothing is written."""
+    n, mtot = 4096, 29
+    x = torch.rand((n, 2), dtype=torch.float64, device=cuda_device)
+    v = torch.ones(n, dtype=torch.complex128, device=cuda_device)
+    geo = list(cuda_nufft.type1_2d_geometry(n, mtot, dtype=torch.float64))
+    geo[field] = value
+    partial = torch.zeros((-(-n // 512) + 1, mtot, mtot),
+                          dtype=torch.complex128, device=cuda_device)
+    out = torch.zeros((mtot, mtot), dtype=torch.complex128,
                       device=cuda_device)
     with pytest.raises(RuntimeError, match="CUDA error"):
         cuda_nufft._launch("nufft1_2d", x, x.data_ptr(), v.data_ptr(), 0.5,
