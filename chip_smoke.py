@@ -21,8 +21,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      tensor-core kernel's scratch and the kernel
      cuda_nufft.type2_2d_geometry dispatches the shape to; the single d=2
      type-2 on each of its paths at every driven shape, the tensor cores
-     (float32, 3xTF32, the batched kernel at B 1), the mode split and the
-     CUDA cores, on the same inputs: the split and the tensor cores in
+     (float32, 3xTF32, the batched kernel at B 1; float64, the FP64 tensor
+     cores' B 1 instance), the mode split and the CUDA cores, on the same
+     inputs: the split and the tensor cores in
      float32 within max(2x the float32 plain version's error, 1e-6), every
      path in float64 within 1e-13, each bit for bit against a second
      launch, timed, with its scratch, the tensor cores' 3xTF32 bound and
@@ -52,7 +53,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      max|ref|, bit for bit against a second launch, with its scratch,
      within 1e-12 of its twin nufft1_2d_f64_tc_ref up to 25 000 points,
      the wrapper's time (ms) and the card's alone (tc_ms), and the FP64
-     tensor-core bound beside the float64 CUDA-core one;
+     tensor-core bound beside the float64 CUDA-core one; the float64 d=2
+     type-2 on the FP64 tensor cores (DMMA, csrc/tc_type2_f64.cuh), the
+     only float64 batched kernel, at every float64 batched shape the
+     driven paths launch (phase 12's headline B 10, phase 13's and 14c's
+     B 11 at 1e5 x 17 / 21 and 24 010 x 43, in float64 alone), and at B 1
+     as a path of the single type-2 beside the split and the CUDA cores
+     at every float64 single shape (the float64 table's and phase 13's):
+     within 1e-12 of max|ref|, bit for bit against a second launch,
+     within 1e-12 of its twin nufft2_2d_f64_tc_ref up to 2e8 point-
+     vector-modes, the card's time alone (tc_ms), the FP64 tensor-core
+     bound beside the float64 CUDA-core one, the batch's scratch;
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -232,7 +243,8 @@ bfloat16-weight control's.
 
 It prints each phase's wall time, the kernels' JSON line (the eight NUFFT
 kernels, the float64 d=2 type-1's FP64 tensor-core kernel, single and
-batched, with its launches in phase 12, the four TPU mode-tiled functions
+batched, and the float64 d=2 type-2's, batched and at B 1, with their
+launches in phase 12, the four TPU mode-tiled functions
 they cover, with the launches made past the TPU's single-block width, and
 the two interpolation kernels: all 14 TPU functions), then the card's
 nvidia-smi line, then
@@ -313,6 +325,9 @@ LC_OPT = dict(max_iters=50, lr=0.05, trace_samples=1, cg_tol=1e-6,
 # phase 3 runs the float64 d=2 type-1's twin on the card up to this many
 # points (its k-steps are a loop of small operations)
 TWIN_F64_MAX_N = 25_000
+# and the float64 d=2 type-2's twin up to this many point-vector-modes
+# n B mtot (a matmul a k-step and a loop over the modes j)
+TWIN2_F64_MAX_WORK = 2e8
 # How much slower than the fastest path measured at a shape the single d=2
 # type-2's pick may be in phase 3, relative and in ms, whichever is larger:
 # device times of one shape spread by up to 4% between runs (PERF.md
@@ -566,17 +581,27 @@ def bound_3xtf32_ms(name, n, m, B=1, split=None):
 
 
 def bound_fp64_tc_ms(name, n, m, B=1):
-    """The float64 d=2 type-1's bound on the FP64 tensor cores
-    (csrc/tc_type1_f64.cuh): 8 flops a point, mode pair and vector at the
-    dense FP64 tensor-core rate, the rest of kernel_work's operations (the
-    phases, the products v e1) at the float64 CUDA-core rate; against its
-    bytes."""
+    """A float64 d=2 function's bound on the FP64 tensor cores (the type-1,
+    csrc/tc_type1_f64.cuh, and the type-2, csrc/tc_type2_f64.cuh): 8 flops
+    a point, mode pair and vector, unpadded, at the dense FP64 tensor-core
+    rate, the rest of kernel_work's operations (the phases; the type-1's
+    products v e1, the type-2's sums over j) at the float64 CUDA-core rate;
+    against its bytes."""
     flops, nbytes = kernel_work(name, n, m, torch.float64, B)
     tc = 8 * B * n * m ** 2
     t_ops = (tc / PEAK_FP64_TC
              + (flops - tc) / PEAK_FLOPS[torch.float64]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def fp64_tc(cn, name, n, m):
+    """Whether the float64 call of ``name`` at n points and mtot m runs on
+    the FP64 tensor cores: the d=2 type-1 and the batched type-2 always,
+    the single type-2 where cuda_nufft.type2_2d_single_geometry sends it."""
+    return (name in ("nufft1_2d", "nufft1_2d_batched", "nufft2_2d_batched")
+            or (name == "nufft2_2d" and cn.type2_2d_single_geometry(
+                n, m, torch.float64)[0] == "tc"))
 
 
 def bound_split_ms(n, m, dtype, rows):
@@ -1078,8 +1103,10 @@ def f64_shape_table(c, totals, h_matern):
     the shape, else timed here the way phase 3 times (CUDA events, the
     kernel and the plain version on the same inputs, the kernel held within
     1e-10 of max|ref| of the plain version).  The bound is the picked
-    kernel's (the d=2 type-1's on the FP64 tensor cores,
-    bound_fp64_tc_ms), the CUDA cores' float64 bound beside it."""
+    kernel's (on the FP64 tensor cores, bound_fp64_tc_ms: the d=2 type-1,
+    the batched type-2 and the single type-2 where
+    type2_2d_single_geometry sends it there), the CUDA cores' float64
+    bound beside it."""
     head, hard = (c.h_head, c.mtot_head), (c.h_hard, c.mtot_hard)
     m29, m107, m339 = head[1], hard[1], c.mtot10
     shapes = [  # (name, n, mtot, B, h, serves)
@@ -1141,7 +1168,7 @@ def f64_shape_table(c, totals, h_matern):
             plain_ms = time_cuda(lambda: c.plains[name](x, arg, hq, mtot=m),
                                  max(2, reps // 4), 3)
             b_ms, src = (bound_fp64_tc_ms(name, n, m, B)[0]
-                         if name.startswith("nufft1_2d") else
+                         if fp64_tc(c.cuda_nufft, name, n, m) else
                          bound_ms(name, n, m, torch.float64, B)[0]), \
                 "phase 12"
             del x, arg, got, ref
@@ -1747,7 +1774,7 @@ def shape_table(c, shapes, known, tag):
         plain_ms = (time_cuda(plain, 1, 1, warm=0) if once > 50 else
                     time_cuda(plain, max(2, reps // 4), 3))
         b_ms, b_by = bound_ms(name, n, m, dtype, B)
-        if prec == "f64" and name.startswith("nufft1_2d"):
+        if prec == "f64" and fp64_tc(c.cuda_nufft, name, n, m):
             # the kernel's own, the FP64 tensor cores'
             b_ms, b_by = bound_fp64_tc_ms(name, n, m, B)
         if prec == "f32":
@@ -3163,6 +3190,22 @@ def main() -> int:
     shapes_f64 += [("nufft1_2d", n, m, False, 0.4, "PG", 1)
                    for name, prec, n, m, B, _ in sorted(PG_SHAPES)
                    if (name, prec, B) == ("nufft1_2d", "f64", 1)]
+    # the float64 d=2 type-2 at the other shapes its driven paths launch,
+    # in float64 only: phase 13's probe batches (13a's classifier at mtot
+    # 17 and 21, 13b's spatial plan at 43; 14c's B 11 at 21 among them),
+    # phase 12's Matérn and scale means (the rest of the float64 table's
+    # single calls are in the list above) and phase 13's single calls
+    shapes_f64 += [("nufft2_2d_batched", n, m, False, 0.4, what, 11)
+                   for n, m, what in ((100_000, 17, "PG F(D'F*Z)"),
+                                      (100_000, 21, "PG and 14c F(D'F*Z)"),
+                                      (ST_N, 43, "PG spatial F(D'F*Z)"))]
+    shapes_f64 += [
+        ("nufft2_2d", MATERN_TARGETS, mtot_mat, False, h_mat,
+         "matern mean_high", 1),
+        ("nufft2_2d", 500, mtot10, False, h10, "scale mean_high", 1)]
+    shapes_f64 += [("nufft2_2d", n, m, fo, 0.4, "PG", 1)
+                   for name, prec, n, m, B, fo in sorted(PG_SHAPES)
+                   if (name, prec, B) == ("nufft2_2d", "f64", 1)]
     for tag, n, nq, m, h in (("d3", 100_000, 10_000, mtot_d3, h_d3),
                              ("hard3d", 20_000, 1_000, mtot_h3, h_h3)):
         shapes += [
@@ -3365,6 +3408,59 @@ def main() -> int:
                 f"{out['bound_fp64_tc_ms']:.4f}")
         return out, line
 
+    def type2_f64_card(x, f, hq, m, fo, n, B, scale, got, rel, reps):
+        """The float64 batched type-2 on the FP64 tensor cores beyond the
+        row's checks: within 1e-12 of max|ref| (``rel``) of the float64
+        plain version; the kernel's launch at type2_2d_geometry's float64
+        geometry gives the wrapper's result and the same bits again, within
+        1e-12 of max|ref| of its twin nufft2_2d_f64_tc_ref (run on the
+        card) up to TWIN2_F64_MAX_WORK; its scratch no more than its
+        geometry counts; the card's time alone (tc_ms, time_cuda_paths: the
+        host ahead) and the FP64 tensor-core bound.  The CUDA-core kernel
+        it replaces is gone; scripts/time_type2_2d_f64.py times it from the
+        parent commit's sources beside this one.  Returns the row's fields
+        and a line for the log."""
+        geo = cuda_nufft.type2_2d_geometry(m, torch.float64, B)
+        what = f"nufft2_2d_batched float64 B={B} n={n} mtot={m}"
+        check(rel <= 1e-12, f"{what}: error {rel:.3e} of max|ref| > 1e-12")
+
+        def call():
+            return cuda_nufft._nufft2_2d_batched_on(x, f, hq, m, fo, geo)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o = call()
+        sync()
+        scratch = (torch.cuda.max_memory_allocated() - base
+                   - o.numel() * o.element_size())
+        counted = 8 * cuda_nufft.type2_2d_f64_scratch_doubles(m, B, geo)
+        check(scratch <= counted + 2 ** 21, f"{what}: scratch {scratch} "
+              f"bytes past its geometry's {counted}")
+        check(torch.equal(o, got),
+              f"{what}: the wrapper's result is not this kernel's")
+        check(torch.equal(call(), o), f"{what}: a second launch differs")
+        out = {"geometry": list(geo), "tc_scratch_bytes": scratch}
+        if n * B * m <= TWIN2_F64_MAX_WORK:
+            twin = cuda_nufft.nufft2_2d_f64_tc_ref(x, f, hq, mtot=m,
+                                                   fft_order=fo)
+            diff = float((o - twin).abs().max())
+            check(diff <= 1e-12 * scale,
+                  f"{what}: {diff / scale:.3e} of max|ref| from its twin "
+                  f"(bar 1e-12)")
+            out["twin_rel_diff"] = diff / scale
+            del twin
+        del o
+        out["tc_ms"] = time_cuda_paths({"tc": call}, reps, PATH_TRIALS)["tc"]
+        out["bound_fp64_tc_ms"], out["bound_fp64_tc_by"] = \
+            bound_fp64_tc_ms("nufft2_2d_batched", n, m, B)
+        line = (f" FP64 tensor cores: the card's time tc_ms="
+                f"{out['tc_ms']:.4f}"
+                + (f", twin {out['twin_rel_diff']:.3e} apart"
+                   if "twin_rel_diff" in out else "")
+                + f"; geometry {geo}; bound_fp64_tc_ms="
+                f"{out['bound_fp64_tc_ms']:.4f}")
+        return out, line
+
     def type2_1d_both(x, f, hq, m, fo, n, B, ref, scale, got, split_bar,
                       reps):
         """The float32 d=1 type-2 on its two kernels on the same inputs:
@@ -3529,14 +3625,18 @@ def main() -> int:
 
     def type2_single(x, f, hq, m, fo, n, dtype, ref, scale, got, split_bar,
                      reps, trials):
-        """The single type-2 on each of its paths, the tensor cores ("tc",
-        float32), the mode split ("split") and the CUDA cores ("cuda"), on
-        the same inputs: float32 within 1e-4 of max|ref| (the tensor cores
-        and the split also within ``split_bar``), float64 within 1e-13, bit
-        for bit against a second launch, timed, with its scratch (the peak
-        allocated in the call less the output); the wrapper's result bit for
-        bit that of the path type2_2d_single_geometry picks, and that path
-        the fastest measured (the card's time, the paths in alternation:
+        """The single type-2 on each of its paths, the tensor cores ("tc":
+        float32, 3xTF32, the batched kernel at B 1; float64, the FP64
+        tensor cores' B 1 instance), the mode split ("split") and the CUDA
+        cores ("cuda"), on the same inputs: float32 within 1e-4 of
+        max|ref| (the tensor cores and the split also within
+        ``split_bar``), float64 within 1e-13, bit for bit against a second
+        launch, timed, with its scratch (the peak allocated in the call
+        less the output); the float64 tensor cores within 1e-12 of max|ref|
+        of their twin nufft2_2d_f64_tc_ref (on the card) up to
+        TWIN2_F64_MAX_WORK; the wrapper's result bit for bit that of the
+        path type2_2d_single_geometry picks, and that path the fastest
+        measured (the card's time, the paths in alternation:
         time_cuda_paths), within DISPATCH_TIE.  Returns the row's fields
         and a line for the log."""
         pick = cuda_nufft.type2_2d_single_geometry(n, m, dtype)[0]
@@ -3546,6 +3646,8 @@ def main() -> int:
         if dtype == torch.float32:
             geos["tc"] = ("tc", cuda_nufft.TYPE2_2D_POINTS,
                           cuda_nufft.TYPE2_2D_COLS, cuda_nufft.TYPE2_2D_STAGE)
+        else:
+            geos["tc"] = cuda_nufft.type2_2d_geometry(m, dtype)
         out = {"dispatch": pick}
         calls = {}
         for r, geo in geos.items():
@@ -3569,14 +3671,30 @@ def main() -> int:
             if r == pick:
                 check(torch.equal(got, o),
                       f"{what}: the wrapper's result is not this path's")
+            if r == "tc" and dtype == torch.float64:
+                check(rel <= 1e-12, f"{what}: error {rel:.3e} of max|ref| "
+                      f"> 1e-12")
+                out["tc_geometry"] = list(geos["tc"])
+                if n * m <= TWIN2_F64_MAX_WORK:
+                    twin = cuda_nufft.nufft2_2d_f64_tc_ref(
+                        x, f[None], hq, mtot=m, fft_order=fo)[0]
+                    diff = float((o - twin).abs().max())
+                    check(diff <= 1e-12 * scale,
+                          f"{what}: {diff / scale:.3e} of max|ref| from its "
+                          f"twin (bar 1e-12)")
+                    out["tc_twin_rel_diff"] = diff / scale
+                    del twin
             out[f"{r}_rel_err"] = rel
             out[f"{r}_scratch_bytes"] = scratch
         for r, ms in time_cuda_paths(calls, reps,
                                      max(trials, PATH_TRIALS)).items():
             out[f"{r}_ms"] = ms
         out["split_bound_ms"] = bound_split_ms(n, m, dtype, rows)[0]
-        if "tc" in geos:
+        if dtype == torch.float32:
             out["tc_bound_3xtf32_ms"] = bound_3xtf32_ms("nufft2_2d", n, m)[0]
+        else:
+            out["tc_bound_fp64_tc_ms"] = bound_fp64_tc_ms("nufft2_2d", n,
+                                                          m)[0]
         fastest = min(geos, key=lambda r: out[f"{r}_ms"])
         out["fastest"] = fastest
         out["dispatch_is_fastest"] = fastest == pick
@@ -3591,8 +3709,13 @@ def main() -> int:
             f"scratch {out[f'{r}_scratch_bytes'] / 1e6:.3f} MB;"
             for r in geos)
         line += f" split bound_ms={out['split_bound_ms']:.4f}"
-        if "tc" in geos:
+        if dtype == torch.float32:
             line += f" tc bound_3xtf32_ms={out['tc_bound_3xtf32_ms']:.4f}"
+        else:
+            line += (f" tc (FP64 tensor cores, {geos['tc']}) "
+                     f"bound_fp64_tc_ms={out['tc_bound_fp64_tc_ms']:.4f}")
+            if "tc_twin_rel_diff" in out:
+                line += f", twin {out['tc_twin_rel_diff']:.3e} apart"
         return out, line
 
     phase3 = []
@@ -3720,6 +3843,19 @@ def main() -> int:
                         t2["bound_3xtf32_ms"], "operations")
                     b_by = "fp32 operations"
                 extra += line
+            if name == "nufft2_2d_batched" and dtype == torch.float64:
+                # the FP64 tensor cores, the only float64 batched kernel;
+                # the float64 CUDA-core bound kept beside theirs
+                t2, line = type2_f64_card(x, arg, hq, m, fo, n, B, scale,
+                                          got, rel, reps)
+                row.update(t2)
+                row["bound_f64_ms"] = b_ms
+                row["scratch_bytes"] = scratch
+                row["bound_ms"] = t2["bound_fp64_tc_ms"]
+                row["bound_by"] = t2["bound_fp64_tc_by"]
+                extra += (f" scratch {scratch / 1e6:.3f} MB (measured)"
+                          + line)
+                b_by = f"float64 CUDA cores, {b_by}"
             if name == "nufft2_2d_batched" and dtype == torch.float32:
                 t2, line = type2_both(x, arg, hq, m, fo, n, B, ref, scale,
                                       got, max(2 * plain_rel, 1e-6), reps,
@@ -3739,11 +3875,16 @@ def main() -> int:
                 row.update(t2)
                 if dtype == torch.float32:
                     row["split_bar"] = max(2 * plain_rel, 1e-6)
-                if t2["dispatch"] == "tc":
+                if t2["dispatch"] == "tc" and dtype == torch.float32:
                     row["bound_fp32_ms"] = b_ms
                     row["bound_ms"], row["bound_by"] = bound_3xtf32_ms(
                         name, n, m)
                     b_by = "fp32 operations"
+                elif t2["dispatch"] == "tc":
+                    row["bound_f64_ms"] = b_ms
+                    row["bound_ms"], row["bound_by"] = bound_fp64_tc_ms(
+                        name, n, m)
+                    b_by = "float64 CUDA cores"
                 extra += line
             if batched:
                 single = kernels[name.replace("_batched", "")]
@@ -5699,6 +5840,30 @@ def main() -> int:
             "shape": {"B": row["B"], "n": row["n"], "mtot": row["mtot"],
                       "fft_order": row["fft_order"],
                       "serves": row["serves"], "dtype": "float64"}})
+    # the float64 d=2 type-2 on the FP64 tensor cores (csrc/tc_type2_f64.cuh),
+    # batched and, where type2_2d_single_geometry sends it, at B 1: its
+    # float64 probe batch on phase 12's path (the headline's gradient), the
+    # wrapper's time and the card's alone there; launches from phase 12's
+    # high tier (its float64 batched type-2s, all on this kernel), which
+    # must hold one
+    row = next(r for r in phase3 if r["name"] == "nufft2_2d_batched"
+               and r["dtype"] == "float64"
+               and r["serves"] == "gradient F(D'F*Z), F(D Beta)")
+    launched = high_launches(("nufft2_2d_batched",))["f64"]
+    check(launched > 0, "phase 12 launched the batched type-2's FP64 "
+          "tensor-core kernel no time")
+    rows.append({
+        "name": "nufft2_2d_batched (float64, FP64 tensor cores)",
+        "route": "cuda", "source": "gpquad_torch/csrc/tc_type2_f64.cuh",
+        "replaces": REPLACES["nufft2_2d_batched"], "launches": launched,
+        **{k: row[k] for k in ("tc_ms", "tc_scratch_bytes", "bound_f64_ms")},
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_fp64_tc_ms"],
+        "bound_by": row["bound_fp64_tc_by"], "library_ms": None,
+        "shape": {"B": row["B"], "n": row["n"], "mtot": row["mtot"],
+                  "fft_order": row["fft_order"], "serves": row["serves"],
+                  "dtype": "float64"}})
     # the TPU's mode-tiled functions, each covered by the kernel above: its
     # float32 call past the single-block limit on the path that drives it
     # (scale fit + mean at d=2, the d3 fused call at d=3)

@@ -16,20 +16,24 @@
 // What bounds them on an H100: at the slice's shapes both kernels do
 // ~8 mtot^2 flops per point of complex multiply-adds against ~16 bytes of
 // point data, so they are bound by operations, not by bytes.
-//  - type-2: three paths, which ops/cuda_nufft.py picks from the shape
+//  - type-2: four paths, which ops/cuda_nufft.py picks from the shape
 //    (type2_2d_geometry for the batch, type2_2d_single_geometry for one
 //    vector) and passes to the launch with its geometry:
 //     - one thread per point on the CUDA cores (nufft2_2d_kernel): the
 //       point's mode-2 phases for a tile of TK modes live in registers, the
 //       f tile (TJ x TK) is staged in shared memory and read as a broadcast.
 //       Modes are tiled, so any odd mtot works.  Narrow grids (the
-//       headline's mtot 29), and float64 and the float32 batch below mtot
-//       64 with many points;
+//       headline's mtot 29) with many points, and the float32 batch below
+//       mtot 64;
 //     - float32 from mtot 64 with many points, on the tensor cores
 //       (tc_type2.cuh's type2_tc_kernel on Type2Grid2D below): a GEMM over
 //       the modes k with a 3xTF32 split, the sum over j in its epilogue;
 //       the single type-2 takes it at B = 1 (each output still has one
 //       owner);
+//     - float64 on the FP64 tensor cores (tc_type2_f64.cuh's
+//       type2_f64_kernel, DMMA m16n8k8): the same GEMM and epilogue with no
+//       split, the mode index split so that a point makes few phases; the
+//       float64 batch always, the single where the table sends it;
 //     - one vector, few points, three slabs of 16 modes j or more
 //       (nufft2_2d_split_kernel): a grid axis over the slabs, so that the
 //       card gets enough blocks, each thread keeping its slab's sums over k
@@ -58,20 +62,25 @@
 // times.  The batch runs in groups of a fixed size (a grid axis over
 // groups), so the per-thread accumulators are a fixed number of registers
 // whatever B is:
-//  - type-2: the f tiles of the group's G vectors are staged together in
-//    shared memory, and each e1 phase is made once and applied to all G.
+//  - type-2 on the CUDA cores (float32 below mtot 64): the f tiles of the
+//    group's G vectors are staged together in shared memory, and each e1
+//    phase is made once and applied to all G; on the tensor cores a block
+//    walks the B vectors' columns in tiles.
 //  - type-1 in float32: a group of 2 vectors takes the output tile's rows
 //    (32 modes j each) and shares its e2 tile.
 //  - type-1 in float64: likewise, on the FP64 tensor cores.
 //
-// The type-2 kernels are templated on the scalar type: float is the main
-// path, and double tensors run a double instance of the same code.
+// The CUDA-core type-2 kernels are templated on the scalar type: float is
+// the main path, and the single type-2's double tensors run a double
+// instance of the same code where the table keeps them off the FP64 tensor
+// cores.
 //
 // C interface (bound with ctypes): pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launches.
 
 #include "tc_type1_f64.cuh"
 #include "tc_type2.cuh"
+#include "tc_type2_f64.cuh"
 
 namespace {
 
@@ -328,8 +337,9 @@ struct Type2Grid2D {
 };
 
 // The single kernels are the G = 1 instances (the single type-2's CUDA-core
-// path with 64 threads per block); a batch runs in groups of 4 vectors
-// (type-2, 128 threads), and the type-1 (float32 and float64) in groups of 2.
+// path with 64 threads per block); a float32 batch on the CUDA cores runs in
+// groups of 4 vectors (type-2, 128 threads), and the type-1 (float32 and
+// float64) in groups of 2.
 constexpr int T2_THREADS = 64;
 constexpr int T2B_THREADS = 128;
 constexpr int T2B_GROUP = 4;
@@ -452,11 +462,25 @@ int gpq_nufft2_2d_batched_tc_f32(const void* x, const void* f, float h,
                                          scratch_floats, out, stream);
 }
 
-int gpq_nufft2_2d_batched_f64(const void* x, const void* f, double h, int n,
-                              int m, int nb, int fft_order, void* out,
-                              void* stream) {
-  return launch_nufft2<double, T2B_THREADS, T2B_GROUP>(x, f, h, n, m, nb, fft_order,
-                                                       out, stream);
+// the float64 type-2 on the FP64 tensor cores (tc_type2_f64.cuh), batched
+// and at B 1, its geometry (points, cols, stage) from ops/cuda_nufft.py
+// type2_2d_geometry (float64) and type2_2d_single_geometry, the split F's
+// scratch and its size in doubles before the output
+int gpq_nufft2_2d_batched_tc_f64(const void* x, const void* f, double h,
+                                 int n, int m, int nb, int fft_order,
+                                 int points, int cols, int stage,
+                                 void* scratch, long long scratch_doubles,
+                                 void* out, void* stream) {
+  return launch_type2_f64(x, f, h, n, m, nb, fft_order, points, cols, stage,
+                          scratch, scratch_doubles, out, stream);
+}
+
+int gpq_nufft2_2d_tc_f64(const void* x, const void* f, double h, int n,
+                         int m, int fft_order, int points, int cols,
+                         int stage, void* scratch, long long scratch_doubles,
+                         void* out, void* stream) {
+  return launch_type2_f64(x, f, h, n, m, 1, fft_order, points, cols, stage,
+                          scratch, scratch_doubles, out, stream);
 }
 
 int gpq_nufft1_2d_batched_f32(const void* x, const void* v, float h, int n,

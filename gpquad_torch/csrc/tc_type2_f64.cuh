@@ -1,0 +1,453 @@
+// The float64 d=2 type-2 NUFFT on the H100's FP64 tensor cores (DMMA,
+// mma.sync.aligned.m16n8k8 .f64), batched and at B 1 for the single:
+// type2_f64_kernel<NC>, included by nufft_2d.cu.  It replaces, in float64,
+// the TPU's pallas_nufft2_2d_batched (gpquad/ops/pallas_nufft.py:838; its
+// kernel _type2_kernel_b, :809-833, is this product) and, where
+// ops/cuda_nufft.py type2_2d_single_geometry sends it, pallas_nufft2_2d and
+// _pallas_nufft2_2d_tiled (:113, :369) at B 1.
+//
+// For the block's P points (e = e^{+2 pi i c}, complex):
+//   T[p, (b, j)] = sum_k e2(p, k) F_b[j, k]      a GEMM over the modes k,
+//   out[b, p]    = sum_j e1(p, j) T[p, (b, j)]   in its epilogue,
+// the GEMM as four real float64 products on the tensor cores:
+//   T_re = C Fr + S (-Fi),   T_im = C Fi + S Fr   (C, S: cos, sin of e2),
+// with no split of the operands: DMMA takes float64 as it is.
+//
+// What bounds it on an H100: 8 flops a point, mode pair and vector on the
+// tensor cores (67 TFLOP/s dense float64), the phases and the epilogue on
+// the CUDA cores (34 TFLOP/s).  A float64 sincospi costs tens of flops, so
+// the modes are taken in symmetric order (index i is mode i - half; F is
+// read through the caller's order, FFT or symmetric) and split as
+// i = 8 s + r, r < 8:
+//   e(u, i - half) = e(u, 8 s - half) e(u, r),
+// each factor from nufft_common.cuh's phase<double> (the torus fold, the
+// compensated u k, sincospi).  A point makes the 8 factors e(u, r) of each
+// axis once a block, one factor e(u2, 8 s - half) a k-step of 8 modes k,
+// and e1's factors e(u1, 8 s - half) once a block up to mtot 47 (past that
+// one a run of up to 8 modes j of a vector in an epilogue pass); then one
+// complex product an entry.  The twin (ops/cuda_nufft.py
+// nufft2_2d_f64_tc_ref) forms every phase the same way.
+//
+// Operands:
+//  - A = e2 (points x modes k) is made on chip, in fragment order, into
+//    shared memory: up to T2D_KCH k-steps (48 modes) at once, each thread
+//    making whole fragment quads (points g, g + 8 at modes t, t + 4 of a
+//    k-step), stored as two 16-byte halves so that a fragment load is two
+//    conflict-free 16-byte loads.  Where the modes k take one such chunk
+//    (mtot up to 47) e2 is made once a block and kept for every column
+//    tile; past that each chunk is made again for every tile.
+//  - B = F (modes k x columns (b, j), column b mtot + j: the vectors'
+//    columns follow each other with no padding, the last tile's padded
+//    with zeros) is laid out once a call by type2_f64_split_kernel into a
+//    scratch in fragment order, [tile][k-step][n-tile][Re, Im][lane][2],
+//    the modes k padded with zeros to whole k-steps of 8 (mtot 17 pads to
+//    24, not to 32); a block copies it per stage of T2D_KST k-steps with
+//    cp.async into one of two buffers while the other is multiplied.  It
+//    stays in the L2 (11 x 43^2 x 16 B = 325 KB at PG's spatial batch).
+//
+// Block: 256 threads, P = 64 points, walking every column tile of NC
+// columns (64, or 32 where 64 pads the columns 1.25x as far: a single
+// vector on a narrow grid) in order; 8 warps in a WR x WC grid of 32 x 16
+// (NC 64) or 16 x 16 (NC 32) warp tiles, four m16n8k8 DMMA a 16 x 8 tile
+// and k-step.  One role: the phases, the products and the epilogue of a
+// block take turns, and two blocks share an SM (112 KB of shared memory
+// and at most 128 registers a thread each), so that one's products may
+// run beside the other's phases and epilogue.  Taken apart on the card
+// (scripts/time_type2_2d_f64.py --ablate: no DMMA, no epilogue, neither,
+// one block an SM) at PG's 1e5 x 17, B 11 the three parts add rather than
+// overlap: ~0.067 ms of DMMA, ~0.048 of epilogue, ~0.053 of the rest (the
+// phases, F's copies from the L2, the block's prologue and barriers) in
+// 0.168; one block an SM takes 1.4x as long.
+//
+// The sum, in a fixed order and with no atomics:
+//  - T of a column tile in the DMMA accumulators: k-step after k-step from
+//    zero, each adding C Fr then S (-Fi) into the real part and C Fi then
+//    S Fr into the imaginary part (the tensor cores add a k-step's 8
+//    products and the accumulator in their own order);
+//  - the epilogue, T through shared memory T2D_EC columns a pass: thread
+//    (p, q) adds, for each vector b = q (mod 4) of the pass,
+//    e1(p, j) T[p, (b, j)] over b's columns there in j order, from zero
+//    (fused multiply-adds);
+//  - a vector's pass sums added in pass order in the same thread's
+//    registers (the vector open at a pass's end is the next pass's first,
+//    of the same residue), its total stored once to out[b, p]: every
+//    output has one owner.
+// The same bits on every launch.  ops/cuda_nufft.py type2_2d_geometry
+// (float64) and type2_2d_single_geometry own the geometry (points, column
+// tile, modes a stage); the launch refuses one it has no instance for, and
+// a scratch shorter than the split F.
+#pragma once
+
+#include "tc_type1_f64.cuh"
+#include "tc_type2.cuh"
+
+namespace {
+
+constexpr int T2D_THREADS = 256;
+constexpr int T2D_P = 64;              // points a block
+constexpr int T2D_MT = T2D_P / 16;     // its m-tiles
+constexpr int T2D_KST = 2;             // k-steps of F a stage
+constexpr int T2D_KCH = 6;             // k-steps of e2 made at once
+constexpr int T2D_EC = 32;             // columns of T an epilogue pass
+constexpr int T2D_EQ = T2D_THREADS / T2D_P;   // epilogue threads a point
+constexpr int T2D_S1 = 6;              // e1's factors e(u1, 8 s - half)
+                                       // kept a point (mtot up to 47)
+
+// The warp grid over a T2D_P x NC tile: WR x WC warps of MI 16-row m-tiles
+// by NI 8-column n-tiles.
+template <int NC>
+struct T2dTile {
+  static_assert(NC == 32 || NC == 64, "tile widths: 32, 64");
+  static constexpr int NT = NC / 8;
+  static constexpr int WC = NC == 64 ? 4 : 2;
+  static constexpr int WR = T2D_THREADS / 32 / WC;
+  static constexpr int WM = T2D_P / WR, WN = NC / WC;
+  static constexpr int MI = WM / 16, NI = WN / 8;
+  static_assert(T2D_EC % WN == 0, "a warp's columns in one epilogue pass");
+};
+
+template <int NC>
+struct T2dSmem {
+  // e2's chunk: [k-step][cos, sin][m-tile][half][lane] -> (row g, row g+8)
+  // at mode t (half 0) or t + 4 (half 1)
+  double2 ea[T2D_KCH][2][T2D_MT][2][32];
+  union {
+    // F's stages: [buffer][k-step][n-tile][Re, Im][lane] -> (b0, b1)
+    double2 fb[2][T2D_KST][NC / 8][2][32];
+    // T_EC columns of a tile's T, the epilogue's (the row stride odd, so
+    // that 8 neighbouring points' rows fall on distinct 16-byte banks)
+    double2 t[T2D_P][T2D_EC + 1];
+  };
+  // e(u1, r), e(u2, r) (a row of 9: 8 neighbouring points' rows on
+  // distinct 16-byte banks)
+  double2 r1[T2D_P][9], r2[T2D_P][9];
+  double2 s2[T2D_P][T2D_KCH];            // e(u2, 8 s - half), the chunk's s
+  double2 s1[T2D_P][T2D_S1];             // e(u1, 8 s - half), mtot <= 47
+  double u1[T2D_P], u2[T2D_P];           // torus coordinates
+};
+
+// F (B, m, m), the caller's mode order -> the fragment-order scratch
+// fs[tile][k-step][n-tile][Re, Im][lane][2] (lane 4 g + t: column g of the
+// n-tile, modes t and t + 4 of the k-step), column c = b m + j, both mode
+// indices symmetric; zero past B, past the m modes k and in the last
+// tile's pad columns.  One thread an entry.
+template <int NC>
+__global__ void type2_f64_split_kernel(const double2* __restrict__ f, int m,
+                                       int nb, int fft_order, int nks,
+                                       int ncp, double* __restrict__ fs) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int kq = nks * 8;
+  if (idx >= (long long)kq * ncp) return;
+  const int k = (int)(idx % kq), c = (int)(idx / kq);
+  const int b = c / m, j = c % m;
+  double2 v = make_double2(0.0, 0.0);
+  if (b < nb && k < m)
+    v = f[((size_t)b * m + t64_out(j, m, fft_order)) * m +
+          t64_out(k, m, fft_order)];
+  const int ct = c / NC, cc = c % NC;
+  const int lane = (cc % 8) * 4 + (k & 3);
+  const size_t base =
+      (((size_t)ct * nks + (k >> 3)) * (NC / 8) + cc / 8) * 2;
+  fs[((base + 0) * 32 + lane) * 2 + ((k >> 2) & 1)] = v.x;
+  fs[((base + 1) * 32 + lane) * 2 + ((k >> 2) & 1)] = v.y;
+}
+
+// Copy F's stage of k-steps ks0 .. ks0 + cnt - 1 of column tile ct into
+// buf, as one cp.async group
+template <int NC>
+__device__ __forceinline__ void t2d_load_f(double2 (*buf)[NC / 8][2][32],
+                                           const double2* __restrict__ fs,
+                                           int nks, int ct, int ks0, int cnt,
+                                           int tid) {
+  constexpr int PER = NC / 8 * 2 * 32;   // double2 a k-step
+  const double2* src = fs + ((size_t)ct * nks + ks0) * PER;
+  for (int e = tid; e < cnt * PER; e += T2D_THREADS)
+    cp_async16(&buf[0][0][0][0] + e, src + e);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// e2's chunk ch (k-steps ch T2D_KCH ..): its factors e(u2, 8 s - half),
+// then each thread's fragment quads, zero past the m modes
+template <int NC>
+__device__ __forceinline__ void t2d_make_chunk(T2dSmem<NC>& sm, int ch,
+                                               int nks, int m, int tid) {
+  const int half = (m - 1) / 2;
+  const int ks0 = ch * T2D_KCH;
+  const int kn = min(T2D_KCH, nks - ks0);
+  for (int e = tid; e < T2D_P * T2D_KCH; e += T2D_THREADS) {
+    const int p = e / T2D_KCH, s = e % T2D_KCH;
+    if (s < kn) {
+      double c, sn;
+      phase(sm.u2[p], (double)(8 * (ks0 + s) - half), &c, &sn);
+      sm.s2[p][s] = make_double2(c, sn);
+    }
+  }
+  __syncthreads();
+  for (int q = tid; q < kn * T2D_MT * 32; q += T2D_THREADS) {
+    const int lane = q & 31, mt = (q >> 5) % T2D_MT, ks = (q >> 5) / T2D_MT;
+    const int g = lane >> 2, t = lane & 3;
+    double2 lo[2], hi[2];   // [cos, sin] of points (g, g + 8)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = t + 4 * hh;
+      const bool ok = 8 * (ks0 + ks) + r < m;
+      double2 e[2];
+#pragma unroll
+      for (int gg = 0; gg < 2; ++gg) {
+        const int p = mt * 16 + g + 8 * gg;
+        e[gg] = ok ? cmul(sm.s2[p][ks], sm.r2[p][r]) : make_double2(0.0, 0.0);
+      }
+      (hh ? hi : lo)[0] = make_double2(e[0].x, e[1].x);
+      (hh ? hi : lo)[1] = make_double2(e[0].y, e[1].y);
+    }
+    sm.ea[ks][0][mt][0][lane] = lo[0];
+    sm.ea[ks][0][mt][1][lane] = hi[0];
+    sm.ea[ks][1][mt][0][lane] = lo[1];
+    sm.ea[ks][1][mt][1][lane] = hi[1];
+  }
+}
+
+// The products of k-step ks (of the chunk in sm.ea: eks) from F's stage
+// buffer fbk: Re += C Fr, Re += S (-Fi), Im += C Fi, Im += S Fr
+template <int NC>
+__device__ __forceinline__ void t2d_kstep(
+    const T2dSmem<NC>& sm, const double2 (*fbk)[2][32], int eks,
+    double (&acc)[T2dTile<NC>::MI][T2dTile<NC>::NI][8], int lane, int wr,
+    int wc) {
+  using Tile = T2dTile<NC>;
+  double fr[Tile::NI][2], fi[Tile::NI][2], nfi[Tile::NI][2];
+#pragma unroll
+  for (int ni = 0; ni < Tile::NI; ++ni) {
+    const int nt = wc / 8 + ni;
+    const double2 r = fbk[nt][0][lane], i = fbk[nt][1][lane];
+    // b0 (t, g), b1 (t+4, g)
+    fr[ni][0] = r.x; fr[ni][1] = r.y;
+    fi[ni][0] = i.x; fi[ni][1] = i.y;
+    nfi[ni][0] = -i.x; nfi[ni][1] = -i.y;
+  }
+  // one m-tile's A fragments at a time (a0 (g, t), a1 (g+8, t), a2 (g,
+  // t+4), a3 (g+8, t+4)), so that two blocks' registers fit an SM
+#pragma unroll
+  for (int mi = 0; mi < Tile::MI; ++mi) {
+    const int mt = wr / 16 + mi;
+    const double2 c0 = sm.ea[eks][0][mt][0][lane];
+    const double2 c1 = sm.ea[eks][0][mt][1][lane];
+    const double ca[4] = {c0.x, c0.y, c1.x, c1.y};
+#pragma unroll
+    for (int ni = 0; ni < Tile::NI; ++ni) {
+      mma_f64(&acc[mi][ni][0], ca, fr[ni]);
+      mma_f64(&acc[mi][ni][4], ca, fi[ni]);
+    }
+    const double2 s0 = sm.ea[eks][1][mt][0][lane];
+    const double2 s1 = sm.ea[eks][1][mt][1][lane];
+    const double sa[4] = {s0.x, s0.y, s1.x, s1.y};
+#pragma unroll
+    for (int ni = 0; ni < Tile::NI; ++ni) {
+      mma_f64(&acc[mi][ni][0], sa, nfi[ni]);
+      mma_f64(&acc[mi][ni][4], sa, fr[ni]);
+    }
+  }
+}
+
+template <int NC>
+__global__ void __launch_bounds__(T2D_THREADS, 2)
+type2_f64_kernel(const double2* __restrict__ x,
+                 const double2* __restrict__ fs, double h, int n, int m,
+                 int nb, int nks, double2* __restrict__ out) {
+  using Tile = T2dTile<NC>;
+  constexpr int MI = Tile::MI, NI = Tile::NI;
+  extern __shared__ double2 t2d_smem[];
+  T2dSmem<NC>& sm = *reinterpret_cast<T2dSmem<NC>*>(t2d_smem);
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * T2D_P;
+  const int half = (m - 1) / 2;
+
+  // the points' torus coordinates, then the factors e(u, r) of both axes
+  // and, where the modes j take at most T2D_S1 k-steps, e1's factors
+  // e(u1, 8 s - half)
+  if (tid < T2D_P) {
+    const double2 xp =
+        p0 + tid < n ? x[p0 + tid] : make_double2(0.0, 0.0);
+    sm.u1[tid] = torus(xp.x, h);
+    sm.u2[tid] = torus(xp.y, h);
+  }
+  __syncthreads();
+  const bool s1_kept = nks <= T2D_S1;
+  for (int e = tid; e < T2D_P * (16 + T2D_S1); e += T2D_THREADS) {
+    const int p = e / (16 + T2D_S1), q = e % (16 + T2D_S1);
+    double c, sn;
+    if (q < 16) {
+      phase(q < 8 ? sm.u1[p] : sm.u2[p], (double)(q & 7), &c, &sn);
+      (q < 8 ? sm.r1 : sm.r2)[p][q & 7] = make_double2(c, sn);
+    } else if (s1_kept && q - 16 < nks) {
+      phase(sm.u1[p], (double)(8 * (q - 16) - half), &c, &sn);
+      sm.s1[p][q - 16] = make_double2(c, sn);
+    }
+  }
+  __syncthreads();
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int wr = (warp / Tile::WC) * Tile::WM;
+  const int wc = (warp % Tile::WC) * Tile::WN;
+  const int nchunks = (nks + T2D_KCH - 1) / T2D_KCH;
+  const int nst = (nks + T2D_KST - 1) / T2D_KST;
+  const int ncols = nb * m;
+  const int ntiles = (ncols + NC - 1) / NC;
+  // the epilogue's point and residue of vectors, and its open vector's sum
+  const int ep = tid % T2D_P, eq = tid / T2D_P;
+  double2 carry = make_double2(0.0, 0.0);
+
+  for (int ct = 0; ct < ntiles; ++ct) {
+    double acc[MI][NI][8];   // T: [m-tile][n-tile][re 4, im 4]
+#pragma unroll
+    for (int a = 0; a < MI; ++a)
+#pragma unroll
+      for (int b = 0; b < NI; ++b)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[a][b][c] = 0.0;
+    t2d_load_f<NC>(sm.fb[0], fs, nks, ct, 0, min(T2D_KST, nks), tid);
+    for (int st = 0; st < nst; ++st) {
+      const int ks0 = st * T2D_KST;
+      // a new chunk of e2 (the last stage's products are done: the
+      // barrier that ended it)
+      if (ks0 % T2D_KCH == 0 && (nchunks > 1 || ct == 0))
+        t2d_make_chunk<NC>(sm, ks0 / T2D_KCH, nks, m, tid);
+      if (st + 1 < nst) {
+        t2d_load_f<NC>(sm.fb[(st + 1) & 1], fs, nks, ct, ks0 + T2D_KST,
+                       min(T2D_KST, nks - ks0 - T2D_KST), tid);
+        cp_async_wait<1>();   // all but the next stage's copy
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int kn = min(T2D_KST, nks - ks0);
+#pragma unroll
+      for (int kk = 0; kk < T2D_KST; ++kk)
+        if (kk < kn)
+          t2d_kstep<NC>(sm, sm.fb[st & 1][kk], (ks0 + kk) % T2D_KCH, acc,
+                        lane, wr, wc);
+      __syncthreads();   // this F buffer, and e2's chunk, are free again
+    }
+    // the epilogue, T2D_EC columns a pass: the pass's T to shared memory
+    // (C fragment c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)),
+    // then thread (ep, eq) sums, for point ep, each vector b = eq (mod
+    // T2D_EQ) of the pass over its columns there, in j order, from zero,
+    // and adds that to the vector's sum over its earlier passes (carry: the
+    // vector open at a pass's end is the next pass's first, the same
+    // thread's); a vector's sum goes to out at its last column
+#pragma unroll
+    for (int hf = 0; hf < NC / T2D_EC; ++hf) {
+      if (wc / T2D_EC == hf) {
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int row = wr + mi * 16 + gq + (i >> 1) * 8;
+              const int col = wc - hf * T2D_EC + ni * 8 + 2 * tq + (i & 1);
+              sm.t[row][col] =
+                  make_double2(acc[mi][ni][i], acc[mi][ni][4 + i]);
+            }
+      }
+      __syncthreads();
+      const int e0 = ct * NC + hf * T2D_EC;
+      const int b_first = e0 / m;
+      const int b_end = min(nb, (e0 + T2D_EC + m - 1) / m);
+      if (p0 + ep < n) {
+        for (int b = b_first + (eq - b_first % T2D_EQ + T2D_EQ) % T2D_EQ;
+             b < b_end; b += T2D_EQ) {
+          const int ja = max(0, e0 - b * m);
+          const int jb = min(m, e0 + T2D_EC - b * m);
+          double sr = 0.0, si = 0.0;
+          // the modes j a factor e(u1, 8 s - half) at a time
+          for (int j0 = ja & ~7; j0 < jb; j0 += 8) {
+            double2 sf;
+            if (s1_kept) {
+              sf = sm.s1[ep][j0 >> 3];
+            } else {
+              double c, sn;
+              phase(sm.u1[ep], (double)(j0 - half), &c, &sn);
+              sf = make_double2(c, sn);
+            }
+            const int lo = ja - j0, hi = jb - j0;
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              if (r >= lo && r < hi) {
+                const double2 e1 = cmul(sf, sm.r1[ep][r]);
+                const double2 tv = sm.t[ep][b * m + j0 + r - e0];
+                sr = fma(-e1.y, tv.y, fma(e1.x, tv.x, sr));
+                si = fma(e1.y, tv.x, fma(e1.x, tv.y, si));
+              }
+            }
+          }
+          if (ja > 0) {   // not the vector's first pass
+            sr = __dadd_rn(carry.x, sr);
+            si = __dadd_rn(carry.y, si);
+          }
+          if (jb == m)
+            out[(size_t)b * n + p0 + ep] = make_double2(sr, si);
+          else
+            carry = make_double2(sr, si);
+        }
+      }
+      __syncthreads();   // T's buffer is free
+    }
+  }
+}
+
+template <int NC>
+int launch_type2_f64_cols(const void* x, const void* f, double h, int n,
+                          int m, int nb, int fft_order, void* scratch,
+                          long long scratch_doubles, void* out,
+                          cudaStream_t s) {
+  const int nks = (m + 7) / 8;
+  const long long ncp = ((long long)nb * m + NC - 1) / NC * NC;
+  const long long need = ncp * nks * 8 * 2;
+  if (need > scratch_doubles || (long long)nb * n >= (1LL << 31) ||
+      ncp >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const long long cells = ncp * nks * 8;
+  type2_f64_split_kernel<NC><<<(unsigned)((cells + 255) / 256), 256, 0, s>>>(
+      (const double2*)f, m, nb, fft_order, nks, (int)ncp, (double*)scratch);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  // two blocks an SM (the launch bounds hold each to 128 registers a thread)
+  constexpr int smem = sizeof(T2dSmem<NC>);
+  static_assert(2 * (smem + 1024) <= 233472, "two blocks an SM");
+  err = (int)cudaFuncSetAttribute(type2_f64_kernel<NC>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem);
+  if (err == 0)
+    err = (int)cudaFuncSetAttribute(
+        type2_f64_kernel<NC>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+  if (err != 0) return err;
+  type2_f64_kernel<NC><<<(n + T2D_P - 1) / T2D_P, T2D_THREADS, smem, s>>>(
+      (const double2*)x, (const double2*)scratch, h, n, m, nb, nks,
+      (double2*)out);
+  return (int)cudaGetLastError();
+}
+
+// The caller's geometry (points a block, columns a tile, modes a stage)
+// checked against the instances there are, and the scratch
+// (scratch_doubles doubles) against the split F it must hold; then the
+// split and the kernel
+int launch_type2_f64(const void* x, const void* f, double h, int n, int m,
+                     int nb, int fft_order, int points, int cols, int stage,
+                     void* scratch, long long scratch_doubles, void* out,
+                     void* stream) {
+  if (points != T2D_P || stage != T2D_KST * 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (cols == 32)
+    return launch_type2_f64_cols<32>(x, f, h, n, m, nb, fft_order, scratch,
+                                     scratch_doubles, out, s);
+  if (cols == 64)
+    return launch_type2_f64_cols<64>(x, f, h, n, m, nb, fft_order, scratch,
+                                     scratch_doubles, out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace

@@ -17,12 +17,13 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
 - :func:`nufft2_2d` replaces ``pallas_nufft2_2d`` (pallas_nufft.py:113) and
   its mode-tiled twin ``_pallas_nufft2_2d_tiled`` (:369), any odd ``mtot``,
   on one of three paths that :func:`type2_2d_single_geometry` picks from
-  the shape: in float32 with many points the batched type-2's tensor-core
-  kernel at B 1 (:func:`nufft2_2d_batched_3xtf32_ref` is its twin); with
-  few points on a wide grid a split of the first mode axis into slabs, a
-  grid axis, whose partials a second pass adds in slab order
-  (:func:`nufft2_2d_split_ref`); else one thread a point on the CUDA
-  cores, tiling the modes inside.
+  the shape: the batched type-2's tensor-core kernel at B 1 (in float32
+  with many points, :func:`nufft2_2d_batched_3xtf32_ref` its twin; in
+  float64 on the FP64 tensor cores for most shapes,
+  :func:`nufft2_2d_f64_tc_ref`); with few points on a wide grid a split
+  of the first mode axis into slabs, a grid axis, whose partials a second
+  pass adds in slab order (:func:`nufft2_2d_split_ref`); else one thread a
+  point on the CUDA cores, tiling the modes inside.
 - :func:`nufft1_2d` replaces ``pallas_nufft1_2d`` (:195) and
   ``_pallas_nufft1_2d_tiled`` (:442): in float32 a GEMM over the points on
   the tensor cores with an explicit 3xTF32 split, one partial sum per point
@@ -40,7 +41,10 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   it, as a GEMM over the modes on the tensor cores with an explicit 3xTF32
   split and the sum over the first mode axis in its epilogue
   (:func:`nufft2_2d_batched_3xtf32_ref` is its plain twin), elsewhere on
-  the CUDA cores.
+  the CUDA cores; in float64 always as the same GEMM and epilogue on the
+  FP64 tensor cores (DMMA, no split of the operands, the mode index split
+  so that a point makes few phases; :func:`type2_2d_geometry` at float64,
+  :func:`nufft2_2d_f64_tc_ref` its plain twin).
 - :func:`nufft2_3d` replaces ``pallas_nufft2_3d`` (:662) and its
   first-dimension slab-tiled twin ``_pallas_nufft2_3d_tiled`` (:1034), and
   :func:`nufft1_3d` replaces ``pallas_nufft1_3d`` (:750) and
@@ -58,7 +62,9 @@ All are bound by operations on an H100 (complex multiply-adds, ~8 mtot^d
 flops per point and vector, and at d=1 the phases themselves): fp32 outside
 the tensor cores, but for the float32 paths on the tensor cores (the type-1
 and the type-2 at d=1-3), which take three TF32
-products per real product; the sources say how the designs stage the work.  The wrappers take a tensor on the CPU to the plain
+products per real product, and for the float64 d=2 pair on the FP64
+tensor cores; the sources say how the designs stage the work.  The
+wrappers take a tensor on the CPU to the plain
 version (``*_ref``, the phase-matrix backend of ``ops/nufft.py``); on a
 CUDA tensor they launch the kernel or raise.
 
@@ -99,7 +105,9 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft2_3d", "nufft1_3d_ref", "nufft2_3d_ref", "type1_2d_chunk",
            "type1_2d_geometry", "type2_2d_geometry",
            "type2_2d_single_geometry",
-           "type2_2d_scratch_floats", "type1_3d_groups",
+           "type2_2d_scratch_floats", "type2_2d_f64_scratch_doubles",
+           "nufft2_2d_f64_tc_ref",
+           "type1_3d_groups",
            "type1_3d_geometry", "type1_3d_tc_geometry", "type1_3d_split",
            "nufft1_3d_3xtf32_ref", "nufft2_3d_3xtf32_ref",
            "type2_3d_geometry", "type2_3d_tc_geometry",
@@ -120,8 +128,8 @@ LAUNCH_PRECISIONS: dict[tuple[str, str, int], int] = {}
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every file the library depends on (hashed); the .cu files are compiled
 _SOURCES = ("nufft_common.cuh", "tc_type1.cuh", "tc_type1_f64.cuh",
-            "tc_type2.cuh", "nufft_1d.cu", "nufft_2d.cu", "nufft_3d.cu",
-            "interp_2d.cu")
+            "tc_type2.cuh", "tc_type2_f64.cuh", "nufft_1d.cu", "nufft_2d.cu",
+            "nufft_3d.cu", "interp_2d.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpquad_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -208,19 +216,48 @@ TYPE2_1D_TC_MIN_WORK = {False: 2 ** 20, True: 2 ** 23}
 # 3's times of both kernels on the same inputs: the tensor cores from this
 # mtot on, the CUDA cores below it
 TYPE2_2D_TC_MIN_MTOT = 64
+# The float64 d=2 type-2 on the FP64 tensor cores (csrc/tc_type2_f64.cuh
+# type2_f64_kernel), batched and at B 1, its geometry owned here
+# (type2_2d_geometry at float64, type2_2d_single_geometry) and checked by
+# its launch: blocks of 64 points walking column tiles of 64 columns
+# (vector, mode j; the vectors' columns one after another, the last tile
+# padded), or of 32 where 64 would pad the columns this many times as far
+# (one vector on a narrow grid), F copied 16 modes k a stage; the modes k
+# padded to whole k-steps of 8 and split as (8 s - half) + r, r <
+# TYPE2_2D_F64_K (the source's k-step)
+TYPE2_2D_F64_POINTS, TYPE2_2D_F64_STAGE = 64, 16
+TYPE2_2D_F64_COLS, TYPE2_2D_F64_NARROW_COLS = 64, 32
+TYPE2_2D_F64_NARROW_PADDING = 1.25
+TYPE2_2D_F64_K = 8
+# its epilogue takes a tile's T this many columns a pass (the source's
+# T2D_EC): a vector's columns in a pass are summed in j order, the passes
+# added in order
+TYPE2_2D_F64_EPILOGUE = 32
 # The single type-2's mode split (csrc/nufft_2d.cu nufft2_2d_split_kernel):
 # blocks of 64 points by slabs of 16 modes j, checked by its launch
 TYPE2_2D_SPLIT_THREADS, TYPE2_2D_SPLIT_ROWS = 64, 16
 # The single type-2's dispatch (type2_2d_single_geometry), from the times
 # of its paths on the same inputs (chip_smoke.py phase 3 at the driven
-# shapes, scripts/time_type2_single.py between them): the mode split from
-# this mtot on (three slabs and more) below a number of points by
-# precision (in float64 it leads by 5-14% at 60 000 points and ties the
-# CUDA cores within 4% at 100 000); in float32 the tensor cores from
-# TYPE2_2D_TC_MIN_MTOT and this many points
+# shapes, scripts/time_type2_single.py and scripts/time_type2_2d_f64.py
+# --shapes sweep between them).  In float32: the mode split from this
+# mtot on (three slabs and more) below a number of points, the tensor
+# cores from TYPE2_2D_TC_MIN_MTOT and this many points
 TYPE2_2D_SPLIT_MIN_MTOT = 45
-TYPE2_2D_SPLIT_MAX_POINTS = {torch.float32: 16384, torch.float64: 65536}
+TYPE2_2D_SPLIT_MAX_POINTS = {torch.float32: 16384, torch.float64: 4096}
 TYPE2_2D_SINGLE_TC_MIN_POINTS = 8192
+# In float64 the FP64 tensor cores from this mtot on, but for the mode
+# split on wide grids (this mtot and more) below TYPE2_2D_SPLIT_MAX_POINTS
+# points (at 1 000-2 000 points a block of 64 leaves the card short of
+# blocks: 0.047-0.18 ms against the tensor cores' 0.065-0.27 from mtot
+# 129; at 107 and at 4 000 points the tensor cores tie or lead), and for
+# the CUDA cores on narrow grids (up to this mtot) from this many points
+# (at 32 000-256 000 points x 17-21 the CUDA cores took 0.74-0.91x the
+# tensor cores' time, whose modes pad to 24; from 25 the tensor cores tie
+# or lead); scripts/time_type2_2d_f64.py --shapes sweep on NVIDIA H100
+# 80GB HBM3, 700 W
+TYPE2_2D_F64_SINGLE_MIN_MTOT = 17
+TYPE2_2D_F64_SPLIT_MIN_MTOT = 109
+TYPE2_2D_F64_CUDA_MAX_MTOT, TYPE2_2D_F64_CUDA_MIN_POINTS = 23, 32768
 # The float32 d=3 type-2 takes the same kernel on nufft_3d.cu's Type2Grid3D
 # (type2_3d_geometry): a GEMM over the pairs (j2, j3), j3 padded to a
 # multiple of the stage (one j2 and 32 modes j3 a stage), with columns
@@ -352,16 +389,29 @@ def _library():
             t1.argtypes = [ptr, ptr, real, i32, i32, i32, *geo, i32, ptr, ptr,
                            ptr]
             t1.restype = i32
-            b2 = getattr(lib, f"gpq_nufft2_2d_batched_{prec}")
-            b2.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
-            b2.restype = i32
             if prec == "f32":
-                # the tensor-core form: its geometry (points, cols, stage)
-                # and the split F's scratch and size before the output
+                # the batched type-2 on the CUDA cores, then on the tensor
+                # cores: its geometry (points, cols, stage) and the split
+                # F's scratch and size before the output
+                b2 = lib.gpq_nufft2_2d_batched_f32
+                b2.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
+                b2.restype = i32
                 tc = lib.gpq_nufft2_2d_batched_tc_f32
                 tc.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, i32,
                                i32, ptr, ctypes.c_longlong, ptr, ptr]
                 tc.restype = i32
+            else:
+                # the FP64 tensor cores' batched form and its B 1 instance:
+                # the geometry (points, cols, stage), then the split F's
+                # scratch and its size in doubles before the output
+                tc = lib.gpq_nufft2_2d_batched_tc_f64
+                tc.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, i32,
+                               i32, ptr, ctypes.c_longlong, ptr, ptr]
+                tc.restype = i32
+                t2t = lib.gpq_nufft2_2d_tc_f64
+                t2t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, i32,
+                                ptr, ctypes.c_longlong, ptr, ptr]
+                t2t.restype = i32
             # the single type-2's mode split: its geometry (rows, threads),
             # the slabs' partials and the output
             t2s = getattr(lib, f"gpq_nufft2_2d_split_{prec}")
@@ -938,6 +988,85 @@ def nufft2_2d_batched_3xtf32_ref(x, f, h, *, mtot: int,
                               chunk=TYPE2_2D_STAGE, passes=passes)
 
 
+def _split_phases_2d(t, mtot: int):
+    """e^{+2 pi i t k} at the symmetric-order modes, index i for mode
+    i - half, each the product of the mode split's two factors
+    e(t, K s - half) e(t, r) for i = K s + r (K = :data:`TYPE2_2D_F64_K`;
+    ``ops/nufft.py`` ``_phase_matrix`` on t = x h): complex128 (N, mtot)."""
+    K, half, dev = TYPE2_2D_F64_K, (mtot - 1) // 2, t.device
+    i = torch.arange(mtot, device=dev)
+    base = (K * torch.arange(-(-mtot // K), device=dev) - half).double()
+    r = torch.arange(K, device=dev).double()
+    return (_phase_matrix(t, base, torch.complex128).conj()[:, i // K]
+            * _phase_matrix(t, r, torch.complex128).conj()[:, i % K])
+
+
+def nufft2_2d_f64_tc_ref(x, f, h, *, mtot: int, fft_order: bool = False,
+                         chunk: int = TYPE2_2D_F64_EPILOGUE):
+    """Plain twin of the float64 d=2 type-2 kernel on the FP64 tensor cores
+    (csrc/tc_type2_f64.cuh ``type2_f64_kernel``), with the kernel's
+    operands and sums: the modes in symmetric order (F read through
+    ``fft_order``), every phase the product of the mode split's two
+    factors (:func:`_split_phases_2d`); ``T[p, (b, j)] = sum_k e2(p, k)
+    F_b[j, k]`` over k-steps of 8 modes from zero (the modes padded with
+    zeros to whole k-steps), each adding C Fr then S (-Fi) into the real
+    part and C Fi then S Fr into the imaginary part (the kernel's DMMA
+    accumulators; the tensor cores' own order inside a k-step is not
+    emulated: here a float64 matmul of the 8 modes, then one add); then
+    ``out[b, p] = sum_j e1(p, j) T[p, (b, j)]`` as the epilogue sums it:
+    the columns (b, j) at b mtot + j in passes of ``chunk`` columns
+    (:data:`TYPE2_2D_F64_EPILOGUE`, whatever the column tile), a vector's
+    columns in a pass in j order from zero, its passes' sums added in
+    order.
+
+    ``f`` (B, mtot, mtot) or (B, mtot^2); returns complex128 (B, N).  The
+    tests run it on the CPU; chip_smoke.py on the card."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    x = x.to(torch.float64)
+    m, n = mtot, x.shape[0]
+    F = f.reshape(-1, m, m).to(torch.complex128)       # (B, j, k)
+    B, dev = F.shape[0], x.device
+    half = (m - 1) // 2
+    i = torch.arange(m, device=dev)
+    if fft_order:
+        idx = torch.where(i >= half, i - half, i + m - half)
+        F = F[:, idx][:, :, idx]
+    hq = float(h)
+    e1 = _split_phases_2d(x[:, 0] * hq, m)              # (N, m)
+    e2 = _split_phases_2d(x[:, 1] * hq, m)
+    kq = _round_up(m, TYPE2_2D_F64_K)
+    steps = kq // TYPE2_2D_F64_K
+    eA = torch.nn.functional.pad(e2, (0, kq - m))
+    C, S = (t.reshape(n, steps, 8).transpose(0, 1) for t in (eA.real,
+                                                             eA.imag))
+    Fk = torch.nn.functional.pad(F.permute(2, 0, 1), (0, 0, 0, 0, 0, kq - m))
+    Fr, Fi = (t.reshape(steps, 8, B * m) for t in (Fk.real, Fk.imag))
+    t_re = x.new_zeros((n, B * m))
+    t_im = x.new_zeros((n, B * m))
+    for s_ in range(steps):
+        t_re = t_re + C[s_] @ Fr[s_]
+        t_re = t_re + S[s_] @ (-Fi[s_])
+        t_im = t_im + C[s_] @ Fi[s_]
+        t_im = t_im + S[s_] @ Fr[s_]
+    W = e1[:, None, :] * torch.complex(t_re, t_im).reshape(n, B, m)
+    # each vector's passes in order: a pass's sum in j order, from zero
+    tile = (torch.arange(B, device=dev)[:, None] * m + i[None, :]) // chunk
+    out = torch.zeros((n, B), dtype=torch.complex128, device=dev)
+    have = torch.zeros(B, dtype=torch.bool, device=dev)
+    part = W[:, :, 0]
+    for j in range(1, m):
+        brk = tile[:, j] != tile[:, j - 1]
+        if bool(brk.any()):
+            out = torch.where(brk, torch.where(have, out + part, part), out)
+            have = have | brk
+            part = torch.where(brk, W[:, :, j], part + W[:, :, j])
+        else:
+            part = part + W[:, :, j]
+    out = torch.where(have, out + part, part)
+    return out.T.contiguous()
+
+
 def nufft2_1d_3xtf32_ref(x, f, h, *, mtot: int, fft_order: bool = False,
                          geometry: tuple | None = None, passes: int = 3):
     """Plain twin of the float32 d=1 type-2 kernel on the tensor cores
@@ -1217,9 +1346,11 @@ def nufft2_2d(x, f, h, *, mtot: int, fft_order: bool = False):
     grid spacing; returns complex (N,).  A CPU tensor takes the plain
     version; a CUDA tensor launches the path
     :func:`type2_2d_single_geometry` picks from the shape: the tensor
-    cores (float32; a scratch of :func:`type2_2d_scratch_floats` floats at
-    B 1), the mode split (a scratch of ceil(mtot / 16) * N values), or
-    one thread a point on the CUDA cores.  Each counts one launch."""
+    cores (float32, a scratch of :func:`type2_2d_scratch_floats` floats at
+    B 1; float64, the FP64 tensor cores with a scratch of
+    :func:`type2_2d_f64_scratch_doubles` doubles), the mode split (a
+    scratch of ceil(mtot / 16) * N values), or one thread a point on the
+    CUDA cores.  Each counts one launch."""
     _check(x, mtot)
     if x.device.type == "cpu":
         return nufft2_2d_ref(x, f, h, mtot=mtot, fft_order=fft_order)
@@ -1230,29 +1361,46 @@ def nufft2_2d(x, f, h, *, mtot: int, fft_order: bool = False):
 def type2_2d_single_geometry(n: int, mtot: int, dtype) -> tuple:
     """The single d=2 type-2's path and launch geometry for ``n`` points in
     ``dtype``: ``("tc", points, cols, stage)``, the batched type-2's
-    tensor-core kernel at B 1 (:func:`type2_2d_geometry`'s geometry);
+    tensor-core kernel at B 1 (:func:`type2_2d_geometry`'s geometry in
+    ``dtype``: 3xTF32 in float32, the FP64 tensor cores in float64);
     ``("split", rows, threads)``, the mode split, slabs of ``rows`` modes j
     by blocks of ``threads`` points; or ``("cuda",)``, one thread a point,
     the block fixed in its source.
 
     A table from the times of every path on the same inputs (chip_smoke.py
-    phase 3 at the driven shapes, scripts/time_type2_single.py between
-    them).  Grids below :data:`TYPE2_2D_SPLIT_MIN_MTOT`, the headline's
-    mtot 29 among them, stay on the CUDA cores: one or two slabs do not pay
-    for the split's second pass.  In float32 the tensor cores take
+    phase 3 at the driven shapes, scripts/time_type2_single.py and
+    scripts/time_type2_2d_f64.py between them).  In float64 the FP64
+    tensor cores take every call from
+    :data:`TYPE2_2D_F64_SINGLE_MIN_MTOT` on but two kinds: up to
+    :data:`TYPE2_2D_F64_CUDA_MAX_MTOT` with
+    :data:`TYPE2_2D_F64_CUDA_MIN_POINTS` points or more the CUDA cores
+    (no modes padded), and from :data:`TYPE2_2D_F64_SPLIT_MIN_MTOT` below
+    ``TYPE2_2D_SPLIT_MAX_POINTS[float64]`` points the split (more blocks
+    than the tensor cores' 64 points a block give); narrower grids stay on
+    the CUDA cores.  In float32 grids below
+    :data:`TYPE2_2D_SPLIT_MIN_MTOT`, the headline's mtot 29 among them,
+    stay on the CUDA cores: one or two slabs do not pay for the split's
+    second pass.  The tensor cores take
     :data:`TYPE2_2D_SINGLE_TC_MIN_POINTS` points and more from
     :data:`TYPE2_2D_TC_MIN_MTOT` on.  Otherwise the split takes calls below
-    :data:`TYPE2_2D_SPLIT_MAX_POINTS` points, where one thread a point
+    ``TYPE2_2D_SPLIT_MAX_POINTS[float32]`` points, where one thread a point
     leaves the card short of warps to hide its chains of dependent
-    multiply-adds (float64 feels them longer); past that the CUDA cores
-    keep them (the split makes a point's e2 phases once a slab, the
-    one-thread-a-point kernel its e1 phases once a tile of 32 modes k, and
-    the card is full either way), and the split's scratch of ceil(mtot / 16) * N values
-    stays small."""
+    multiply-adds; past that the CUDA cores keep them (the split makes a
+    point's e2 phases once a slab, the one-thread-a-point kernel its e1
+    phases once a tile of 32 modes k, and the card is full either way),
+    and the split's scratch of ceil(mtot / 16) * N values stays small."""
+    if dtype == torch.float64:
+        if mtot < TYPE2_2D_F64_SINGLE_MIN_MTOT or (
+                mtot <= TYPE2_2D_F64_CUDA_MAX_MTOT
+                and n >= TYPE2_2D_F64_CUDA_MIN_POINTS):
+            return ("cuda",)
+        if (mtot >= TYPE2_2D_F64_SPLIT_MIN_MTOT
+                and n < TYPE2_2D_SPLIT_MAX_POINTS[dtype]):
+            return ("split", TYPE2_2D_SPLIT_ROWS, TYPE2_2D_SPLIT_THREADS)
+        return type2_2d_geometry(mtot, dtype)
     if mtot < TYPE2_2D_SPLIT_MIN_MTOT:
         return ("cuda",)
-    if (dtype == torch.float32 and mtot >= TYPE2_2D_TC_MIN_MTOT
-            and n >= TYPE2_2D_SINGLE_TC_MIN_POINTS):
+    if mtot >= TYPE2_2D_TC_MIN_MTOT and n >= TYPE2_2D_SINGLE_TC_MIN_POINTS:
         return type2_2d_geometry(mtot)
     if n < TYPE2_2D_SPLIT_MAX_POINTS[dtype]:
         return ("split", TYPE2_2D_SPLIT_ROWS, TYPE2_2D_SPLIT_THREADS)
@@ -1263,6 +1411,8 @@ def _nufft2_2d_on(x, f, h, m, fft_order, geo):
     """The single type-2's launch on CUDA tensors on the path and geometry
     ``geo`` (:func:`type2_2d_single_geometry`), counted as one launch of
     ``nufft2_2d``; chip_smoke.py also times every path through it."""
+    if geo[0] == "tc" and x.dtype == torch.float64:
+        _check_type2_f64_geometry(geo)
     cdtype = _complex_of(x.dtype)
     if f.numel() != m * m:
         raise ValueError(f"f has {f.numel()} entries, expected {m}^2")
@@ -1275,10 +1425,15 @@ def _nufft2_2d_on(x, f, h, m, fft_order, geo):
     f = f.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
     args, fo = (x.data_ptr(), f.data_ptr(), h, n, m), int(fft_order)
-    if geo[0] == "tc":
+    if geo[0] == "tc" and x.dtype == torch.float64:
+        # the FP64 tensor cores' B 1 instance
+        doubles = type2_2d_f64_scratch_doubles(m, 1, geo)
+        scratch = torch.empty(doubles, dtype=torch.float64, device=x.device)
+        _launch("nufft2_2d", x, *args, fo, *geo[1:], scratch.data_ptr(),
+                doubles, out.data_ptr(), mtot=m,
+                symbol="gpq_nufft2_2d_tc_f64")
+    elif geo[0] == "tc":
         # the batched kernel at B 1
-        if x.dtype != torch.float32:
-            raise TypeError("the tensor-core single type-2 takes float32")
         floats = type2_2d_scratch_floats(m, 1, geo)
         scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
         _launch("nufft2_2d", x, *args, 1, fo, *geo[1:], scratch.data_ptr(),
@@ -1409,22 +1564,54 @@ def _check_batch(B: int, mtot: int, d: int = 2, groups: int = 1):
                          "groups) exceeds the kernels' 32-bit index range")
 
 
-def type2_2d_geometry(mtot: int) -> tuple:
-    """The float32 batched d=2 type-2's kernel and launch geometry:
-    ``("tc", points, cols, stage)`` for the tensor-core kernel (blocks of
-    ``points`` points walking column tiles of ``cols`` columns (vector, mode
-    j), ``stage`` modes k a stage), or ``("cuda",)`` for the CUDA-core
-    kernel, whose block is fixed in its source.
+def type2_2d_geometry(mtot: int, dtype: torch.dtype = torch.float32,
+                      B: int = 1) -> tuple:
+    """The batched d=2 type-2's kernel and launch geometry in ``dtype`` for
+    ``B`` vectors: ``("tc", points, cols, stage)`` for a tensor-core kernel
+    (blocks of ``points`` points walking column tiles of ``cols`` columns
+    (vector, mode j), ``stage`` modes k a stage), or ``("cuda",)`` for the
+    CUDA-core kernel, whose block is fixed in its source.
 
-    The dispatch is a table by mtot from chip_smoke.py phase 3's times of
-    both kernels on the same inputs: the tensor cores from
-    :data:`TYPE2_2D_TC_MIN_MTOT` on (the points and the batch did not change
-    the faster kernel at the shapes timed).  The tensor-core kernel's
-    scratch is
-    :func:`type2_2d_scratch_floats`'s."""
+    In float32 a table by mtot from chip_smoke.py phase 3's times of both
+    kernels on the same inputs: the tensor cores (3xTF32,
+    csrc/tc_type2.cuh) from :data:`TYPE2_2D_TC_MIN_MTOT` on (the points and
+    the batch did not change the faster kernel at the shapes timed), with
+    the scratch of :func:`type2_2d_scratch_floats`.  In float64 always the
+    FP64 tensor cores (csrc/tc_type2_f64.cuh; the single type-2's at B 1),
+    with the scratch of :func:`type2_2d_f64_scratch_doubles`: blocks of
+    :data:`TYPE2_2D_F64_POINTS` points walking column tiles of
+    :data:`TYPE2_2D_F64_COLS` columns (the B vectors' mtot columns one
+    after another), or of :data:`TYPE2_2D_F64_NARROW_COLS` where the wide
+    tiles would pad the B * mtot columns
+    :data:`TYPE2_2D_F64_NARROW_PADDING` times as far or more,
+    :data:`TYPE2_2D_F64_STAGE` modes k a stage."""
+    if dtype == torch.float64:
+        wide, narrow = (_round_up(B * mtot, c) for c in (
+            TYPE2_2D_F64_COLS, TYPE2_2D_F64_NARROW_COLS))
+        cols = (TYPE2_2D_F64_NARROW_COLS
+                if wide >= TYPE2_2D_F64_NARROW_PADDING * narrow
+                else TYPE2_2D_F64_COLS)
+        return ("tc", TYPE2_2D_F64_POINTS, cols, TYPE2_2D_F64_STAGE)
     if mtot >= TYPE2_2D_TC_MIN_MTOT:
         return ("tc", TYPE2_2D_POINTS, TYPE2_2D_COLS, TYPE2_2D_STAGE)
     return ("cuda",)
+
+
+def _check_type2_f64_geometry(geo: tuple):
+    """Raise unless ``geo`` is an instance of the FP64 tensor-core type-2
+    (its launch refuses any other as well)."""
+    if (len(geo) != 4 or geo[0] != "tc"
+            or geo[1] != TYPE2_2D_F64_POINTS or geo[3] != TYPE2_2D_F64_STAGE
+            or geo[2] not in (TYPE2_2D_F64_COLS, TYPE2_2D_F64_NARROW_COLS)):
+        raise ValueError(f"no float64 d=2 type-2 kernel for geometry {geo}")
+
+
+def type2_2d_f64_scratch_doubles(mtot: int, B: int, geometry: tuple) -> int:
+    """Doubles of the FP64 tensor-core type-2's F in fragment order: the
+    real and imaginary part of each (mode k, column) cell, the modes k
+    padded to whole k-steps of 8, the B * mtot columns to whole tiles."""
+    cols = geometry[2]
+    return 2 * _round_up(mtot, TYPE2_2D_F64_K) * _round_up(B * mtot, cols)
 
 
 def type2_2d_scratch_floats(mtot: int, B: int, geometry: tuple) -> int:
@@ -1443,10 +1630,11 @@ def nufft2_2d_batched(x, f, h, *, mtot: int, fft_order: bool = False):
 
     ``f`` complex (B, mtot, mtot) or (B, mtot^2), B >= 1; returns complex
     (B, N) from one launch.  A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel :func:`type2_2d_geometry` dispatches it to
-    in float32 (the tensor cores, with a scratch of
-    :func:`type2_2d_scratch_floats` floats, or the CUDA cores), the
-    CUDA-core kernel in float64."""
+    tensor launches the kernel :func:`type2_2d_geometry` dispatches it to:
+    in float32 the tensor cores (with a scratch of
+    :func:`type2_2d_scratch_floats` floats) or the CUDA cores, in float64
+    the FP64 tensor cores (a scratch of
+    :func:`type2_2d_f64_scratch_doubles` doubles)."""
     _check(x, mtot)
     m = mtot
     if f.ndim not in (2, 3) or tuple(f.shape[1:]) not in ((m * m,), (m, m)):
@@ -1456,15 +1644,17 @@ def nufft2_2d_batched(x, f, h, *, mtot: int, fft_order: bool = False):
     _check_batch(B, m)
     if x.device.type == "cpu":
         return nufft2_2d_batched_ref(x, f, h, mtot=m, fft_order=fft_order)
-    geo = (type2_2d_geometry(m)
-           if x.dtype == torch.float32 else ("cuda",))
+    geo = type2_2d_geometry(m, x.dtype, B)
     return _nufft2_2d_batched_on(x, f, h, m, fft_order, geo)
 
 
 def _nufft2_2d_batched_on(x, f, h, m, fft_order, geo):
     """The batched type-2's launch on CUDA tensors with the kernel and
-    geometry ``geo`` (:func:`type2_2d_geometry`); chip_smoke.py also times
-    both kernels through it."""
+    geometry ``geo`` (:func:`type2_2d_geometry`) in x's precision (the
+    tensor cores in float32, the FP64 tensor cores in float64);
+    chip_smoke.py also times both kernels through it."""
+    if geo[0] == "tc" and x.dtype == torch.float64:
+        _check_type2_f64_geometry(geo)
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("f", f, x, cdtype)
     B, n = f.shape[0], x.shape[0]
@@ -1474,20 +1664,26 @@ def _nufft2_2d_batched_on(x, f, h, m, fft_order, geo):
     x = x.contiguous()
     f = f.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
-    if geo[0] == "tc":
-        if x.dtype != torch.float32:
-            raise TypeError("the tensor-core batched type-2 takes float32")
+    if geo[0] == "tc" and x.dtype == torch.float64:
+        doubles = type2_2d_f64_scratch_doubles(m, B, geo)
+        scratch = torch.empty(doubles, dtype=torch.float64, device=x.device)
+        _launch("nufft2_2d_batched", x, x.data_ptr(), f.data_ptr(), h, n, m,
+                B, int(fft_order), *geo[1:], scratch.data_ptr(), doubles,
+                out.data_ptr(), mtot=m,
+                symbol="gpq_nufft2_2d_batched_tc_f64")
+    elif geo[0] == "tc":
         floats = type2_2d_scratch_floats(m, B, geo)
         scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
         _launch("nufft2_2d_batched", x, x.data_ptr(), f.data_ptr(), h, n, m,
                 B, int(fft_order), *geo[1:], scratch.data_ptr(), floats,
                 out.data_ptr(), mtot=m,
                 symbol="gpq_nufft2_2d_batched_tc_f32")
-    elif geo == ("cuda",):
+    elif geo == ("cuda",) and x.dtype == torch.float32:
         _launch("nufft2_2d_batched", x, x.data_ptr(), f.data_ptr(), h, n, m,
                 B, int(fft_order), out.data_ptr(), mtot=m)
     else:
-        raise ValueError(f"no batched type-2 kernel for geometry {geo}")
+        raise ValueError(f"no {x.dtype} batched type-2 kernel for geometry "
+                         f"{geo}")
     return out
 
 

@@ -1,7 +1,8 @@
 """Time the single d=2 type-2 (``gpquad_torch.ops.cuda_nufft.nufft2_2d``) on
 each of its paths, on the same inputs, over a sweep of points and grid
-widths: the tensor cores (float32: the batched type-2's kernel at B 1), the
-mode split and the CUDA cores.
+widths: the tensor cores (float32: the batched type-2's kernel at B 1;
+float64: the FP64 tensor cores' B 1 instance), the mode split and the CUDA
+cores.
 
     python scripts/time_type2_single.py [--out build/type2_single.json]
 
@@ -65,13 +66,14 @@ def time_paths(fns, reps, trials=5):
     return {p: statistics.median(t) for p, t in times.items()}
 
 
-def paths(dtype):
+def paths(dtype, mtot):
     geos = {"split": ("split", cuda_nufft.TYPE2_2D_SPLIT_ROWS,
                       cuda_nufft.TYPE2_2D_SPLIT_THREADS),
             "cuda": ("cuda",)}
-    if dtype == torch.float32:
-        geos["tc"] = ("tc", cuda_nufft.TYPE2_2D_POINTS,
-                      cuda_nufft.TYPE2_2D_COLS, cuda_nufft.TYPE2_2D_STAGE)
+    geos["tc"] = (("tc", cuda_nufft.TYPE2_2D_POINTS,
+                   cuda_nufft.TYPE2_2D_COLS, cuda_nufft.TYPE2_2D_STAGE)
+                  if dtype == torch.float32
+                  else cuda_nufft.type2_2d_geometry(mtot, dtype))
     return geos
 
 
@@ -112,7 +114,7 @@ def main() -> int:
                            pick=cuda_nufft.type2_2d_single_geometry(
                                n, m, dtype)[0], card=card)
                 calls = {}
-                for path, geo in paths(dtype).items():
+                for path, geo in paths(dtype, m).items():
                     def call(geo=geo):
                         return cuda_nufft._nufft2_2d_on(x, f, h, m, False,
                                                         geo)
@@ -128,13 +130,13 @@ def main() -> int:
                 reps = max(3, min(50, int(2e9 / (n * m * m))))
                 for path, ms in time_paths(calls, reps).items():
                     row[f"{path}_ms"] = ms
-                fastest = min(paths(dtype), key=lambda p: row[f"{p}_ms"])
+                fastest = min(paths(dtype, m), key=lambda p: row[f"{p}_ms"])
                 row["fastest"] = fastest
                 rows.append(row)
                 print(f"n={n} mtot={m} {row['dtype']}: pick {row['pick']}, "
                       f"fastest {fastest}; " + ", ".join(
                           f"{p} {row[f'{p}_ms']:.4f} ms"
-                          for p in paths(dtype)) + f" [{card}]", flush=True)
+                          for p in paths(dtype, m)) + f" [{card}]", flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(rows, indent=1))

@@ -806,6 +806,85 @@ def test_type1_f64_launch_refuses_foreign_geometry(cuda_device, field, value):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (11, 5001, 17, 0.4, False),
+    (11, 3001, 21, 0.4, True),
+    (3, 3000, 43, 0.4, True),
+    (1, 2049, 29, 0.65, True),
+    (10, 20_000, 107, 0.1, False),
+    (1, 3000, 339, 0.97, True),
+    (2, 777, 5, 0.3, False),
+])
+def test_type2_f64_tensor_core_kernel_on_card(cuda_device, B, n, mtot, h,
+                                              fft_order):
+    """The float64 d=2 type-2 on the FP64 tensor cores, batched and at B 1:
+    one float64 launch a call; within 1e-12 of max|ref| of the float64
+    plain version; bit for bit the same on a second launch; within 1e-12 of
+    max|ref| of its twin nufft2_2d_f64_tc_ref; the batched wrapper's result
+    this kernel's, and at B 1 the single instance's the same bits (the
+    single wrapper's where type2_2d_single_geometry sends it here)."""
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 2)), device=cuda_device)
+    F = torch.as_tensor(rng.normal(size=(B, mtot, mtot))
+                        + 1j * rng.normal(size=(B, mtot, mtot)),
+                        device=cuda_device)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    geo = cuda_nufft.type2_2d_geometry(mtot, torch.float64, B)
+    key = ("nufft2_2d_batched", "f64", mtot)
+    before = cuda_nufft.LAUNCH_PRECISIONS.get(key, 0)
+    got = cuda_nufft._nufft2_2d_batched_on(x, F, h, mtot, fft_order, geo)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCH_PRECISIONS[key] == before + 1
+    assert got.shape == (B, n)
+    assert torch.equal(cuda_nufft._nufft2_2d_batched_on(
+        x, F, h, mtot, fft_order, geo), got)
+    ref = nufft2_2d_batched_ref(x, F, h, **kw)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-12 * scale
+    twin = cuda_nufft.nufft2_2d_f64_tc_ref(x.cpu(), F.cpu(), h, **kw)
+    assert float((got.cpu() - twin).abs().max()) <= 1e-12 * scale
+    assert torch.equal(nufft2_2d_batched(x, F, h, **kw), got)
+    if B == 1:
+        single = cuda_nufft._nufft2_2d_on(x, F[0], h, mtot, fft_order, geo)
+        assert torch.equal(single, got[0])
+        if cuda_nufft.type2_2d_single_geometry(n, mtot,
+                                               torch.float64)[0] == "tc":
+            assert torch.equal(nufft2_2d(x, F[0], h, **kw), got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [
+    (1, 128), (2, 128), (3, 32), ("scratch", -1)])
+def test_type2_f64_launch_refuses_foreign_geometry(cuda_device, field,
+                                                   value):
+    """The FP64 tensor-core type-2's launch takes its geometry from
+    type2_2d_geometry at float64 and refuses one it has no instance for
+    (points, columns or stage changed) and a scratch shorter than its
+    split F: a CUDA error is raised, and nothing is written."""
+    n, mtot, B = 1000, 43, 3
+    x = torch.rand((n, 2), dtype=torch.float64, device=cuda_device)
+    F = torch.ones((B, mtot, mtot), dtype=torch.complex128,
+                   device=cuda_device)
+    geo = list(cuda_nufft.type2_2d_geometry(mtot, torch.float64, B))
+    doubles = cuda_nufft.type2_2d_f64_scratch_doubles(mtot, B, geo)
+    if field == "scratch":
+        doubles += value
+    else:
+        geo[field] = value
+    scratch = torch.zeros(doubles + 8, dtype=torch.float64,
+                          device=cuda_device)
+    out = torch.zeros((B, n), dtype=torch.complex128, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft2_2d_batched", x, x.data_ptr(),
+                           F.data_ptr(), 0.5, n, mtot, B, 0, *geo[1:],
+                           scratch.data_ptr(), doubles, out.data_ptr(),
+                           mtot=mtot, symbol="gpq_nufft2_2d_batched_tc_f64")
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+    assert not bool(scratch.any())
+
+
+@pytest.mark.cuda
 def test_ski_on_card_matches_cpu(cuda_device):
     """fit_ski_gp -> mean -> variance on the card (kernels, float64) against
     the CPU (plain versions), the probes drawn by one CPU generator seed:
@@ -855,14 +934,15 @@ def test_ski_on_card_matches_cpu(cuda_device):
     assert picks["banded"] == 0 and picks["unbanded"] == 0
 
 
-def _single_geometries(dtype):
-    """Every path of the single type-2 in ``dtype``: the mode split and the
-    CUDA cores, and in float32 the tensor cores."""
+def _single_geometries(dtype, mtot):
+    """Every path of the single type-2 in ``dtype``: the mode split, the
+    CUDA cores and the tensor cores (float32: the batched 3xTF32 kernel at
+    B 1; float64: the FP64 tensor cores' B 1 instance)."""
     geos = {"split": ("split", cuda_nufft.TYPE2_2D_SPLIT_ROWS,
                       cuda_nufft.TYPE2_2D_SPLIT_THREADS),
             "cuda": ("cuda",)}
-    if dtype == torch.float32:
-        geos["tc"] = _TYPE2_TC
+    geos["tc"] = (_TYPE2_TC if dtype == torch.float32
+                  else cuda_nufft.type2_2d_geometry(mtot, dtype))
     return geos
 
 
@@ -882,7 +962,8 @@ def test_type2_single_paths_on_card(cuda_device, dtype, n, mtot, h,
     float32 plain version's error, 1e-6) of max|ref| from float64 on the
     tensor cores and the mode split (the CUDA-core kernel within 1e-4, as
     before), float64 within 1e-13; bit for bit the same on a second launch;
-    the tensor cores within twice the bar of their 3xTF32 twin at B 1 and
+    the tensor cores within twice the bar of their 3xTF32 twin at B 1 (in
+    float64 the FP64 tensor cores within 1e-12 of max|ref| of theirs) and
     the split within it of its twin; the wrapper's result that of the path
     type2_2d_single_geometry gives the shape."""
     rng = np.random.default_rng(7)
@@ -901,7 +982,7 @@ def test_type2_single_paths_on_card(cuda_device, dtype, n, mtot, h,
     bar = (max(2 * err(nufft2_2d_ref(x, f, hq, **kw)), 1e-6)
            if dtype == torch.float32 else 1e-13)
     outs = {}
-    for path, geo in _single_geometries(dtype).items():
+    for path, geo in _single_geometries(dtype, mtot).items():
         before = cuda_nufft.LAUNCHES["nufft2_2d"]
         got = cuda_nufft._nufft2_2d_on(x, f, hq, mtot, fft_order, geo)
         torch.cuda.synchronize()
@@ -919,6 +1000,10 @@ def test_type2_single_paths_on_card(cuda_device, dtype, n, mtot, h,
                                                        hq, **kw)[0]
         assert float((outs["tc"].cpu() - twin).abs().max()) <= \
             2 * bar * scale
+    else:
+        twin = cuda_nufft.nufft2_2d_f64_tc_ref(x.cpu(), f[None].cpu(), hq,
+                                               **kw)[0]
+        assert float((outs["tc"].cpu() - twin).abs().max()) <= 1e-12 * scale
     split_twin = cuda_nufft.nufft2_2d_split_ref(x.cpu(), f.cpu(), hq, **kw)
     assert float((outs["split"].cpu() - split_twin).abs().max()) <= \
         2 * bar * scale

@@ -133,28 +133,42 @@ _TC = ("tc", cuda_nufft.TYPE2_2D_POINTS, cuda_nufft.TYPE2_2D_COLS,
 # gradient) with the path phase 3 timed fastest there, and the table's
 # edges
 @pytest.mark.parametrize("n,mtot,f32,f64", [
-    (10_000, 29, "cuda", "cuda"),
-    (10_000, 57, "split", "split"),
-    (100_000, 29, "cuda", "cuda"),
-    (2_000, 107, "split", "split"),
-    (100_000, 107, "tc", "cuda"),
+    (10_000, 29, "cuda", "tc"),
+    (10_000, 57, "split", "tc"),
+    (100_000, 29, "cuda", "tc"),
+    (2_000, 107, "split", "tc"),
+    (100_000, 107, "tc", "tc"),
     (2_000, 339, "split", "split"),
     (1_000, 677, "split", "split"),
-    (1_000_000, 339, "tc", "cuda"),
+    (1_000_000, 339, "tc", "tc"),
     (1, 3, "cuda", "cuda"),
-    (1000, 43, "cuda", "cuda"),
-    (16_383, 45, "split", "split"),
-    (16_384, 63, "cuda", "split"),
-    (65_535, 107, "tc", "split"),
-    (65_536, 63, "cuda", "cuda"),
-    (8191, 65, "split", "split"),
-    (8192, 65, "tc", "split"),
+    (1000, 43, "cuda", "tc"),
+    (16_383, 45, "split", "tc"),
+    (16_384, 63, "cuda", "tc"),
+    (65_535, 107, "tc", "tc"),
+    (65_536, 63, "cuda", "tc"),
+    (8191, 65, "split", "tc"),
+    (8192, 65, "tc", "tc"),
+    # the float64 table's edges: the CUDA cores below mtot 17 and up to 23
+    # from 32 768 points, the split from 109 below 4 096 points
+    (100_000, 15, "cuda", "cuda"),
+    (128, 15, "cuda", "cuda"),
+    (128, 17, "cuda", "tc"),
+    (32_767, 23, "cuda", "tc"),
+    (32_768, 23, "cuda", "cuda"),
+    (32_768, 25, "cuda", "tc"),
+    (4_095, 109, "split", "split"),
+    (4_096, 109, "split", "tc"),
+    (1_000, 93, "split", "tc"),
 ])
 def test_type2_2d_single_geometry(n, mtot, f32, f64):
     for dtype, path in ((torch.float32, f32), (torch.float64, f64)):
         geo = type2_2d_single_geometry(n, mtot, dtype)
         assert geo[0] == path, (n, mtot, dtype)
-        if path == "tc":
+        if path == "tc" and dtype == torch.float64:
+            # the FP64 tensor cores' B 1 instance
+            assert geo == cuda_nufft.type2_2d_geometry(mtot, dtype, 1)
+        elif path == "tc":
             assert geo == _TC == cuda_nufft.type2_2d_geometry(mtot)
         elif path == "split":
             assert geo == ("split", cuda_nufft.TYPE2_2D_SPLIT_ROWS,
