@@ -63,7 +63,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      within 1e-12 of max|ref|, bit for bit against a second launch,
      within 1e-12 of its twin nufft2_2d_f64_tc_ref up to 2e8 point-
      vector-modes, the card's time alone (tc_ms), the FP64 tensor-core
-     bound beside the float64 CUDA-core one, the batch's scratch;
+     bound beside the float64 CUDA-core one, the batch's scratch; the
+     float64 d=3 type-1 on the FP64 tensor cores (the d=2 type-1's kernel
+     on Type1F64Grid3D) at every float64 d=3 type-1 shape phase 3 runs
+     (d3's, hard3d's and the slab-tiled widths): within 1e-12 of max|ref|,
+     bit for bit against a second launch, within 1e-12 of its twin
+     nufft1_3d_f64_tc_ref where its operand E stays under 4 GB, its
+     scratch, the card's time alone (tc_ms), the FP64 tensor-core bound
+     beside the float64 CUDA-core one;
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -328,6 +335,9 @@ TWIN_F64_MAX_N = 25_000
 # and the float64 d=2 type-2's twin up to this many point-vector-modes
 # n B mtot (a matmul a k-step and a loop over the modes j)
 TWIN2_F64_MAX_WORK = 2e8
+# and the float64 d=3 type-1's twin where its E operand (n x Q mtot
+# complex128 values) stays under this many bytes
+TWIN3_F64_MAX_BYTES = 4e9
 # How much slower than the fastest path measured at a shape the single d=2
 # type-2's pick may be in phase 3, relative and in ms, whichever is larger:
 # device times of one shape spread by up to 4% between runs (PERF.md
@@ -581,14 +591,16 @@ def bound_3xtf32_ms(name, n, m, B=1, split=None):
 
 
 def bound_fp64_tc_ms(name, n, m, B=1):
-    """A float64 d=2 function's bound on the FP64 tensor cores (the type-1,
-    csrc/tc_type1_f64.cuh, and the type-2, csrc/tc_type2_f64.cuh): 8 flops
-    a point, mode pair and vector, unpadded, at the dense FP64 tensor-core
-    rate, the rest of kernel_work's operations (the phases; the type-1's
-    products v e1, the type-2's sums over j) at the float64 CUDA-core rate;
-    against its bytes."""
+    """A float64 function's bound on the FP64 tensor cores (the d=2 and d=3
+    type-1, csrc/tc_type1_f64.cuh, and the d=2 type-2,
+    csrc/tc_type2_f64.cuh): 8 flops a point, mode pair (d=2) or triple
+    (d=3) and vector, unpadded, at the dense FP64 tensor-core rate, the
+    rest of kernel_work's operations (the phases; the type-1's products v
+    e1, at d=3 also (v e1) e2; the type-2's sums over j) at the float64
+    CUDA-core rate; against its bytes."""
+    d = int(name.split("_")[1][0])
     flops, nbytes = kernel_work(name, n, m, torch.float64, B)
-    tc = 8 * B * n * m ** 2
+    tc = 8 * B * n * m ** d
     t_ops = (tc / PEAK_FP64_TC
              + (flops - tc) / PEAK_FLOPS[torch.float64]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -597,9 +609,11 @@ def bound_fp64_tc_ms(name, n, m, B=1):
 
 def fp64_tc(cn, name, n, m):
     """Whether the float64 call of ``name`` at n points and mtot m runs on
-    the FP64 tensor cores: the d=2 type-1 and the batched type-2 always,
-    the single type-2 where cuda_nufft.type2_2d_single_geometry sends it."""
-    return (name in ("nufft1_2d", "nufft1_2d_batched", "nufft2_2d_batched")
+    the FP64 tensor cores: the d=2 and d=3 type-1 and the batched type-2
+    always, the single type-2 where cuda_nufft.type2_2d_single_geometry
+    sends it."""
+    return (name in ("nufft1_2d", "nufft1_2d_batched", "nufft2_2d_batched",
+                     "nufft1_3d")
             or (name == "nufft2_2d" and cn.type2_2d_single_geometry(
                 n, m, torch.float64)[0] == "tc"))
 
@@ -3408,6 +3422,54 @@ def main() -> int:
                 f"{out['bound_fp64_tc_ms']:.4f}")
         return out, line
 
+    def type1_3d_f64_card(x, v, hq, m, fo, n, B, scale, got, rel, reps,
+                          trials):
+        """The float64 d=3 type-1 on the FP64 tensor cores beyond the row's
+        checks: within 1e-12 of max|ref| (``rel``) of the float64 plain
+        version; the kernel's launch at type1_3d_geometry's float64
+        geometry gives the wrapper's result and the same bits again, within
+        1e-12 of max|ref| of its twin nufft1_3d_f64_tc_ref (run on the
+        card) where its E operand stays under TWIN3_F64_MAX_BYTES; the
+        card's time alone (tc_ms, time_cuda_paths: the host ahead) and the
+        FP64 tensor-core bound.  The CUDA-core float64 instance it replaces
+        is gone; scripts/time_type1_3d_f64.py times it from the parent
+        commit's sources beside this one.  Returns the row's fields and a
+        line for the log."""
+        V = v.reshape(B, n)
+        geo = cuda_nufft.type1_3d_geometry(n, m, B, torch.float64)
+        what = f"nufft1_3d float64 B={B} n={n} mtot={m}"
+        check(rel <= 1e-12, f"{what}: error {rel:.3e} of max|ref| > 1e-12")
+
+        def call():
+            return cuda_nufft._nufft1_3d_on(x, V, hq, m, fo, geo)
+        o = call()
+        check(torch.equal(o.reshape(got.shape), got),
+              f"{what}: the wrapper's result is not this kernel's")
+        check(torch.equal(call(), o), f"{what}: a second launch differs")
+        out = {"geometry": list(geo[1:])}
+        S, _, Q, mi = cuda_nufft.type1_3d_f64_split(m, geo[1] // geo[3],
+                                                    geo[2])
+        if n * Q * m * 16 <= TWIN3_F64_MAX_BYTES:
+            twin = cuda_nufft.nufft1_3d_f64_tc_ref(x, V, hq, mtot=m,
+                                                   fft_order=fo)
+            diff = float((o - twin).abs().max())
+            check(diff <= 1e-12 * scale,
+                  f"{what}: {diff / scale:.3e} of max|ref| from its twin "
+                  f"(bar 1e-12)")
+            out["twin_rel_diff"] = diff / scale
+            del twin
+        del o
+        out["tc_ms"] = time_cuda_paths({"tc": call}, reps, trials)["tc"]
+        out["bound_fp64_tc_ms"], out["bound_fp64_tc_by"] = \
+            bound_fp64_tc_ms("nufft1_3d", n, m, B)
+        line = (f" FP64 tensor cores: the card's time tc_ms="
+                f"{out['tc_ms']:.4f}"
+                + (f", twin {out['twin_rel_diff']:.3e} apart"
+                   if "twin_rel_diff" in out else "")
+                + f"; geometry {geo} (S {S}, Q {Q}); bound_fp64_tc_ms="
+                f"{out['bound_fp64_tc_ms']:.4f}")
+        return out, line
+
     def type2_f64_card(x, f, hq, m, fo, n, B, scale, got, rel, reps):
         """The float64 batched type-2 on the FP64 tensor cores beyond the
         row's checks: within 1e-12 of max|ref| (``rel``) of the float64
@@ -3894,11 +3956,22 @@ def main() -> int:
                 extra += f" {B}x single ms={row['singles_ms']:.4f}"
             if name == "nufft1_3d":
                 groups = cuda_nufft._type1_3d_groups_of(
-                    n, m, B, cuda_nufft.type1_3d_geometry(n, m, B)
-                    if dtype == torch.float32 else ("cuda",))
+                    n, m, B, cuda_nufft.type1_3d_geometry(n, m, B, dtype))
                 row["scratch_bytes"] = scratch
                 extra = (f" scratch {groups} groups {scratch / 1e6:.3f} MB "
                          f"(measured)")
+                if dtype == torch.float64:
+                    # the FP64 tensor cores, the only float64 d=3 type-1;
+                    # the float64 CUDA-core bound kept beside theirs
+                    t1, line = type1_3d_f64_card(x, arg, hq, m, fo, n, B,
+                                                 scale, got, rel, reps,
+                                                 trials)
+                    row.update(t1)
+                    row["bound_f64_ms"] = b_ms
+                    row["bound_ms"] = t1["bound_fp64_tc_ms"]
+                    row["bound_by"] = t1["bound_fp64_tc_by"]
+                    extra += line
+                    b_by = f"float64 CUDA cores, {b_by}"
             if d == 3 and dtype == torch.float32:
                 # both kernels of the d=3 function (the tensor cores' twin
                 # where its float32 operand stays under 1e9 values)
@@ -5857,6 +5930,29 @@ def main() -> int:
         "route": "cuda", "source": "gpquad_torch/csrc/tc_type2_f64.cuh",
         "replaces": REPLACES["nufft2_2d_batched"], "launches": launched,
         **{k: row[k] for k in ("tc_ms", "tc_scratch_bytes", "bound_f64_ms")},
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_fp64_tc_ms"],
+        "bound_by": row["bound_fp64_tc_by"], "library_ms": None,
+        "shape": {"B": row["B"], "n": row["n"], "mtot": row["mtot"],
+                  "fft_order": row["fft_order"], "serves": row["serves"],
+                  "dtype": "float64"}})
+    # the float64 d=3 type-1 on the FP64 tensor cores (csrc/tc_type1_f64.cuh
+    # on nufft_3d.cu's Type1F64Grid3D): its largest float64 call on a
+    # driven path (12e's lag table), the wrapper's time and the card's
+    # alone there; launches from phase 12's high tier (its float64 d=3
+    # type-1s, all on this kernel), which must hold one
+    row = next(r for r in phase3 if r["name"] == "nufft1_3d"
+               and r["dtype"] == "float64"
+               and r["serves"] == "hard3d lag table")
+    launched = high_launches(("nufft1_3d",))["f64"]
+    check(launched > 0, "phase 12 launched the d=3 type-1's FP64 "
+          "tensor-core kernel no time")
+    rows.append({
+        "name": "nufft1_3d (float64, FP64 tensor cores)", "route": "cuda",
+        "source": "gpquad_torch/csrc/tc_type1_f64.cuh",
+        "replaces": REPLACES["nufft1_3d"], "launches": launched,
+        **{k: row[k] for k in ("tc_ms", "scratch_bytes", "bound_f64_ms")},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_fp64_tc_ms"],

@@ -46,10 +46,10 @@
 //    (the group's partial); a second pass adds the groups' partials in
 //    group order.  No atomics: the result is deterministic.
 //  - type-1, float64 (the oracle and the high-precision runs): a GEMM over
-//    the points on the FP64 tensor cores (tc_type1_f64.cuh's kernel, DMMA
-//    m16n8k8), the mode index split so that a point makes few phases a
-//    tile, the points in a fixed number of groups, a second pass adding
-//    the groups' partials in group order.
+//    the points on the FP64 tensor cores (tc_type1_f64.cuh's kernel on
+//    Type1F64Grid2D below, DMMA m16n8k8), the mode index split so that a
+//    point makes few phases a tile, the points in a fixed number of groups,
+//    a second pass adding the groups' partials in group order.
 //
 // The batched pair serves B vectors against the same points in one launch,
 // the hyper-gradient's probe batches:
@@ -296,6 +296,42 @@ struct Type1Grid2D {
 };
 
 // ---------------------------------------------------------------------------
+// type-1 in float64 on the FP64 tensor cores: tc_type1_f64.cuh's kernel on
+// the d=2 problem, row j mode j - half of the first axis (e1 from x1),
+// column k mode k - half of the second (e2 from x2), output (j, k) of the
+// mtot x mtot grid; no outer index (inner passes every index) and no split
+// ---------------------------------------------------------------------------
+struct Type1F64Grid2D {
+  using X = double2;
+  static constexpr int kCoords = 2, kRowCoord = 0, kColCoord = 1;
+  static constexpr bool kOuter = false;
+  template <int S1, int S2>
+  static __host__ __device__ constexpr int max_factors() {
+    return 2 * T64_K + S1 + S2;
+  }
+  template <int S1, int S2>
+  static __host__ __device__ constexpr int fixed_factors() {
+    return max_factors<S1, S2>();
+  }
+  static __device__ double coord(const X& p, int c) {
+    return c == 0 ? p.x : p.y;
+  }
+  static __host__ __device__ int inner(int) { return 1 << 30; }
+  static bool split_ok(int, int split) { return split == 1; }
+  static __host__ __device__ int rows(int m, int) { return m; }
+  static __host__ __device__ int cols(int m, int) { return m; }
+  static __host__ __device__ long long outputs(int m) {
+    return (long long)m * m;
+  }
+  static __device__ long long out_index(int j, int k, int m, int,
+                                        int fft_order) {
+    return j < m && k < m ? (long long)t64_out(j, m, fft_order) * m +
+                                t64_out(k, m, fft_order)
+                          : -1;
+  }
+};
+
+// ---------------------------------------------------------------------------
 // batched type-2 in float32 on the tensor cores: tc_type2.cuh's kernel on
 // the d=2 problem.  It replaces pallas_nufft2_2d_batched
 // (gpquad/ops/pallas_nufft.py:838), whose kernel is itself a matrix product
@@ -431,16 +467,18 @@ int gpq_nufft1_2d_f32(const void* x, const void* v, float h, int n, int m,
 int gpq_nufft1_2d_f64(const void* x, const void* v, double h, int n, int m,
                       int fft_order, int rows, int cols, int group, int run,
                       int chunk, void* partial, void* out, void* stream) {
-  return launch_type1_f64<1>(x, v, h, n, m, 1, fft_order, rows, cols, group,
-                             run, chunk, partial, out, stream);
+  return launch_type1_f64<Type1F64Grid2D, 1>(x, v, h, n, m, 1, fft_order,
+                                             rows, cols, group, 1, run, chunk,
+                                             partial, out, stream);
 }
 
 int gpq_nufft1_2d_batched_f64(const void* x, const void* v, double h, int n,
                               int m, int nb, int fft_order, int rows,
                               int cols, int group, int run, int chunk,
                               void* partial, void* out, void* stream) {
-  return launch_type1_f64<TCB_GROUP>(x, v, h, n, m, nb, fft_order, rows, cols,
-                                     group, run, chunk, partial, out, stream);
+  return launch_type1_f64<Type1F64Grid2D, TCB_GROUP>(
+      x, v, h, n, m, nb, fft_order, rows, cols, group, 1, run, chunk, partial,
+      out, stream);
 }
 
 int gpq_nufft2_2d_batched_f32(const void* x, const void* f, float h, int n,

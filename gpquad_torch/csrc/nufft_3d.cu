@@ -47,9 +47,14 @@
 //    it, mtot up to 64): tc_type1.cuh's tensor-core kernel (3xTF32) on
 //    Type1Grid3D below, a GEMM over the points whose rows are (r, j3) and
 //    columns (q, j2) of a split of the first axis's mode, k1 = S q + r;
-//  - nufft1_3d on the CUDA cores (float64, the float32 widths the geometry
-//    keeps there, and the control phase 3 times beside the tensor cores):
-//    for a fixed j1 this is the d=2 type-1 with weights
+//  - nufft1_3d in float64: tc_type1_f64.cuh's FP64 tensor-core kernel
+//    (DMMA, no split of the operands) on Type1F64Grid3D below, the same
+//    rows (r, j3) and columns (q, j2) of k1 = S q + r with S picked per
+//    width by ops/cuda_nufft.py type1_3d_geometry, each index's inner mode
+//    split again so that a point makes few phases a tile;
+//  - nufft1_3d on the CUDA cores (the float32 widths the geometry keeps
+//    there, and the control phase 3 times beside the tensor cores): for a
+//    fixed j1 this is the d=2 type-1 with weights
 //    v e1(j1) (the Pallas kernel's own factoring).  A block owns a 16 x 16
 //    tile of (j2, j3) outputs for a slab of J1B = 8 first-axis modes (8
 //    accumulators per thread) and one group of 2048-point chunks; it stages
@@ -64,14 +69,16 @@
 //    scratch is groups x B x mtot^3 values (16 MB in f32 at n = 1e5,
 //    mtot 61, against 89 MB with one partial per chunk).
 //
-// The CUDA-core kernels are templated on the scalar type: double tensors
-// run a double instance of the float code.
+// The CUDA-core type-2 is templated on the scalar type: double tensors run
+// a double instance of the float code (the type-1's double instance gave
+// way to the FP64 tensor cores).
 //
 // C interface (bound with ctypes): pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launches.
 
 #include <algorithm>
 
+#include "tc_type1_f64.cuh"
 #include "tc_type2.cuh"
 
 namespace {
@@ -509,6 +516,71 @@ struct Type1Grid3D {
 };
 
 // ---------------------------------------------------------------------------
+// type-1 in float64 on the FP64 tensor cores: tc_type1_f64.cuh's kernel on
+// the d=3 problem, with Type1Grid3D's split of the first axis's mode,
+// k1 = S q + r (r in 0..S-1, q from qmin, Q values of it), and
+//   out[(r, j3), (q, j2)] = sum_p (v_p e(u1, r) e3(j3)) (e(u1, S q) e2(j2)):
+// row i is (r, j3) = (i / mi, i % mi), column c (q, j2) = (c / mi, c % mi),
+// mi = mtot (8 below 8, so that a group of 8 indices spans at most two
+// values of r or q; the indices past mtot are padding).  The inner mode of
+// a row is j3 - half of u3, its outer factor e(u1, r); of a column j2 -
+// half of u2 and e(u1, S q).  S is the caller's (ops/cuda_nufft.py
+// type1_3d_geometry picks the S in 1..8 whose tiles pad the rows and
+// columns least: at mtot 21 rows 3 x 21 and columns 8 x 21 against 21 and
+// 21 x 21, where 64-row tiles of j3 alone would be two thirds padding);
+// outputs with |k1| past half are cropped.
+// ---------------------------------------------------------------------------
+struct Type1F64Grid3D {
+  struct X {
+    double x, y, z;
+  };
+  static constexpr int kCoords = 3, kRowCoord = 2, kColCoord = 1;
+  static constexpr bool kOuter = true;
+  static constexpr int kMaxSplit = 8;
+  // the fine factors, two coarse ones a group at most, and the outer
+  // values a tile's rows and columns reach
+  template <int S1, int S2>
+  static __host__ __device__ constexpr int max_factors() {
+    return 2 * T64_K + 2 * (S1 + S2) + (S1 + 1) + (S2 + 1);
+  }
+  template <int S1, int S2>
+  static __host__ __device__ constexpr int fixed_factors() { return 0; }
+  static __device__ double coord(const X& p, int c) {
+    return c == 0 ? p.x : c == 1 ? p.y : p.z;
+  }
+  static __host__ __device__ int inner(int m) {
+    return m >= T64_K ? m : T64_K;
+  }
+  static __host__ __device__ int qcount(int m, int S) {
+    return Type1Grid3D::qcount(m, S);
+  }
+  static __device__ int row_outer(int o, int, int) { return o; }
+  static __device__ int col_outer(int o, int m, int S) {
+    return S * (Type1Grid3D::qmin(m, S) + o);
+  }
+  static bool split_ok(int, int S) { return S >= 1 && S <= kMaxSplit; }
+  static __host__ __device__ int rows(int m, int S) { return S * inner(m); }
+  static __host__ __device__ int cols(int m, int S) {
+    return qcount(m, S) * inner(m);
+  }
+  static __host__ __device__ long long outputs(int m) {
+    return (long long)m * m * m;
+  }
+  static __device__ long long out_index(int i, int c, int m, int S,
+                                        int fft_order) {
+    const int mi = inner(m), half = (m - 1) / 2;
+    const int r = i / mi, j3 = i - r * mi, q = c / mi, j2 = c - q * mi;
+    const int k1 = S * (Type1Grid3D::qmin(m, S) + q) + r;
+    if (r >= S || j3 >= m || q >= qcount(m, S) || j2 >= m || k1 < -half ||
+        k1 > half)
+      return -1;
+    const int j1 = fft_order ? (k1 >= 0 ? k1 : k1 + m) : k1 + half;
+    return ((long long)j1 * m + t64_out(j2, m, fft_order)) * m +
+           t64_out(j3, m, fft_order);
+  }
+};
+
+// ---------------------------------------------------------------------------
 // type-2 in float32 on the tensor cores: tc_type2.cuh's kernel on the d=3
 // problem.  gpquad contracts only j3 on the MXU (pallas_nufft.py
 // _type2_3d_kernel, dot(fre, c3.T)) and leaves mtot^2 products a point and
@@ -625,11 +697,21 @@ int gpq_nufft1_3d_tc_f32(const void* x, const void* v, float h, int n, int m,
                                          partial, out, stream);
 }
 
+// float64 on the FP64 tensor cores, with the caller's geometry
+// (ops/cuda_nufft.py type1_3d_geometry at float64): one vector in groups
+// of G = 1, a batch of G = 2; the partial may be the output where the
+// points make one group
 int gpq_nufft1_3d_f64(const void* x, const void* v, double h, int n, int m,
-                      int nb, int fft_order, int chunk, int groups,
-                      void* partial, void* out, void* stream) {
-  return launch_nufft1<double>(x, v, h, n, m, nb, fft_order, chunk, groups,
-                               partial, out, stream);
+                      int nb, int fft_order, int rows, int cols, int group,
+                      int split, int run, int chunk, void* partial,
+                      void* out, void* stream) {
+  if (group == 1)
+    return launch_type1_f64<Type1F64Grid3D, 1>(x, v, h, n, m, nb, fft_order,
+                                               rows, cols, group, split, run,
+                                               chunk, partial, out, stream);
+  return launch_type1_f64<Type1F64Grid3D, 2>(x, v, h, n, m, nb, fft_order,
+                                             rows, cols, group, split, run,
+                                             chunk, partial, out, stream);
 }
 
 }  // extern "C"

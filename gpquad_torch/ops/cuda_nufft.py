@@ -56,15 +56,19 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   (:func:`nufft1_3d_3xtf32_ref` is its plain twin), and the type-2, where
   :func:`type2_3d_geometry` sends it, on the d=2 type-2's tensor-core
   kernel as a GEMM over the pairs (j2, j3) with columns (vector, j1) and
-  the sum over j1 in its epilogue (:func:`nufft2_3d_3xtf32_ref`).
+  the sum over j1 in its epilogue (:func:`nufft2_3d_3xtf32_ref`).  In
+  float64 the type-1 runs on the FP64 tensor cores, the d=2 float64
+  type-1's kernel on the same rows and columns
+  (:func:`type1_3d_geometry` at float64, :func:`nufft1_3d_f64_tc_ref` its
+  plain twin).
 
 All are bound by operations on an H100 (complex multiply-adds, ~8 mtot^d
 flops per point and vector, and at d=1 the phases themselves): fp32 outside
 the tensor cores, but for the float32 paths on the tensor cores (the type-1
 and the type-2 at d=1-3), which take three TF32
-products per real product, and for the float64 d=2 pair on the FP64
-tensor cores; the sources say how the designs stage the work.  The
-wrappers take a tensor on the CPU to the plain
+products per real product, and for the float64 d=2 pair and d=3 type-1
+on the FP64 tensor cores; the sources say how the designs stage the work.
+The wrappers take a tensor on the CPU to the plain
 version (``*_ref``, the phase-matrix backend of ``ops/nufft.py``); on a
 CUDA tensor they launch the kernel or raise.
 
@@ -109,6 +113,7 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft2_2d_f64_tc_ref",
            "type1_3d_groups",
            "type1_3d_geometry", "type1_3d_tc_geometry", "type1_3d_split",
+           "type1_3d_f64_split", "nufft1_3d_f64_tc_ref",
            "nufft1_3d_3xtf32_ref", "nufft2_3d_3xtf32_ref",
            "type2_3d_geometry", "type2_3d_tc_geometry",
            "type2_3d_scratch_floats", "type2_3d_split",
@@ -182,6 +187,22 @@ TYPE1_1D_RUN = 256
 # the times of both kernels on the same inputs: the tensor cores up to this
 # mtot (the wide column tiles' table fits to 64), the CUDA cores past it
 TYPE1_3D_TC_MAX_MTOT = 64
+# The float64 d=3 type-1 takes the float64 d=2 type-1's kernel
+# (csrc/tc_type1_f64.cuh type1_f64_kernel) on nufft_3d.cu's Type1F64Grid3D
+# (type1_3d_geometry at float64): rows (r, j3) and columns (q, j2) of the
+# split k1 = S q + r, each index's inner mode stride mtot (at least
+# TYPE1_2D_F64_K), S in 1 .. this many, the one whose tiles pad least; the
+# d=2 float64 type-1's tile rows, batch group and run; the point groups
+# whose blocks take the fewest waves on the card's CARD_SMS SMs times runs
+# a block (the fewest groups of a tie), their partials at most this many
+# bytes (a single group, which writes the output itself, where one group's
+# partials would pass it).  At 2e4 x
+# 101 one group (270 blocks, three waves, the last of 6) took 8.22 ms and
+# three 6.32; at 1e5 x 31 66 groups (four waves of 3 runs) 0.918 and 33
+# (two of 6) 0.901 (scripts/time_type1_3d_f64.py --groups on NVIDIA H100
+# 80GB HBM3, 700 W)
+TYPE1_3D_F64_MAX_SPLIT = 8
+TYPE1_3D_F64_SCRATCH = 64e6
 # its wide column tiles unless they give fewer blocks than one wave on the
 # card's CARD_SMS SMs and the narrow ones more (hard3d's F*y at 20 000
 # points: 40 blocks of 64 x 128 against 120 of 64 x 32, 0.199 against 0.132
@@ -425,9 +446,13 @@ def _library():
             d2 = getattr(lib, f"gpq_nufft2_3d_{prec}")
             d2.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
             d2.restype = i32
+            # the d=3 type-1: in float32 on the CUDA cores (chunk, groups),
+            # in float64 on the FP64 tensor cores (rows, cols, group,
+            # split, run, chunk), before the scratch
             d1 = getattr(lib, f"gpq_nufft1_3d_{prec}")
-            d1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, i32, ptr,
-                           ptr, ptr]
+            d1.argtypes = [ptr, ptr, real, i32, i32, i32, i32,
+                           *[i32] * (2 if prec == "f32" else 6), ptr, ptr,
+                           ptr]
             d1.restype = i32
             if prec == "f32":
                 # the tensor-core form: its geometry (rows, cols, group,
@@ -854,6 +879,75 @@ def nufft1_3d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
                              chunk=chunk or geo[-1], run=TYPE1_2D_RUN,
                              stage=TYPE1_2D_STAGE, passes=passes)
     out = out.reshape((B,) + (m,) * 3)
+    return out[0] if single else out
+
+
+def nufft1_3d_f64_tc_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
+                         chunk: int | None = None, split: int | None = None):
+    """Plain twin of the float64 d=3 type-1 kernel on the FP64 tensor cores
+    (csrc/tc_type1_f64.cuh ``type1_f64_kernel`` on nufft_3d.cu's
+    ``Type1F64Grid3D``): ``out[b,j1,j2,j3] = sum_n v[b,n] e1(n,j1)
+    e2(n,j2) e3(n,j3)`` with the kernel's operands and sums.  The first
+    axis's mode is split as k1 = S q + r (:func:`type1_3d_f64_split`, S by
+    default the geometry's); row i = r mi + j3 of A holds v e(t1, r)
+    e(t3, j3 - half), column c = q mi + j2 of E e(t1, S q) e(t2, j2 - half),
+    and each inner phase is the product of the split's two factors,
+    e(t, 8 (i // 8) - r mi - half) e(t, i % 8) (:data:`TYPE1_2D_F64_K` = 8;
+    ``ops/nufft.py`` ``_phase_matrix`` on t = x h), the outer factor folded
+    into the first, v into A's; then :func:`_type1_f64_sums` (runs of
+    :data:`TYPE1_2D_F64_RUN` points, groups of ``chunk`` points, by default
+    :func:`type1_3d_geometry`'s at float64), the outputs with |k1| past
+    half cropped, and FFT order where asked.
+
+    ``x`` (N, 3); ``vals`` (N,) or (B, N); returns complex128 (mtot,)*3 or
+    (B,) + (mtot,)*3.  The tests run it on the CPU; chip_smoke.py on the
+    card."""
+    x = x.to(torch.float64)
+    n, m = x.shape[0], mtot
+    single = vals.ndim == 1
+    V = vals.reshape(-1, n).to(torch.complex128)
+    B = V.shape[0]
+    geo = type1_3d_geometry(n, m, B, torch.float64)
+    S = split or type1_3d_f64_split(m, geo[1] // geo[3], geo[2])[0]
+    qmin, Q = type1_1d_split(m, S)
+    K, half, dev = TYPE1_2D_F64_K, (m - 1) // 2, x.device
+    mi = max(m, K)
+    hq = float(h)
+    t1, t2, t3 = (x[:, i] * hq for i in range(3))
+
+    def factors(t, o, f):
+        """The split's factors at the indices i = o mi + j, j < m, of the
+        outer values ``o``: the first, e(t, 8 (i // 8) - o mi - half), times
+        ``f`` (N, len(o)), the outer factors, and the second, e(t, i % 8):
+        each (N, len(o) m)."""
+        i = o[:, None] * mi + torch.arange(m, device=dev)[None, :]
+        coarse = (K * (i // K) - o[:, None] * mi - half).reshape(-1)
+        c = _phase_matrix(t, coarse.double(), torch.complex128)
+        c = (f[:, :, None] * c.reshape(n, len(o), m)).reshape(n, -1)
+        return c, _phase_matrix(t, (i % K).reshape(-1).double(),
+                                torch.complex128)
+    r = torch.arange(S, device=dev)
+    q = torch.arange(Q, device=dev)
+    ca, fa = factors(t3, r, _phase_matrix(t1, r.double(), torch.complex128))
+    ce, fe = factors(t2, q, _phase_matrix(t1, (S * (qmin + q)).double(),
+                                        torch.complex128))
+    # rows (r, j3) of A with v folded into the first factor; columns (q, j2)
+    A = V[:, :, None] * ca[None] * fa[None]                 # (B, N, S m)
+    sums = _type1_f64_sums(A, ce * fe, chunk=chunk or geo[-1],
+                           run=TYPE1_2D_F64_RUN).reshape(B, S, m, Q, m)
+    k1 = S * (qmin + q)[None, :] + r[:, None]               # (S, Q)
+    rs, qs = (k1.abs() <= half).nonzero(as_tuple=True)
+    k1 = k1[rs, qs]
+    out = torch.empty((B, m, m, m), dtype=torch.complex128, device=dev)
+    # sums[b, r, j3, q, j2] -> out[b, j1, j2, j3] (j2, j3 symmetric here)
+    out[:, torch.where(k1 >= 0, k1, k1 + m) if fft_order else k1 + half] = \
+        sums.permute(0, 1, 3, 4, 2)[:, rs, qs]
+    if fft_order:
+        jj = torch.arange(m, device=dev)
+        idx = torch.where(jj >= half, jj - half, jj + m - half)
+        fo = torch.empty_like(out)
+        fo[:, :, idx[:, None], idx[None, :]] = out
+        out = fo
     return out[0] if single else out
 
 
@@ -1868,11 +1962,12 @@ def nufft1_3d(x, vals, h, *, mtot: int, fft_order: bool = False):
     ``x`` (N, 3) real; ``vals`` complex (N,) or (B, N), B >= 1; odd
     mtot <= 255.  Returns complex (mtot,)*3 or (B,) + (mtot,)*3 from one
     launch (two kernels: grouped partial sums, then the group-order sum).
-    In float32 the partials come from the path :func:`type1_3d_geometry`
-    picks: the tensor cores (groups of its ``chunk`` points) or the CUDA
-    cores (:func:`type1_3d_groups`), in float64 from the CUDA cores; the
-    scratch holds groups * B * mtot^3 values.  A CPU tensor takes the plain
-    version."""
+    The partials come from the path :func:`type1_3d_geometry` picks: in
+    float32 the tensor cores (groups of its ``chunk`` points) or the CUDA
+    cores (:func:`type1_3d_groups`), in float64 the FP64 tensor cores
+    (groups of its ``chunk`` points; one group writes the output itself);
+    the scratch holds groups * B * mtot^3 values.  A CPU tensor takes the
+    plain version."""
     _check(x, mtot, 3)
     n = x.shape[0]
     if vals.ndim not in (1, 2) or vals.shape[-1] != n:
@@ -1880,8 +1975,7 @@ def nufft1_3d(x, vals, h, *, mtot: int, fft_order: bool = False):
                          f"got {tuple(vals.shape)}")
     single = vals.ndim == 1
     B = 1 if single else vals.shape[0]
-    geo = (type1_3d_geometry(n, mtot, B) if x.dtype == torch.float32
-           else ("cuda",))
+    geo = type1_3d_geometry(n, mtot, B, x.dtype)
     _check_batch(B, mtot, 3, _type1_3d_groups_of(n, mtot, B, geo))
     if x.device.type == "cpu":
         return nufft1_3d_ref(x, vals, h, mtot=mtot, fft_order=fft_order)
@@ -1889,20 +1983,86 @@ def nufft1_3d(x, vals, h, *, mtot: int, fft_order: bool = False):
     return out[0] if single else out
 
 
-def type1_3d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
-    """The float32 d=3 type-1's path and launch geometry: ``("tc", rows,
-    cols, group, stage, run, chunk)``, the tensor-core kernel's arguments
-    before its scratch (:func:`type1_3d_tc_geometry`), or ``("cuda",)``,
-    the CUDA-core kernel (:func:`type1_3d_groups`).
+def type1_3d_geometry(n: int, mtot: int, B: int = 1,
+                      dtype: torch.dtype = torch.float32) -> tuple:
+    """The d=3 type-1's path and launch geometry in ``dtype``.
 
-    A table from the times of both kernels on the same inputs
-    (chip_smoke.py phase 3 at the driven shapes, scripts/time_type1_3d.py):
-    the tensor cores up to :data:`TYPE1_3D_TC_MAX_MTOT` modes, where the
-    column tiles are wide (at mtot 101 and 255 the narrow ones took 1.7x
-    the CUDA cores' time)."""
+    In float32: ``("tc", rows, cols, group, stage, run, chunk)``, the
+    tensor-core kernel's arguments before its scratch
+    (:func:`type1_3d_tc_geometry`), or ``("cuda",)``, the CUDA-core kernel
+    (:func:`type1_3d_groups`), from a table of the times of both kernels on
+    the same inputs (chip_smoke.py phase 3 at the driven shapes,
+    scripts/time_type1_3d.py): the tensor cores up to
+    :data:`TYPE1_3D_TC_MAX_MTOT` modes, where the column tiles are wide (at
+    mtot 101 and 255 the narrow ones took 1.7x the CUDA cores' time).
+
+    In float64: ``("tc", rows, cols, group, split, run, chunk)``, the FP64
+    tensor-core kernel's arguments before its scratch (csrc/tc_type1_f64.cuh
+    on nufft_3d.cu's ``Type1F64Grid3D``): tiles of :data:`TYPE1_2D_ROWS`
+    rows (one vector's 64, or a batch group of two vectors' 32) by
+    :data:`TYPE1_2D_F64_COLS` columns, or :data:`TYPE1_2D_F64_NARROW_COLS`
+    where the wide tiles pad :data:`TYPE1_2D_F64_NARROW_PADDING` times as
+    much or more, or give fewer blocks than one wave on the card's
+    :data:`CARD_SMS` SMs and the narrow ones more; the split S of
+    :func:`type1_3d_f64_split` for that tile; runs of
+    :data:`TYPE1_2D_F64_RUN` points, and point groups of ``chunk`` points,
+    as many as make the fewest waves of blocks on the card's
+    :data:`CARD_SMS` SMs times runs a block (the fewest groups of a tie)
+    with at most :data:`TYPE1_3D_F64_SCRATCH` bytes of partials (one group,
+    which writes the output itself, where a group's pass that: the widest
+    grids, 265 MB of output a vector at mtot 255, take no scratch)."""
+    if dtype == torch.float64:
+        return _type1_3d_f64_geometry(n, mtot, B)
     if mtot > TYPE1_3D_TC_MAX_MTOT:
         return ("cuda",)
     return type1_3d_tc_geometry(n, mtot, B)
+
+
+def type1_3d_f64_split(mtot: int, rows: int, cols: int) -> tuple:
+    """The float64 d=3 type-1's split of the first axis's mode, k1 = S q +
+    r, for tiles of ``rows`` rows a vector by ``cols`` columns
+    (csrc/nufft_3d.cu ``Type1F64Grid3D``): ``(S, qmin, Q, mi)``.  Row i of
+    a vector is (r, j3) = (i // mi, i % mi) and column c is (q, j2) =
+    (c // mi, c % mi), mi = max(mtot, :data:`TYPE1_2D_F64_K`), r < S and
+    q from qmin, Q values (:func:`type1_1d_split` at K = S); S is the one
+    in 1 .. :data:`TYPE1_3D_F64_MAX_SPLIT` whose S mi rows and Q mi
+    columns, each padded to whole tiles, make the fewest outputs (the
+    smallest S of a tie)."""
+    mi = max(mtot, TYPE1_2D_F64_K)
+
+    def padded(S):
+        Q = type1_1d_split(mtot, S)[1]
+        return -(-S * mi // rows) * rows * (-(-Q * mi // cols) * cols)
+    S = min(range(1, TYPE1_3D_F64_MAX_SPLIT + 1), key=padded)
+    return (S, *type1_1d_split(mtot, S), mi)
+
+
+def _type1_3d_f64_geometry(n: int, mtot: int, B: int) -> tuple:
+    """:func:`type1_3d_geometry`'s float64 branch."""
+    g = 1 if B == 1 else TYPE1_2D_BATCH_GROUP
+    tj = TYPE1_2D_ROWS // g
+
+    def layout(cols):
+        """(split, tiles, padded outputs) of tiles ``cols`` wide."""
+        S, _, Q, mi = type1_3d_f64_split(mtot, tj, cols)
+        tiles = -(-S * mi // tj) * -(-Q * mi // cols) * -(-B // g)
+        return S, tiles, tiles * tj * cols
+    cols = TYPE1_2D_F64_COLS
+    wide = layout(TYPE1_2D_F64_COLS)
+    narrow = layout(TYPE1_2D_F64_NARROW_COLS)
+    if wide[2] >= TYPE1_2D_F64_NARROW_PADDING * narrow[2]:
+        cols, wide = TYPE1_2D_F64_NARROW_COLS, narrow
+    S, tiles = wide[:2]
+    nrun = max(1, -(-n // TYPE1_2D_F64_RUN))
+    cap = max(1, int(TYPE1_3D_F64_SCRATCH // (16 * B * mtot ** 3)))
+
+    def cost(groups):
+        """(waves x runs a block, groups) of ``groups`` point groups."""
+        per = -(-nrun // groups)
+        return -(-tiles * -(-nrun // per) // CARD_SMS) * per, groups
+    groups = min(range(1, min(nrun, cap) + 1), key=cost)
+    chunk = -(-nrun // groups) * TYPE1_2D_F64_RUN
+    return ("tc", TYPE1_2D_ROWS, cols, g, S, TYPE1_2D_F64_RUN, chunk)
 
 
 def type1_3d_split(mtot: int, rows: int) -> tuple[int, int, int]:
@@ -1961,16 +2121,22 @@ def _type1_3d_groups_of(n, mtot, B, geo):
 
 def _nufft1_3d_on(x, vals, h, m, fft_order, geo):
     """The d=3 type-1's launch on CUDA tensors, ``vals`` (B, N), on the
-    path ``geo``: ``("tc", ...)`` the tensor cores (float32,
-    :func:`type1_3d_geometry`) or ``("cuda",)`` the CUDA cores over groups
-    of 2048-point chunks (:func:`type1_3d_groups`); counted as one launch
-    of ``nufft1_3d`` (chip_smoke.py also times both paths through it).
+    path ``geo`` of :func:`type1_3d_geometry` in x's precision: in float32
+    ``("tc", ...)`` the tensor cores or ``("cuda",)`` the CUDA cores over
+    groups of 2048-point chunks (:func:`type1_3d_groups`), in float64
+    ``("tc", ...)`` the FP64 tensor cores (tiles 32 or 64 columns wide, a
+    split of 1 .. :data:`TYPE1_3D_F64_MAX_SPLIT`); counted as one launch
+    of ``nufft1_3d`` (chip_smoke.py also times the paths through it).
     Returns (B, m, m, m)."""
-    if geo[0] not in ("tc", "cuda") or len(geo) != (7 if geo[0] == "tc"
-                                                    else 1):
+    if x.dtype == torch.float64:
+        if (len(geo) != 7 or geo[0] != "tc" or geo[2] not in (
+                TYPE1_2D_F64_COLS, TYPE1_2D_F64_NARROW_COLS)
+                or not 1 <= geo[4] <= TYPE1_3D_F64_MAX_SPLIT):
+            raise ValueError(f"no d=3 type-1 path for geometry {geo} in "
+                             "float64")
+    elif geo[0] not in ("tc", "cuda") or len(geo) != (7 if geo[0] == "tc"
+                                                      else 1):
         raise ValueError(f"no d=3 type-1 path for geometry {geo}")
-    if geo[0] == "tc" and x.dtype != torch.float32:
-        raise TypeError("the tensor-core d=3 type-1 takes float32")
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("vals", vals, x, cdtype)
     B, n = vals.shape
@@ -1981,9 +2147,17 @@ def _nufft1_3d_on(x, vals, h, m, fft_order, geo):
     vals = vals.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
     groups = _type1_3d_groups_of(n, m, B, geo)
-    partial = torch.empty((groups,) + shape, dtype=cdtype, device=x.device)
     out = torch.empty(shape, dtype=cdtype, device=x.device)
     args = (x.data_ptr(), vals.data_ptr(), h, n, m, B, int(fft_order))
+    if x.dtype == torch.float64:
+        # one group writes the output itself
+        partial = (out if groups == 1 else
+                   torch.empty((groups,) + shape, dtype=cdtype,
+                               device=x.device))
+        _launch("nufft1_3d", x, *args, *geo[1:], partial.data_ptr(),
+                out.data_ptr(), mtot=m)
+        return out
+    partial = torch.empty((groups,) + shape, dtype=cdtype, device=x.device)
     if geo[0] == "tc":
         _launch("nufft1_3d", x, *args, *geo[1:], partial.data_ptr(),
                 out.data_ptr(), mtot=m, symbol="gpq_nufft1_3d_tc_f32")

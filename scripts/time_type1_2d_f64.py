@@ -20,10 +20,12 @@ started together:
   the hand-offs, the sums' stores);
 - ``base``, with ``--base DIR``: ``DIR/gpquad_torch/csrc/nufft_2d.cu``
   as it is, another checkout (for example the parent commit unpacked with
-  ``git archive`` into ``build/parent``), whose float64 d=2 type-1 takes
-  the chunk of 2048 points of the CUDA-core kernel before the FP64 tensor
-  cores (``gpq_nufft1_2d_f64(x, v, h, n, m, fft_order, chunk, partial,
-  out, stream)``, the batched one with ``nb`` after ``m``).
+  ``git archive`` into ``build/parent``), whose float64 d=2 type-1 is an
+  FP64 tensor-core kernel that takes the same geometry
+  (``gpq_nufft1_2d_f64(x, v, h, n, m, fft_order, rows, cols, group, run,
+  chunk, partial, out, stream)``, the batched one with ``nb`` after
+  ``m``), launched at the pick; the script says whether it gives the bits
+  of ``full`` there.
 
 ``--shapes phase3`` takes every float64 d=2 type-1 shape that
 chip_smoke.py phase 3 runs.  The answers of the variants but ``full`` and
@@ -61,10 +63,12 @@ OUT = ROOT / "build" / "type1_2d_f64_ablation"
 CSRC = ROOT / "gpquad_torch" / "csrc"
 # (file, the text there, what replaces it)
 PHASES = ("tc_type1_f64.cuh",
-          "    phase(first_axis ? tb.u1[q] : tb.u2[q], (double)k, &c, &sn);",
-          "    c = tb.u1[q] * k; sn = c + 1.0;")
-FILL = ("tc_type1_f64.cuh", "        t64_fill<G, COLS>(stages[s & 1], tb,",
-        "        if (0) t64_fill<G, COLS>(stages[s & 1], tb,")
+          "    phase(tb.u[d.x][q], (double)d.y, &c, &sn);",
+          "    c = tb.u[d.x][q] * d.y; sn = c + 1.0;")
+FILL = ("tc_type1_f64.cuh",
+        "        t64_fill<P, G, COLS>(stages[s & 1], tb, ptid, pt, x, v,",
+        "        if (0) t64_fill<P, G, COLS>(stages[s & 1], tb, ptid, pt, "
+        "x, v,")
 KSTEPS = ("tc_type1_f64.cuh", "for (int ks = 0; ks < T64_P; ks += 8) {",
           "for (int ks = 0; ks < 0; ks += 8) {")
 VARIANTS = {"full": (), "no_phases": (PHASES,), "no_fill": (FILL,),
@@ -160,12 +164,12 @@ def build_variants(nvcc, base=None):
                     ln.split(":", 1)[-1].strip() for ln in lines[i + 1:i + 3]))
         lib = ctypes.CDLL(str(OUT / name / "lib.so"))
         single, batched = lib.gpq_nufft1_2d_f64, lib.gpq_nufft1_2d_batched_f64
-        # (n, m, fft_order, then the geometry: the chunk alone in base's)
-        geo = 1 if name == "base" else 5
-        single.argtypes = [ptr, ptr, ctypes.c_double, *[i32] * (3 + geo),
-                           ptr, ptr, ptr]
-        batched.argtypes = [ptr, ptr, ctypes.c_double, *[i32] * (4 + geo),
-                            ptr, ptr, ptr]
+        # (n, m, fft_order, then the geometry: rows, cols, group, run,
+        # chunk)
+        single.argtypes = [ptr, ptr, ctypes.c_double, *[i32] * 8, ptr, ptr,
+                           ptr]
+        batched.argtypes = [ptr, ptr, ctypes.c_double, *[i32] * 9, ptr, ptr,
+                            ptr]
         single.restype = batched.restype = i32
         fns[name] = (single, batched)
     return fns
@@ -220,11 +224,15 @@ def main() -> int:
             return call
         full = {k: (fns["full"], geo) for k, geo in geos.items()}
         if base is not None:
-            full["base"] = (fns["base"], (cn.TYPE1_CHUNK,))
-        calls = {}
+            full["base"] = (fns["base"], pick)
+        calls, bits = {}, ""
         for k, (fn, geo) in full.items():
             calls[k] = launcher(fn, geo)
             calls[k]()
+            if k == "pick":
+                got = out.clone()
+            elif k == "base":
+                bits = f"; base's bits: {torch.equal(out, got)}"
             err = float((out - ref).abs().max()) / scale
             if err > 1e-12:
                 print(f"{k} at n={n} m={m} B={B}: {err:.3e} of max|ref| from "
@@ -241,7 +249,7 @@ def main() -> int:
         print(f"{what} n={n} mtot={m} B={B} {pick}: "
               + ", ".join(f"{k} {t:.4f}" for k, t in ms.items())
               + f" ms; pick at {padded / ms['pick'] / 1e9:.1f} TFLOP/s on "
-              f"the padded tiles [{smi}]", flush=True)
+              f"the padded tiles{bits} [{smi}]", flush=True)
         del x, V, ref, out, calls
         torch.cuda.empty_cache()
     return 0

@@ -1385,6 +1385,77 @@ def test_type1_3d_launch_refuses_overflowing_table(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (1, 5000, 21, 0.65, False),
+    (3, 4001, 41, 0.4, True),
+    (10, 3000, 31, 0.2, False),
+    (1, 2000, 67, 0.3, True),
+    (1, 2000, 101, 0.97, False),
+    (2, 999, 5, 0.3, True),
+])
+def test_type1_3d_f64_tensor_core_kernel_on_card(cuda_device, B, n, mtot, h,
+                                                 fft_order):
+    """The float64 d=3 type-1 on the FP64 tensor cores (type1_3d_geometry
+    at float64): one float64 launch a call; within 1e-10 of max|ref| of the
+    float64 plain version; bit for bit the same on a second launch; within
+    1e-12 of max|ref| of its twin nufft1_3d_f64_tc_ref; the wrapper's
+    result this kernel's."""
+    rng = np.random.default_rng(20)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 3)), device=cuda_device)
+    V = torch.as_tensor(rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n)),
+                        device=cuda_device)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    geo = cuda_nufft.type1_3d_geometry(n, mtot, B, torch.float64)
+    key = ("nufft1_3d", "f64", mtot)
+    before = cuda_nufft.LAUNCH_PRECISIONS.get(key, 0)
+    got = cuda_nufft._nufft1_3d_on(x, V, h, mtot, fft_order, geo)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCH_PRECISIONS[key] == before + 1
+    assert got.shape == (B,) + (mtot,) * 3
+    assert torch.equal(cuda_nufft._nufft1_3d_on(x, V, h, mtot, fft_order,
+                                                geo), got)
+    ref = nufft1_3d_ref(x, V, h, **kw)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-10 * scale
+    twin = cuda_nufft.nufft1_3d_f64_tc_ref(x, V, h, **kw)
+    assert float((got - twin).abs().max()) <= 1e-12 * scale
+    routed = nufft1_3d(x, V if B > 1 else V[0], h, **kw)
+    assert torch.equal(routed.reshape(got.shape), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [
+    (1, 32), (2, 128), (3, 3), (4, 0), (4, 9), (5, 100), (6, 1000),
+    (0, "out")])
+def test_type1_3d_f64_launch_refuses_foreign_geometry(cuda_device, field,
+                                                      value):
+    """The FP64 tensor-core d=3 type-1's launch takes its geometry from
+    ``type1_3d_geometry`` at float64 and refuses one it has no instance for
+    (rows, cols, group, split, run or chunk changed), and the output as
+    its partial where the points make more than one group: a CUDA error
+    is raised, and nothing is written."""
+    n, mtot = 4096, 21
+    x = torch.rand((n, 3), dtype=torch.float64, device=cuda_device)
+    v = torch.ones((1, n), dtype=torch.complex128, device=cuda_device)
+    geo = list(cuda_nufft.type1_3d_geometry(n, mtot, 1, torch.float64))
+    assert -(-n // geo[-1]) > 1
+    if field:
+        geo[field] = value
+    partial = torch.zeros((n, 1) + (mtot,) * 3, dtype=torch.complex128,
+                          device=cuda_device)
+    out = torch.zeros((1,) + (mtot,) * 3, dtype=torch.complex128,
+                      device=cuda_device)
+    if value == "out":
+        partial = out
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft1_3d", x, x.data_ptr(), v.data_ptr(), 0.5,
+                           n, mtot, 1, 0, *geo[1:], partial.data_ptr(),
+                           out.data_ptr(), mtot=mtot)
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,n,mtot,h,fft_order,cols,splits", [
     (1, 5000, 9, 0.31, False, None, None),
     (3, 4001, 21, 0.65, True, None, None),

@@ -356,15 +356,17 @@ def test_3d_type1_table_bound_at_every_width():
 
 def test_3d_type1_launch_refuses_foreign_path(rng):
     """The d=3 type-1's launch takes ("tc", 6 fields) or ("cuda",) and
-    refuses any other geometry before it touches the card; float64 has no
-    tensor-core path."""
+    refuses any other geometry before it touches the card; float64 takes
+    its own tensor-core geometry (tests/test_torch_nufft3_f64_tc.py), not
+    the float32 one."""
     x = torch.as_tensor(rng.uniform(0, 1, (64, 3)))
     v = torch.ones((1, 64), dtype=torch.complex128)
     geo = type1_3d_geometry(64, 9)
     for bad in (geo[:-1], ("split", 16), ("cuda", 2048), geo + (1,)):
-        with pytest.raises(ValueError, match="no d=3 type-1 path"):
-            cuda_nufft._nufft1_3d_on(x, v, 0.3, 9, False, bad)
-    with pytest.raises(TypeError, match="float32"):
+        for xs, vs in ((x.float(), v.to(torch.complex64)), (x, v)):
+            with pytest.raises(ValueError, match="no d=3 type-1 path"):
+                cuda_nufft._nufft1_3d_on(xs, vs, 0.3, 9, False, bad)
+    with pytest.raises(ValueError, match="float64"):
         cuda_nufft._nufft1_3d_on(x, v, 0.3, 9, False, geo)
 
 
