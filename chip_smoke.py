@@ -70,7 +70,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bit for bit against a second launch, within 1e-12 of its twin
      nufft1_3d_f64_tc_ref where its operand E stays under 4 GB, its
      scratch, the card's time alone (tc_ms), the FP64 tensor-core bound
-     beside the float64 CUDA-core one;
+     beside the float64 CUDA-core one; the float64 d=3 type-2 on the FP64
+     tensor cores (the d=2 type-2's kernel on Type2F64Grid3D) at every
+     float64 d=3 type-2 shape phase 3 runs (d3's, hard3d's and the
+     slab-tiled widths): within 1e-12 of max|ref|, bit for bit against a
+     second launch, within 1e-12 of its twin nufft2_3d_f64_tc_ref, its
+     scratch (no more than its geometry counts), the card's time alone
+     (tc_ms), the FP64 tensor-core bound beside the float64 CUDA-core one;
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -592,28 +598,34 @@ def bound_3xtf32_ms(name, n, m, B=1, split=None):
 
 def bound_fp64_tc_ms(name, n, m, B=1):
     """A float64 function's bound on the FP64 tensor cores (the d=2 and d=3
-    type-1, csrc/tc_type1_f64.cuh, and the d=2 type-2,
+    type-1, csrc/tc_type1_f64.cuh, and the d=2 and d=3 type-2,
     csrc/tc_type2_f64.cuh): 8 flops a point, mode pair (d=2) or triple
     (d=3) and vector, unpadded, at the dense FP64 tensor-core rate, the
     rest of kernel_work's operations (the phases; the type-1's products v
-    e1, at d=3 also (v e1) e2; the type-2's sums over j) at the float64
-    CUDA-core rate; against its bytes."""
+    e1, at d=3 also (v e1) e2; the d=2 type-2's sums over j) at the
+    float64 CUDA-core rate; against its bytes.  The d=3 type-2 contracts
+    the pairs (j2, j3) in the GEMM, so its rest is, as in
+    bound_3xtf32_ms, the phases, the mtot^2 products e2 e3 once a point (6
+    flops) and the epilogue's mtot multiply-adds e1 T a point and vector
+    (8)."""
     d = int(name.split("_")[1][0])
     flops, nbytes = kernel_work(name, n, m, torch.float64, B)
     tc = 8 * B * n * m ** d
-    t_ops = (tc / PEAK_FP64_TC
-             + (flops - tc) / PEAK_FLOPS[torch.float64]) * 1e3
+    rest = flops - tc
+    if name == "nufft2_3d":
+        rest = d * n * m * PHASE_FLOPS + 6 * n * m ** 2 + 8 * B * n * m
+    t_ops = (tc / PEAK_FP64_TC + rest / PEAK_FLOPS[torch.float64]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def fp64_tc(cn, name, n, m):
     """Whether the float64 call of ``name`` at n points and mtot m runs on
-    the FP64 tensor cores: the d=2 and d=3 type-1 and the batched type-2
-    always, the single type-2 where cuda_nufft.type2_2d_single_geometry
-    sends it."""
+    the FP64 tensor cores: the d=2 and d=3 type-1, the batched type-2 and
+    the d=3 type-2 always, the single type-2 where
+    cuda_nufft.type2_2d_single_geometry sends it."""
     return (name in ("nufft1_2d", "nufft1_2d_batched", "nufft2_2d_batched",
-                     "nufft1_3d")
+                     "nufft1_3d", "nufft2_3d")
             or (name == "nufft2_2d" and cn.type2_2d_single_geometry(
                 n, m, torch.float64)[0] == "tc"))
 
@@ -1118,9 +1130,9 @@ def f64_shape_table(c, totals, h_matern):
     kernel and the plain version on the same inputs, the kernel held within
     1e-10 of max|ref| of the plain version).  The bound is the picked
     kernel's (on the FP64 tensor cores, bound_fp64_tc_ms: the d=2 type-1,
-    the batched type-2 and the single type-2 where
-    type2_2d_single_geometry sends it there), the CUDA cores' float64
-    bound beside it."""
+    the batched type-2, the single type-2 where type2_2d_single_geometry
+    sends it there, and the d=3 pair), the CUDA cores' float64 bound beside
+    it."""
     head, hard = (c.h_head, c.mtot_head), (c.h_hard, c.mtot_hard)
     m29, m107, m339 = head[1], hard[1], c.mtot10
     shapes = [  # (name, n, mtot, B, h, serves)
@@ -3470,6 +3482,56 @@ def main() -> int:
                 f"{out['bound_fp64_tc_ms']:.4f}")
         return out, line
 
+    def type2_3d_f64_card(x, f, hq, m, fo, n, B, scale, got, rel, reps):
+        """The float64 d=3 type-2 on the FP64 tensor cores beyond the row's
+        checks: within 1e-12 of max|ref| (``rel``) of the float64 plain
+        version; the kernel's launch at type2_3d_geometry's float64
+        geometry gives the wrapper's result and the same bits again, within
+        1e-12 of max|ref| of its twin nufft2_3d_f64_tc_ref (run on the
+        card); its scratch no more than its geometry counts; the card's
+        time alone (tc_ms, time_cuda_paths: the host ahead) and the FP64
+        tensor-core bound.  The CUDA-core float64 instance it replaces is
+        gone; scripts/time_type2_3d_f64.py times it from the parent
+        commit's sources beside this one.  Returns the row's fields and a
+        line for the log."""
+        F3 = f.reshape(B, m ** 3)
+        geo = cuda_nufft.type2_3d_geometry(n, m, B, torch.float64)
+        what = f"nufft2_3d float64 B={B} n={n} mtot={m}"
+        check(rel <= 1e-12, f"{what}: error {rel:.3e} of max|ref| > 1e-12")
+
+        def call():
+            return cuda_nufft._nufft2_3d_on(x, F3, hq, m, fo, geo)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        o = call()
+        sync()
+        scratch = (torch.cuda.max_memory_allocated() - base
+                   - o.numel() * o.element_size())
+        counted = 8 * cuda_nufft.type2_3d_f64_scratch_doubles(n, m, B, geo)
+        check(scratch <= counted + 2 ** 21, f"{what}: scratch {scratch} "
+              f"bytes past its geometry's {counted}")
+        check(torch.equal(o.reshape(got.shape), got),
+              f"{what}: the wrapper's result is not this kernel's")
+        check(torch.equal(call(), o), f"{what}: a second launch differs")
+        out = {"geometry": list(geo[1:]), "tc_scratch_bytes": scratch}
+        twin = cuda_nufft.nufft2_3d_f64_tc_ref(x, F3, hq, mtot=m,
+                                               fft_order=fo)
+        diff = float((o - twin).abs().max())
+        check(diff <= 1e-12 * scale,
+              f"{what}: {diff / scale:.3e} of max|ref| from its twin "
+              f"(bar 1e-12)")
+        out["twin_rel_diff"] = diff / scale
+        del twin, o
+        out["tc_ms"] = time_cuda_paths({"tc": call}, reps, PATH_TRIALS)["tc"]
+        out["bound_fp64_tc_ms"], out["bound_fp64_tc_by"] = \
+            bound_fp64_tc_ms("nufft2_3d", n, m, B)
+        line = (f" FP64 tensor cores: the card's time tc_ms="
+                f"{out['tc_ms']:.4f}, twin {out['twin_rel_diff']:.3e} apart,"
+                f" scratch {scratch / 1e6:.3f} MB (measured); geometry "
+                f"{geo}; bound_fp64_tc_ms={out['bound_fp64_tc_ms']:.4f}")
+        return out, line
+
     def type2_f64_card(x, f, hq, m, fo, n, B, scale, got, rel, reps):
         """The float64 batched type-2 on the FP64 tensor cores beyond the
         row's checks: within 1e-12 of max|ref| (``rel``) of the float64
@@ -3972,6 +4034,17 @@ def main() -> int:
                     row["bound_by"] = t1["bound_fp64_tc_by"]
                     extra += line
                     b_by = f"float64 CUDA cores, {b_by}"
+            if name == "nufft2_3d" and dtype == torch.float64:
+                # the FP64 tensor cores, the only float64 d=3 type-2; the
+                # float64 CUDA-core bound kept beside theirs
+                t2, line = type2_3d_f64_card(x, arg, hq, m, fo, n, B, scale,
+                                             got, rel, reps)
+                row.update(t2)
+                row["bound_f64_ms"] = b_ms
+                row["bound_ms"] = t2["bound_fp64_tc_ms"]
+                row["bound_by"] = t2["bound_fp64_tc_by"]
+                extra += line
+                b_by = f"float64 CUDA cores, {b_by}"
             if d == 3 and dtype == torch.float32:
                 # both kernels of the d=3 function (the tensor cores' twin
                 # where its float32 operand stays under 1e9 values)
@@ -4636,7 +4709,9 @@ def main() -> int:
         (the dispatch replaced for the call): the control of the d=3
         gradients' accuracy watch, on the same inputs and probes."""
         keep = cuda_nufft.type2_3d_geometry
-        cuda_nufft.type2_3d_geometry = lambda n, mtot, B=1: ("cuda",)
+        cuda_nufft.type2_3d_geometry = (
+            lambda n, mtot, B=1, dtype=torch.float32: ("cuda",)
+            if dtype == torch.float32 else keep(n, mtot, B, dtype))
         try:
             return fn()
         finally:
@@ -5953,6 +6028,29 @@ def main() -> int:
         "source": "gpquad_torch/csrc/tc_type1_f64.cuh",
         "replaces": REPLACES["nufft1_3d"], "launches": launched,
         **{k: row[k] for k in ("tc_ms", "scratch_bytes", "bound_f64_ms")},
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_fp64_tc_ms"],
+        "bound_by": row["bound_fp64_tc_by"], "library_ms": None,
+        "shape": {"B": row["B"], "n": row["n"], "mtot": row["mtot"],
+                  "fft_order": row["fft_order"], "serves": row["serves"],
+                  "dtype": "float64"}})
+    # the float64 d=3 type-2 on the FP64 tensor cores (csrc/tc_type2_f64.cuh
+    # on nufft_3d.cu's Type2F64Grid3D): its float64 call on a driven path
+    # (12e's mean_high, hard3d's 1 000 targets at mtot 21; phase 3's row of
+    # that shape), the wrapper's time and the card's alone there; launches
+    # from phase 12's high tier (its float64 d=3 type-2s, all on this
+    # kernel), which must hold one
+    row = next(r for r in phase3 if r["name"] == "nufft2_3d"
+               and r["dtype"] == "float64" and r["serves"] == "hard3d mean")
+    launched = high_launches(("nufft2_3d",))["f64"]
+    check(launched > 0, "phase 12 launched the d=3 type-2's FP64 "
+          "tensor-core kernel no time")
+    rows.append({
+        "name": "nufft2_3d (float64, FP64 tensor cores)", "route": "cuda",
+        "source": "gpquad_torch/csrc/tc_type2_f64.cuh",
+        "replaces": REPLACES["nufft2_3d"], "launches": launched,
+        **{k: row[k] for k in ("tc_ms", "tc_scratch_bytes", "bound_f64_ms")},
         "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_fp64_tc_ms"],

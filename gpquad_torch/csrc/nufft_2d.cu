@@ -31,9 +31,10 @@
 //       the single type-2 takes it at B = 1 (each output still has one
 //       owner);
 //     - float64 on the FP64 tensor cores (tc_type2_f64.cuh's
-//       type2_f64_kernel, DMMA m16n8k8): the same GEMM and epilogue with no
-//       split, the mode index split so that a point makes few phases; the
-//       float64 batch always, the single where the table sends it;
+//       type2_f64_kernel on Type2F64Grid2D below, DMMA m16n8k8): the same
+//       GEMM and epilogue with no split, the mode index split so that a
+//       point makes few phases; the float64 batch always, the single where
+//       the table sends it;
 //     - one vector, few points, three slabs of 16 modes j or more
 //       (nufft2_2d_split_kernel): a grid axis over the slabs, so that the
 //       card gets enough blocks, each thread keeping its slab's sums over k
@@ -332,6 +333,47 @@ struct Type1F64Grid2D {
 };
 
 // ---------------------------------------------------------------------------
+// type-2 in float64 on the FP64 tensor cores: tc_type2_f64.cuh's kernel on
+// the d=2 problem, batched and at B 1: the reduction runs over the modes k
+// of the second axis in k-steps of 8 (A = e2 from x2: a k-step's factor
+// e(u2, 8 s - half), its entries' e(u2, r)), the epilogue over the modes j
+// of the first (e1 from x1); no split of the reduction
+// ---------------------------------------------------------------------------
+struct Type2F64Grid2D {
+  using X = double2;
+  static constexpr int kCoords = 2, kRedCoord = 1;
+  static constexpr int kChunk = 6;   // 48 modes k: A kept a block to mtot 47
+  static constexpr bool kSplitK = false;
+  struct Extra {};
+  static __device__ double coord(const X& p, int c) {
+    return c == 0 ? p.x : p.y;
+  }
+  static __host__ __device__ int red_steps(int m) { return (m + 7) / 8; }
+  static __device__ bool red_ok(int ks, int r, int m) {
+    return 8 * ks + r < m;
+  }
+  template <class S>
+  static __device__ void chunk_factors(S& sm, int ks0, int kn, int m,
+                                       int tid) {
+    const int half = (m - 1) / 2;
+    for (int e = tid; e < T2D_P * kChunk; e += T2D_THREADS) {
+      const int p = e / kChunk, s = e % kChunk;
+      if (s < kn) {
+        double c, sn;
+        phase(sm.u[1][p], (double)(8 * (ks0 + s) - half), &c, &sn);
+        sm.s2[p][s] = make_double2(c, sn);
+      }
+    }
+  }
+  static __device__ long long coef_index(int b, int j, int k, int m,
+                                         int fft_order) {
+    return k < m ? ((long long)b * m + t64_out(j, m, fft_order)) * m +
+                       t64_out(k, m, fft_order)
+                 : -1;
+  }
+};
+
+// ---------------------------------------------------------------------------
 // batched type-2 in float32 on the tensor cores: tc_type2.cuh's kernel on
 // the d=2 problem.  It replaces pallas_nufft2_2d_batched
 // (gpquad/ops/pallas_nufft.py:838), whose kernel is itself a matrix product
@@ -509,16 +551,18 @@ int gpq_nufft2_2d_batched_tc_f64(const void* x, const void* f, double h,
                                  int points, int cols, int stage,
                                  void* scratch, long long scratch_doubles,
                                  void* out, void* stream) {
-  return launch_type2_f64(x, f, h, n, m, nb, fft_order, points, cols, stage,
-                          scratch, scratch_doubles, out, stream);
+  return launch_type2_f64<Type2F64Grid2D>(x, f, h, n, m, nb, fft_order,
+                                          points, cols, stage, 1, scratch,
+                                          scratch_doubles, out, stream);
 }
 
 int gpq_nufft2_2d_tc_f64(const void* x, const void* f, double h, int n,
                          int m, int fft_order, int points, int cols,
                          int stage, void* scratch, long long scratch_doubles,
                          void* out, void* stream) {
-  return launch_type2_f64(x, f, h, n, m, 1, fft_order, points, cols, stage,
-                          scratch, scratch_doubles, out, stream);
+  return launch_type2_f64<Type2F64Grid2D>(x, f, h, n, m, 1, fft_order,
+                                          points, cols, stage, 1, scratch,
+                                          scratch_doubles, out, stream);
 }
 
 int gpq_nufft1_2d_batched_f32(const void* x, const void* v, float h, int n,

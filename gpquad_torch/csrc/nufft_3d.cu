@@ -29,9 +29,14 @@
 //    it): tc_type2.cuh's tensor-core kernel (3xTF32) on Type2Grid3D below,
 //    a GEMM over the points' (j2, j3) phases whose columns are (b, j1),
 //    the sum over j1 in its epilogue;
-//  - nufft2_3d on the CUDA cores (float64, the float32 shapes the geometry
-//    keeps there, and the control phase 3 times beside the tensor cores):
-//    one point per thread (or per G threads, below).  For a tile
+//  - nufft2_3d in float64: tc_type2_f64.cuh's FP64 tensor-core kernel
+//    (DMMA, no split of the operands) on Type2F64Grid3D below, the same
+//    GEMM over the pairs (j2, j3) and epilogue over j1, the modes j3 padded
+//    to whole k-steps of 8 and each axis's mode split so that a point makes
+//    few phases a k-step;
+//  - nufft2_3d on the CUDA cores (the float32 shapes the geometry keeps
+//    there, and the control phase 3 times beside the tensor cores): one
+//    point per thread (or per G threads, below).  For a tile
 //    of TK third-axis modes the point's e3 phases live in registers; for a
 //    slab of TJ1 first-axis modes the thread keeps TJ1 partial sums
 //    u[j1] = sum_{j2} e2(j2) sum_{j3 in tile} e3(j3) f[j1,j2,j3]; the f tile
@@ -69,9 +74,8 @@
 //    scratch is groups x B x mtot^3 values (16 MB in f32 at n = 1e5,
 //    mtot 61, against 89 MB with one partial per chunk).
 //
-// The CUDA-core type-2 is templated on the scalar type: double tensors run
-// a double instance of the float code (the type-1's double instance gave
-// way to the FP64 tensor cores).
+// The CUDA-core kernels are float32 alone: the float64 instances of both
+// gave way to the FP64 tensor cores.
 //
 // C interface (bound with ctypes): pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launches.
@@ -80,6 +84,7 @@
 
 #include "tc_type1_f64.cuh"
 #include "tc_type2.cuh"
+#include "tc_type2_f64.cuh"
 
 namespace {
 
@@ -322,29 +327,28 @@ nufft1_3d_partial_kernel(const T* __restrict__ x,
 }
 
 // Type-2: 128 threads per block; one thread per point when there are many
-// points, four when there are few.  f32 takes TK = 32 third-axis modes per
-// register tile, f64 16 (the same 16 KB of shared memory).
+// points, four when there are few; TK = 32 third-axis modes per register
+// tile (16 KB of shared memory).
 constexpr int T2_THREADS = 128;
 constexpr int T2_FEW_POINTS = 65536;
 
-template <typename T, int G>
-int launch_nufft2_g(const void* x, const void* f, T h, int n, int m, int nb,
-                    int fft_order, void* out, cudaStream_t s) {
-  constexpr int TK = sizeof(T) == 4 ? 32 : 16;
+template <int G>
+int launch_nufft2_g(const void* x, const void* f, float h, int n, int m,
+                    int nb, int fft_order, void* out, cudaStream_t s) {
   constexpr int P = T2_THREADS / G;
   const dim3 grid((n + P - 1) / P, nb);
-  nufft2_3d_kernel<T, T2_THREADS, G, 8, 8, TK><<<grid, T2_THREADS, 0, s>>>(
-      (const T*)x, (const v2_t<T>*)f, h, n, m, fft_order, (v2_t<T>*)out);
+  nufft2_3d_kernel<float, T2_THREADS, G, 8, 8, 32>
+      <<<grid, T2_THREADS, 0, s>>>((const float*)x, (const float2*)f, h, n,
+                                   m, fft_order, (float2*)out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_nufft2(const void* x, const void* f, T h, int n, int m, int nb,
+int launch_nufft2(const void* x, const void* f, float h, int n, int m, int nb,
                   int fft_order, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if ((long long)n * nb < T2_FEW_POINTS)
-    return launch_nufft2_g<T, 4>(x, f, h, n, m, nb, fft_order, out, s);
-  return launch_nufft2_g<T, 1>(x, f, h, n, m, nb, fft_order, out, s);
+    return launch_nufft2_g<4>(x, f, h, n, m, nb, fft_order, out, s);
+  return launch_nufft2_g<1>(x, f, h, n, m, nb, fft_order, out, s);
 }
 
 template <typename T>
@@ -646,18 +650,104 @@ struct Type2Grid3D {
   }
 };
 
+// ---------------------------------------------------------------------------
+// type-2 in float64 on the FP64 tensor cores: tc_type2_f64.cuh's kernel on
+// the d=3 problem, Type2Grid3D's GEMM over the pairs (j2, j3) with columns
+// (b, j1) and the sum over j1 in its epilogue, but the modes j3 padded to
+// whole k-steps of 8, not to a stage of 32 (mtot 21 -> 24, 1.14x, where
+// float32 pads 1.52x): k-step ks is (j2, s) = (ks / n3, ks % n3), n3 =
+// ceil(mtot / 8), its indices j3 = 8 s + r.  A's entry at (j2, j3) is
+// (e2(j2) e(u3, 8 s - half)) e(u3, r): the k-step's factor is made once a
+// chunk of k-steps, from e(u3, 8 s - half) and e2(j2) = e(u2, 8 (j2 / 8) -
+// half) e(u2, j2 % 8), made once a chunk for each j2 it reaches (Extra),
+// then one complex product an entry.  The reduction is long (mtot n3
+// k-steps: 63 at mtot 21, 8 160 at 255), so A is made again for every
+// column tile; for few points the launch splits its chunks over a grid axis
+// (kSplitK; ops/cuda_nufft.py type2_3d_geometry at float64).
+// ---------------------------------------------------------------------------
+struct Type2F64Grid3D {
+  struct X {
+    double x, y, z;
+  };
+  static constexpr int kCoords = 3, kRedCoord = 2;
+  // 4 k-steps of A at once: with the third axis's factors and e2's values
+  // 110 KB of shared memory a block, two blocks an SM
+  static constexpr int kChunk = 4;
+  static constexpr bool kSplitK = true;
+  struct Extra {
+    double2 e2[T2D_P][kChunk];   // e2(j2) of the chunk's j2, the first on
+  };
+  static __device__ double coord(const X& p, int c) {
+    return c == 0 ? p.x : c == 1 ? p.y : p.z;
+  }
+  static __host__ __device__ int red_steps(int m) {
+    return m * ((m + 7) / 8);
+  }
+  static __device__ bool red_ok(int ks, int r, int m) {
+    return 8 * (ks % ((m + 7) / 8)) + r < m;
+  }
+  // the factors e2(j2) e(u3, 8 s - half) of k-steps ks0 .. ks0 + kn - 1:
+  // e(u3, 8 s - half) and each j2's e2 (nd of them), then their products
+  template <class S>
+  static __device__ void chunk_factors(S& sm, int ks0, int kn, int m,
+                                       int tid) {
+    const int half = (m - 1) / 2, n3 = (m + 7) / 8;
+    const int j2a = ks0 / n3, nd = (ks0 + kn - 1) / n3 - j2a + 1;
+    for (int e = tid; e < T2D_P * 2 * kChunk; e += T2D_THREADS) {
+      const int p = e / (2 * kChunk), q = e % (2 * kChunk);
+      double c, sn;
+      if (q < kChunk) {
+        if (q < kn) {
+          phase(sm.u[2][p], (double)(8 * ((ks0 + q) % n3) - half), &c, &sn);
+          sm.s2[p][q] = make_double2(c, sn);
+        }
+      } else if (q - kChunk < nd) {
+        const int j2 = j2a + q - kChunk;
+        phase(sm.u[1][p], (double)(8 * (j2 >> 3) - half), &c, &sn);
+        sm.ex.e2[p][q - kChunk] =
+            cmul(make_double2(c, sn), sm.r[1][p][j2 & 7]);
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < T2D_P * kChunk; e += T2D_THREADS) {
+      const int p = e / kChunk, s = e % kChunk;
+      if (s < kn)
+        sm.s2[p][s] = cmul(sm.ex.e2[p][(ks0 + s) / n3 - j2a], sm.s2[p][s]);
+    }
+  }
+  // F_b[j1, (j2, j3)] at reduction index k: k-step k / 8 = (j2, s), j3 =
+  // 8 s + k % 8
+  static __device__ long long coef_index(int b, int j, int k, int m,
+                                         int fft_order) {
+    const int n3 = (m + 7) / 8, ks = k >> 3;
+    const int j2 = ks / n3, j3 = 8 * (ks % n3) + (k & 7);
+    if (j3 >= m) return -1;
+    return (((long long)b * m + t64_out(j, m, fft_order)) * m +
+            t64_out(j2, m, fft_order)) * m + t64_out(j3, m, fft_order);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
 int gpq_nufft2_3d_f32(const void* x, const void* f, float h, int n, int m,
                       int nb, int fft_order, void* out, void* stream) {
-  return launch_nufft2<float>(x, f, h, n, m, nb, fft_order, out, stream);
+  return launch_nufft2(x, f, h, n, m, nb, fft_order, out, stream);
 }
 
+// float64 on the FP64 tensor cores, with the caller's geometry
+// (ops/cuda_nufft.py type2_3d_geometry at float64: points a block, columns
+// a tile, indices k a stage, splits of the chunks of k-steps); the scratch
+// holds the split f and, for two splits or more, their partials
 int gpq_nufft2_3d_f64(const void* x, const void* f, double h, int n, int m,
-                      int nb, int fft_order, void* out, void* stream) {
-  return launch_nufft2<double>(x, f, h, n, m, nb, fft_order, out, stream);
+                      int nb, int fft_order, int points, int cols, int stage,
+                      int splits, void* scratch, long long scratch_doubles,
+                      void* out, void* stream) {
+  return launch_type2_f64<Type2F64Grid3D>(x, f, h, n, m, nb, fft_order,
+                                          points, cols, stage, splits,
+                                          scratch, scratch_doubles, out,
+                                          stream);
 }
 
 // float32 on the tensor cores, with the caller's geometry (ops/cuda_nufft.py

@@ -1,81 +1,123 @@
-// The float64 d=2 type-2 NUFFT on the H100's FP64 tensor cores (DMMA,
-// mma.sync.aligned.m16n8k8 .f64), batched and at B 1 for the single:
-// type2_f64_kernel<NC>, included by nufft_2d.cu.  It replaces, in float64,
-// the TPU's pallas_nufft2_2d_batched (gpquad/ops/pallas_nufft.py:838; its
-// kernel _type2_kernel_b, :809-833, is this product) and, where
-// ops/cuda_nufft.py type2_2d_single_geometry sends it, pallas_nufft2_2d and
-// _pallas_nufft2_2d_tiled (:113, :369) at B 1.
+// The float64 type-2 NUFFT on the H100's FP64 tensor cores (DMMA,
+// mma.sync.aligned.m16n8k8 .f64): one kernel, type2_f64_kernel<P, NC>,
+// whose problem type P says what its reduction index, its columns and its
+// points are:
+//  - d=2 (nufft_2d.cu Type2F64Grid2D), batched and at B 1 for the single:
+//    k the modes of the second axis, j those of the first.  It replaces, in
+//    float64, the TPU's pallas_nufft2_2d_batched
+//    (gpquad/ops/pallas_nufft.py:838; its kernel _type2_kernel_b, :809-833,
+//    is this product) and, where ops/cuda_nufft.py
+//    type2_2d_single_geometry sends it, pallas_nufft2_2d and
+//    _pallas_nufft2_2d_tiled (:113, :369) at B 1;
+//  - d=3 (nufft_3d.cu Type2F64Grid3D), one vector or a batch: k the pairs
+//    (j2, j3), j the modes of the first axis.  It replaces, in float64,
+//    pallas_nufft2_3d and _pallas_nufft2_3d_tiled (:662, :1034).
+// gpquad runs their float64 form as its double-word type-2
+// (gpquad/ops/nufft_df.py:304 df_nufft2_real); here float64 is native.
 //
 // For the block's P points (e = e^{+2 pi i c}, complex):
-//   T[p, (b, j)] = sum_k e2(p, k) F_b[j, k]      a GEMM over the modes k,
+//   T[p, (b, j)] = sum_k eA(p, k) F_b[j, k]      a GEMM over k,
 //   out[b, p]    = sum_j e1(p, j) T[p, (b, j)]   in its epilogue,
 // the GEMM as four real float64 products on the tensor cores:
-//   T_re = C Fr + S (-Fi),   T_im = C Fi + S Fr   (C, S: cos, sin of e2),
+//   T_re = C Fr + S (-Fi),   T_im = C Fi + S Fr   (C, S: cos, sin of eA),
 // with no split of the operands: DMMA takes float64 as it is.
 //
-// What bounds it on an H100: 8 flops a point, mode pair and vector on the
-// tensor cores (67 TFLOP/s dense float64), the phases and the epilogue on
-// the CUDA cores (34 TFLOP/s).  A float64 sincospi costs tens of flops, so
-// the modes are taken in symmetric order (index i is mode i - half; F is
-// read through the caller's order, FFT or symmetric) and split as
+// What bounds it on an H100: 8 flops a point, mode (pair at d=2, triple at
+// d=3) and vector on the tensor cores (67 TFLOP/s dense float64), the
+// phases, the products of A's factors and the epilogue on the CUDA cores
+// (34 TFLOP/s).  A float64 sincospi costs tens of flops, so the modes are
+// taken in symmetric order (index i is mode i - half; F is read through
+// the caller's order, FFT or symmetric) and every axis's index split as
 // i = 8 s + r, r < 8:
 //   e(u, i - half) = e(u, 8 s - half) e(u, r),
 // each factor from nufft_common.cuh's phase<double> (the torus fold, the
-// compensated u k, sincospi).  A point makes the 8 factors e(u, r) of each
-// axis once a block, one factor e(u2, 8 s - half) a k-step of 8 modes k,
-// and e1's factors e(u1, 8 s - half) once a block up to mtot 47 (past that
-// one a run of up to 8 modes j of a vector in an epilogue pass); then one
-// complex product an entry.  The twin (ops/cuda_nufft.py
-// nufft2_2d_f64_tc_ref) forms every phase the same way.
+// compensated u k, sincospi).  The reduction runs in k-steps of 8 indices
+// k; a point makes the 8 factors e(u, r) of each axis once a block and one
+// factor of each k-step (P::chunk_factors):
+//  - d=2: e(u2, 8 s - half), k-step s of the modes k;
+//  - d=3: k-step (j2, s) holds the modes j3 = 8 s + r (j3 padded to whole
+//    k-steps: 21 -> 24), its factor e2(j2) e(u3, 8 s - half), where e2(j2)
+//    = e(u2, 8 (j2 / 8) - half) e(u2, j2 % 8) is made once a chunk of
+//    k-steps for each j2 the chunk reaches;
+// then A's entry is one complex product, the k-step's factor times
+// e(u_A, r) (u2 at d=2, u3 at d=3).  e1's factors e(u1, 8 s - half) are
+// made once a block up to mtot 47 (past that one a run of up to 8 modes j
+// of a vector in an epilogue pass).  The twins (ops/cuda_nufft.py
+// nufft2_2d_f64_tc_ref, nufft2_3d_f64_tc_ref) form every phase the same
+// way.
 //
 // Operands:
-//  - A = e2 (points x modes k) is made on chip, in fragment order, into
-//    shared memory: up to T2D_KCH k-steps (48 modes) at once, each thread
-//    making whole fragment quads (points g, g + 8 at modes t, t + 4 of a
-//    k-step), stored as two 16-byte halves so that a fragment load is two
-//    conflict-free 16-byte loads.  Where the modes k take one such chunk
-//    (mtot up to 47) e2 is made once a block and kept for every column
-//    tile; past that each chunk is made again for every tile.
-//  - B = F (modes k x columns (b, j), column b mtot + j: the vectors'
-//    columns follow each other with no padding, the last tile's padded
-//    with zeros) is laid out once a call by type2_f64_split_kernel into a
-//    scratch in fragment order, [tile][k-step][n-tile][Re, Im][lane][2],
-//    the modes k padded with zeros to whole k-steps of 8 (mtot 17 pads to
-//    24, not to 32); a block copies it per stage of T2D_KST k-steps with
-//    cp.async into one of two buffers while the other is multiplied.  It
-//    stays in the L2 (11 x 43^2 x 16 B = 325 KB at PG's spatial batch).
+//  - A = eA (points x k) is made on chip, in fragment order, into shared
+//    memory: a chunk of P::kChunk k-steps at once (d=2: 6, 48 modes; d=3:
+//    4, whose shared memory also holds e2's and e3's fine factors), each
+//    thread making whole fragment quads (points g, g + 8 at indices t,
+//    t + 4 of a k-step), stored as two 16-byte halves so that a fragment
+//    load is two conflict-free 16-byte loads.  Where the reduction takes
+//    one such chunk (d=2 up to mtot 47) A is made once a block and kept
+//    for every column tile; past that each chunk is made again for every
+//    tile (at d=3 always: 63 k-steps at mtot 21, 8 160 at 255).
+//  - B = F (k x columns (b, j), column b mtot + j: the vectors' columns
+//    follow each other with no padding, the last tile's padded with zeros)
+//    is laid out once a call by type2_f64_split_kernel into a scratch in
+//    fragment order, [tile][k-step][n-tile][Re, Im][lane][2], the indices
+//    k padded with zeros to whole k-steps of 8 (mtot 17 pads to 24, not to
+//    32); a block copies it per stage of T2D_KST k-steps with cp.async into
+//    one of two buffers while the other is multiplied.  At d=2 it stays in
+//    the L2 (11 x 43^2 x 16 B = 325 KB at PG's spatial batch); at d=3 it is
+//    the size of f (267 MB at mtot 255), and the blocks of a wave walk it
+//    in the same order, so that one's copy brings a stage into the L2 for
+//    the others.
 //
 // Block: 256 threads, P = 64 points, walking every column tile of NC
 // columns (64, or 32 where 64 pads the columns 1.25x as far: a single
 // vector on a narrow grid) in order; 8 warps in a WR x WC grid of 32 x 16
 // (NC 64) or 16 x 16 (NC 32) warp tiles, four m16n8k8 DMMA a 16 x 8 tile
 // and k-step.  One role: the phases, the products and the epilogue of a
-// block take turns, and two blocks share an SM (112 KB of shared memory
-// and at most 128 registers a thread each), so that one's products may
-// run beside the other's phases and epilogue.  Taken apart on the card
+// block take turns, and two blocks share an SM (at most 113 KB of shared
+// memory and 128 registers a thread each), so that one's products may run
+// beside the other's phases and epilogue.  Taken apart on the card
 // (scripts/time_type2_2d_f64.py --ablate: no DMMA, no epilogue, neither,
 // one block an SM) at PG's 1e5 x 17, B 11 the three parts add rather than
 // overlap: ~0.067 ms of DMMA, ~0.048 of epilogue, ~0.053 of the rest (the
 // phases, F's copies from the L2, the block's prologue and barriers) in
-// 0.168; one block an SM takes 1.4x as long.
+// 0.168; one block an SM takes 1.4x as long.  scripts/time_type2_3d_f64.py
+// takes the d=3 instance apart.
+//
+// Where P::kSplitK (d=3), grid axis y cuts the chunks of k-steps into as
+// many runs of whole chunks (few points: hard3d's 1 000 make 16 blocks),
+// each block's epilogue writes its run's sums to a partial of the output,
+// and launch_reduce adds the partials in split order.
 //
 // The sum, in a fixed order and with no atomics:
 //  - T of a column tile in the DMMA accumulators: k-step after k-step from
-//    zero, each adding C Fr then S (-Fi) into the real part and C Fi then
-//    S Fr into the imaginary part (the tensor cores add a k-step's 8
-//    products and the accumulator in their own order);
+//    zero (the split's k-steps where split), each adding C Fr then S (-Fi)
+//    into the real part and C Fi then S Fr into the imaginary part (the
+//    tensor cores add a k-step's 8 products and the accumulator in their
+//    own order);
 //  - the epilogue, T through shared memory T2D_EC columns a pass: thread
 //    (p, q) adds, for each vector b = q (mod 4) of the pass,
 //    e1(p, j) T[p, (b, j)] over b's columns there in j order, from zero
 //    (fused multiply-adds);
 //  - a vector's pass sums added in pass order in the same thread's
 //    registers (the vector open at a pass's end is the next pass's first,
-//    of the same residue), its total stored once to out[b, p]: every
-//    output has one owner.
+//    of the same residue), its total stored once to out[b, p] (or the
+//    split's partial): every output has one owner;
+//  - the splits' partials added in split order (launch_reduce).
 // The same bits on every launch.  ops/cuda_nufft.py type2_2d_geometry
-// (float64) and type2_2d_single_geometry own the geometry (points, column
-// tile, modes a stage); the launch refuses one it has no instance for, and
-// a scratch shorter than the split F.
+// (float64), type2_2d_single_geometry and type2_3d_geometry (float64) own
+// the geometry (points, column tile, indices a stage, splits); the launch
+// refuses one it has no instance for, and a scratch shorter than the split
+// F and the partials.
+//
+// The problem type P provides: X, the point's type in x, and coord(x, c),
+// its coordinate c < kCoords (c 0: the epilogue's axis, e1); kRedCoord,
+// the coordinate of A's fine factors e(u, r); kChunk, the k-steps of A
+// made at once; kSplitK, whether the launch takes splits; Extra, shared
+// memory of its own; red_steps(m), the reduction's k-steps; red_ok(ks, r,
+// m), whether index r of k-step ks holds a mode; chunk_factors(sm, ks0,
+// kn, m, tid), the factors of k-steps ks0 .. ks0 + kn - 1 into sm.s2 (the
+// caller's barrier follows); coef_index(b, j, k, m, fft_order), the place
+// in f of F_b[j, k], or -1 (zero).
 #pragma once
 
 #include "tc_type1_f64.cuh"
@@ -87,7 +129,6 @@ constexpr int T2D_THREADS = 256;
 constexpr int T2D_P = 64;              // points a block
 constexpr int T2D_MT = T2D_P / 16;     // its m-tiles
 constexpr int T2D_KST = 2;             // k-steps of F a stage
-constexpr int T2D_KCH = 6;             // k-steps of e2 made at once
 constexpr int T2D_EC = 32;             // columns of T an epilogue pass
 constexpr int T2D_EQ = T2D_THREADS / T2D_P;   // epilogue threads a point
 constexpr int T2D_S1 = 6;              // e1's factors e(u1, 8 s - half)
@@ -106,11 +147,13 @@ struct T2dTile {
   static_assert(T2D_EC % WN == 0, "a warp's columns in one epilogue pass");
 };
 
-template <int NC>
+template <class P, int NC>
 struct T2dSmem {
-  // e2's chunk: [k-step][cos, sin][m-tile][half][lane] -> (row g, row g+8)
-  // at mode t (half 0) or t + 4 (half 1)
-  double2 ea[T2D_KCH][2][T2D_MT][2][32];
+  static constexpr int KCH = P::kChunk;
+  static_assert(KCH % T2D_KST == 0, "whole stages a chunk");
+  // A's chunk: [k-step][cos, sin][m-tile][half][lane] -> (row g, row g+8)
+  // at index t (half 0) or t + 4 (half 1)
+  double2 ea[KCH][2][T2D_MT][2][32];
   union {
     // F's stages: [buffer][k-step][n-tile][Re, Im][lane] -> (b0, b1)
     double2 fb[2][T2D_KST][NC / 8][2][32];
@@ -118,20 +161,21 @@ struct T2dSmem {
     // that 8 neighbouring points' rows fall on distinct 16-byte banks)
     double2 t[T2D_P][T2D_EC + 1];
   };
-  // e(u1, r), e(u2, r) (a row of 9: 8 neighbouring points' rows on
-  // distinct 16-byte banks)
-  double2 r1[T2D_P][9], r2[T2D_P][9];
-  double2 s2[T2D_P][T2D_KCH];            // e(u2, 8 s - half), the chunk's s
+  // e(u_c, r) of each coordinate c (a row of 9: 8 neighbouring points'
+  // rows on distinct 16-byte banks)
+  double2 r[P::kCoords][T2D_P][9];
+  double2 s2[T2D_P][KCH];                // the chunk's k-step factors
   double2 s1[T2D_P][T2D_S1];             // e(u1, 8 s - half), mtot <= 47
-  double u1[T2D_P], u2[T2D_P];           // torus coordinates
+  typename P::Extra ex;                  // the problem's own
+  double u[P::kCoords][T2D_P];           // torus coordinates
 };
 
-// F (B, m, m), the caller's mode order -> the fragment-order scratch
+// F (B, ...), the caller's mode order -> the fragment-order scratch
 // fs[tile][k-step][n-tile][Re, Im][lane][2] (lane 4 g + t: column g of the
-// n-tile, modes t and t + 4 of the k-step), column c = b m + j, both mode
-// indices symmetric; zero past B, past the m modes k and in the last
-// tile's pad columns.  One thread an entry.
-template <int NC>
+// n-tile, indices t and t + 4 of the k-step), column c = b m + j; zero
+// past B, where P holds no mode and in the last tile's pad columns.  One
+// thread an entry.
+template <class P, int NC>
 __global__ void type2_f64_split_kernel(const double2* __restrict__ f, int m,
                                        int nb, int fft_order, int nks,
                                        int ncp, double* __restrict__ fs) {
@@ -141,9 +185,10 @@ __global__ void type2_f64_split_kernel(const double2* __restrict__ f, int m,
   const int k = (int)(idx % kq), c = (int)(idx / kq);
   const int b = c / m, j = c % m;
   double2 v = make_double2(0.0, 0.0);
-  if (b < nb && k < m)
-    v = f[((size_t)b * m + t64_out(j, m, fft_order)) * m +
-          t64_out(k, m, fft_order)];
+  if (b < nb) {
+    const long long i = P::coef_index(b, j, k, m, fft_order);
+    if (i >= 0) v = f[i];
+  }
   const int ct = c / NC, cc = c % NC;
   const int lane = (cc % 8) * 4 + (k & 3);
   const size_t base =
@@ -166,22 +211,15 @@ __device__ __forceinline__ void t2d_load_f(double2 (*buf)[NC / 8][2][32],
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// e2's chunk ch (k-steps ch T2D_KCH ..): its factors e(u2, 8 s - half),
-// then each thread's fragment quads, zero past the m modes
-template <int NC>
-__device__ __forceinline__ void t2d_make_chunk(T2dSmem<NC>& sm, int ch,
+// A's chunk ch (k-steps ch KCH ..): P's k-step factors, then each
+// thread's fragment quads, zero where P holds no mode
+template <class P, int NC>
+__device__ __forceinline__ void t2d_make_chunk(T2dSmem<P, NC>& sm, int ch,
                                                int nks, int m, int tid) {
-  const int half = (m - 1) / 2;
-  const int ks0 = ch * T2D_KCH;
-  const int kn = min(T2D_KCH, nks - ks0);
-  for (int e = tid; e < T2D_P * T2D_KCH; e += T2D_THREADS) {
-    const int p = e / T2D_KCH, s = e % T2D_KCH;
-    if (s < kn) {
-      double c, sn;
-      phase(sm.u2[p], (double)(8 * (ks0 + s) - half), &c, &sn);
-      sm.s2[p][s] = make_double2(c, sn);
-    }
-  }
+  constexpr int KCH = P::kChunk;
+  const int ks0 = ch * KCH;
+  const int kn = min(KCH, nks - ks0);
+  P::chunk_factors(sm, ks0, kn, m, tid);
   __syncthreads();
   for (int q = tid; q < kn * T2D_MT * 32; q += T2D_THREADS) {
     const int lane = q & 31, mt = (q >> 5) % T2D_MT, ks = (q >> 5) / T2D_MT;
@@ -190,12 +228,13 @@ __device__ __forceinline__ void t2d_make_chunk(T2dSmem<NC>& sm, int ch,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = t + 4 * hh;
-      const bool ok = 8 * (ks0 + ks) + r < m;
+      const bool ok = P::red_ok(ks0 + ks, r, m);
       double2 e[2];
 #pragma unroll
       for (int gg = 0; gg < 2; ++gg) {
         const int p = mt * 16 + g + 8 * gg;
-        e[gg] = ok ? cmul(sm.s2[p][ks], sm.r2[p][r]) : make_double2(0.0, 0.0);
+        e[gg] = ok ? cmul(sm.s2[p][ks], sm.r[P::kRedCoord][p][r])
+                   : make_double2(0.0, 0.0);
       }
       (hh ? hi : lo)[0] = make_double2(e[0].x, e[1].x);
       (hh ? hi : lo)[1] = make_double2(e[0].y, e[1].y);
@@ -209,9 +248,9 @@ __device__ __forceinline__ void t2d_make_chunk(T2dSmem<NC>& sm, int ch,
 
 // The products of k-step ks (of the chunk in sm.ea: eks) from F's stage
 // buffer fbk: Re += C Fr, Re += S (-Fi), Im += C Fi, Im += S Fr
-template <int NC>
+template <class P, int NC>
 __device__ __forceinline__ void t2d_kstep(
-    const T2dSmem<NC>& sm, const double2 (*fbk)[2][32], int eks,
+    const T2dSmem<P, NC>& sm, const double2 (*fbk)[2][32], int eks,
     double (&acc)[T2dTile<NC>::MI][T2dTile<NC>::NI][8], int lane, int wr,
     int wc) {
   using Tile = T2dTile<NC>;
@@ -249,39 +288,43 @@ __device__ __forceinline__ void t2d_kstep(
   }
 }
 
-template <int NC>
+template <class P, int NC>
 __global__ void __launch_bounds__(T2D_THREADS, 2)
-type2_f64_kernel(const double2* __restrict__ x,
+type2_f64_kernel(const typename P::X* __restrict__ x,
                  const double2* __restrict__ fs, double h, int n, int m,
                  int nb, int nks, double2* __restrict__ out) {
   using Tile = T2dTile<NC>;
-  constexpr int MI = Tile::MI, NI = Tile::NI;
+  using Smem = T2dSmem<P, NC>;
+  constexpr int MI = Tile::MI, NI = Tile::NI, KCH = P::kChunk;
+  constexpr int NR = 8 * P::kCoords;   // the fine factors a point
   extern __shared__ double2 t2d_smem[];
-  T2dSmem<NC>& sm = *reinterpret_cast<T2dSmem<NC>*>(t2d_smem);
+  Smem& sm = *reinterpret_cast<Smem*>(t2d_smem);
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * T2D_P;
   const int half = (m - 1) / 2;
+  const int nj = (m + 7) / 8;   // e1's factors e(u1, 8 s - half)
 
-  // the points' torus coordinates, then the factors e(u, r) of both axes
+  // the points' torus coordinates, then the factors e(u, r) of every axis
   // and, where the modes j take at most T2D_S1 k-steps, e1's factors
   // e(u1, 8 s - half)
   if (tid < T2D_P) {
-    const double2 xp =
-        p0 + tid < n ? x[p0 + tid] : make_double2(0.0, 0.0);
-    sm.u1[tid] = torus(xp.x, h);
-    sm.u2[tid] = torus(xp.y, h);
+    const typename P::X xp =
+        p0 + tid < n ? x[p0 + tid] : typename P::X{};
+#pragma unroll
+    for (int c = 0; c < P::kCoords; ++c)
+      sm.u[c][tid] = torus(P::coord(xp, c), h);
   }
   __syncthreads();
-  const bool s1_kept = nks <= T2D_S1;
-  for (int e = tid; e < T2D_P * (16 + T2D_S1); e += T2D_THREADS) {
-    const int p = e / (16 + T2D_S1), q = e % (16 + T2D_S1);
+  const bool s1_kept = nj <= T2D_S1;
+  for (int e = tid; e < T2D_P * (NR + T2D_S1); e += T2D_THREADS) {
+    const int p = e / (NR + T2D_S1), q = e % (NR + T2D_S1);
     double c, sn;
-    if (q < 16) {
-      phase(q < 8 ? sm.u1[p] : sm.u2[p], (double)(q & 7), &c, &sn);
-      (q < 8 ? sm.r1 : sm.r2)[p][q & 7] = make_double2(c, sn);
-    } else if (s1_kept && q - 16 < nks) {
-      phase(sm.u1[p], (double)(8 * (q - 16) - half), &c, &sn);
-      sm.s1[p][q - 16] = make_double2(c, sn);
+    if (q < NR) {
+      phase(sm.u[q >> 3][p], (double)(q & 7), &c, &sn);
+      sm.r[q >> 3][p][q & 7] = make_double2(c, sn);
+    } else if (s1_kept && q - NR < nj) {
+      phase(sm.u[0][p], (double)(8 * (q - NR) - half), &c, &sn);
+      sm.s1[p][q - NR] = make_double2(c, sn);
     }
   }
   __syncthreads();
@@ -290,8 +333,17 @@ type2_f64_kernel(const double2* __restrict__ x,
   const int gq = lane >> 2, tq = lane & 3;
   const int wr = (warp / Tile::WC) * Tile::WM;
   const int wc = (warp % Tile::WC) * Tile::WN;
-  const int nchunks = (nks + T2D_KCH - 1) / T2D_KCH;
-  const int nst = (nks + T2D_KST - 1) / T2D_KST;
+  // the block's k-steps kb .. ke - 1: all, or where P::kSplitK the run of
+  // whole chunks of grid row y, whose sums go to partial y of the output
+  int kb = 0, ke = nks;
+  if constexpr (P::kSplitK) {
+    const int per = ((nks + KCH - 1) / KCH + gridDim.y - 1) / gridDim.y;
+    kb = blockIdx.y * per * KCH;
+    ke = min(nks, kb + per * KCH);
+    out += (size_t)blockIdx.y * nb * n;
+  }
+  const int nchunks = (ke - kb + KCH - 1) / KCH;
+  const int nst = (ke - kb + T2D_KST - 1) / T2D_KST;
   const int ncols = nb * m;
   const int ntiles = (ncols + NC - 1) / NC;
   // the epilogue's point and residue of vectors, and its open vector's sum
@@ -306,28 +358,28 @@ type2_f64_kernel(const double2* __restrict__ x,
       for (int b = 0; b < NI; ++b)
 #pragma unroll
         for (int c = 0; c < 8; ++c) acc[a][b][c] = 0.0;
-    t2d_load_f<NC>(sm.fb[0], fs, nks, ct, 0, min(T2D_KST, nks), tid);
+    t2d_load_f<NC>(sm.fb[0], fs, nks, ct, kb, min(T2D_KST, ke - kb), tid);
     for (int st = 0; st < nst; ++st) {
-      const int ks0 = st * T2D_KST;
-      // a new chunk of e2 (the last stage's products are done: the
+      const int ks0 = kb + st * T2D_KST;
+      // a new chunk of A (the last stage's products are done: the
       // barrier that ended it)
-      if (ks0 % T2D_KCH == 0 && (nchunks > 1 || ct == 0))
-        t2d_make_chunk<NC>(sm, ks0 / T2D_KCH, nks, m, tid);
+      if ((ks0 - kb) % KCH == 0 && (nchunks > 1 || ct == 0))
+        t2d_make_chunk<P, NC>(sm, ks0 / KCH, nks, m, tid);
       if (st + 1 < nst) {
         t2d_load_f<NC>(sm.fb[(st + 1) & 1], fs, nks, ct, ks0 + T2D_KST,
-                       min(T2D_KST, nks - ks0 - T2D_KST), tid);
+                       min(T2D_KST, ke - ks0 - T2D_KST), tid);
         cp_async_wait<1>();   // all but the next stage's copy
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const int kn = min(T2D_KST, nks - ks0);
+      const int kn = min(T2D_KST, ke - ks0);
 #pragma unroll
       for (int kk = 0; kk < T2D_KST; ++kk)
         if (kk < kn)
-          t2d_kstep<NC>(sm, sm.fb[st & 1][kk], (ks0 + kk) % T2D_KCH, acc,
-                        lane, wr, wc);
-      __syncthreads();   // this F buffer, and e2's chunk, are free again
+          t2d_kstep<P, NC>(sm, sm.fb[st & 1][kk], (ks0 + kk) % KCH, acc,
+                           lane, wr, wc);
+      __syncthreads();   // this F buffer, and A's chunk, are free again
     }
     // the epilogue, T2D_EC columns a pass: the pass's T to shared memory
     // (C fragment c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)),
@@ -368,14 +420,14 @@ type2_f64_kernel(const double2* __restrict__ x,
               sf = sm.s1[ep][j0 >> 3];
             } else {
               double c, sn;
-              phase(sm.u1[ep], (double)(j0 - half), &c, &sn);
+              phase(sm.u[0][ep], (double)(j0 - half), &c, &sn);
               sf = make_double2(c, sn);
             }
             const int lo = ja - j0, hi = jb - j0;
 #pragma unroll
             for (int r = 0; r < 8; ++r) {
               if (r >= lo && r < hi) {
-                const double2 e1 = cmul(sf, sm.r1[ep][r]);
+                const double2 e1 = cmul(sf, sm.r[0][ep][r]);
                 const double2 tv = sm.t[ep][b * m + j0 + r - e0];
                 sr = fma(-e1.y, tv.y, fma(e1.x, tv.x, sr));
                 si = fma(e1.y, tv.x, fma(e1.x, tv.y, si));
@@ -397,56 +449,71 @@ type2_f64_kernel(const double2* __restrict__ x,
   }
 }
 
-template <int NC>
+template <class P, int NC>
 int launch_type2_f64_cols(const void* x, const void* f, double h, int n,
-                          int m, int nb, int fft_order, void* scratch,
-                          long long scratch_doubles, void* out,
-                          cudaStream_t s) {
-  const int nks = (m + 7) / 8;
+                          int m, int nb, int fft_order, int splits,
+                          void* scratch, long long scratch_doubles,
+                          void* out, cudaStream_t s) {
+  const int nks = P::red_steps(m);
   const long long ncp = ((long long)nb * m + NC - 1) / NC * NC;
-  const long long need = ncp * nks * 8 * 2;
-  if (need > scratch_doubles || (long long)nb * n >= (1LL << 31) ||
+  const long long fsz = ncp * nks * 8 * 2;
+  const long long psz = splits > 1 ? 2LL * splits * nb * n : 0;
+  if (fsz + psz > scratch_doubles || (long long)nb * n >= (1LL << 31) ||
       ncp >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const long long cells = ncp * nks * 8;
-  type2_f64_split_kernel<NC><<<(unsigned)((cells + 255) / 256), 256, 0, s>>>(
-      (const double2*)f, m, nb, fft_order, nks, (int)ncp, (double*)scratch);
+  type2_f64_split_kernel<P, NC>
+      <<<(unsigned)((cells + 255) / 256), 256, 0, s>>>(
+          (const double2*)f, m, nb, fft_order, nks, (int)ncp,
+          (double*)scratch);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   // two blocks an SM (the launch bounds hold each to 128 registers a thread)
-  constexpr int smem = sizeof(T2dSmem<NC>);
+  constexpr int smem = sizeof(T2dSmem<P, NC>);
   static_assert(2 * (smem + 1024) <= 233472, "two blocks an SM");
-  err = (int)cudaFuncSetAttribute(type2_f64_kernel<NC>,
+  err = (int)cudaFuncSetAttribute(type2_f64_kernel<P, NC>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem);
   if (err == 0)
     err = (int)cudaFuncSetAttribute(
-        type2_f64_kernel<NC>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        type2_f64_kernel<P, NC>, cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
   if (err != 0) return err;
-  type2_f64_kernel<NC><<<(n + T2D_P - 1) / T2D_P, T2D_THREADS, smem, s>>>(
-      (const double2*)x, (const double2*)scratch, h, n, m, nb, nks,
-      (double2*)out);
-  return (int)cudaGetLastError();
+  double2* dst = splits > 1 ? (double2*)((double*)scratch + fsz)
+                            : (double2*)out;
+  const dim3 grid((n + T2D_P - 1) / T2D_P, splits);
+  type2_f64_kernel<P, NC><<<grid, T2D_THREADS, smem, s>>>(
+      (const typename P::X*)x, (const double2*)scratch, h, n, m, nb, nks,
+      dst);
+  err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  return launch_reduce<double>(dst, splits, nb * n, out, s);
 }
 
-// The caller's geometry (points a block, columns a tile, modes a stage)
-// checked against the instances there are, and the scratch
-// (scratch_doubles doubles) against the split F it must hold; then the
-// split and the kernel
+// The caller's geometry (points a block, columns a tile, indices k a
+// stage, splits of the chunks of k-steps: one unless P::kSplitK, none
+// empty) checked against the instances there are, and the scratch
+// (scratch_doubles doubles) against what it must hold: the split F, then,
+// for two splits or more, their partials (splits x nb x n values); then
+// the split, the kernel and the partials' sum in split order
+template <class P>
 int launch_type2_f64(const void* x, const void* f, double h, int n, int m,
                      int nb, int fft_order, int points, int cols, int stage,
-                     void* scratch, long long scratch_doubles, void* out,
-                     void* stream) {
-  if (points != T2D_P || stage != T2D_KST * 8)
+                     int splits, void* scratch, long long scratch_doubles,
+                     void* out, void* stream) {
+  if (points != T2D_P || stage != T2D_KST * 8 || splits < 1 ||
+      (splits > 1 && !P::kSplitK))
     return (int)cudaErrorInvalidValue;
+  const int nch = (P::red_steps(m) + P::kChunk - 1) / P::kChunk;
+  const int per = (nch + splits - 1) / splits;   // chunks a split
+  if ((nch + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (cols == 32)
-    return launch_type2_f64_cols<32>(x, f, h, n, m, nb, fft_order, scratch,
-                                     scratch_doubles, out, s);
+    return launch_type2_f64_cols<P, 32>(x, f, h, n, m, nb, fft_order, splits,
+                                        scratch, scratch_doubles, out, s);
   if (cols == 64)
-    return launch_type2_f64_cols<64>(x, f, h, n, m, nb, fft_order, scratch,
-                                     scratch_doubles, out, s);
+    return launch_type2_f64_cols<P, 64>(x, f, h, n, m, nb, fft_order, splits,
+                                        scratch, scratch_doubles, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -60,14 +60,17 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   float64 the type-1 runs on the FP64 tensor cores, the d=2 float64
   type-1's kernel on the same rows and columns
   (:func:`type1_3d_geometry` at float64, :func:`nufft1_3d_f64_tc_ref` its
-  plain twin).
+  plain twin), and the type-2 on the d=2 float64 type-2's kernel as the
+  same GEMM over the pairs (j2, j3), the modes j3 padded to whole k-steps
+  of 8 (:func:`type2_3d_geometry` at float64,
+  :func:`nufft2_3d_f64_tc_ref` its plain twin).
 
 All are bound by operations on an H100 (complex multiply-adds, ~8 mtot^d
 flops per point and vector, and at d=1 the phases themselves): fp32 outside
 the tensor cores, but for the float32 paths on the tensor cores (the type-1
 and the type-2 at d=1-3), which take three TF32
-products per real product, and for the float64 d=2 pair and d=3 type-1
-on the FP64 tensor cores; the sources say how the designs stage the work.
+products per real product, and for the float64 d=2 and d=3 pairs on
+the FP64 tensor cores; the sources say how the designs stage the work.
 The wrappers take a tensor on the CPU to the plain
 version (``*_ref``, the phase-matrix backend of ``ops/nufft.py``); on a
 CUDA tensor they launch the kernel or raise.
@@ -117,6 +120,8 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft1_3d_3xtf32_ref", "nufft2_3d_3xtf32_ref",
            "type2_3d_geometry", "type2_3d_tc_geometry",
            "type2_3d_scratch_floats", "type2_3d_split",
+           "type2_3d_f64_split", "type2_3d_f64_scratch_doubles",
+           "nufft2_3d_f64_tc_ref",
            "CudaNUFFT", "LAUNCHES",
            "LAUNCH_WIDTHS", "LAUNCH_PRECISIONS", "build", "library_path"]
 
@@ -308,6 +313,21 @@ TYPE2_3D_SPLIT_OVERHEAD = 2
 # (at most 6% slower than the pick could be; no driven shape is there)
 TYPE2_3D_MAX_PADDING = 1.8
 TYPE2_3D_FEW_POINTS = 65536
+# The float64 d=3 type-2 on the FP64 tensor cores (csrc/tc_type2_f64.cuh
+# type2_f64_kernel on nufft_3d.cu's Type2F64Grid3D), its geometry owned here
+# (type2_3d_geometry at float64) and checked by its launch: the float64
+# d=2 type-2's blocks, column tiles (vector, j1) and stage, a GEMM over the
+# pairs (j2, j3) in k-steps of one j2 and 8 modes j3 (j3 padded to whole
+# k-steps), A made this many k-steps at a time (the source's kChunk); for
+# few points the chunks split over a grid axis into at most this many runs
+# of whole chunks, whose partials a second pass adds in split order, as
+# many as cost least: a split's cost its waves of blocks (two an SM on the
+# card's CARD_SMS) times its k-steps and this many k-steps more (its
+# prologue, its first F copy and its epilogue)
+TYPE2_3D_F64_CHUNK = 4
+TYPE2_3D_F64_MAX_SPLITS = 16
+TYPE2_3D_F64_SPLIT_OVERHEAD = 8
+TYPE2_3D_F64_BLOCKS_PER_SM = 2
 
 _lib = None
 
@@ -443,8 +463,14 @@ def _library():
             b1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *geo, i32, ptr,
                            ptr, ptr]
             b1.restype = i32
+            # the d=3 type-2: in float32 on the CUDA cores, in float64 on
+            # the FP64 tensor cores (points, cols, stage, splits, then the
+            # scratch and its size in doubles before the output)
             d2 = getattr(lib, f"gpq_nufft2_3d_{prec}")
-            d2.argtypes = [ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
+            d2.argtypes = ([ptr, ptr, real, i32, i32, i32, i32, ptr, ptr]
+                           if prec == "f32" else
+                           [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 4,
+                            ptr, ctypes.c_longlong, ptr, ptr])
             d2.restype = i32
             # the d=3 type-1: in float32 on the CUDA cores (chunk, groups),
             # in float64 on the FP64 tensor cores (rows, cols, group,
@@ -1143,8 +1169,19 @@ def nufft2_2d_f64_tc_ref(x, f, h, *, mtot: int, fft_order: bool = False,
         t_re = t_re + S[s_] @ (-Fi[s_])
         t_im = t_im + C[s_] @ Fi[s_]
         t_im = t_im + S[s_] @ Fr[s_]
-    W = e1[:, None, :] * torch.complex(t_re, t_im).reshape(n, B, m)
-    # each vector's passes in order: a pass's sum in j order, from zero
+    return _type2_f64_epilogue(
+        e1[:, None, :] * torch.complex(t_re, t_im).reshape(n, B, m), chunk)
+
+
+def _type2_f64_epilogue(W, chunk: int):
+    """The FP64 tensor-core type-2's epilogue sums (csrc/tc_type2_f64.cuh)
+    of ``W[p, b, j] = e1(p, j) T[p, (b, j)]`` (N, B, mtot): the columns
+    (b, j) at b mtot + j in passes of ``chunk`` columns, a vector's columns
+    in a pass in j order from zero, its passes' sums added in order.
+    Returns complex128 (B, N)."""
+    n, B, m = W.shape
+    dev = W.device
+    i = torch.arange(m, device=dev)
     tile = (torch.arange(B, device=dev)[:, None] * m + i[None, :]) // chunk
     out = torch.zeros((n, B), dtype=torch.complex128, device=dev)
     have = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -1159,6 +1196,82 @@ def nufft2_2d_f64_tc_ref(x, f, h, *, mtot: int, fft_order: bool = False,
             part = part + W[:, :, j]
     out = torch.where(have, out + part, part)
     return out.T.contiguous()
+
+
+def nufft2_3d_f64_tc_ref(x, f, h, *, mtot: int, fft_order: bool = False,
+                         splits: int | None = None,
+                         chunk: int = TYPE2_2D_F64_EPILOGUE):
+    """Plain twin of the float64 d=3 type-2 kernel on the FP64 tensor cores
+    (csrc/tc_type2_f64.cuh ``type2_f64_kernel`` on nufft_3d.cu's
+    ``Type2F64Grid3D``), with the kernel's operands and sums: the modes in
+    symmetric order (f read through ``fft_order``); the reduction over the
+    pairs (j2, j3) in k-steps ks = (j2, s) of the 8 modes j3 = 8 s + r, j3
+    padded with zeros to whole k-steps (:func:`type2_3d_f64_split`); A's
+    entry the k-step's factor e2(j2) e(t3, 8 s - half) times e(t3, r),
+    where e2(j2) = e(t2, 8 (j2 // 8) - half) e(t2, j2 % 8)
+    (:func:`_split_phases_2d`; ``ops/nufft.py`` ``_phase_matrix`` on t =
+    x h); ``T[p, (b, j1)] = sum_k A[p, k] F_b[j1, k]`` over the k-steps
+    from zero, each adding C Fr then S (-Fi) into the real part and C Fi
+    then S Fr into the imaginary part (a float64 matmul of the 8 indices
+    where the tensor cores keep their own order); with ``splits`` runs of
+    whole chunks of :data:`TYPE2_3D_F64_CHUNK` k-steps (by default
+    :func:`type2_3d_geometry`'s at float64), each run's T from zero; then
+    each run's ``sum_j1 e1(p, j1) T[p, (b, j1)]`` as the epilogue sums it
+    (:func:`_type2_f64_epilogue`, passes of ``chunk`` columns), the runs'
+    added in split order.
+
+    ``x`` (N, 3); ``f`` as :func:`nufft2_3d` takes it; returns complex128
+    (N,) or (B, N).  The tests run it on the CPU; chip_smoke.py on the
+    card."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    x = x.to(torch.float64)
+    n, m = x.shape[0], mtot
+    single, B = _type2_3d_batch(f, m)
+    F = f.reshape(B, m, m, m).to(torch.complex128)     # (B, j1, j2, j3)
+    dev, K, half = x.device, TYPE2_2D_F64_K, (m - 1) // 2
+    if fft_order:
+        i = torch.arange(m, device=dev)
+        idx = torch.where(i >= half, i - half, i + m - half)
+        F = F[:, idx][:, :, idx][:, :, :, idx]
+    splits = splits or type2_3d_geometry(n, m, B, torch.float64)[-1]
+    J3, steps = type2_3d_f64_split(m)
+    n3 = J3 // K
+    hq = float(h)
+    t1, t2, t3 = (x[:, i] * hq for i in range(3))
+    e1 = _split_phases_2d(t1, m)                        # (N, m)
+    e2 = _split_phases_2d(t2, m)
+    c3 = _phase_matrix(t3, (K * torch.arange(n3, device=dev) - half)
+                       .double(), torch.complex128).conj()   # (N, n3)
+    r3 = _phase_matrix(t3, torch.arange(K, device=dev).double(),
+                       torch.complex128).conj()              # (N, 8)
+    j3 = K * torch.arange(n3, device=dev)[:, None] + torch.arange(
+        K, device=dev)[None, :]
+    r3 = torch.where(j3 < m, r3[:, None, :],
+                     torch.zeros((), dtype=torch.complex128))  # (N, n3, 8)
+    # F as (k-step (j2, s), index r, column (b, j1))
+    Fk = torch.nn.functional.pad(F, (0, J3 - m)).reshape(B, m, m, n3, K)
+    Fk = Fk.permute(2, 3, 4, 0, 1).reshape(steps, K, B * m)
+    Fr, Fi = Fk.real, Fk.imag
+    nch = -(-steps // TYPE2_3D_F64_CHUNK)
+    per = -(-nch // splits) * TYPE2_3D_F64_CHUNK        # k-steps a split
+    out = None
+    for kb in range(0, steps, per):
+        t_re = x.new_zeros((n, B * m))
+        t_im = x.new_zeros((n, B * m))
+        for ks in range(kb, min(steps, kb + per)):
+            j2, s_ = divmod(ks, n3)
+            a = (e2[:, j2] * c3[:, s_])[:, None] * r3[:, s_]   # (N, 8)
+            C, S = a.real, a.imag
+            t_re = t_re + C @ Fr[ks]
+            t_re = t_re + S @ (-Fi[ks])
+            t_im = t_im + C @ Fi[ks]
+            t_im = t_im + S @ Fr[ks]
+        part = _type2_f64_epilogue(
+            e1[:, None, :] * torch.complex(t_re, t_im).reshape(n, B, m),
+            chunk)
+        out = part if out is None else out + part
+    return out[0] if single else out
 
 
 def nufft2_1d_3xtf32_ref(x, f, h, *, mtot: int, fft_order: bool = False,
@@ -1837,17 +1950,17 @@ def nufft2_3d(x, f, h, *, mtot: int, fft_order: bool = False):
     (B, mtot, mtot, mtot) or (B, mtot^3) for a batch of B >= 1; odd
     mtot <= 255.  Returns complex (N,) or (B, N) from one launch.  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel
-    :func:`type2_3d_geometry` picks in float32 (the tensor cores, with a
-    scratch of :func:`type2_3d_scratch_floats` floats, or the CUDA cores),
-    the CUDA-core kernel in float64."""
+    :func:`type2_3d_geometry` picks: in float32 the tensor cores (with a
+    scratch of :func:`type2_3d_scratch_floats` floats) or the CUDA cores,
+    in float64 the FP64 tensor cores (a scratch of
+    :func:`type2_3d_f64_scratch_doubles` doubles)."""
     _check(x, mtot, 3)
     m = mtot
     single, B = _type2_3d_batch(f, m)
     _check_batch(B, m, 3)
     if x.device.type == "cpu":
         return nufft2_3d_ref(x, f, h, mtot=m, fft_order=fft_order)
-    geo = (type2_3d_geometry(x.shape[0], m, B)
-           if x.dtype == torch.float32 else ("cuda",))
+    geo = type2_3d_geometry(x.shape[0], m, B, x.dtype)
     out = _nufft2_3d_on(x, f.reshape(B, m ** 3), h, m, fft_order, geo)
     return out[0] if single else out
 
@@ -1862,13 +1975,38 @@ def type2_3d_split(mtot: int) -> tuple[int, int]:
     return J3, mtot * J3 // TYPE2_2D_STAGE
 
 
-def type2_3d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
-    """The float32 d=3 type-2's path and launch geometry: ``("tc", points,
-    cols, stage, splits)``, the tensor-core kernel's arguments before its
-    scratch (:func:`type2_3d_tc_geometry`), or ``("cuda",)``, the CUDA-core
+def type2_3d_f64_split(mtot: int) -> tuple[int, int]:
+    """The float64 d=3 type-2's reduction on the FP64 tensor cores
+    (csrc/nufft_3d.cu ``Type2F64Grid3D``): ``(J3, steps)``, the modes j3
+    padded to J3, whole k-steps of :data:`TYPE2_2D_F64_K` (21 -> 24), and
+    the k-steps ks = (j2, s) = (ks // (J3 / 8), ks % (J3 / 8)) of the modes
+    j3 = 8 s + r, mtot J3 / 8 of them."""
+    J3 = _round_up(mtot, TYPE2_2D_F64_K)
+    return J3, mtot * J3 // TYPE2_2D_F64_K
+
+
+def type2_3d_geometry(n: int, mtot: int, B: int = 1,
+                      dtype: torch.dtype = torch.float32) -> tuple:
+    """The d=3 type-2's path and launch geometry in ``dtype``:
+    ``("tc", points, cols, stage, splits)``, a tensor-core kernel's
+    arguments before its scratch, or ``("cuda",)``, the float32 CUDA-core
     kernel, whose block is fixed in its source.
 
-    A table from the times of both kernels on the same inputs
+    In float64 always the FP64 tensor cores (csrc/tc_type2_f64.cuh on
+    nufft_3d.cu's ``Type2F64Grid3D``), with the scratch of
+    :func:`type2_3d_f64_scratch_doubles`: the float64 d=2 type-2's blocks
+    of :data:`TYPE2_2D_F64_POINTS` points and stage, its column tiles
+    (:func:`type2_2d_geometry` at float64 on the B * mtot columns (vector,
+    j1)); ``splits`` runs of whole chunks of :data:`TYPE2_3D_F64_CHUNK`
+    k-steps, the number up to :data:`TYPE2_3D_F64_MAX_SPLITS` that costs
+    least, a split's cost its waves of blocks
+    (:data:`TYPE2_3D_F64_BLOCKS_PER_SM` on each of :data:`CARD_SMS` SMs)
+    times its k-steps and :data:`TYPE2_3D_F64_SPLIT_OVERHEAD` (the fewest
+    splits of a tie), made canonical: none empty.
+
+    In float32 the tensor cores' geometry
+    (:func:`type2_3d_tc_geometry`) or the CUDA cores, from a table of the
+    times of both kernels on the same inputs
     (chip_smoke.py phase 3 at the driven shapes, scripts/time_type2_3d.py's
     sweep of mtot 21-71): the CUDA cores where the tensor cores pad j1 and
     j3 by more than :data:`TYPE2_3D_MAX_PADDING` together ((mtot rounded
@@ -1879,10 +2017,42 @@ def type2_3d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
     sweep found the rule up to 6% slower than the tensor cores at mtot
     41-47, and at 65-71 with 2e4 points x B 10 (the constant's comment
     says why); past 71 it is timed only at chip_smoke.py's 101 and 255."""
+    if dtype == torch.float64:
+        return _type2_3d_f64_geometry(n, mtot, B)
     padding = (_round_up(mtot, TYPE2_2D_STAGE) / mtot) ** 2
     if padding > TYPE2_3D_MAX_PADDING and n * B >= TYPE2_3D_FEW_POINTS:
         return ("cuda",)
     return type2_3d_tc_geometry(n, mtot, B)
+
+
+def _type2_3d_f64_geometry(n: int, mtot: int, B: int) -> tuple:
+    """:func:`type2_3d_geometry`'s float64 branch."""
+    cols = type2_2d_geometry(mtot, torch.float64, B)[2]
+    nch = -(-type2_3d_f64_split(mtot)[1] // TYPE2_3D_F64_CHUNK)
+    blocks = -(-n // TYPE2_2D_F64_POINTS)
+    slots = TYPE2_3D_F64_BLOCKS_PER_SM * CARD_SMS
+
+    def cost(s):
+        return (-(-blocks * s // slots)
+                * (-(-nch // s) * TYPE2_3D_F64_CHUNK
+                   + TYPE2_3D_F64_SPLIT_OVERHEAD))
+    splits = min(range(1, min(TYPE2_3D_F64_MAX_SPLITS, nch) + 1), key=cost)
+    per = -(-nch // splits)
+    return ("tc", TYPE2_2D_F64_POINTS, cols, TYPE2_2D_F64_STAGE,
+            -(-nch // per))
+
+
+def type2_3d_f64_scratch_doubles(n: int, mtot: int, B: int,
+                                 geometry: tuple) -> int:
+    """Doubles of the FP64 tensor-core d=3 type-2's scratch: F in fragment
+    order (the real and imaginary part of each (index k, column) cell, the
+    mtot J3 indices k of :func:`type2_3d_f64_split`, the B * mtot columns
+    padded to whole tiles), then, for two splits or more, their partial
+    outputs (splits x B x n complex values)."""
+    _, _, cols, _, splits = geometry
+    kq = TYPE2_2D_F64_K * type2_3d_f64_split(mtot)[1]
+    return (2 * kq * _round_up(B * mtot, cols)
+            + (2 * splits * B * n if splits > 1 else 0))
 
 
 def type2_3d_tc_geometry(n: int, mtot: int, B: int = 1) -> tuple:
@@ -1926,15 +2096,24 @@ def type2_3d_scratch_floats(n: int, mtot: int, B: int,
 
 def _nufft2_3d_on(x, f, h, m, fft_order, geo):
     """The d=3 type-2's launch on CUDA tensors, ``f`` (B, m^3), on the path
-    ``geo`` (:func:`type2_3d_geometry`): the tensor cores (float32) or the
-    CUDA cores; counted as one launch of ``nufft2_3d`` (a split's second
-    pass inside it; chip_smoke.py also times both paths through it).
-    Returns (B, N)."""
-    if geo[0] not in ("tc", "cuda") or len(geo) != (5 if geo[0] == "tc"
-                                                    else 1):
+    ``geo`` of :func:`type2_3d_geometry` in x's precision: in float32 the
+    tensor cores or the CUDA cores, in float64 the FP64 tensor cores
+    (tiles 32 or 64 columns wide, 1 .. :data:`TYPE2_3D_F64_MAX_SPLITS`
+    splits); counted as one launch of ``nufft2_3d`` (a split's second pass
+    inside it; chip_smoke.py also times the paths through it).  Returns
+    (B, N)."""
+    if x.dtype == torch.float64:
+        if (len(geo) != 5 or geo[0] != "tc"
+                or geo[1] != TYPE2_2D_F64_POINTS
+                or geo[3] != TYPE2_2D_F64_STAGE
+                or geo[2] not in (TYPE2_2D_F64_COLS,
+                                  TYPE2_2D_F64_NARROW_COLS)
+                or not 1 <= geo[4] <= TYPE2_3D_F64_MAX_SPLITS):
+            raise ValueError(f"no d=3 type-2 path for geometry {geo} in "
+                             "float64")
+    elif geo[0] not in ("tc", "cuda") or len(geo) != (5 if geo[0] == "tc"
+                                                      else 1):
         raise ValueError(f"no d=3 type-2 path for geometry {geo}")
-    if geo[0] == "tc" and x.dtype != torch.float32:
-        raise TypeError("the tensor-core d=3 type-2 takes float32")
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("f", f, x, cdtype)
     B, n = f.shape[0], x.shape[0]
@@ -1945,7 +2124,12 @@ def _nufft2_3d_on(x, f, h, m, fft_order, geo):
     f = f.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
     args = (x.data_ptr(), f.data_ptr(), h, n, m, B, int(fft_order))
-    if geo[0] == "tc":
+    if x.dtype == torch.float64:
+        doubles = type2_3d_f64_scratch_doubles(n, m, B, geo)
+        scratch = torch.empty(doubles, dtype=torch.float64, device=x.device)
+        _launch("nufft2_3d", x, *args, *geo[1:], scratch.data_ptr(), doubles,
+                out.data_ptr(), mtot=m)
+    elif geo[0] == "tc":
         floats = type2_3d_scratch_floats(n, m, B, geo)
         scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
         _launch("nufft2_3d", x, *args, *geo[1:], scratch.data_ptr(), floats,

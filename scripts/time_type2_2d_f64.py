@@ -55,7 +55,8 @@ from gpquad_torch.ops import cuda_nufft as cn  # noqa: E402
 
 OUT = ROOT / "build" / "type2_2d_f64_timer"
 CSRC = ROOT / "gpquad_torch" / "csrc"
-# (the text in tc_type2_f64.cuh, what replaces it)
+# (the text in tc_type2_f64.cuh, what replaces it; or (file, text, what
+# replaces it) for another source)
 VARIANTS = {
     "no_mma": [("        if (kk < kn)\n          t2d_kstep",
                 "        if (kk < 0)\n          t2d_kstep")],
@@ -66,9 +67,10 @@ VARIANTS = {
                         ("      if (p0 + ep < n) {", "      if (ep < 0) {")],
     "one_block": [("__launch_bounds__(T2D_THREADS, 2)",
                    "__launch_bounds__(T2D_THREADS, 1)")],
-    "no_s1_table": [("const bool s1_kept = nks <= T2D_S1;",
+    "no_s1_table": [("const bool s1_kept = nj <= T2D_S1;",
                      "const bool s1_kept = false;")],
     "no_phases": [("      phase(", "      t2d_fake_phase("),
+                  ("nufft_2d.cu", "phase(sm.u[", "t2d_fake_phase(sm.u["),
                   ("namespace {\n", "namespace {\n__device__ __forceinline__ "
                    "void t2d_fake_phase(double u, double k, double* c, "
                    "double* s) { *c = u * k; *s = *c + 1.0; }\n")],
@@ -157,13 +159,14 @@ def build_variants(nvcc):
         if d.exists():
             shutil.rmtree(d)
         shutil.copytree(CSRC, d)
-        path = d / "tc_type2_f64.cuh"
-        text = path.read_text()
-        for old, new in hooks:
+        for hook in hooks:
+            fname, old, new = (hook if len(hook) == 3
+                               else ("tc_type2_f64.cuh", *hook))
+            path = d / fname
+            text = path.read_text()
             if old not in text:
                 raise RuntimeError(f"{name}: '{old}' is not in {path.name}")
-            text = text.replace(old, new)
-        path.write_text(text)
+            path.write_text(text.replace(old, new))
         procs[name] = subprocess.Popen(
             [nvcc, *cn.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
              str(d / "nufft_2d.cu")],

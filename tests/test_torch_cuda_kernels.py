@@ -1457,6 +1457,84 @@ def test_type1_3d_f64_launch_refuses_foreign_geometry(cuda_device, field,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,mtot,h,fft_order,cols,splits", [
+    (1, 1000, 21, 0.65, False, None, None),
+    (1, 1000, 41, 0.65, True, None, None),
+    (3, 4001, 21, 0.65, True, None, 1),
+    (10, 3000, 31, 0.2, False, 32, 5),
+    (1, 2000, 61, 0.2, True, None, 3),
+    (1, 777, 101, 0.97, False, 64, None),
+    (2, 999, 5, 0.3, True, None, None),
+])
+def test_type2_3d_f64_tensor_core_kernel_on_card(cuda_device, B, n, mtot, h,
+                                                 fft_order, cols, splits):
+    """The float64 d=3 type-2 on the FP64 tensor cores (type2_3d_geometry
+    at float64, its tile width and splits as given or the geometry's): one
+    float64 launch a call; within 1e-12 of max|ref| of the float64 plain
+    version; bit for bit the same on a second launch; within 1e-12 of
+    max|ref| of its twin nufft2_3d_f64_tc_ref with the same splits; the
+    wrapper's result this kernel's where the geometry is the wrapper's."""
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(rng.uniform(0, 1, (n, 3)), device=cuda_device)
+    F = torch.as_tensor(rng.normal(size=(B, mtot ** 3))
+                        + 1j * rng.normal(size=(B, mtot ** 3)),
+                        device=cuda_device)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    geo = list(cuda_nufft.type2_3d_geometry(n, mtot, B, torch.float64))
+    geo[2], geo[4] = cols or geo[2], splits or geo[4]
+    geo = tuple(geo)
+    key = ("nufft2_3d", "f64", mtot)
+    before = cuda_nufft.LAUNCH_PRECISIONS.get(key, 0)
+    got = cuda_nufft._nufft2_3d_on(x, F, h, mtot, fft_order, geo)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCH_PRECISIONS[key] == before + 1
+    assert got.shape == (B, n)
+    assert torch.equal(cuda_nufft._nufft2_3d_on(x, F, h, mtot, fft_order,
+                                                geo), got)
+    ref = nufft2_3d_ref(x, F, h, **kw)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-12 * scale
+    twin = cuda_nufft.nufft2_3d_f64_tc_ref(x, F, h, splits=geo[4], **kw)
+    assert float((got - twin).abs().max()) <= 1e-12 * scale
+    routed = nufft2_3d(x, F if B > 1 else F[0], h, **kw)
+    if cuda_nufft.type2_3d_geometry(n, mtot, B, torch.float64) == geo:
+        assert torch.equal(routed.reshape(got.shape), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [
+    (1, 128), (2, 128), (2, 48), (3, 32), (4, 0), (4, 10), (0, "short")])
+def test_type2_3d_f64_launch_refuses_foreign_geometry(cuda_device, field,
+                                                      value):
+    """The FP64 tensor-core d=3 type-2's launch takes its geometry from
+    type2_3d_geometry at float64 and refuses one it has no instance for
+    (points, a column tile other than 32 or 64, stage, no split, or splits
+    with an empty one: 10 of mtot 21's 16 chunks), and a scratch shorter
+    than F and the partials: a CUDA error is raised, and nothing is
+    written."""
+    n, mtot, B = 1000, 21, 2
+    x = torch.rand((n, 3), dtype=torch.float64, device=cuda_device)
+    F = torch.ones((B, mtot ** 3), dtype=torch.complex128,
+                   device=cuda_device)
+    geo = list(cuda_nufft.type2_3d_geometry(n, mtot, B, torch.float64))
+    assert geo[4] > 1
+    doubles = cuda_nufft.type2_3d_f64_scratch_doubles(n, mtot, B, geo)
+    if field:
+        geo[field] = value
+    else:
+        doubles -= 1
+    scratch = torch.zeros(doubles, dtype=torch.float64, device=cuda_device)
+    out = torch.zeros((B, n), dtype=torch.complex128, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft2_3d", x, x.data_ptr(), F.data_ptr(), 0.5,
+                           n, mtot, B, 0, *geo[1:], scratch.data_ptr(),
+                           doubles, out.data_ptr(), mtot=mtot)
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+    assert not bool(scratch.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,mtot,h,fft_order,cols,splits", [
     (1, 5000, 9, 0.31, False, None, None),
     (3, 4001, 21, 0.65, True, None, None),
     (10, 3000, 31, 0.2, False, None, 1),

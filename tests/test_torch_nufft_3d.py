@@ -494,13 +494,15 @@ def test_type2_3d_cells_hold_every_coefficient(mtot):
 
 def test_3d_type2_launch_refuses_foreign_path(rng):
     """The d=3 type-2's launch takes ("tc", 4 fields) or ("cuda",) and
-    refuses any other geometry before it touches the card; float64 has no
-    tensor-core path."""
+    refuses any other geometry before it touches the card; float64 takes
+    its own tensor-core geometry (tests/test_torch_nufft2_3d_f64_tc.py),
+    not the float32 one."""
     x = torch.as_tensor(rng.uniform(0, 1, (64, 3)))
     f = torch.ones((1, 729), dtype=torch.complex128)
     geo = type2_3d_geometry(64, 9)
     for bad in (geo[:-1], ("split", 16), ("cuda", 2048), geo + (1,)):
-        with pytest.raises(ValueError, match="no d=3 type-2 path"):
-            cuda_nufft._nufft2_3d_on(x, f, 0.3, 9, False, bad)
-    with pytest.raises(TypeError, match="float32"):
+        for xs, fs in ((x.float(), f.to(torch.complex64)), (x, f)):
+            with pytest.raises(ValueError, match="no d=3 type-2 path"):
+                cuda_nufft._nufft2_3d_on(xs, fs, 0.3, 9, False, bad)
+    with pytest.raises(ValueError, match="float64"):
         cuda_nufft._nufft2_3d_on(x, f, 0.3, 9, False, geo)
