@@ -77,6 +77,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      second launch, within 1e-12 of its twin nufft2_3d_f64_tc_ref, its
      scratch (no more than its geometry counts), the card's time alone
      (tc_ms), the FP64 tensor-core bound beside the float64 CUDA-core one;
+     the float64 d=1 pair on both of its kernels, the FP64 tensor cores
+     (the d=2/d=3 kernels on Type1F64Split1D / Type2F64Split1D) and the
+     CUDA cores (the float kernels' double instances), at every float64 d=1 shape phase 3 runs (12f's light
+     curve, 14c's samplers, the light curve's rung and lag grid, mtot
+     8191): each within 1e-10 of max|ref| and bit for bit against a second
+     launch, the tensor cores within 1e-12 of their twin
+     (nufft1_1d_f64_tc_ref / nufft2_1d_f64_tc_ref) up to 25 000 points,
+     with their scratch, the card's time of both, the pick of
+     type1_1d_geometry / type2_1d_geometry the fastest within
+     DISPATCH_TIE, the FP64 tensor-core bound beside the CUDA cores';
   4. the headline configuration (bench.py: n=1e5 points in [0,1]^2, SE
      l=0.1, sigmasq=0.01, eps=1e-6, 10 000 targets, 256 variance probes,
      10 trace samples): the serving slice fit -> predict_mean ->
@@ -144,13 +154,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      10's data, n 1e6, mtot 339) fit_high with deflation 2048 and the mean
      at 500 targets; 12e hard3d (phase 7's data, bench.py:416-436 as
      written) fit_high with deflation 2048 and predict_mean_high(slab=256)
-     at 1 000 targets.  Each is held against the port's float64 oracles
+     at 1 000 targets; 12f the light curve (phase 8's data and grid at its
+     starting hypers, mtot 919, the dense tier): fit_high + mean at phase
+     8's 5 000 targets, gradient_high with 10 seeded probes, variance_high
+     at 512 of the targets and fit_predict_grad_high, every float64 NUFFT a
+     launch of the float64 d=1 pair on the FP64 tensor cores (63 480 x
+     919, its lag grid 1 837 and B 10; 5 000 x 919).  Each is held against
+     the port's float64 oracles
      (gpquad_torch/utils/f64_oracles.py, on the plain path: dense LU, or a
      float64 Toeplitz PCG at scale and hard3d): the high means within 1e-6
      absolute, gradient_high and variance_high within 1e-6 relative, the
      float32 exact variances within 1e-4 absolute of the float64
      "regular".  The high tier's NUFFTs are all float64 CUDA launches (rows
-     1-4, 7-10 of PERF.md's table each at least once), none takes the
+     1-10 of PERF.md's table each at least once), none takes the
      plain path, and it prints a float64 row (kernel, plain and bound ms)
      for every float64 NUFFT shape it launched (the d=2 type-1's bound its
      FP64 tensor-core one, the CUDA cores' beside it); 12d checks that its
@@ -257,7 +273,8 @@ bfloat16-weight control's.
 It prints each phase's wall time, the kernels' JSON line (the eight NUFFT
 kernels, the float64 d=2 type-1's FP64 tensor-core kernel, single and
 batched, and the float64 d=2 type-2's, batched and at B 1, with their
-launches in phase 12, the four TPU mode-tiled functions
+launches in phase 12, the float64 d=3 and d=1 pairs' (the d=1 pair with
+its launches in 12f and 14c), the four TPU mode-tiled functions
 they cover, with the launches made past the TPU's single-block width, and
 the two interpolation kernels: all 14 TPU functions), then the card's
 nvidia-smi line, then
@@ -596,34 +613,61 @@ def bound_3xtf32_ms(name, n, m, B=1, split=None):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound_fp64_tc_ms(name, n, m, B=1):
-    """A float64 function's bound on the FP64 tensor cores (the d=2 and d=3
-    type-1, csrc/tc_type1_f64.cuh, and the d=2 and d=3 type-2,
-    csrc/tc_type2_f64.cuh): 8 flops a point, mode pair (d=2) or triple
-    (d=3) and vector, unpadded, at the dense FP64 tensor-core rate, the
-    rest of kernel_work's operations (the phases; the type-1's products v
-    e1, at d=3 also (v e1) e2; the d=2 type-2's sums over j) at the
-    float64 CUDA-core rate; against its bytes.  The d=3 type-2 contracts
-    the pairs (j2, j3) in the GEMM, so its rest is, as in
+def bound_fp64_tc_ms(name, n, m, B=1, split=None):
+    """A float64 function's bound on the FP64 tensor cores (the type-1 at
+    d=1-3, csrc/tc_type1_f64.cuh, and the type-2 at d=1-3,
+    csrc/tc_type2_f64.cuh): 8 flops a point, mode (d=1), mode pair (d=2)
+    or triple (d=3) and vector, unpadded, at the dense FP64 tensor-core
+    rate, the rest of kernel_work's operations (the phases; the type-1's
+    products v e1, at d=3 also (v e1) e2; the d=2 type-2's sums over j) at
+    the float64 CUDA-core rate; against its bytes.  The d=3 type-2
+    contracts the pairs (j2, j3) in the GEMM, so its rest is, as in
     bound_3xtf32_ms, the phases, the mtot^2 products e2 e3 once a point (6
     flops) and the epilogue's mtot multiply-adds e1 T a point and vector
-    (8)."""
+    (8).  At d=1 ``split`` = (S, Q) of the mode split k = S q + r
+    (fp64_tc_split) sets the rest, as in bound_3xtf32_ms: S + Q phases a
+    point, and the S products a point and vector (the type-1's v e(r), 6
+    flops; the type-2's epilogue multiply-adds e(r) T, 8)."""
     d = int(name.split("_")[1][0])
+    if (d == 1) != (split is not None):
+        raise ValueError(f"{name}: a split is given at d=1 and only there")
     flops, nbytes = kernel_work(name, n, m, torch.float64, B)
     tc = 8 * B * n * m ** d
     rest = flops - tc
     if name == "nufft2_3d":
         rest = d * n * m * PHASE_FLOPS + 6 * n * m ** 2 + 8 * B * n * m
+    if split is not None:
+        S, Q = split
+        outer = 8 if name.startswith("nufft2") else 6
+        rest = n * (S + Q) * PHASE_FLOPS + outer * B * n * S
     t_ops = (tc / PEAK_FP64_TC + rest / PEAK_FLOPS[torch.float64]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def fp64_tc(cn, name, n, m):
-    """Whether the float64 call of ``name`` at n points and mtot m runs on
-    the FP64 tensor cores: the d=2 and d=3 type-1, the batched type-2 and
-    the d=3 type-2 always, the single type-2 where
-    cuda_nufft.type2_2d_single_geometry sends it."""
+def fp64_tc_split(cn, name, n, m, B=1):
+    """(S, Q) of the FP64 tensor-core d=1 kernel's mode split k = S q + r
+    at this shape (the type-1's S of type1_1d_f64_tc_geometry, the
+    type-2's K of type2_1d_f64_tc_geometry; Q of cuda_nufft.type1_1d_split),
+    the ``split`` of bound_fp64_tc_ms; None at d=2 and d=3."""
+    if name not in KERNELS_1D:
+        return None
+    kind = name[5]
+    geo = getattr(cn, f"type{kind}_1d_f64_tc_geometry")(n, m, B)
+    S = geo[4] if kind == "1" else geo[2]
+    return S, cn.type1_1d_split(m, S)[1]
+
+
+def fp64_tc(cn, name, n, m, B=1):
+    """Whether the float64 call of ``name`` at n points, mtot m and B
+    vectors runs on the FP64 tensor cores: the d=2 and d=3 type-1, the
+    batched type-2 and the d=3 type-2 always, the single type-2 where
+    cuda_nufft.type2_2d_single_geometry sends it, the d=1 pair where
+    type1_1d_geometry / type2_1d_geometry do."""
+    if name in KERNELS_1D:
+        kind = name[5]
+        return getattr(cn, f"type{kind}_1d_geometry")(
+            n, m, B, torch.float64)[0] == "tc"
     return (name in ("nufft1_2d", "nufft1_2d_batched", "nufft2_2d_batched",
                      "nufft1_3d", "nufft2_3d")
             or (name == "nufft2_2d" and cn.type2_2d_single_geometry(
@@ -765,12 +809,14 @@ STAGE_CALLS = 3             # timed calls of each phase 12 item (median)
 MATERN_N, MATERN_L, MATERN_EPS, MATERN_TARGETS = 20_000, 0.14, 1e-4, 1_000
 # the float64 functions phase 12 launches, by PERF.md's table rows: the
 # kernel, and whether the launch is past the TPU's single-block width (None:
-# either); d=3 from 12e, hard3d's mtot 21 and lag grid 41, both within it
+# either); d=3 from 12e, hard3d's mtot 21 and lag grid 41, both within it;
+# d=1 from 12f (the TPU's d=1 functions have no single-block width)
 ROWS_F64 = {"1": ("nufft2_2d", False), "3": ("nufft2_2d", True),
             "2": ("nufft1_2d", False), "4": ("nufft1_2d", True),
             "9": ("nufft2_2d_batched", None),
             "10": ("nufft1_2d_batched", None),
-            "7": ("nufft2_3d", False), "8": ("nufft1_3d", False)}
+            "7": ("nufft2_3d", False), "8": ("nufft1_3d", False),
+            "5": ("nufft2_1d", None), "6": ("nufft1_1d", None)}
 # the TPU's single-block width of each kernel's function (TILED's limits)
 BLOCK_LIMIT = {kernel: limit for kernel, _, limit in TILED.values()}
 
@@ -1108,9 +1154,69 @@ def phase_high(c):
     del x, y
     torch.cuda.empty_cache()
 
+    # 12f: the light curve (phase 8's data, the SE kernel at lengthscale
+    # 0.0015 and variance 1, sigmasq 0.01, the grid phase 8 plans: mtot 919,
+    # the dense tier), its high tier at full width: the float64 d=1 pair on
+    # the FP64 tensor cores (the type-1 at 63 480 points x 919, its lag grid
+    # 1 837 and B 10, the type-2 at phase 8's 5 000 targets), then the fused
+    # fit_predict_grad_high as 12a runs it (its float32 pass on the float32
+    # d=1 kernels)
+    x, y, xq = c.x8, c.y8, c.xq8[:, None]
+    kern, h, mtot = c.kern_lc, c.h_lc, c.mtot_lc
+    check(mtot <= c.dense_max_m, f"light curve: mtot {mtot} past the dense "
+          f"tier's {c.dense_max_m}")
+    widths_before = dict(totals)
+    probes = rademacher(15, T, x.shape[0], mtot, dev)
+    lc, _, mean64 = high_config(
+        "lightcurve", x, y, xq, kern, h, mtot, fit_kw={}, probes=probes,
+        var_x=xq[::len(xq) // 512][:512], var_kw=dict(slab=256))
+
+    def fpgh_lc():
+        return gt.fit_predict_grad_high(
+            x, y, xq, kern, sig, h, torch.Generator(device=dev).manual_seed(0),
+            mtot=mtot, device=dev, **FUSED_KW)
+    fres, lc["fit_predict_grad_high"] = stage(
+        "lightcurve fit_predict_grad_high", fpgh_lc, all_f64=False)
+    info = lc["fit_predict_grad_high"]
+    # the fused f32 pass on the float32 d=1 kernels, then the refit's F*y
+    # and lag table and the float64 mean
+    check(set(info["f32"]) == set(KERNELS_1D)
+          and info["f64"] == {"nufft1_1d": 2, "nufft2_1d": 1},
+          f"lightcurve fit_predict_grad_high launches {info}")
+    lc["fpgh_err_mean_high"] = float((fres.mean_high - mean64).abs().max())
+    print(f"[12] lightcurve fit_predict_grad_high: {info['ms']:.2f} ms CUDA "
+          f"events (median of {STAGE_CALLS} warm calls) {card}; mean_high "
+          f"err {lc['fpgh_err_mean_high']:.3e} (bar {HIGH_MEAN_BAR:.0e}), "
+          f"refit residual {float(fres.high_residual):.3e}")
+    check(lc["fpgh_err_mean_high"] <= HIGH_MEAN_BAR,
+          "lightcurve fit_predict_grad_high: mean_high over its bar")
+    # every float64 NUFFT of 12f a d=1 one, by mtot (919, the lag grid
+    # 1 837), on the FP64 tensor cores where type1_1d_geometry /
+    # type2_1d_geometry send them (all of 12f's calls)
+    lc["f64_launches"] = {f"{k}@{m}": n_ - widths_before.get((k, p, m), 0)
+                          for (k, p, m), n_ in sorted(totals.items())
+                          if p == "f64"
+                          and n_ > widths_before.get((k, p, m), 0)}
+    check(lc["f64_launches"] and all(
+        k.split("@")[0] in KERNELS_1D for k in lc["f64_launches"]),
+        f"lightcurve: float64 launches {lc['f64_launches']}")
+    n_lc = x.shape[0]
+    for name, m_, B in (("nufft1_1d", mtot, 1), ("nufft1_1d", 2 * mtot - 1, 1),
+                        ("nufft1_1d", mtot, T), ("nufft2_1d", mtot, 1)):
+        n_ = n_lc if name == "nufft1_1d" else xq.shape[0]
+        check(fp64_tc(cn, name, n_, m_, B),
+              f"lightcurve: {name} n={n_} mtot={m_} B={B} off the FP64 "
+              f"tensor cores")
+    print(f"[12] lightcurve n={n_lc} mtot {mtot}: float64 launches by "
+          f"kernel@mtot {lc['f64_launches']} (all d=1, on the FP64 tensor "
+          f"cores) {card}")
+    rec["lightcurve"] = dict(lc, mtot=mtot, h=h)
+    del x, y
+    torch.cuda.empty_cache()
+
     # every float64 function the phase launched, by PERF.md's rows
     for row, (name, wide) in ROWS_F64.items():
-        limit = BLOCK_LIMIT[name.replace("_batched", "")]
+        limit = BLOCK_LIMIT.get(name.replace("_batched", ""))
         n_ = sum(v for (k, p, m), v in totals.items() if k == name and
                  p == "f64" and (wide is None or (m > limit) == wide))
         rec["f64_launches"][row] = n_
@@ -1163,6 +1269,14 @@ def f64_shape_table(c, totals, h_matern):
         ("nufft1_3d", 20_000, 2 * c.mtot_h3 - 1, 1, c.h_h3,
          "hard3d lag table"),
         ("nufft2_3d", 1_000, c.mtot_h3, 1, c.h_h3, "hard3d mean_high"),
+        ("nufft1_1d", c.x8.shape[0], c.mtot_lc, 1, c.h_lc,
+         "lightcurve F*y"),
+        ("nufft1_1d", c.x8.shape[0], 2 * c.mtot_lc - 1, 1, c.h_lc,
+         "lightcurve lag table"),
+        ("nufft1_1d", c.x8.shape[0], c.mtot_lc, 10, c.h_lc,
+         "lightcurve gradient_high F*Z"),
+        ("nufft2_1d", c.xq8.shape[0], c.mtot_lc, 1, c.h_lc,
+         "lightcurve mean_high"),
     ]
     gen = np.random.default_rng(120)
     rows = []
@@ -1193,8 +1307,9 @@ def f64_shape_table(c, totals, h_matern):
                            3)
             plain_ms = time_cuda(lambda: c.plains[name](x, arg, hq, mtot=m),
                                  max(2, reps // 4), 3)
-            b_ms, src = (bound_fp64_tc_ms(name, n, m, B)[0]
-                         if fp64_tc(c.cuda_nufft, name, n, m) else
+            b_ms, src = (bound_fp64_tc_ms(name, n, m, B, fp64_tc_split(
+                c.cuda_nufft, name, n, m, B))[0]
+                         if fp64_tc(c.cuda_nufft, name, n, m, B) else
                          bound_ms(name, n, m, torch.float64, B)[0]), \
                 "phase 12"
             del x, arg, got, ref
@@ -1800,9 +1915,10 @@ def shape_table(c, shapes, known, tag):
         plain_ms = (time_cuda(plain, 1, 1, warm=0) if once > 50 else
                     time_cuda(plain, max(2, reps // 4), 3))
         b_ms, b_by = bound_ms(name, n, m, dtype, B)
-        if prec == "f64" and fp64_tc(c.cuda_nufft, name, n, m):
+        if prec == "f64" and fp64_tc(c.cuda_nufft, name, n, m, B):
             # the kernel's own, the FP64 tensor cores'
-            b_ms, b_by = bound_fp64_tc_ms(name, n, m, B)
+            b_ms, b_by = bound_fp64_tc_ms(
+                name, n, m, B, fp64_tc_split(c.cuda_nufft, name, n, m, B))
         if prec == "f32":
             cn = c.cuda_nufft
             if name == "nufft1_1d":
@@ -3265,6 +3381,20 @@ def main() -> int:
     for name in KERNELS_1D:
         # the dense tier's widest lag table (M <= 4096)
         shapes.append((name, 20_000, 8191, False, 0.97, "mtot 8191", 1))
+    # the float64 d=1 pair at the other shapes its driven paths launch, in
+    # float64 only: 12f's (the light curve's high tier at its grid, mtot
+    # 919: F*y, the lag table, gradient_high's F*Z, mean_high at phase 8's
+    # 5 000 targets) and 14c's samplers' (SAMPLER_SHAPES)
+    shapes_f64 += [
+        ("nufft1_1d", n_lc, mtot_lc, False, h_lc, "12f F*y", 1),
+        ("nufft1_1d", n_lc, 2 * mtot_lc - 1, False, h_lc, "12f lag table",
+         1),
+        ("nufft1_1d", n_lc, mtot_lc, False, h_lc, "12f gradient_high F*Z",
+         10),
+        ("nufft2_1d", 5_000, mtot_lc, False, h_lc, "12f mean_high", 1)]
+    shapes_f64 += [(name, n, m, fo, 0.4, "14c", B)
+                   for name, prec, n, m, B, fo in sorted(SAMPLER_SHAPES)
+                   if name in KERNELS_1D and prec == "f64"]
     kernels = {k: getattr(cuda_nufft, k) for k in KERNELS_NUFFT}
     plains = {k: getattr(cuda_nufft, k + "_ref") for k in KERNELS_NUFFT}
 
@@ -3583,6 +3713,89 @@ def main() -> int:
                    if "twin_rel_diff" in out else "")
                 + f"; geometry {geo}; bound_fp64_tc_ms="
                 f"{out['bound_fp64_tc_ms']:.4f}")
+        return out, line
+
+    def d1_f64_both(name, x, arg, hq, m, fo, n, B, ref, scale, got, reps):
+        """The float64 d=1 function ``name`` on its two kernels on the same
+        inputs: the FP64 tensor cores ("tc", type1_1d_f64_tc_geometry /
+        type2_1d_f64_tc_geometry) and the CUDA-core kernel ("cuda", the
+        float kernel's double instance), each within 1e-10 of max|ref| of
+        the float64 plain version and bit for bit against a second launch,
+        the tensor cores within 1e-12 of max|ref| of their twin
+        (nufft1_1d_f64_tc_ref / nufft2_1d_f64_tc_ref, on the card) up to
+        TWIN_F64_MAX_N points, with their scratch (the
+        peak allocated in the call less the output; no more than the
+        geometry counts); the wrapper's result bit for bit that of the path
+        type1_1d_geometry / type2_1d_geometry picks, and that path the
+        fastest on the card (time_cuda_paths, the paths in turn each round)
+        within DISPATCH_TIE; the FP64 tensor-core bound.  Returns the row's
+        fields and a line for the log."""
+        kind = name[5]
+        pick = getattr(cuda_nufft, f"type{kind}_1d_geometry")(
+            n, m, B, torch.float64)
+        tc_geo = getattr(cuda_nufft, f"type{kind}_1d_f64_tc_geometry")(
+            n, m, B)
+        geos = {"tc": tc_geo, "cuda": (("cuda", cuda_nufft.TYPE1_CHUNK)
+                                       if kind == "1" else ("cuda",))}
+        on = getattr(cuda_nufft, f"_{name}_on")
+        ab = arg.reshape(B, n if kind == "1" else m)
+        calls = {r: (lambda geo=geo: on(x, ab, hq, m, fo, geo))
+                 for r, geo in geos.items()}
+        out = {"dispatch": pick[0], "geometry": list(tc_geo[1:])}
+        for r, call in calls.items():
+            what = f"{name} float64 ({r}) B={B} n={n} mtot={m}"
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            o = call()
+            sync()
+            scratch = (torch.cuda.max_memory_allocated() - base
+                       - o.numel() * o.element_size())
+            rel_r = float((o.reshape(got.shape) - ref).abs().max()) / scale
+            check(np.isfinite(rel_r) and rel_r <= 1e-10,
+                  f"{what}: error {rel_r:.3e} of max|ref| > 1e-10")
+            check(torch.equal(call(), o), f"{what}: a second launch differs")
+            if r == pick[0]:
+                check(torch.equal(o.reshape(got.shape), got),
+                      f"{what}: the wrapper's result is not this path's")
+            key = "tc" if r == "tc" else "cuda_core"
+            out[f"{key}_rel_err"] = rel_r
+            out[f"{key}_scratch_bytes"] = scratch
+            if r == "tc":
+                counted = (8 * cuda_nufft.type2_1d_f64_scratch_doubles(
+                    m, B, tc_geo) if kind == "2" else
+                    (16 * B * m * -(-n // tc_geo[-1])
+                     if n > tc_geo[-1] else 0))
+                check(scratch <= counted + 2 ** 21, f"{what}: scratch "
+                      f"{scratch} bytes past its geometry's {counted}")
+                if n <= TWIN_F64_MAX_N:
+                    twin = getattr(cuda_nufft, f"{name}_f64_tc_ref")(
+                        x, ab, hq, mtot=m, fft_order=fo)
+                    diff = float((o - twin).abs().max())
+                    check(diff <= 1e-12 * scale,
+                          f"{what}: {diff / scale:.3e} of max|ref| from its "
+                          f"twin (bar 1e-12)")
+                    out["twin_rel_diff"] = diff / scale
+                    del twin
+            del o
+        ms = time_cuda_paths(calls, reps, PATH_TRIALS)
+        out["tc_ms"], out["cuda_core_ms"] = ms["tc"], ms["cuda"]
+        out["bound_fp64_tc_ms"], out["bound_fp64_tc_by"] = \
+            bound_fp64_tc_ms(name, n, m, B,
+                             fp64_tc_split(cuda_nufft, name, n, m, B))
+        faster = min(ms, key=ms.get)
+        check(ms[pick[0]] <= max(ms[faster] * (1 + DISPATCH_TIE[0]),
+                                 ms[faster] + DISPATCH_TIE[1]),
+              f"{name} float64 B={B} n={n} mtot={m}: the pick {pick[0]} "
+              f"takes {ms[pick[0]]:.4f} ms, {faster} {ms[faster]:.4f}")
+        line = (f" pick {pick[0]} (fastest on the card: {faster}); FP64 "
+                f"tensor cores ms={ms['tc']:.4f} rel={out['tc_rel_err']:.3e}"
+                + (f" (twin {out['twin_rel_diff']:.3e} apart)"
+                   if "twin_rel_diff" in out else "")
+                + f" scratch {out['tc_scratch_bytes'] / 1e6:.3f} MB, "
+                f"bound_fp64_tc_ms={out['bound_fp64_tc_ms']:.4f}; CUDA cores "
+                f"ms={ms['cuda']:.4f} rel={out['cuda_core_rel_err']:.3e}; "
+                f"geometry {tc_geo}")
         return out, line
 
     def type2_1d_both(x, f, hq, m, fo, n, B, ref, scale, got, split_bar,
@@ -3904,8 +4117,15 @@ def main() -> int:
                 reps, trials = max(3, min(50, int(5e10 / (B * n * m ** 3)))), 3
             ms = time_cuda(lambda: kernels[name](x, arg, hq, **kw), reps,
                            trials)
-            plain_ms = time_cuda(lambda: plains[name](x, arg, hq, **kw),
-                                 max(1 if d == 3 else 2, reps // 4), trials)
+
+            def plain():
+                return plains[name](x, arg, hq, **kw)
+            # a d=1 plain version past 100 ms a call (the samplers' at B in
+            # the thousands): one more call, timed alone; the rest a median
+            once = timed(plain)[1] if d == 1 else 0
+            plain_ms = (time_cuda(plain, 1, 1, warm=0) if once > 100 else
+                        time_cuda(plain, max(1 if d == 3 else 2, reps // 4),
+                                  trials))
             b_ms, b_by = bound_ms(name, n, m, dtype, B)
             row = dict(name=name, dtype=str(dtype).split(".")[-1], B=B, n=n,
                        mtot=m, fft_order=fo, h=hq, serves=what,
@@ -3966,6 +4186,19 @@ def main() -> int:
                     row["bound_ms"], row["bound_by"] = (
                         t2["bound_3xtf32_ms"], "operations")
                     b_by = "fp32 operations"
+                extra += line
+            if d == 1 and dtype == torch.float64:
+                # both kernels of the float64 d=1 function; the FP64
+                # tensor-core bound where they are picked, the float64
+                # CUDA-core one kept beside it
+                t1, line = d1_f64_both(name, x, arg, hq, m, fo, n, B, ref,
+                                       scale, got, reps)
+                row.update(t1)
+                row["bound_f64_ms"] = b_ms
+                if t1["dispatch"] == "tc":
+                    row["bound_ms"] = t1["bound_fp64_tc_ms"]
+                    row["bound_by"] = t1["bound_fp64_tc_by"]
+                    b_by = f"float64 CUDA cores, {b_by}"
                 extra += line
             if name == "nufft2_2d_batched" and dtype == torch.float64:
                 # the FP64 tensor cores, the only float64 batched kernel;
@@ -5754,6 +5987,7 @@ def main() -> int:
     # -- phase 12: the exact variances and the high-precision tier ---------
     t_phase = time.perf_counter()
     from gpquad_torch.utils import f64_oracles
+    from gpquad_torch.ops.dense_solve import DENSE_SOLVER_MAX_M
     ns12 = types.SimpleNamespace(
         gt=gpquad_torch, orc=f64_oracles, nufft_mod=nufft_mod,
         cuda_nufft=cuda_nufft, efgp_mod=efgp_mod, dev=dev, card=card,
@@ -5763,7 +5997,9 @@ def main() -> int:
         h_head=h_head, mtot_head=mtot_head, st=st, x2=x2, y2=y2, xq2=xq2,
         kern_hard=kern_hard, h_hard=h_hard, mtot_hard=mtot_hard, n10=n10,
         kern10=kern10, h10=h10, mtot10=mtot10, xh3=xh3, yh3=yh3, xqh3=xqh3,
-        kern_h3=kern_h3, h_h3=h_h3, mtot_h3=mtot_h3)
+        kern_h3=kern_h3, h_h3=h_h3, mtot_h3=mtot_h3, x8=x8, y8=y8, xq8=xq8,
+        kern_lc=kern_lc, h_lc=h_lc, mtot_lc=mtot_lc,
+        dense_max_m=DENSE_SOLVER_MAX_M)
     record["phases"]["high"] = high = phase_high(ns12)
     phase_s["12"] = time.perf_counter() - t_phase
     print(f"[12] phase wall time {phase_s['12']:.1f} s")
@@ -6058,6 +6294,41 @@ def main() -> int:
         "shape": {"B": row["B"], "n": row["n"], "mtot": row["mtot"],
                   "fft_order": row["fft_order"], "serves": row["serves"],
                   "dtype": "float64"}})
+    # the float64 d=1 pair on the FP64 tensor cores (csrc/tc_type1_f64.cuh on
+    # nufft_1d.cu's Type1F64Split1D, csrc/tc_type2_f64.cuh on
+    # Type2F64Split1D): its largest float64 call on a driven path (12f's
+    # gradient_high F*Z; 12f's mean_high), the wrapper's time and the card's
+    # alone there; launches from 12f (all on these kernels, which must hold
+    # one) and from 14c (its shapes that the dispatch sends there)
+    shapes14c = record["phases"]["spread"]["14c"]["shapes"]
+    for name, serves in (("nufft1_1d", "12f gradient_high F*Z"),
+                         ("nufft2_1d", "12f mean_high")):
+        row = next(r for r in phase3 if r["name"] == name
+                   and r["dtype"] == "float64" and r["serves"] == serves)
+        launched = sum(v for k, v in high["lightcurve"]["f64_launches"].items()
+                       if k.split("@")[0] == name)
+        check(launched > 0, f"12f launched {name}'s FP64 tensor-core kernel "
+              f"no time")
+        launched14 = sum(r["launches"] for r in shapes14c
+                         if r["name"] == name and r["precision"] == "f64"
+                         and fp64_tc(cuda_nufft, name, r["n"], r["mtot"],
+                                     r["B"]))
+        rows.append({
+            "name": f"{name} (float64, FP64 tensor cores)", "route": "cuda",
+            "source": ("gpquad_torch/csrc/tc_type1_f64.cuh"
+                       if name == "nufft1_1d"
+                       else "gpquad_torch/csrc/tc_type2_f64.cuh"),
+            "replaces": REPLACES[name], "launches": launched + launched14,
+            "launches_12f": launched, "launches_14c": launched14,
+            **{k: row[k] for k in ("tc_ms", "cuda_core_ms", "tc_scratch_bytes",
+                                   "bound_f64_ms", "geometry")},
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_fp64_tc_ms"],
+            "bound_by": row["bound_fp64_tc_by"], "library_ms": None,
+            "shape": {"B": row["B"], "n": row["n"], "mtot": row["mtot"],
+                      "fft_order": row["fft_order"], "serves": row["serves"],
+                      "dtype": "float64"}})
     # the TPU's mode-tiled functions, each covered by the kernel above: its
     # float32 call past the single-block limit on the path that drives it
     # (scale fit + mean at d=2, the d3 fused call at d=3)

@@ -20,9 +20,10 @@
 // the phases are most of the work; per point the kernels read 4-8 bytes of x
 // and 8-16 of value, so they are bound by operations (fp32 outside the tensor
 // cores), not by bytes.  Every phase is made with the exact compensated path
-// and sincospi (no rotation recurrence); in float32 both types cut the
-// phases from mtot a point to K + Q with a split of the mode index and run
-// the products on the tensor cores:
+// and sincospi (no rotation recurrence); in float32 and in float64 both
+// types cut the phases from mtot a point to a few tens with a split of the
+// mode index and run the products on the tensor cores (3xTF32 in float32,
+// the FP64 tensor cores in float64):
 //
 //  - nufft2_1d in float32 (where ops/cuda_nufft.py type2_1d_geometry sends
 //    it): tc_type2.cuh's tensor-core kernel (3xTF32) on a split of the
@@ -30,8 +31,16 @@
 //    are the points and columns (vector, r), the sum over r in its
 //    epilogue; K + Q phases a point instead of mtot, each with
 //    phase_split;
-//  - nufft2_1d on the CUDA cores (float64, the float32 calls the geometry
-//    keeps there, and the control phase 3 times beside the tensor cores):
+//  - nufft2_1d in float64 (where type2_1d_geometry at float64 sends it):
+//    tc_type2_f64.cuh's FP64 tensor-core kernel (DMMA) on Type2F64Split1D
+//    below, the same GEMM over q and epilogue over r with K a power of two
+//    (32 at the light curve's 919 modes, 1 at the samplers' 15 and 17, the
+//    columns then the vectors), each operand index split again into a
+//    coarse and a fine factor, the column tiles split over a grid axis for
+//    few points;
+//  - nufft2_1d on the CUDA cores (the float64 and float32 calls the
+//    geometry keeps there: few points at small mtot, and the control phase
+//    3 times beside the tensor cores):
 //    one point per thread (or per S = 8 threads when the
 //    point-vectors are fewer than 65 536, e.g. 5 000 targets, so that enough
 //    warps fill the card; each takes every S-th mode of the staged tile and
@@ -45,8 +54,16 @@
 //    of them instead of mtot, each with phase_split so that the rounding of
 //    t = x*h goes into both; the (q, r) outside mtot are cropped in the
 //    epilogue, and the groups' partials added in group order in double.
-//  - nufft1_1d on the CUDA cores (float64, and the float32 control phase 3
-//    times beside the tensor cores): the sum runs over points, so it is the
+//  - nufft1_1d in float64 (where type1_1d_geometry at float64 sends it):
+//    tc_type1_f64.cuh's FP64 tensor-core kernel (DMMA) on Type1F64Split1D
+//    below, rows r and columns q of k = S q + r (S a power of two), each
+//    operand index split again into a coarse and a fine factor: 28 phases
+//    a point for the light curve's 919 outputs, one 64 x 32 tile, the card
+//    filled by point groups whose partials are added in group order;
+//  - nufft1_1d on the CUDA cores (the float64 calls the geometry keeps
+//    there: one run of points and more output tiles than SMs, and the
+//    float32 control phase 3 times beside the tensor cores): the sum runs
+//    over points, so it is the
 //    deterministic two-stage reduction of nufft1_2d: a block owns 128 modes
 //    (one a thread), one chunk of 2048 points and one group of G vectors;
 //    it stages the points' folded t (and its rounding error) and the
@@ -55,13 +72,16 @@
 //    per-chunk partials (nchunk x B x mtot) are then added in chunk order
 //    by a second kernel.  No atomics.
 //
-// The CUDA-core kernels are templated on the scalar type: double tensors
-// run a double instance of the float code.
+// The CUDA-core kernels are templated on the scalar type: the float64 calls
+// the geometry keeps on the CUDA cores run a double instance of the float
+// code.  Every phase of the float64 kernels carries the rounding error of
+// t = x h as the float32 ones do (phase_split<double>).
 //
 // C interface (bound with ctypes): pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launches.
 
 #include "tc_type2.cuh"
+#include "tc_type2_f64.cuh"
 
 namespace {
 
@@ -413,6 +433,127 @@ struct Type2Split1D {
   }
 };
 
+// ---------------------------------------------------------------------------
+// type-1 in float64 on the FP64 tensor cores: tc_type1_f64.cuh's kernel on
+// the split k = S q + r, S a power of two (the caller's: ops/cuda_nufft.py
+// type1_1d_geometry at float64 picks the one whose tiles pad least): row r
+// in 0..S-1, the mode r of the point's coordinate u; column qi the q =
+// qmin + qi of qmin = -ceil(half / S) .. floor(half / S), the mode q of
+// the coordinate S u (S x is exact, and so is the rounding error of its t),
+// so that both operands' indices split into the kernel's coarse and fine
+// factors as at d=2 (at a base of 0 for the rows, qmin for the columns);
+// output k = S q + r where |k| <= half.  Every phase carries the rounding
+// error of its t (kCarry), as the float32 d=1 kernels' do.
+// ---------------------------------------------------------------------------
+struct Type1F64Split1D {
+  using X = double;
+  static constexpr int kCoords = 2, kRowCoord = 0, kColCoord = 1;
+  static constexpr bool kOuter = false, kCarry = true;
+  static constexpr int kMaxSplit = 1024;
+  template <int S1, int S2>
+  static __host__ __device__ constexpr int max_factors() {
+    return 2 * T64_K + S1 + S2;
+  }
+  template <int S1, int S2>
+  static __host__ __device__ constexpr int fixed_factors() {
+    return max_factors<S1, S2>();
+  }
+  static __device__ double coord(X p, int c, int S) {
+    return c == 0 ? p : S * p;
+  }
+  static __host__ __device__ int inner(int) { return 1 << 30; }
+  static __host__ __device__ int qmin(int m, int S) {
+    return -(((m - 1) / 2 + S - 1) / S);
+  }
+  static __host__ __device__ int qcount(int m, int S) {
+    return (m - 1) / 2 / S - qmin(m, S) + 1;
+  }
+  static __device__ int row_base(int, int) { return 0; }
+  static __device__ int col_base(int m, int S) { return qmin(m, S); }
+  static bool split_ok(int, int S) {
+    return S >= 1 && S <= kMaxSplit && (S & (S - 1)) == 0;
+  }
+  static __host__ __device__ int rows(int, int S) { return S; }
+  static __host__ __device__ int cols(int m, int S) { return qcount(m, S); }
+  static __host__ __device__ long long outputs(int m) { return m; }
+  static __device__ long long out_index(int i, int c, int m, int S,
+                                        int fft_order) {
+    const int half = (m - 1) / 2;
+    const int k = S * (qmin(m, S) + c) + i;
+    if (i >= S || c >= qcount(m, S) || k < -half || k > half) return -1;
+    return fft_order ? (k >= 0 ? k : k + m) : k + half;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// type-2 in float64 on the FP64 tensor cores: tc_type2_f64.cuh's kernel on
+// the split k = K q + r, K a power of two (the caller's: ops/cuda_nufft.py
+// type2_1d_geometry at float64), as the float32 Type2Split1D: the GEMM
+// runs over the values q (index qi, q = qmin + qi, the Q that reach every
+// |k| <= half, padded to whole k-steps of 8), the epilogue over r in
+// 0..K-1 (a vector's K columns, no pad); F_b[r, qi] = f_b at mode K q + r,
+// zero past half.  The reduction's coordinate is K u (K x exact), so that
+// k-step s's factor is e(K u, qmin + 8 s) and its entries' e(K u, r'); the
+// epilogue's e(u, 8 s) e(u, r') (a base of 0).  A tile holds whole vectors
+// (K divides it), so grid axis y may split the column tiles (kSplitCols:
+// few points and many vectors).  Every phase carries the rounding error of
+// its t (kCarry).
+// ---------------------------------------------------------------------------
+struct Type2F64Split1D {
+  using X = double;
+  static constexpr int kCoords = 2, kRedCoord = 1;
+  static constexpr int kChunk = 6;   // 48 values q: A kept a block to K 32
+                                     // at mtot 1 535
+  static constexpr bool kSplitK = false, kSplitCols = true, kCarry = true;
+  static constexpr int kMaxSplit = 32;   // K whose columns r fit a tile
+  struct Extra {
+    double te[kCoords][T2D_P];   // the rounding errors of t = coord h
+  };
+  static __device__ double coord(X p, int c, int K) {
+    return c == 0 ? p : K * p;
+  }
+  static __host__ __device__ int qmin(int m, int K) {
+    return -(((m - 1) / 2 + K - 1) / K);
+  }
+  static __host__ __device__ int qcount(int m, int K) {
+    return (m - 1) / 2 / K - qmin(m, K) + 1;
+  }
+  static bool split_ok(int, int K) {
+    return K >= 1 && K <= kMaxSplit && (K & (K - 1)) == 0;
+  }
+  static __host__ __device__ int epi_cols(int, int K) { return K; }
+  static __device__ int epi_base(int) { return 0; }
+  static __host__ __device__ int red_steps(int m, int K) {
+    return (qcount(m, K) + 7) / 8;
+  }
+  static __device__ bool red_ok(int ks, int r, int m, int K) {
+    return 8 * ks + r < qcount(m, K);
+  }
+  // e(K u, qmin + 8 s) of the chunk's k-steps s = ks0 .. ks0 + kn - 1
+  template <class S>
+  static __device__ void chunk_factors(S& sm, int ks0, int kn, int m, int K,
+                                       int tid) {
+    const int q0 = qmin(m, K);
+    for (int e = tid; e < T2D_P * kChunk; e += T2D_THREADS) {
+      const int p = e / kChunk, s = e % kChunk;
+      if (s < kn) {
+        double c, sn;
+        phase_split(sm.u[1][p], sm.ex.te[1][p], (double)(q0 + 8 * (ks0 + s)),
+                    &c, &sn);
+        sm.s2[p][s] = make_double2(c, sn);
+      }
+    }
+  }
+  static __device__ long long coef_index(int b, int j, int k, int m, int K,
+                                         int fft_order) {
+    const int half = (m - 1) / 2;
+    const int kk = K * (qmin(m, K) + k) + j;
+    if (k >= qcount(m, K) || kk < -half || kk > half) return -1;
+    return (long long)b * m + (fft_order ? (kk >= 0 ? kk : kk + m)
+                                         : kk + half);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -438,6 +579,21 @@ int gpq_nufft2_1d_tc_f32(const void* x, const void* f, float h, int n, int m,
 int gpq_nufft2_1d_f64(const void* x, const void* f, double h, int n, int m,
                       int nb, int fft_order, void* out, void* stream) {
   return launch_nufft2<double>(x, f, h, n, m, nb, fft_order, out, stream);
+}
+
+// float64 on the FP64 tensor cores, with the caller's geometry
+// (ops/cuda_nufft.py type2_1d_geometry at float64: points a block, K,
+// columns a tile, values q a stage, splits of the column tiles); the
+// scratch holds the split f
+int gpq_nufft2_1d_tc_f64(const void* x, const void* f, double h, int n,
+                         int m, int nb, int fft_order, int points, int k,
+                         int cols, int stage, int splits, void* scratch,
+                         long long scratch_doubles, void* out,
+                         void* stream) {
+  return launch_type2_f64<Type2F64Split1D>(x, f, h, n, m, nb, fft_order,
+                                           points, cols, stage, k, splits,
+                                           scratch, scratch_doubles, out,
+                                           stream);
 }
 
 int gpq_nufft1_1d_f32(const void* x, const void* v, float h, int n, int m,
@@ -467,6 +623,23 @@ int gpq_nufft1_1d_f64(const void* x, const void* v, double h, int n, int m,
                       void* out, void* stream) {
   return launch_nufft1<double>(x, v, h, n, m, nb, fft_order, chunk, partial,
                                out, stream);
+}
+
+// float64 on the FP64 tensor cores, with the caller's geometry
+// (ops/cuda_nufft.py type1_1d_geometry at float64: rows, cols, group,
+// split, run, chunk): one vector in groups of G = 1, a batch of G = 2; the
+// partial may be the output where the points make one group
+int gpq_nufft1_1d_tc_f64(const void* x, const void* v, double h, int n,
+                         int m, int nb, int fft_order, int rows, int cols,
+                         int group, int split, int run, int chunk,
+                         void* partial, void* out, void* stream) {
+  if (group == 1)
+    return launch_type1_f64<Type1F64Split1D, 1>(x, v, h, n, m, nb, fft_order,
+                                                rows, cols, group, split, run,
+                                                chunk, partial, out, stream);
+  return launch_type1_f64<Type1F64Split1D, 2>(x, v, h, n, m, nb, fft_order,
+                                              rows, cols, group, split, run,
+                                              chunk, partial, out, stream);
 }
 
 }  // extern "C"

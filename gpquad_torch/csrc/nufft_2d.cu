@@ -306,6 +306,10 @@ struct Type1F64Grid2D {
   using X = double2;
   static constexpr int kCoords = 2, kRowCoord = 0, kColCoord = 1;
   static constexpr bool kOuter = false;
+  static constexpr bool kCarry = false;
+  // the modes of the rows' and the columns' index 0 (of an outer value)
+  static __device__ int row_base(int m, int) { return -((m - 1) / 2); }
+  static __device__ int col_base(int m, int) { return -((m - 1) / 2); }
   template <int S1, int S2>
   static __host__ __device__ constexpr int max_factors() {
     return 2 * T64_K + S1 + S2;
@@ -344,16 +348,20 @@ struct Type2F64Grid2D {
   static constexpr int kCoords = 2, kRedCoord = 1;
   static constexpr int kChunk = 6;   // 48 modes k: A kept a block to mtot 47
   static constexpr bool kSplitK = false;
+  static constexpr bool kSplitCols = false, kCarry = false;
+  static bool split_ok(int, int split) { return split == 1; }
+  static __host__ __device__ int epi_cols(int m, int) { return m; }
+  static __device__ int epi_base(int m) { return -((m - 1) / 2); }
   struct Extra {};
   static __device__ double coord(const X& p, int c) {
     return c == 0 ? p.x : p.y;
   }
-  static __host__ __device__ int red_steps(int m) { return (m + 7) / 8; }
-  static __device__ bool red_ok(int ks, int r, int m) {
+  static __host__ __device__ int red_steps(int m, int) { return (m + 7) / 8; }
+  static __device__ bool red_ok(int ks, int r, int m, int) {
     return 8 * ks + r < m;
   }
   template <class S>
-  static __device__ void chunk_factors(S& sm, int ks0, int kn, int m,
+  static __device__ void chunk_factors(S& sm, int ks0, int kn, int m, int,
                                        int tid) {
     const int half = (m - 1) / 2;
     for (int e = tid; e < T2D_P * kChunk; e += T2D_THREADS) {
@@ -365,7 +373,7 @@ struct Type2F64Grid2D {
       }
     }
   }
-  static __device__ long long coef_index(int b, int j, int k, int m,
+  static __device__ long long coef_index(int b, int j, int k, int m, int,
                                          int fft_order) {
     return k < m ? ((long long)b * m + t64_out(j, m, fft_order)) * m +
                        t64_out(k, m, fft_order)
@@ -552,7 +560,7 @@ int gpq_nufft2_2d_batched_tc_f64(const void* x, const void* f, double h,
                                  void* scratch, long long scratch_doubles,
                                  void* out, void* stream) {
   return launch_type2_f64<Type2F64Grid2D>(x, f, h, n, m, nb, fft_order,
-                                          points, cols, stage, 1, scratch,
+                                          points, cols, stage, 1, 1, scratch,
                                           scratch_doubles, out, stream);
 }
 
@@ -561,7 +569,7 @@ int gpq_nufft2_2d_tc_f64(const void* x, const void* f, double h, int n,
                          int stage, void* scratch, long long scratch_doubles,
                          void* out, void* stream) {
   return launch_type2_f64<Type2F64Grid2D>(x, f, h, n, m, 1, fft_order,
-                                          points, cols, stage, 1, scratch,
+                                          points, cols, stage, 1, 1, scratch,
                                           scratch_doubles, out, stream);
 }
 

@@ -540,6 +540,10 @@ struct Type1F64Grid3D {
   };
   static constexpr int kCoords = 3, kRowCoord = 2, kColCoord = 1;
   static constexpr bool kOuter = true;
+  static constexpr bool kCarry = false;
+  // the modes of the rows' and the columns' index 0 (of an outer value)
+  static __device__ int row_base(int m, int) { return -((m - 1) / 2); }
+  static __device__ int col_base(int m, int) { return -((m - 1) / 2); }
   static constexpr int kMaxSplit = 8;
   // the fine factors, two coarse ones a group at most, and the outer
   // values a tile's rows and columns reach
@@ -674,22 +678,26 @@ struct Type2F64Grid3D {
   // 110 KB of shared memory a block, two blocks an SM
   static constexpr int kChunk = 4;
   static constexpr bool kSplitK = true;
+  static constexpr bool kSplitCols = false, kCarry = false;
+  static bool split_ok(int, int split) { return split == 1; }
+  static __host__ __device__ int epi_cols(int m, int) { return m; }
+  static __device__ int epi_base(int m) { return -((m - 1) / 2); }
   struct Extra {
     double2 e2[T2D_P][kChunk];   // e2(j2) of the chunk's j2, the first on
   };
   static __device__ double coord(const X& p, int c) {
     return c == 0 ? p.x : c == 1 ? p.y : p.z;
   }
-  static __host__ __device__ int red_steps(int m) {
+  static __host__ __device__ int red_steps(int m, int) {
     return m * ((m + 7) / 8);
   }
-  static __device__ bool red_ok(int ks, int r, int m) {
+  static __device__ bool red_ok(int ks, int r, int m, int) {
     return 8 * (ks % ((m + 7) / 8)) + r < m;
   }
   // the factors e2(j2) e(u3, 8 s - half) of k-steps ks0 .. ks0 + kn - 1:
   // e(u3, 8 s - half) and each j2's e2 (nd of them), then their products
   template <class S>
-  static __device__ void chunk_factors(S& sm, int ks0, int kn, int m,
+  static __device__ void chunk_factors(S& sm, int ks0, int kn, int m, int,
                                        int tid) {
     const int half = (m - 1) / 2, n3 = (m + 7) / 8;
     const int j2a = ks0 / n3, nd = (ks0 + kn - 1) / n3 - j2a + 1;
@@ -717,7 +725,7 @@ struct Type2F64Grid3D {
   }
   // F_b[j1, (j2, j3)] at reduction index k: k-step k / 8 = (j2, s), j3 =
   // 8 s + k % 8
-  static __device__ long long coef_index(int b, int j, int k, int m,
+  static __device__ long long coef_index(int b, int j, int k, int m, int,
                                          int fft_order) {
     const int n3 = (m + 7) / 8, ks = k >> 3;
     const int j2 = ks / n3, j3 = 8 * (ks % n3) + (k & 7);
@@ -745,7 +753,7 @@ int gpq_nufft2_3d_f64(const void* x, const void* f, double h, int n, int m,
                       int splits, void* scratch, long long scratch_doubles,
                       void* out, void* stream) {
   return launch_type2_f64<Type2F64Grid3D>(x, f, h, n, m, nb, fft_order,
-                                          points, cols, stage, splits,
+                                          points, cols, stage, 1, splits,
                                           scratch, scratch_doubles, out,
                                           stream);
 }

@@ -11,7 +11,11 @@
 //    k1 = S q + r, row (r, j3) and column (q, j2), as the float32 kernel's
 //    Type1Grid3D has them; output (j1, j2, j3) of the mtot^3 grid.  It
 //    replaces, in float64, pallas_nufft1_3d / _pallas_nufft1_3d_tiled
-//    (:750, :1118).
+//    (:750, :1118);
+//  - d=1 (nufft_1d.cu Type1F64Split1D): the mode split as k = S q + r,
+//    row r and column q, as the float32 kernel's Type1Split1D has them;
+//    output k of the mtot modes.  It replaces, in float64,
+//    pallas_nufft1_1d (:584).
 // gpquad runs their float64 form as its double-word type-1
 // (gpquad/ops/nufft_df.py:95 df_nufft1); here float64 is native.
 //
@@ -26,22 +30,29 @@
 // (34 TFLOP/s).  A float64 sincospi costs tens of flops, and a tile of TJ x
 // COLS outputs would need TJ + COLS phases a point, nearly as many flops as
 // the products.  So each operand index is split.  Index i of an operand (a
-// row of A a vector, or a column of E) is the inner mode i - o mi - half of
-// one coordinate u (o = i / mi, its outer index; P::inner gives mi), times
-// an outer factor of o where P has one (d=3: e(u1, r) for a row, e(u1, S q)
-// for a column; at d=2 mi passes every index and o is 0).  With i = i0 +
-// K a + t, i0 the tile's first index and t < K:
-//   e(u, i - o mi - half) = e(u, i0 + K a - o mi - half) e(u, t),
+// row of A a vector, or a column of E) is the inner mode i - o mi + base of
+// one coordinate u (o = i / mi, its outer index; P::inner gives mi, and
+// P::row_base / col_base the operand's base: -half at d=2 and d=3, 0 for
+// d=1's rows, qmin for its columns), times an outer factor of o where P
+// has one (d=3: e(u1, r) for a row, e(u1, S q) for a column; at d=1 and
+// d=2 mi passes every index and o is 0).  With i = i0 + K a + t, i0 the
+// tile's first index and t < K:
+//   e(u, i - o mi + base) = e(u, i0 + K a - o mi + base) e(u, t),
 // each factor from nufft_common.cuh's phase<double> (the torus fold, the
-// compensated u k, sincospi).  A group of K indices spans one or two outer
+// compensated u k, sincospi; where P::kCarry, d=1, phase_split<double>,
+// the rounding error of t = x h carried into every phase, as the float32
+// d=1 kernels carry it).  A group of K indices spans one or two outer
 // values (mi >= K), so an entry is one complex product of the group's
 // coarse factor for its o (the outer factor and, in A, v folded in) and a
 // fine factor e(u, t).  A point then makes K + TJ / K row phases and K +
 // COLS / K column phases a tile (32 at 64 x 64 at d=2, not 128; at d=3
 // also a second coarse factor for each group across a boundary of o, and
-// the outer factors: ~40).  The twins (ops/cuda_nufft.py
-// nufft1_2d_f64_tc_ref, nufft1_3d_f64_tc_ref) form every entry the same
-// way.
+// the outer factors: ~40; at d=1 28 at 64 x 32, against mtot a point on
+// the CUDA cores).  At d=1 the column's coordinate is S u (S a power of
+// two, so that S x is exact and so is its rounding error), whose mode
+// q + qmin is e(u, S (q + qmin)).  The twins (ops/cuda_nufft.py
+// nufft1_2d_f64_tc_ref, nufft1_3d_f64_tc_ref, nufft1_1d_f64_tc_ref) form
+// every entry the same way.
 //
 // Block: 512 threads in four warpgroups over a 64 x COLS output tile (rows:
 // G vectors x TJ = 64 / G indices i; COLS 32 or 64 indices c), grid (row
@@ -74,14 +85,17 @@
 //    wrote);
 //  - launch_reduce adds the groups' partials in group order (one group
 //    writes the output itself where the caller passes it as the partial).
-// The same bits on every launch.  ops/cuda_nufft.py type1_2d_geometry and
-// type1_3d_geometry own the geometry (tile, group, P's split S, run, the
-// points a group) and the launch refuses one it has no instance for; the
-// scratch holds groups x B x outputs values.
+// The same bits on every launch.  ops/cuda_nufft.py type1_2d_geometry,
+// type1_3d_geometry and type1_1d_geometry own the geometry (tile, group,
+// P's split S, run, the points a group) and the launch refuses one it has
+// no instance for; the scratch holds groups x B x outputs values.
 //
 // The problem type P provides: X, the point's type in x, and coord(x, c),
-// its coordinate c < kCoords; kRowCoord and kColCoord, the coordinates of
-// A's and E's inner modes; kOuter, whether an index has an outer factor,
+// its coordinate c < kCoords (coord(x, c, S) where kCarry: then each
+// coordinate's phases carry the rounding error of its t = coord h);
+// kRowCoord and kColCoord, the coordinates of A's and E's inner modes;
+// row_base(m, S) and col_base(m, S), the mode of index 0 of each (its
+// outer value's); kOuter, whether an index has an outer factor,
 // and then row_outer(o, m, S) and col_outer(o, m, S), the mode of the outer
 // factor e(u1, .) of outer value o; inner(m), mi; split_ok(m, S), whether
 // S is a split it has; rows(m, S) and cols(m, S), the indices a vector;
@@ -141,6 +155,8 @@ struct T64Tables {
   static constexpr int S1 = T64_ROWS / G / T64_K, S2 = COLS / T64_K;
   static constexpr int NE = P::template max_factors<S1, S2>();
   double u[P::kCoords][T64_P];     // torus coordinates
+  // where P::kCarry, the rounding errors of their t = coord h
+  double te[P::kCarry ? P::kCoords : 1][T64_P];
   double2 v[G][T64_P];             // the group's values
   double2 f[T64_P][NE];            // the factors of a point, in list order
   int2 list[NE];                   // factor t: its coordinate and mode
@@ -187,20 +203,20 @@ struct T64Point {
 
 // An operand's groups of indices first .. first + K ng - 1 of inner
 // coordinate `coord`: each group's coarse factors appended to the list
-// (mode i - o mi - half for its first index i and each outer value o it
+// (mode i - o mi + base for its first index i and each outer value o it
 // spans), their places and the group's boundary in gr; the outer places
 // relative to first / mi
 __device__ __forceinline__ void t64_groups(int2* list, int* ne, T64Group* gr,
                                            int ng, int first, int coord,
-                                           int mi, int half) {
+                                           int mi, int base) {
   for (int a = 0; a < ng; ++a) {
     const int i = first + T64_K * a;
     const int o = i / mi, o1 = (i + T64_K - 1) / mi;
     gr[a].c0 = (short)*ne;
-    list[(*ne)++] = make_int2(coord, i - o * mi - half);
+    list[(*ne)++] = make_int2(coord, i - o * mi + base);
     if (o1 > o) {
       gr[a].c1 = (short)*ne;
-      list[(*ne)++] = make_int2(coord, i - o1 * mi - half);
+      list[(*ne)++] = make_int2(coord, i - o1 * mi + base);
     } else {
       gr[a].c1 = gr[a].c0;
     }
@@ -219,12 +235,14 @@ __device__ void t64_list(T64Tables<P, G, COLS>& tb, int i0, int c0, int m,
                          int split) {
   using Tb = T64Tables<P, G, COLS>;
   constexpr int TJ = T64_ROWS / G;
-  const int mi = P::inner(m), half = (m - 1) / 2;
+  const int mi = P::inner(m);
   int ne = 0;
   for (int t = 0; t < T64_K; ++t) tb.list[ne++] = make_int2(P::kRowCoord, t);
   for (int t = 0; t < T64_K; ++t) tb.list[ne++] = make_int2(P::kColCoord, t);
-  t64_groups(tb.list, &ne, tb.ga, Tb::S1, i0, P::kRowCoord, mi, half);
-  t64_groups(tb.list, &ne, tb.gb, Tb::S2, c0, P::kColCoord, mi, half);
+  t64_groups(tb.list, &ne, tb.ga, Tb::S1, i0, P::kRowCoord, mi,
+             P::row_base(m, split));
+  t64_groups(tb.list, &ne, tb.gb, Tb::S2, c0, P::kColCoord, mi,
+             P::col_base(m, split));
   if constexpr (P::kOuter) {
     const int oa = ne;
     for (int o = i0 / mi; o <= (i0 + TJ - 1) / mi; ++o)
@@ -254,7 +272,7 @@ __device__ __forceinline__ void t64_fill(T64Stage<COLS>& st,
                                          const typename P::X* __restrict__ x,
                                          const double2* __restrict__ v,
                                          double h, int n, int b0, int gn,
-                                         int np0, int np_end) {
+                                         int split, int np0, int np_end) {
   using Tb = T64Tables<P, G, COLS>;
   constexpr int NP = T64_THREADS - T64_CONSUMERS;
   constexpr int TJ = T64_ROWS / G, K = T64_K;
@@ -262,8 +280,13 @@ __device__ __forceinline__ void t64_fill(T64Stage<COLS>& st,
   const int ne = FIXED > 0 ? FIXED : tb.ne;
   if (ptid < T64_P) {
 #pragma unroll
-    for (int c = 0; c < P::kCoords; ++c)
-      tb.u[c][ptid] = torus(P::coord(pt.x, c), h);
+    for (int c = 0; c < P::kCoords; ++c) {
+      if constexpr (P::kCarry)
+        tb.u[c][ptid] = torus_split(P::coord(pt.x, c, split), h,
+                                    &tb.te[c][ptid]);
+      else
+        tb.u[c][ptid] = torus(P::coord(pt.x, c), h);
+    }
 #pragma unroll
     for (int g = 0; g < G; ++g) tb.v[g][ptid] = pt.v[g];
     pt.load(x, v, n, b0, gn, ptid, np0, np_end);
@@ -273,7 +296,10 @@ __device__ __forceinline__ void t64_fill(T64Stage<COLS>& st,
     const int q = e / ne, t = e % ne;
     const int2 d = tb.list[t];
     double c, sn;
-    phase(tb.u[d.x][q], (double)d.y, &c, &sn);
+    if constexpr (P::kCarry)
+      phase_split(tb.u[d.x][q], tb.te[d.x][q], (double)d.y, &c, &sn);
+    else
+      phase(tb.u[d.x][q], (double)d.y, &c, &sn);
     tb.f[q][t] = make_double2(c, -sn);
   }
   asm volatile("bar.sync %0, %1;" ::"n"(TC_BAR_POINTS), "n"(NP) : "memory");
@@ -378,7 +404,7 @@ type1_f64_kernel(const typename P::X* __restrict__ x,
         const int np_end = last ? min(p_end, r_end + run_points) : r_end;
         if (s >= 2) bar_sync(TC_BAR_EMPTY + (s & 1));
         t64_fill<P, G, COLS>(stages[s & 1], tb, ptid, pt, x, v, h, n, b0, gn,
-                             np0, np_end);
+                             split, np0, np_end);
         bar_arrive(TC_BAR_FULL + (s & 1));
       }
     }

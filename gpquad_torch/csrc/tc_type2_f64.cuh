@@ -11,7 +11,11 @@
 //    _pallas_nufft2_2d_tiled (:113, :369) at B 1;
 //  - d=3 (nufft_3d.cu Type2F64Grid3D), one vector or a batch: k the pairs
 //    (j2, j3), j the modes of the first axis.  It replaces, in float64,
-//    pallas_nufft2_3d and _pallas_nufft2_3d_tiled (:662, :1034).
+//    pallas_nufft2_3d and _pallas_nufft2_3d_tiled (:662, :1034);
+//  - d=1 (nufft_1d.cu Type2F64Split1D), one vector or a batch: the mode
+//    split as k = K q + r (K a power of two, the launch's `split`), k the
+//    values q, j the values r.  It replaces, in float64, pallas_nufft2_1d
+//    (:549).
 // gpquad runs their float64 form as its double-word type-2
 // (gpquad/ops/nufft_df.py:304 df_nufft2_real); here float64 is native.
 //
@@ -31,19 +35,25 @@
 // i = 8 s + r, r < 8:
 //   e(u, i - half) = e(u, 8 s - half) e(u, r),
 // each factor from nufft_common.cuh's phase<double> (the torus fold, the
-// compensated u k, sincospi).  The reduction runs in k-steps of 8 indices
-// k; a point makes the 8 factors e(u, r) of each axis once a block and one
-// factor of each k-step (P::chunk_factors):
+// compensated u k, sincospi; where P::kCarry, d=1, phase_split<double>,
+// the rounding error of t = x h carried into every phase).  The reduction
+// runs in k-steps of 8 indices k; a point makes the 8 factors e(u, r) of
+// each axis once a block and one factor of each k-step (P::chunk_factors):
 //  - d=2: e(u2, 8 s - half), k-step s of the modes k;
 //  - d=3: k-step (j2, s) holds the modes j3 = 8 s + r (j3 padded to whole
 //    k-steps: 21 -> 24), its factor e2(j2) e(u3, 8 s - half), where e2(j2)
 //    = e(u2, 8 (j2 / 8) - half) e(u2, j2 % 8) is made once a chunk of
 //    k-steps for each j2 the chunk reaches;
+//  - d=1: the axes are one coordinate twice, u for the modes r and K u
+//    (exact: K is a power of two) for the values q, whose k-step s has the
+//    factor e(K u, qmin + 8 s), so that e(K u, qmin + 8 s) e(K u, r') is
+//    the mode K (qmin + 8 s + r');
 // then A's entry is one complex product, the k-step's factor times
-// e(u_A, r) (u2 at d=2, u3 at d=3).  e1's factors e(u1, 8 s - half) are
-// made once a block up to mtot 47 (past that one a run of up to 8 modes j
-// of a vector in an epilogue pass).  The twins (ops/cuda_nufft.py
-// nufft2_2d_f64_tc_ref, nufft2_3d_f64_tc_ref) form every phase the same
+// e(u_A, r) (u2 at d=2, u3 at d=3, K u at d=1).  e1's factors e(u1, 8 s +
+// base) (base -half, at d=1 0) are made once a block up to 47 columns a
+// vector (past that one a run of up to 8 columns j of a vector in an
+// epilogue pass).  The twins (ops/cuda_nufft.py nufft2_2d_f64_tc_ref,
+// nufft2_3d_f64_tc_ref, nufft2_1d_f64_tc_ref) form every phase the same
 // way.
 //
 // Operands:
@@ -56,8 +66,9 @@
 //    one such chunk (d=2 up to mtot 47) A is made once a block and kept
 //    for every column tile; past that each chunk is made again for every
 //    tile (at d=3 always: 63 k-steps at mtot 21, 8 160 at 255).
-//  - B = F (k x columns (b, j), column b mtot + j: the vectors' columns
-//    follow each other with no padding, the last tile's padded with zeros)
+//  - B = F (k x columns (b, j), column b mc + j, mc = P::epi_cols: mtot,
+//    at d=1 K: the vectors' columns follow each other with no padding, the
+//    last tile's padded with zeros)
 //    is laid out once a call by type2_f64_split_kernel into a scratch in
 //    fragment order, [tile][k-step][n-tile][Re, Im][lane][2], the indices
 //    k padded with zeros to whole k-steps of 8 (mtot 17 pads to 24, not to
@@ -86,7 +97,11 @@
 // Where P::kSplitK (d=3), grid axis y cuts the chunks of k-steps into as
 // many runs of whole chunks (few points: hard3d's 1 000 make 16 blocks),
 // each block's epilogue writes its run's sums to a partial of the output,
-// and launch_reduce adds the partials in split order.
+// and launch_reduce adds the partials in split order.  Where P::kSplitCols
+// (d=1), grid axis y cuts the column tiles into as many runs instead (few
+// points and many vectors: the samplers' 7 points at B 4 000 make one
+// block of points), each block walking its own; a tile holds whole
+// vectors (K divides the tile), so each output still has one owner.
 //
 // The sum, in a fixed order and with no atomics:
 //  - T of a column tile in the DMMA accumulators: k-step after k-step from
@@ -110,14 +125,18 @@
 // F and the partials.
 //
 // The problem type P provides: X, the point's type in x, and coord(x, c),
-// its coordinate c < kCoords (c 0: the epilogue's axis, e1); kRedCoord,
-// the coordinate of A's fine factors e(u, r); kChunk, the k-steps of A
-// made at once; kSplitK, whether the launch takes splits; Extra, shared
-// memory of its own; red_steps(m), the reduction's k-steps; red_ok(ks, r,
-// m), whether index r of k-step ks holds a mode; chunk_factors(sm, ks0,
-// kn, m, tid), the factors of k-steps ks0 .. ks0 + kn - 1 into sm.s2 (the
-// caller's barrier follows); coef_index(b, j, k, m, fft_order), the place
-// in f of F_b[j, k], or -1 (zero).
+// its coordinate c < kCoords (c 0: the epilogue's axis, e1; coord(x, c, S)
+// where kCarry, whose phases carry the rounding error of each t = coord
+// h, kept in Extra's te); kRedCoord, the coordinate of A's fine factors
+// e(u, r); kChunk, the k-steps of A made at once; kSplitK and kSplitCols,
+// what grid axis y splits, if anything; Extra, shared memory of its own;
+// split_ok(m, S), whether S (the launch's split of the mode index, 1 at
+// d=2 and d=3) is one it has; epi_cols(m, S), the columns j a vector;
+// epi_base(m), the mode of column 0; red_steps(m, S), the reduction's
+// k-steps; red_ok(ks, r, m, S), whether index r of k-step ks holds a mode;
+// chunk_factors(sm, ks0, kn, m, S, tid), the factors of k-steps ks0 .. ks0
+// + kn - 1 into sm.s2 (the caller's barrier follows); coef_index(b, j, k,
+// m, S, fo), the place in f of F_b[j, k], or -1 (zero).
 #pragma once
 
 #include "tc_type1_f64.cuh"
@@ -131,7 +150,7 @@ constexpr int T2D_MT = T2D_P / 16;     // its m-tiles
 constexpr int T2D_KST = 2;             // k-steps of F a stage
 constexpr int T2D_EC = 32;             // columns of T an epilogue pass
 constexpr int T2D_EQ = T2D_THREADS / T2D_P;   // epilogue threads a point
-constexpr int T2D_S1 = 6;              // e1's factors e(u1, 8 s - half)
+constexpr int T2D_S1 = 6;              // e1's factors e(u1, 8 s + base)
                                        // kept a point (mtot up to 47)
 
 // The warp grid over a T2D_P x NC tile: WR x WC warps of MI 16-row m-tiles
@@ -165,28 +184,30 @@ struct T2dSmem {
   // rows on distinct 16-byte banks)
   double2 r[P::kCoords][T2D_P][9];
   double2 s2[T2D_P][KCH];                // the chunk's k-step factors
-  double2 s1[T2D_P][T2D_S1];             // e(u1, 8 s - half), mtot <= 47
+  double2 s1[T2D_P][T2D_S1];             // e(u1, 8 s + base), to 47 columns
   typename P::Extra ex;                  // the problem's own
   double u[P::kCoords][T2D_P];           // torus coordinates
 };
 
 // F (B, ...), the caller's mode order -> the fragment-order scratch
 // fs[tile][k-step][n-tile][Re, Im][lane][2] (lane 4 g + t: column g of the
-// n-tile, indices t and t + 4 of the k-step), column c = b m + j; zero
-// past B, where P holds no mode and in the last tile's pad columns.  One
-// thread an entry.
+// n-tile, indices t and t + 4 of the k-step), column c = b mc + j (mc =
+// P::epi_cols); zero past B, where P holds no mode and in the last tile's
+// pad columns.  One thread an entry.
 template <class P, int NC>
 __global__ void type2_f64_split_kernel(const double2* __restrict__ f, int m,
                                        int nb, int fft_order, int nks,
-                                       int ncp, double* __restrict__ fs) {
+                                       int ncp, int split,
+                                       double* __restrict__ fs) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int kq = nks * 8;
   if (idx >= (long long)kq * ncp) return;
   const int k = (int)(idx % kq), c = (int)(idx / kq);
-  const int b = c / m, j = c % m;
+  const int mc = P::epi_cols(m, split);
+  const int b = c / mc, j = c % mc;
   double2 v = make_double2(0.0, 0.0);
   if (b < nb) {
-    const long long i = P::coef_index(b, j, k, m, fft_order);
+    const long long i = P::coef_index(b, j, k, m, split, fft_order);
     if (i >= 0) v = f[i];
   }
   const int ct = c / NC, cc = c % NC;
@@ -215,11 +236,12 @@ __device__ __forceinline__ void t2d_load_f(double2 (*buf)[NC / 8][2][32],
 // thread's fragment quads, zero where P holds no mode
 template <class P, int NC>
 __device__ __forceinline__ void t2d_make_chunk(T2dSmem<P, NC>& sm, int ch,
-                                               int nks, int m, int tid) {
+                                               int nks, int m, int split,
+                                               int tid) {
   constexpr int KCH = P::kChunk;
   const int ks0 = ch * KCH;
   const int kn = min(KCH, nks - ks0);
-  P::chunk_factors(sm, ks0, kn, m, tid);
+  P::chunk_factors(sm, ks0, kn, m, split, tid);
   __syncthreads();
   for (int q = tid; q < kn * T2D_MT * 32; q += T2D_THREADS) {
     const int lane = q & 31, mt = (q >> 5) % T2D_MT, ks = (q >> 5) / T2D_MT;
@@ -228,7 +250,7 @@ __device__ __forceinline__ void t2d_make_chunk(T2dSmem<P, NC>& sm, int ch,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = t + 4 * hh;
-      const bool ok = P::red_ok(ks0 + ks, r, m);
+      const bool ok = P::red_ok(ks0 + ks, r, m, split);
       double2 e[2];
 #pragma unroll
       for (int gg = 0; gg < 2; ++gg) {
@@ -288,11 +310,22 @@ __device__ __forceinline__ void t2d_kstep(
   }
 }
 
+// cos and sin of 2 pi times point p's phase at mode k of coordinate c
+// (the rounding error of its t carried in where P::kCarry)
+template <class P, class S>
+__device__ __forceinline__ void t2d_phase(const S& sm, int c, int p, double k,
+                                          double* cs, double* sn) {
+  if constexpr (P::kCarry)
+    phase_split(sm.u[c][p], sm.ex.te[c][p], k, cs, sn);
+  else
+    phase(sm.u[c][p], k, cs, sn);
+}
+
 template <class P, int NC>
 __global__ void __launch_bounds__(T2D_THREADS, 2)
 type2_f64_kernel(const typename P::X* __restrict__ x,
                  const double2* __restrict__ fs, double h, int n, int m,
-                 int nb, int nks, double2* __restrict__ out) {
+                 int nb, int nks, int split, double2* __restrict__ out) {
   using Tile = T2dTile<NC>;
   using Smem = T2dSmem<P, NC>;
   constexpr int MI = Tile::MI, NI = Tile::NI, KCH = P::kChunk;
@@ -301,18 +334,24 @@ type2_f64_kernel(const typename P::X* __restrict__ x,
   Smem& sm = *reinterpret_cast<Smem*>(t2d_smem);
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * T2D_P;
-  const int half = (m - 1) / 2;
-  const int nj = (m + 7) / 8;   // e1's factors e(u1, 8 s - half)
+  const int base = P::epi_base(m);        // the mode of column j = 0
+  const int mc = P::epi_cols(m, split);   // columns j a vector
+  const int nj = (mc + 7) / 8;   // e1's factors e(u1, 8 s + base)
 
   // the points' torus coordinates, then the factors e(u, r) of every axis
-  // and, where the modes j take at most T2D_S1 k-steps, e1's factors
-  // e(u1, 8 s - half)
+  // and, where the columns j take at most T2D_S1 k-steps, e1's factors
+  // e(u1, 8 s + base)
   if (tid < T2D_P) {
     const typename P::X xp =
         p0 + tid < n ? x[p0 + tid] : typename P::X{};
 #pragma unroll
-    for (int c = 0; c < P::kCoords; ++c)
-      sm.u[c][tid] = torus(P::coord(xp, c), h);
+    for (int c = 0; c < P::kCoords; ++c) {
+      if constexpr (P::kCarry)
+        sm.u[c][tid] = torus_split(P::coord(xp, c, split), h,
+                                   &sm.ex.te[c][tid]);
+      else
+        sm.u[c][tid] = torus(P::coord(xp, c), h);
+    }
   }
   __syncthreads();
   const bool s1_kept = nj <= T2D_S1;
@@ -320,10 +359,10 @@ type2_f64_kernel(const typename P::X* __restrict__ x,
     const int p = e / (NR + T2D_S1), q = e % (NR + T2D_S1);
     double c, sn;
     if (q < NR) {
-      phase(sm.u[q >> 3][p], (double)(q & 7), &c, &sn);
+      t2d_phase<P>(sm, q >> 3, p, (double)(q & 7), &c, &sn);
       sm.r[q >> 3][p][q & 7] = make_double2(c, sn);
     } else if (s1_kept && q - NR < nj) {
-      phase(sm.u[0][p], (double)(8 * (q - NR) - half), &c, &sn);
+      t2d_phase<P>(sm, 0, p, (double)(8 * (q - NR) + base), &c, &sn);
       sm.s1[p][q - NR] = make_double2(c, sn);
     }
   }
@@ -344,13 +383,21 @@ type2_f64_kernel(const typename P::X* __restrict__ x,
   }
   const int nchunks = (ke - kb + KCH - 1) / KCH;
   const int nst = (ke - kb + T2D_KST - 1) / T2D_KST;
-  const int ncols = nb * m;
-  const int ntiles = (ncols + NC - 1) / NC;
+  const int ncols = nb * mc;
+  // the block's column tiles ct0 .. ct1 - 1: all, or where P::kSplitCols
+  // the run of grid row y
+  int ct0 = 0, ct1 = (ncols + NC - 1) / NC;
+  if constexpr (P::kSplitCols) {
+    static_assert(!P::kSplitK, "one split of grid axis y");
+    const int per = (ct1 + gridDim.y - 1) / gridDim.y;
+    ct0 = blockIdx.y * per;
+    ct1 = min(ct1, ct0 + per);
+  }
   // the epilogue's point and residue of vectors, and its open vector's sum
   const int ep = tid % T2D_P, eq = tid / T2D_P;
   double2 carry = make_double2(0.0, 0.0);
 
-  for (int ct = 0; ct < ntiles; ++ct) {
+  for (int ct = ct0; ct < ct1; ++ct) {
     double acc[MI][NI][8];   // T: [m-tile][n-tile][re 4, im 4]
 #pragma unroll
     for (int a = 0; a < MI; ++a)
@@ -363,8 +410,8 @@ type2_f64_kernel(const typename P::X* __restrict__ x,
       const int ks0 = kb + st * T2D_KST;
       // a new chunk of A (the last stage's products are done: the
       // barrier that ended it)
-      if ((ks0 - kb) % KCH == 0 && (nchunks > 1 || ct == 0))
-        t2d_make_chunk<P, NC>(sm, ks0 / KCH, nks, m, tid);
+      if ((ks0 - kb) % KCH == 0 && (nchunks > 1 || ct == ct0))
+        t2d_make_chunk<P, NC>(sm, ks0 / KCH, nks, m, split, tid);
       if (st + 1 < nst) {
         t2d_load_f<NC>(sm.fb[(st + 1) & 1], fs, nks, ct, ks0 + T2D_KST,
                        min(T2D_KST, ke - ks0 - T2D_KST), tid);
@@ -405,22 +452,22 @@ type2_f64_kernel(const typename P::X* __restrict__ x,
       }
       __syncthreads();
       const int e0 = ct * NC + hf * T2D_EC;
-      const int b_first = e0 / m;
-      const int b_end = min(nb, (e0 + T2D_EC + m - 1) / m);
+      const int b_first = e0 / mc;
+      const int b_end = min(nb, (e0 + T2D_EC + mc - 1) / mc);
       if (p0 + ep < n) {
         for (int b = b_first + (eq - b_first % T2D_EQ + T2D_EQ) % T2D_EQ;
              b < b_end; b += T2D_EQ) {
-          const int ja = max(0, e0 - b * m);
-          const int jb = min(m, e0 + T2D_EC - b * m);
+          const int ja = max(0, e0 - b * mc);
+          const int jb = min(mc, e0 + T2D_EC - b * mc);
           double sr = 0.0, si = 0.0;
-          // the modes j a factor e(u1, 8 s - half) at a time
+          // the columns j a factor e(u1, 8 s + base) at a time
           for (int j0 = ja & ~7; j0 < jb; j0 += 8) {
             double2 sf;
             if (s1_kept) {
               sf = sm.s1[ep][j0 >> 3];
             } else {
               double c, sn;
-              phase(sm.u[0][ep], (double)(j0 - half), &c, &sn);
+              t2d_phase<P>(sm, 0, ep, (double)(j0 + base), &c, &sn);
               sf = make_double2(c, sn);
             }
             const int lo = ja - j0, hi = jb - j0;
@@ -428,7 +475,7 @@ type2_f64_kernel(const typename P::X* __restrict__ x,
             for (int r = 0; r < 8; ++r) {
               if (r >= lo && r < hi) {
                 const double2 e1 = cmul(sf, sm.r[0][ep][r]);
-                const double2 tv = sm.t[ep][b * m + j0 + r - e0];
+                const double2 tv = sm.t[ep][b * mc + j0 + r - e0];
                 sr = fma(-e1.y, tv.y, fma(e1.x, tv.x, sr));
                 si = fma(e1.y, tv.x, fma(e1.x, tv.y, si));
               }
@@ -438,7 +485,7 @@ type2_f64_kernel(const typename P::X* __restrict__ x,
             sr = __dadd_rn(carry.x, sr);
             si = __dadd_rn(carry.y, si);
           }
-          if (jb == m)
+          if (jb == mc)
             out[(size_t)b * n + p0 + ep] = make_double2(sr, si);
           else
             carry = make_double2(sr, si);
@@ -451,20 +498,24 @@ type2_f64_kernel(const typename P::X* __restrict__ x,
 
 template <class P, int NC>
 int launch_type2_f64_cols(const void* x, const void* f, double h, int n,
-                          int m, int nb, int fft_order, int splits,
-                          void* scratch, long long scratch_doubles,
-                          void* out, cudaStream_t s) {
-  const int nks = P::red_steps(m);
-  const long long ncp = ((long long)nb * m + NC - 1) / NC * NC;
+                          int m, int nb, int fft_order, int split,
+                          int splits, void* scratch,
+                          long long scratch_doubles, void* out,
+                          cudaStream_t s) {
+  const int nks = P::red_steps(m, split);
+  const long long ncp =
+      ((long long)nb * P::epi_cols(m, split) + NC - 1) / NC * NC;
   const long long fsz = ncp * nks * 8 * 2;
-  const long long psz = splits > 1 ? 2LL * splits * nb * n : 0;
+  // the k-splits' partials (P::kSplitK); column splits write the output
+  const long long psz =
+      splits > 1 && P::kSplitK ? 2LL * splits * nb * n : 0;
   if (fsz + psz > scratch_doubles || (long long)nb * n >= (1LL << 31) ||
       ncp >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const long long cells = ncp * nks * 8;
   type2_f64_split_kernel<P, NC>
       <<<(unsigned)((cells + 255) / 256), 256, 0, s>>>(
-          (const double2*)f, m, nb, fft_order, nks, (int)ncp,
+          (const double2*)f, m, nb, fft_order, nks, (int)ncp, split,
           (double*)scratch);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -479,42 +530,50 @@ int launch_type2_f64_cols(const void* x, const void* f, double h, int n,
         type2_f64_kernel<P, NC>, cudaFuncAttributePreferredSharedMemoryCarveout,
         (int)cudaSharedmemCarveoutMaxShared);
   if (err != 0) return err;
-  double2* dst = splits > 1 ? (double2*)((double*)scratch + fsz)
-                            : (double2*)out;
+  double2* dst = psz > 0 ? (double2*)((double*)scratch + fsz)
+                          : (double2*)out;
   const dim3 grid((n + T2D_P - 1) / T2D_P, splits);
   type2_f64_kernel<P, NC><<<grid, T2D_THREADS, smem, s>>>(
       (const typename P::X*)x, (const double2*)scratch, h, n, m, nb, nks,
-      dst);
+      split, dst);
   err = (int)cudaGetLastError();
-  if (err != 0 || splits == 1) return err;
+  if (err != 0 || psz == 0) return err;
   return launch_reduce<double>(dst, splits, nb * n, out, s);
 }
 
 // The caller's geometry (points a block, columns a tile, indices k a
-// stage, splits of the chunks of k-steps: one unless P::kSplitK, none
-// empty) checked against the instances there are, and the scratch
+// stage, the split S of the mode index (1 but at d=1), splits of the
+// chunks of k-steps (P::kSplitK) or of the column tiles (P::kSplitCols,
+// whose tiles hold whole vectors), one where P has neither, none empty)
+// checked against the instances there are, and the scratch
 // (scratch_doubles doubles) against what it must hold: the split F, then,
-// for two splits or more, their partials (splits x nb x n values); then
+// for two k-splits or more, their partials (splits x nb x n values); then
 // the split, the kernel and the partials' sum in split order
 template <class P>
 int launch_type2_f64(const void* x, const void* f, double h, int n, int m,
                      int nb, int fft_order, int points, int cols, int stage,
-                     int splits, void* scratch, long long scratch_doubles,
-                     void* out, void* stream) {
+                     int split, int splits, void* scratch,
+                     long long scratch_doubles, void* out, void* stream) {
   if (points != T2D_P || stage != T2D_KST * 8 || splits < 1 ||
-      (splits > 1 && !P::kSplitK))
+      (splits > 1 && !P::kSplitK && !P::kSplitCols) ||
+      !P::split_ok(m, split) || (cols != 32 && cols != 64) ||
+      (P::kSplitCols && cols % P::epi_cols(m, split) != 0))
     return (int)cudaErrorInvalidValue;
-  const int nch = (P::red_steps(m) + P::kChunk - 1) / P::kChunk;
-  const int per = (nch + splits - 1) / splits;   // chunks a split
-  if ((nch + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
+  // what a split cuts: column tiles, or chunks of k-steps
+  const int units =
+      P::kSplitCols
+          ? (int)(((long long)nb * P::epi_cols(m, split) + cols - 1) / cols)
+          : (P::red_steps(m, split) + P::kChunk - 1) / P::kChunk;
+  const int per = (units + splits - 1) / splits;   // units a split
+  if ((units + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (cols == 32)
-    return launch_type2_f64_cols<P, 32>(x, f, h, n, m, nb, fft_order, splits,
-                                        scratch, scratch_doubles, out, s);
-  if (cols == 64)
-    return launch_type2_f64_cols<P, 64>(x, f, h, n, m, nb, fft_order, splits,
-                                        scratch, scratch_doubles, out, s);
-  return (int)cudaErrorInvalidValue;
+    return launch_type2_f64_cols<P, 32>(x, f, h, n, m, nb, fft_order, split,
+                                        splits, scratch, scratch_doubles,
+                                        out, s);
+  return launch_type2_f64_cols<P, 64>(x, f, h, n, m, nb, fft_order, split,
+                                      splits, scratch, scratch_doubles, out,
+                                      s);
 }
 
 }  // namespace

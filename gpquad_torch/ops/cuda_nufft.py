@@ -13,7 +13,12 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   split of the mode index, k = K q + r: the type-1 on the d=2 type-1's
   kernel (:func:`type1_1d_geometry`; :func:`nufft1_1d_3xtf32_ref` is its
   plain twin), the type-2, where :func:`type2_1d_geometry` sends it, on
-  the d=2 type-2's (:func:`nufft2_1d_3xtf32_ref`).
+  the d=2 type-2's (:func:`nufft2_1d_3xtf32_ref`).  In float64 both run on
+  the FP64 tensor cores on the same kind of split, the d=2/d=3 float64
+  kernels on grid policies of their own (:func:`type1_1d_geometry` and
+  :func:`type2_1d_geometry` at float64; :func:`nufft1_1d_f64_tc_ref` and
+  :func:`nufft2_1d_f64_tc_ref` their twins), but for the samplers' few
+  points at small mtot, which the geometries keep on the CUDA cores.
 - :func:`nufft2_2d` replaces ``pallas_nufft2_2d`` (pallas_nufft.py:113) and
   its mode-tiled twin ``_pallas_nufft2_2d_tiled`` (:369), any odd ``mtot``,
   on one of three paths that :func:`type2_2d_single_geometry` picks from
@@ -69,7 +74,7 @@ All are bound by operations on an H100 (complex multiply-adds, ~8 mtot^d
 flops per point and vector, and at d=1 the phases themselves): fp32 outside
 the tensor cores, but for the float32 paths on the tensor cores (the type-1
 and the type-2 at d=1-3), which take three TF32
-products per real product, and for the float64 d=2 and d=3 pairs on
+products per real product, and for the float64 pairs at d=1-3 on
 the FP64 tensor cores; the sources say how the designs stage the work.
 The wrappers take a tensor on the CPU to the plain
 version (``*_ref``, the phase-matrix backend of ``ops/nufft.py``); on a
@@ -86,6 +91,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import math
 import os
@@ -108,6 +114,9 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft1_1d_3xtf32_ref", "type1_1d_geometry", "type1_1d_split",
            "nufft2_1d_3xtf32_ref", "type2_1d_geometry",
            "type2_1d_tc_geometry", "type2_1d_scratch_floats",
+           "nufft1_1d_f64_tc_ref", "nufft2_1d_f64_tc_ref",
+           "type1_1d_f64_split", "type2_1d_f64_scratch_doubles",
+           "type1_1d_f64_tc_geometry", "type2_1d_f64_tc_geometry",
            "nufft1_3d",
            "nufft2_3d", "nufft1_3d_ref", "nufft2_3d_ref", "type1_2d_chunk",
            "type1_2d_geometry", "type2_2d_geometry",
@@ -238,6 +247,40 @@ TYPE2_1D_KSTEP = 8
 # CUDA cores below either
 TYPE2_1D_TC_MIN_MTOT = 512
 TYPE2_1D_TC_MIN_WORK = {False: 2 ** 20, True: 2 ** 23}
+# The float64 d=1 pair on the FP64 tensor cores, each geometry owned here
+# and checked by its launch.  The type-1 (csrc/tc_type1_f64.cuh
+# type1_f64_kernel on nufft_1d.cu's Type1F64Split1D; type1_1d_geometry at
+# float64): the float64 d=2 type-1's tiles, batch group and runs, and the
+# float64 d=3 type-1's rule for the point groups, on the split k = S q + r,
+# S the power of two up to this that pads the tiles least.  Its dispatch,
+# from the times of both kernels on the same inputs (scripts/
+# time_nufft_1d_f64.py at the driven shapes on NVIDIA H100 80GB HBM3,
+# 700 W): the CUDA cores where the points make one run (TYPE1_2D_F64_RUN)
+# and the output tiles more blocks than the card's CARD_SMS SMs, each
+# block then making a tile's factor list and its phases for a few points
+# (the samplers' 120 points at B 4 000: 2 000 blocks, 0.1903 ms against
+# the CUDA cores' 0.0616; at B 1 0.0140 against 0.0233); else the FP64
+# tensor cores (1.7-9.4x the CUDA cores' speed at the other shapes)
+TYPE1_1D_F64_MAX_SPLIT = 1024
+# The type-2 (csrc/tc_type2_f64.cuh type2_f64_kernel on Type2F64Split1D;
+# type2_1d_geometry at float64): the float64 d=2 type-2's blocks, stage and
+# column tiles on the split k = K q + r, K the least power of two up to
+# this whose values q fit one chunk of A (this many k-steps of 8, the
+# source's kChunk: A made once a block), the column tiles split over grid
+# axis y into as many runs as bring the blocks to a wave of
+# TYPE2_3D_F64_BLOCKS_PER_SM on each of the card's CARD_SMS SMs (the
+# samplers' few points at B in the thousands)
+# (both the source's Type2F64Split1D kMaxSplit and kChunk)
+TYPE2_1D_F64_MAX_K = 32
+TYPE2_1D_F64_CHUNK = 6
+# Its dispatch, from the times of both kernels on the same inputs (as the
+# type-1's): the CUDA cores where K is 1 (mtot up to 47: the split makes no
+# fewer phases than the modes) and the point-vectors n B are fewer than
+# this (the samplers' 7 and 120 points at B 1 and 4 000: 0.0031-0.0152 ms
+# against the tensor cores' 0.0104-0.0198; 25 points at B 30 000, 750 000
+# point-vectors, 0.0756 against 0.0356); else the FP64 tensor cores
+# (2.1-9.4x the CUDA cores' speed at the light curve's shapes)
+TYPE2_1D_F64_CUDA_MAX_WORK = 2 ** 19
 # The float32 batched type-2's dispatch by mtot, from chip_smoke.py phase
 # 3's times of both kernels on the same inputs: the tensor cores from this
 # mtot on, the CUDA cores below it
@@ -407,19 +450,21 @@ def _library():
             o1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, i32, ptr, ptr,
                            ptr]
             o1.restype = i32
-            if prec == "f32":
-                # the tensor-core forms: the type-2's geometry (points, K,
-                # cols, stage) and the split f's scratch and size before
-                # the output; the type-1's (rows, cols, group, stage, run,
-                # chunk) before the scratch
-                o2t = lib.gpq_nufft2_1d_tc_f32
-                o2t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 4,
-                                ptr, ctypes.c_longlong, ptr, ptr]
-                o2t.restype = i32
-                o1t = lib.gpq_nufft1_1d_tc_f32
-                o1t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 6,
-                                ptr, ptr, ptr]
-                o1t.restype = i32
+            # the tensor-core forms (float64: the FP64 tensor cores): the
+            # type-2's geometry (points, K, cols, stage, and in float64 the
+            # column tiles' splits) and the split f's scratch and size
+            # before the output; the type-1's (rows, cols, group, the
+            # float32 stage or the float64 split S, run, chunk) before the
+            # scratch
+            o2t = getattr(lib, f"gpq_nufft2_1d_tc_{prec}")
+            o2t.argtypes = [ptr, ptr, real, i32, i32, i32, i32,
+                            *[i32] * (4 if prec == "f32" else 5), ptr,
+                            ctypes.c_longlong, ptr, ptr]
+            o2t.restype = i32
+            o1t = getattr(lib, f"gpq_nufft1_1d_tc_{prec}")
+            o1t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 6,
+                            ptr, ptr, ptr]
+            o1t.restype = i32
             t2 = getattr(lib, f"gpq_nufft2_2d_{prec}")
             t2.argtypes = [ptr, ptr, real, i32, i32, i32, ptr, ptr]
             t2.restype = i32
@@ -1319,6 +1364,149 @@ def nufft2_1d_3xtf32_ref(x, f, h, *, mtot: int, fft_order: bool = False,
     return out[0] if single else out
 
 
+def _two_prod_err(a, b):
+    """The rounding error of the float64 product ``a * b`` (tensors or
+    floats, broadcast), exactly (Dekker: each factor split into halves of
+    26 bits with 2^27 + 1, whose products are exact), as ``fma(a, b, -a *
+    b)`` gives it on the card."""
+    def halves(t):
+        big = t * 134217729.0
+        hi = big - (big - t)
+        return hi, t - hi
+    (ah, al), (bh, bl) = halves(a), halves(b)
+    return ((ah * bh - a * b) + ah * bl + al * bh) + al * bl
+
+
+def _phase_split_f64(x, h, scale: int, modes):
+    """e^{-2 pi i t k} for t = (scale x) h as the float64 d=1 kernels make
+    each phase (csrc/nufft_common.cuh ``torus_split`` and ``phase_split``):
+    t rounded to float64 and its rounding error te carried into the
+    compensated cycles u k + te k (u = t - round(t)), reduced to |cycles|
+    <= 1/2.  ``scale`` is a power of two, so that scale x is exact.  ``x``
+    (N,) float64, ``modes`` (M,) integers; returns complex128 (N, M)."""
+    xs = x * float(scale)
+    h = float(h)
+    t = xs * h
+    te = _two_prod_err(xs, h)
+    u = t - torch.round(t)
+    k = modes.to(torch.float64)[None, :]
+    p_ = u[:, None] * k
+    err = _two_prod_err(u[:, None], k) + te[:, None] * k
+    cyc = p_ - torch.round(p_)
+    cyc = cyc + err
+    cyc = cyc - torch.round(cyc)
+    ang = (-2.0 * math.pi) * cyc
+    return torch.complex(torch.cos(ang), torch.sin(ang))
+
+
+def nufft1_1d_f64_tc_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
+                         chunk: int | None = None, split: int | None = None):
+    """Plain twin of the float64 d=1 type-1 kernel on the FP64 tensor cores
+    (csrc/tc_type1_f64.cuh ``type1_f64_kernel`` on nufft_1d.cu's
+    ``Type1F64Split1D``): ``out[b, k] = sum_n v[b,n] e^{-2 pi i k t_n}``
+    with the kernel's operands and sums.  The mode is split as k = S q + r
+    (:func:`type1_1d_f64_split`, S by default the geometry's); row r of A
+    holds v e(t, 8 (r // 8)) e(t, r % 8), column q (index qi = q - qmin) of
+    E e(S t, 8 (qi // 8) + qmin) e(S t, qi % 8) (:data:`TYPE1_2D_F64_K` =
+    8), every phase with the rounding of t carried in
+    (:func:`_phase_split_f64`); then :func:`_type1_f64_sums` (runs of
+    :data:`TYPE1_2D_F64_RUN` points, groups of ``chunk`` points, by default
+    :func:`type1_1d_f64_tc_geometry`'s), the k past half cropped, and
+    FFT order where asked.
+
+    ``x`` (N, 1); ``vals`` (N,) or (B, N); returns complex128 (mtot,) or
+    (B, mtot).  The tests run it on the CPU; chip_smoke.py on the card."""
+    x = x.reshape(-1).to(torch.float64)
+    n = x.shape[0]
+    single = vals.ndim == 1
+    V = vals.reshape(-1, n).to(torch.complex128)
+    B = V.shape[0]
+    geo = type1_1d_f64_tc_geometry(n, mtot, B)
+    S = split or geo[4]
+    qmin, Q = type1_1d_split(mtot, S)
+    K, dev = TYPE1_2D_F64_K, x.device
+    i = torch.arange(S, device=dev)
+    c = torch.arange(Q, device=dev)
+    fine = torch.arange(K, device=dev)
+    coarse_r = _phase_split_f64(x, h, 1, K * torch.arange(-(-S // K),
+                                                          device=dev))
+    A = ((V[:, :, None] * coarse_r[None][:, :, i // K])
+         * _phase_split_f64(x, h, 1, fine)[None][:, :, i % K])  # (B, N, S)
+    coarse_c = _phase_split_f64(
+        x, h, S, K * torch.arange(-(-Q // K), device=dev) + qmin)
+    E = coarse_c[:, c // K] * _phase_split_f64(x, h, S, fine)[:, c % K]
+    sums = _type1_f64_sums(A, E, chunk=chunk or geo[-1], run=geo[5])
+    k = S * (qmin + c)[None, :] + i[:, None]                 # (S, Q)
+    half = (mtot - 1) // 2
+    keep = k.abs() <= half
+    idx = torch.where(k >= 0, k, k + mtot) if fft_order else k + half
+    out = torch.zeros((B, mtot), dtype=torch.complex128, device=dev)
+    out[:, idx[keep]] = sums[:, keep]
+    return out[0] if single else out
+
+
+def nufft2_1d_f64_tc_ref(x, f, h, *, mtot: int, fft_order: bool = False,
+                         geometry: tuple | None = None,
+                         chunk: int = TYPE2_2D_F64_EPILOGUE):
+    """Plain twin of the float64 d=1 type-2 kernel on the FP64 tensor cores
+    (csrc/tc_type2_f64.cuh ``type2_f64_kernel`` on nufft_1d.cu's
+    ``Type2F64Split1D``), with the kernel's operands and sums: the mode
+    split as k = K q + r (K of ``geometry``, by default
+    :func:`type2_1d_f64_tc_geometry`'s; :func:`type1_1d_split`); A's
+    entry at index qi = q - qmin (padded with zeros to whole k-steps of 8)
+    e(K t, qmin + 8 (qi // 8)) e(K t, qi % 8), e1's at r e(t, 8 (r // 8))
+    e(t, r % 8), all e^{+2 pi i} with the rounding of t carried in
+    (:func:`_phase_split_f64`); ``T[p, (b, r)] = sum_qi A[p, qi]
+    f_b[K q + r]`` over the k-steps from zero, each adding C Fr then S
+    (-Fi) into the real part and C Fi then S Fr into the imaginary part (a
+    float64 matmul of the 8 indices where the tensor cores keep their own
+    order); then ``out[b, p] = sum_r e1(p, r) T[p, (b, r)]`` as the
+    epilogue sums it (:func:`_type2_f64_epilogue`, passes of ``chunk``
+    columns).
+
+    ``x`` (N, 1); ``f`` (mtot,) or (B, mtot); returns complex128 (N,) or
+    (B, N).  The tests run it on the CPU; chip_smoke.py on the card."""
+    x = x.reshape(-1).to(torch.float64)
+    n = x.shape[0]
+    single = f.ndim == 1
+    F = f.reshape(-1, mtot).to(torch.complex128)
+    B, dev = F.shape[0], x.device
+    geo = geometry or type2_1d_f64_tc_geometry(n, mtot, B)
+    K, k8 = geo[2], TYPE2_2D_F64_K
+    qmin, Q = type1_1d_split(mtot, K)
+    steps = -(-Q // k8)
+    q = torch.arange(steps * k8, device=dev)
+    r = torch.arange(K, device=dev)
+    fine = torch.arange(k8, device=dev)
+    zero = torch.zeros((), dtype=torch.complex128, device=dev)
+    A = (_phase_split_f64(x, h, K, qmin + k8 * torch.arange(steps,
+                                                            device=dev))
+         [:, q // k8] * _phase_split_f64(x, h, K, fine)[:, q % k8]).conj()
+    A = torch.where(q < Q, A, zero)                      # (N, steps 8)
+    e1 = (_phase_split_f64(x, h, 1, k8 * torch.arange(-(-K // k8),
+                                                      device=dev))[:, r // k8]
+          * _phase_split_f64(x, h, 1, fine)[:, r % k8]).conj()   # (N, K)
+    kk = K * (qmin + q)[:, None] + r[None, :]            # (steps 8, K)
+    half = (mtot - 1) // 2
+    keep = (kk.abs() <= half) & (q < Q)[:, None]
+    idx = torch.where(kk >= 0, kk, kk + mtot) if fft_order else kk + half
+    Fq = torch.where(keep, F[:, idx.clamp(0, mtot - 1)], zero)  # (B, ., K)
+    Fk = Fq.permute(1, 0, 2).reshape(steps, k8, B * K)
+    C, S = (t.reshape(n, steps, k8).transpose(0, 1)
+            for t in (A.real, A.imag))
+    Fr, Fi = Fk.real, Fk.imag
+    t_re = x.new_zeros((n, B * K))
+    t_im = x.new_zeros((n, B * K))
+    for s_ in range(steps):
+        t_re = t_re + C[s_] @ Fr[s_]
+        t_re = t_re + S[s_] @ (-Fi[s_])
+        t_im = t_im + C[s_] @ Fi[s_]
+        t_im = t_im + S[s_] @ Fr[s_]
+    out = _type2_f64_epilogue(
+        e1[:, None, :] * torch.complex(t_re, t_im).reshape(n, B, K), chunk)
+    return out[0] if single else out
+
+
 def nufft2_2d_split_ref(x, f, h, *, mtot: int, fft_order: bool = False,
                         rows: int | None = None):
     """Plain twin of the single type-2's mode split (csrc/nufft_2d.cu
@@ -1374,10 +1562,11 @@ def nufft2_1d(x, f, h, *, mtot: int, fft_order: bool = False):
     ``x`` (N, 1) real; ``f`` complex (mtot,) for one vector or (B, mtot)
     for a batch of B >= 1; any odd mtot.  Returns complex (N,) or (B, N)
     from one launch.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel :func:`type2_1d_geometry` picks in float32 (the
-    tensor cores on a split of the mode index, with a scratch of
-    :func:`type2_1d_scratch_floats` floats, or the CUDA cores), the
-    CUDA-core kernel in float64."""
+    launches the kernel :func:`type2_1d_geometry` picks: in float32 the
+    tensor cores on a split of the mode index (a scratch of
+    :func:`type2_1d_scratch_floats` floats) or the CUDA cores, in float64
+    the FP64 tensor cores on a split of the mode index (a scratch of
+    :func:`type2_1d_f64_scratch_doubles` doubles) or the CUDA cores."""
     _check(x, mtot, 1)
     if f.ndim not in (1, 2) or f.shape[-1] != mtot:
         raise ValueError(f"f must be ({mtot},) or (B, {mtot}), "
@@ -1387,19 +1576,23 @@ def nufft2_1d(x, f, h, *, mtot: int, fft_order: bool = False):
     _check_batch(B, mtot, 1)
     if x.device.type == "cpu":
         return nufft2_1d_ref(x, f, h, mtot=mtot, fft_order=fft_order)
-    geo = (type2_1d_geometry(x.shape[0], mtot, B)
-           if x.dtype == torch.float32 else ("cuda",))
+    geo = type2_1d_geometry(x.shape[0], mtot, B, x.dtype)
     out = _nufft2_1d_on(x, f.reshape(B, mtot), h, mtot, fft_order, geo)
     return out[0] if single else out
 
 
-def type2_1d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
-    """The float32 d=1 type-2's path and launch geometry: ``("tc", points,
-    K, cols, stage)``, the tensor-core kernel's arguments before its
-    scratch, or ``("cuda",)``, the CUDA-core kernel, whose block is fixed
-    in its source.
+def type2_1d_geometry(n: int, mtot: int, B: int = 1,
+                      dtype: torch.dtype = torch.float32) -> tuple:
+    """The d=1 type-2's path and launch geometry in ``dtype``: ``("tc",
+    points, K, cols, stage)`` in float32 and ``("tc", points, K, cols,
+    stage, splits)`` in float64, a tensor-core kernel's arguments before
+    its scratch, or ``("cuda",)``, the CUDA-core kernel, whose block is
+    fixed in its source.
 
-    The tensor-core kernel splits each mode as k = K q + r
+    In float64 the FP64 tensor cores (:func:`type2_1d_f64_tc_geometry`),
+    but for the CUDA cores where that geometry's K is 1 and the call has
+    fewer than :data:`TYPE2_1D_F64_CUDA_MAX_WORK` point-vectors n B.
+    In float32 the tensor-core kernel splits each mode as k = K q + r
     (:func:`type1_1d_split`, K = :data:`TYPE2_1D_K`): a GEMM over the q
     (padded to whole k-steps of 8) in blocks of ``points`` points, walking
     column tiles of ``cols`` columns (vector, r): :data:`TYPE2_1D_NARROW_COLS`
@@ -1410,10 +1603,58 @@ def type2_1d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
     :data:`TYPE2_1D_TC_MIN_WORK` n mtot on (2^20 for one vector, 2^23 for a
     batch), where the K + Q phases a point are far fewer than mtot and the
     blocks enough to pay for the split's second launch."""
+    if dtype == torch.float64:
+        geo = type2_1d_f64_tc_geometry(n, mtot, B)
+        if geo[2] == 1 and n * B < TYPE2_1D_F64_CUDA_MAX_WORK:
+            return ("cuda",)
+        return geo
     if (mtot < TYPE2_1D_TC_MIN_MTOT
             or n * mtot < TYPE2_1D_TC_MIN_WORK[B > 1]):
         return ("cuda",)
     return type2_1d_tc_geometry(B)
+
+
+def type2_1d_f64_tc_geometry(n: int, mtot: int, B: int = 1) -> tuple:
+    """The FP64 tensor-core d=1 type-2's geometry (:func:`type2_1d_geometry`
+    at float64 where it picks them): ``("tc", points, K, cols, stage,
+    splits)`` for csrc/tc_type2_f64.cuh on nufft_1d.cu's
+    ``Type2F64Split1D``.  The mode split k = K q + r takes the least power
+    of two K up to :data:`TYPE2_1D_F64_MAX_K` whose Q values of q
+    (:func:`type1_1d_split`) fit :data:`TYPE2_1D_F64_CHUNK` k-steps of 8
+    (one vector's K columns r, the GEMM over q: 32 at mtot 919, 1 at the
+    samplers' 15 and 17, where the columns are the vectors); blocks of
+    :data:`TYPE2_2D_F64_POINTS` points, the float64 d=2 type-2's stage and
+    its rule for the column tiles (:func:`type2_2d_geometry` on the B K
+    columns); ``splits`` runs of the column tiles over grid axis y, as many
+    as bring the blocks to :data:`TYPE2_3D_F64_BLOCKS_PER_SM` a card's
+    :data:`CARD_SMS` SMs (one where the points' blocks reach that), made
+    canonical: none empty."""
+    K = 1
+    while (K < TYPE2_1D_F64_MAX_K and type1_1d_split(mtot, K)[1]
+           > TYPE2_2D_F64_K * TYPE2_1D_F64_CHUNK):
+        K *= 2
+    wide, narrow = (_round_up(B * K, c) for c in (
+        TYPE2_2D_F64_COLS, TYPE2_2D_F64_NARROW_COLS))
+    cols = (TYPE2_2D_F64_NARROW_COLS
+            if wide >= TYPE2_2D_F64_NARROW_PADDING * narrow
+            else TYPE2_2D_F64_COLS)
+    tiles = -(-B * K // cols)
+    blocks = -(-n // TYPE2_2D_F64_POINTS)
+    slots = TYPE2_3D_F64_BLOCKS_PER_SM * CARD_SMS
+    splits = 1 if blocks >= slots else min(tiles, -(-slots // blocks))
+    per = -(-tiles // splits)
+    return ("tc", TYPE2_2D_F64_POINTS, K, cols, TYPE2_2D_F64_STAGE,
+            -(-tiles // per))
+
+
+def type2_1d_f64_scratch_doubles(mtot: int, B: int, geometry: tuple) -> int:
+    """Doubles of the FP64 tensor-core d=1 type-2's F in fragment order:
+    the real and imaginary part of each (value q, column) cell, the Q
+    values of q padded to whole k-steps of 8, the B K columns (vector, r)
+    to whole tiles."""
+    _, _, K, cols, _, _ = geometry
+    kq = _round_up(type1_1d_split(mtot, K)[1], TYPE2_2D_F64_K)
+    return 2 * kq * _round_up(B * K, cols)
 
 
 def type2_1d_tc_geometry(B: int) -> tuple:
@@ -1438,14 +1679,23 @@ def _round_up(a: int, b: int) -> int:
 
 def _nufft2_1d_on(x, f, h, m, fft_order, geo):
     """The d=1 type-2's launch on CUDA tensors, ``f`` (B, m), on the path
-    ``geo`` (:func:`type2_1d_geometry`): the tensor cores (float32) or the
-    CUDA cores; counted as one launch of ``nufft2_1d`` (chip_smoke.py also
-    times both paths through it).  Returns (B, N)."""
-    if geo[0] not in ("tc", "cuda") or len(geo) != (5 if geo[0] == "tc"
-                                                    else 1):
-        raise ValueError(f"no d=1 type-2 path for geometry {geo}")
-    if geo[0] == "tc" and x.dtype != torch.float32:
-        raise TypeError("the tensor-core d=1 type-2 takes float32")
+    ``geo`` (:func:`type2_1d_geometry` in x's precision): the tensor cores
+    (float32: 3xTF32; float64: the FP64 tensor cores, K a power of two up
+    to :data:`TYPE2_1D_F64_MAX_K`) or the CUDA cores; counted as one launch of ``nufft2_1d``
+    (chip_smoke.py also times the paths through it).  Returns (B, N)."""
+    f64 = x.dtype == torch.float64
+    tc_len = 6 if f64 else 5
+    if geo[0] not in ("tc", "cuda") or len(geo) != (tc_len if geo[0] == "tc"
+                                                    else 1) or (
+            f64 and geo[0] == "tc" and (
+                geo[1] != TYPE2_2D_F64_POINTS
+                or geo[4] != TYPE2_2D_F64_STAGE
+                or geo[3] not in (TYPE2_2D_F64_COLS,
+                                  TYPE2_2D_F64_NARROW_COLS)
+                or not 1 <= geo[2] <= TYPE2_1D_F64_MAX_K
+                or geo[2] & (geo[2] - 1))):
+        raise ValueError(f"no d=1 type-2 path for geometry {geo}"
+                         + (" in float64" if f64 else ""))
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("f", f, x, cdtype)
     B, n = f.shape[0], x.shape[0]
@@ -1456,7 +1706,12 @@ def _nufft2_1d_on(x, f, h, m, fft_order, geo):
     f = f.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
     args = (x.data_ptr(), f.data_ptr(), h, n, m, B, int(fft_order))
-    if geo[0] == "tc":
+    if geo[0] == "tc" and f64:
+        doubles = type2_1d_f64_scratch_doubles(m, B, geo)
+        scratch = torch.empty(doubles, dtype=torch.float64, device=x.device)
+        _launch("nufft2_1d", x, *args, *geo[1:], scratch.data_ptr(), doubles,
+                out.data_ptr(), mtot=m, symbol="gpq_nufft2_1d_tc_f64")
+    elif geo[0] == "tc":
         floats = type2_1d_scratch_floats(m, B, geo)
         scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
         _launch("nufft2_1d", x, *args, *geo[1:], scratch.data_ptr(), floats,
@@ -1471,11 +1726,12 @@ def nufft1_1d(x, vals, h, *, mtot: int, fft_order: bool = False):
 
     ``x`` (N, 1) real; ``vals`` complex (N,) or (B, N), B >= 1; any odd
     mtot.  Returns complex (mtot,) or (B, mtot) from one launch of two
-    kernels: point-group partials, then their sum in group order.  In
-    float32 the partials come from the tensor cores on a split of the mode
-    index (:func:`type1_1d_geometry`; scratch of groups * B * mtot values),
-    in float64 from the CUDA cores over 2048-point chunks.  A CPU tensor
-    takes the plain version."""
+    kernels: point-group partials, then their sum in group order.  The
+    partials come from the tensor cores on a split of the mode index
+    (:func:`type1_1d_geometry`; scratch of groups * B * mtot values): in
+    float32 3xTF32, in float64 the FP64 tensor cores (one group writes the
+    output itself), but for the calls the geometry keeps on the CUDA cores
+    (2048-point chunks).  A CPU tensor takes the plain version."""
     _check(x, mtot, 1)
     n = x.shape[0]
     if vals.ndim not in (1, 2) or vals.shape[-1] != n:
@@ -1486,18 +1742,23 @@ def nufft1_1d(x, vals, h, *, mtot: int, fft_order: bool = False):
     _check_batch(B, mtot, 1, max(1, -(-n // TYPE1_CHUNK)))
     if x.device.type == "cpu":
         return nufft1_1d_ref(x, vals, h, mtot=mtot, fft_order=fft_order)
-    geo = (type1_1d_geometry(n, mtot, B) if x.dtype == torch.float32
-           else ("cuda", TYPE1_CHUNK))
+    geo = type1_1d_geometry(n, mtot, B, x.dtype)
     out = _nufft1_1d_on(x, vals.reshape(B, n), h, mtot, fft_order, geo)
     return out[0] if single else out
 
 
-def type1_1d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
-    """The float32 d=1 type-1's path and launch geometry: ``("tc", rows,
-    cols, group, stage, run, chunk)``, the tensor-core kernel's arguments
-    before its scratch.
+def type1_1d_geometry(n: int, mtot: int, B: int = 1,
+                      dtype: torch.dtype = torch.float32) -> tuple:
+    """The d=1 type-1's path and launch geometry in ``dtype``: ``("tc",
+    rows, cols, group, stage, run, chunk)`` in float32 and ``("tc", rows,
+    cols, group, split, run, chunk)`` in float64, a tensor-core kernel's
+    arguments before its scratch.
 
-    The kernel splits each mode as k = K q + r with K = rows / group
+    In float64 the FP64 tensor cores (:func:`type1_1d_f64_tc_geometry`),
+    but for ``("cuda", chunk)``, the CUDA cores over chunks of ``chunk``
+    points, where the points make one run of :data:`TYPE1_2D_F64_RUN` and
+    that geometry's output tiles pass :data:`CARD_SMS`.
+    In float32 the kernel splits each mode as k = K q + r with K = rows / group
     (:func:`type1_1d_split`): one vector takes K = 64, a batch runs in
     pairs (group 2, K = 32).  Its output tile is :data:`TYPE1_2D_ROWS` rows
     (the group's K values of r each) by ``cols`` values of q:
@@ -1507,6 +1768,12 @@ def type1_1d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
     (whole runs) are as many as fill about :data:`CARD_SMS` blocks
     of column tiles x point groups x batch groups without passing it, never
     an empty one.  The scratch holds ceil(n / chunk) * B * mtot values."""
+    if dtype == torch.float64:
+        geo = type1_1d_f64_tc_geometry(n, mtot, B)
+        if n <= TYPE1_2D_F64_RUN and _type1_1d_f64_tiles(
+                mtot, B, geo) > CARD_SMS:
+            return ("cuda", TYPE1_CHUNK)
+        return geo
     g = 1 if B == 1 else TYPE1_2D_BATCH_GROUP
     _, q = type1_1d_split(mtot, TYPE1_2D_ROWS // g)
     cols = (TYPE1_2D_NARROW_COLS if q <= 2 * TYPE1_2D_NARROW_COLS
@@ -1517,17 +1784,104 @@ def type1_1d_geometry(n: int, mtot: int, B: int = 1) -> tuple:
             chunk)
 
 
+def type1_1d_f64_split(mtot: int, rows: int, cols: int) -> tuple:
+    """The float64 d=1 type-1's split of the mode index, k = S q + r, for
+    tiles of ``rows`` rows a vector by ``cols`` columns (csrc/nufft_1d.cu
+    ``Type1F64Split1D``): ``(S, qmin, Q)``.  Row r < S, column q from qmin,
+    Q values (:func:`type1_1d_split` at K = S); S is the power of two up to
+    :data:`TYPE1_1D_F64_MAX_SPLIT` whose S rows and Q columns, each padded
+    to whole tiles, make the fewest outputs (the smallest S of a tie)."""
+    def padded(S):
+        Q = type1_1d_split(mtot, S)[1]
+        return _round_up(S, rows) * _round_up(Q, cols)
+    splits = [1 << i for i in range(TYPE1_1D_F64_MAX_SPLIT.bit_length())]
+    S = min(splits, key=padded)
+    return (S, *type1_1d_split(mtot, S))
+
+
+@functools.lru_cache(maxsize=1024)
+def _type1_f64_chunk(n: int, tiles: int, group_bytes: int) -> int:
+    """Points a group of the FP64 tensor-core type-1 (d=1 and d=3): whole
+    runs of :data:`TYPE1_2D_F64_RUN` points, in as many groups as make the
+    fewest waves of blocks (``tiles`` output tiles x groups) on the card's
+    :data:`CARD_SMS` SMs times runs a block, the fewest groups of a tie,
+    with at most :data:`TYPE1_3D_F64_SCRATCH` bytes of partials
+    (``group_bytes`` a group).  Kept for the shapes a process calls: the
+    search over the groups takes ~0.1 ms of host time at the light
+    curve's 124 runs, more than its kernel's 0.055 ms."""
+    nrun = max(1, -(-n // TYPE1_2D_F64_RUN))
+    cap = max(1, int(TYPE1_3D_F64_SCRATCH // group_bytes))
+
+    def cost(groups):
+        """(waves x runs a block, groups) of ``groups`` point groups."""
+        per = -(-nrun // groups)
+        return -(-tiles * -(-nrun // per) // CARD_SMS) * per, groups
+    groups = min(range(1, min(nrun, cap) + 1), key=cost)
+    return -(-nrun // groups) * TYPE1_2D_F64_RUN
+
+
+def _type1_1d_f64_tiles(mtot: int, B: int, geo: tuple) -> int:
+    """The output tiles (row tiles x column tiles x batch groups) of the
+    FP64 tensor-core d=1 type-1 at geometry ``geo``."""
+    _, rows, cols, g, S, _, _ = geo
+    Q = type1_1d_split(mtot, S)[1]
+    return -(-S // (rows // g)) * -(-Q // cols) * -(-B // g)
+
+
+@functools.lru_cache(maxsize=1024)
+def type1_1d_f64_tc_geometry(n: int, mtot: int, B: int = 1) -> tuple:
+    """The FP64 tensor-core d=1 type-1's geometry (:func:`type1_1d_geometry`
+    at float64 where it picks them), kept for the shapes a process calls
+    (its searches take ~30 us of host time, about a kernel's at the
+    samplers' sizes): ``("tc", rows, cols, group, split, run, chunk)`` for
+    csrc/tc_type1_f64.cuh on nufft_1d.cu's ``Type1F64Split1D``: tiles of :data:`TYPE1_2D_ROWS` rows (one vector's
+    64 values r, or a batch group of two vectors' 32) by
+    :data:`TYPE1_2D_F64_COLS` values q, or :data:`TYPE1_2D_F64_NARROW_COLS`
+    where the wide tiles pad :data:`TYPE1_2D_F64_NARROW_PADDING` times as
+    much or more; the split S of :func:`type1_1d_f64_split` for that tile;
+    runs of :data:`TYPE1_2D_F64_RUN` points and the point groups of
+    :func:`_type1_f64_chunk`.  The output is tiny and the sum long (919
+    outputs from 63 480 points: one tile), so the card fills through the
+    point groups, their partials (groups x B x mtot values) added in group
+    order."""
+    g = 1 if B == 1 else TYPE1_2D_BATCH_GROUP
+    tj = TYPE1_2D_ROWS // g
+
+    def layout(cols):
+        """(split, tiles, padded outputs) of tiles ``cols`` wide."""
+        S, _, Q = type1_1d_f64_split(mtot, tj, cols)
+        tiles = -(-S // tj) * -(-Q // cols) * -(-B // g)
+        return S, tiles, tiles * tj * cols
+    cols, lay = TYPE1_2D_F64_COLS, layout(TYPE1_2D_F64_COLS)
+    narrow = layout(TYPE1_2D_F64_NARROW_COLS)
+    if lay[2] >= TYPE1_2D_F64_NARROW_PADDING * narrow[2]:
+        cols, lay = TYPE1_2D_F64_NARROW_COLS, narrow
+    S, tiles, _ = lay
+    chunk = _type1_f64_chunk(n, tiles, 16 * B * mtot)
+    return ("tc", TYPE1_2D_ROWS, cols, g, S, TYPE1_2D_F64_RUN, chunk)
+
+
 def _nufft1_1d_on(x, vals, h, m, fft_order, geo):
     """The d=1 type-1's launch on CUDA tensors, ``vals`` (B, N), on the
-    path ``geo``: ``("tc", ...)`` the tensor cores (float32,
-    :func:`type1_1d_geometry`) or ``("cuda", chunk)`` the CUDA cores over
-    chunks of ``chunk`` points; counted as one launch of ``nufft1_1d``
-    (chip_smoke.py also times both paths through it).  Returns (B, m)."""
+    path ``geo``: ``("tc", ...)`` the tensor cores
+    (:func:`type1_1d_geometry` in x's precision: 3xTF32 in float32, the
+    FP64 tensor cores in float64, S a power of two up to
+    :data:`TYPE1_1D_F64_MAX_SPLIT`, runs of :data:`TYPE1_2D_F64_RUN`) or
+    ``("cuda", chunk)`` the CUDA cores
+    over chunks of ``chunk`` points; counted as one launch of
+    ``nufft1_1d`` (chip_smoke.py also times the paths through it).
+    Returns (B, m)."""
+    f64 = x.dtype == torch.float64
     if geo[0] not in ("tc", "cuda") or len(geo) != (7 if geo[0] == "tc"
-                                                    else 2):
-        raise ValueError(f"no d=1 type-1 path for geometry {geo}")
-    if geo[0] == "tc" and x.dtype != torch.float32:
-        raise TypeError("the tensor-core d=1 type-1 takes float32")
+                                                    else 2) or (
+            f64 and geo[0] == "tc" and (
+                geo[1] != TYPE1_2D_ROWS
+                or geo[2] not in (TYPE1_2D_F64_COLS,
+                                  TYPE1_2D_F64_NARROW_COLS)
+                or not 1 <= geo[4] <= TYPE1_1D_F64_MAX_SPLIT
+                or geo[4] & (geo[4] - 1) or geo[5] != TYPE1_2D_F64_RUN)):
+        raise ValueError(f"no d=1 type-1 path for geometry {geo}"
+                         + (" in float64" if f64 else ""))
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("vals", vals, x, cdtype)
     B, n = vals.shape
@@ -1536,12 +1890,16 @@ def _nufft1_1d_on(x, vals, h, m, fft_order, geo):
     x = x.contiguous()
     vals = vals.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
-    partial = torch.empty((-(-n // geo[-1]), B, m), dtype=cdtype,
-                          device=x.device)
+    groups = -(-n // geo[-1])
     out = torch.empty((B, m), dtype=cdtype, device=x.device)
+    # the FP64 tensor cores' single group writes the output itself
+    partial = (out if f64 and geo[0] == "tc" and groups == 1 else
+               torch.empty((groups, B, m), dtype=cdtype, device=x.device))
+    prec = "f64" if f64 else "f32"
     _launch("nufft1_1d", x, x.data_ptr(), vals.data_ptr(), h, n, m, B,
             int(fft_order), *geo[1:], partial.data_ptr(), out.data_ptr(),
-            mtot=m, symbol="gpq_nufft1_1d_tc_f32" if geo[0] == "tc" else None)
+            mtot=m, symbol=f"gpq_nufft1_1d_tc_{prec}" if geo[0] == "tc"
+            else None)
     return out
 
 
@@ -2237,15 +2595,7 @@ def _type1_3d_f64_geometry(n: int, mtot: int, B: int) -> tuple:
     if wide[2] >= TYPE1_2D_F64_NARROW_PADDING * narrow[2]:
         cols, wide = TYPE1_2D_F64_NARROW_COLS, narrow
     S, tiles = wide[:2]
-    nrun = max(1, -(-n // TYPE1_2D_F64_RUN))
-    cap = max(1, int(TYPE1_3D_F64_SCRATCH // (16 * B * mtot ** 3)))
-
-    def cost(groups):
-        """(waves x runs a block, groups) of ``groups`` point groups."""
-        per = -(-nrun // groups)
-        return -(-tiles * -(-nrun // per) // CARD_SMS) * per, groups
-    groups = min(range(1, min(nrun, cap) + 1), key=cost)
-    chunk = -(-nrun // groups) * TYPE1_2D_F64_RUN
+    chunk = _type1_f64_chunk(n, tiles, 16 * B * mtot ** 3)
     return ("tc", TYPE1_2D_ROWS, cols, g, S, TYPE1_2D_F64_RUN, chunk)
 
 

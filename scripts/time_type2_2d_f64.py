@@ -69,7 +69,8 @@ VARIANTS = {
                    "__launch_bounds__(T2D_THREADS, 1)")],
     "no_s1_table": [("const bool s1_kept = nj <= T2D_S1;",
                      "const bool s1_kept = false;")],
-    "no_phases": [("      phase(", "      t2d_fake_phase("),
+    "no_phases": [("    phase(sm.u[c][p], k, cs, sn);",
+                   "    t2d_fake_phase(sm.u[c][p], k, cs, sn);"),
                   ("nufft_2d.cu", "phase(sm.u[", "t2d_fake_phase(sm.u["),
                   ("namespace {\n", "namespace {\n__device__ __forceinline__ "
                    "void t2d_fake_phase(double u, double k, double* c, "

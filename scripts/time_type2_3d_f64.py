@@ -83,7 +83,7 @@ ABLATIONS = {
     "no_epilogue": (("tc_type2_f64.cuh", "      if (p0 + ep < n) {",
                      "      if (ep < 0) {"),),
     "no_chunk": (("tc_type2_f64.cuh",
-                  "if ((ks0 - kb) % KCH == 0 && (nchunks > 1 || ct == 0))",
+                  "if ((ks0 - kb) % KCH == 0 && (nchunks > 1 || ct == ct0))",
                   "if (ks0 < 0)"),),
 }
 # (n, mtot, B, FFT order, h, what): chip_smoke.py phase 3's float64 d=3

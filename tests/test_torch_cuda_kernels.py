@@ -885,6 +885,109 @@ def test_type2_f64_launch_refuses_foreign_geometry(cuda_device, field,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,B,n,mtot,h,fft_order", [
+    (1, 1, 5001, 919, 0.99, False),
+    (1, 3, 3001, 301, 0.61, True),
+    (1, 10, 4097, 1031, 0.99, False),
+    (1, 1, 2000, 17, 0.4, True),
+    (1, 5, 700, 33, 0.4, False),
+    (2, 1, 5000, 919, 0.99, False),
+    (2, 3, 3001, 301, 0.61, True),
+    (2, 1, 2000, 2061, 0.99, True),
+    (2, 200, 25, 15, 0.4, False),
+    (2, 4000, 7, 17, 0.4, False),
+])
+def test_1d_f64_tensor_core_kernels_on_card(cuda_device, kind, B, n, mtot, h,
+                                            fft_order):
+    """The float64 d=1 pair on the FP64 tensor cores (type1_1d_f64_tc_
+    geometry / type2_1d_f64_tc_geometry): one float64 launch a call;
+    within 1e-10 of max|ref| of the float64 plain version; bit for bit the
+    same on a second launch; within 1e-12 of max|ref| of its twin
+    (nufft1_1d_f64_tc_ref / nufft2_1d_f64_tc_ref); the wrapper's result
+    this kernel's where the dispatch picks it, else the CUDA cores', also
+    within the bar."""
+    rng = np.random.default_rng(10)
+    x = torch.as_tensor(rng.uniform(-1, 1, (n, 1)), device=cuda_device)
+    shape = (B, n) if kind == 1 else (B, mtot)
+    arg = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(
+        size=shape), device=cuda_device)
+    name = f"nufft{kind}_1d"
+    on = getattr(cuda_nufft, f"_{name}_on")
+    geo = getattr(cuda_nufft, f"type{kind}_1d_f64_tc_geometry")(n, mtot, B)
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    key = (name, "f64", mtot)
+    before = cuda_nufft.LAUNCH_PRECISIONS.get(key, 0)
+    got = on(x, arg, h, mtot, fft_order, geo)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCH_PRECISIONS[key] == before + 1
+    assert got.shape == shape[:1] + ((mtot,) if kind == 1 else (n,))
+    assert torch.equal(on(x, arg, h, mtot, fft_order, geo), got)
+    ref = getattr(cuda_nufft, f"{name}_ref")(x, arg, h, **kw)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-10 * scale
+    twin = getattr(cuda_nufft, f"{name}_f64_tc_ref")(x.cpu(), arg.cpu(), h,
+                                                      **kw)
+    assert float((got.cpu() - twin).abs().max()) <= 1e-12 * scale
+    routed = getattr(cuda_nufft, name)(x, arg, h, **kw)
+    pick = getattr(cuda_nufft, f"type{kind}_1d_geometry")(n, mtot, B,
+                                                           torch.float64)
+    if pick == geo:
+        assert torch.equal(routed, got)
+    else:
+        assert float((routed - ref).abs().max()) <= 1e-10 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,field,value", [
+    (1, 1, 32), (1, 2, 128), (1, 3, 3), (1, 4, 24), (1, 5, 100),
+    (1, 6, 1000), (2, 1, 128), (2, 2, 12), (2, 2, 64), (2, 3, 48),
+    (2, 4, 32), (2, 5, 4), (2, "scratch", -1)])
+def test_1d_f64_launch_refuses_foreign_geometry(cuda_device, kind, field,
+                                                value):
+    """The FP64 tensor-core d=1 pair's launches take their geometry from
+    type1_1d_f64_tc_geometry / type2_1d_f64_tc_geometry and refuse one they
+    have no instance for (the type-1's rows, columns, group, a split S not
+    a power of two, run or chunk; the type-2's points, K not a power of
+    two or past TYPE2_1D_F64_MAX_K, columns, stage, splits that leave a
+    run empty) and the type-2's
+    scratch shorter than its split F: a CUDA error is raised, and nothing
+    is written."""
+    n, mtot, B = 1000, 119, 3
+    x = torch.rand((n, 1), dtype=torch.float64, device=cuda_device)
+    out = torch.zeros((B, mtot if kind == 1 else n), dtype=torch.complex128,
+                      device=cuda_device)
+    if kind == 1:
+        v = torch.ones((B, n), dtype=torch.complex128, device=cuda_device)
+        geo = list(cuda_nufft.type1_1d_f64_tc_geometry(n, mtot, B))
+        geo[field] = value
+        partial = torch.zeros((4, B, mtot), dtype=torch.complex128,
+                              device=cuda_device)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            cuda_nufft._launch("nufft1_1d", x, x.data_ptr(), v.data_ptr(),
+                               0.5, n, mtot, B, 0, *geo[1:],
+                               partial.data_ptr(), out.data_ptr(), mtot=mtot,
+                               symbol="gpq_nufft1_1d_tc_f64")
+    else:
+        f = torch.ones((B, mtot), dtype=torch.complex128, device=cuda_device)
+        geo = list(cuda_nufft.type2_1d_f64_tc_geometry(n, mtot, B))
+        doubles = cuda_nufft.type2_1d_f64_scratch_doubles(mtot, B, geo)
+        if field == "scratch":
+            doubles += value
+        else:
+            geo[field] = value
+        scratch = torch.zeros(max(doubles, 1) * 4, dtype=torch.float64,
+                              device=cuda_device)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            cuda_nufft._launch("nufft2_1d", x, x.data_ptr(), f.data_ptr(),
+                               0.5, n, mtot, B, 0, *geo[1:],
+                               scratch.data_ptr(), doubles, out.data_ptr(),
+                               mtot=mtot, symbol="gpq_nufft2_1d_tc_f64")
+        assert not bool(scratch.any())
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+
+
+@pytest.mark.cuda
 def test_ski_on_card_matches_cpu(cuda_device):
     """fit_ski_gp -> mean -> variance on the card (kernels, float64) against
     the CPU (plain versions), the probes drawn by one CPU generator seed:

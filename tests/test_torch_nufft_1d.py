@@ -235,16 +235,20 @@ def test_type1_1d_geometry(n, mtot, B):
 
 def test_1d_type1_launch_refuses_foreign_path(rng):
     """The d=1 type-1's launch takes ("tc", 6 fields) or ("cuda", chunk)
-    and refuses any other geometry before it touches the card; float64 has
-    no tensor-core path."""
-    x = torch.as_tensor(rng.uniform(0, 1, (64, 1)))
-    v = torch.ones((1, 64), dtype=torch.complex128)
+    and refuses any other geometry before it touches the card, in either
+    precision; in float64, whose tensor-core path is the FP64 tensor
+    cores', it refuses the float32 one (its 3xTF32 stage and runs of 256
+    points)."""
+    x64 = torch.as_tensor(rng.uniform(0, 1, (64, 1)))
     geo = type1_1d_geometry(64, 33)
-    for bad in (("tc",) + geo[1:-1], ("split", 16), ("cuda",), geo + (1,)):
-        with pytest.raises(ValueError, match="no d=1 type-1 path"):
-            cuda_nufft._nufft1_1d_on(x, v, 0.3, 33, False, bad)
-    with pytest.raises(TypeError, match="float32"):
-        cuda_nufft._nufft1_1d_on(x, v, 0.3, 33, False, geo)
+    for x in (x64.float(), x64):
+        v = torch.ones((1, 64), dtype=cuda_nufft._complex_of(x.dtype))
+        for bad in (("tc",) + geo[1:-1], ("split", 16), ("cuda",),
+                    geo + (1,)):
+            with pytest.raises(ValueError, match="no d=1 type-1 path"):
+                cuda_nufft._nufft1_1d_on(x, v, 0.3, 33, False, bad)
+    with pytest.raises(ValueError, match="in float64"):
+        cuda_nufft._nufft1_1d_on(x64, v, 0.3, 33, False, geo)
 
 
 # the type-2's twin at the same shapes: mtot 33 (two values of q at K 32),
@@ -326,14 +330,17 @@ def test_type2_1d_geometry(n, mtot, B):
 
 
 def test_1d_type2_launch_refuses_foreign_path(rng):
-    """The d=1 type-2's launch takes ("tc", 4 fields) or ("cuda",) and
-    refuses any other geometry before it touches the card; float64 has no
-    tensor-core path."""
-    x = torch.as_tensor(rng.uniform(0, 1, (64, 1)))
-    f = torch.ones((1, 1031), dtype=torch.complex128)
+    """The d=1 type-2's launch takes ("tc", 4 fields) or ("cuda",) in
+    float32, ("tc", 5 fields) or ("cuda",) in float64, and refuses any
+    other geometry before it touches the card; in float64, whose
+    tensor-core path is the FP64 tensor cores', it refuses the float32
+    one."""
+    x64 = torch.as_tensor(rng.uniform(0, 1, (64, 1)))
     geo = type2_1d_tc_geometry(1)
-    for bad in (geo[:-1], ("split", 16), ("cuda", 1), geo + (1,)):
-        with pytest.raises(ValueError, match="no d=1 type-2 path"):
-            cuda_nufft._nufft2_1d_on(x, f, 0.3, 1031, False, bad)
-    with pytest.raises(TypeError, match="float32"):
-        cuda_nufft._nufft2_1d_on(x, f, 0.3, 1031, False, geo)
+    for x in (x64.float(), x64):
+        f = torch.ones((1, 1031), dtype=cuda_nufft._complex_of(x.dtype))
+        for bad in (geo[:-1], ("split", 16), ("cuda", 1), geo + (1,)):
+            with pytest.raises(ValueError, match="no d=1 type-2 path"):
+                cuda_nufft._nufft2_1d_on(x, f, 0.3, 1031, False, bad)
+    with pytest.raises(ValueError, match="in float64"):
+        cuda_nufft._nufft2_1d_on(x64, f, 0.3, 1031, False, geo)

@@ -164,7 +164,7 @@ HIGH_FITS = {2: dict(solver="dense"), 1: dict(solver="iterative"),
 def jax_high():
     """gpquad's double-word fits at d=2 (dense), d=1 and d=3 (matrix-free,
     with the low word of beta; d=3 deflated, as hard3d), their means, and
-    its unfused fit_predict_grad_high at d=2."""
+    its unfused fit_predict_grad_high at d=2 and d=1."""
     out = {}
     for d, kw in HIGH_FITS.items():
         n, mtot, h, sig, ell = SIZES[d]
@@ -176,13 +176,16 @@ def jax_high():
         mean = np.asarray(jprec.predict_mean_high(hs, jnp.asarray(xt),
                                                   slab=256))
         out[d] = dict(hs=hs, mean=mean, x=x, y=y, xt=xt, mtot=mtot)
-    n, mtot, h, sig, ell = SIZES[2]
-    x, y, xt = _data(2, n)
-    jk = JaxSE(lengthscale=jnp.float32(ell), variance=jnp.float32(VAR),
-               dimension=2)
-    out["fused"] = jax_fpgh(jnp.asarray(x), jnp.asarray(y), jnp.asarray(xt),
-                            jk, sig, h, jax.random.PRNGKey(0), mtot=mtot,
-                            fuse=False)
+    out["fused"] = {}
+    for d in (2, 1):
+        n, mtot, h, sig, ell = SIZES[d]
+        x, y, xt = _data(d, n)
+        jk = JaxSE(lengthscale=jnp.float32(ell), variance=jnp.float32(VAR),
+                   dimension=d)
+        out["fused"][d] = jax_fpgh(jnp.asarray(x), jnp.asarray(y),
+                                   jnp.asarray(xt), jk, sig, h,
+                                   jax.random.PRNGKey(0), mtot=mtot,
+                                   fuse=False)
     return out
 
 
@@ -239,11 +242,22 @@ def test_fit_predict_grad_high(jax_high):
     differs by ~1e-3 of max between any two float32 solvers, and the
     variance and the gradient draw their probes from different
     generators)."""
-    x, y, xt, h, mtot, sig, k = _prob_of(2)
+    _check_fit_predict_grad_high(jax_high, 2)
+
+
+def test_fit_predict_grad_high_d1(jax_high):
+    """test_fit_predict_grad_high's case at d=1 (SIZES[1], 1-D points as
+    (n, 1)), with the same bars: the light curve's path, whose float64
+    NUFFTs run on the d=1 pair."""
+    _check_fit_predict_grad_high(jax_high, 1)
+
+
+def _check_fit_predict_grad_high(jax_high, d):
+    x, y, xt, h, mtot, sig, k = _prob_of(d)
     res = gpquad_torch.fit_predict_grad_high(x, y, xt, k, sig, h, mtot=mtot,
                                              device="cpu")
-    jres = jax_high["fused"]
-    ref = _oracle_mean(jor.efgp_f64_objects(x, y, SIZES[2][4], VAR, sig, h,
+    jres = jax_high["fused"][d]
+    ref = _oracle_mean(jor.efgp_f64_objects(x, y, SIZES[d][4], VAR, sig, h,
                                             mtot), xt)
     mh = res.mean_high.numpy()
     assert mh.dtype == np.float64
