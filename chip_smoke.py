@@ -40,11 +40,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      DISPATCH_TIE); likewise the float32 d=1 type-2 on both of its kernels
      (the tensor cores on a split of the mode index, nufft2_1d_3xtf32_ref
      its twin, with the padding of its geometry) and the float32 d=3
-     type-1 and type-2 on both of their kernels (the tensor cores on
-     Type1Grid3D and Type2Grid3D, nufft1_3d_3xtf32_ref and
-     nufft2_3d_3xtf32_ref their twins, run where the operand stays under
-     1e9 values, with both scratches, the card's times with the host
-     ahead), each checked that the path cuda_nufft.type2_1d_geometry /
+     type-1 and type-2 on the kernels their dispatch picks from (the
+     type-2 on the tensor cores on Type2Grid3D and on the CUDA cores; the
+     type-1 on the tensor cores on Type1Grid3D up to mtot 64 and on the
+     wide grids', csrc/tc_type1_wide.cuh, past 56: 2e4 x 57 / 101 / 255,
+     1e5 x 61 and 6b's lag table 1e5 x 105, B 10 at 2e4 x 101 and 1e5 x
+     105 in float32 alone; nufft1_3d_3xtf32_ref and nufft2_3d_3xtf32_ref
+     the twins of Type1Grid3D's and Type2Grid3D's, run where the operand
+     stays under 1e9 values, with the scratches, the card's times with the
+     host ahead), each checked that the path cuda_nufft.type2_1d_geometry /
      type1_3d_geometry / type2_3d_geometry picks was the fastest measured
      there (within DISPATCH_TIE); the float64 d=2 type-1, single and
      batched, on the FP64 tensor cores (DMMA, csrc/tc_type1_f64.cuh) at
@@ -106,6 +110,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      trace samples) with Jacobi PCG (one timed call) and with kron (median
      of 3 warm calls, one profile): launches per call, against the port's
      float64 run on the plain path with the same generator seed;
+  6b. d3 wide: the same fused call with kron on phase 6's data at SE
+     l=0.05 -> mtot 53 (M 148 877), whose Toeplitz lag table (mtot 105)
+     runs on the wide grids' kernel: the warm call's median time, the
+     float32 type-1's launches by path (cuda_nufft.LAUNCH_PATHS: the lag
+     table on the wide kernel, F*y and F*Z on Type1Grid3D's), the lag
+     table's card time beside its 3xTF32 bound, against the port's float64
+     run on the plain path at phase 6's bars;
   7. hard3d (bench.py:363-438: n=2e4, l=0.2 -> mtot 21, M 9261): the fit
      with the deflation preconditioner (rank 2048) and the mean, then the
      stochastic variance and gradient_with_grid(state=fit) reusing its
@@ -3247,6 +3258,11 @@ def main() -> int:
     _, h_h3, mtot_h3 = gpquad_torch.spectral_grid(kern_h3, 1e-6, 1.0)
     check((mtot_d3, mtot_h3) == (31, 21),
           f"d=3 grids planned mtot {mtot_d3} and {mtot_h3}, not 31 and 21")
+    # phase 6b: d3's data at SE l 0.05, whose lag table is past 64 modes
+    kern_d3w = gpquad_torch.make_kernel("SE", 3, lengthscale=np.float32(0.05),
+                                        variance=np.float32(1.0))
+    _, h_d3w, mtot_d3w = gpquad_torch.spectral_grid(kern_d3w, 1e-6, 1.0)
+    check(mtot_d3w == 53, f"d3 wide planned mtot {mtot_d3w}, not 53")
     # phase 8: the light curve's grid at its starting hypers and the rung
     # its gradient steps run on
     lc = lightcurve_data()
@@ -3365,6 +3381,18 @@ def main() -> int:
         for m in (57, 101, 255):
             shapes.append((name, 20_000, m, False, 0.97, "slab-tiled mtot",
                            1))
+    # the float32 d=3 type-1 past mtot 64 (the wide grids' kernel), in
+    # float32 alone (no driven path runs a float64 type-1 there): phase
+    # 6b's lag table (n 1e5, mtot 105) and probe batches of 10 there and
+    # at 2e4 x 101 (at 2e4 x 255 the B 10 call and its plain version would
+    # take ~10 s of the phase)
+    shapes_f32 = [
+        ("nufft1_3d", 100_000, 2 * mtot_d3w - 1, False, h_d3w,
+         "6b lag table", 1),
+        ("nufft1_3d", 100_000, 2 * mtot_d3w - 1, False, h_d3w,
+         "wide B 10", 10),
+        ("nufft1_3d", 20_000, 101, False, 0.97, "wide B 10", 10)]
+    shapes += shapes_f32
     n_lc, lag_lc = len(lc["x"]), 2 * rung_lc - 1
     shapes += [
         ("nufft1_1d", n_lc, rung_lc, False, h_lc, "light curve F*y", 1),
@@ -3868,28 +3896,46 @@ def main() -> int:
 
     def tc_3d_both(name, x, arg, hq, m, fo, n, B, ref, scale, got,
                    split_bar, reps, trials, twin_ok):
-        """A float32 d=3 function (``name``: nufft1_3d or nufft2_3d) on its
-        two kernels on the same inputs: the tensor cores ("tc", 3xTF32 on
-        Type1Grid3D or Type2Grid3D with the geometry of
-        type1_3d_tc_geometry or type2_3d_tc_geometry) and the CUDA-core
-        kernel ("cuda"), each within 1e-4 of max|ref| (the tensor cores
-        also within ``split_bar`` and, where ``twin_ok``, within twice that
-        of their twin nufft1_3d_3xtf32_ref or nufft2_3d_3xtf32_ref, run on
-        the card), bit for bit against a second launch, with its scratch
-        (the peak allocated in the call less the output); the wrapper's
-        result bit for bit that of the path type1_3d_geometry or
-        type2_3d_geometry picks, and that path the fastest on the card
+        """A float32 d=3 function (``name``: nufft1_3d or nufft2_3d) on
+        the kernels its dispatch picks from, on the same inputs: the type-2
+        on the tensor cores ("tc", 3xTF32 on Type2Grid3D with the geometry
+        of type2_3d_tc_geometry) and the CUDA-core kernel ("cuda"); the
+        type-1 on Type1Grid3D's tensor cores ("tc", type1_3d_tc_geometry)
+        up to TYPE1_3D_TC_MAX_MTOT and on the wide grids' ("wide",
+        csrc/tc_type1_wide.cuh with the geometry of type1_3d_wide_geometry)
+        past the TPU's single-block mtot 56.  Each within 1e-4 of max|ref|
+        (the tensor cores also within ``split_bar`` and, for "tc" where
+        ``twin_ok``, within twice that of their twin nufft1_3d_3xtf32_ref
+        or nufft2_3d_3xtf32_ref, run on the card; the wide kernel's twin
+        runs in the card-only tests), bit for bit against a second launch,
+        with its scratch (the peak allocated in the call less the output);
+        the wrapper's result bit for bit that of the path type1_3d_geometry
+        or type2_3d_geometry picks, and that path the fastest on the card
         (time_cuda_paths, the host ahead) within DISPATCH_TIE.  Returns the
-        row's fields and a line for the log."""
+        row's fields (a path not timed at this width None) and a line for
+        the log."""
         kind = name.split("_")[0][-1]               # "1" or "2"
         pick = getattr(cuda_nufft, f"type{kind}_3d_geometry")(n, m, B)
         tc_geo = getattr(cuda_nufft, f"type{kind}_3d_tc_geometry")(n, m, B)
-        geos = {"tc": tc_geo, "cuda": ("cuda",)}
+        if kind == "2":
+            geos = {"tc": tc_geo, "cuda": ("cuda",)}
+        else:
+            geos = {}
+            if m <= cuda_nufft.TYPE1_3D_TC_MAX_MTOT:
+                geos["tc"] = tc_geo
+            if m > TILED["_pallas_nufft1_3d_tiled"][2]:
+                geos["wide"] = cuda_nufft.type1_3d_wide_geometry(n, m, B)
+        keys = {"tc": "tc", "cuda": "cuda_core", "wide": "wide"}
         on = getattr(cuda_nufft, f"_{name}_on")
         ab = arg.reshape(B, n if kind == "1" else m ** 3)
         calls = {r: (lambda geo=geo: on(x, ab, hq, m, fo, geo))
                  for r, geo in geos.items()}
         out = {"dispatch": pick[0], "twin_rel_diff": None}
+        for r in (("tc", "cuda") if kind == "2" else ("tc", "wide")):
+            for f in ("ms", "rel_err", "scratch_bytes"):
+                out[f"{keys[r]}_{f}"] = None
+        check(pick[0] in calls, f"{name} B={B} n={n} mtot={m}: the pick "
+              f"{pick} is not among the paths timed, {list(geos)}")
         for r, call in calls.items():
             what = f"{name} ({r}) B={B} n={n} mtot={m}"
             sync()
@@ -3919,29 +3965,31 @@ def main() -> int:
             if r == pick[0]:
                 check(torch.equal(o.reshape(got.shape), got),
                       f"{what}: the wrapper's result is not this kernel's")
-            if r == "tc":
+            if r in ("tc", "wide"):
                 check(rel <= split_bar,
                       f"{what}: error {rel:.3e} over max(2 x the plain "
                       f"version's, 1e-6) = {split_bar:.3e}")
-                if twin_ok:
-                    twin = (cuda_nufft.nufft1_3d_3xtf32_ref(
-                        x, ab, hq, mtot=m, fft_order=fo) if kind == "1"
-                        else cuda_nufft.nufft2_3d_3xtf32_ref(
-                            x, ab, hq, mtot=m, fft_order=fo,
-                            geometry=tc_geo))
-                    diff = float((o - twin).abs().max())
-                    del twin
-                    check(diff <= 2 * split_bar * scale,
-                          f"{what}: {diff / scale:.3e} of max|ref| from its "
-                          f"twin, over 2 x {split_bar:.3e}")
-                    out["twin_rel_diff"] = diff / scale
-            key = "tc" if r == "tc" else "cuda_core"
-            out[f"{key}_rel_err"] = rel
-            out[f"{key}_scratch_bytes"] = scratch
+            if r == "tc" and twin_ok:
+                twin = (cuda_nufft.nufft1_3d_3xtf32_ref(
+                    x, ab, hq, mtot=m, fft_order=fo) if kind == "1"
+                    else cuda_nufft.nufft2_3d_3xtf32_ref(
+                        x, ab, hq, mtot=m, fft_order=fo,
+                        geometry=tc_geo))
+                diff = float((o - twin).abs().max())
+                del twin
+                check(diff <= 2 * split_bar * scale,
+                      f"{what}: {diff / scale:.3e} of max|ref| from its "
+                      f"twin, over 2 x {split_bar:.3e}")
+                out["twin_rel_diff"] = diff / scale
+            out[f"{keys[r]}_rel_err"] = rel
+            out[f"{keys[r]}_scratch_bytes"] = scratch
             del o
         ms = time_cuda_paths(calls, reps, max(trials, 3))
-        out["tc_ms"], out["cuda_core_ms"] = ms["tc"], ms["cuda"]
-        out["geometry"] = list(tc_geo[1:])
+        for r, t in ms.items():
+            out[f"{keys[r]}_ms"] = t
+        out["geometry"] = list(geos.get("tc", pick)[1:])
+        if "wide" in geos:
+            out["wide_geometry"] = list(geos["wide"][1:])
         out["bound_3xtf32_ms"] = bound_3xtf32_ms(name, n, m, B)[0]
         faster = min(ms, key=ms.get)
         check(ms[pick[0]] <= max(ms[faster] * (1 + DISPATCH_TIE[0]),
@@ -3951,13 +3999,19 @@ def main() -> int:
         twin = ("not run (its float32 phase products past 1e9 values)"
                 if out["twin_rel_diff"] is None
                 else f"{out['twin_rel_diff']:.3e} apart")
-        line = (f" pick {pick[0]} (fastest on the card: {faster}); tensor "
-                f"cores ms={ms['tc']:.4f} rel={out['tc_rel_err']:.3e} (twin "
-                f"{twin}) scratch {out['tc_scratch_bytes'] / 1e6:.3f} MB, "
-                f"bound_3xtf32_ms={out['bound_3xtf32_ms']:.4f}; CUDA cores "
-                f"ms={ms['cuda']:.4f} rel={out['cuda_core_rel_err']:.3e} "
-                f"scratch {out['cuda_core_scratch_bytes'] / 1e6:.3f} MB; "
-                f"geometry {tc_geo}")
+        label = {"tc": "tensor cores", "cuda": "CUDA cores",
+                 "wide": "wide grids' tensor cores"}
+        parts = []
+        for r, geo in geos.items():
+            k = keys[r]
+            parts.append(
+                f"{label[r]} ms={ms[r]:.4f} rel={out[k + '_rel_err']:.3e}"
+                + (f" (twin {twin})" if r == "tc" else "")
+                + f" scratch {out[k + '_scratch_bytes'] / 1e6:.3f} MB"
+                + ("" if r == "cuda" else f", geometry {geo}"))
+        line = (f" pick {pick[0]} (fastest on the card: {faster}); "
+                + "; ".join(parts)
+                + f"; bound_3xtf32_ms={out['bound_3xtf32_ms']:.4f}")
         return out, line
 
     def type2_single(x, f, hq, m, fo, n, dtype, ref, scale, got, split_bar,
@@ -4068,6 +4122,9 @@ def main() -> int:
             if dtype == torch.float32 and (name, n, m, fo, h, what,
                                            B) in shapes_f64:
                 continue
+            if dtype == torch.float64 and (name, n, m, fo, h, what,
+                                           B) in shapes_f32:
+                continue
             if dtype == torch.float64 and batched and n == n10:
                 # the scale path's probe batches run in float32 only (its
                 # float64 run is the fit and the mean)
@@ -4114,7 +4171,11 @@ def main() -> int:
                 reps = max(3, min(50, int(2e9 / (B * n * m * m))))
                 trials = 3 if B * n * m * m > 5e11 else 5
             else:
-                reps, trials = max(3, min(50, int(5e10 / (B * n * m ** 3)))), 3
+                # the float32-only wide shapes: one call a trial where a
+                # call is tens of ms or more
+                least = 1 if (name, n, m, fo, h, what, B) in shapes_f32 else 3
+                reps = max(least, min(50, int(5e10 / (B * n * m ** 3))))
+                trials = 3
             ms = time_cuda(lambda: kernels[name](x, arg, hq, **kw), reps,
                            trials)
 
@@ -4251,7 +4312,7 @@ def main() -> int:
                 extra += f" {B}x single ms={row['singles_ms']:.4f}"
             if name == "nufft1_3d":
                 groups = cuda_nufft._type1_3d_groups_of(
-                    n, m, B, cuda_nufft.type1_3d_geometry(n, m, B, dtype))
+                    n, cuda_nufft.type1_3d_geometry(n, m, B, dtype))
                 row["scratch_bytes"] = scratch
                 extra = (f" scratch {groups} groups {scratch / 1e6:.3f} MB "
                          f"(measured)")
@@ -4288,7 +4349,7 @@ def main() -> int:
                 row.update(t3)
                 row["split_bar"] = split_bar
                 row["bound_fp32_ms"] = b_ms
-                if t3["dispatch"] == "tc":
+                if t3["dispatch"] in ("tc", "wide"):
                     row["bound_ms"], row["bound_by"] = (
                         t3["bound_3xtf32_ms"], "operations")
                     b_by = "fp32 operations"
@@ -4491,7 +4552,7 @@ def main() -> int:
                                         size=(probes, mtot_head ** 2)),
         device=dev)
     counters = (cuda_nufft.LAUNCHES, cuda_nufft.LAUNCH_WIDTHS,
-                nufft_mod.BACKEND_PICKS)
+                cuda_nufft.LAUNCH_PATHS, nufft_mod.BACKEND_PICKS)
 
     def host_ms(fn, reps=5):
         """Median host-clock ms of ``reps`` warm calls, each synchronised."""
@@ -4963,11 +5024,21 @@ def main() -> int:
                 f"ratio [{', '.join(f'{r:.2f}' for r in ratio)}]"
                 + (f"; components {moved} moved past 2x" if moved else ""))
 
-    def fused3(x, y, xq, method, seed=0):
-        return gpquad_torch.fit_predict_grad(
-            x, y, xq, kern_d3, sigmasq, h_d3,
-            torch.Generator(device=dev).manual_seed(seed), mtot=mtot_d3,
-            nufft_method=method, device=dev, **FUSED3_KW)
+    def fused_d3(kern, h, mtot, precond=None):
+        """Phase 6's fused call (fit, mean, stochastic variance and
+        gradient, probes from one generator) at ``kern``'s grid (h, mtot)
+        with ``precond`` (None: the solver's default, Jacobi PCG)."""
+        kw = dict(FUSED3_KW, **({} if precond is None
+                                else {"precond": precond}))
+
+        def call(x, y, xq, method, seed=0):
+            return gpquad_torch.fit_predict_grad(
+                x, y, xq, kern, sigmasq, h,
+                torch.Generator(device=dev).manual_seed(seed), mtot=mtot,
+                nufft_method=method, device=dev, **kw)
+        return call
+
+    fused3 = fused_d3(kern_d3, h_d3, mtot_d3)
 
     reset_counts(*counters)
     out3 = fused3(x3, y3, xq3, "auto")
@@ -5043,11 +5114,7 @@ def main() -> int:
 
     # the same call with the Kronecker preconditioner (gpquad's lever for
     # this cell, pipeline.py:93-97): fit, variance and trace solves
-    def fused3k(x, y, xq, method, seed=0):
-        return gpquad_torch.fit_predict_grad(
-            x, y, xq, kern_d3, sigmasq, h_d3,
-            torch.Generator(device=dev).manual_seed(seed), mtot=mtot_d3,
-            nufft_method=method, precond="kron", device=dev, **FUSED3_KW)
+    fused3k = fused_d3(kern_d3, h_d3, mtot_d3, "kron")
 
     fused3k(x3, y3, xq3, "auto")                           # warm
     reset_counts(*counters)
@@ -5143,6 +5210,99 @@ def main() -> int:
         grad_f32=out3.grad.tolist(), grad_f64=out3_64.grad.tolist())
     phase_s["6"] = time.perf_counter() - t_phase
     print(f"[6] phase wall time {phase_s['6']:.1f} s")
+
+    # -- phase 6b: d3 wide, the fused pass on phase 6's data at SE l 0.05
+    # (mtot 53, M 148 877): its Toeplitz lag table is 105 modes wide, a
+    # float32 type-1 past 64 on the wide grids' kernel; F*y and F*Z at 53
+    # on Type1Grid3D's, the variance evaluation at 105 on the d=3 type-2's
+    # tensor cores --------------------------------------------------------
+    t_phase = time.perf_counter()
+    lag_w = 2 * mtot_d3w - 1
+
+    fused3w = fused_d3(kern_d3w, h_d3w, mtot_d3w, "kron")
+    fused3w(x3, y3, xq3, "auto")                           # warm
+    reset_counts(*counters)
+    out3w = fused3w(x3, y3, xq3, "auto")
+    sync()
+    launches_d3w = dict(cuda_nufft.LAUNCHES)
+    paths_d3w = {f"{k}/{p}@{m}": c for (k, p, m), c in
+                 cuda_nufft.LAUNCH_PATHS.items() if c}
+    d3w_reps = 3
+    d3w_ms = host_ms(lambda: fused3w(x3, y3, xq3, "auto"), reps=d3w_reps)
+    out3w_64 = fused3w(x3.double(), y3.double(), xq3.double(), "matmul")
+    sync()
+    d3w_err_mean = float((out3w.mean.double() - out3w_64.mean).abs().max())
+    d3w_err_var = float((out3w.var.double() - out3w_64.var).abs().max())
+    d3w_var_scale = float(out3w_64.var.abs().max())
+    d3w_grad_rel = rel_to(out3w.grad, out3w_64.grad)
+    # the lag table's call on its kernel, the fit's inputs (its points,
+    # ones, h rounded to float32); the CUDA-core kernel it replaced is
+    # timed on the same inputs by scripts/time_type1_3d_wide.py --shapes 6b
+    # --base <the parent checkout>
+    hw32 = float(torch.tensor(h_d3w, dtype=torch.float32))
+    ones_w = torch.ones((1, x3.shape[0]), dtype=torch.complex64, device=dev)
+    geo_w = cuda_nufft.type1_3d_geometry(x3.shape[0], lag_w)
+    lag_calls = {"picked": lambda: cuda_nufft._nufft1_3d_on(
+        x3, ones_w, hw32, lag_w, False, geo_w)}
+    check(torch.equal(lag_calls["picked"](),
+                      cuda_nufft.nufft1_3d(x3, ones_w, hw32, mtot=lag_w)),
+          "6b: the lag table's timed call is not the wrapper's")
+    lag_ms = time_cuda_paths(lag_calls, 5, PATH_TRIALS)
+    b_lag = bound_3xtf32_ms("nufft1_3d", x3.shape[0], lag_w)[0]
+    print(f"[6b] d3 wide fused fit_predict_grad (SE l 0.05) mtot={mtot_d3w} "
+          f"M={mtot_d3w ** 3} lag table {lag_w}, kron: {d3w_ms:.2f} ms "
+          f"median of {d3w_reps} warm calls (host clock) {card}; "
+          f"launches={launches_d3w}; nufft1_3d by path {paths_d3w}; mean "
+          f"PCG iters {int(out3w.mean_cg_iters)} (f64 "
+          f"{int(out3w_64.mean_cg_iters)}), trace PCG iters "
+          f"{int(out3w.trace_cg_iters)}")
+    print(f"[6b] lag table (n {x3.shape[0]}, mtot {lag_w}) on the card: "
+          f"{geo_w[0]} {lag_ms['picked']:.4f} ms, bound_3xtf32_ms "
+          f"{b_lag:.4f} ({b_lag / lag_ms['picked']:.1%} of it); geometry "
+          f"{geo_w}")
+    print(f"[6b] d3 wide vs its float64 plain path run: max|mean err|="
+          f"{d3w_err_mean:.3e} (bar 5e-4), max|var err|={d3w_err_var:.3e} "
+          f"(bar 5e-2*max|var64| = {5e-2 * d3w_var_scale:.3e}), grad rel "
+          f"err per component={[f'{r:.3e}' for r in d3w_grad_rel]} (bar "
+          f"5e-2); grad f32={out3w.grad.tolist()} "
+          f"f64={out3w_64.grad.tolist()}")
+    # fit: F*y (53, Type1Grid3D's kernel) and the lag table (105, the wide
+    # grids' kernel); mean; variance evaluation (105, FFT order);
+    # gradient: F*y again, F(D beta), one batched F*Z (53) and two batched
+    # F applies
+    check(launches_d3w == launch_counts(nufft1_3d=4, nufft2_3d=5),
+          f"unexpected d3 wide launch counts {launches_d3w}")
+    check(paths_d3w == {f"nufft1_3d/tc@{mtot_d3w}": 3,
+                        f"nufft1_3d/wide@{lag_w}": 1},
+          f"6b: nufft1_3d launched by path {paths_d3w}, not the lag table "
+          f"on the wide grids' kernel and the rest on Type1Grid3D's")
+    check(geo_w[0] == "wide", f"6b: the lag table's pick is {geo_w}")
+    check(out3w.mean.shape == (10_000,) and out3w.var.shape == (10_000,)
+          and out3w.grad.shape == (3,), "wrong d3 wide output shapes")
+    check(all(bool(torch.isfinite(t).all())
+              for t in (out3w.mean, out3w.var, out3w.grad)),
+          "non-finite d3 wide output")
+    check(bool(out3w.mean_converged), "the d3 wide mean solve did not "
+          "converge")
+    check(d3w_err_mean <= 5e-4, f"d3 wide mean error {d3w_err_mean:.3e}")
+    check(d3w_err_var <= 5e-2 * d3w_var_scale,
+          f"d3 wide variance error {d3w_err_var:.3e} > 5e-2 * max|var64|")
+    check(all(r <= 5e-2 for r in d3w_grad_rel),
+          f"d3 wide gradient relative error {d3w_grad_rel} > 5e-2")
+    record["phases"]["d3_wide"] = dict(
+        mtot=mtot_d3w, M=mtot_d3w ** 3, lag_table=lag_w,
+        fused_ms=d3w_ms, warm_calls=d3w_reps, launches=launches_d3w,
+        launch_paths=paths_d3w, lag_table_ms=lag_ms,
+        lag_table_geometry=list(geo_w), lag_table_bound_3xtf32_ms=b_lag,
+        mean_cg_iters=int(out3w.mean_cg_iters),
+        mean_cg_iters_f64=int(out3w_64.mean_cg_iters),
+        trace_cg_iters=int(out3w.trace_cg_iters), err_mean=d3w_err_mean,
+        err_var=d3w_err_var, max_abs_var64=d3w_var_scale,
+        grad_rel_err=d3w_grad_rel, grad_f32=out3w.grad.tolist(),
+        grad_f64=out3w_64.grad.tolist())
+    del out3w_64
+    phase_s["6b"] = time.perf_counter() - t_phase
+    print(f"[6b] phase wall time {phase_s['6b']:.1f} s")
 
     # -- phase 7: hard3d, the deflated CG tier -------------------------------
     t_phase = time.perf_counter()
@@ -6096,9 +6256,15 @@ def main() -> int:
             if k in names and int(rest.split("@")[1]) > above:
                 out += v
         return out
-    # the d=3 functions' two kernels each (phase 3's tc_3d_both)
-    TC3_KEYS = ("dispatch", "tc_ms", "cuda_core_ms", "tc_rel_err",
-                "cuda_core_rel_err", "bound_fp32_ms", "bound_3xtf32_ms")
+    # the d=3 functions' kernels (phase 3's tc_3d_both): the type-2's two,
+    # the type-1's Type1Grid3D and wide grids' tensor cores (None where a
+    # width does not time one)
+    TC3_KEYS = {"nufft2_3d": ("dispatch", "tc_ms", "cuda_core_ms",
+                              "tc_rel_err", "cuda_core_rel_err",
+                              "bound_fp32_ms", "bound_3xtf32_ms"),
+                "nufft1_3d": ("dispatch", "tc_ms", "wide_ms", "tc_rel_err",
+                              "wide_rel_err", "bound_fp32_ms",
+                              "bound_3xtf32_ms")}
 
     def single_at_scale(f32_rows, keys):
         """The single type-2's paths at the scale configuration's calls, by
@@ -6181,10 +6347,10 @@ def main() -> int:
                 # both kernels' card times on the same inputs, the 3xTF32
                 # bound (bound_ms where the tensor cores are picked) beside
                 # the fp32 one, at every call phase 3 makes
-                extra.update({k: row[k] for k in TC3_KEYS})
+                extra.update({k: row[k] for k in TC3_KEYS[name]})
                 extra["at_calls"] = {
                     f"{r['serves']} (B {r['B']}, mtot {r['mtot']})": {
-                        k: r[k] for k in TC3_KEYS + (
+                        k: r[k] for k in TC3_KEYS[name] + (
                             "B", "n", "mtot", "ms", "bound_ms", "bound_by")}
                     for r in f32_rows}
         extra["launches_scaleout"] = scaleout_launches((name,))
@@ -6271,6 +6437,38 @@ def main() -> int:
         "shape": {"B": row["B"], "n": row["n"], "mtot": row["mtot"],
                   "fft_order": row["fft_order"], "serves": row["serves"],
                   "dtype": "float64"}})
+    # the float32 d=3 type-1 past mtot 64 on the wide grids' tensor cores
+    # (csrc/tc_type1_wide.cuh): phase 6b's lag table, its driven call
+    # (phase 3's row at that shape: the wrapper's time and the card's
+    # alone), and the card's times at every phase 3 call past 56; launches
+    # from phase 6b by path, which must hold the lag table
+    lag_w = 2 * mtot_d3w - 1
+    row = next(r for r in phase3 if r["name"] == "nufft1_3d"
+               and r["dtype"] == "float32" and r["serves"] == "6b lag table")
+    launched = record["phases"]["d3_wide"]["launch_paths"].get(
+        f"nufft1_3d/wide@{lag_w}", 0)
+    check(launched > 0, "phase 6b launched the wide grids' d=3 type-1 no "
+          "time")
+    wide_keys = ("wide_ms", "wide_rel_err", "bound_3xtf32_ms",
+                 "wide_scratch_bytes", "wide_geometry")
+    rows.append({
+        "name": "nufft1_3d (float32, wide grids' tensor cores)",
+        "route": "cuda", "source": "gpquad_torch/csrc/tc_type1_wide.cuh",
+        "replaces": "gpquad/ops/pallas_nufft.py:1118", "launches": launched,
+        **{k: row[k] for k in wide_keys},
+        "at_calls": {
+            f"{r['serves']} (B {r['B']}, n {r['n']}, mtot {r['mtot']})": {
+                k: r[k] for k in wide_keys + ("ms", "plain_ms", "bound_ms",
+                                              "bound_by")}
+            for r in phase3 if r["name"] == "nufft1_3d"
+            and r["dtype"] == "float32" and r.get("wide_ms") is not None},
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None,
+        "shape": {"B": row["B"], "n": row["n"], "mtot": row["mtot"],
+                  "fft_order": row["fft_order"], "serves": row["serves"],
+                  "dtype": "float32"}})
     # the float64 d=3 type-2 on the FP64 tensor cores (csrc/tc_type2_f64.cuh
     # on nufft_3d.cu's Type2F64Grid3D): its float64 call on a driven path
     # (12e's mean_high, hard3d's 1 000 targets at mtot 21; phase 3's row of
@@ -6351,7 +6549,7 @@ def main() -> int:
                      "launches_high_tier": high_launches(
                          (kernel, kernel + "_batched"), limit)}
         if kernel in KERNELS_3D:
-            extra.update({k: row[k] for k in TC3_KEYS})
+            extra.update({k: row[k] for k in TC3_KEYS[kernel]})
         if kernel == "nufft2_2d":
             keys = ("dispatch", "fastest", "tc_ms", "split_ms", "cuda_ms")
             extra.update({k: row[k] for k in keys})

@@ -22,8 +22,8 @@
 // value, so they are bound by operations (fp32 outside the tensor cores), not
 // by bytes.  At mtot 61 that is 227k multiply-adds per point.  The float32
 // paths the geometry sends there run on the tensor cores (3xTF32); the
-// CUDA-core kernels keep the multiply-adds in registers fed by broadcast
-// reads of shared memory, and make each phase a small share of them:
+// CUDA-core kernel keeps the multiply-adds in registers fed by broadcast
+// reads of shared memory, and makes each phase a small share of them:
 //
 //  - nufft2_3d in float32 (where ops/cuda_nufft.py type2_3d_geometry sends
 //    it): tc_type2.cuh's tensor-core kernel (3xTF32) on Type2Grid3D below,
@@ -52,30 +52,16 @@
 //    it, mtot up to 64): tc_type1.cuh's tensor-core kernel (3xTF32) on
 //    Type1Grid3D below, a GEMM over the points whose rows are (r, j3) and
 //    columns (q, j2) of a split of the first axis's mode, k1 = S q + r;
+//    past 64 tc_type1_wide.cuh's kernel (3xTF32), the same GEMM with rows
+//    the pairs (j1, j2) laid end to end and columns j3, each operand's
+//    entry a product of a per-tile table's factors;
 //  - nufft1_3d in float64: tc_type1_f64.cuh's FP64 tensor-core kernel
 //    (DMMA, no split of the operands) on Type1F64Grid3D below, the same
 //    rows (r, j3) and columns (q, j2) of k1 = S q + r with S picked per
 //    width by ops/cuda_nufft.py type1_3d_geometry, each index's inner mode
-//    split again so that a point makes few phases a tile;
-//  - nufft1_3d on the CUDA cores (the float32 widths the geometry keeps
-//    there, and the control phase 3 times beside the tensor cores): for a
-//    fixed j1 this is the d=2 type-1 with weights
-//    v e1(j1) (the Pallas kernel's own factoring).  A block owns a 16 x 16
-//    tile of (j2, j3) outputs for a slab of J1B = 8 first-axis modes (8
-//    accumulators per thread) and one group of 2048-point chunks; it stages
-//    v e1 (J1B per point), e2 and e3 for sub-tiles of P points in shared
-//    memory; each thread forms e2 e3 once per point and adds (v e1)(e2 e3)
-//    for its 8 outputs.  The sum over points is two-level inside the block
-//    (each 2048-point chunk in registers, then added to the block's running
-//    total), then a second kernel adds the groups' partials in group order.
-//    No atomics: deterministic, and the f32 error of each sum stays bounded
-//    as the chunked type-1 of ops/nufft.py keeps it.  The number of groups
-//    is chosen by the wrapper so that about a thousand blocks run; the
-//    scratch is groups x B x mtot^3 values (16 MB in f32 at n = 1e5,
-//    mtot 61, against 89 MB with one partial per chunk).
+//    split again so that a point makes few phases a tile.
 //
-// The CUDA-core kernels are float32 alone: the float64 instances of both
-// gave way to the FP64 tensor cores.
+// The CUDA-core kernel is the float32 type-2's alone.
 //
 // C interface (bound with ctypes): pointers and the stream are void*, each
 // function returns cudaGetLastError() after its launches.
@@ -83,6 +69,7 @@
 #include <algorithm>
 
 #include "tc_type1_f64.cuh"
+#include "tc_type1_wide.cuh"
 #include "tc_type2.cuh"
 #include "tc_type2_f64.cuh"
 
@@ -197,135 +184,6 @@ nufft2_3d_kernel(const T* __restrict__ x, const v2_t<T>* __restrict__ f,
   }
 }
 
-// ---------------------------------------------------------------------------
-// type-1 stage 1: partial[grp, b, j1, j2, j3] = sum over the points of chunk
-// group grp of v[b,n] e1(n,j1) e2(n,j2) e3(n,j3), e = e^{-2 pi i c}.
-// Block = one 16 x 16 (j2, j3) tile for a slab of J1B first-axis modes (grid
-// axis x), one group of `cpg` consecutive chunks (grid axis y), one vector b
-// (grid axis z).
-// ---------------------------------------------------------------------------
-constexpr int T3_TJ = 16;
-constexpr int T3_TK = 16;
-constexpr int T3_THREADS = T3_TJ * T3_TK;
-constexpr int T3_J1B = 8;
-
-template <typename T, int P>
-__global__ void __launch_bounds__(T3_THREADS)
-nufft1_3d_partial_kernel(const T* __restrict__ x,
-                         const v2_t<T>* __restrict__ v, T h, int n, int m,
-                         int fft_order, int chunk, int cpg,
-                         v2_t<T>* __restrict__ partial) {
-  __shared__ T su1[P], su2[P], su3[P];
-  __shared__ v2_t<T> sv[P];
-  __shared__ v2_t<T> w1[P][T3_J1B];   // v_p * e1(p, j1)
-  __shared__ v2_t<T> e2[P][T3_TJ];    // e2(p, j2)
-  __shared__ v2_t<T> e3[P][T3_TK];    // e3(p, j3)
-  const int nt = (m + T3_TJ - 1) / T3_TJ;
-  const int tile = blockIdx.x % (nt * nt);
-  const int j10 = (blockIdx.x / (nt * nt)) * T3_J1B;
-  const int j20 = (tile / nt) * T3_TJ;
-  const int k0 = (tile % nt) * T3_TK;
-  const int jj = threadIdx.x / T3_TK, kk = threadIdx.x % T3_TK;
-  const int b = blockIdx.z, nb = gridDim.z;
-  const v2_t<T>* vb = v + (size_t)b * n;
-  const int nchunk = (n + chunk - 1) / chunk;
-  const int c_end = min(nchunk, (int)(blockIdx.y + 1) * cpg);
-  T tot_re[T3_J1B], tot_im[T3_J1B];
-#pragma unroll
-  for (int a = 0; a < T3_J1B; ++a) {
-    tot_re[a] = 0;
-    tot_im[a] = 0;
-  }
-  for (int c = blockIdx.y * cpg; c < c_end; ++c) {
-    T acc_re[T3_J1B], acc_im[T3_J1B];
-#pragma unroll
-    for (int a = 0; a < T3_J1B; ++a) {
-      acc_re[a] = 0;
-      acc_im[a] = 0;
-    }
-    const int p_begin = c * chunk;
-    const int p_end = min(n, p_begin + chunk);
-    for (int p0 = p_begin; p0 < p_end; p0 += P) {
-      const int pn = min(P, p_end - p0);
-      __syncthreads();
-      for (int q = threadIdx.x; q < pn; q += T3_THREADS) {
-        const size_t r = 3 * (size_t)(p0 + q);
-        su1[q] = torus(x[r], h);
-        su2[q] = torus(x[r + 1], h);
-        su3[q] = torus(x[r + 2], h);
-        sv[q] = vb[p0 + q];
-      }
-      __syncthreads();
-      for (int e = threadIdx.x; e < pn * T3_J1B; e += T3_THREADS) {
-        const int q = e / T3_J1B, a = e % T3_J1B;
-        v2_t<T> w;
-        w.x = 0;
-        w.y = 0;
-        if (j10 + a < m) {
-          T cs, sn;
-          phase(su1[q], mode_value<T>(j10 + a, m, fft_order), &cs, &sn);
-          const v2_t<T> vq = sv[q];
-          // (c - i s)(vr + i vi)
-          w.x = fma(cs, vq.x, sn * vq.y);
-          w.y = fma(cs, vq.y, -sn * vq.x);
-        }
-        w1[q][a] = w;
-      }
-      for (int e = threadIdx.x; e < pn * T3_TJ; e += T3_THREADS) {
-        const int q = e / T3_TJ, t = e % T3_TJ;
-        v2_t<T> w2, w3;
-        w2.x = w2.y = w3.x = w3.y = 0;
-        if (j20 + t < m) {
-          T cs, sn;
-          phase(su2[q], mode_value<T>(j20 + t, m, fft_order), &cs, &sn);
-          w2.x = cs;
-          w2.y = -sn;
-        }
-        if (k0 + t < m) {
-          T cs, sn;
-          phase(su3[q], mode_value<T>(k0 + t, m, fft_order), &cs, &sn);
-          w3.x = cs;
-          w3.y = -sn;
-        }
-        e2[q][t] = w2;
-        e3[q][t] = w3;
-      }
-      __syncthreads();
-      for (int q = 0; q < pn; ++q) {
-        const v2_t<T> a2 = e2[q][jj];
-        const v2_t<T> a3 = e3[q][kk];
-        const T er = fma(a2.x, a3.x, -a2.y * a3.y);
-        const T ei = fma(a2.x, a3.y, a2.y * a3.x);
-#pragma unroll
-        for (int a = 0; a < T3_J1B; ++a) {
-          const v2_t<T> w = w1[q][a];
-          acc_re[a] = fma(w.x, er, fma(-w.y, ei, acc_re[a]));
-          acc_im[a] = fma(w.x, ei, fma(w.y, er, acc_im[a]));
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < T3_J1B; ++a) {
-      tot_re[a] += acc_re[a];
-      tot_im[a] += acc_im[a];
-    }
-  }
-  if (j20 + jj < m && k0 + kk < m) {
-    const size_t mm = (size_t)m * m;
-    const size_t base = ((size_t)blockIdx.y * nb + b) * mm * m
-                        + (size_t)(j20 + jj) * m + (k0 + kk);
-#pragma unroll
-    for (int a = 0; a < T3_J1B; ++a) {
-      if (j10 + a < m) {
-        v2_t<T> o;
-        o.x = tot_re[a];
-        o.y = tot_im[a];
-        partial[base + (size_t)(j10 + a) * mm] = o;
-      }
-    }
-  }
-}
-
 // Type-2: 128 threads per block; one thread per point when there are many
 // points, four when there are few; TK = 32 third-axis modes per register
 // tile (16 KB of shared memory).
@@ -351,25 +209,6 @@ int launch_nufft2(const void* x, const void* f, float h, int n, int m, int nb,
   return launch_nufft2_g<1>(x, f, h, n, m, nb, fft_order, out, s);
 }
 
-template <typename T>
-int launch_nufft1(const void* x, const void* v, T h, int n, int m, int nb,
-                  int fft_order, int chunk, int groups, void* partial,
-                  void* out, void* stream) {
-  constexpr int P = sizeof(T) == 4 ? 128 : 64;
-  const int nt = (m + T3_TJ - 1) / T3_TJ;
-  const int nslab = (m + T3_J1B - 1) / T3_J1B;
-  const int nchunk = (n + chunk - 1) / chunk;
-  const int cpg = (nchunk + groups - 1) / groups;
-  const dim3 grid(nt * nt * nslab, groups, nb);
-  cudaStream_t s = (cudaStream_t)stream;
-  nufft1_3d_partial_kernel<T, P><<<grid, T3_THREADS, 0, s>>>(
-      (const T*)x, (const v2_t<T>*)v, h, n, m, fft_order, chunk, cpg,
-      (v2_t<T>*)partial);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return launch_reduce<T>(partial, groups, nb * m * m * m, out, s);
-}
-
 // ---------------------------------------------------------------------------
 // type-1 in float32 on the tensor cores: tc_type1.cuh's kernel on the d=3
 // problem.  gpquad factors the sum as a product over the points per j1
@@ -380,8 +219,8 @@ int launch_nufft1(const void* x, const void* v, T h, int n, int m, int nb,
 //                                 (e^{-2 pi i S q u1} e2(j2)):
 // rows (r, j3), S mtot of them, columns (q, j2), Q mtot of them (Q the
 // values of q that reach every |k1| <= half); outputs with |k1| past half
-// are cropped.  Each phase is the product of two folded phases, as the
-// CUDA-core kernel makes them: a row's e3(j3) directly (phase of u3), its
+// are cropped.  Each phase is the product of two folded phases (phase()
+// of the torus coordinate): a row's e3(j3) directly (phase of u3), its
 // e^{-2 pi i r u1} and a column's two from a table the producers make once
 // a stage for the tile: [0, S) e^{-2 pi i r u1}; [S, S + nq) e^{-2 pi i S q
 // u1} at the tile's nq values of q; then e2 at the min(mtot, COLS) modes
@@ -773,13 +612,6 @@ int gpq_nufft2_3d_tc_f32(const void* x, const void* f, float h, int n, int m,
                                          scratch_floats, out, stream);
 }
 
-int gpq_nufft1_3d_f32(const void* x, const void* v, float h, int n, int m,
-                      int nb, int fft_order, int chunk, int groups,
-                      void* partial, void* out, void* stream) {
-  return launch_nufft1<float>(x, v, h, n, m, nb, fft_order, chunk, groups,
-                              partial, out, stream);
-}
-
 // float32 on the tensor cores, with the caller's geometry (ops/cuda_nufft.py
 // type1_3d_geometry): one vector in groups of G = 1, a batch of G = 2
 int gpq_nufft1_3d_tc_f32(const void* x, const void* v, float h, int n, int m,
@@ -793,6 +625,18 @@ int gpq_nufft1_3d_tc_f32(const void* x, const void* v, float h, int n, int m,
   return launch_type1_tc<Type1Grid3D, 2>(x, v, h, n, m, nb, fft_order, rows,
                                          cols, group, acc, run, chunk,
                                          partial, out, stream);
+}
+
+// float32 on the tensor cores for the wide grids (tc_type1_wide.cuh), with
+// the caller's geometry (ops/cuda_nufft.py type1_3d_wide_geometry: rows,
+// cols, points a register sum, a run, a group); one group of points writes
+// the output itself (the partial is then unused)
+int gpq_nufft1_3d_wide_f32(const void* x, const void* v, float h, int n,
+                           int m, int nb, int fft_order, int rows, int cols,
+                           int acc, int run, int chunk, void* partial,
+                           void* out, void* stream) {
+  return launch_type1_wide(x, v, h, n, m, nb, fft_order, rows, cols, acc,
+                           run, chunk, partial, out, stream);
 }
 
 // float64 on the FP64 tensor cores, with the caller's geometry

@@ -55,10 +55,12 @@ reaches device memory; the kernels in ``csrc/nufft_1d.cu``,
   :func:`nufft1_3d` replaces ``pallas_nufft1_3d`` (:750) and
   ``_pallas_nufft1_3d_tiled`` (:1118): one vector or a batch in one launch,
   any odd ``mtot`` up to 255 (the TPU's ``_D3_TILED_MAX``).  In float32
-  the type-1 runs, where :func:`type1_3d_geometry` sends it, on the d=2
-  type-1's tensor-core kernel with rows (r, j3) and columns (q, j2) of a
-  split of the first axis's mode, k1 = S q + r
-  (:func:`nufft1_3d_3xtf32_ref` is its plain twin), and the type-2, where
+  the type-1 runs up to mtot 64 on the d=2 type-1's tensor-core kernel
+  with rows (r, j3) and columns (q, j2) of a split of the first axis's
+  mode, k1 = S q + r (:func:`nufft1_3d_3xtf32_ref` is its plain twin), and
+  past it on the wide grids' tensor-core kernel, rows the pairs (j1, j2)
+  laid end to end and columns j3 (:func:`nufft1_3d_wide_ref`), as
+  :func:`type1_3d_geometry` picks; the type-2, where
   :func:`type2_3d_geometry` sends it, on the d=2 type-2's tensor-core
   kernel as a GEMM over the pairs (j2, j3) with columns (vector, j1) and
   the sum over j1 in its epilogue (:func:`nufft2_3d_3xtf32_ref`).  In
@@ -123,16 +125,17 @@ __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "type2_2d_single_geometry",
            "type2_2d_scratch_floats", "type2_2d_f64_scratch_doubles",
            "nufft2_2d_f64_tc_ref",
-           "type1_3d_groups",
            "type1_3d_geometry", "type1_3d_tc_geometry", "type1_3d_split",
            "type1_3d_f64_split", "nufft1_3d_f64_tc_ref",
            "nufft1_3d_3xtf32_ref", "nufft2_3d_3xtf32_ref",
+           "nufft1_3d_wide_ref", "type1_3d_wide_geometry",
            "type2_3d_geometry", "type2_3d_tc_geometry",
            "type2_3d_scratch_floats", "type2_3d_split",
            "type2_3d_f64_split", "type2_3d_f64_scratch_doubles",
            "nufft2_3d_f64_tc_ref",
            "CudaNUFFT", "LAUNCHES",
-           "LAUNCH_WIDTHS", "LAUNCH_PRECISIONS", "build", "library_path"]
+           "LAUNCH_WIDTHS", "LAUNCH_PRECISIONS", "LAUNCH_PATHS", "build",
+           "library_path"]
 
 # Launches of each kernel since the last reset (a launch is one wrapper call
 # on a CUDA tensor; the two stages of type-1 count once).
@@ -140,13 +143,17 @@ LAUNCHES = {"nufft1_1d": 0, "nufft2_1d": 0, "nufft1_2d": 0, "nufft2_2d": 0,
             "nufft1_2d_batched": 0, "nufft2_2d_batched": 0, "nufft1_3d": 0,
             "nufft2_3d": 0}
 # The same launches by (kernel, mtot), and by (kernel, "f32" | "f64", mtot),
-# counted at the same place.
+# counted at the same place; the d=3 type-1's also by (kernel, path, mtot),
+# its path the kind of geometry it ran: "tc" (float32, mtot up to 64),
+# "wide" (float32, the wide grids), "fp64".
 LAUNCH_WIDTHS: dict[tuple[str, int], int] = {}
 LAUNCH_PRECISIONS: dict[tuple[str, str, int], int] = {}
+LAUNCH_PATHS: dict[tuple[str, str, int], int] = {}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every file the library depends on (hashed); the .cu files are compiled
 _SOURCES = ("nufft_common.cuh", "tc_type1.cuh", "tc_type1_f64.cuh",
+            "tc_type1_wide.cuh",
             "tc_type2.cuh", "tc_type2_f64.cuh", "nufft_1d.cu", "nufft_2d.cu",
             "nufft_3d.cu", "interp_2d.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpquad_torch"
@@ -156,8 +163,6 @@ TYPE1_CHUNK = 2048
 # the card's streaming multiprocessors (an H100 SXM's 132), on which the
 # tensor-core geometries below count their waves of blocks
 CARD_SMS = 132
-# the d=3 type-1 sums its chunks in groups, enough for about this many blocks
-TYPE1_3D_BLOCKS = 1056
 # The geometry of the float32 d=2 type-1 (csrc/tc_type1.cuh
 # type1_tc_kernel on nufft_2d.cu's Type1Grid2D), owned here and passed to
 # each launch (type1_2d_geometry), which refuses one it has no instance for:
@@ -198,9 +203,25 @@ TYPE1_1D_RUN = 256
 # The float32 d=3 type-1 takes the same kernel on nufft_3d.cu's Type1Grid3D
 # (type1_3d_geometry): rows (r, j3), columns (q, j2) of the split k1 = S q +
 # r, the d=2 type-1's tiles, stage, runs and point groups; its dispatch from
-# the times of both kernels on the same inputs: the tensor cores up to this
-# mtot (the wide column tiles' table fits to 64), the CUDA cores past it
+# the times of both tensor-core kernels on the same inputs: Type1Grid3D's
+# up to this mtot (the wide column tiles' table fits to 64), the wide
+# grids' kernel past it
 TYPE1_3D_TC_MAX_MTOT = 64
+# Past it the float32 d=3 type-1 takes csrc/tc_type1_wide.cuh's kernel
+# (type1_3d_wide_geometry): rows the pairs (j1, j2) of a vector laid end to
+# end, in tiles of TYPE1_2D_ROWS, columns the modes j3 in tiles of this
+# many (the source's TW_COLS, its one instance: where 32 columns pad j3
+# less, at mtot 65-95 and 129-191, they took 1.31-1.60x its time, and
+# 1.05-2.08x at every width timed, on NVIDIA H100 80GB HBM3, 700 W,
+# scripts/time_type1_3d_wide.py --shapes sweep 6b phase3); the d=2
+# type-1's register sums and runs; point groups of whole runs, their
+# partials at most TYPE1_3D_WIDE_SCRATCH bytes (one group writes the output
+# itself).  The kernel takes mtot from TYPE1_3D_WIDE_MIN_MTOT (a row tile
+# then reaches at most three values of j1: the source's TW_MIN_MTOT and
+# TW_N1).
+TYPE1_3D_WIDE_COLS = 128
+TYPE1_3D_WIDE_SCRATCH = 64e6
+TYPE1_3D_WIDE_MIN_MTOT = 32
 # The float64 d=3 type-1 takes the float64 d=2 type-1's kernel
 # (csrc/tc_type1_f64.cuh type1_f64_kernel) on nufft_3d.cu's Type1F64Grid3D
 # (type1_3d_geometry at float64): rows (r, j3) and columns (q, j2) of the
@@ -517,21 +538,26 @@ def _library():
                            [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 4,
                             ptr, ctypes.c_longlong, ptr, ptr])
             d2.restype = i32
-            # the d=3 type-1: in float32 on the CUDA cores (chunk, groups),
-            # in float64 on the FP64 tensor cores (rows, cols, group,
-            # split, run, chunk), before the scratch
-            d1 = getattr(lib, f"gpq_nufft1_3d_{prec}")
-            d1.argtypes = [ptr, ptr, real, i32, i32, i32, i32,
-                           *[i32] * (2 if prec == "f32" else 6), ptr, ptr,
-                           ptr]
-            d1.restype = i32
-            if prec == "f32":
+            if prec == "f64":
+                # the d=3 type-1 on the FP64 tensor cores: its geometry
+                # (rows, cols, group, split, run, chunk) before the scratch
+                d1 = lib.gpq_nufft1_3d_f64
+                d1.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 6,
+                               ptr, ptr, ptr]
+                d1.restype = i32
+            else:
                 # the tensor-core form: its geometry (rows, cols, group,
                 # stage, run, chunk) before the scratch
                 d1t = lib.gpq_nufft1_3d_tc_f32
                 d1t.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 6,
                                 ptr, ptr, ptr]
                 d1t.restype = i32
+                # the wide grids' tensor-core form: its geometry (rows,
+                # cols, stage, run, chunk) before the scratch
+                d1w = lib.gpq_nufft1_3d_wide_f32
+                d1w.argtypes = [ptr, ptr, real, i32, i32, i32, i32, *[i32] * 5,
+                                ptr, ptr, ptr]
+                d1w.restype = i32
                 # the type-2's: its geometry (points, cols, stage, splits)
                 # and the scratch and its size before the output
                 d2t = lib.gpq_nufft2_3d_tc_f32
@@ -580,11 +606,12 @@ def _check_cuda_operand(name, t, x, cdtype):
 
 
 def _launch(name: str, x: torch.Tensor, *args, mtot: int,
-            symbol: str | None = None):
+            symbol: str | None = None, path: str | None = None):
     """Call ``gpq_<name>_<f32|f64>`` (x's precision), or the C function
     ``symbol`` where given, with ``args`` and x's current stream; raise on a
     CUDA error, count the launch of ``name`` (by kernel, by kernel and
-    ``mtot``, and by kernel, precision and ``mtot``)."""
+    ``mtot``, by kernel, precision and ``mtot``, and where ``path`` is
+    given by kernel, path and ``mtot``)."""
     prec = "f32" if x.dtype == torch.float32 else "f64"
     fn = getattr(_library(), symbol or f"gpq_{name}_{prec}")
     with torch.cuda.device(x.device):
@@ -597,6 +624,9 @@ def _launch(name: str, x: torch.Tensor, *args, mtot: int,
     LAUNCH_WIDTHS[name, mtot] = LAUNCH_WIDTHS.get((name, mtot), 0) + 1
     LAUNCH_PRECISIONS[name, prec, mtot] = LAUNCH_PRECISIONS.get(
         (name, prec, mtot), 0) + 1
+    if path is not None:
+        LAUNCH_PATHS[name, path, mtot] = LAUNCH_PATHS.get(
+            (name, path, mtot), 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -950,6 +980,87 @@ def nufft1_3d_3xtf32_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
                              chunk=chunk or geo[-1], run=TYPE1_2D_RUN,
                              stage=TYPE1_2D_STAGE, passes=passes)
     out = out.reshape((B,) + (m,) * 3)
+    return out[0] if single else out
+
+
+def _type1_3d_wide_rows(x, V, h, m: int, i):
+    """The wide kernel's A at its rows ``i`` (centred (j1, j2) pairs, i =
+    j1 mtot + j2), from its table's factors (:func:`nufft1_3d_wide_ref`):
+    (B, N, len(i)) complex64."""
+    t1, t2 = x[:, 0] * h, x[:, 1] * h
+    half = (m - 1) // 2
+    i0 = i - i % TYPE1_2D_ROWS
+    r, b2 = i - i0, i0 % m
+    idx = (b2 + r) // m
+
+    def e(t, k):
+        return _phase_matrix(t, k.to(torch.float32), torch.complex64)
+    a = V[:, :, None] * e(t1, i0 // m + idx - half)[None]
+    a = torch.where(idx > 0, a * e(t2, -m * idx)[None], a)
+    return (a * e(t2, b2 - half + 8 * (r // 8))[None]
+            * e(t2, r % 8)[None])
+
+
+def _type1_3d_wide_cols(x, h, m: int, cols: int):
+    """The wide kernel's E, from its table's factors
+    (:func:`nufft1_3d_wide_ref`): (N, mtot) complex64, column j3 centred."""
+    t3 = x[:, 2] * h
+    half = (m - 1) // 2
+    j3 = torch.arange(m, device=x.device)
+    k0, c = j3 - j3 % cols, j3 % cols
+
+    def e(k):
+        return _phase_matrix(t3, k.to(torch.float32), torch.complex64)
+    return e(k0 - half + 8 * (c // 8)) * e(c % 8)
+
+
+def nufft1_3d_wide_ref(x, vals, h, *, mtot: int, fft_order: bool = False,
+                       chunk: int | None = None, passes: int = 3):
+    """Plain twin of the wide grids' float32 d=3 type-1 kernel
+    (csrc/tc_type1_wide.cuh ``type1_wide_kernel``), in float32 with its
+    tiling algebra.  Row i = j1 mtot + j2 (centred indices) of A holds
+    ``((v e1(j1)) w) C2 F2`` and column j3 of E ``C3 F3``, the kernel's
+    table factors (``ops/nufft.py`` ``_phase_matrix`` on t = x h): for the
+    row's tile from i0 = i - i % :data:`TYPE1_2D_ROWS`, r = i - i0,
+    b2 = i0 % mtot and idx = (b2 + r) // mtot, e1(j1) = e(t1, i0 // mtot +
+    idx - half), w = e(t2, -mtot idx) (none at idx 0), C2 = e(t2, b2 -
+    half + 8 (r // 8)), F2 = e(t2, r % 8); for the column's tile from k0
+    (:data:`TYPE1_3D_WIDE_COLS` wide), c = j3 - k0, C3 = e(t3, k0 - half +
+    8 (c // 8)), F3 = e(t3, c % 8); each product one complex64 multiply,
+    in that order.  Then the kernel's sums
+    (:func:`_type1_3xtf32_sums`: k-steps of 8 points, sums of
+    :data:`TYPE1_2D_STAGE` points, runs of :data:`TYPE1_2D_RUN`, groups of
+    ``chunk`` points, by default the geometry's, in group order in
+    float32), a slice of rows at a time, and the output in FFT order where
+    asked.  ``passes=1`` keeps big*big alone: plain TF32, the control the
+    split is held against.
+
+    ``x`` (N, 3); ``vals`` (N,) or (B, N); returns complex64 (mtot,)*3 or
+    (B,) + (mtot,)*3.  The tests run it on the CPU; the card-only tests on
+    the card at a few thousand points."""
+    x = x.to(torch.float32)
+    n, m = x.shape[0], mtot
+    single = vals.ndim == 1
+    V = vals.reshape(-1, n).to(torch.complex64)
+    B = V.shape[0]
+    chunk = chunk or type1_3d_wide_geometry(n, m, B)[-1]
+    hq = torch.tensor(h, dtype=torch.float32)
+    E = _type1_3d_wide_cols(x, hq, m, TYPE1_3D_WIDE_COLS)
+    out = torch.empty((B, m * m, m), dtype=torch.complex64, device=x.device)
+    # a slice of rows at a time: the sums' products are (B, stage / 8,
+    # rows, mtot) complex64 values, ~32 MB each at most
+    step = TYPE1_2D_ROWS * max(1, 2 ** 17 // (TYPE1_2D_ROWS * B * m))
+    for s0 in range(0, m * m, step):
+        i = torch.arange(s0, min(m * m, s0 + step), device=x.device)
+        out[:, s0:s0 + len(i)] = _type1_3xtf32_sums(
+            _type1_3d_wide_rows(x, V, hq, m, i), E, chunk=chunk,
+            run=TYPE1_2D_RUN, stage=TYPE1_2D_STAGE, passes=passes)
+    out = out.reshape((B,) + (m,) * 3)
+    if fft_order:
+        half = (m - 1) // 2
+        p = torch.arange(m, device=x.device)
+        perm = torch.where(p <= half, p + half, p - m + half)
+        out = out[:, perm][:, :, perm][:, :, :, perm]
     return out[0] if single else out
 
 
@@ -1800,24 +1911,26 @@ def type1_1d_f64_split(mtot: int, rows: int, cols: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=1024)
-def _type1_f64_chunk(n: int, tiles: int, group_bytes: int) -> int:
-    """Points a group of the FP64 tensor-core type-1 (d=1 and d=3): whole
-    runs of :data:`TYPE1_2D_F64_RUN` points, in as many groups as make the
-    fewest waves of blocks (``tiles`` output tiles x groups) on the card's
+def _type1_wave_chunk(n: int, tiles: int, group_bytes: int, run: int,
+                      scratch: float) -> int:
+    """Points a group of the FP64 tensor-core type-1 (d=1 and d=3) and of
+    the wide grids' float32 d=3 type-1: whole runs of ``run`` points, in
+    as many groups as make the fewest
+    waves of blocks (``tiles`` output tiles x groups) on the card's
     :data:`CARD_SMS` SMs times runs a block, the fewest groups of a tie,
-    with at most :data:`TYPE1_3D_F64_SCRATCH` bytes of partials
-    (``group_bytes`` a group).  Kept for the shapes a process calls: the
-    search over the groups takes ~0.1 ms of host time at the light
-    curve's 124 runs, more than its kernel's 0.055 ms."""
-    nrun = max(1, -(-n // TYPE1_2D_F64_RUN))
-    cap = max(1, int(TYPE1_3D_F64_SCRATCH // group_bytes))
+    with at most ``scratch`` bytes of partials (``group_bytes`` a group).
+    Kept for the shapes a process calls: the search over the groups takes
+    ~0.1 ms of host time at the light curve's 124 runs, more than its
+    kernel's 0.055 ms."""
+    nrun = max(1, -(-n // run))
+    cap = max(1, int(scratch // group_bytes))
 
     def cost(groups):
         """(waves x runs a block, groups) of ``groups`` point groups."""
         per = -(-nrun // groups)
         return -(-tiles * -(-nrun // per) // CARD_SMS) * per, groups
     groups = min(range(1, min(nrun, cap) + 1), key=cost)
-    return -(-nrun // groups) * TYPE1_2D_F64_RUN
+    return -(-nrun // groups) * run
 
 
 def _type1_1d_f64_tiles(mtot: int, B: int, geo: tuple) -> int:
@@ -1840,7 +1953,7 @@ def type1_1d_f64_tc_geometry(n: int, mtot: int, B: int = 1) -> tuple:
     where the wide tiles pad :data:`TYPE1_2D_F64_NARROW_PADDING` times as
     much or more; the split S of :func:`type1_1d_f64_split` for that tile;
     runs of :data:`TYPE1_2D_F64_RUN` points and the point groups of
-    :func:`_type1_f64_chunk`.  The output is tiny and the sum long (919
+    :func:`_type1_wave_chunk`.  The output is tiny and the sum long (919
     outputs from 63 480 points: one tile), so the card fills through the
     point groups, their partials (groups x B x mtot values) added in group
     order."""
@@ -1857,7 +1970,8 @@ def type1_1d_f64_tc_geometry(n: int, mtot: int, B: int = 1) -> tuple:
     if lay[2] >= TYPE1_2D_F64_NARROW_PADDING * narrow[2]:
         cols, lay = TYPE1_2D_F64_NARROW_COLS, narrow
     S, tiles, _ = lay
-    chunk = _type1_f64_chunk(n, tiles, 16 * B * mtot)
+    chunk = _type1_wave_chunk(n, tiles, 16 * B * mtot, TYPE1_2D_F64_RUN,
+                              TYPE1_3D_F64_SCRATCH)
     return ("tc", TYPE1_2D_ROWS, cols, g, S, TYPE1_2D_F64_RUN, chunk)
 
 
@@ -2272,22 +2386,6 @@ def nufft1_2d_batched(x, vals, h, *, mtot: int, fft_order: bool = False):
     return _nufft1_2d_on(x, vals, h, mtot, fft_order, geo, True)
 
 
-def type1_3d_groups(n: int, mtot: int, B: int = 1) -> tuple[int, int]:
-    """(groups, chunks per group) of the d=3 type-1's sum over points.
-
-    Each block sums its group's 2048-point chunks (each chunk in registers,
-    then into the block's running total), and a second kernel adds the
-    groups in order.  Enough groups for about :data:`TYPE1_3D_BLOCKS`
-    blocks, never an empty one; the scratch holds groups * B * mtot^3
-    values."""
-    nt = -(-mtot // 16)
-    blocks = nt * nt * -(-mtot // 8) * B
-    nchunk = max(1, -(-n // TYPE1_CHUNK))
-    groups = min(nchunk, max(1, -(-TYPE1_3D_BLOCKS // blocks)))
-    cpg = -(-nchunk // groups)
-    return -(-nchunk // cpg), cpg
-
-
 def _type2_3d_batch(f, m: int) -> tuple[bool, int]:
     """(single, B) of the d=3 type-2's coefficients ``f``: (m,)*3 or (m^3,)
     for one vector, with a leading batch for B >= 1."""
@@ -2505,8 +2603,9 @@ def nufft1_3d(x, vals, h, *, mtot: int, fft_order: bool = False):
     mtot <= 255.  Returns complex (mtot,)*3 or (B,) + (mtot,)*3 from one
     launch (two kernels: grouped partial sums, then the group-order sum).
     The partials come from the path :func:`type1_3d_geometry` picks: in
-    float32 the tensor cores (groups of its ``chunk`` points) or the CUDA
-    cores (:func:`type1_3d_groups`), in float64 the FP64 tensor cores
+    float32 the tensor cores (groups of its ``chunk`` points; past mtot
+    :data:`TYPE1_3D_TC_MAX_MTOT` the wide grids' kernel, one group of
+    which writes the output itself), in float64 the FP64 tensor cores
     (groups of its ``chunk`` points; one group writes the output itself);
     the scratch holds groups * B * mtot^3 values.  A CPU tensor takes the
     plain version."""
@@ -2518,7 +2617,7 @@ def nufft1_3d(x, vals, h, *, mtot: int, fft_order: bool = False):
     single = vals.ndim == 1
     B = 1 if single else vals.shape[0]
     geo = type1_3d_geometry(n, mtot, B, x.dtype)
-    _check_batch(B, mtot, 3, _type1_3d_groups_of(n, mtot, B, geo))
+    _check_batch(B, mtot, 3, _type1_3d_groups_of(n, geo))
     if x.device.type == "cpu":
         return nufft1_3d_ref(x, vals, h, mtot=mtot, fft_order=fft_order)
     out = _nufft1_3d_on(x, vals.reshape(B, n), h, mtot, fft_order, geo)
@@ -2531,12 +2630,13 @@ def type1_3d_geometry(n: int, mtot: int, B: int = 1,
 
     In float32: ``("tc", rows, cols, group, stage, run, chunk)``, the
     tensor-core kernel's arguments before its scratch
-    (:func:`type1_3d_tc_geometry`), or ``("cuda",)``, the CUDA-core kernel
-    (:func:`type1_3d_groups`), from a table of the times of both kernels on
-    the same inputs (chip_smoke.py phase 3 at the driven shapes,
-    scripts/time_type1_3d.py): the tensor cores up to
-    :data:`TYPE1_3D_TC_MAX_MTOT` modes, where the column tiles are wide (at
-    mtot 101 and 255 the narrow ones took 1.7x the CUDA cores' time).
+    (:func:`type1_3d_tc_geometry`), up to :data:`TYPE1_3D_TC_MAX_MTOT`
+    modes, where its column tiles are wide (at mtot 101 and 255 its narrow
+    ones took 2.8x the wide grids' kernel's time); past it ``("wide",
+    rows, cols, stage, run, chunk)``, the wide grids' tensor-core kernel
+    (:func:`type1_3d_wide_geometry`), from a table of the times of both
+    kernels on the same inputs (chip_smoke.py phase 3 at 57 and 61,
+    scripts/time_type1_3d_wide.py past 64).
 
     In float64: ``("tc", rows, cols, group, split, run, chunk)``, the FP64
     tensor-core kernel's arguments before its scratch (csrc/tc_type1_f64.cuh
@@ -2556,8 +2656,34 @@ def type1_3d_geometry(n: int, mtot: int, B: int = 1,
     if dtype == torch.float64:
         return _type1_3d_f64_geometry(n, mtot, B)
     if mtot > TYPE1_3D_TC_MAX_MTOT:
-        return ("cuda",)
+        return type1_3d_wide_geometry(n, mtot, B)
     return type1_3d_tc_geometry(n, mtot, B)
+
+
+def type1_3d_wide_geometry(n: int, mtot: int, B: int = 1) -> tuple:
+    """The wide grids' tensor-core d=3 type-1's geometry
+    (csrc/tc_type1_wide.cuh; :func:`type1_3d_geometry`'s float32 pick past
+    :data:`TYPE1_3D_TC_MAX_MTOT`): ``("wide", rows, cols, stage, run,
+    chunk)``, the kernel's arguments before its scratch.  Tiles of
+    :data:`TYPE1_2D_ROWS` rows (pairs (j1, j2) of one vector, mtot^2 of
+    them end to end) by :data:`TYPE1_3D_WIDE_COLS` modes j3; the d=2
+    type-1's register sums (:data:`TYPE1_2D_STAGE` points) and runs
+    (:data:`TYPE1_2D_RUN`); whole runs a point group, in as many groups
+    as
+    make the fewest waves of blocks on the card's :data:`CARD_SMS` SMs
+    times runs a block (the fewest of a tie), their partials, groups * B *
+    mtot^3 complex64 values, within :data:`TYPE1_3D_WIDE_SCRATCH` bytes;
+    one group writes the output itself (at 2e4 x 101 six groups of 960
+    blocks took 4.09 ms and three of 480 4.48; NVIDIA H100 80GB HBM3, 700
+    W, scripts/time_type1_3d_wide.py)."""
+    if mtot < TYPE1_3D_WIDE_MIN_MTOT:
+        raise ValueError(f"the wide d=3 type-1 takes mtot >= "
+                         f"{TYPE1_3D_WIDE_MIN_MTOT}, got {mtot}")
+    cols = TYPE1_3D_WIDE_COLS
+    tiles = -(-mtot * mtot // TYPE1_2D_ROWS) * -(-mtot // cols) * B
+    chunk = _type1_wave_chunk(n, tiles, 8 * B * mtot ** 3, TYPE1_2D_RUN,
+                              TYPE1_3D_WIDE_SCRATCH)
+    return ("wide", TYPE1_2D_ROWS, cols, TYPE1_2D_STAGE, TYPE1_2D_RUN, chunk)
 
 
 def type1_3d_f64_split(mtot: int, rows: int, cols: int) -> tuple:
@@ -2595,7 +2721,8 @@ def _type1_3d_f64_geometry(n: int, mtot: int, B: int) -> tuple:
     if wide[2] >= TYPE1_2D_F64_NARROW_PADDING * narrow[2]:
         cols, wide = TYPE1_2D_F64_NARROW_COLS, narrow
     S, tiles = wide[:2]
-    chunk = _type1_f64_chunk(n, tiles, 16 * B * mtot ** 3)
+    chunk = _type1_wave_chunk(n, tiles, 16 * B * mtot ** 3,
+                              TYPE1_2D_F64_RUN, TYPE1_3D_F64_SCRATCH)
     return ("tc", TYPE1_2D_ROWS, cols, g, S, TYPE1_2D_F64_RUN, chunk)
 
 
@@ -2646,18 +2773,16 @@ def type1_3d_tc_geometry(n: int, mtot: int, B: int = 1) -> tuple:
             chunk)
 
 
-def _type1_3d_groups_of(n, mtot, B, geo):
+def _type1_3d_groups_of(n, geo):
     """The point groups (partial sums) of the d=3 type-1 on path ``geo``."""
-    if geo[0] == "tc":
-        return max(1, -(-n // geo[-1]))
-    return type1_3d_groups(n, mtot, B)[0]
+    return max(1, -(-n // geo[-1]))
 
 
 def _nufft1_3d_on(x, vals, h, m, fft_order, geo):
     """The d=3 type-1's launch on CUDA tensors, ``vals`` (B, N), on the
     path ``geo`` of :func:`type1_3d_geometry` in x's precision: in float32
-    ``("tc", ...)`` the tensor cores or ``("cuda",)`` the CUDA cores over
-    groups of 2048-point chunks (:func:`type1_3d_groups`), in float64
+    ``("tc", ...)`` the tensor cores or ``("wide", ...)`` the wide grids'
+    tensor-core kernel (one group writes the output itself), in float64
     ``("tc", ...)`` the FP64 tensor cores (tiles 32 or 64 columns wide, a
     split of 1 .. :data:`TYPE1_3D_F64_MAX_SPLIT`); counted as one launch
     of ``nufft1_3d`` (chip_smoke.py also times the paths through it).
@@ -2668,8 +2793,8 @@ def _nufft1_3d_on(x, vals, h, m, fft_order, geo):
                 or not 1 <= geo[4] <= TYPE1_3D_F64_MAX_SPLIT):
             raise ValueError(f"no d=3 type-1 path for geometry {geo} in "
                              "float64")
-    elif geo[0] not in ("tc", "cuda") or len(geo) != (7 if geo[0] == "tc"
-                                                      else 1):
+    elif geo[0] not in ("tc", "wide") or len(geo) != {
+            "tc": 7, "wide": 6}[geo[0]]:
         raise ValueError(f"no d=3 type-1 path for geometry {geo}")
     cdtype = _complex_of(x.dtype)
     _check_cuda_operand("vals", vals, x, cdtype)
@@ -2680,7 +2805,7 @@ def _nufft1_3d_on(x, vals, h, m, fft_order, geo):
     x = x.contiguous()
     vals = vals.contiguous()
     h = float(torch.as_tensor(h, dtype=x.dtype))
-    groups = _type1_3d_groups_of(n, m, B, geo)
+    groups = _type1_3d_groups_of(n, geo)
     out = torch.empty(shape, dtype=cdtype, device=x.device)
     args = (x.data_ptr(), vals.data_ptr(), h, n, m, B, int(fft_order))
     if x.dtype == torch.float64:
@@ -2689,15 +2814,20 @@ def _nufft1_3d_on(x, vals, h, m, fft_order, geo):
                    torch.empty((groups,) + shape, dtype=cdtype,
                                device=x.device))
         _launch("nufft1_3d", x, *args, *geo[1:], partial.data_ptr(),
-                out.data_ptr(), mtot=m)
+                out.data_ptr(), mtot=m, path="fp64")
+        return out
+    if geo[0] == "wide":
+        # one group writes the output itself
+        partial = (out if groups == 1 else
+                   torch.empty((groups,) + shape, dtype=cdtype,
+                               device=x.device))
+        _launch("nufft1_3d", x, *args, *geo[1:], partial.data_ptr(),
+                out.data_ptr(), mtot=m, symbol="gpq_nufft1_3d_wide_f32",
+                path="wide")
         return out
     partial = torch.empty((groups,) + shape, dtype=cdtype, device=x.device)
-    if geo[0] == "tc":
-        _launch("nufft1_3d", x, *args, *geo[1:], partial.data_ptr(),
-                out.data_ptr(), mtot=m, symbol="gpq_nufft1_3d_tc_f32")
-    else:
-        _launch("nufft1_3d", x, *args, TYPE1_CHUNK, groups,
-                partial.data_ptr(), out.data_ptr(), mtot=m)
+    _launch("nufft1_3d", x, *args, *geo[1:], partial.data_ptr(),
+            out.data_ptr(), mtot=m, symbol="gpq_nufft1_3d_tc_f32", path="tc")
     return out
 
 

@@ -1,7 +1,6 @@
 """Time the float32 d=3 type-1 on the tensor cores (``nufft1_3d``'s
 ``type1_tc_kernel`` of ``csrc/tc_type1.cuh`` on ``nufft_3d.cu``'s
-``Type1Grid3D``) at the driven shapes, taken apart, beside the CUDA-core
-kernel.
+``Type1Grid3D``) at the driven shapes, taken apart.
 
     python scripts/time_type1_3d.py [--shapes driven|all]
 
@@ -21,10 +20,10 @@ together:
   whole work, the hand-offs, the sums' stores).
 
 The answers of the variants but ``full`` are wrong by design; ``full`` is
-held within 1e-5 of max|ref| against the CUDA-core kernel of the library
-build.  At each shape it also launches ``full`` with the other tile width
-(32 or 128 columns (q, j2)) and with point groups of half and twice the
-picked chunk, and prints each shape's work a stage and producer thread:
+held within 1e-5 of max|ref| against the float64 plain version
+(``nufft1_3d_ref``).  At each shape it also launches ``full`` with the
+other tile width (32 or 128 columns (q, j2)) and with point groups of half
+and twice the picked chunk, and prints each shape's work a stage and producer thread:
 the table's phases, the rows' phases (A entries) and the columns' table
 products (B entries).
 Times are the card's (it sleeps first, so that the host enqueues ahead;
@@ -167,7 +166,8 @@ def main() -> int:
         V = torch.as_tensor(rng.normal(size=(B, n)) + 1j * rng.normal(
             size=(B, n)), device=dev).to(torch.complex64)
         pick = cn.type1_3d_tc_geometry(n, m, B)
-        ref = cn._nufft1_3d_on(x, V, h, m, False, ("cuda",))
+        ref = cn.nufft1_3d_ref(x.double(), V.to(torch.complex128), h,
+                               mtot=m)
         scale = float(ref.abs().max())
         geos = {"pick": pick}
         other = 128 if pick[2] == 32 else 32
@@ -191,15 +191,14 @@ def main() -> int:
                 if rc:
                     raise RuntimeError(f"CUDA error {rc}")
             return call
-        calls = {"cuda_cores": lambda: cn._nufft1_3d_on(x, V, h, m, False,
-                                                        ("cuda",))}
+        calls = {}
         for k, geo in geos.items():
             calls[k] = launcher(fns["full"], geo)
             calls[k]()
-            err = float((out - ref).abs().max()) / scale
+            err = float((out.to(torch.complex128) - ref).abs().max()) / scale
             if err > 1e-5:
                 print(f"{k} at n={n} m={m} B={B}: {err:.3e} of max|ref| from "
-                      "the CUDA cores", file=sys.stderr)
+                      "the float64 plain version", file=sys.stderr)
                 return 1
         for name, fn in fns.items():
             if name != "full":

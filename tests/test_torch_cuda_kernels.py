@@ -1489,6 +1489,86 @@ def test_type1_3d_launch_refuses_overflowing_table(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,mtot,h,fft_order", [
+    (1, 5000, 65, 0.31, False),
+    (2, 3001, 73, 0.65, True),
+    (1, 3000, 101, 0.2, True),
+    (3, 2000, 105, 0.97, False),
+    (1, 20_000, 61, 0.2, False),
+    (1, 1000, 255, 0.97, True),
+])
+def test_type1_3d_wide_kernel_on_card(cuda_device, B, n, mtot, h, fft_order):
+    """The float32 d=3 type-1 on the wide grids' tensor-core kernel
+    (csrc/tc_type1_wide.cuh, type1_3d_wide_geometry; tiles of 128 modes
+    j3, one or several point groups, B 1 to 3, both orders): one launch
+    counted a
+    call, bit for bit the same on a second launch; within max(2x the
+    float32 plain version's error, 1e-6) of max|ref| from float64, and
+    within twice that of its twin nufft1_3d_wide_ref; past mtot 64 the
+    wrapper's result is this kernel's."""
+    rng = np.random.default_rng(23)
+    x = torch.as_tensor(rng.uniform(-1, 1, (n, 3)),
+                        device=cuda_device).float()
+    V = torch.as_tensor(rng.normal(size=(B, n)) + 1j * rng.normal(size=(B, n)),
+                        device=cuda_device).to(torch.complex64)
+    hq = float(torch.tensor(h, dtype=torch.float32))
+    kw = dict(mtot=mtot, fft_order=fft_order)
+    geo = cuda_nufft.type1_3d_wide_geometry(n, mtot, B)
+    before = cuda_nufft.LAUNCHES["nufft1_3d"]
+    got = cuda_nufft._nufft1_3d_on(x, V, hq, mtot, fft_order, geo)
+    torch.cuda.synchronize()
+    assert cuda_nufft.LAUNCHES["nufft1_3d"] == before + 1
+    assert got.shape == (B,) + (mtot,) * 3
+    assert torch.equal(cuda_nufft._nufft1_3d_on(x, V, hq, mtot, fft_order,
+                                                geo), got)
+    ref = nufft1_3d_ref(x.double(), V.to(torch.complex128), hq, **kw)
+    scale = float(ref.abs().max())
+
+    def err(a):
+        return float((a.to(torch.complex128) - ref).abs().max()) / scale
+    bar = max(2 * err(nufft1_3d_ref(x, V, hq, **kw)), 1e-6)
+    assert err(got) <= bar
+    twin = cuda_nufft.nufft1_3d_wide_ref(x, V, hq, **kw)
+    assert float((got - twin).abs().max()) <= 2 * bar * scale
+    pick = cuda_nufft.type1_3d_geometry(n, mtot, B)
+    if mtot > cuda_nufft.TYPE1_3D_TC_MAX_MTOT:
+        assert pick == geo
+        assert torch.equal(nufft1_3d(x, V, hq, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field,value", [
+    (1, 32), (2, 64), (2, 32), (3, 48), (3, 0), (4, 1000), (5, 1536),
+    ("mtot", 31)])
+def test_type1_3d_wide_launch_refuses_foreign_geometry(cuda_device, field,
+                                                       value):
+    """The wide d=3 type-1's launch takes its geometry from
+    type1_3d_wide_geometry and refuses one it has no instance for (rows,
+    cols (32 included: one instance, 128 columns), stage, run or chunk
+    changed, or mtot below the kernel's least): a CUDA error is raised, and
+    nothing is written."""
+    n, mtot = 4096, 67
+    x = torch.rand((n, 3), device=cuda_device)
+    v = torch.ones((1, n), dtype=torch.complex64, device=cuda_device)
+    geo = list(cuda_nufft.type1_3d_wide_geometry(n, mtot))
+    if field == "mtot":
+        mtot = value
+    else:
+        geo[field] = value
+    partial = torch.zeros((8, 1) + (mtot,) * 3, dtype=torch.complex64,
+                          device=cuda_device)
+    out = torch.zeros((1,) + (mtot,) * 3, dtype=torch.complex64,
+                      device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_nufft._launch("nufft1_3d", x, x.data_ptr(), v.data_ptr(), 0.5,
+                           n, mtot, 1, 0, *geo[1:], partial.data_ptr(),
+                           out.data_ptr(), mtot=mtot,
+                           symbol="gpq_nufft1_3d_wide_f32")
+    torch.cuda.synchronize()
+    assert not bool(out.abs().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,mtot,h,fft_order", [
     (1, 5000, 21, 0.65, False),
     (3, 4001, 41, 0.4, True),
     (10, 3000, 31, 0.2, False),

@@ -161,7 +161,7 @@ def test_type1_3d_f64_geometry(n, mtot, B):
     assert chunk % run == 0
     groups = -(-n // chunk)
     assert (groups - 1) * chunk < n          # no empty group
-    assert cuda_nufft._type1_3d_groups_of(n, mtot, B, geo) == groups
+    assert cuda_nufft._type1_3d_groups_of(n, geo) == groups
     partials = groups * B * mtot ** 3 * 16
     assert groups == 1 or partials <= cuda_nufft.TYPE1_3D_F64_SCRATCH
     nrun = -(-n // run)

@@ -28,7 +28,7 @@ from gpquad_torch.ops.cuda_nufft import (CudaNUFFT, nufft1_3d,
                                          nufft1_3d_3xtf32_ref, nufft1_3d_ref,
                                          nufft2_3d, nufft2_3d_3xtf32_ref,
                                          nufft2_3d_ref, type1_3d_geometry,
-                                         type1_3d_groups, type2_3d_geometry,
+                                         type2_3d_geometry,
                                          type2_3d_scratch_floats,
                                          type2_3d_split)
 from gpquad_torch.ops.nufft import CUDA_D3_MAX_MTOT, make_nufft
@@ -213,17 +213,29 @@ def test_3d_wrappers_validate_input():
                                       (100_000, 31, 10), (20_000, 21, 10),
                                       (20_000, 255, 1), (1, 3, 1)])
 def test_type1_3d_groups_bound_the_scratch(n, mtot, B):
-    """Every 2048-point chunk lies in exactly one group, no group is empty,
-    and the partial sums stay within a fixed number of blocks' outputs (or
-    one copy of the output when the grid alone has enough blocks)."""
-    groups, cpg = type1_3d_groups(n, mtot, B)
-    nchunk = -(-n // cuda_nufft.TYPE1_CHUNK)
-    assert groups >= 1 and (groups - 1) * cpg < nchunk <= groups * cpg
-    blocks = (-(-mtot // 16)) ** 2 * -(-mtot // 8) * B
-    assert groups == 1 or groups * blocks < 2 * cuda_nufft.TYPE1_3D_BLOCKS
-    # at the d3 configuration's lag table: 9 groups, 16 MB, not 49 chunks
+    """The float32 d=3 type-1's point groups (type1_3d_geometry's chunk):
+    every run of points lies in exactly one group, no group is empty, and
+    the partial sums stay within a fixed number of blocks' outputs on
+    Type1Grid3D's kernel (TYPE1_2D_BLOCKS, or one group where the tiles
+    alone pass it) and within TYPE1_3D_WIDE_SCRATCH bytes on the wide
+    grids' (or one group, which writes the output itself)."""
+    geo = type1_3d_geometry(n, mtot, B)
+    groups = cuda_nufft._type1_3d_groups_of(n, geo)
+    chunk, run = geo[-1], geo[-2]
+    assert chunk % run == 0 and groups == -(-n // chunk)
+    assert groups >= 1 and (groups - 1) * chunk < n <= groups * chunk
+    scratch = groups * B * mtot ** 3 * 8
+    if geo[0] == "tc":
+        g, tj, cols = geo[3], 64 // geo[3], geo[2]
+        S, _, Q = cuda_nufft.type1_3d_split(mtot, tj)
+        tiles = -(-S * mtot // tj) * -(-Q * mtot // cols) * -(-B // g)
+        assert groups == 1 or groups * tiles <= cuda_nufft.TYPE1_2D_BLOCKS
+    else:
+        assert geo[0] == "wide" and mtot > cuda_nufft.TYPE1_3D_TC_MAX_MTOT
+        assert groups == 1 or scratch <= cuda_nufft.TYPE1_3D_WIDE_SCRATCH
+    # at the d3 configuration's lag table: 17 groups of 6 runs, 31 MB
     if (n, mtot, B) == (100_000, 61, 1):
-        assert groups == 9 and groups * mtot ** 3 * 8 < 17e6
+        assert groups == 17 and scratch < 32e6
 
 
 # mtot 9 and 21 (hard3d's grid), n 400 (one group at most a few runs); B 3
@@ -274,7 +286,8 @@ def _grid3d_table(k0, m, TJ, cols):
     (20_000, 255, 1), (400, 9, 3), (1, 3, 1)])
 def test_type1_3d_geometry(n, mtot, B):
     """The float32 d=3 type-1's geometry: the tensor cores up to
-    TYPE1_3D_TC_MAX_MTOT, else the CUDA cores.  On
+    TYPE1_3D_TC_MAX_MTOT, else the wide grids' tensor cores
+    (type1_3d_wide_geometry; tests/test_torch_nufft3_wide_tc.py).  On
     the tensor cores the first axis's mode splits as k1 = S q + r (S = 64 /
     mtot rows a vector where that is two or more, 32 for a batch in pairs):
     rows (r, j3), columns (q, j2) in tiles of 128 up to mtot 64 (where they
@@ -287,7 +300,7 @@ def test_type1_3d_geometry(n, mtot, B):
     geo = type1_3d_geometry(n, mtot, B)
     tc = cuda_nufft.type1_3d_tc_geometry(n, mtot, B)
     assert geo == (tc if mtot <= cuda_nufft.TYPE1_3D_TC_MAX_MTOT
-                   else ("cuda",))
+                   else cuda_nufft.type1_3d_wide_geometry(n, mtot, B))
     path, rows, cols, group, stage, run, chunk = tc
     assert path == "tc" and rows == cuda_nufft.TYPE1_2D_ROWS
     assert group == (1 if B == 1 else 2)
@@ -355,14 +368,16 @@ def test_3d_type1_table_bound_at_every_width():
 
 
 def test_3d_type1_launch_refuses_foreign_path(rng):
-    """The d=3 type-1's launch takes ("tc", 6 fields) or ("cuda",) and
-    refuses any other geometry before it touches the card; float64 takes
-    its own tensor-core geometry (tests/test_torch_nufft3_f64_tc.py), not
-    the float32 one."""
+    """The d=3 type-1's launch takes ("tc", 6 fields) or ("wide", 5
+    fields) and refuses any other geometry before it touches the card, the
+    CUDA-core kernel's ("cuda",) included (the kernel is gone); float64
+    takes its own tensor-core geometry (tests/test_torch_nufft3_f64_tc.py),
+    not the float32 one."""
     x = torch.as_tensor(rng.uniform(0, 1, (64, 3)))
     v = torch.ones((1, 64), dtype=torch.complex128)
     geo = type1_3d_geometry(64, 9)
-    for bad in (geo[:-1], ("split", 16), ("cuda", 2048), geo + (1,)):
+    for bad in (geo[:-1], ("split", 16), ("cuda", 2048), ("cuda",),
+                geo + (1,)):
         for xs, vs in ((x.float(), v.to(torch.complex64)), (x, v)):
             with pytest.raises(ValueError, match="no d=3 type-1 path"):
                 cuda_nufft._nufft1_3d_on(xs, vs, 0.3, 9, False, bad)
