@@ -233,8 +233,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
  15. the utilities: 15a traces (gpquad_torch.utils.profiling.trace) of
      phase 4's fused call, phase 5's kron CG fit and mean and one
      light-curve Adam iteration, read back: the scopes gpquad names
-     (nufft_type1, nufft_type2, toeplitz_matvec, and 4_solve_cg or
-     7_batch_cg_solve) each entered with a CUDA kernel launched inside it;
+     (nufft_type1, nufft_type2, toeplitz_matvec and pcg) each entered
+     with a CUDA kernel launched inside it;
      a StageTimer table of the headline's fit, mean, variance and
      gradient; the host cost of a scope with no profiler, times the
      scope entries of the fused call and of the light-curve iteration,
@@ -489,7 +489,7 @@ def profile_run(fn, top=8, groups=None, host_top=0):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from gpquad_torch.utils import profiling
-    scopes = set(SCOPES) | set(profiling.STAGES)
+    scopes = set(SCOPES) | set(profiling.STAGES) | set(profiling.SPANS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -2474,8 +2474,7 @@ def sampler_checks(c):
 # profiler; 15b phase 9's facade saved and restored; 15c the native C++
 # float64 oracles against the float64 d=2 pair; 15d the synthetic-GP
 # loader.
-SCOPES = ("nufft_type1", "nufft_type2", "toeplitz_matvec", "4_solve_cg",
-          "7_batch_cg_solve")
+SCOPES = ("nufft_type1", "nufft_type2", "toeplitz_matvec", "pcg")
 STAGE_SHARE_BAR = 0.01      # the scopes' host cost with no profiler
 STAGE_ENTRIES_TIMED = 200_000
 NATIVE_N, NATIVE_MTOT = 20_000, 29
@@ -2549,7 +2548,7 @@ def phase_utils(c):
     for name in ("nufft_type1", "nufft_type2", "toeplitz_matvec"):
         check(held(name), f"15a: no trace holds scope {name} with a CUDA "
               f"kernel inside it")
-    check(held("4_solve_cg") or held("7_batch_cg_solve"),
+    check(held("pcg"),
           "15a: no trace holds a PCG scope with a CUDA kernel inside it")
     rec["traces"] = {tag: {k: dict(v, names=dict(sorted(
         v["names"].items(), key=lambda kv: -kv[1])[:8]))

@@ -36,6 +36,7 @@ from ..ops.operators import (convolution_vector, make_A_mean, make_A_var,
 from ..ops.toeplitz import ToeplitzND, _next_smooth, make_toeplitz, \
     toeplitz_diag_scale
 from ..quadrature import spectral_grid
+from ..utils import profiling
 
 __all__ = ["FitState", "resolve_device", "resolve_solver", "resolve_precond",
            "tensor_grid", "quadrature_weights", "fit_with_grid", "fit",
@@ -159,6 +160,7 @@ def serving_method(nufft_method: str) -> str:
     return "auto" if nufft_method in SPREADING else nufft_method
 
 
+@profiling.spanned("fit_with_grid")
 def fit_with_grid(x, y, kernel, sigmasq, h, mtot: int, *,
                   cg_tol: float = 1e-4, max_cg_iter: Optional[int] = None,
                   beta0: Optional[torch.Tensor] = None,
@@ -270,6 +272,7 @@ def fit(x, y, kernel, sigmasq, eps: float = 1e-2, *, cg_tol: float = 1e-4,
 # prediction
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("predict_mean")
 def predict_mean(state: FitState, x_new, *,
                  nufft_method: str = "auto") -> torch.Tensor:
     """Posterior mean: one type-2 apply of ``ws * beta`` at the targets."""
@@ -309,6 +312,7 @@ def _var_precond(state: FitState):
     return M_inv
 
 
+@profiling.spanned("variance")
 def _variance_stochastic(state: FitState, x_new, generator, *, probes: int,
                          cg_tol, max_cg_iter, nufft_method: str = "auto",
                          etas=None) -> torch.Tensor:

@@ -24,6 +24,7 @@ from ..ops.nufft import make_nufft
 from ..ops.operators import (convolution_vector, make_A_mean,
                              make_jacobi_precond)
 from ..ops.toeplitz import make_toeplitz, toeplitz_diag_scale
+from ..utils import profiling
 from .efgp import (FitState, _as_points, _cdtype, _variance_stochastic,
                    predict_mean, quadrature_weights, resolve_device,
                    resolve_precond, resolve_solver, serving_method,
@@ -45,6 +46,7 @@ class FusedResult(NamedTuple):
     mean_converged: torch.Tensor
 
 
+@profiling.spanned("fit_predict_grad")
 def fit_predict_grad(x, y, xnew, kernel, sigmasq, h, generator=None, *,
                      mtot: int, trace_samples: int = 10,
                      var_probes: int = 256, cg_tol: float = 1e-6,

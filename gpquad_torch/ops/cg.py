@@ -11,6 +11,13 @@ The loop asks the device whether any lane is still active only every
 step.  Iterations after the last lane converged are exact no-ops, and the
 iteration count is accumulated on the device, so ``iters``, ``converged``,
 ``resnorm`` and ``conv_iters`` equal those of the JAX ``while_loop``.
+
+Each solve is a ``pcg`` span (B, n, tol, maxiter) holding a ``pcg_check``
+span per host check.  While a profiler runs it counts, at its end,
+``pcg_iters`` (the result's ``iters``), ``pcg_steps`` (the steps it
+launched, up to ``_CHECK_EVERY - 1`` past the last lane's convergence) and
+``pcg_active_lane_steps`` (the sum of ``conv_iters``: lane b is active in
+steps 0 to ``conv_iters[b] - 1``), the first and last as device tensors.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ __all__ = ["pcg", "CGResult"]
 
 _DIV_EPS = 1e-16
 _CHECK_EVERY = 8
+_PCG_ATTRS = profiling.keyed("B", "n", "tol", "maxiter")
 
 
 class CGResult(NamedTuple):
@@ -57,15 +65,14 @@ def pcg(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
     else:
         Ab, Mb = A, M_inv
 
-    name = "4_solve_cg" if b.shape[0] == 1 else "7_batch_cg_solve"
-    with profiling.stage(name):
+    B, n = b.shape
+    if maxiter is None:
+        maxiter = 2 * n
+    with profiling.stage("pcg", _PCG_ATTRS, B, n, tol, maxiter):
         return _pcg_body(Ab, b, x0, Mb, tol, maxiter, single)
 
 
 def _pcg_body(Ab, b, x0, Mb, tol, maxiter, single):
-    B, n = b.shape
-    if maxiter is None:
-        maxiter = 2 * n
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
     r = b - Ab(x)
     z = Mb(r) if Mb is not None else r
@@ -80,9 +87,14 @@ def _pcg_body(Ab, b, x0, Mb, tol, maxiter, single):
     conv_iters = torch.where(conv0, 0, maxiter).to(torch.int32)
     k = torch.zeros((), dtype=torch.int32, device=b.device)
 
+    steps = maxiter
     for step in range(maxiter):
-        if step % _CHECK_EVERY == 0 and not bool(active.any()):
-            break
+        if step % _CHECK_EVERY == 0:
+            with profiling.stage("pcg_check"):
+                done = not bool(active.any())
+            if done:
+                steps = step
+                break
         k = k + active.any().to(torch.int32)
         Ap = Ab(p)
         pAp = _rowdot(p, Ap)
@@ -101,6 +113,10 @@ def _pcg_body(Ab, b, x0, Mb, tol, maxiter, single):
 
     rn = torch.sqrt(_rowdot(r, r))
     converged = (rn / (denom + _DIV_EPS) < tol) | (rn < 1e-12)
+    if profiling.recording():
+        profiling.count("pcg_iters", k)
+        profiling.count("pcg_steps", steps)
+        profiling.count("pcg_active_lane_steps", conv_iters.sum())
     if single:
         return CGResult(x[0], k, converged[0], rn[0], conv_iters[0])
     return CGResult(x, k, converged, rn, conv_iters)

@@ -105,7 +105,7 @@ import torch
 
 from ..utils import profiling
 from .nufft import (CUDA_D3_MAX_MTOT, _k_values, _phase_matrix,
-                    make_phase_nufft)
+                    make_phase_nufft, span_attrs)
 
 __all__ = ["nufft1_1d", "nufft2_1d", "nufft1_1d_ref", "nufft2_1d_ref",
            "nufft1_2d", "nufft2_2d", "nufft1_2d_ref", "nufft2_2d_ref",
@@ -2855,11 +2855,13 @@ class CudaNUFFT:
         return self.x.shape[0]
 
     def type1(self, vals):
-        with profiling.stage("nufft_type1"):
+        with profiling.stage("nufft_type1", span_attrs, 1, self, vals,
+                             self.x.dtype):
             return self._type1(vals)
 
     def type2(self, fk):
-        with profiling.stage("nufft_type2"):
+        with profiling.stage("nufft_type2", span_attrs, 2, self, fk,
+                             self.x.dtype):
             return self._type2(fk)
 
     def _type1(self, vals):

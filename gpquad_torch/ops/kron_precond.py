@@ -26,7 +26,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils import profiling
+
 __all__ = ["KronPrecond", "kron_eig_build", "make_kron_precond"]
+
+
+_SPAN_ATTRS = profiling.keyed("d", "mtot")
 
 
 class KronPrecond(NamedTuple):
@@ -99,6 +104,11 @@ def kron_eig_build(ws: torch.Tensor, v: torch.Tensor, sigmasq, *, mtot: int,
     """Build the preconditioner from the fit's quadrature weights ``ws``
     (flat (M,), complex), lag table ``v`` ((2 mtot - 1,)*d), noise
     ``sigmasq`` and ``diag_scale`` (the Toeplitz zero lag, = n)."""
+    with profiling.stage("kron_setup", _SPAN_ATTRS, d, mtot):
+        return _kron_eig_build(ws, v, sigmasq, mtot, d, diag_scale)
+
+
+def _kron_eig_build(ws, v, sigmasq, mtot, d, diag_scale) -> KronPrecond:
     rdtype = ws.real.dtype
     W = torch.abs(ws).reshape((mtot,) * d).to(rdtype)
     gs = _separable_factors(W, d)

@@ -79,6 +79,16 @@ def _k_values(mtot: int, fft_order: bool, dtype, device):
     return k.to(dtype=dtype, device=device)
 
 
+def span_attrs(kind: int, op, vals: torch.Tensor, dtype) -> dict:
+    """The attributes of a ``nufft_type1`` / ``nufft_type2`` span on an
+    operator with ``d``, ``n`` and ``mtot``: the call's type, shape, number
+    of vectors B and precision (``dtype``'s real type)."""
+    per = op.n if kind == 1 else op.mtot ** op.d
+    return dict(kind=kind, d=op.d, n=op.n, mtot=op.mtot,
+                B=vals.numel() // per,
+                precision=str(dtype.to_real()).removeprefix("torch."))
+
+
 @dataclasses.dataclass(frozen=True)
 class NUFFT:
     """Precomputed per-dimension phase matrices for a fixed point set."""
@@ -95,7 +105,8 @@ class NUFFT:
 
     def type1(self, vals: torch.Tensor) -> torch.Tensor:
         """Adjoint apply F*: (N,) or (B, N) -> (mtot,)*d or (B,)+(mtot,)*d."""
-        with profiling.stage("nufft_type1"):
+        with profiling.stage("nufft_type1", span_attrs, 1, self, vals,
+                             self.phases[0].dtype):
             if vals.ndim == 1:
                 return self._type1_single(vals)
             return torch.stack([self._type1_single(v) for v in vals])
@@ -140,7 +151,8 @@ class NUFFT:
     def type2(self, fk: torch.Tensor) -> torch.Tensor:
         """Forward apply F: flat (M,) or block (mtot,)*d, optionally with
         leading batch dims -> (N,) or (B, N)."""
-        with profiling.stage("nufft_type2"):
+        with profiling.stage("nufft_type2", span_attrs, 2, self, fk,
+                             self.phases[0].dtype):
             return self._type2(fk)
 
     def _type2(self, fk):

@@ -11,11 +11,14 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils import profiling
 from .nufft import make_nufft
 from .toeplitz import ToeplitzND
 
 __all__ = ["convolution_vector", "make_Gv", "make_A_mean", "make_A_var",
            "make_jacobi_precond"]
+
+_LAG_ATTRS = profiling.keyed("mtot")
 
 
 def convolution_vector(m: int, x: torch.Tensor, h, *,
@@ -26,10 +29,12 @@ def convolution_vector(m: int, x: torch.Tensor, h, *,
     banded backend's band cap on that grid, planned when None)."""
     if x.ndim == 1:
         x = x[:, None]
-    op = make_nufft(x, h, 4 * m + 1, method=nufft_method, cap=cap)
-    cdtype = torch.complex64 if x.dtype == torch.float32 else torch.complex128
-    ones = torch.ones((x.shape[0],), dtype=cdtype, device=x.device)
-    return op.type1(ones)
+    with profiling.stage("lag_table", _LAG_ATTRS, 4 * m + 1):
+        op = make_nufft(x, h, 4 * m + 1, method=nufft_method, cap=cap)
+        cdtype = (torch.complex64 if x.dtype == torch.float32
+                  else torch.complex128)
+        ones = torch.ones((x.shape[0],), dtype=cdtype, device=x.device)
+        return op.type1(ones)
 
 
 def make_Gv(ws: torch.Tensor, toeplitz: ToeplitzND) -> Callable:

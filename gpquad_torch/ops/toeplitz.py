@@ -18,6 +18,11 @@ from ..utils import profiling
 __all__ = ["ToeplitzND", "make_toeplitz", "toeplitz_diag_scale"]
 
 
+def _span_attrs(op, x: torch.Tensor) -> dict:
+    """A ``toeplitz_matvec`` span's attributes: the vectors it applies."""
+    return dict(batch=x.numel() // op.size)
+
+
 def _next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
@@ -54,7 +59,7 @@ class ToeplitzND:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Apply T to ``x`` with trailing flat (M,) or block ``ns`` layout."""
-        with profiling.stage("toeplitz_matvec"):
+        with profiling.stage("toeplitz_matvec", _span_attrs, self, x):
             return self._apply(x)
 
     def _apply(self, x: torch.Tensor) -> torch.Tensor:

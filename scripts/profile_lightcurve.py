@@ -144,8 +144,8 @@ def one_run(root: Path, variant: str) -> dict:
     # first kernel to their last, idle gaps included: busy time counts
     # kernels and copies only (named here, as a --base checkout may
     # predate gpquad_torch.utils.profiling)
-    scopes = {"nufft_type1", "nufft_type2", "toeplitz_matvec", "4_solve_cg",
-              "7_batch_cg_solve"}
+    scopes = {"nufft_type1", "nufft_type2", "toeplitz_matvec", "pcg",
+              "4_solve_cg", "7_batch_cg_solve"}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
